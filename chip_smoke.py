@@ -10,17 +10,24 @@ which raises on failure:
 2. build: every CUDA kernel of ``src/repro_torch/kernels/csrc`` compiled
    with nvcc from the checkout, all sources at once;
 3. every kernel against its plain PyTorch version on the card, at the
-   main path's shapes, with the tolerance stated per dtype;
-4. the main path: qwen3-8b at full width (36 layers, bf16, random
-   weights from a seed) served by the continuous-batching engine with
-   ``Runtime(kernel_ops=True)`` — 8 ragged requests, max batch 4; the
-   kernel's launch counter must equal decode steps x layers, and one
-   decode step through the kernel must agree with the same step
-   through the plain attention;
-5. a profile of that decode step: host wall time and device time by
-   kernel;
-6. times of each kernel beside its bound, its plain version and the
-   one PyTorch call that computes the same function.
+   main paths' shapes with the tuner's tiles, with the tolerance stated
+   per dtype;
+4. the two main paths, each at full width — qwen3-8b (36 layers, bf16,
+   random weights from a seed, no depth cut) served by the
+   continuous-batching engine, 8 ragged requests, max batch 4:
+   a. hand-wired, ``Runtime(kernel_ops=True)``: the attention kernel's
+      launch counter must equal decode steps x layers;
+   b. planned, ``Runtime(kernel_ops=True, planner=True)``: every block
+      runs from the planner's H100 plan, each fused MLP chain as the
+      MLP kernel — (decode steps + prefills) x layers launches — and
+      the attention kernel decode steps x layers;
+   each path's counters are set to 0 just before it and read after;
+5. one full-width decode step through each kernel path against the
+   same step through the plain hand-wired path;
+6. a profile of that decode step on both paths: host wall time and
+   device time by kernel;
+7. times of each kernel beside its bound, its plain version and the
+   PyTorch call(s) it replaces.
 
 Prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -48,6 +55,15 @@ TOL = {torch.float32: dict(rtol=3e-4, atol=1e-3),   # f32 sum order
 # (0.018 relative on an H100), far below what a wrong kernel gives
 # (order 1)
 E2E_REL_TOL = 5e-2
+# The planned step rounds bf16 at other points than the hand-wired one:
+# the MLP kernel keeps both up-projections in f32 and rounds only the
+# hidden block and E (cuBLAS rounds every GEMM's output), stitched glue
+# (qk-norm, rope, residuals) computes in f32, and the attention kernel
+# differs as above; 36 layers carry that to the logits (0.018 relative
+# on an H100).  A wrong MLP or plan gives order 1.
+PLANNED_REL_TOL = 5e-2
+# The MLP kernel's decode shape (M = max batch) and one prefill shape
+MLP_SHAPES = {"decode": 4, "prefill": 144}
 
 SERVE = dict(batch=4, n_requests=8, prompt_len=128, gen=32, page_size=16,
              seed=1)
@@ -138,45 +154,82 @@ def kernel_check_phase(n_ctx: int, tiles: tuple) -> float:
     return worst
 
 
-def serve_phase(cfg):
-    from repro_torch.kernels import attention as A
-    from repro_torch.launch.serve import run_continuous
-    from repro_torch.models.lm import LM, Runtime
-    model = LM(cfg, Runtime(kernel_ops=True), device="cuda")
+def init_phase(cfg) -> dict:
+    from repro_torch.models.lm import LM
     t0 = time.perf_counter()
-    params = model.init_params(0)
+    params = LM(cfg, device="cuda").init_params(0)
     torch.cuda.synchronize()
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     print(f"model: {cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
           f"heads={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.dh} d_ff={cfg.d_ff} "
           f"vocab={cfg.vocab} {cfg.dtype} weights={n_bytes / 1e9:.2f} GB "
           f"(init {time.perf_counter() - t0:.1f}s, no depth cut)")
+    return params
+
+
+def serve_phase(cfg, params, planned: bool):
+    """Serve the workload on one path; returns (engine, stats, launches
+    of each kernel in this run)."""
+    from repro_torch.kernels import attention as A
+    from repro_torch.kernels import gemm_chain as G
+    from repro_torch.launch.serve import run_continuous
+    from repro_torch.models.lm import LM, Runtime
+    label = "planned" if planned else "hand-wired"
+    model = LM(cfg, Runtime(kernel_ops=True, planner=planned),
+               device="cuda")
     A.fused_attention_partial.launches = 0
+    G.fused_mlp_chain.launches = 0
     results, stats, engine = run_continuous(cfg, model, params, **SERVE,
                                             verbose=True)
     torch.cuda.synchronize()
-    launches = A.fused_attention_partial.launches
+    launches = {"fused_attention_partial": A.fused_attention_partial.launches,
+                "fused_mlp_chain": G.fused_mlp_chain.launches}
     bq, bkv = engine.model.rt.paged_block
-    print(f"tuner paged tiles: bq={bq} bkv={bkv} "
+    print(f"[{label}] tuner paged tiles: bq={bq} bkv={bkv} "
           f"(schedule from {engine.regime_source})")
-    print(f"served: {len(results)} requests finished, "
+    print(f"[{label}] served: {len(results)} requests finished, "
           f"{stats['generated']} tokens, {stats['decode_steps']} decode "
           f"steps, {stats['prefills']} prefills, "
           f"{stats['preemptions']} preemptions, "
           f"{stats['tok_per_s']:.2f} tok/s ({stats['wall_s']:.2f}s)")
-    want = stats["decode_steps"] * cfg.n_layers
-    print(f"fused_attention_partial launches: {launches} "
-          f"(decode steps x layers = {want})")
-    if launches != want or launches == 0:
-        raise RuntimeError("the main path did not run the kernel once per "
-                           "layer per decode step")
+    steps, layers = stats["decode_steps"], cfg.n_layers
+    want = {"fused_attention_partial": steps * layers,
+            "fused_mlp_chain": ((steps + stats["prefills"]) * layers
+                                if planned else 0)}
+    for name, n in launches.items():
+        print(f"[{label}] {name} launches: {n} (want {want[name]})")
+        if n != want[name]:
+            raise RuntimeError(f"the {label} path launched {name} {n} "
+                               f"times, not {want[name]}")
+    if planned:
+        plan = engine.decode_plan
+        for c in plan.layer.chains:
+            print(f"[planned] decode plan chain: {c.kind} "
+                  f"{'+'.join(c.ops)} fused={c.fused} ai={c.ai:.4g} "
+                  f"prologue={list(c.prologue)} "
+                  f"epilogue={list(c.epilogue)}")
+        print(f"[planned] decode plan standalone glue: "
+              f"{list(plan.layer.glue)}, dropped stitches: "
+              f"{list(plan.layer.dropped)}")
+        for (m, dt, act), tiles in sorted(_mlp_tiles(cfg).items()):
+            print(f"[planned] MLP tiles at M={m} {dt} {act}: {tiles}")
     budgets = [g for _, g in _workload(cfg)]
     if [len(r.tokens) for r in results] != budgets or any(
             r.outcome != "complete" for r in results):
         raise RuntimeError("a request did not complete its budget")
     if any(not 0 <= t < cfg.vocab for r in results for t in r.tokens):
         raise RuntimeError("a token outside the vocabulary")
-    return params, engine, launches
+    return engine, stats, launches
+
+
+def _mlp_tiles(cfg) -> dict:
+    """The MLP tiles the tuner picked for each (M, A's type, act) this
+    process tuned."""
+    from repro_torch.core import api
+    return {(k[1], k[7], k[6] if k[5] else f"ungated {k[6]}"):
+            tk.params.as_kwargs()
+            for k, tk in api._CACHE.items()
+            if k[0] == "mlp" and k[2:4] == (cfg.d_ff, cfg.d_model)}
 
 
 def _leaves(tree):
@@ -196,11 +249,13 @@ def _workload(cfg):
                            SERVE["prompt_len"], SERVE["gen"], SERVE["seed"])
 
 
-def end_to_end_check(cfg, params, engine):
-    """One full-width decode step of two requests through the kernel
-    (with the engine's tuned tiles), and the same step through the
-    plain attention: finite logits of the expected shape that agree
-    within E2E_REL_TOL.  Returns the step's (model, cache, inputs)."""
+def end_to_end_check(cfg, params, engine, planned_engine):
+    """One full-width decode step of two requests through the attention
+    kernel (with the engine's tuned tiles) and through the planned path
+    (MLP kernel too), each against the same step through the plain
+    hand-wired path: finite logits of the expected shape that agree
+    within E2E_REL_TOL / PLANNED_REL_TOL.  Returns the step's cache and
+    inputs."""
     from repro_torch.models.lm import LM, Runtime
     from repro_torch.serving import kv_pages as KP
     model = engine.model
@@ -226,22 +281,29 @@ def end_to_end_check(cfg, params, engine):
     args = (torch.tensor(last, device="cuda"),
             torch.tensor(lengths, dtype=torch.int32, device="cuda"),
             torch.from_numpy(KP.table_array(allocs, mp)).cuda())
-    got, cache = model.decode_step_paged(params, cache, *args)
+    # each step rewrites the same kv slots with its own k/v first, so
+    # every path sees the same prompt cache
     want, cache = plain.decode_step_paged(params, cache, *args)
-    torch.cuda.synchronize()
-    if got.shape != (2, cfg.vocab) or not torch.isfinite(got).all():
-        raise RuntimeError(f"bad logits {tuple(got.shape)}")
-    rel = float((got.float() - want.float()).norm() / want.float().norm())
-    agree = (got.argmax(-1) == want.argmax(-1)).tolist()
-    print(f"end-to-end decode step, kernel vs plain attention at full "
-          f"width: rel err {rel:.3g} (tol {E2E_REL_TOL}), "
-          f"argmax agree {agree}")
-    if rel > E2E_REL_TOL:
-        raise RuntimeError("kernel path diverges from the plain path")
-    return model, cache, args
+    for label, m, tol in (("kernel attention", model, E2E_REL_TOL),
+                          ("planned (MLP + attention kernels)",
+                           planned_engine.model, PLANNED_REL_TOL)):
+        got, cache = m.decode_step_paged(params, cache, *args)
+        torch.cuda.synchronize()
+        if got.shape != (2, cfg.vocab) or not torch.isfinite(got).all():
+            raise RuntimeError(f"bad logits {tuple(got.shape)}")
+        rel = float((got.float() - want.float()).norm()
+                    / want.float().norm())
+        agree = (got.argmax(-1) == want.argmax(-1)).tolist()
+        print(f"end-to-end decode step, {label} vs the plain hand-wired "
+              f"path at full width: rel err {rel:.3g} (tol {tol}), "
+              f"argmax agree {agree}")
+        if rel > tol:
+            raise RuntimeError(f"the {label} path diverges from the "
+                               f"plain path")
+    return cache, args
 
 
-def profile_phase(params, model, cache, args) -> None:
+def profile_phase(params, model, cache, args, label: str) -> None:
     """Where one full-width decode step's time goes: host wall per step
     (synchronised, no profiler), then device time by kernel over three
     steps from torch.profiler.  Re-running the step rewrites the same kv
@@ -269,12 +331,13 @@ def profile_phase(params, model, cache, args) -> None:
             and e.self_device_time_total > 0]
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    print(f"profile: decode step (batch 2, {len(params['layers'])} layers) "
-          f"wall {wall_ms:.3f} ms "
+    print(f"profile [{label}]: decode step (batch 2, "
+          f"{len(params['layers'])} layers) wall {wall_ms:.3f} ms "
           f"without profiler; device busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / wall_ms:.1f}% of the wall)")
     for ms, count, name in rows[:8]:
-        print(f"profile:   {ms:8.3f} ms  {count:5d}x  {name[:90]}")
+        print(f"profile [{label}]:   {ms:8.3f} ms  {count:5d}x  "
+              f"{name[:80]}")
 
 
 def _time_ms(fn, iters: int = 20, reps: int = 10) -> float:
@@ -333,6 +396,99 @@ def time_phase(n: int, tiles: tuple, label: str) -> dict:
     return out
 
 
+def _mlp_weights(cfg, gated: bool, seed: int):
+    """Full-width MLP weights on the card, scaled like the model's."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    d, ff, dt = cfg.d_model, cfg.d_ff, getattr(torch, cfg.dtype)
+
+    def w(rows, cols):
+        return (torch.randn(1, rows, cols, generator=g, device="cuda")
+                / rows ** 0.5).to(dt)
+
+    return w(d, ff), w(ff, d), (w(d, ff) if gated else None)
+
+
+def _mlp_case(cfg, m, a_dtype, gated, act, seed):
+    """(inputs, tuned kwargs) of one MLP kernel case: the tiles are the
+    tuner's for the chain ``ops.mlp_chain`` would tune (A's type)."""
+    from repro_torch.core import api
+    wu, wd, wg = _mlp_weights(cfg, gated, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    a = torch.randn(1, m, cfg.d_model, generator=g, device="cuda").to(
+        a_dtype)
+    tk = api.fuse_mlp_chain(m, cfg.d_ff, cfg.d_model,
+                            dtype=str(a_dtype).replace("torch.", ""),
+                            gated=gated, act=act)
+    return (a, wu, wd, wg), tk.params.as_kwargs()
+
+
+def mlp_check_phase(cfg) -> float:
+    """The MLP kernel against its plain version on the card at full
+    width with the tuner's tiles; returns the largest absolute error."""
+    from repro_torch.kernels import gemm_chain as G
+    worst = 0.0
+    cases = [  # (name, M, A's type, gated, act)
+        ("decode, f32 A / bf16 weights", MLP_SHAPES["decode"],
+         torch.float32, True, "silu"),
+        ("decode, bf16", MLP_SHAPES["decode"], torch.bfloat16, True,
+         "silu"),
+        ("prefill, bf16", MLP_SHAPES["prefill"], torch.bfloat16, True,
+         "silu"),
+        ("ungated gelu, bf16", 16, torch.bfloat16, False, "gelu"),
+    ]
+    for i, (name, m, at, gated, act) in enumerate(cases):
+        (a, wu, wd, wg), kw = _mlp_case(cfg, m, at, gated, act, 10 + i)
+        got = G.fused_mlp_chain(a, wu, wd, wg=wg, act=act, **kw)
+        torch.cuda.synchronize()
+        want = G.fused_mlp_chain_plain(a, wu, wd, wg, act,
+                                       min(kw["bn"], cfg.d_ff))
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise RuntimeError(f"bad MLP output {tuple(got.shape)}")
+        torch.testing.assert_close(got, want, **TOL[at])
+        err = float((got.float() - want.float()).abs().max())
+        worst = max(worst, err)
+        print(f"MLP kernel vs plain [{name}] M={m} N={cfg.d_ff} "
+              f"K=H={cfg.d_model} tiles={kw}: max|err|={err:.3g} "
+              f"tol={TOL[at]} ok")
+        del a, wu, wd, wg
+    return worst
+
+
+def mlp_time_phase(cfg, label: str, m: int) -> dict:
+    """kernel_ms, plain_ms, unfused_ms and bound_ms of the gated bf16
+    MLP at M rows.  unfused_ms is the hand-wired ``mlp_block`` (three
+    torch.matmul and silu * mul): the time the fused path replaces, as
+    no single PyTorch call computes a gated MLP."""
+    from repro_torch.kernels import gemm_chain as G
+    from repro_torch.models import layers as L
+    (a, wu, wd, wg), kw = _mlp_case(cfg, m, getattr(torch, cfg.dtype),
+                                    True, "silu", 99)
+    bn = min(kw["bn"], cfg.d_ff)
+    one = _time_ms(lambda: G.fused_mlp_chain(a, wu, wd, wg=wg, **kw),
+                   iters=1, reps=1)
+    iters = max(1, min(20, int(200 / max(one, 1e-3))))
+    kernel_ms = _time_ms(lambda: G.fused_mlp_chain(a, wu, wd, wg=wg, **kw),
+                         iters=iters, reps=3)
+    plain_ms = _time_ms(lambda: G.fused_mlp_chain_plain(a, wu, wd, wg,
+                                                        "silu", bn),
+                        iters=5, reps=3)
+    p = {"w_gate": wg[0], "w_up": wu[0], "w_down": wd[0]}
+    unfused_ms = _time_ms(lambda: L.mlp_block(p, a[0], cfg))
+    k, n, h = cfg.d_model, cfg.d_ff, cfg.d_model
+    nbytes = (sum(t.numel() * t.element_size() for t in (a, wu, wd, wg))
+              + m * h * a.element_size())
+    ops = 2 * m * k * n * 2 + 2 * m * n * h
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[torch.bfloat16] * 1e3
+    out = dict(kernel_ms=kernel_ms, plain_ms=plain_ms, unfused_ms=unfused_ms,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               tiles=kw)
+    print(f"MLP times [{label}] M={m} N={n} K=H={k} bf16 gated silu: "
+          + json.dumps(out))
+    return out
+
+
 def main() -> None:
     smi = device_phase()
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -351,26 +507,55 @@ def main() -> None:
         for n in (n_ctx, 4096)}
     decode_tiles = (tuned[n_ctx].bq, tuned[n_ctx].bkv)
     max_err = kernel_check_phase(n_ctx, decode_tiles)
-    params, engine, launches = serve_phase(cfg)
-    if engine.model.rt.paged_block != decode_tiles:
-        raise RuntimeError("the engine ran other tiles than the tuner's")
-    profile_phase(params, *end_to_end_check(cfg, params, engine))
-    del params, engine
+    mlp_err = mlp_check_phase(cfg)
+    params = init_phase(cfg)
+    hand, _, hand_launches = serve_phase(cfg, params, planned=False)
+    planned, _, launches = serve_phase(cfg, params, planned=True)
+    for engine in (hand, planned):
+        if engine.model.rt.paged_block != decode_tiles:
+            raise RuntimeError("the engine ran other tiles than the "
+                               "tuner's")
+    cache, args = end_to_end_check(cfg, params, hand, planned)
+    profile_phase(params, hand.model, cache, args, "hand-wired")
+    profile_phase(params, planned.model, cache, args, "planned")
+    del params, hand, planned, cache
     torch.cuda.empty_cache()
     t_dec = time_phase(n_ctx, decode_tiles, "slice decode")
     time_phase(4096, (tuned[4096].bq, tuned[4096].bkv), "long decode")
+    t_mlp = {label: mlp_time_phase(cfg, label, m)
+             for label, m in MLP_SHAPES.items()}
+    by_path = {name: {"hand_wired": hand_launches[name],
+                      "planned": launches[name]} for name in launches}
     kernels = [{
         "name": "fused_attention_partial",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/attention_partial.cu",
         "replaces": "src/repro/kernels/attention.py:160",
-        "launches": launches,
+        "launches": launches["fused_attention_partial"],
+        "launches_by_path": by_path["fused_attention_partial"],
         "max_abs_err": max_err,
         "ms": t_dec["kernel_ms"],
         "plain_ms": t_dec["plain_ms"],
         "bound_ms": t_dec["bound_ms"],
         "bound_by": t_dec["bound_by"],
         "library_ms": t_dec["library_ms"],
+        "passed": True,
+    }, {
+        "name": "fused_mlp_chain",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mlp_chain.cu",
+        "replaces": "src/repro/kernels/gemm_chain.py:205",
+        "launches": launches["fused_mlp_chain"],
+        "launches_by_path": by_path["fused_mlp_chain"],
+        "max_abs_err": mlp_err,
+        "ms": t_mlp["decode"]["kernel_ms"],
+        "plain_ms": t_mlp["decode"]["plain_ms"],
+        "bound_ms": t_mlp["decode"]["bound_ms"],
+        "bound_by": t_mlp["decode"]["bound_by"],
+        "library_ms": None,
+        "unfused_ms": t_mlp["decode"]["unfused_ms"],
+        "prefill": {k: t_mlp["prefill"][k] for k in (
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "unfused_ms")},
         "passed": True,
     }]
     print(json.dumps({"kernels": kernels}))

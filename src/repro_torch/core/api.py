@@ -4,6 +4,8 @@
     tk = api.fuse_attention_paged(1, 160, 128, 128, page_size=16,
                                   heads=32, batch=4, dtype="bfloat16")
     o = tk(q, k_pages, v_pages, page_table, lengths)
+    mlp = api.fuse_mlp_chain(4, 12288, 4096, dtype="bfloat16")
+    e = mlp(a, w_up, w_down, wg=w_gate)       # a: (B, M, K)
 
 Tuned schedules are cached at two levels so model code can call this
 for every layer at zero cost after the first hit:
@@ -27,7 +29,7 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 from . import codegen, pruning, schedule_cache
-from .chain import Chain, attention_chain
+from .chain import Chain, attention_chain, mlp_chain
 from .dag import build_schedule
 from .perf_model import H100, GpuSpec, MeshSpec, TpuSpec, paged_gather_seconds
 from .search import SearchReport, heuristic_search
@@ -144,6 +146,42 @@ def fuse_attention_paged(M: int, N: int, K: int, H: int, *,
 
     fn = functools.partial(kernel, window=window, scale=scale,
                            **params.as_kwargs())
+    tk = TunedKernel(fn, report, params, dt, source=source)
+    _CACHE[key] = tk
+    return tk
+
+
+def fuse_mlp_chain(M: int, FF: int, D: int, batch: int = 1,
+                   dtype: str = "float32", gated: bool = True,
+                   act: str = "silu", hw: "TpuSpec | GpuSpec" = H100,
+                   mesh: Optional[MeshSpec] = None,
+                   unit: Optional[int] = None,
+                   seed: int = 0) -> TunedKernel:
+    """Tune the (gated) MLP chain E = (act(A Wg) * (A Wu)) Wd and build
+    ``kernels.gemm_chain.fused_mlp_chain`` — the CUDA kernel — around
+    the winning schedule: the chain ``core.planner`` carves for the
+    memory-bound MLP half of a transformer block.
+
+    (M, FF, D) are tokens, d_ff and d_model.  Under ``GpuSpec`` Rule 4
+    prices every candidate by the kernel's own shared-memory layout
+    (``perf_model.mlp_smem_bytes``), so the tiles always fit a block.
+    Entries persist under the distinct "mlp" key prefix, so they never
+    collide with other chains of the same dims."""
+    unit = hw.tile_unit if unit is None else unit
+    key = ("mlp", M, FF, D, batch, gated, act, dtype, hw.name, unit,
+           mesh, seed)
+    if key in _CACHE:
+        return _CACHE[key]
+    chain = mlp_chain(M, FF, D, batch=batch, dtype=dtype, gated=gated,
+                      act=act)
+    disk_key = ("mlp", M, FF, D, batch, gated, act, dtype, hw.name, unit,
+                mesh.canonical() if mesh is not None else None, seed)
+    report, params, dt, source = _tune_or_load(
+        "mlp", chain, hw, mesh, unit, seed, disk_key)
+
+    from ..kernels.gemm_chain import fused_mlp_chain as kernel
+
+    fn = functools.partial(kernel, act=act, **params.as_kwargs())
     tk = TunedKernel(fn, report, params, dt, source=source)
     _CACHE[key] = tk
     return tk

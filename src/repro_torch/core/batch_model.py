@@ -21,8 +21,9 @@ matrix is priced as NumPy array math:
   each set.
 * **Rule-4** (``PricedBatch.vmem``) is the same visit/tile products
   against the load-buffer + f32-accumulator charges — or, for an
-  attention chain under ``GpuSpec``, the CUDA kernel's own shared-memory
-  footprint (``perf_model.attention_smem_bytes``).
+  attention or MLP chain under ``GpuSpec``, the CUDA kernel's own
+  shared-memory footprint (``perf_model.attention_smem_bytes`` /
+  ``perf_model.mlp_smem_bytes``).
 
 Bit-compatibility contract: for any schedule, ``ExprClassTable.price``
 on a 1-row tile matrix accumulates per-statement
@@ -43,7 +44,7 @@ import numpy as np
 from .chain import Chain, DTYPE_BYTES
 from .dag import bind_grid, build_schedule
 from .perf_model import (GpuSpec, H100, TpuSpec, attention_smem_bytes,
-                         is_attention)
+                         is_attention, is_mlp, mlp_chain_smem_bytes)
 from .tiling import Scope, expr_repr
 
 
@@ -287,6 +288,10 @@ class ExprClassTable:
             vmem = attention_smem_bytes(
                 tiles[:, self._col("m")], tiles[:, self._col("n")],
                 c.loops["k"], c.loops["h"], c.tensors["Q"].dtype_bytes)
+        elif isinstance(hw, GpuSpec) and is_mlp(self.chain):
+            vmem = mlp_chain_smem_bytes(
+                self.chain, {l: tiles[:, self._col(l)] for l in self.names},
+                "(" in self.sub_expr)
         return PricedBatch(t_mem=t_mem, t_comp=t_comp, alpha=alpha,
                            est=(t_mem + t_comp) * alpha,
                            vmem=vmem, valid=valid)

@@ -16,9 +16,9 @@ not amortize.
 Rule 4's on-chip budget differs the same way: ``TpuSpec`` bounds
 per-grid-step VMEM residency with the paper's 1.2 slack
 (``vmem_estimate``); ``GpuSpec`` bounds the shared memory one thread
-block holds, hard (``smem_estimate``), with the attention chain priced
-by the exact footprint of the CUDA kernel that runs it
-(``attention_smem_bytes``).
+block holds, hard (``smem_estimate``), with the attention and MLP
+chains priced by the exact footprint of the CUDA kernels that run them
+(``attention_smem_bytes``, ``mlp_smem_bytes``).
 
 The ``t_coll`` term in (2') is this repo's mesh extension
 (docs/design.md §7, docs/tuning.md): under a ``MeshSpec`` the model
@@ -493,19 +493,79 @@ def attention_smem_bytes(bq, bkv, d: int, dv: int, in_bytes: int):
             + (bq * bkv + bq * dv + 3 * bq) * 4)
 
 
+def is_mlp(chain: Chain) -> bool:
+    """A ``chain.mlp_chain``: its up-projection carries the activation
+    epilogue (``gated_<act>`` or ``<act>``)."""
+    return any(op.name == "mlp_up" and op.epilogue for op in chain.ops)
+
+
+def mlp_smem_bytes(bm, bn, bk, be, a_bytes: int, w_bytes: int,
+                   gated: bool):
+    """Shared memory one thread block of the CUDA MLP kernel
+    (``kernels/csrc/mlp_chain.cu``) allocates: the f32 up-projection
+    accumulators (bm, bn) — two when gated —, the f32 E accumulator
+    (bm, be), the A tile (bm, bk) in A's type and the weight tiles
+    (bk, bn) — Wu, and Wg when gated — in the weights' type.  ``be`` is
+    the E tile width: ``bh`` for the deep class, the whole H for the
+    flat class.  Wd is read straight from device memory, never staged.
+    The kernel's wrapper checks launches against this same function, so
+    a tile Rule 4 admits is a tile the kernel holds.  Tiles may be numpy
+    arrays (the batched model)."""
+    nw = 2 if gated else 1
+    return (nw * bm * bn * 4 + bm * be * 4 + bm * bk * a_bytes
+            + nw * bk * bn * w_bytes)
+
+
+def mlp_chain_smem_bytes(chain: Chain, tiles: dict, flat: bool):
+    """``mlp_smem_bytes`` of an MLP chain at ``tiles`` (loop -> tile,
+    scalars or arrays): A and the weights staged in the chain's types,
+    the E tile as wide as the schedule class keeps it."""
+    gated = "Wg" in chain.tensors
+    be = chain.loops["h"] if flat else tiles["h"]
+    return mlp_smem_bytes(tiles["m"], tiles["n"], tiles["k"], be,
+                          chain.tensors["A"].dtype_bytes,
+                          chain.tensors["Wu"].dtype_bytes, gated)
+
+
 def smem_estimate(sched: Schedule, hw: GpuSpec = H100) -> int:
-    """Rule 4 under ``GpuSpec``: shared memory per thread block.  An
-    attention chain runs as the CUDA kernel, which keeps k and h whole,
-    so its footprint is ``attention_smem_bytes`` at the schedule's
-    (m, n) tiles; a chain with no CUDA kernel yet is priced by eq (1)
-    with every input staged once."""
+    """Rule 4 under ``GpuSpec``: shared memory per thread block.  A
+    chain with a CUDA kernel is priced by that kernel's own layout: an
+    attention chain (k and h kept whole) by ``attention_smem_bytes`` at
+    the schedule's (m, n) tiles, an MLP chain by ``mlp_smem_bytes`` in
+    the schedule's class (flat keeps the whole E row).  Any other chain
+    is priced by eq (1) with every input staged once."""
     chain = sched.chain
+    ts = sched.tile_sizes
     if is_attention(chain):
-        ts = sched.tile_sizes
         return attention_smem_bytes(ts["m"], ts["n"], chain.loops["k"],
                                     chain.loops["h"],
                                     chain.tensors["Q"].dtype_bytes)
+    if is_mlp(chain):
+        return mlp_chain_smem_bytes(chain, ts, "(" in sched.sub_expr())
     return vmem_estimate(sched, hw)
+
+
+def floor_residency_bytes(chain: Chain, tiles: dict,
+                          hw: "TpuSpec | GpuSpec" = H100) -> int:
+    """On-chip bytes of ``chain`` at one tile assignment, independent of
+    any schedule — what the planner's stitch gate prices
+    (``pruning.stitched_vmem_ok``).  Under ``TpuSpec`` every tensor's
+    tile is resident and double-buffered (the JAX package's gate,
+    bit for bit).  Under ``GpuSpec`` a chain with a CUDA kernel is priced
+    by that kernel's layout (the deep class for an MLP chain: the flat
+    class only adds to it), any other by every tile staged once."""
+    if isinstance(hw, GpuSpec):
+        if is_attention(chain):
+            return attention_smem_bytes(tiles["m"], tiles["n"],
+                                        chain.loops["k"], chain.loops["h"],
+                                        chain.tensors["Q"].dtype_bytes)
+        if is_mlp(chain):
+            return mlp_chain_smem_bytes(chain, tiles, flat=False)
+    resident = 0
+    for t in chain.tensors.values():
+        resident += math.prod(tiles[d] for d in t.dims) * t.dtype_bytes
+    return resident * (hw.pipeline_stages if isinstance(hw, TpuSpec)
+                       else hw.load_buffers)
 
 
 def rule4_bytes(sched: Schedule, hw: "TpuSpec | GpuSpec" = H100) -> int:

@@ -26,7 +26,8 @@ import numpy as np
 from .batch_model import ExprClassTable, class_key
 from .chain import Chain
 from .dag import Schedule, build_schedule
-from .perf_model import GpuSpec, H100, TpuSpec, rule4_bytes
+from .perf_model import (GpuSpec, H100, TpuSpec, floor_residency_bytes,
+                         rule4_bytes)
 from .tiling import Scope, candidate_tile_sizes, enumerate_tilings
 
 
@@ -91,6 +92,39 @@ def validate_schedule(sched: Schedule, hw: "TpuSpec | GpuSpec" = H100,
     if rule4_bytes(sched, hw) > hw.rule4_budget:
         return False, "rule4_on_chip"
     return True, ""
+
+
+def stitched_vmem_ok(chain: Chain, extra_bytes: int,
+                     hw: "TpuSpec | GpuSpec" = H100, unit: int = 16,
+                     full_loops: tuple = ()) -> bool:
+    """Rule-4 extension for FusionStitching (core/planner.py).
+
+    A stitched prologue/epilogue makes extra operand tiles resident in
+    EVERY schedule of the chain — the residual-stream tile of a fused
+    residual add, the cos/sin table slice of a fused rope, a norm's
+    scale vector.  The stitch is only admissible if the chain's
+    *smallest* legal tile residency (every loop clamped to ``unit``)
+    still leaves room for those ``extra_bytes`` inside the Rule-4
+    budget; otherwise no schedule at all survives with the stitch
+    attached and the glue must stay standalone.  Checking the floor
+    rather than a tuned schedule keeps the gate schedule-independent,
+    so the planner can decide stitches before any search has run.
+
+    The floor is priced as Rule 4 prices a schedule
+    (``perf_model.floor_residency_bytes``): double-buffered VMEM under
+    ``TpuSpec``, the CUDA kernel's own shared-memory layout under
+    ``GpuSpec``.
+
+    ``full_loops`` names loops the stitch forces to full extent — a
+    glue op that *reduces* over a chain loop (a norm prologue over the
+    contraction axis, a softmax epilogue over the score row) is only
+    tile-local if that loop is swept untiled, so its floor residency
+    uses the full dimension there instead of ``unit``.
+    """
+    tile = {l: ext if l in full_loops else min(ext, unit)
+            for l, ext in chain.loops.items()}
+    return (floor_residency_bytes(chain, tile, hw) + extra_bytes
+            <= hw.rule4_budget)
 
 
 def iter_tile_assignments(chain: Chain, unit: int = 128,

@@ -299,3 +299,60 @@ def quarantine_entry(key: tuple, hw: "TpuSpec | GpuSpec",
     record that *parses* but fails schedule re-validation is kept as
     evidence and the path frees up for a retune."""
     return _quarantine_corrupt(entry_path(key, hw, trial))
+
+
+# ---------------------------------------------------------------------------
+# Planner records (core/planner.py)
+# ---------------------------------------------------------------------------
+#
+# A plan record persists one planner decision (carved chains + stitched
+# glue for one block) under the ("plan", PLANNER_VERSION, config, batch,
+# seq, stitch, hw, mesh, phase, paged, kv_len) fingerprint, so a serving
+# relaunch replays its decode plan without re-carving.  The payload is
+# the planner's own JSON form (planner.plan_to_json); this module only
+# frames it with the schema/key cross-checks every other record gets.
+# Same invalidation story: SCHEMA_VERSION, MODEL_VERSION and the
+# hardware constants are folded into the path hash, and the caller's
+# key carries PLANNER_VERSION.
+
+def plan_entry_path(key: tuple, hw: "TpuSpec | GpuSpec") -> Path:
+    blob = json.dumps([list(key), model_fingerprint(hw), "plan"],
+                      sort_keys=True, default=str)
+    return cache_dir() / (sha256(blob.encode()).hexdigest()[:32] + ".json")
+
+
+def load_plan(key: tuple, hw: "TpuSpec | GpuSpec") -> Optional[dict]:
+    """The persisted planner decision for ``key``, or None on
+    miss/corruption.  Returns the raw plan payload dict."""
+    if not enabled():
+        return None
+    path = plan_entry_path(key, hw)
+    rec = _read_record(path)
+    if rec is None:
+        return None
+    if rec.get("schema") != SCHEMA_VERSION:
+        return None  # stale layout, not corruption: leave it in place
+    if rec.get("kind") != "plan":
+        return None
+    if rec.get("key") != _jsonable_key(key):
+        return None  # hash collision paranoia
+    try:
+        return dict(rec["plan"])
+    except (ValueError, KeyError, TypeError):
+        _quarantine_corrupt(path)
+        return None
+
+
+def store_plan(key: tuple, hw: "TpuSpec | GpuSpec",
+               plan: dict) -> Optional[Path]:
+    """Persist one planner decision; best-effort like ``store``."""
+    if not enabled():
+        return None
+    rec = {
+        "schema": SCHEMA_VERSION,
+        "model_fingerprint": model_fingerprint(hw),
+        "kind": "plan",
+        "key": _jsonable_key(key),
+        "plan": plan,
+    }
+    return _atomic_write(plan_entry_path(key, hw), rec)

@@ -42,3 +42,17 @@ def gqa_attention_ref(q, k, v, causal: bool = False, window: int = 0,
     o = attention_ref(q.reshape(b * hq, m, d), kf, vf, causal=causal,
                       window=window, scale=scale)
     return o.reshape(b, hq, m, v.shape[3])
+
+
+def mlp_chain_ref(a: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
+                  wg: Optional[torch.Tensor] = None,
+                  act: str = "silu") -> torch.Tensor:
+    """The unfused (gated) MLP in f32: (act(A Wg) * (A Wu)) Wd, or
+    act(A Wu) Wd without ``wg``; gelu is the tanh form.  Any leading
+    batch dims; returns a's type."""
+    from .gemm_chain import act_fn
+    f = act_fn(act)
+    af = a.float()
+    u = af @ wu.float()
+    hid = f(u) if wg is None else f(af @ wg.float()) * u
+    return (hid @ wd.float()).to(a.dtype)

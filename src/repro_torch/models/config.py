@@ -20,6 +20,9 @@ class ModelConfig:
     head_dim: Optional[int] = None
     qk_norm: bool = False
     window: int = 0             # sliding-window attention (0 = full)
+    act: str = "swiglu"         # swiglu | geglu | gelu
+    norm: str = "rmsnorm"       # rmsnorm | layernorm
+    use_rope: bool = True       # False: learned absolute positions
     rope_theta: float = 1e4
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"

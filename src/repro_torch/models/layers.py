@@ -1,5 +1,6 @@
 """Dense decoder layers as plain functions on tensors: norms, RoPE,
-GQA attention over a paged KV cache, and the SwiGLU MLP.
+GQA attention over a paged KV cache, the MLP, and the planner-driven
+block (``run_planned_layer``).
 
 Parameters are dicts of tensors with the JAX package's names and
 layouts (``wq`` is (d_model, n_heads * dh), and so on), so weights carry
@@ -17,8 +18,9 @@ import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
+from ..core.planner import act_name, gated
+from ..kernels.gemm_chain import act_fn
 from ..serving import kv_pages as KP
 from .config import ModelConfig
 
@@ -83,14 +85,22 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
 def init_mlp(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
     dt = getattr(torch, cfg.dtype)
     d, ff = cfg.d_model, cfg.d_ff
-    return {"w_gate": dense_init(gen, (d, ff), dt, device),
-            "w_up": dense_init(gen, (d, ff), dt, device),
+    if gated(cfg):
+        return {"w_gate": dense_init(gen, (d, ff), dt, device),
+                "w_up": dense_init(gen, (d, ff), dt, device),
+                "w_down": dense_init(gen, (ff, d), dt, device)}
+    return {"w_up": dense_init(gen, (d, ff), dt, device),
             "w_down": dense_init(gen, (ff, d), dt, device)}
 
 
-def mlp_block(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: (silu(x Wg) * (x Wu)) Wd."""
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+def mlp_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """SwiGLU (silu(x Wg) * (x Wu)) Wd, GeGLU with gelu, or the ungated
+    gelu(x Wu) Wd, as ``cfg.act`` says (gelu in the tanh form, as the
+    JAX package's)."""
+    f = act_fn(act_name(cfg))
+    if gated(cfg):
+        return (f(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    return f(x @ p["w_up"]) @ p["w_down"]
 
 
 def _paged_positional_attention(q, k, v, rows_pos, kv_pos, window: int,
@@ -178,3 +188,160 @@ def _paged_attention_body(qt: torch.Tensor, cache: dict,
     kv_pos = KP.paged_kv_positions(page_table, ps)
     return _paged_positional_attention(qt, kk, vv, positions, kv_pos, win,
                                        scale)
+
+
+# ---------------------------------------------------------------------------
+# Planner-driven layer execution (core/planner.py)
+# ---------------------------------------------------------------------------
+
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in the promoted type: a stitched prologue leaves x f32-wide
+    while the weights keep the model's type."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
+def run_planned_layer(lp, p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                      positions: torch.Tensor, rt, cache: dict,
+                      page_table: torch.Tensor
+                      ) -> tuple[torch.Tensor, dict]:
+    """Execute one attention block from a planner ``LayerPlan`` — the
+    zero-hand-specified-chains path behind ``Runtime(planner=True)``.
+
+    Walks the plan's op DAG; every node runs the same torch code the
+    hand-wired block runs (``paged_attention_block`` + ``mlp_block``),
+    so a stitch-disabled plan is bit-identical to the hand-wired layer.
+    Glue stitched into a carved chain as prologue/epilogue instead
+    computes in f32 (the ``_*_f32`` twins) with ONE downcast at the
+    carved unit's boundary, where a fused kernel's final store would
+    round; on float32 configs that is still bitwise identical.
+
+    Serving plans carry a ``kv_write`` node: this step's k/v are
+    scattered IN PLACE into the paged ``cache`` ({"k_pages",
+    "v_pages"}) through ``page_table``, then the attention core runs the
+    shared ``_paged_attention_body`` (the CUDA decode kernel under
+    ``rt.kernel_ops`` on the card, the gather twin otherwise).  Only
+    paged caches are executed.
+
+    Kernel dispatch: under ``rt.kernel_ops`` a *fused* planner-carved
+    MLP chain runs as ONE ``kernels.ops.mlp_chain`` call (the tuned
+    ``fused_mlp_chain`` CUDA kernel on the card, its plain version on
+    the CPU); its stitched prologue/epilogue (ln2/res2) still run
+    f32-wide around the call, exactly as in the node walk.
+
+    lp: ``core.planner.LayerPlan``; p: the layer's parameters
+    ({"ln1", "mix", "ln2", "ff"}).  Returns ``(out, cache)``.
+    """
+    if cache is None or "k_pages" not in cache or page_table is None:
+        raise NotImplementedError(
+            "run_planned_layer executes paged serving caches only "
+            "(a {'k_pages', 'v_pages'} cache and its page_table)")
+    b, s, d = x.shape
+    dh = cfg.dh
+    dt = x.dtype
+    pm, pf = p["mix"], p["ff"]
+
+    stitched: set = set()
+    downcast_at: set = set()
+    for c in lp.chains:
+        stitched.update(c.prologue)
+        stitched.update(c.epilogue)
+        if c.prologue or c.epilogue:
+            # the unit computes wide past its stitched glue; cast back
+            # to the model dtype exactly once, where the kernel's final
+            # store would round
+            downcast_at.add(c.epilogue[-1] if c.epilogue else c.ops[-1])
+
+    # Under kernel_ops, a fused MLP chain executes as ONE tuned kernel
+    # call at its first op; the folded ops are skipped in the walk.
+    mlp_unit = None
+    mlp_folded: set = set()
+    if rt.kernel_ops:
+        mlp_unit = next((c for c in lp.chains
+                         if c.kind == "mlp" and c.fused), None)
+        if mlp_unit is not None:
+            mlp_folded = set(mlp_unit.ops[1:])
+
+    env: dict = {"x": x}
+    for node in lp.nodes:
+        nm, role, ins = node.name, node.role, node.ins
+        if nm in mlp_folded:
+            continue
+        if mlp_unit is not None and nm == mlp_unit.ops[0]:
+            from ..kernels import ops
+            x2d = env[ins[0]].reshape(b * s, d)
+            out = ops.mlp_chain(
+                x2d, pf["w_up"], pf["w_down"],
+                w_gate=pf["w_gate"] if gated(cfg) else None,
+                act=act_name(cfg)).reshape(b, s, d)
+            nm = mlp_unit.ops[-1]
+            if nm in downcast_at:
+                out = out.to(dt)
+            env[nm] = out
+            continue
+        if role == "norm":
+            # DAG node names ln1/ln2 mirror the parameter keys
+            out = (_rmsnorm_f32(env[ins[0]], p[nm]["w"], cfg.norm_eps)
+                   if nm in stitched
+                   else rmsnorm(env[ins[0]], p[nm]["w"], cfg.norm_eps))
+        elif role == "gemm":
+            xin = env[ins[0]]
+            if nm in ("wq", "wk", "wv"):
+                heads = cfg.n_heads if nm == "wq" else cfg.n_kv_heads
+                out = _mm(xin, pm[nm]).reshape(b, s, heads, dh)
+            elif nm == "wo":
+                out = _mm(xin, pm["wo"])
+            elif nm in ("w_gate", "w_up", "w_down"):
+                out = _mm(xin, pf[nm])
+            else:
+                raise ValueError(f"unknown gemm node {nm!r}")
+        elif role == "qk_norm":
+            w = pm["q_norm"] if nm.endswith("_q") else pm["k_norm"]
+            out = (_rmsnorm_f32(env[ins[0]], w, cfg.norm_eps)
+                   if nm in stitched
+                   else rmsnorm(env[ins[0]], w, cfg.norm_eps))
+        elif role == "rope":
+            out = (_rope_f32(env[ins[0]], positions, cfg.rope_theta)
+                   if nm in stitched
+                   else rope(env[ins[0]], positions, cfg.rope_theta))
+        elif role == "kv_write":
+            # this step's k/v written through to the pool, as the
+            # hand-wired block does (masked rows land on the scratch
+            # page); the attention core then reads the cache
+            kp, vp = cache["k_pages"], cache["v_pages"]
+            phys, off = KP.slot_coords(page_table, positions, kp.shape[2])
+            KP.scatter_pages(kp, phys, off, env[ins[0]].to(kp.dtype))
+            KP.scatter_pages(vp, phys, off, env[ins[1]].to(vp.dtype))
+            out = None
+        elif role == "attn_qk":
+            # the attention core executes as one unit (fused chain or
+            # not — fusion changes pricing and kernel dispatch, not the
+            # math): the shared paged body, as the hand-wired block
+            o = _paged_attention_body(
+                env[ins[0]].transpose(1, 2), cache, page_table, positions,
+                group=cfg.n_heads // cfg.n_kv_heads, win=cfg.window,
+                scale=1.0 / math.sqrt(dh), kernel_ops=rt.kernel_ops,
+                block=rt.paged_block)
+            env["qk"] = env["softmax"] = None   # folded into this unit
+            out = o.transpose(1, 2).reshape(b, s, cfg.n_heads * dh)
+            nm = "pv"
+        elif role in ("softmax", "attn_pv"):
+            continue                            # handled at attn_qk
+        elif role == "gate_act":
+            out = act_fn(act_name(cfg))(env[ins[0]])
+            if gated(cfg):
+                out = out * env[ins[1]]
+        elif role == "residual":
+            mix, res = env[ins[0]], env[ins[1]]
+            out = (res.float() + mix.float() if nm in stitched
+                   else res + mix)
+        else:
+            raise ValueError(f"unknown node role {role!r}")
+        if nm in downcast_at:
+            out = out.to(dt)
+        env[nm] = out
+
+    out = env[lp.nodes[-1].name]
+    return out.to(dt), cache

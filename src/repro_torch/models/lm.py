@@ -1,4 +1,5 @@
-"""Dense decoder-only LM (qwen3) for paged serving.
+"""Dense decoder-only LM (qwen3) for paged serving, hand-wired or run
+from the fusion planner's plans (``Runtime(planner=True)``).
 
 The JAX package's ``LM`` scans a stack of stacked layer parameters;
 here the layers are a Python list walked by a loop, parameters are
@@ -31,15 +32,23 @@ class Runtime:
     paged_block: Optional[tuple] = None  # (bq, bkv) tiles the paged
     # regime search picked — serving.engine threads them so the kernel
     # executes the schedule the tuner priced.
+    planner: bool = False   # run every block from core.planner's plan
+    # for its phase (prefill/decode) — chains carved and glue stitched
+    # from the config alone under the H100 descriptor; with kernel_ops,
+    # each fused MLP chain runs as the fused_mlp_chain CUDA kernel.
+    stitch: bool = True     # planner mode only: stitch memory-bound
+    # glue into carved chains as prologue/epilogue; False is
+    # bit-identical to the hand-wired layer.
 
 
 class LM:
     def __init__(self, cfg: ModelConfig, rt: Optional[Runtime] = None,
                  device="cuda"):
-        if cfg.family != "dense":
+        if (cfg.family, cfg.norm, cfg.use_rope) != ("dense", "rmsnorm",
+                                                     True):
             raise NotImplementedError(
-                f"the port serves dense decoders; {cfg.name} is "
-                f"{cfg.family}")
+                f"the port serves dense rmsnorm/rope decoders; {cfg.name} "
+                f"is {cfg.family} with {cfg.norm} (rope: {cfg.use_rope})")
         self.cfg = cfg
         self.rt = rt or Runtime()
         self.device = torch.device(device)
@@ -72,6 +81,20 @@ class LM:
                      positions: torch.Tensor, cache: dict,
                      page_table: torch.Tensor) -> torch.Tensor:
         cfg, rt = self.cfg, self.rt
+        if rt.planner:
+            # A planner or kernel failure raises: nothing here serves
+            # the hand-wired block in its place.
+            from ..core import planner
+            b, s = x.shape[:2]
+            ps = cache["k_pages"].shape[2]
+            plan = planner.plan_model(
+                cfg, b, s, stitch=rt.stitch,
+                phase="prefill" if s > 1 else "decode", paged=ps,
+                kv_len=page_table.shape[1] * ps)
+            out, _ = L.run_planned_layer(
+                plan.layer, p, x, cfg, positions=positions, rt=rt,
+                cache=cache, page_table=page_table)
+            return out
         h = L.rmsnorm(x, p["ln1"]["w"], cfg.norm_eps)
         mix, _ = L.paged_attention_block(
             p["mix"], h, cfg, positions=positions, cache=cache,
@@ -79,7 +102,7 @@ class LM:
             block=rt.paged_block)
         x = x + mix
         h2 = L.rmsnorm(x, p["ln2"]["w"], cfg.norm_eps)
-        return x + L.mlp_block(p["ff"], h2)
+        return x + L.mlp_block(p["ff"], h2, cfg)
 
     def _run_layers(self, params: dict, x: torch.Tensor,
                     positions: torch.Tensor, cache: list,

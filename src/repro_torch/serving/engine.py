@@ -22,7 +22,10 @@ an honest ``outcome`` and its partial tokens.
 The decode attention's (bq, bkv) tiles are a tuner decision: at
 construction the engine tunes the paged attention chain for its decode
 shape (``core.api.fuse_attention_paged``, persistent-cached) and threads
-the winning tiles into the model's ``Runtime``.
+the winning tiles into the model's ``Runtime``.  Under
+``Runtime(planner=True)`` it also plans the steady-state decode block
+at construction (``core.planner``), so the first step never pays the
+carve.
 """
 from __future__ import annotations
 
@@ -139,6 +142,16 @@ class ServingEngine:
         self.model = model
         self.device = model.device
         self.cache = model.init_paged_cache(n_pages, page_size)
+        self.decode_plan = None
+        if model.rt.planner:
+            # every later decode_step_paged hits the plan memo (and a
+            # relaunch replays the ("plan", ..., "decode", page_size,
+            # n_ctx) disk record); prefill shapes vary per prompt and
+            # are planned, then memoized, on first sight
+            from ..core import planner
+            self.decode_plan = planner.plan_model(
+                model.cfg, max_batch, 1, stitch=model.rt.stitch,
+                phase="decode", paged=page_size, kv_len=self.n_ctx)
 
     # ------------------------------------------------------------------
     def _choose_regime(self, model):

@@ -1,0 +1,268 @@
+"""The port's fusion planner and its Rule-4 pricing.
+
+Under the TPU descriptor ``V5E`` the port's planner must reproduce the
+JAX package's golden decisions (``tests/golden_plans.json``) decision for
+decision.  Under the H100 descriptor the qwen3-8b serving plans are
+pinned literally, plan records persist on disk (a mangled one is
+quarantined), and every MLP tile the tuner returns at the main path's
+shapes fits the CUDA kernel's shared memory.
+"""
+import json
+import math
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import api, planner, schedule_cache  # noqa: E402
+from repro_torch.core.batch_model import (ExprClassTable,  # noqa: E402
+                                          as_tile_matrix)
+from repro_torch.core.chain import mlp_chain  # noqa: E402
+from repro_torch.core.dag import build_schedule  # noqa: E402
+from repro_torch.core.perf_model import (H100, V5E, estimate,  # noqa: E402
+                                         mlp_smem_bytes, rule4_bytes)
+from repro_torch.core.pruning import (iter_tile_assignments,  # noqa: E402
+                                      stitched_vmem_ok)
+from repro_torch.core.search import heuristic_search  # noqa: E402
+from repro_torch.core.tiling import enumerate_tilings  # noqa: E402
+
+GOLDEN = json.loads((Path(__file__).parent / "golden_plans.json").read_text())
+FULL = get_config("qwen3-8b")
+
+
+@pytest.fixture(autouse=True)
+def port_cache(tmp_path, monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_CACHE_DIR", str(tmp_path))
+    planner.clear_memo()
+    api.clear_cache()
+    yield tmp_path
+    planner.clear_memo()
+    api.clear_cache()
+
+
+# ---------------------------------------------------------------------------
+# V5E: the JAX package's golden decisions
+# ---------------------------------------------------------------------------
+
+def test_v5e_forward_plan_matches_golden():
+    plan = planner.plan_model(get_config("qwen3_8b"), GOLDEN["batch"],
+                              GOLDEN["seq"], hw=V5E, use_cache=False)
+    assert planner.plan_to_json(plan) == GOLDEN["plans"]["qwen3_8b"]
+
+
+@pytest.mark.parametrize("idx", range(len(GOLDEN["phase_plans"])))
+def test_v5e_phase_plans_match_golden(idx):
+    entry = GOLDEN["phase_plans"][idx]
+    cfg = get_config(entry["arch"], smoke=entry["smoke"])
+    plan = planner.plan_model(
+        cfg, entry["batch"], entry["seq"], stitch=entry["stitch"], hw=V5E,
+        phase=entry["phase"], paged=entry["paged"], kv_len=entry["kv_len"],
+        use_cache=False)
+    assert planner.plan_to_json(plan) == entry["plan"]
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("phase", ["decode", "prefill"])
+@pytest.mark.parametrize("stitch", [False, True])
+def test_v5e_plans_match_the_reference_planner(smoke, phase, stitch):
+    """Beyond the fixture: stitch off too, at the serving shapes."""
+    pytest.importorskip("jax")
+    from repro.configs import get_config as ref_config
+    from repro.core import planner as ref_planner
+    seq = 1 if phase == "decode" else 48
+    kw = dict(stitch=stitch, phase=phase, paged=16, kv_len=160,
+              use_cache=False)
+    got = planner.plan_model(get_config("qwen3_8b", smoke=smoke), 4, seq,
+                             hw=V5E, **kw)
+    want = ref_planner.plan_model(ref_config("qwen3_8b", smoke=smoke), 4,
+                                  seq, **kw)
+    assert planner.plan_to_json(got) == ref_planner.plan_to_json(want)
+
+
+@pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("full_loops", [(), ("k",)])
+def test_stitch_gate_matches_reference_under_v5e(gated, full_loops):
+    pytest.importorskip("jax")
+    from repro.core import chain as RC
+    from repro.core import pruning as RP
+    for m, ff, d in ((1, 12288, 4096), (512, 128, 64)):
+        for extra in (0, 4096, 10 ** 8):
+            got = stitched_vmem_ok(mlp_chain(m, ff, d, gated=gated), extra,
+                                   V5E, unit=128, full_loops=full_loops)
+            want = RP.stitched_vmem_ok(RC.mlp_chain(m, ff, d, gated=gated),
+                                       extra, unit=128,
+                                       full_loops=full_loops)
+            assert got == want
+
+
+def test_fuse_mlp_chain_matches_reference_under_v5e(tmp_path, monkeypatch):
+    pytest.importorskip("jax")
+    from repro.core import api as ref_api
+    monkeypatch.setenv("REPRO_CACHE_DIR", str(tmp_path / "ref"))
+    kw = dict(batch=1, dtype="float32", gated=True, act="silu")
+    ref = ref_api.fuse_mlp_chain(64, 256, 128, **kw)
+    got = api.fuse_mlp_chain(64, 256, 128, hw=V5E, **kw)
+    assert got.params.as_kwargs() == ref.params.as_kwargs()
+    assert got.report.best_time == ref.report.best_time
+
+
+# ---------------------------------------------------------------------------
+# H100: the serving plans of the main path, pinned
+# ---------------------------------------------------------------------------
+
+def _summary(plan):
+    return ([(c.kind, c.ops, c.fused, c.prologue, c.epilogue)
+             for c in plan.layer.chains],
+            plan.layer.glue, plan.layer.dropped)
+
+
+_MLP = ("w_gate", "w_up", "act_gate", "w_down")
+_ATTN = ("qk", "softmax", "pv")
+# stitch on, H100: qk_norm+rope ride the q/k projections, the residuals
+# ride wo and the MLP, and ln2 is DROPPED as the MLP's prologue — the
+# norm reduces over k, so the stitch forces k whole, and the kernel's
+# shared memory at k = 4096 (the A row and the two weight columns)
+# exceeds a block's 232,448 B
+PINNED_STITCHED = (
+    [("gemm", ("wq",), False, (), ("qk_norm_q", "rope_q")),
+     ("gemm", ("wk",), False, (), ("qk_norm_k", "rope_k")),
+     ("gemm", ("wv",), False, (), ()),
+     ("attention", _ATTN, True, (), ()),
+     ("gemm", ("wo",), False, (), ("res1",)),
+     ("mlp", _MLP, True, (), ("res2",))],
+    ("ln1", "kv_write", "ln2"), ("ln2",))
+PINNED_UNSTITCHED = (
+    [("gemm", ("wq",), False, (), ()), ("gemm", ("wk",), False, (), ()),
+     ("gemm", ("wv",), False, (), ()), ("attention", _ATTN, True, (), ()),
+     ("gemm", ("wo",), False, (), ()), ("mlp", _MLP, True, (), ())],
+    ("ln1", "qk_norm_q", "qk_norm_k", "rope_q", "rope_k", "kv_write",
+     "res1", "ln2", "res2"), ())
+
+
+@pytest.mark.parametrize("phase,batch,seq,mlp_ai", [
+    ("decode", 4, 1, 0.999783033195921),
+    ("prefill", 1, 144, 139.63636363636363)])
+@pytest.mark.parametrize("stitch", [True, False])
+def test_h100_serving_plans_pinned(phase, batch, seq, mlp_ai, stitch):
+    plan = planner.plan_model(FULL, batch, seq, stitch=stitch,
+                              phase=phase, paged=16, kv_len=160)
+    assert _summary(plan) == (PINNED_STITCHED if stitch
+                              else PINNED_UNSTITCHED)
+    mlp = next(c for c in plan.layer.chains if c.kind == "mlp")
+    # fused because it is memory-bound on an H100: below the ridge 295
+    assert mlp.ai == mlp_ai < planner.ridge_intensity(H100)
+    assert planner.ridge_intensity(H100) == pytest.approx(295.22, abs=0.01)
+
+
+def test_h100_ln2_stitch_floor_exceeds_shared_memory():
+    ch = mlp_chain(1, 12288, 4096, dtype="bfloat16")
+    floor = mlp_smem_bytes(1, 16, 4096, 16, 2, 2, True)
+    assert floor > H100.smem_per_block
+    assert not stitched_vmem_ok(ch, 4096 * 4, H100, unit=16,
+                                full_loops=("k",))
+    assert stitched_vmem_ok(ch, 16 * 16 * 2, H100, unit=16)  # res2
+
+
+def test_h100_price_plan_never_above_hand_wired():
+    plan = planner.plan_model(FULL, 4, 1, phase="decode", paged=16,
+                              kv_len=160)
+    priced = planner.price_plan(plan, FULL)
+    assert priced["planner_seconds"] <= priced["hand_seconds"]
+    mlp = priced["chains"]["+".join(_MLP)]
+    # the tuner's own model prices the fused MLP's best schedule far
+    # above the unfused GEMMs at decode (few blocks re-read Wg and Wu)
+    assert mlp["demoted"] and mlp["fused_seconds"] > mlp["unfused_seconds"]
+    with pytest.raises(NotImplementedError):
+        planner.price_plan(planner.plan_model(FULL, 1, 64), FULL)
+
+
+# ---------------------------------------------------------------------------
+# plan records on disk
+# ---------------------------------------------------------------------------
+
+def test_plan_records_round_trip_and_quarantine(port_cache, monkeypatch):
+    kw = dict(stitch=True, phase="decode", paged=16, kv_len=160)
+    plan = planner.plan_model(FULL, 4, 1, **kw)
+    key = planner.plan_key(FULL, 4, 1, True, H100, None, "decode", 16, 160)
+    path = schedule_cache.plan_entry_path(key, H100)
+    assert path.exists() and path.parent == port_cache
+    assert schedule_cache.load_plan(key, H100) == planner.plan_to_json(plan)
+    # a relaunch replays the record without carving
+    planner.clear_memo()
+    monkeypatch.setattr(planner, "_carve_and_stitch",
+                        lambda *a, **k: pytest.fail("re-carved"))
+    assert planner.plan_model(FULL, 4, 1, **kw) == plan
+    monkeypatch.undo()
+    monkeypatch.setenv("REPRO_TORCH_CACHE_DIR", str(port_cache))
+    # a record that parses but whose payload is mangled is quarantined
+    # and the plan re-carved beside it
+    rec = json.loads(path.read_text())
+    del rec["plan"]["layer"]["chains"]
+    path.write_text(json.dumps(rec))
+    planner.clear_memo()
+    assert planner.plan_model(FULL, 4, 1, **kw) == plan
+    assert path.with_name(path.name + ".corrupt").exists()
+    # unparseable bytes too
+    path.write_text("{not json")
+    assert schedule_cache.load_plan(key, H100) is None
+    assert not path.exists()
+    # plan records never collide with schedule records
+    assert path != schedule_cache.entry_path(key, H100)
+
+
+# ---------------------------------------------------------------------------
+# Rule 4 follows the CUDA kernel's shared memory
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m", [4, 16, 144, 160])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_h100_mlp_tiles_fit_the_kernel(m, dtype):
+    from repro_torch.kernels.gemm_chain import clamp_tiles
+    tk = api.fuse_mlp_chain(m, 12288, 4096, dtype=dtype)
+    p = tk.params
+    tiles = clamp_tiles(m, 12288, 4096, 4096, p.bm, p.bn, p.bk, p.bh,
+                        p.style)
+    nbytes = {"bfloat16": 2, "float32": 4}[dtype]
+    smem = mlp_smem_bytes(*tiles, nbytes, nbytes, True)
+    assert smem == rule4_bytes(tk.report.best, H100)
+    assert smem <= H100.smem_per_block
+    # bf16 weights under an f32 A (a stitched ln2) stage in fewer bytes
+    assert mlp_smem_bytes(*tiles, nbytes, 2, True) <= smem
+
+
+def test_h100_flat_prefill_pick_is_gone():
+    """The flat class keeps the whole f32 E row: at bm=16 and H=4096
+    that row alone is 262,144 B, so the M=144 flat pick that the generic
+    eq (1) admitted cannot be chosen any more."""
+    assert 16 * 4096 * 4 > H100.smem_per_block
+    for m in (128, 144, 160):
+        p = api.fuse_mlp_chain(m, 12288, 4096, dtype="bfloat16").params
+        assert p.style == "deep"
+    import torch
+    from repro_torch.kernels import gemm_chain as G
+    a = torch.zeros(1, 144, 4096, dtype=torch.bfloat16)
+    w = torch.zeros(1, 4096, 12288, dtype=torch.bfloat16)
+    wd = torch.zeros(1, 12288, 4096, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        G.fused_mlp_chain(a, w, wd, wg=w, bm=16, bn=880, bk=32, bh=16,
+                          style="flat")
+
+
+def test_h100_batched_mlp_rule4_matches_scalar():
+    chain = mlp_chain(20, 192, 64, dtype="bfloat16")
+    rows = list(iter_tile_assignments(chain, unit=16, rule3=True))
+    tiles = as_tile_matrix(chain, rows)
+    for expr in enumerate_tilings(chain):
+        p = ExprClassTable.build(chain, expr, unit=16).price(tiles, H100)
+        for i, ts in enumerate(rows):
+            s = build_schedule(chain, expr, ts, hard_rule2=False)
+            assert estimate(s, H100) == p.est[i]
+            assert rule4_bytes(s, H100) == p.vmem[i]
+    rb = heuristic_search(chain, hw=H100, seed=0, engine="batch")
+    rs = heuristic_search(chain, hw=H100, seed=0, engine="scalar")
+    assert rb.best.key() == rs.best.key()
+    assert rule4_bytes(rb.best, H100) <= H100.smem_per_block
+    assert math.isfinite(rb.best_time) and np.all(p.vmem > 0)

@@ -4,8 +4,10 @@ qwen3 SMOKE in f32 with weights carried over from the JAX init
 (``models.convert.params_from_jax``): the port's paged prefill/decode
 logits match the reference's within TOL, and the port's continuous
 engine emits the same greedy tokens as the reference engine on ragged
-workloads, preemption included.  Plus the port's hygiene: no module of
-``repro_torch`` (nor ``chip_smoke.py``) imports jax or the JAX package.
+workloads, preemption included — hand-wired, and planner-served with
+the fused MLP chain dispatched through ``kernels.ops.mlp_chain``.  Plus
+the port's hygiene: no module of ``repro_torch`` (nor ``chip_smoke.py``)
+imports jax or the JAX package.
 """
 import ast
 import math
@@ -52,11 +54,16 @@ def weights(jax_cpu):
 
 @pytest.fixture(autouse=True)
 def _port_cache(tmp_path, monkeypatch):
+    from repro_torch.core import planner
     monkeypatch.setenv("REPRO_TORCH_CACHE_DIR", str(tmp_path))
+    monkeypatch.setenv("REPRO_CACHE_DIR", str(tmp_path / "reference"))
+    planner.clear_memo()
+    yield
+    planner.clear_memo()
 
 
-def _port_model(kernel_ops=True):
-    return LM(CFG, Runtime(kernel_ops=kernel_ops), device="cpu")
+def _port_model(kernel_ops=True, **rt):
+    return LM(CFG, Runtime(kernel_ops=kernel_ops, **rt), device="cpu")
 
 
 def test_paged_logits_match_reference(weights):
@@ -110,21 +117,31 @@ def test_paged_logits_match_reference(weights):
             last[i] = int(np.argmax(w[i]))
 
 
-def _serve_both(weights, reqs, **kw):
+def _serve_both(weights, reqs, rt=None, **kw):
+    """Serve ``reqs`` on the reference engine and the port's; ``rt``
+    (planner, stitch) runs both planner-served."""
+    from repro.models.lm import LM as RefLM
+    from repro.models.lm import Runtime as RefRuntime
     from repro.serving import ServingEngine as RefEngine
     ref_model, ref_params, params = weights
+    if rt:
+        ref_model = RefLM(ref_model.cfg, RefRuntime(**rt))
     ref_out, ref_stats = RefEngine(ref_model, ref_params,
                                    choose_regime=False, **kw).run(reqs)
-    eng = ServingEngine(_port_model(), params, **kw)
+    eng = ServingEngine(_port_model(**(rt or {})), params, **kw)
     out, stats = eng.run(reqs)
     assert eng.pool.n_free == eng.pool.n_pages - 1
     return ref_out, ref_stats, out, stats
 
 
-def test_engine_tokens_match_reference_engine(weights):
+def _ragged_reqs():
     rng = np.random.RandomState(0)
-    reqs = [(rng.randint(0, CFG.vocab, size=int(rng.randint(3, 14)))
+    return [(rng.randint(0, CFG.vocab, size=int(rng.randint(3, 14)))
              .astype(np.int32), int(g)) for g in (3, 9, 1, 6, 12, 2)]
+
+
+def test_engine_tokens_match_reference_engine(weights):
+    reqs = _ragged_reqs()
     ref_out, ref_stats, out, stats = _serve_both(
         weights, reqs, max_batch=3, page_size=4, n_pages=32,
         max_pages_per_seq=8)
@@ -146,6 +163,122 @@ def test_engine_preemption_matches_reference_engine(weights):
     assert [r.tokens for r in out] == [r.tokens for r in ref_out]
     assert [r.n_preempted for r in out] == [r.n_preempted for r in ref_out]
     assert [len(r.tokens) for r in out] == [10] * 4
+
+
+@pytest.mark.parametrize("stitch", [False, True])
+def test_planned_engine_tokens_match_reference_planned_engine(weights,
+                                                              stitch):
+    """Planner-served on both sides (the port plans under the H100
+    descriptor, the reference under V5E; on this f32 config stitched
+    glue computes the same numbers either way), with the port's fused
+    MLP chains dispatched as kernels."""
+    reqs = _ragged_reqs()
+    rt = dict(planner=True, stitch=stitch)
+    ref_out, ref_stats, out, stats = _serve_both(
+        weights, reqs, rt=rt, max_batch=3, page_size=4, n_pages=32,
+        max_pages_per_seq=8)
+    assert [r.tokens for r in out] == [r.tokens for r in ref_out]
+    assert [len(r.tokens) for r in out] == [g for _, g in reqs]
+    for k in ("decode_steps", "prefills", "generated"):
+        assert stats[k] == ref_stats[k]
+
+
+def test_planned_engine_preemption_matches_reference(weights):
+    rng = np.random.RandomState(1)
+    reqs = [(rng.randint(0, CFG.vocab, size=6).astype(np.int32), 10)
+            for _ in range(4)]
+    ref_out, ref_stats, out, stats = _serve_both(
+        weights, reqs, rt=dict(planner=True), max_batch=4, page_size=4,
+        n_pages=10, max_pages_per_seq=4)
+    assert stats["preemptions"] == ref_stats["preemptions"] > 0
+    assert [r.tokens for r in out] == [r.tokens for r in ref_out]
+    assert [len(r.tokens) for r in out] == [10] * 4
+
+
+def test_planned_mlp_dispatch_once_per_layer_per_step(weights,
+                                                      monkeypatch):
+    """The fused MLP chain of every planned block goes through
+    ``kernels.ops.mlp_chain``: once per layer per prefill and per decode
+    step, and the engine plans decode at construction."""
+    from repro_torch.core import planner
+    from repro_torch.kernels import ops
+    _, _, params = weights
+    calls = []
+    real = ops.mlp_chain
+    monkeypatch.setattr(ops, "mlp_chain",
+                        lambda *a, **k: calls.append(a[0].shape) or
+                        real(*a, **k))
+    eng = ServingEngine(_port_model(planner=True), params, max_batch=3,
+                        page_size=4, n_pages=32, max_pages_per_seq=8)
+    assert eng.decode_plan is not None
+    assert any(c.kind == "mlp" and c.fused
+               for c in eng.decode_plan.layer.chains)
+    _, stats = eng.run(_ragged_reqs())
+    steps = stats["decode_steps"] + stats["prefills"]
+    assert len(calls) == steps * CFG.n_layers
+    assert calls.count((3, CFG.d_model)) == (stats["decode_steps"]
+                                             * CFG.n_layers)
+    phases = {k[8] for k in planner._PLAN_MEMO}
+    assert phases == {"prefill", "decode"}
+    # the hand-wired runtime never reaches the dispatch
+    calls.clear()
+    ServingEngine(_port_model(), params, max_batch=3, page_size=4,
+                  n_pages=32, max_pages_per_seq=8).run(_ragged_reqs()[:2])
+    assert not calls
+
+
+@pytest.mark.parametrize("phase", ["decode", "prefill"])
+@pytest.mark.parametrize("stitch", [False, True])
+def test_run_planned_layer_matches_reference(weights, phase, stitch):
+    """One smoke block from its plan, the port's (H100 plan, fused MLP
+    through the dispatch) against the reference's (V5E plan): the same
+    output and the same pages written, within TOL."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core import planner as ref_planner
+    from repro.models import layers as RL
+    from repro.models.lm import Runtime as RefRuntime
+    from repro_torch.core import planner
+    from repro_torch.models import layers as L
+    ref_model, ref_params, params = weights
+    ps, mp, n_pages = 4, 4, 12
+    b, s = (3, 1) if phase == "decode" else (1, 8)
+    rng = np.random.RandomState(5)
+    x = rng.randn(b, s, CFG.d_model).astype(np.float32)
+    if phase == "decode":
+        pos = np.array([[6], [-1], [13]], np.int32)   # slot 1 idles
+        table = np.array([[3, 5, -1, -1], [-1] * 4, [1, 2, 4, 6]],
+                         np.int32)
+    else:
+        pos = np.where(np.arange(s) < 6, np.arange(s), -1)[None]
+        table = np.array([[7, 2, -1, -1]], np.int32)
+    pos = pos.astype(np.int32)
+    pools = [rng.randn(n_pages, CFG.n_kv_heads, ps, CFG.dh)
+             .astype(np.float32) for _ in range(2)]
+    kw = dict(stitch=stitch, phase=phase, paged=ps, kv_len=mp * ps)
+    rplan = ref_planner.plan_model(ref_model.cfg, b, s, use_cache=False,
+                                   **kw)
+    rrt = RefRuntime(planner=True, stitch=stitch)
+    rp = jax.tree.map(lambda a: a[0], ref_params["stack"]["b0_attn"])
+    want, wcache = RL.run_planned_layer(
+        rplan.layer, rp, jnp.asarray(x), ref_model.cfg, rrt.rules,
+        positions=jnp.asarray(pos), rt=rrt,
+        cache={"k_pages": jnp.asarray(pools[0]),
+               "v_pages": jnp.asarray(pools[1])},
+        page_table=jnp.asarray(table))
+    plan = planner.plan_model(CFG, b, s, **kw)
+    assert any(c.kind == "mlp" and c.fused for c in plan.layer.chains)
+    cache = {"k_pages": torch.from_numpy(pools[0].copy()),
+             "v_pages": torch.from_numpy(pools[1].copy())}
+    got, cache = L.run_planned_layer(
+        plan.layer, params["layers"][0], torch.from_numpy(x), CFG,
+        positions=torch.from_numpy(pos),
+        rt=Runtime(kernel_ops=True, planner=True, stitch=stitch),
+        cache=cache, page_table=torch.from_numpy(table))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for k in ("k_pages", "v_pages"):   # scratch page 0 may differ
+        np.testing.assert_allclose(cache[k].numpy()[1:],
+                                   np.asarray(wcache[k])[1:], **TOL)
 
 
 def test_engine_deadline_drain_and_validation():
