@@ -12,20 +12,30 @@ which raises on failure:
 3. every kernel against its plain PyTorch version on the card, at the
    main paths' shapes with the tuner's tiles, with the tolerance stated
    per dtype;
-4. the two main paths, each at full width — qwen3-8b (36 layers, bf16,
-   random weights from a seed, no depth cut) served by the
-   continuous-batching engine, 8 ragged requests, max batch 4:
-   a. hand-wired, ``Runtime(kernel_ops=True)``: the attention kernel's
-      launch counter must equal decode steps x layers;
-   b. planned, ``Runtime(kernel_ops=True, planner=True)``: every block
-      runs from the planner's H100 plan, each fused MLP chain as the
-      MLP kernel — (decode steps + prefills) x layers launches — and
-      the attention kernel decode steps x layers;
-   each path's counters are set to 0 just before it and read after;
-5. one full-width decode step through each kernel path against the
-   same step through the plain hand-wired path;
-6. a profile of that decode step on both paths: host wall time and
-   device time by kernel;
+4. the three main paths, each at full width — qwen3-8b (36 layers,
+   bf16, random weights from a seed, no depth cut):
+   a. served by the continuous-batching engine, 8 ragged requests, max
+      batch 4, hand-wired, ``Runtime(kernel_ops=True)``: the paged
+      attention kernel's launch counter must equal decode steps x
+      layers;
+   b. the same, planned, ``Runtime(kernel_ops=True, planner=True)``:
+      every block runs from the planner's H100 plan, each fused MLP
+      chain as the MLP kernel — (decode steps + prefills) x layers
+      launches — and the paged attention kernel decode steps x layers;
+   c. the cache-free ``LM.loss`` and ``LM.forward`` at B=2, S=2048 with
+      ``Runtime(kernel_ops=True)``: the normalised attention kernel
+      launched once per layer and call (36);
+   and the front door, ``python -m repro_torch.launch.quickstart``: one
+   launch each of the GEMM-chain and the normalised attention kernel,
+   each within the f32 tolerance of its oracle;
+   each path's counters are set to 0 just before it and read after
+   (the three-GEMM kernel is on no path, as in the JAX package);
+5. one full-width decode step through each serving path against the
+   same step through the plain hand-wired path, and the cache-free
+   loss and logits against the plain twin path
+   (``Runtime(kernel_ops=False)``);
+6. a profile of that decode step on both serving paths and of one
+   cache-free forward: host wall time and device time by kernel;
 7. times of each kernel beside its bound, its plain version and the
    PyTorch call(s) it replaces.
 
@@ -64,6 +74,26 @@ E2E_REL_TOL = 5e-2
 PLANNED_REL_TOL = 5e-2
 # The MLP kernel's decode shape (M = max batch) and one prefill shape
 MLP_SHAPES = {"decode": 4, "prefill": 144}
+# The cache-free forward: batch x tokens of qwen3-8b FULL
+FORWARD = dict(batch=2, seq=2048, seed=2)
+# The normalised attention kernel rounds the unnormalised P to bf16 per
+# kv tile; the plain twin path (streaming attention) keeps P in f32.
+# 36 bf16 layers carry that to the logits as in the decode step (0.018
+# there); a wrong kernel or mask gives order 1.  The loss averages 4094
+# per-token terms of ~12, so its relative difference is far smaller.
+FORWARD_REL_TOL = 5e-2
+LOSS_REL_TOL = 1e-2
+# Table II chains (batch, M, N, K, H) checked on the card: the
+# quickstart's G1 and G4/G12, plus the chains where the H100 tuner
+# picks the flat class (G2 and G11 in bf16, G5 in f32)
+CHAINS = {"G1": (1, 512, 256, 64, 64), "G2": (1, 512, 256, 64, 128),
+          "G4": (1, 512, 512, 256, 256), "G5": (1, 512, 512, 512, 256),
+          "G11": (4, 1024, 1024, 128, 128),
+          "G12": (8, 1024, 1024, 128, 128)}
+# examples/fuse_custom_chain.py: (batch, M, N, K, H, G), bf16
+CHAIN3 = (1, 1024, 512, 64, 64, 64)
+# Table III attention (heads, M, N, K, H) checked on the card
+ATTN_TABLE_III = {"S2": (12, 512, 512, 64, 64), "S6": (16, 256, 256, 80, 80)}
 
 SERVE = dict(batch=4, n_requests=8, prompt_len=128, gen=32, page_size=16,
              seed=1)
@@ -303,41 +333,46 @@ def end_to_end_check(cfg, params, engine, planned_engine):
     return cache, args
 
 
-def profile_phase(params, model, cache, args, label: str) -> None:
-    """Where one full-width decode step's time goes: host wall per step
-    (synchronised, no profiler), then device time by kernel over three
-    steps from torch.profiler.  Re-running the step rewrites the same kv
-    slots, so every step sees the same state."""
+def profile_phase(run, label: str, what: str, timed: int = 5,
+                  traced: int = 3) -> dict:
+    """Where one call's time goes: host wall per call (synchronised, no
+    profiler, mean of ``timed`` calls after one warm-up), then device
+    time by kernel over ``traced`` calls from torch.profiler.  ``run``
+    repeats the same work on the same state (a decode step rewrites the
+    same kv slots)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def step():
-        model.decode_step_paged(params, cache, *args)
+        run()
         torch.cuda.synchronize()
 
     step()
     t0 = time.perf_counter()
-    for _ in range(5):
+    for _ in range(timed):
         step()
-    wall_ms = (time.perf_counter() - t0) / 5 * 1e3
+    wall_ms = (time.perf_counter() - t0) / timed * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
+        for _ in range(traced):
             step()
     # kernel rows only: an operator's row repeats its kernels' time
-    rows = [(e.self_device_time_total / 3e3, e.count // 3, e.key)
+    rows = [(e.self_device_time_total / (traced * 1e3), e.count // traced,
+             e.key)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    print(f"profile [{label}]: decode step (batch 2, "
-          f"{len(params['layers'])} layers) wall {wall_ms:.3f} ms "
-          f"without profiler; device busy {busy_ms:.3f} ms "
+    print(f"profile [{label}]: {what} wall {wall_ms:.3f} ms without "
+          f"profiler; device busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / wall_ms:.1f}% of the wall)")
     for ms, count, name in rows[:8]:
         print(f"profile [{label}]:   {ms:8.3f} ms  {count:5d}x  "
               f"{name[:80]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                top=[dict(ms=ms, count=c, name=n[:80])
+                     for ms, c, n in rows[:3]])
 
 
 def _time_ms(fn, iters: int = 20, reps: int = 10) -> float:
@@ -365,6 +400,13 @@ def _time_ms(fn, iters: int = 20, reps: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (reps * iters)
+
+
+def _adaptive_ms(fn, budget_ms: float = 200.0, reps: int = 2) -> float:
+    """``_time_ms`` with as many calls per graph as fit ``budget_ms``."""
+    one = _time_ms(fn, iters=1, reps=1)
+    iters = max(1, min(20, int(budget_ms / max(one, 1e-3))))
+    return _time_ms(fn, iters=iters, reps=reps)
 
 
 def time_phase(n: int, tiles: tuple, label: str) -> dict:
@@ -464,11 +506,8 @@ def mlp_time_phase(cfg, label: str, m: int) -> dict:
     (a, wu, wd, wg), kw = _mlp_case(cfg, m, getattr(torch, cfg.dtype),
                                     True, "silu", 99)
     bn = min(kw["bn"], cfg.d_ff)
-    one = _time_ms(lambda: G.fused_mlp_chain(a, wu, wd, wg=wg, **kw),
-                   iters=1, reps=1)
-    iters = max(1, min(20, int(200 / max(one, 1e-3))))
-    kernel_ms = _time_ms(lambda: G.fused_mlp_chain(a, wu, wd, wg=wg, **kw),
-                         iters=iters, reps=3)
+    kernel_ms = _adaptive_ms(lambda: G.fused_mlp_chain(a, wu, wd, wg=wg,
+                                                       **kw), reps=3)
     plain_ms = _time_ms(lambda: G.fused_mlp_chain_plain(a, wu, wd, wg,
                                                         "silu", bn),
                         iters=5, reps=3)
@@ -487,6 +526,316 @@ def mlp_time_phase(cfg, label: str, m: int) -> dict:
     print(f"MLP times [{label}] M={m} N={n} K=H={k} bf16 gated silu: "
           + json.dumps(out))
     return out
+
+
+def _dtname(dt) -> str:
+    return str(dt).replace("torch.", "")
+
+
+def _randn(shapes, dt, seed, scaled=False):
+    """Seeded normal tensors on the card; ``scaled`` divides each by the
+    square root of its second dim (a weight's fan-in) from the second
+    tensor on, so chained products stay of magnitude ~1."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for i, shape in enumerate(shapes):
+        t = torch.randn(*shape, generator=g, device="cuda")
+        if scaled and i:
+            t = t / shape[1] ** 0.5
+        out.append(t.to(dt))
+    return out
+
+
+def _attention_ops(b, hq, m, n, d, dv, causal, window=0) -> float:
+    """Operations of attention on this run's data: 2 (d + dv) per live
+    (row, key) pair — q k^T and p v — with the rows at the tail of the
+    kv sequence; a row with no key works on every key (mean of v)."""
+    rows = torch.arange(m, dtype=torch.float64) + n - m
+    if causal or window > 0:
+        hi = torch.clamp(rows, max=n - 1)
+        lo = (torch.clamp(rows - window + 1, min=0) if window > 0
+              else torch.zeros_like(rows))
+        live = torch.where(rows >= 0, hi - lo + 1, torch.full_like(rows, n))
+    else:
+        live = torch.full_like(rows, n)
+    return 2.0 * (d + dv) * float(live.sum()) * b * hq
+
+
+def _bound(nbytes: float, ops: float, dt) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dt] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _chain3_tiles(dt) -> dict:
+    """The H100 tuner's (bm, bn, bk) for CHAIN3 (no api entry point
+    tunes the three-GEMM chain; examples/fuse_custom_chain.py searches
+    it directly)."""
+    from repro_torch.core.chain import gemm_chain3
+    from repro_torch.core.perf_model import H100
+    from repro_torch.core.search import heuristic_search
+    b, m, n, k, h, g = CHAIN3
+    ts = heuristic_search(gemm_chain3(m, n, k, h, g, batch=b,
+                                      dtype=_dtname(dt)),
+                          hw=H100, seed=0).best.tile_sizes
+    return dict(bm=ts["m"], bn=ts["n"], bk=ts["k"])
+
+
+def slice3_check_phase(cfg) -> dict:
+    """fused_attention, fused_gemm_chain (flat and deep) and
+    fused_gemm_chain3 against their plain versions on the card with the
+    tuner's H100 tiles; returns the largest absolute error of each."""
+    from repro_torch.core import api
+    from repro_torch.kernels import attention as A
+    from repro_torch.kernels import gemm_chain as G
+    from repro_torch.kernels import gemm_chain3 as G3
+    worst = dict(fused_attention=0.0, fused_gemm_chain=0.0,
+                 fused_gemm_chain3=0.0)
+    b, s = FORWARD["batch"], FORWARD["seq"]
+    attn = [("forward", b, cfg.n_heads, cfg.n_kv_heads, s, s, cfg.dh,
+             torch.bfloat16, True)]
+    for name, (hq, m, n, k, _) in ATTN_TABLE_III.items():
+        for dt in (torch.float32, torch.bfloat16):
+            attn.append((name, 1, hq, hq, m, n, k, dt, False))
+    attn.append(("M>N causal: mean-of-v rows", 1, 8, 2, 512, 256, 64,
+                 torch.bfloat16, True))
+    for i, (name, bb, hq, hkv, m, n, d, dt, causal) in enumerate(attn):
+        tk = api.fuse_attention(m, n, d, d, heads=hq, batch=bb,
+                                dtype=_dtname(dt), causal=causal)
+        q, k, v = _randn([(bb, hq, m, d), (bb, hkv, n, d), (bb, hkv, n, d)],
+                         dt, 20 + i)
+        with torch.inference_mode():
+            got = tk(q, k, v)
+            torch.cuda.synchronize()
+            want = A.fused_attention_plain(q, k, v, tk.params.bkv, causal,
+                                           0, 1.0 / d ** 0.5)
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise RuntimeError(f"bad attention output {tuple(got.shape)}")
+        torch.testing.assert_close(got, want, **TOL[dt])
+        err = float((got.float() - want.float()).abs().max())
+        worst["fused_attention"] = max(worst["fused_attention"], err)
+        print(f"attention kernel vs plain [{name}] B={bb} Hq={hq} "
+              f"Hkv={hkv} M={m} N={n} D={d} {_dtname(dt)} causal={causal} "
+              f"tiles={tk.params.as_kwargs()}: max|err|={err:.3g} "
+              f"tol={TOL[dt]} ok")
+    ran = set()
+    for i, (name, (bb, m, n, k, h)) in enumerate(CHAINS.items()):
+        for dt in (torch.float32, torch.bfloat16):
+            tk = api.fuse_gemm_chain(m, n, k, h, batch=bb, dtype=_dtname(dt))
+            kw = tk.params.as_kwargs()
+            a, bm_, d = _randn([(bb, m, k), (bb, k, n), (bb, n, h)], dt,
+                               40 + i, scaled=True)
+            styles = [kw["style"]]
+            other = "flat" if kw["style"] == "deep" else "deep"
+            try:      # the same tiles in the other class, where they fit
+                G.check_gemm_chain(a, bm_, d, kw["bm"], kw["bn"], kw["bk"],
+                                   kw["bh"], other)
+                styles.append(other)
+            except ValueError:
+                pass
+            for style in styles:
+                got = G.fused_gemm_chain(a, bm_, d, **{**kw, "style": style})
+                torch.cuda.synchronize()
+                want = G.fused_gemm_chain_plain(a, bm_, d, min(kw["bn"], n))
+                if got.shape != (bb, m, h) or not torch.isfinite(got).all():
+                    raise RuntimeError(f"bad chain output {tuple(got.shape)}")
+                torch.testing.assert_close(got, want, **TOL[dt])
+                err = float((got.float() - want.float()).abs().max())
+                worst["fused_gemm_chain"] = max(worst["fused_gemm_chain"],
+                                                err)
+                ran.add((style, dt))
+                print(f"gemm chain kernel vs plain [{name}] "
+                      f"{(bb, m, n, k, h)} {_dtname(dt)} {style} "
+                      f"(tuner: {kw}): max|err|={err:.3g} tol={TOL[dt]} ok")
+    if len(ran) != 4:
+        raise RuntimeError(f"flat and deep did not both run in f32 and "
+                           f"bf16: {sorted(map(str, ran))}")
+    bb, m, n, k, h, g = CHAIN3
+    for dt in (torch.bfloat16, torch.float32):
+        tiles = _chain3_tiles(dt)
+        xs = _randn([(bb, m, k), (bb, k, n), (bb, n, h), (bb, h, g)], dt, 60,
+                    scaled=True)
+        got = G3.fused_gemm_chain3(*xs, **tiles)
+        torch.cuda.synchronize()
+        want = G3.fused_gemm_chain3_plain(*xs, tiles["bn"])
+        if got.shape != (bb, m, g) or not torch.isfinite(got).all():
+            raise RuntimeError(f"bad chain3 output {tuple(got.shape)}")
+        torch.testing.assert_close(got, want, **TOL[dt])
+        err = float((got.float() - want.float()).abs().max())
+        worst["fused_gemm_chain3"] = max(worst["fused_gemm_chain3"], err)
+        print(f"gemm chain3 kernel vs plain {CHAIN3} {_dtname(dt)} "
+              f"tiles={tiles}: max|err|={err:.3g} tol={TOL[dt]} ok")
+    return worst
+
+
+def forward_phase(cfg, params) -> dict:
+    """The cache-free path at full width: ``LM.loss`` and ``LM.forward``
+    of B=2 x S=2048 seeded tokens with ``Runtime(kernel_ops=True)``,
+    each with the attention kernel's counter set to 0 just before and
+    read just after (36 = one launch per layer), each against the same
+    call on the plain twin path; then a profile of one forward."""
+    from repro_torch.kernels import attention as A
+    from repro_torch.models.lm import LM, Runtime
+    b, s = FORWARD["batch"], FORWARD["seq"]
+    g = torch.Generator(device="cuda").manual_seed(FORWARD["seed"])
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=g, device="cuda")
+    labels = torch.roll(tokens, -1, dims=1)
+    labels[:, -1] = -100
+    batch = {"tokens": tokens, "labels": labels}
+    kern = LM(cfg, Runtime(kernel_ops=True), device="cuda")
+    plain = LM(cfg, Runtime(kernel_ops=False), device="cuda")
+    launches = {}
+    with torch.inference_mode():
+        A.fused_attention.launches = 0
+        t0 = time.perf_counter()
+        loss = kern.loss(params, batch)
+        torch.cuda.synchronize()
+        loss_s = time.perf_counter() - t0
+        launches["loss"] = A.fused_attention.launches
+        A.fused_attention.launches = 0
+        t0 = time.perf_counter()
+        logits = kern.forward(params, tokens)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        launches["forward"] = A.fused_attention.launches
+        print(f"[forward] B={b} S={s}: loss {float(loss):.5f} in "
+              f"{loss_s:.2f}s, forward {tuple(logits.shape)} in "
+              f"{fwd_s:.2f}s (first calls); fused_attention launches "
+              f"{launches} (want {cfg.n_layers} each)")
+        if any(n != cfg.n_layers for n in launches.values()):
+            raise RuntimeError(f"the forward launched fused_attention "
+                               f"{launches} times, not {cfg.n_layers}")
+        if logits.shape != (b, s, cfg.vocab) or not (
+                torch.isfinite(logits).all() and torch.isfinite(loss)):
+            raise RuntimeError("non-finite or misshapen forward output")
+        want_loss = plain.loss(params, batch)
+        want = plain.forward(params, tokens)
+        torch.cuda.synchronize()
+        loss_rel = abs(float(loss) - float(want_loss)) / abs(
+            float(want_loss))
+        rel = float((logits.float() - want.float()).norm()
+                    / want.float().norm())
+        agree = float((logits.argmax(-1) == want.argmax(-1)).float().mean())
+        del want
+        print(f"[forward] kernel path vs the plain twin path at full "
+              f"width: loss {float(loss):.5f} vs {float(want_loss):.5f} "
+              f"(rel {loss_rel:.3g}, tol {LOSS_REL_TOL}); logits rel err "
+              f"{rel:.3g} (tol {FORWARD_REL_TOL}), argmax agree "
+              f"{agree:.4f}")
+        if loss_rel > LOSS_REL_TOL or rel > FORWARD_REL_TOL:
+            raise RuntimeError("the kernel forward diverges from the plain "
+                               "twin path")
+        del logits
+        prof = profile_phase(lambda: kern.forward(params, tokens),
+                             "forward", f"cache-free forward (B={b}, S={s}, "
+                             f"{cfg.n_layers} layers)", timed=2, traced=1)
+    return dict(launches=launches, loss=float(loss),
+                plain_loss=float(want_loss), loss_rel=loss_rel,
+                logits_rel=rel, argmax_agree=agree, profile=prof)
+
+
+def attention_time_phase(cfg) -> dict:
+    """kernel_ms, plain_ms, library_ms (SDPA, causal, GQA) and bound_ms
+    of the normalised attention at the forward's shape."""
+    from repro_torch.core import api
+    from repro_torch.kernels import attention as A
+    b, m, d, dt = FORWARD["batch"], FORWARD["seq"], cfg.dh, torch.bfloat16
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    tk = api.fuse_attention(m, m, d, d, heads=hq, batch=b,
+                            dtype=_dtname(dt), causal=True)
+    q, k, v = _randn([(b, hq, m, d), (b, hkv, m, d), (b, hkv, m, d)], dt, 98)
+    scale = 1.0 / d ** 0.5
+    with torch.inference_mode():
+        kernel_ms = _adaptive_ms(lambda: tk(q, k, v))
+        plain_ms = _adaptive_ms(lambda: A.fused_attention_plain(
+            q, k, v, tk.params.bkv, True, 0, scale), reps=1)
+        library_ms = _adaptive_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale, enable_gqa=True))
+    out = dict(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+               **_bound(_nbytes(q, k, v, q),
+                        _attention_ops(b, hq, m, m, d, d, True), dt),
+               tiles=tk.params.as_kwargs())
+    print(f"attention times [forward] B={b} Hq={hq} Hkv={hkv} M=N={m} "
+          f"D={d} bf16 causal: " + json.dumps(out))
+    return out
+
+
+def chain_time_phase(name: str, dt) -> dict:
+    """kernel_ms, plain_ms, unfused_ms (two cuBLAS bmm, C rounded to the
+    input type between them as the kernel rounds it) and bound_ms of a
+    Table II chain with the tuner's tiles."""
+    from repro_torch.core import api
+    from repro_torch.kernels import gemm_chain as G
+    b, m, n, k, h = CHAINS[name]
+    tk = api.fuse_gemm_chain(m, n, k, h, batch=b, dtype=_dtname(dt))
+    a, bb, d = _randn([(b, m, k), (b, k, n), (b, n, h)], dt, 97,
+                      scaled=True)
+    kw = tk.params.as_kwargs()
+    kernel_ms = _adaptive_ms(lambda: tk(a, bb, d))
+    plain_ms = _adaptive_ms(lambda: G.fused_gemm_chain_plain(
+        a, bb, d, min(kw["bn"], n)), reps=1)
+    unfused_ms = _adaptive_ms(lambda: torch.bmm(torch.bmm(a, bb), d))
+    out = dict(kernel_ms=kernel_ms, plain_ms=plain_ms, unfused_ms=unfused_ms,
+               **_bound(_nbytes(a, bb, d) + b * m * h * a.element_size(),
+                        2.0 * b * m * n * (k + h), dt), tiles=kw)
+    print(f"gemm chain times [{name}] {(b, m, n, k, h)} {_dtname(dt)}: "
+          + json.dumps(out))
+    return out
+
+
+def chain3_time_phase() -> dict:
+    """kernel_ms, plain_ms, unfused_ms (three cuBLAS bmm) and bound_ms
+    of the three-GEMM chain at CHAIN3 in bf16 with the tuner's tiles."""
+    from repro_torch.kernels import gemm_chain3 as G3
+    b, m, n, k, h, g = CHAIN3
+    dt = torch.bfloat16
+    tiles = _chain3_tiles(dt)
+    xs = _randn([(b, m, k), (b, k, n), (b, n, h), (b, h, g)], dt, 96,
+                scaled=True)
+    a, bb, d, f = xs
+    kernel_ms = _adaptive_ms(lambda: G3.fused_gemm_chain3(*xs, **tiles))
+    plain_ms = _adaptive_ms(lambda: G3.fused_gemm_chain3_plain(
+        *xs, tiles["bn"]), reps=1)
+    unfused_ms = _adaptive_ms(
+        lambda: torch.bmm(torch.bmm(torch.bmm(a, bb), d), f))
+    out = dict(kernel_ms=kernel_ms, plain_ms=plain_ms, unfused_ms=unfused_ms,
+               **_bound(_nbytes(*xs) + b * m * g * a.element_size(),
+                        2.0 * b * m * (n * k + n * h + h * g), dt),
+               tiles=tiles)
+    print(f"gemm chain3 times {CHAIN3} bf16: " + json.dumps(out))
+    return out
+
+
+def quickstart_phase() -> dict:
+    """The front door: ``python -m repro_torch.launch.quickstart`` on the
+    card, with the counters set to 0 just before and read just after —
+    one fused_gemm_chain and one fused_attention launch, each within
+    the f32 tolerance of its oracle (atol + rtol x the oracle's largest
+    magnitude, as ``torch.testing.assert_close`` bounds an element)."""
+    from repro_torch.kernels import attention as A
+    from repro_torch.kernels import gemm_chain as G
+    from repro_torch.launch import quickstart
+    G.fused_gemm_chain.launches = 0
+    A.fused_attention.launches = 0
+    errors = quickstart.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = {"fused_gemm_chain": G.fused_gemm_chain.launches,
+                "fused_attention": A.fused_attention.launches}
+    print(f"[quickstart] launches {launches} (want 1 each), (max|err|, "
+          f"max|oracle|) {errors}")
+    if launches != {"fused_gemm_chain": 1, "fused_attention": 1}:
+        raise RuntimeError(f"the quickstart launched {launches}")
+    tol = TOL[torch.float32]
+    if any(err > tol["atol"] + tol["rtol"] * scale
+           for err, scale in errors.values()):
+        raise RuntimeError(f"the quickstart's kernels disagree with their "
+                           f"oracles: {errors}")
+    return launches
 
 
 def main() -> None:
@@ -508,6 +857,8 @@ def main() -> None:
     decode_tiles = (tuned[n_ctx].bq, tuned[n_ctx].bkv)
     max_err = kernel_check_phase(n_ctx, decode_tiles)
     mlp_err = mlp_check_phase(cfg)
+    slice3_err = slice3_check_phase(cfg)
+    front = quickstart_phase()
     params = init_phase(cfg)
     hand, _, hand_launches = serve_phase(cfg, params, planned=False)
     planned, _, launches = serve_phase(cfg, params, planned=True)
@@ -516,14 +867,25 @@ def main() -> None:
             raise RuntimeError("the engine ran other tiles than the "
                                "tuner's")
     cache, args = end_to_end_check(cfg, params, hand, planned)
-    profile_phase(params, hand.model, cache, args, "hand-wired")
-    profile_phase(params, planned.model, cache, args, "planned")
-    del params, hand, planned, cache
+    step = "decode step (batch 2, 36 layers)"
+    profile_phase(lambda: hand.model.decode_step_paged(params, cache, *args),
+                  "hand-wired", step)
+    profile_phase(lambda: planned.model.decode_step_paged(params, cache,
+                                                          *args),
+                  "planned", step)
+    del hand, planned, cache
+    torch.cuda.empty_cache()
+    fwd = forward_phase(cfg, params)
+    del params
     torch.cuda.empty_cache()
     t_dec = time_phase(n_ctx, decode_tiles, "slice decode")
     time_phase(4096, (tuned[4096].bq, tuned[4096].bkv), "long decode")
     t_mlp = {label: mlp_time_phase(cfg, label, m)
              for label, m in MLP_SHAPES.items()}
+    t_attn = attention_time_phase(cfg)
+    t_chain = {"G12 bf16": chain_time_phase("G12", torch.bfloat16),
+               "quickstart G1 f32": chain_time_phase("G1", torch.float32)}
+    t_chain3 = chain3_time_phase()
     by_path = {name: {"hand_wired": hand_launches[name],
                       "planned": launches[name]} for name in launches}
     kernels = [{
@@ -556,6 +918,53 @@ def main() -> None:
         "unfused_ms": t_mlp["decode"]["unfused_ms"],
         "prefill": {k: t_mlp["prefill"][k] for k in (
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "unfused_ms")},
+        "passed": True,
+    }, {
+        "name": "fused_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/attention_partial.cu",
+        "replaces": "src/repro/kernels/attention.py:255",
+        "launches": fwd["launches"]["forward"],
+        "launches_by_path": {"loss": fwd["launches"]["loss"],
+                             "forward": fwd["launches"]["forward"],
+                             "quickstart": front["fused_attention"]},
+        "max_abs_err": slice3_err["fused_attention"],
+        "ms": t_attn["kernel_ms"],
+        "plain_ms": t_attn["plain_ms"],
+        "bound_ms": t_attn["bound_ms"],
+        "bound_by": t_attn["bound_by"],
+        "library_ms": t_attn["library_ms"],
+        "passed": True,
+    }, {
+        "name": "fused_gemm_chain",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gemm_chain.cu",
+        "replaces": "src/repro/kernels/gemm_chain.py:80",
+        "launches": front["fused_gemm_chain"],
+        "launches_by_path": {"quickstart": front["fused_gemm_chain"]},
+        "max_abs_err": slice3_err["fused_gemm_chain"],
+        "ms": t_chain["G12 bf16"]["kernel_ms"],
+        "plain_ms": t_chain["G12 bf16"]["plain_ms"],
+        "bound_ms": t_chain["G12 bf16"]["bound_ms"],
+        "bound_by": t_chain["G12 bf16"]["bound_by"],
+        "library_ms": None,
+        "unfused_ms": t_chain["G12 bf16"]["unfused_ms"],
+        "quickstart_g1_f32": {k: t_chain["quickstart G1 f32"][k] for k in (
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "unfused_ms")},
+        "passed": True,
+    }, {
+        "name": "fused_gemm_chain3",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gemm_chain.cu",
+        "replaces": "src/repro/kernels/gemm_chain3.py:60",
+        "launches": 0,   # on no path: reached only directly
+        "max_abs_err": slice3_err["fused_gemm_chain3"],
+        "ms": t_chain3["kernel_ms"],
+        "plain_ms": t_chain3["plain_ms"],
+        "bound_ms": t_chain3["bound_ms"],
+        "bound_by": t_chain3["bound_by"],
+        "library_ms": None,
+        "unfused_ms": t_chain3["unfused_ms"],
         "passed": True,
     }]
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,10 @@
 """MCFuser public API: tune once, get a fused callable.
 
     from repro_torch.core import api
+    tk = api.fuse_gemm_chain(M=512, N=256, K=64, H=64)
+    e = tk(a, b, d)                           # a: (B, M, K)
+    tk = api.fuse_attention(M=512, N=512, K=64, H=64, heads=12)
+    o = tk(q, k, v)                           # q: (B, Hq, M, K)
     tk = api.fuse_attention_paged(1, 160, 128, 128, page_size=16,
                                   heads=32, batch=4, dtype="bfloat16")
     o = tk(q, k_pages, v_pages, page_table, lengths)
@@ -29,7 +33,7 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 from . import codegen, pruning, schedule_cache
-from .chain import Chain, attention_chain, mlp_chain
+from .chain import Chain, attention_chain, gemm_chain, mlp_chain
 from .dag import build_schedule
 from .perf_model import H100, GpuSpec, MeshSpec, TpuSpec, paged_gather_seconds
 from .search import SearchReport, heuristic_search
@@ -102,6 +106,76 @@ def _tune_or_load(kind: str, chain: Chain, hw: "TpuSpec | GpuSpec",
         n_candidates=report.n_candidates, prune_stats=report.prune_stats,
         history=report.history, params=params.as_kwargs(), trial=trial)
     return report, params, dt, "search"
+
+
+def fuse_gemm_chain(M: int, N: int, K: int, H: int, batch: int = 1,
+                    dtype: str = "float32", hw: "TpuSpec | GpuSpec" = H100,
+                    mesh: Optional[MeshSpec] = None,
+                    unit: Optional[int] = None,
+                    seed: int = 0) -> TunedKernel:
+    """Tune the 2-GEMM chain E = (A B) D and build
+    ``kernels.gemm_chain.fused_gemm_chain`` — the CUDA kernel — around
+    the winning schedule (class and tiles).
+
+    (M, N, K, H, batch) are the GLOBAL problem dims; with a ``mesh`` the
+    search localizes them and the kernel is parametrized for one
+    shard's block.  Under ``GpuSpec`` Rule 4 prices every candidate by
+    the kernel's own shared-memory layout
+    (``perf_model.gemm_chain_smem_bytes``)."""
+    unit = hw.tile_unit if unit is None else unit
+    key = ("gemm", M, N, K, H, batch, dtype, hw.name, unit, mesh, seed)
+    if key in _CACHE:
+        return _CACHE[key]
+    chain = gemm_chain(M, N, K, H, batch=batch, dtype=dtype)
+    disk_key = ("gemm", M, N, K, H, batch, dtype, hw.name, unit,
+                mesh.canonical() if mesh is not None else None, seed)
+    report, params, dt, source = _tune_or_load(
+        "gemm", chain, hw, mesh, unit, seed, disk_key)
+
+    from ..kernels.gemm_chain import fused_gemm_chain as kernel
+
+    fn = functools.partial(kernel, **params.as_kwargs())
+    tk = TunedKernel(fn, report, params, dt, source=source)
+    _CACHE[key] = tk
+    return tk
+
+
+def fuse_attention(M: int, N: int, K: int, H: int, heads: int = 1,
+                   batch: int = 1, dtype: str = "float32",
+                   causal: bool = False, window: int = 0,
+                   scale: Optional[float] = None,
+                   hw: "TpuSpec | GpuSpec" = H100,
+                   mesh: Optional[MeshSpec] = None,
+                   unit: Optional[int] = None,
+                   seed: int = 0) -> TunedKernel:
+    """Tune the attention chain for (M, N, K, H) and build
+    ``kernels.attention.fused_attention`` — the CUDA kernel, queries at
+    the tail of the kv sequence — around the winning (bq, bkv).
+
+    As with ``fuse_gemm_chain``, dims are global; heads and batch fold
+    into the chain batch.  Under ``GpuSpec`` Rule 4 prices every
+    candidate by the kernel's shared-memory layout
+    (``perf_model.attention_smem_bytes``)."""
+    unit = hw.tile_unit if unit is None else unit
+    key = ("attn", M, N, K, H, heads, batch, dtype, causal, window,
+           scale, hw.name, unit, mesh, seed)
+    if key in _CACHE:
+        return _CACHE[key]
+    chain = attention_chain(M, N, K, H, heads=heads, batch=batch,
+                            dtype=dtype, causal=causal, window=window)
+    disk_key = ("attn", M, N, K, H, heads, batch, dtype, causal, window,
+                scale, hw.name, unit,
+                mesh.canonical() if mesh is not None else None, seed)
+    report, params, dt, source = _tune_or_load(
+        "attn", chain, hw, mesh, unit, seed, disk_key)
+
+    from ..kernels.attention import fused_attention as kernel
+
+    fn = functools.partial(kernel, causal=causal, window=window,
+                           scale=scale, **params.as_kwargs())
+    tk = TunedKernel(fn, report, params, dt, source=source)
+    _CACHE[key] = tk
+    return tk
 
 
 def fuse_attention_paged(M: int, N: int, K: int, H: int, *,

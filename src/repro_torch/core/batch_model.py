@@ -20,10 +20,9 @@ matrix is priced as NumPy array math:
   records (``Schedule.cached_dim_sets``): mult = prod of extents over
   each set.
 * **Rule-4** (``PricedBatch.vmem``) is the same visit/tile products
-  against the load-buffer + f32-accumulator charges — or, for an
-  attention or MLP chain under ``GpuSpec``, the CUDA kernel's own
-  shared-memory footprint (``perf_model.attention_smem_bytes`` /
-  ``perf_model.mlp_smem_bytes``).
+  against the load-buffer + f32-accumulator charges — or, for a chain
+  a CUDA kernel runs, under ``GpuSpec``, that kernel's own
+  shared-memory footprint (``perf_model.kernel_smem_bytes``).
 
 Bit-compatibility contract: for any schedule, ``ExprClassTable.price``
 on a 1-row tile matrix accumulates per-statement
@@ -43,8 +42,7 @@ import numpy as np
 
 from .chain import Chain, DTYPE_BYTES
 from .dag import bind_grid, build_schedule
-from .perf_model import (GpuSpec, H100, TpuSpec, attention_smem_bytes,
-                         is_attention, is_mlp, mlp_chain_smem_bytes)
+from .perf_model import GpuSpec, H100, TpuSpec, kernel_smem_bytes
 from .tiling import Scope, expr_repr
 
 
@@ -283,15 +281,12 @@ class ExprClassTable:
         t_comp = comp_total / hw.peak_flops
         alpha = (g + hw.alpha_extra) / g
         vmem = vmem_mem + vmem_comp
-        if isinstance(hw, GpuSpec) and is_attention(self.chain):
-            c = self.chain
-            vmem = attention_smem_bytes(
-                tiles[:, self._col("m")], tiles[:, self._col("n")],
-                c.loops["k"], c.loops["h"], c.tensors["Q"].dtype_bytes)
-        elif isinstance(hw, GpuSpec) and is_mlp(self.chain):
-            vmem = mlp_chain_smem_bytes(
+        if isinstance(hw, GpuSpec):
+            smem = kernel_smem_bytes(
                 self.chain, {l: tiles[:, self._col(l)] for l in self.names},
                 "(" in self.sub_expr)
+            if smem is not None:
+                vmem = smem
         return PricedBatch(t_mem=t_mem, t_comp=t_comp, alpha=alpha,
                            est=(t_mem + t_comp) * alpha,
                            vmem=vmem, valid=valid)

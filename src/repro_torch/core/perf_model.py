@@ -18,7 +18,7 @@ per-grid-step VMEM residency with the paper's 1.2 slack
 (``vmem_estimate``); ``GpuSpec`` bounds the shared memory one thread
 block holds, hard (``smem_estimate``), with the attention and MLP
 chains priced by the exact footprint of the CUDA kernels that run them
-(``attention_smem_bytes``, ``mlp_smem_bytes``).
+(``kernel_smem_bytes``).
 
 The ``t_coll`` term in (2') is this repo's mesh extension
 (docs/design.md §7, docs/tuning.md): under a ``MeshSpec`` the model
@@ -516,33 +516,68 @@ def mlp_smem_bytes(bm, bn, bk, be, a_bytes: int, w_bytes: int,
             + nw * bk * bn * w_bytes)
 
 
-def mlp_chain_smem_bytes(chain: Chain, tiles: dict, flat: bool):
-    """``mlp_smem_bytes`` of an MLP chain at ``tiles`` (loop -> tile,
-    scalars or arrays): A and the weights staged in the chain's types,
-    the E tile as wide as the schedule class keeps it."""
-    gated = "Wg" in chain.tensors
-    be = chain.loops["h"] if flat else tiles["h"]
-    return mlp_smem_bytes(tiles["m"], tiles["n"], tiles["k"], be,
-                          chain.tensors["A"].dtype_bytes,
-                          chain.tensors["Wu"].dtype_bytes, gated)
+GEMM_CHAIN_OPS = ("matmul_C", "matmul_E")
+GEMM_CHAIN3_OPS = ("matmul_C", "matmul_E", "matmul_G")
+
+
+def gemm_chain_smem_bytes(bm, bn, bk, be, in_bytes: int):
+    """Shared memory one thread block of the CUDA gemm-chain kernel
+    (``kernels/csrc/gemm_chain.cu``, ``fused_gemm_chain``) allocates:
+    the f32 C accumulator (bm, bn), the f32 E accumulator (bm, be), and
+    the A (bm, bk) and B (bk, bn) tiles in the input type.  ``be`` is
+    the E tile width: ``bh`` for the deep class, the whole H for the
+    flat class.  D is read straight from device memory, never staged.
+    The kernel's wrapper checks launches against this same function.
+    Tiles may be numpy arrays (the batched model)."""
+    return (bm * bn + bm * be) * 4 + (bm * bk + bk * bn) * in_bytes
+
+
+def gemm_chain3_smem_bytes(bm, bn, bk, h: int, in_bytes: int):
+    """Shared memory one thread block of the CUDA three-GEMM kernel
+    (``kernels/csrc/gemm_chain.cu``, ``fused_gemm_chain3``) allocates:
+    the flat gemm-chain layout with the whole (bm, H) E row; F, like D,
+    is read straight from device memory, so G adds nothing."""
+    return gemm_chain_smem_bytes(bm, bn, bk, h, in_bytes)
+
+
+def kernel_smem_bytes(chain: Chain, tiles: dict, flat: bool):
+    """Shared memory of the CUDA kernel that runs ``chain`` at ``tiles``
+    (loop -> tile, scalars or numpy arrays) in the schedule class
+    ``flat`` (sub-expression ``n(k,h)``: the whole E row on chip), or
+    None for a chain no CUDA kernel runs.  Attention keeps the head
+    dims whole whatever the class; the three-GEMM kernel exists in the
+    flat class only."""
+    ops = tuple(op.name for op in chain.ops)
+    if is_attention(chain):
+        return attention_smem_bytes(tiles["m"], tiles["n"],
+                                    chain.loops["k"], chain.loops["h"],
+                                    chain.tensors["Q"].dtype_bytes)
+    if is_mlp(chain):
+        gated = "Wg" in chain.tensors
+        be = chain.loops["h"] if flat else tiles["h"]
+        return mlp_smem_bytes(tiles["m"], tiles["n"], tiles["k"], be,
+                              chain.tensors["A"].dtype_bytes,
+                              chain.tensors["Wu"].dtype_bytes, gated)
+    if ops == GEMM_CHAIN_OPS:
+        be = chain.loops["h"] if flat else tiles["h"]
+        return gemm_chain_smem_bytes(tiles["m"], tiles["n"], tiles["k"],
+                                     be, chain.tensors["A"].dtype_bytes)
+    if ops == GEMM_CHAIN3_OPS:
+        return gemm_chain3_smem_bytes(tiles["m"], tiles["n"], tiles["k"],
+                                      chain.loops["h"],
+                                      chain.tensors["A"].dtype_bytes)
+    return None
 
 
 def smem_estimate(sched: Schedule, hw: GpuSpec = H100) -> int:
     """Rule 4 under ``GpuSpec``: shared memory per thread block.  A
-    chain with a CUDA kernel is priced by that kernel's own layout: an
-    attention chain (k and h kept whole) by ``attention_smem_bytes`` at
-    the schedule's (m, n) tiles, an MLP chain by ``mlp_smem_bytes`` in
-    the schedule's class (flat keeps the whole E row).  Any other chain
-    is priced by eq (1) with every input staged once."""
-    chain = sched.chain
-    ts = sched.tile_sizes
-    if is_attention(chain):
-        return attention_smem_bytes(ts["m"], ts["n"], chain.loops["k"],
-                                    chain.loops["h"],
-                                    chain.tensors["Q"].dtype_bytes)
-    if is_mlp(chain):
-        return mlp_chain_smem_bytes(chain, ts, "(" in sched.sub_expr())
-    return vmem_estimate(sched, hw)
+    chain with a CUDA kernel (attention, the MLP chain, the two- and
+    three-GEMM chains) is priced by that kernel's own layout at the
+    schedule's tiles and class (``kernel_smem_bytes``); any other chain
+    by eq (1) with every input staged once."""
+    smem = kernel_smem_bytes(sched.chain, sched.tile_sizes,
+                             "(" in sched.sub_expr())
+    return vmem_estimate(sched, hw) if smem is None else smem
 
 
 def floor_residency_bytes(chain: Chain, tiles: dict,
@@ -552,15 +587,13 @@ def floor_residency_bytes(chain: Chain, tiles: dict,
     (``pruning.stitched_vmem_ok``).  Under ``TpuSpec`` every tensor's
     tile is resident and double-buffered (the JAX package's gate,
     bit for bit).  Under ``GpuSpec`` a chain with a CUDA kernel is priced
-    by that kernel's layout (the deep class for an MLP chain: the flat
-    class only adds to it), any other by every tile staged once."""
+    by that kernel's layout in the deep class (the flat class only adds
+    to it; the three-GEMM kernel is flat only), any other by every tile
+    staged once."""
     if isinstance(hw, GpuSpec):
-        if is_attention(chain):
-            return attention_smem_bytes(tiles["m"], tiles["n"],
-                                        chain.loops["k"], chain.loops["h"],
-                                        chain.tensors["Q"].dtype_bytes)
-        if is_mlp(chain):
-            return mlp_chain_smem_bytes(chain, tiles, flat=False)
+        smem = kernel_smem_bytes(chain, tiles, flat=False)
+        if smem is not None:
+            return smem
     resident = 0
     for t in chain.tensors.values():
         resident += math.prod(tiles[d] for d in t.dims) * t.dtype_bytes

@@ -667,12 +667,11 @@ def price_plan(plan: Plan, cfg, *, hw: "TpuSpec | GpuSpec" = H100,
     hand-wired layout (fused attention + unfused MLP + standalone
     glue — what ``models/layers.py`` executes).
 
-    Fused chains are priced by the tuner (``api.fuse_attention_paged``
-    / ``api.fuse_mlp_chain``, both cache levels apply) and *demoted* to
-    their unfused alternative when the search's eq (2') time does not
-    beat it — so ``planner_seconds <= hand_seconds`` holds by
-    construction.  Only serving plans (paged attention) are priced: the
-    port has no cache-free attention kernel yet.
+    Fused chains are priced by the tuner (``api.fuse_attention`` /
+    ``api.fuse_attention_paged`` / ``api.fuse_mlp_chain``, both cache
+    levels apply) and *demoted* to their unfused alternative when the
+    search's eq (2') time does not beat it — so ``planner_seconds <=
+    hand_seconds`` holds by construction.
 
     Serving plans price phase-faithfully: the attention kv extent is
     ``plan.kv_len`` (the cache length) and a paged plan routes through
@@ -683,10 +682,6 @@ def price_plan(plan: Plan, cfg, *, hw: "TpuSpec | GpuSpec" = H100,
     from . import api
     from .perf_model import paged_gather_seconds
 
-    if plan.paged is None:
-        raise NotImplementedError(
-            "price_plan prices paged serving plans; cache-free attention "
-            "(fused_attention) is not ported yet")
     batch, seq = plan.batch, plan.seq
     kv = plan.kv_len if plan.kv_len is not None else seq
     nodes = {n.name: n for n in plan.layer.nodes}
@@ -695,12 +690,17 @@ def price_plan(plan: Plan, cfg, *, hw: "TpuSpec | GpuSpec" = H100,
                                                        plan.kv_len)}
 
     def tuned_seconds(kind: str, ch_ops: tuple[str, ...]) -> float:
-        if kind == "attention":
+        if kind == "attention" and plan.paged is not None:
             tk = api.fuse_attention_paged(
                 seq, kv, cfg.dh, cfg.dh, page_size=plan.paged,
                 heads=cfg.n_heads, batch=batch, dtype=cfg.dtype,
                 causal=True, window=cfg.window, hw=hw, mesh=mesh,
                 seed=seed)
+        elif kind == "attention":
+            tk = api.fuse_attention(
+                seq, kv, cfg.dh, cfg.dh, heads=cfg.n_heads, batch=batch,
+                dtype=cfg.dtype, causal=True, window=cfg.window, hw=hw,
+                mesh=mesh, seed=seed)
         else:
             tk = api.fuse_mlp_chain(
                 seq, cfg.d_ff, cfg.d_model, batch=batch, dtype=cfg.dtype,
@@ -715,7 +715,7 @@ def price_plan(plan: Plan, cfg, *, hw: "TpuSpec | GpuSpec" = H100,
         interior = "softmax" if kind == "attention" else "act_gate"
         t += _glue_standalone_seconds(nodes[interior], cfg, batch, seq,
                                       hw, plan.kv_len)
-        if kind == "attention":
+        if kind == "attention" and plan.paged is not None:
             # the unfused split still reads the cache through the page
             # tables — same gather surcharge the paged tuner prices
             _, attn_ch = next(

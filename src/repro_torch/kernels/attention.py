@@ -1,11 +1,14 @@
-"""Fused attention for the paged decode path: the CUDA kernel
-``fused_attention_partial`` (``csrc/attention_partial.cu``), its plain
-PyTorch version, and ``fused_attention_paged`` around them.
+"""Fused attention: the CUDA kernels ``fused_attention`` (cache-free
+forward, queries at the tail of the kv sequence) and
+``fused_attention_partial`` (one kv shard's raw online-softmax state),
+both in ``csrc/attention_partial.cu``, their plain PyTorch versions, and
+``fused_attention_paged`` around the partial kernel for paged decode.
 
 The attention chain  S = Q K^T ; P = softmax(S) ; O = P V  streams the
 kv axis with an online softmax, so the score tile never reaches device
 memory.  The block sizes (bq, bkv) come from MCFuser's analytical
-search for each concrete shape (``core.api.fuse_attention_paged``).
+search for each concrete shape (``core.api.fuse_attention`` /
+``fuse_attention_paged``).
 
 A CUDA tensor launches the kernel or raises; only a CPU tensor runs the
 plain version, which is the same recurrence over kv blocks of ``bkv``
@@ -41,9 +44,9 @@ def clamp_tiles(m: int, n: int, bq: int, bkv: int) -> tuple[int, int]:
     return bq, bkv
 
 
-def _check(q, k, v, kv_pos, q_pos, bq, bkv):
-    """Raise on anything the CUDA kernel does not take; returns the
-    clamped tiles and their shared-memory bytes."""
+def _check_qkv(q, k, v, *others):
+    """Raise on q/k/v the CUDA kernels do not take (``others``: further
+    tensors that must share their device)."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("q, k and v must be (B, H, L, D)")
     b, hq, m, d = q.shape
@@ -62,20 +65,120 @@ def _check(q, k, v, kv_pos, q_pos, bq, bkv):
     if not (q.is_contiguous() and k.is_contiguous()
             and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
-    devices = {t.device for t in (q, k, v, kv_pos, q_pos)}
+    devices = {t.device for t in (q, k, v, *others)}
     if len(devices) != 1:
         raise ValueError(f"tensors on several devices: {devices}")
+
+
+def _smem(bq: int, bkv: int, q, v) -> int:
+    """The tiles' shared-memory bytes; raises past the block's limit."""
+    smem = attention_smem_bytes(bq, bkv, q.shape[3], v.shape[3],
+                                q.element_size())
+    if smem > H100.smem_per_block:
+        raise ValueError(f"tiles bq={bq} bkv={bkv} need {smem} B of shared "
+                         f"memory per block > {H100.smem_per_block}")
+    return smem
+
+
+def _check(q, k, v, kv_pos, q_pos, bq, bkv):
+    """Raise on anything the partial kernel does not take; returns the
+    clamped tiles and their shared-memory bytes."""
+    _check_qkv(q, k, v, kv_pos, q_pos)
+    b, _, m, _ = q.shape
+    n = k.shape[2]
     if kv_pos.shape not in ((n,), (b, n)) or q_pos.shape not in ((m,),
                                                                  (b, m)):
         raise ValueError(f"kv_pos {tuple(kv_pos.shape)} / q_pos "
                          f"{tuple(q_pos.shape)} must be (N,)|(B,N) and "
                          f"(M,)|(B,M)")
     bq, bkv = clamp_tiles(m, n, bq, bkv)
-    smem = attention_smem_bytes(bq, bkv, d, dv, q.element_size())
-    if smem > H100.smem_per_block:
-        raise ValueError(f"tiles bq={bq} bkv={bkv} need {smem} B of shared "
-                         f"memory per block > {H100.smem_per_block}")
-    return bq, bkv, smem
+    return bq, bkv, _smem(bq, bkv, q, v)
+
+
+def _raise_launch_error(lib, name: str, err: int):
+    lib.attn_error_string.restype = ctypes.c_char_p
+    lib.attn_error_string.argtypes = [ctypes.c_int]
+    raise RuntimeError(f"{name} failed: "
+                       + lib.attn_error_string(err).decode())
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bq: int = 128, bkv: int = 128, causal: bool = False,
+                    window: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """O = softmax(Q K^T * scale + mask) V, fused, GQA-aware.
+
+    q: (B, Hq, M, D), k/v: (B, Hkv, N, D/Dv), float32 or bfloat16;
+    Hq % Hkv == 0.  Queries sit at the *tail* of the kv sequence: row r
+    has position N - M + r, kv slot j position j.  ``window > 0`` is
+    sliding-window attention.  Returns (B, Hq, M, Dv) in q's type.  The
+    tiles, clamped to the dims, must divide M and N, as the JAX kernel
+    asserts.  A row with no key (N < M under a causal mask) gets the
+    mean of v, as the JAX kernel gives it.
+
+    Forward only, like the JAX kernel: with grad mode on and an input
+    that requires grad it raises rather than return a tensor without a
+    backward.
+    """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("fused_attention has no backward: call it under "
+                           "torch.no_grad() or torch.inference_mode()")
+    _check_qkv(q, k, v)
+    m, d, n = q.shape[2], q.shape[3], k.shape[2]
+    bq, bkv = min(bq, m), min(bkv, n)
+    if bq < 1 or bkv < 1 or m % bq or n % bkv:
+        raise ValueError(f"tiles (bq, bkv) = ({bq}, {bkv}) must divide "
+                         f"(M, N) = ({m}, {n})")
+    smem = _smem(bq, bkv, q, v)
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    masked = causal or window > 0
+    dev = q.device
+    if dev.type == "cpu":
+        return fused_attention_plain(q, k, v, bkv, masked, window, scale)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    return _launch_final(q, k, v, bq, bkv, masked, window, scale, smem)
+
+
+def _launch_final(q, k, v, bq, bkv, masked, window, scale, smem):
+    from . import _build
+
+    lib = _build.load("attention_partial")
+    fn = lib.attn_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 11 + [ctypes.c_float,
+                                            ctypes.c_longlong,
+                                            ctypes.c_void_p])
+    b, hq, m, d = q.shape
+    hkv, n, dv = v.shape[1], v.shape[2], v.shape[3]
+    o = torch.empty((b, hq, m, dv), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+             v.data_ptr(), o.data_ptr(), b, hq, hkv, m, n, d, dv, bq, bkv,
+             int(masked), int(window), float(scale), int(smem), stream)
+    if err:
+        _raise_launch_error(lib, "attn_launch", err)
+    fused_attention.launches += 1
+    return o
+
+
+fused_attention.launches = 0
+
+
+def fused_attention_plain(q, k, v, bkv: int, masked: bool, window: int,
+                          scale: float) -> torch.Tensor:
+    """``fused_attention``'s plain PyTorch version: the online-softmax
+    recurrence over kv blocks of ``bkv`` with the query rows at the tail
+    (``_online_softmax``), then o / l with l == 0 -> 1, in q's type.
+    Rows with no key keep the mean of v, as kernel and JAX kernel do."""
+    m, n = q.shape[2], k.shape[2]
+    kv_pos = torch.arange(n, dtype=torch.int32, device=q.device)
+    q_pos = n - m + torch.arange(m, dtype=torch.int32, device=q.device)
+    o, _, l_run = _online_softmax(q, k, v, kv_pos, q_pos, bkv, masked,
+                                  window, scale)
+    return (o / torch.where(l_run == 0.0, 1.0, l_run)).to(q.dtype)
 
 
 def fused_attention_partial(q: torch.Tensor, k: torch.Tensor,
@@ -149,19 +252,18 @@ def _launch(q, k, v, kv_pos, q_pos, bq, bkv, masked, window, scale, smem):
              m if q_pos.ndim == 2 else 0, int(masked), int(window),
              float(scale), int(smem), stream)
     if err:
-        lib.attn_error_string.restype = ctypes.c_char_p
-        lib.attn_error_string.argtypes = [ctypes.c_int]
-        raise RuntimeError("attn_partial_launch failed: "
-                           + lib.attn_error_string(err).decode())
+        _raise_launch_error(lib, "attn_partial_launch", err)
     fused_attention_partial.launches += 1
     return o, m_run, l_run
 
 
-def fused_attention_partial_plain(q, k, v, kv_pos, q_pos, bkv: int,
-                                  masked: bool, window: int, scale: float):
-    """The kernel's plain PyTorch version: the same online-softmax
-    recurrence over kv blocks of ``bkv``, f32 scores and statistics, P
-    rounded to v's type before P V, dead rows zeroed at the end.
+def _online_softmax(q, k, v, kv_pos, q_pos, bkv: int, masked: bool,
+                    window: int, scale: float):
+    """The kernels' recurrence in torch ops: f32 scores over kv blocks
+    of ``bkv``, masked from the positions with NEG_INF, running max and
+    sum in f32, P rounded to v's type before P V.  Returns the raw
+    (o, m_run, l_run); rows with no key end with l = the keys' count
+    and o = their sum of v (exp(NEG_INF - NEG_INF) = 1 per key).
     ``kv_pos``/``q_pos`` are int32 (N,)|(B, N) and (M,)|(B, M)."""
     b, hq, m, _ = q.shape
     hkv, n, dv = v.shape[1], v.shape[2], v.shape[3]
@@ -192,6 +294,16 @@ def fused_attention_partial_plain(q, k, v, kv_pos, q_pos, bkv: int,
             "bhmn,bhnv->bhmv", p.to(v.dtype).float(),
             vv[:, :, j0:j0 + bkv].float())
         m_run = m_new
+    return o, m_run, l_run
+
+
+def fused_attention_partial_plain(q, k, v, kv_pos, q_pos, bkv: int,
+                                  masked: bool, window: int, scale: float):
+    """The partial kernel's plain PyTorch version: ``_online_softmax``
+    with dead rows zeroed at the end.  ``kv_pos``/``q_pos`` are int32
+    (N,)|(B, N) and (M,)|(B, M)."""
+    o, m_run, l_run = _online_softmax(q, k, v, kv_pos, q_pos, bkv, masked,
+                                      window, scale)
     dead = m_run <= NEG_INF * 0.5
     return (torch.where(dead, 0.0, o), m_run,
             torch.where(dead, 0.0, l_run))

@@ -1,15 +1,18 @@
-"""The fused (gated) MLP chain: the CUDA kernel ``fused_mlp_chain``
-(``csrc/mlp_chain.cu``) and its plain PyTorch version.
+"""The fused GEMM chains of the MLP and the paper's Table II: the CUDA
+kernels ``fused_mlp_chain`` (``csrc/mlp_chain.cu``) and
+``fused_gemm_chain`` (``csrc/gemm_chain.cu``) with their plain PyTorch
+versions.
 
-    E = (act(A Wg) * (A Wu)) Wd        (gated, ``wg`` given)
-    E = act(A Wu) Wd                   (ungated)
+    E = (act(A Wg) * (A Wu)) Wd        fused_mlp_chain, gated
+    E = act(A Wu) Wd                   fused_mlp_chain, ungated
+    E = (A B) D                        fused_gemm_chain
 
-computed in one kernel, so the d_ff-wide hidden block never reaches
+each computed in one kernel, so the intermediate block never reaches
 device memory.  The schedule class and tiles (style, bm, bn, bk, bh)
-come from MCFuser's analytical search (``core.api.fuse_mlp_chain``):
-``deep`` launches one block per (m tile, bh-wide E tile) and recomputes
-the up-projection for each; ``flat`` launches one block per m tile and
-keeps the whole E row on chip.
+come from MCFuser's analytical search (``core.api.fuse_mlp_chain`` /
+``fuse_gemm_chain``): ``deep`` launches one block per (m tile, bh-wide
+E tile) and recomputes the first product for each; ``flat`` launches
+one block per m tile and keeps the whole E row on chip.
 
 A CUDA tensor launches the kernel or raises; only a CPU tensor runs the
 plain version.
@@ -22,7 +25,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..core.perf_model import H100, mlp_smem_bytes
+from ..core.perf_model import H100, gemm_chain_smem_bytes, mlp_smem_bytes
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ACT_CODES = {"silu": 0, "gelu": 1, "relu": 2}
@@ -165,3 +168,126 @@ def fused_mlp_chain_plain(a: torch.Tensor, wu: torch.Tensor,
                        wd[:, n0:n0 + bn].float())
     return e.to(a.dtype)
 
+
+def _check_chain(tensors, bm: int, bn: int, bk: int) -> tuple:
+    """Raise on a gemm chain the CUDA kernels do not take: ``tensors``
+    (A, B, D[, F]) must chain as (B, M, K), (B, K, N), (B, N, H)[,
+    (B, H, G)], share float32 or bfloat16, be contiguous and on one
+    device.  Returns the (bm, bn, bk) tiles clamped to the dims, which
+    must then divide them, as the JAX kernels assert."""
+    if any(t.ndim != 3 for t in tensors):
+        raise ValueError("the chain's operands must be 3-D (batch first)")
+    a = tensors[0]
+    bsz, m, k = a.shape
+    want, rows = [], k
+    for t in tensors[1:]:
+        want.append((bsz, rows, t.shape[2]))
+        rows = t.shape[2]
+    got = [tuple(t.shape) for t in tensors[1:]]
+    if got != want:
+        raise ValueError(f"operands {[tuple(a.shape)] + got} do not chain")
+    if a.dtype not in _DTYPE_CODES or any(t.dtype != a.dtype
+                                          for t in tensors):
+        raise TypeError(f"the operands must share float32 or bfloat16, "
+                        f"got {[t.dtype for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the operands must be contiguous")
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {devices}")
+    n = tensors[1].shape[2]
+    bm, bn, bk = min(bm, m), min(bn, n), min(bk, k)
+    if min(bm, bn, bk) < 1 or m % bm or n % bn or k % bk:
+        raise ValueError(f"tiles (bm, bn, bk) = {(bm, bn, bk)} must divide "
+                         f"(M, N, K) = {(m, n, k)}")
+    return bm, bn, bk
+
+
+def _raise_chain_error(lib, name: str, err: int):
+    lib.chain_error_string.restype = ctypes.c_char_p
+    lib.chain_error_string.argtypes = [ctypes.c_int]
+    raise RuntimeError(f"{name} failed: "
+                       + lib.chain_error_string(err).decode())
+
+
+def check_gemm_chain(a, b, d, bm: int, bn: int, bk: int, bh: int,
+                     style: str) -> tuple:
+    """Raise on anything ``fused_gemm_chain``'s kernel does not take;
+    returns the clamped tiles (bm, bn, bk, E tile) and their
+    shared-memory bytes.  Reads only shapes, types and devices."""
+    if style not in STYLES:
+        raise ValueError(f"unknown style {style!r}; expected {STYLES}")
+    bm, bn, bk = _check_chain((a, b, d), bm, bn, bk)
+    h = d.shape[2]
+    bh = min(bh, h)
+    if bh < 1 or h % bh:
+        raise ValueError(f"tile bh={bh} must divide H={h}")
+    be = h if style == "flat" else bh
+    smem = gemm_chain_smem_bytes(bm, bn, bk, be, a.element_size())
+    if smem > H100.smem_per_block:
+        raise ValueError(f"tiles (bm, bn, bk, E tile) = {(bm, bn, bk, be)} "
+                         f"({style}) need {smem} B of shared memory per "
+                         f"block > {H100.smem_per_block}")
+    return (bm, bn, bk, be), smem
+
+
+def fused_gemm_chain(a: torch.Tensor, b: torch.Tensor, d: torch.Tensor,
+                     bm: int = 128, bn: int = 128, bk: int = 128,
+                     bh: int = 128, style: str = "flat") -> torch.Tensor:
+    """E = (A B) D fused.  a: (B, M, K), b: (B, K, N), d: (B, N, H), one
+    type, float32 or bfloat16; returns E (B, M, H) in a's type.
+
+    ``style="flat"`` keeps the whole (bm, H) E row on chip (schedule
+    class ``n(k,h)``; ``bh`` is only checked); ``"deep"`` launches one
+    block per (m tile, bh-wide E tile) and recomputes C for each (class
+    ``nk``).  Tiles are clamped to the dims and must then divide them.
+    C accumulates in f32 over k and is rounded to d's type before C D;
+    E accumulates in f32 over the n blocks."""
+    (bm, bn, bk, be), smem = check_gemm_chain(a, b, d, bm, bn, bk, bh,
+                                              style)
+    dev = a.device
+    if dev.type == "cpu":
+        return fused_gemm_chain_plain(a, b, d, bn)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    return _launch_chain(a, b, d, bm, bn, bk, be, smem)
+
+
+fused_gemm_chain.launches = 0
+
+
+def _launch_chain(a, b, d, bm, bn, bk, be, smem):
+    from . import _build
+
+    lib = _build.load("gemm_chain")
+    fn = lib.gemm_chain_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 9 + [ctypes.c_longlong,
+                                           ctypes.c_void_p])
+    bsz, m, k = a.shape
+    n, h = b.shape[2], d.shape[2]
+    e = torch.empty((bsz, m, h), dtype=a.dtype, device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    err = fn(_DTYPE_CODES[a.dtype], a.data_ptr(), b.data_ptr(),
+             d.data_ptr(), e.data_ptr(), bsz, m, n, k, h, bm, bn, bk, be,
+             int(smem), stream)
+    if err:
+        _raise_chain_error(lib, "gemm_chain_launch", err)
+    fused_gemm_chain.launches += 1
+    return e
+
+
+def fused_gemm_chain_plain(a: torch.Tensor, b: torch.Tensor,
+                           d: torch.Tensor, bn: int) -> torch.Tensor:
+    """``fused_gemm_chain``'s plain PyTorch version, with its rounding
+    points: C per n block of ``bn`` in f32 (one product over the whole
+    k, not per k tile), rounded to d's type, E summed in f32 over the n
+    blocks and cast once to a's type."""
+    af = a.float()
+    e = torch.zeros(a.shape[0], a.shape[1], d.shape[2],
+                    dtype=torch.float32, device=a.device)
+    for n0 in range(0, b.shape[2], bn):
+        c = torch.bmm(af, b[:, :, n0:n0 + bn].float())
+        e += torch.bmm(c.to(d.dtype).float(), d[:, n0:n0 + bn].float())
+    return e.to(a.dtype)

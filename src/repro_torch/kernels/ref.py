@@ -7,6 +7,23 @@ from typing import Optional
 import torch
 
 
+def gemm_chain_ref(a: torch.Tensor, b: torch.Tensor,
+                   d: torch.Tensor) -> torch.Tensor:
+    """E = (A @ B) @ D accumulating in f32, C rounded to a's type before
+    the second product.  a: (..., M, K), b: (..., K, N), d: (..., N, H)
+    -> (..., M, H) in a's type."""
+    c = (a.float() @ b.float()).to(a.dtype)
+    return (c.float() @ d.float()).to(a.dtype)
+
+
+def gemm_chain3_ref(a: torch.Tensor, b: torch.Tensor, d: torch.Tensor,
+                    f: torch.Tensor) -> torch.Tensor:
+    """G = ((A @ B) @ D) @ F: ``gemm_chain_ref`` (E in a's type), then
+    E @ F accumulated in f32.  f: (..., H, G) -> (..., M, G)."""
+    e = gemm_chain_ref(a, b, d)
+    return (e.float() @ f.float()).to(a.dtype)
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = False, window: int = 0,
                   scale: Optional[float] = None) -> torch.Tensor:

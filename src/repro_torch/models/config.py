@@ -20,6 +20,7 @@ class ModelConfig:
     head_dim: Optional[int] = None
     qk_norm: bool = False
     window: int = 0             # sliding-window attention (0 = full)
+    use_fused_attention: bool = True  # cache-free twin: stream kv blocks
     act: str = "swiglu"         # swiglu | geglu | gelu
     norm: str = "rmsnorm"       # rmsnorm | layernorm
     use_rope: bool = True       # False: learned absolute positions

@@ -1,10 +1,17 @@
 """Dense decoder layers as plain functions on tensors: norms, RoPE,
-GQA attention over a paged KV cache, the MLP, and the planner-driven
-block (``run_planned_layer``).
+cache-free GQA attention (the forward), GQA attention over a paged KV
+cache, the MLP, and the planner-driven block (``run_planned_layer``).
 
 Parameters are dicts of tensors with the JAX package's names and
 layouts (``wq`` is (d_model, n_heads * dh), and so on), so weights carry
 across unchanged (``models.convert``).
+
+Cache-free attention has three bodies with one semantics: the fused
+CUDA kernel (``kernels.attention.fused_attention`` through
+``kernels.ops.attention``) under ``kernel_ops`` for a sequence longer
+than one token, and otherwise the model's own twins,
+``streaming_attention`` (online softmax over kv blocks) and
+``naive_attention`` (the whole score matrix).
 
 Paged attention has two bodies with one semantics: the fused CUDA
 kernel (``kernels.attention.fused_attention_paged``) for decode steps on
@@ -103,6 +110,115 @@ def mlp_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return f(x @ p["w_up"]) @ p["w_down"]
 
 
+def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor) -> tuple:
+    """The start of every attention block: the q/k/v projections of x
+    (B, S, D), qk-norm, and rope at ``positions`` ((S,) or (B, S)).
+    Returns q (B, S, Hq, dh) and k, v (B, S, Hkv, dh)."""
+    b, s, _ = x.shape
+    dh = cfg.dh
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, dh)
+    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, dh)
+    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, dh)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    return (rope(q, positions, cfg.rope_theta),
+            rope(k, positions, cfg.rope_theta), v)
+
+
+def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool, window: int, scale: float,
+                        bkv: int) -> torch.Tensor:
+    """softmax(Q K^T) V over kv blocks of ``bkv`` with an online softmax,
+    never materializing the (M, N) scores.  q: (B, H, M, D), k/v:
+    (B, H, N, D) (kv heads already repeated); q rows and kv slots at
+    positions ``arange``.  P stays f32 through P V, as in the JAX
+    twin."""
+    b, h, m, _ = q.shape
+    n = k.shape[2]
+    bkv = min(bkv, n)
+    while n % bkv:          # a sequence the block does not divide
+        bkv -= 1
+    qf = q.float() * scale
+    rows = torch.arange(m, device=q.device)[:, None]
+    m_run = torch.full((b, h, m, 1), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+    l_run = torch.zeros((b, h, m, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, m, v.shape[-1]), dtype=torch.float32,
+                      device=q.device)
+    for j0 in range(0, n, bkv):
+        s = torch.einsum("bhmd,bhnd->bhmn", qf,
+                         k[:, :, j0:j0 + bkv].float())
+        if causal or window > 0:
+            cols = j0 + torch.arange(bkv, device=q.device)[None, :]
+            mask = cols <= rows
+            if window > 0:
+                mask &= cols > rows - window
+            s = s.masked_fill(~mask, NEG_INF)
+        m_new = torch.maximum(m_run, s.amax(dim=-1, keepdim=True))
+        pexp = torch.exp(s - m_new)
+        corr = torch.exp(m_run - m_new)
+        l_run = l_run * corr + pexp.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bhmn,bhnv->bhmv", pexp,
+                                        v[:, :, j0:j0 + bkv].float())
+        m_run = m_new
+    l_safe = torch.where(l_run == 0.0, 1.0, l_run)
+    return (acc / l_safe).to(q.dtype)
+
+
+def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, window: int,
+                    scale: float) -> torch.Tensor:
+    """Unfused: the whole (M, N) score matrix, an f32 softmax, P rounded
+    to v's type before P V — the paper's baseline.  Shapes and positions
+    as ``streaming_attention``."""
+    m, n = q.shape[2], k.shape[2]
+    s = torch.einsum("bhmd,bhnd->bhmn", q.float(), k.float()) * scale
+    if causal or window > 0:
+        rows = torch.arange(m, device=q.device)[:, None]
+        cols = torch.arange(n, device=q.device)[None, :]
+        mask = cols <= rows
+        if window > 0:
+            mask &= cols > rows - window
+        s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhmn,bhnv->bhmv", p.to(v.dtype), v).to(q.dtype)
+
+
+def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                    positions: torch.Tensor, bkv: int = 512,
+                    kernel_ops: bool = False) -> torch.Tensor:
+    """Cache-free causal GQA attention (the forward).  x: (B, S, D);
+    positions: (S,) absolute positions of x's tokens.
+
+    ``kernel_ops`` routes a sequence of more than one token through
+    ``kernels.ops.attention`` — the tuned CUDA kernel, GQA inside the
+    kernel, no head repeat; otherwise the kv heads are repeated and the
+    model's twin runs: ``streaming_attention`` past two kv blocks
+    (``cfg.use_fused_attention``), ``naive_attention`` below."""
+    b, s, _ = x.shape
+    dh = cfg.dh
+    win = cfg.window
+    q, k, v = (t.transpose(1, 2) for t in _project_qkv(p, x, cfg, positions))
+    scale = 1.0 / math.sqrt(dh)
+    if kernel_ops and s > 1:
+        from ..kernels import ops
+        o = ops.attention(q, k, v, causal=True, window=win, scale=scale)
+    else:
+        group = cfg.n_heads // cfg.n_kv_heads
+        kk = k.repeat_interleave(group, dim=1)
+        vv = v.repeat_interleave(group, dim=1)
+        if cfg.use_fused_attention and s > 2 * bkv:
+            o = streaming_attention(q, kk, vv, causal=True, window=win,
+                                    scale=scale, bkv=bkv)
+        else:
+            o = naive_attention(q, kk, vv, causal=True, window=win,
+                                scale=scale)
+    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * dh)
+    return o @ p["wo"]
+
+
 def _paged_positional_attention(q, k, v, rows_pos, kv_pos, window: int,
                                 scale: float) -> torch.Tensor:
     """Attention with PER-REQUEST position vectors — the paged gather
@@ -139,14 +255,7 @@ def paged_attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     b, s, _ = x.shape
     dh = cfg.dh
     ps = cache["k_pages"].shape[2]
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, dh)
-    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, dh)
-    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, dh)
-    if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    q, k, v = _project_qkv(p, x, cfg, positions)
 
     phys, off = KP.slot_coords(page_table, positions, ps)
     KP.scatter_pages(cache["k_pages"], phys, off, k)

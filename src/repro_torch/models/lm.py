@@ -1,12 +1,15 @@
-"""Dense decoder-only LM (qwen3) for paged serving, hand-wired or run
-from the fusion planner's plans (``Runtime(planner=True)``).
+"""Dense decoder-only LM (qwen3): the cache-free forward and loss, and
+paged serving, hand-wired or run from the fusion planner's plans
+(``Runtime(planner=True)``, paged serving only).
 
 The JAX package's ``LM`` scans a stack of stacked layer parameters;
 here the layers are a Python list walked by a loop, parameters are
 dicts of tensors created directly on the model's device, and execution
-is eager.  The API the serving engine drives:
+is eager.  The API:
 
     init_params(seed)                      -> params on ``device``
+    forward(params, tokens)                -> logits (B, S, V)
+    loss(params, batch)                    -> scalar mean cross-entropy
     init_paged_cache(n_pages, page_size)   -> per-layer page pools
     prefill_paged(params, tokens, cache, page_table, length)
     decode_step_paged(params, cache, tokens, positions, page_table)
@@ -26,19 +29,53 @@ from .config import ModelConfig
 class Runtime:
     """Execution context threaded through model code."""
 
-    kernel_ops: bool = False  # decode attention through the fused CUDA
-    # kernel (kernels.attention) when the tensors are on the card; the
-    # gather twin otherwise.
+    bkv: int = 512          # kv block of the cache-free streaming twin
+    kernel_ops: bool = False  # attention through the fused CUDA kernels
+    # when the tensors are on the card — the cache-free forward's
+    # (kernels.attention.fused_attention, tuned per shape) and paged
+    # decode's (fused_attention_paged); the model's twins otherwise.
     paged_block: Optional[tuple] = None  # (bq, bkv) tiles the paged
     # regime search picked — serving.engine threads them so the kernel
     # executes the schedule the tuner priced.
-    planner: bool = False   # run every block from core.planner's plan
-    # for its phase (prefill/decode) — chains carved and glue stitched
-    # from the config alone under the H100 descriptor; with kernel_ops,
-    # each fused MLP chain runs as the fused_mlp_chain CUDA kernel.
+    planner: bool = False   # run every paged-serving block from
+    # core.planner's plan for its phase (prefill/decode) — chains carved
+    # and glue stitched from the config alone under the H100 descriptor;
+    # with kernel_ops, each fused MLP chain runs as the fused_mlp_chain
+    # CUDA kernel.  The cache-free forward has no planned path yet.
     stitch: bool = True     # planner mode only: stitch memory-bound
     # glue into carved chains as prologue/epilogue; False is
     # bit-identical to the hand-wired layer.
+
+
+def _chunk_len(s: int, target: int = 512) -> int:
+    """Largest divisor of s that is <= target."""
+    best = 1
+    for c in range(1, min(s, target) + 1):
+        if s % c == 0:
+            best = c
+    return best
+
+
+def chunked_ce(hidden: torch.Tensor, unembed_w: torch.Tensor,
+               labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy over sequence chunks of at most 512, so the
+    (B, S, V) logits never exist at once.  hidden: (B, S, D) after the
+    final norm; unembed_w: (D, V); labels: (B, S), -100 masked.  Each
+    chunk's logits are taken in the model's type and reduced in f32
+    (logsumexp minus the target logit)."""
+    b, s, _ = hidden.shape
+    c = _chunk_len(s)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s, c):
+        lf = (hidden[:, c0:c0 + c] @ unembed_w).float()
+        lch = labels[:, c0:c0 + c]
+        lse = torch.logsumexp(lf, dim=-1)
+        tgt = torch.gather(lf, -1, lch.clamp(min=0)[..., None])[..., 0]
+        mask = (lch >= 0).float()
+        tot = tot + ((lse - tgt) * mask).sum()
+        cnt = cnt + mask.sum()
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 class LM:
@@ -75,6 +112,45 @@ class LM:
             "lm_head": L.dense_init(gen, (cfg.d_model, cfg.vocab), dt, dev),
             "layers": layers,
         }
+
+    # ------------------------------------------------------------------
+    def _apply_block(self, p: dict, x: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+        """One cache-free block (the forward)."""
+        cfg, rt = self.cfg, self.rt
+        if rt.planner:
+            raise NotImplementedError(
+                "the planned cache-free forward is not ported; use "
+                "Runtime(planner=False)")
+        h = L.rmsnorm(x, p["ln1"]["w"], cfg.norm_eps)
+        x = x + L.attention_block(p["mix"], h, cfg, positions=positions,
+                                  bkv=rt.bkv, kernel_ops=rt.kernel_ops)
+        h2 = L.rmsnorm(x, p["ln2"]["w"], cfg.norm_eps)
+        return x + L.mlp_block(p["ff"], h2, cfg)
+
+    def _hidden(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        """The cache-free stack's output before the final norm."""
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=tokens.device)
+        x = self._embed(params, tokens)
+        for p in params["layers"]:
+            x = self._apply_block(p, x, positions)
+        return x
+
+    def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        return params["embed"][tokens]
+
+    def forward(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        """The cache-free forward: tokens (B, S) -> logits (B, S, V)."""
+        return self._unembed(params, self._hidden(params, tokens))
+
+    def loss(self, params: dict, batch: dict) -> torch.Tensor:
+        """batch: {"tokens", "labels"}, labels aligned with tokens (-100 =
+        masked).  Mean cross-entropy by ``chunked_ce``: no (B, S, V)
+        logits."""
+        x = L.rmsnorm(self._hidden(params, batch["tokens"]),
+                      params["final_norm"]["w"], self.cfg.norm_eps)
+        return chunked_ce(x, params["lm_head"], batch["labels"])
 
     # ------------------------------------------------------------------
     def _apply_layer(self, p: dict, x: torch.Tensor,
@@ -141,7 +217,7 @@ class LM:
         b, s = tokens.shape
         ar = torch.arange(s, dtype=torch.int32, device=tokens.device)
         positions = torch.where(ar < length, ar, -1)[None, :].expand(b, s)
-        x = params["embed"][tokens]
+        x = self._embed(params, tokens)
         x = self._run_layers(params, x, positions, cache, page_table)
         logits = self._unembed(params, x[:, max(length - 1, 0)][:, None])
         return logits[:, 0], cache
@@ -158,6 +234,6 @@ class LM:
         slot: kv goes to the scratch page, logits are ignored);
         page_table: (B, max_pages).  Returns (logits (B, V), cache)."""
         pos2 = positions.to(torch.int32)[:, None]
-        x = params["embed"][tokens[:, None]]
+        x = self._embed(params, tokens[:, None])
         x = self._run_layers(params, x, pos2, cache, page_table)
         return self._unembed(params, x)[:, 0], cache

@@ -1,10 +1,13 @@
 """The port's attention kernel module against the JAX reference.
 
-On the CPU the port's ``fused_attention_partial`` runs its plain
-version, held here to the JAX kernel (Pallas interpret mode) within
-``TOL`` on ragged lengths, windows, dead rows and chunked merges.  The
-tests marked ``sm90`` launch the CUDA kernel and hold it to the plain
-version on the card; they skip everywhere else.
+On the CPU the port's ``fused_attention_partial`` and ``fused_attention``
+run their plain versions, held here to the JAX kernels (Pallas interpret
+mode) within ``TOL`` on ragged lengths, windows, dead rows (the merge
+identity for the partial kernel, the mean of v for the normalised one),
+tail offsets and chunked merges; ``api.fuse_attention`` picks the
+reference's tiles on the paper's Table III under ``V5E``.  The tests
+marked ``sm90`` launch the CUDA kernels and hold them to the plain
+versions on the card; they skip everywhere else.
 """
 import numpy as np
 import pytest
@@ -167,7 +170,214 @@ def test_paged_full_context_matches_oracle():
 
 
 # ---------------------------------------------------------------------------
-# the wrapper's guards
+# fused_attention (normalised, queries at the tail) vs the JAX kernel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,hq,hkv,m,n,d,bq,bkv,causal,window", [
+    (1, 4, 4, 64, 64, 16, 32, 32, False, 0),     # MHA, no mask
+    (2, 4, 2, 64, 64, 16, 32, 16, True, 0),      # GQA, causal
+    (1, 4, 1, 64, 64, 32, 16, 32, True, 24),     # window across tiles
+    (1, 2, 2, 32, 96, 16, 16, 32, True, 0),      # M < N: tail offset
+    (1, 2, 1, 64, 64, 24, 64, 64, False, 0),     # D not a power of two
+    (1, 2, 2, 64, 64, 16, 16, 64, True, 0),      # bq / bkv sweep
+    (1, 2, 2, 64, 64, 16, 64, 16, True, 0),
+])
+def test_attention_plain_matches_reference(jref, b, hq, hkv, m, n, d, bq,
+                                           bkv, causal, window):
+    jnp, ref = jref
+    rng = np.random.RandomState(m + n + bq)
+    q = rng.randn(b, hq, m, d).astype(np.float32)
+    k = rng.randn(b, hkv, n, d).astype(np.float32)
+    v = rng.randn(b, hkv, n, d).astype(np.float32)
+    got = A.fused_attention(_t(q), _t(k), _t(v), bq=bq, bkv=bkv,
+                            causal=causal, window=window)
+    want = ref.fused_attention(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), bq=bq, bkv=bkv,
+                               causal=causal, window=window, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("window", [0, 5])
+def test_attention_rows_without_keys_get_the_mean_of_v(jref, window):
+    """M > N under a causal mask: rows 0 .. M-N-1 have no key at all.
+    The JAX kernel accumulates exp(NEG_INF - NEG_INF) = 1 for every key,
+    so those rows come out as the mean of v (the partial kernel zeroes
+    them instead); the port's normalised kernel must do the same."""
+    jnp, ref = jref
+    rng = np.random.RandomState(7)
+    b, hq, hkv, m, n, d = 1, 4, 2, 48, 16, 16
+    q = rng.randn(b, hq, m, d).astype(np.float32)
+    k = rng.randn(b, hkv, n, d).astype(np.float32)
+    v = rng.randn(b, hkv, n, d).astype(np.float32)
+    got = A.fused_attention(_t(q), _t(k), _t(v), bq=16, bkv=8, causal=True,
+                            window=window).numpy()
+    want = ref.fused_attention(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), bq=16, bkv=8, causal=True,
+                               window=window, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    mean_v = np.repeat(v.mean(axis=2), hq // hkv, axis=1)    # (B, Hq, D)
+    dead = m - n
+    np.testing.assert_allclose(got[:, :, :dead],
+                               np.broadcast_to(mean_v[:, :, None],
+                                               (b, hq, dead, d)), **TOL)
+    assert np.abs(got[:, :, dead:] - mean_v[:, :, None]).max() > 0.1
+
+
+def test_attention_bf16_matches_reference(jref):
+    jnp, ref = jref
+    rng = np.random.RandomState(3)
+    q, k, v = (torch.from_numpy(rng.randn(1, 2, 64, 16).astype(np.float32)
+                                ).bfloat16() for _ in range(3))
+    got = A.fused_attention(q, k, v, bq=32, bkv=16, causal=True)
+    want = ref.fused_attention(
+        *(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+          for t in (q, k, v)), bq=32, bkv=16, causal=True, interpret=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **TOL_BF16)
+
+
+def test_attention_equals_the_oracle_and_the_model_twins():
+    """The three cache-free bodies of one semantics: the kernel's plain
+    version, the streaming twin and the naive twin (kv heads repeated)
+    against the unfused oracle, causal with a window."""
+    from repro_torch.kernels.ref import gqa_attention_ref
+    from repro_torch.models.layers import naive_attention, streaming_attention
+    rng = np.random.RandomState(9)
+    q = _t(rng.randn(2, 4, 32, 16).astype(np.float32))
+    k = _t(rng.randn(2, 2, 32, 16).astype(np.float32))
+    v = _t(rng.randn(2, 2, 32, 16).astype(np.float32))
+    want = gqa_attention_ref(q, k, v, causal=True, window=9)
+    torch.testing.assert_close(
+        A.fused_attention(q, k, v, bq=8, bkv=8, causal=True, window=9),
+        want, **TOL)
+    kk, vv = k.repeat_interleave(2, dim=1), v.repeat_interleave(2, dim=1)
+    kw = dict(causal=True, window=9, scale=0.25)
+    torch.testing.assert_close(streaming_attention(q, kk, vv, bkv=8, **kw),
+                               want, **TOL)
+    torch.testing.assert_close(naive_attention(q, kk, vv, **kw), want,
+                               **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the tuner's attention picks
+# ---------------------------------------------------------------------------
+
+# Table III (benchmarks/workloads.py): (heads, M, N, K, H)
+TABLE_III = {
+    "S1": (8, 512, 512, 64, 64), "S2": (12, 512, 512, 64, 64),
+    "S3": (16, 512, 512, 64, 64), "S4": (12, 256, 256, 64, 64),
+    "S5": (16, 256, 256, 64, 64), "S6": (16, 256, 256, 80, 80),
+    "S7": (1, 512, 256, 64, 64), "S8": (1, 768, 384, 64, 64),
+    "S9": (1, 1024, 512, 64, 64),
+}
+
+
+@pytest.fixture
+def port_cache(tmp_path, monkeypatch):
+    from repro_torch.core import api
+    monkeypatch.setenv("REPRO_TORCH_CACHE_DIR", str(tmp_path))
+    monkeypatch.setenv("REPRO_CACHE_DIR", str(tmp_path / "reference"))
+    api.clear_cache()
+    yield tmp_path
+    api.clear_cache()
+
+
+@pytest.mark.parametrize("name", sorted(TABLE_III))
+def test_fuse_attention_matches_reference_under_v5e(port_cache, name):
+    pytest.importorskip("jax")
+    from repro.core import api as ref_api
+    from repro_torch.core import api
+    from repro_torch.core.perf_model import V5E
+    hq, m, n, k, h = TABLE_III[name]
+    ref = ref_api.fuse_attention(m, n, k, h, heads=hq)
+    got = api.fuse_attention(m, n, k, h, heads=hq, hw=V5E)
+    assert got.report.best.key() == ref.report.best.key()
+    assert got.params.as_kwargs() == ref.params.as_kwargs()
+    assert got.report.best_time == ref.report.best_time
+
+
+def test_h100_attention_picks_are_launches_the_kernel_takes(port_cache):
+    """Table III (f32) and the qwen3-8b forward's attention (bf16,
+    causal) under H100: the tuner's tiles divide the dims and fit the
+    kernel's shared memory; ``ops.attention`` runs them."""
+    from repro_torch.core import api
+    shapes = [(1, hq, m, n, k, h, "float32", False)
+              for hq, m, n, k, h in TABLE_III.values()]
+    shapes.append((2, 32, 2048, 2048, 128, 128, "bfloat16", True))
+    for b, hq, m, n, k, h, dtype, causal in shapes:
+        p = api.fuse_attention(m, n, k, h, heads=hq, batch=b, dtype=dtype,
+                               causal=causal).params
+        assert m % p.bq == 0 and n % p.bkv == 0
+        assert attention_smem_bytes(p.bq, p.bkv, k, h, 4 if dtype ==
+                                    "float32" else 2) <= H100.smem_per_block
+
+
+def test_ops_attention_runs_the_tuned_tiles(port_cache, monkeypatch):
+    from repro_torch.core import api
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import gqa_attention_ref
+    seen = []
+    plain = A.fused_attention_plain
+    monkeypatch.setattr(A, "fused_attention_plain",
+                        lambda *a: seen.append(a[3]) or plain(*a))
+    rng = np.random.RandomState(2)
+    q = _t(rng.randn(1, 4, 16, 64).astype(np.float32)).transpose(2, 3)
+    assert not q.is_contiguous()
+    k = _t(rng.randn(1, 2, 64, 16).astype(np.float32))
+    got = ops.attention(q, k, k, causal=True)
+    torch.testing.assert_close(got, gqa_attention_ref(q, k, k, causal=True),
+                               **TOL)
+    tk = api.fuse_attention(64, 64, 16, 16, heads=4, batch=1, causal=True)
+    assert seen == [tk.params.bkv]
+
+
+# ---------------------------------------------------------------------------
+# the wrappers' guards
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tiles", [(24, 16), (16, 24)])
+def test_attention_wrapper_raises_on_tiles_that_do_not_divide(tiles):
+    q = torch.zeros(1, 2, 64, 16)
+    with pytest.raises(ValueError, match="divide"):
+        A.fused_attention(q, q, q, bq=tiles[0], bkv=tiles[1])
+
+
+def test_attention_wrapper_raises_over_shared_memory_bound():
+    q = torch.zeros(1, 1, 1024, 128)
+    assert attention_smem_bytes(512, 512, 128, 128, 4) > H100.smem_per_block
+    with pytest.raises(ValueError, match="shared"):
+        A.fused_attention(q, q, q, bq=512, bkv=512)
+
+
+def test_attention_has_no_backward():
+    """Forward only, like the JAX kernel: an input that requires grad
+    under grad mode raises; under no_grad the same call runs."""
+    q = torch.zeros(1, 2, 16, 8, requires_grad=True)
+    k = torch.zeros(1, 1, 16, 8)
+    with pytest.raises(RuntimeError, match="no backward"):
+        A.fused_attention(q, k, k, bq=16, bkv=16)
+    with torch.no_grad():
+        A.fused_attention(q, k, k, bq=16, bkv=16)
+
+
+def test_attention_non_cpu_tensor_never_takes_the_plain_path():
+    q = torch.zeros(1, 2, 16, 8, device="meta")
+    k = torch.zeros(1, 1, 16, 8, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        A.fused_attention(q, k, k, bq=16, bkv=16)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the launch would run")
+    qc, kc = torch.zeros(1, 2, 16, 8), torch.zeros(1, 1, 16, 8)
+    before = A.fused_attention.launches
+    with pytest.raises(RuntimeError):
+        A._launch_final(qc, kc, kc, 16, 16, True, 0, 0.5,
+                        attention_smem_bytes(16, 16, 8, 8, 4))
+    assert A.fused_attention.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the partial wrapper's guards
 # ---------------------------------------------------------------------------
 
 def test_wrapper_raises_over_shared_memory_bound():
@@ -266,3 +476,35 @@ def test_kernel_matches_plain_on_card(sm90, dtype, m, bq, n, bkv, window,
     tol = TOL if dtype == "float32" else TOL_BF16
     for w, x in zip(want, got):
         torch.testing.assert_close(x, w, **tol)
+
+
+@pytest.mark.sm90
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,m,n,d,bq,bkv,causal,window", [
+    (2, 32, 8, 2048, 2048, 128, 256, 16, True, 0),  # the forward's shape
+    (1, 12, 12, 512, 512, 64, 128, 128, False, 0),  # S2 (Bert-Base)
+    (1, 16, 16, 256, 256, 80, 16, 256, False, 0),   # S6 (ViT-Huge)
+    (1, 8, 2, 256, 256, 64, 32, 64, True, 100),     # window: skipped tiles
+    (1, 4, 2, 128, 384, 64, 64, 32, True, 0),       # M < N: tail offset
+    (1, 4, 2, 192, 64, 64, 64, 32, True, 0),        # M > N: mean of v rows
+])
+def test_fused_attention_kernel_matches_plain_on_card(
+        sm90, dtype, b, hq, hkv, m, n, d, bq, bkv, causal, window):
+    dt = getattr(torch, dtype)
+    if dt == torch.float32 and attention_smem_bytes(
+            bq, bkv, d, d, 4) > H100.smem_per_block:
+        bq //= 2                       # the f32 tiles of the same shape
+    g = torch.Generator(device="cuda").manual_seed(m + n + d)
+    q = torch.randn(b, hq, m, d, generator=g, device=sm90).to(dt)
+    k = torch.randn(b, hkv, n, d, generator=g, device=sm90).to(dt)
+    v = torch.randn(b, hkv, n, d, generator=g, device=sm90).to(dt)
+    before = A.fused_attention.launches
+    with torch.no_grad():
+        got = A.fused_attention(q, k, v, bq=bq, bkv=bkv, causal=causal,
+                                window=window)
+    torch.cuda.synchronize()
+    assert A.fused_attention.launches == before + 1
+    want = A.fused_attention_plain(q, k, v, bkv, causal or window > 0,
+                                   window, d ** -0.5)
+    torch.testing.assert_close(got, want,
+                               **(TOL if dtype == "float32" else TOL_BF16))

@@ -175,8 +175,32 @@ def test_h100_price_plan_never_above_hand_wired():
     # the tuner's own model prices the fused MLP's best schedule far
     # above the unfused GEMMs at decode (few blocks re-read Wg and Wu)
     assert mlp["demoted"] and mlp["fused_seconds"] > mlp["unfused_seconds"]
-    with pytest.raises(NotImplementedError):
-        planner.price_plan(planner.plan_model(FULL, 1, 64), FULL)
+    # cache-free plans price through api.fuse_attention the same way
+    fwd = planner.price_plan(planner.plan_model(FULL, 1, 64), FULL)
+    assert fwd["planner_seconds"] <= fwd["hand_seconds"]
+    assert "fused_seconds" in fwd["chains"]["qk+softmax+pv"]
+
+
+@pytest.mark.parametrize("smoke", [True, False])
+@pytest.mark.parametrize("stitch", [True, False])
+def test_v5e_cache_free_price_plan_matches_the_reference(port_cache,
+                                                         monkeypatch, smoke,
+                                                         stitch):
+    """A cache-free (forward) plan priced under V5E: every number of the
+    port's ``price_plan`` equals the reference's."""
+    pytest.importorskip("jax")
+    from repro.configs import get_config as ref_config
+    from repro.core import planner as ref_planner
+    monkeypatch.setenv("REPRO_CACHE_DIR", str(port_cache / "reference"))
+    rcfg = ref_config("qwen3_8b", smoke=smoke)
+    cfg = get_config("qwen3_8b", smoke=smoke)
+    want = ref_planner.price_plan(
+        ref_planner.plan_model(rcfg, 2, 64, stitch=stitch, use_cache=False),
+        rcfg)
+    got = planner.price_plan(
+        planner.plan_model(cfg, 2, 64, stitch=stitch, hw=V5E,
+                           use_cache=False), cfg, hw=V5E)
+    assert got == want
 
 
 # ---------------------------------------------------------------------------
