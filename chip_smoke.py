@@ -28,8 +28,9 @@ which raises on failure:
    and the front door, ``python -m repro_torch.launch.quickstart``: one
    launch each of the GEMM-chain and the normalised attention kernel,
    each within the f32 tolerance of its oracle;
-   each path's counters are set to 0 just before it and read after
-   (the three-GEMM kernel is on no path, as in the JAX package);
+   each path's counters are set to 0 just before it and read after;
+   the three-GEMM kernel is on no path, as in the JAX package, and its
+   counter must read 0 after them all;
 5. one full-width decode step through each serving path against the
    same step through the plain hand-wired path, and the cache-free
    loss and logits against the plain twin path
@@ -41,6 +42,13 @@ which raises on failure:
 
 Prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line.
+
+    python3 chip_smoke.py --plant-faults
+
+runs only the build and the cache-free forward's check against planted
+attention faults (no causal mask, one key ahead, half the context, the
+scale 1/D), printing each fault's distance from the plain twin path
+beside the limits; it fails unless every fault goes past them.
 """
 from __future__ import annotations
 
@@ -78,11 +86,12 @@ MLP_SHAPES = {"decode": 4, "prefill": 144}
 FORWARD = dict(batch=2, seq=2048, seed=2)
 # The normalised attention kernel rounds the unnormalised P to bf16 per
 # kv tile; the plain twin path (streaming attention) keeps P in f32.
-# 36 bf16 layers carry that to the logits as in the decode step (0.018
-# there); a wrong kernel or mask gives order 1.  The loss averages 4094
-# per-token terms of ~12, so its relative difference is far smaller.
+# 36 bf16 layers carry that to the logits as in the decode step (0.0205
+# relative on an H100).  The loss averages 4094 per-token terms of ~12,
+# so its relative difference is far smaller (8.8e-6 on an H100).  What
+# planted faults give against these limits: ``--plant-faults`` below.
 FORWARD_REL_TOL = 5e-2
-LOSS_REL_TOL = 1e-2
+LOSS_REL_TOL = 1e-4
 # Table II chains (batch, M, N, K, H) checked on the card: the
 # quickstart's G1 and G4/G12, plus the chains where the H100 tuner
 # picks the flat class (G2 and G11 in bf16, G5 in f32)
@@ -673,6 +682,28 @@ def slice3_check_phase(cfg) -> dict:
     return worst
 
 
+def _forward_batch(cfg) -> dict:
+    """B=2 x S=2048 seeded tokens of the cache-free path, on the card."""
+    b, s = FORWARD["batch"], FORWARD["seq"]
+    g = torch.Generator(device="cuda").manual_seed(FORWARD["seed"])
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=g, device="cuda")
+    labels = torch.roll(tokens, -1, dims=1)
+    labels[:, -1] = -100
+    return {"tokens": tokens, "labels": labels}
+
+
+def _divergence(loss, logits, want_loss, want) -> dict:
+    """Loss and logits of a kernel-path run against the plain twin
+    path's: the relative loss difference, the logits' relative error
+    (Frobenius norm) and the share of positions whose argmax agrees."""
+    loss_rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+    rel = float((logits.float() - want.float()).norm() / want.float().norm())
+    agree = float((logits.argmax(-1) == want.argmax(-1)).float().mean())
+    return dict(loss=float(loss), plain_loss=float(want_loss),
+                loss_rel=loss_rel, logits_rel=rel, argmax_agree=agree,
+                within=loss_rel <= LOSS_REL_TOL and rel <= FORWARD_REL_TOL)
+
+
 def forward_phase(cfg, params) -> dict:
     """The cache-free path at full width: ``LM.loss`` and ``LM.forward``
     of B=2 x S=2048 seeded tokens with ``Runtime(kernel_ops=True)``,
@@ -681,12 +712,9 @@ def forward_phase(cfg, params) -> dict:
     call on the plain twin path; then a profile of one forward."""
     from repro_torch.kernels import attention as A
     from repro_torch.models.lm import LM, Runtime
-    b, s = FORWARD["batch"], FORWARD["seq"]
-    g = torch.Generator(device="cuda").manual_seed(FORWARD["seed"])
-    tokens = torch.randint(0, cfg.vocab, (b, s), generator=g, device="cuda")
-    labels = torch.roll(tokens, -1, dims=1)
-    labels[:, -1] = -100
-    batch = {"tokens": tokens, "labels": labels}
+    batch = _forward_batch(cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
     kern = LM(cfg, Runtime(kernel_ops=True), device="cuda")
     plain = LM(cfg, Runtime(kernel_ops=False), device="cuda")
     launches = {}
@@ -716,27 +744,99 @@ def forward_phase(cfg, params) -> dict:
         want_loss = plain.loss(params, batch)
         want = plain.forward(params, tokens)
         torch.cuda.synchronize()
-        loss_rel = abs(float(loss) - float(want_loss)) / abs(
-            float(want_loss))
-        rel = float((logits.float() - want.float()).norm()
-                    / want.float().norm())
-        agree = float((logits.argmax(-1) == want.argmax(-1)).float().mean())
+        div = _divergence(loss, logits, want_loss, want)
         del want
         print(f"[forward] kernel path vs the plain twin path at full "
-              f"width: loss {float(loss):.5f} vs {float(want_loss):.5f} "
-              f"(rel {loss_rel:.3g}, tol {LOSS_REL_TOL}); logits rel err "
-              f"{rel:.3g} (tol {FORWARD_REL_TOL}), argmax agree "
-              f"{agree:.4f}")
-        if loss_rel > LOSS_REL_TOL or rel > FORWARD_REL_TOL:
+              f"width: loss {div['loss']:.5f} vs {div['plain_loss']:.5f} "
+              f"(rel {div['loss_rel']:.3g}, tol {LOSS_REL_TOL}); logits "
+              f"rel err {div['logits_rel']:.3g} (tol {FORWARD_REL_TOL}), "
+              f"argmax agree {div['argmax_agree']:.4f}")
+        if not div["within"]:
             raise RuntimeError("the kernel forward diverges from the plain "
                                "twin path")
         del logits
         prof = profile_phase(lambda: kern.forward(params, tokens),
                              "forward", f"cache-free forward (B={b}, S={s}, "
                              f"{cfg.n_layers} layers)", timed=2, traced=1)
-    return dict(launches=launches, loss=float(loss),
-                plain_loss=float(want_loss), loss_rel=loss_rel,
-                logits_rel=rel, argmax_agree=agree, profile=prof)
+    return dict(launches=launches, profile=prof, **div)
+
+
+# Faults planted in the cache-free forward's attention by
+# ``--plant-faults``: each still launches the kernel, with a wrong mask,
+# wrong keys or a wrong scale.  q, k, v: (B, H, S, D).
+def _no_causal(attn, q, k, v, causal, window, scale):
+    return attn(q, k, v, causal=False, window=window, scale=scale)
+
+
+def _next_key(attn, q, k, v, causal, window, scale):
+    # every row sees one key ahead of its own position
+    return attn(q, k.roll(-1, dims=2), v.roll(-1, dims=2), causal=causal,
+                window=window, scale=scale)
+
+
+def _half_window(attn, q, k, v, causal, window, scale):
+    return attn(q, k, v, causal=causal, window=q.shape[2] // 2,
+                scale=scale)
+
+
+def _scale_1_over_d(attn, q, k, v, causal, window, scale):
+    return attn(q, k, v, causal=causal, window=window,
+                scale=1.0 / q.shape[-1])
+
+
+FAULTS = {"none": None, "no_causal": _no_causal, "next_key": _next_key,
+          "half_window": _half_window, "scale_1_over_d": _scale_1_over_d}
+
+
+def fault_phase(cfg, params) -> dict:
+    """The cache-free forward's check against planted faults: the plain
+    twin path's loss and logits once, then ``LM.loss`` and
+    ``LM.forward`` on the kernel path with each fault of ``FAULTS`` put
+    in front of ``kernels.ops.attention`` (the attention kernel still
+    launched 36 times per call).  Raises unless the unfaulted run is
+    within both limits and every fault goes past at least one."""
+    from repro_torch.kernels import attention as A
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import LM, Runtime
+    batch = _forward_batch(cfg)
+    kern = LM(cfg, Runtime(kernel_ops=True), device="cuda")
+    plain = LM(cfg, Runtime(kernel_ops=False), device="cuda")
+    attn = ops.attention
+    results = {}
+    with torch.inference_mode():
+        want_loss = plain.loss(params, batch)
+        want = plain.forward(params, batch["tokens"])
+        for name, fault in FAULTS.items():
+            if fault is not None:
+                ops.attention = (lambda q, k, v, causal=False, window=0,
+                                 scale=None, f=fault:
+                                 f(attn, q, k, v, causal, window, scale))
+            try:
+                A.fused_attention.launches = 0
+                loss = kern.loss(params, batch)
+                logits = kern.forward(params, batch["tokens"])
+                torch.cuda.synchronize()
+                n = A.fused_attention.launches
+            finally:
+                ops.attention = attn
+            if n != 2 * cfg.n_layers:
+                raise RuntimeError(f"[fault {name}] {n} attention launches, "
+                                   f"not {2 * cfg.n_layers}")
+            results[name] = _divergence(loss, logits, want_loss, want)
+            del logits
+            r = results[name]
+            print(f"[fault {name}] loss rel {r['loss_rel']:.3g} (tol "
+                  f"{LOSS_REL_TOL}), logits rel {r['logits_rel']:.3g} (tol "
+                  f"{FORWARD_REL_TOL}), argmax agree "
+                  f"{r['argmax_agree']:.4f}: "
+                  f"{'within' if r['within'] else 'caught'}")
+    print(json.dumps({"faults": results}))
+    if not results["none"]["within"]:
+        raise RuntimeError("the unfaulted kernel forward diverges")
+    missed = [n for n, r in results.items() if n != "none" and r["within"]]
+    if missed:
+        raise RuntimeError(f"planted faults within the limits: {missed}")
+    return results
 
 
 def attention_time_phase(cfg) -> dict:
@@ -838,7 +938,10 @@ def quickstart_phase() -> dict:
     return launches
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--plant-faults"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--plant-faults]")
     smi = device_phase()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     # tuned schedules persist inside the checkout (.cache/ is gitignored)
@@ -848,6 +951,10 @@ def main() -> None:
     from repro_torch.core import api
     build_phase()
     cfg = get_config("qwen3-8b")
+    if argv:
+        fault_phase(cfg, init_phase(cfg))
+        print(smi)
+        return
     n_ctx = SERVE["page_size"] * math.ceil(
         (SERVE["prompt_len"] + SERVE["gen"]) / SERVE["page_size"])
     tuned = {n: api.fuse_attention_paged(
@@ -858,6 +965,10 @@ def main() -> None:
     max_err = kernel_check_phase(n_ctx, decode_tiles)
     mlp_err = mlp_check_phase(cfg)
     slice3_err = slice3_check_phase(cfg)
+    # the three-GEMM kernel is on no main path, as in the JAX package:
+    # its counter, set to 0 here, must still read 0 after them all
+    from repro_torch.kernels import gemm_chain3 as G3
+    G3.fused_gemm_chain3.launches = 0
     front = quickstart_phase()
     params = init_phase(cfg)
     hand, _, hand_launches = serve_phase(cfg, params, planned=False)
@@ -876,6 +987,11 @@ def main() -> None:
     del hand, planned, cache
     torch.cuda.empty_cache()
     fwd = forward_phase(cfg, params)
+    chain3_launches = G3.fused_gemm_chain3.launches
+    print(f"[main paths] fused_gemm_chain3 launches: {chain3_launches} "
+          f"(want 0)")
+    if chain3_launches:
+        raise RuntimeError("a main path launched fused_gemm_chain3")
     del params
     torch.cuda.empty_cache()
     t_dec = time_phase(n_ctx, decode_tiles, "slice decode")
@@ -957,7 +1073,7 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gemm_chain.cu",
         "replaces": "src/repro/kernels/gemm_chain3.py:60",
-        "launches": 0,   # on no path: reached only directly
+        "launches": chain3_launches,
         "max_abs_err": slice3_err["fused_gemm_chain3"],
         "ms": t_chain3["kernel_ms"],
         "plain_ms": t_chain3["plain_ms"],
