@@ -10,8 +10,12 @@ which raises on failure:
 2. build: every CUDA kernel of ``src/repro_torch/kernels/csrc`` compiled
    with nvcc from the checkout, all sources at once;
 3. every kernel against its plain PyTorch version on the card, at the
-   main paths' shapes with the tuner's tiles, with the tolerance stated
-   per dtype;
+   main paths' shapes with the tuner's tiles and tiles around them, with
+   the tolerance stated per dtype: the partial attention kernel also
+   at N=4096 with the wrapper's kv split, one split and an uneven one
+   (the plain version takes the same split), with windows and dead
+   rows; the normalised one also with a window, without a mask, with
+   M < N and M > N;
 4. the three main paths, each at full width — qwen3-8b (36 layers,
    bf16, random weights from a seed, no depth cut):
    a. served by the continuous-batching engine, 8 ragged requests, max
@@ -38,7 +42,8 @@ which raises on failure:
 6. a profile of that decode step on both serving paths and of one
    cache-free forward: host wall time and device time by kernel;
 7. times of each kernel beside its bound, its plain version and the
-   PyTorch call(s) it replaces.
+   PyTorch call(s) it replaces (the normalised attention also at other
+   tiles of the forward's shape and in f32 at Table III S2).
 
 Prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -106,6 +111,19 @@ ATTN_TABLE_III = {"S2": (12, 512, 512, 64, 64), "S6": (16, 256, 256, 80, 80)}
 
 SERVE = dict(batch=4, n_requests=8, prompt_len=128, gen=32, page_size=16,
              seed=1)
+# The CUDA-core versions of the two attention kernels that the
+# tensor-core and split-kv designs replaced, as PERF.md records them
+# (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W): ms per call at
+# the shapes this script times.  Not measured by this run.
+FIRST_VERSION = {
+    "fused_attention_partial": {
+        "first_ms": 0.02890, "first_ms_long_decode_4096": 0.9424,
+        "first_tiles": [1, 160], "first_tiles_long_decode_4096": [1, 256],
+        "first_ms_origin": "PERF.md kernel table, not measured by this run"},
+    "fused_attention": {
+        "first_ms": 51.03, "first_tiles": [256, 16],
+        "first_ms_origin": "PERF.md kernel table, not measured by this run"},
+}
 
 
 def device_phase() -> str:
@@ -153,34 +171,50 @@ def _attn_inputs(dtype, b, hq, hkv, m, n, d, seed, per_request=True):
     return q, k, v, kv_pos, q_pos
 
 
-def kernel_check_phase(n_ctx: int, tiles: tuple) -> float:
-    """The CUDA kernel against its plain version on the card; returns
-    the largest absolute error over all cases."""
+def kernel_check_phase(tuned: dict) -> float:
+    """The partial kernel against its plain version (the same kv split
+    and merge) on the card; returns the largest absolute error over all
+    cases.  ``tuned``: (N, dtype) -> the tuner's decode tiles."""
     from repro_torch.kernels import attention as A
-    bq, bkv = tiles
+    n_ctx, long = sorted({n for n, _ in tuned})
+    bf, f32 = torch.bfloat16, torch.float32
     worst = 0.0
-    cases = [  # (name, dtype, m, n, bq, bkv, window, edit)
-        ("decode bf16", torch.bfloat16, 1, n_ctx, bq, bkv, 0, None),
-        ("decode f32", torch.float32, 1, n_ctx, bq, bkv, 0, None),
-        ("ragged+dead", torch.bfloat16, 1, n_ctx, bq, 32, 0, "ragged"),
-        ("window", torch.bfloat16, 1, n_ctx, bq, 32, 40, "ragged"),
-        ("m>1 bq>1", torch.float32, 8, 96, 4, 32, 0, None),
-        ("n=200", torch.bfloat16, 1, 200, 1, 128, 0, None),
+    cases = [  # (name, dtype, m, n, bq, bkv, window, edit, splits)
+        ("decode bf16", bf, 1, n_ctx, *tuned[n_ctx, bf], 0, None, None),
+        ("decode f32", f32, 1, n_ctx, *tuned[n_ctx, f32], 0, None, None),
+        ("ragged+dead", bf, 1, n_ctx, 1, 32, 0, "ragged", None),
+        ("window", bf, 1, n_ctx, 1, 32, 40, "ragged", None),
+        ("m>1 bq>1", f32, 8, 96, 4, 32, 0, None, None),
+        ("n=200", bf, 1, 200, 1, 128, 0, None, None),
+        ("long decode bf16", bf, 1, long, *tuned[long, bf], 0, "ragged",
+         None),
+        ("long decode f32", f32, 1, long, *tuned[long, f32], 0, "ragged",
+         None),
+        ("long, 128-key tiles", bf, 1, long, 1, 128, 0, "ragged", None),
+        ("long window", bf, 1, long, 1, 128, 1000, "ragged", None),
+        ("long, one split", bf, 1, long, 1, 128, 0, "ragged", 1),
+        ("long, uneven split", bf, 1, long, 1, 128, 0, "ragged", 5),
     ]
-    for i, (name, dt, m, n, bq_, bkv_, window, edit) in enumerate(cases):
+    for i, (name, dt, m, n, bq_, bkv_, window, edit, splits) in enumerate(
+            cases):
         q, k, v, kv_pos, q_pos = _attn_inputs(dt, 4, 32, 8, m, n, 128, i)
         if edit == "ragged":
             kv_pos[1, 17:40] = A.INVALID_POS     # unallocated slots
             q_pos[0, 0] = 90                     # a shorter request
             q_pos[2, 0] = -1                     # inactive slot: dead row
-        got = A.fused_attention_partial(q, k, v, kv_pos, q_pos, bq=bq_,
-                                        bkv=bkv_, causal=True,
-                                        window=window)
+        bq_, bkv_, smem = A._check(q, k, v, kv_pos, q_pos, bq_, bkv_)
+        if splits is None:                   # the wrapper's own split
+            splits = A.partial_splits(4, 8, m // bq_, n, bkv_, smem)[0]
+            got = A.fused_attention_partial(q, k, v, kv_pos, q_pos, bq=bq_,
+                                            bkv=bkv_, causal=True,
+                                            window=window)
+        else:                                # a split the wrapper would not
+            got = A._launch(q, k, v, kv_pos, q_pos, bq_, bkv_, True, window,
+                            128 ** -0.5, smem, splits)
         torch.cuda.synchronize()
-        _, bkv_c = A.clamp_tiles(m, n, bq_, bkv_)
-        want = A.fused_attention_partial_plain(q, k, v, kv_pos, q_pos,
-                                               bkv_c, True, window,
-                                               128 ** -0.5)
+        want = A.fused_attention_partial_plain(q, k, v, kv_pos, q_pos, bkv_,
+                                               True, window, 128 ** -0.5,
+                                               splits)
         err = 0.0
         for x, w in zip(got, want):
             torch.testing.assert_close(x, w, **TOL[dt])
@@ -189,7 +223,8 @@ def kernel_check_phase(n_ctx: int, tiles: tuple) -> float:
             raise RuntimeError("a dead row did not emit l = 0")
         worst = max(worst, err)
         print(f"kernel vs plain [{name}] m={m} n={n} tiles=({bq_},{bkv_}) "
-              f"{str(dt)[6:]}: max|err|={err:.3g} tol={TOL[dt]} ok")
+              f"splits={splits} {str(dt)[6:]}: max|err|={err:.3g} "
+              f"tol={TOL[dt]} ok")
     return worst
 
 
@@ -420,16 +455,18 @@ def _adaptive_ms(fn, budget_ms: float = 200.0, reps: int = 2) -> float:
 
 def time_phase(n: int, tiles: tuple, label: str) -> dict:
     """kernel_ms, bound_ms, plain_ms and library_ms of the partial
-    attention at B=4, Hq=32, Hkv=8, M=1, D=128, bf16 over N slots."""
+    attention at B=4, Hq=32, Hkv=8, M=1, D=128, bf16 over N slots, with
+    the wrapper's kv split."""
     from repro_torch.kernels import attention as A
     b, hq, hkv, m, d, dt = 4, 32, 8, 1, 128, torch.bfloat16
     q, k, v, kv_pos, q_pos = _attn_inputs(dt, b, hq, hkv, m, n, d, 99)
-    bq, bkv = A.clamp_tiles(m, n, *tiles)
+    bq, bkv, smem = A._check(q, k, v, kv_pos, q_pos, *tiles)
+    splits = A.partial_splits(b, hkv, m // bq, n, bkv, smem)[0]
     scale = d ** -0.5
     kernel_ms = _time_ms(lambda: A.fused_attention_partial(
         q, k, v, kv_pos, q_pos, bq=bq, bkv=bkv, causal=True, scale=scale))
     plain_ms = _time_ms(lambda: A.fused_attention_partial_plain(
-        q, k, v, kv_pos, q_pos, bkv, True, 0, scale))
+        q, k, v, kv_pos, q_pos, bkv, True, 0, scale, splits))
     mask = (kv_pos[:, None, None, :] <= q_pos[:, None, :, None])
     library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, scale=scale, enable_gqa=True))
@@ -441,7 +478,7 @@ def time_phase(n: int, tiles: tuple, label: str) -> dict:
     out = dict(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
-               tiles=[bq, bkv])
+               tiles=[bq, bkv], splits=splits)
     print(f"times [{label}] B={b} Hq={hq} Hkv={hkv} M={m} N={n} D={d} bf16 "
           f"tiles=({bq},{bkv}): " + json.dumps(out))
     return out
@@ -606,31 +643,51 @@ def slice3_check_phase(cfg) -> dict:
     worst = dict(fused_attention=0.0, fused_gemm_chain=0.0,
                  fused_gemm_chain3=0.0)
     b, s = FORWARD["batch"], FORWARD["seq"]
-    attn = [("forward", b, cfg.n_heads, cfg.n_kv_heads, s, s, cfg.dh,
-             torch.bfloat16, True)]
-    for name, (hq, m, n, k, _) in ATTN_TABLE_III.items():
-        for dt in (torch.float32, torch.bfloat16):
-            attn.append((name, 1, hq, hq, m, n, k, dt, False))
-    attn.append(("M>N causal: mean-of-v rows", 1, 8, 2, 512, 256, 64,
-                 torch.bfloat16, True))
-    for i, (name, bb, hq, hkv, m, n, d, dt, causal) in enumerate(attn):
-        tk = api.fuse_attention(m, n, d, d, heads=hq, batch=bb,
-                                dtype=_dtname(dt), causal=causal)
-        q, k, v = _randn([(bb, hq, m, d), (bb, hkv, n, d), (bb, hkv, n, d)],
+    hq, hkv, dh, bf = cfg.n_heads, cfg.n_kv_heads, cfg.dh, torch.bfloat16
+    # (name, B, Hq, Hkv, M, N, D, dtype, causal, window, tiles or None
+    # for the tuner's)
+    attn = [("forward", b, hq, hkv, s, s, dh, bf, True, 0, None)]
+    for tiles in ((64, 64), (128, 64), (128, 128), (16, 16)):
+        attn.append((f"forward, tiles {tiles}", b, hq, hkv, s, s, dh, bf,
+                     True, 0, tiles))
+    attn.append(("forward, window 1024", b, hq, hkv, s, s, dh, bf, True,
+                 s // 2, None))
+    attn.append(("forward shape, no mask", b, hq, hkv, s, s, dh, bf, False,
+                 0, None))
+    for name, (h, m, n, k, _) in ATTN_TABLE_III.items():
+        for dt in (torch.float32, bf):
+            attn.append((name, 1, h, h, m, n, k, dt, False, 0, None))
+    attn.append(("M>N causal: mean-of-v rows", 1, 8, 2, 512, 256, 64, bf,
+                 True, 0, None))
+    attn.append(("M<N causal: tail rows", 1, 8, 2, 256, 512, 64, bf, True,
+                 0, None))
+    for i, (name, bb, h, g, m, n, d, dt, causal, window,
+            tiles) in enumerate(attn):
+        if tiles is None:
+            tk = api.fuse_attention(m, n, d, d, heads=h, batch=bb,
+                                    dtype=_dtname(dt), causal=causal,
+                                    window=window)
+            fn, tiles = tk, (tk.params.bq, tk.params.bkv)
+        else:
+            fn = (lambda q, k, v, t=tiles, c=causal, w=window:
+                  A.fused_attention(q, k, v, bq=t[0], bkv=t[1], causal=c,
+                                    window=w))
+        q, k, v = _randn([(bb, h, m, d), (bb, g, n, d), (bb, g, n, d)],
                          dt, 20 + i)
         with torch.inference_mode():
-            got = tk(q, k, v)
+            got = fn(q, k, v)
             torch.cuda.synchronize()
-            want = A.fused_attention_plain(q, k, v, tk.params.bkv, causal,
-                                           0, 1.0 / d ** 0.5)
+            want = A.fused_attention_plain(q, k, v, tiles[1],
+                                           causal or window > 0, window,
+                                           1.0 / d ** 0.5)
         if got.shape != want.shape or not torch.isfinite(got).all():
             raise RuntimeError(f"bad attention output {tuple(got.shape)}")
         torch.testing.assert_close(got, want, **TOL[dt])
         err = float((got.float() - want.float()).abs().max())
         worst["fused_attention"] = max(worst["fused_attention"], err)
-        print(f"attention kernel vs plain [{name}] B={bb} Hq={hq} "
-              f"Hkv={hkv} M={m} N={n} D={d} {_dtname(dt)} causal={causal} "
-              f"tiles={tk.params.as_kwargs()}: max|err|={err:.3g} "
+        print(f"attention kernel vs plain [{name}] B={bb} Hq={h} "
+              f"Hkv={g} M={m} N={n} D={d} {_dtname(dt)} causal={causal} "
+              f"window={window} tiles={tiles}: max|err|={err:.3g} "
               f"tol={TOL[dt]} ok")
     ran = set()
     for i, (name, (bb, m, n, k, h)) in enumerate(CHAINS.items()):
@@ -841,7 +898,10 @@ def fault_phase(cfg, params) -> dict:
 
 def attention_time_phase(cfg) -> dict:
     """kernel_ms, plain_ms, library_ms (SDPA, causal, GQA) and bound_ms
-    of the normalised attention at the forward's shape."""
+    of the normalised attention at the forward's shape with the tuner's
+    tiles, the kernel's time at other tiles of the same shape, and the
+    f32 (CUDA-core) entry at Table III S2 beside its bound, plain
+    version and SDPA."""
     from repro_torch.core import api
     from repro_torch.kernels import attention as A
     b, m, d, dt = FORWARD["batch"], FORWARD["seq"], cfg.dh, torch.bfloat16
@@ -856,12 +916,35 @@ def attention_time_phase(cfg) -> dict:
             q, k, v, tk.params.bkv, True, 0, scale), reps=1)
         library_ms = _adaptive_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, scale=scale, enable_gqa=True))
+        other_tiles = {f"{bq}/{bkv}": _adaptive_ms(
+            lambda bq=bq, bkv=bkv: A.fused_attention(
+                q, k, v, bq=bq, bkv=bkv, causal=True, scale=scale))
+            for bq, bkv in ((64, 64), (128, 64), (128, 128))}
     out = dict(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                **_bound(_nbytes(q, k, v, q),
                         _attention_ops(b, hq, m, m, d, d, True), dt),
-               tiles=tk.params.as_kwargs())
+               tiles=tk.params.as_kwargs(), other_tiles_ms=other_tiles)
     print(f"attention times [forward] B={b} Hq={hq} Hkv={hkv} M=N={m} "
           f"D={d} bf16 causal: " + json.dumps(out))
+    h, m2, n2, k2, _ = ATTN_TABLE_III["S2"]
+    f32 = torch.float32
+    tk2 = api.fuse_attention(m2, n2, k2, k2, heads=h, dtype="float32")
+    q, k, v = _randn([(1, h, m2, k2), (1, h, n2, k2), (1, h, n2, k2)], f32,
+                     95)
+    scale = 1.0 / k2 ** 0.5
+    with torch.inference_mode():
+        s2 = dict(kernel_ms=_adaptive_ms(lambda: tk2(q, k, v)),
+                  plain_ms=_adaptive_ms(lambda: A.fused_attention_plain(
+                      q, k, v, tk2.params.bkv, False, 0, scale)),
+                  library_ms=_adaptive_ms(
+                      lambda: F.scaled_dot_product_attention(
+                          q, k, v, scale=scale)),
+                  **_bound(_nbytes(q, k, v, q),
+                           _attention_ops(1, h, m2, n2, k2, k2, False), f32),
+                  tiles=tk2.params.as_kwargs())
+    print(f"attention times [Table III S2] B=1 H={h} M={m2} N={n2} D={k2} "
+          f"f32: " + json.dumps(s2))
+    out["s2_f32"] = s2
     return out
 
 
@@ -957,12 +1040,18 @@ def main(argv=None) -> None:
         return
     n_ctx = SERVE["page_size"] * math.ceil(
         (SERVE["prompt_len"] + SERVE["gen"]) / SERVE["page_size"])
-    tuned = {n: api.fuse_attention_paged(
-        1, n, cfg.dh, cfg.dh, page_size=SERVE["page_size"],
-        heads=cfg.n_heads, batch=SERVE["batch"], dtype=cfg.dtype).params
-        for n in (n_ctx, 4096)}
-    decode_tiles = (tuned[n_ctx].bq, tuned[n_ctx].bkv)
-    max_err = kernel_check_phase(n_ctx, decode_tiles)
+    tuned = {}
+    for n in (n_ctx, 4096):
+        for dt in (torch.bfloat16, torch.float32):
+            p = api.fuse_attention_paged(
+                1, n, cfg.dh, cfg.dh, page_size=SERVE["page_size"],
+                heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+                batch=SERVE["batch"], dtype=_dtname(dt)).params
+            tuned[n, dt] = (p.bq, p.bkv)
+    print(f"tuner's decode tiles (bq, bkv): "
+          f"{ {f'N={n} {_dtname(dt)}': t for (n, dt), t in tuned.items()} }")
+    decode_tiles = tuned[n_ctx, torch.bfloat16]
+    max_err = kernel_check_phase(tuned)
     mlp_err = mlp_check_phase(cfg)
     slice3_err = slice3_check_phase(cfg)
     # the three-GEMM kernel is on no main path, as in the JAX package:
@@ -995,7 +1084,7 @@ def main(argv=None) -> None:
     del params
     torch.cuda.empty_cache()
     t_dec = time_phase(n_ctx, decode_tiles, "slice decode")
-    time_phase(4096, (tuned[4096].bq, tuned[4096].bkv), "long decode")
+    t_long = time_phase(4096, tuned[4096, torch.bfloat16], "long decode")
     t_mlp = {label: mlp_time_phase(cfg, label, m)
              for label, m in MLP_SHAPES.items()}
     t_attn = attention_time_phase(cfg)
@@ -1017,6 +1106,12 @@ def main(argv=None) -> None:
         "bound_ms": t_dec["bound_ms"],
         "bound_by": t_dec["bound_by"],
         "library_ms": t_dec["library_ms"],
+        "tiles": t_dec["tiles"],
+        "splits": t_dec["splits"],
+        "long_decode_4096": {k: t_long[k] for k in (
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "tiles", "splits")},
+        **FIRST_VERSION["fused_attention_partial"],
         "passed": True,
     }, {
         "name": "fused_mlp_chain",
@@ -1050,6 +1145,10 @@ def main(argv=None) -> None:
         "bound_ms": t_attn["bound_ms"],
         "bound_by": t_attn["bound_by"],
         "library_ms": t_attn["library_ms"],
+        "tiles": t_attn["tiles"],
+        "other_tiles_ms": t_attn["other_tiles_ms"],
+        "table_iii_s2_f32": t_attn["s2_f32"],
+        **FIRST_VERSION["fused_attention"],
         "passed": True,
     }, {
         "name": "fused_gemm_chain",

@@ -33,7 +33,8 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 from . import codegen, pruning, schedule_cache
-from .chain import Chain, attention_chain, gemm_chain, mlp_chain
+from .chain import (PARTIAL_ATTENTION, Chain, attention_chain, gemm_chain,
+                    mlp_chain)
 from .dag import build_schedule
 from .perf_model import H100, GpuSpec, MeshSpec, TpuSpec, paged_gather_seconds
 from .search import SearchReport, heuristic_search
@@ -155,7 +156,8 @@ def fuse_attention(M: int, N: int, K: int, H: int, heads: int = 1,
     As with ``fuse_gemm_chain``, dims are global; heads and batch fold
     into the chain batch.  Under ``GpuSpec`` Rule 4 prices every
     candidate by the kernel's shared-memory layout
-    (``perf_model.attention_smem_bytes``)."""
+    (``perf_model.attention_smem_bytes``) and admits only the tiles the
+    kernel takes (``perf_model.attention_tiles_ok``)."""
     unit = hw.tile_unit if unit is None else unit
     key = ("attn", M, N, K, H, heads, batch, dtype, causal, window,
            scale, hw.name, unit, mesh, seed)
@@ -179,7 +181,8 @@ def fuse_attention(M: int, N: int, K: int, H: int, heads: int = 1,
 
 
 def fuse_attention_paged(M: int, N: int, K: int, H: int, *,
-                         page_size: int, heads: int = 1, batch: int = 1,
+                         page_size: int, heads: int = 1, kv_heads: int = 0,
+                         batch: int = 1,
                          dtype: str = "float32", causal: bool = True,
                          window: int = 0, scale: Optional[float] = None,
                          hw: "TpuSpec | GpuSpec" = H100,
@@ -198,17 +201,24 @@ def fuse_attention_paged(M: int, N: int, K: int, H: int, *,
     ``report.best_time`` includes the paged-gather seconds
     (``perf_model.paged_gather_seconds`` on the localized chain).
     Serving attention is causal by construction (``causal`` exists for
-    pricing symmetry and must stay True for the built kernel).
+    pricing symmetry and must stay True for the built kernel).  Under
+    ``GpuSpec`` Rule 4 prices every candidate by the partial kernel's
+    layout (``perf_model.attention_partial_smem_bytes``), whose blocks
+    hold the ``heads / kv_heads`` q-heads of a GQA group
+    (``kv_heads=0``: as many kv heads as q-heads).
     """
     unit = hw.tile_unit if unit is None else unit
-    key = ("attn-paged", page_size, M, N, K, H, heads, batch, dtype,
-           causal, window, scale, hw.name, unit, mesh, seed)
+    kv_heads = kv_heads or heads
+    key = ("attn-paged", page_size, M, N, K, H, heads, kv_heads, batch,
+           dtype, causal, window, scale, hw.name, unit, mesh, seed)
     if key in _CACHE:
         return _CACHE[key]
     chain = attention_chain(M, N, K, H, heads=heads, batch=batch,
-                            dtype=dtype, causal=causal, window=window)
-    disk_key = ("attn-paged", page_size, M, N, K, H, heads, batch, dtype,
-                causal, window, scale, hw.name, unit,
+                            dtype=dtype, causal=causal, window=window,
+                            name=PARTIAL_ATTENTION,
+                            group=heads // kv_heads)
+    disk_key = ("attn-paged", page_size, M, N, K, H, heads, kv_heads, batch,
+                dtype, causal, window, scale, hw.name, unit,
                 mesh.canonical() if mesh is not None else None, seed)
     report, params, dt, source = _tune_or_load(
         "attn", chain, hw, mesh, unit, seed, disk_key)

@@ -42,7 +42,8 @@ import numpy as np
 
 from .chain import Chain, DTYPE_BYTES
 from .dag import bind_grid, build_schedule
-from .perf_model import GpuSpec, H100, TpuSpec, kernel_smem_bytes
+from .perf_model import (GpuSpec, H100, NO_KERNEL_TILE_BYTES, TpuSpec,
+                         kernel_smem_bytes, kernel_tiles_ok)
 from .tiling import Scope, expr_repr
 
 
@@ -286,7 +287,10 @@ class ExprClassTable:
                 self.chain, {l: tiles[:, self._col(l)] for l in self.names},
                 "(" in self.sub_expr)
             if smem is not None:
-                vmem = smem
+                ok = kernel_tiles_ok(
+                    self.chain,
+                    {l: tiles[:, self._col(l)] for l in self.names})
+                vmem = np.where(ok, smem, NO_KERNEL_TILE_BYTES)
         return PricedBatch(t_mem=t_mem, t_comp=t_comp, alpha=alpha,
                            est=(t_mem + t_comp) * alpha,
                            vmem=vmem, valid=valid)

@@ -66,6 +66,9 @@ class Chain:
     tensors: dict[str, TensorSpec]
     ops: tuple[OpSpec, ...]
     batch: int = 1  # leading batch (mapped to extra grid axis, untiled)
+    # q-heads per kv head of an attention chain: the rows one block of
+    # the partial attention kernel holds per query (perf_model)
+    group: int = 1
 
     def signature(self) -> tuple:
         """Hashable content identity (Chain holds dicts, so the
@@ -77,7 +80,7 @@ class Chain:
                       for t in self.tensors.values()),
                 tuple((o.name, o.out, o.ins, o.reduce_dims, o.epilogue,
                        o.flops_per_point) for o in self.ops),
-                self.batch)
+                self.batch, self.group)
 
     # ---- derived sets -------------------------------------------------
     def producers(self) -> dict[str, OpSpec]:
@@ -183,15 +186,23 @@ def gemm_chain(M: int, N: int, K: int, H: int, batch: int = 1,
     return Chain(name, loops, tensors, ops, batch=batch)
 
 
+#: name of the attention chain the partial (paged decode) kernel runs;
+#: any other attention chain runs the normalised kernel
+PARTIAL_ATTENTION = "attention_partial"
+
+
 def attention_chain(M: int, N: int, K: int, H: int, heads: int = 1,
                     batch: int = 1, dtype: str = "float32",
                     causal: bool = False, window: int = 0,
-                    name: str = "attention") -> Chain:
+                    name: str = "attention", group: int = 1) -> Chain:
     """S[m,n] = Q[m,k] @ K[k,n] ; P = softmax_n(S) ; O[m,h] = P[m,n] @ V[n,h].
 
     Same loop structure as the GEMM chain with an online-softmax epilogue
     on the first op (paper Table III uses identical M,N,K,H naming).
-    `heads*batch` fold into the batch grid axis.
+    `heads*batch` fold into the batch grid axis.  ``name`` says which
+    CUDA kernel runs the chain (``PARTIAL_ATTENTION`` or the normalised
+    one) and ``group`` is q-heads per kv head; only the H100 pricing of
+    Rule 4 reads either.
     """
     loops = {"m": M, "n": N, "k": K, "h": H}
     tensors = {
@@ -205,7 +216,8 @@ def attention_chain(M: int, N: int, K: int, H: int, heads: int = 1,
         OpSpec("qk", "S", ("Q", "Kt"), ("k",), epilogue="online_softmax"),
         OpSpec("pv", "O", ("S", "V"), ("n",)),
     )
-    return Chain(name, loops, tensors, ops, batch=batch * heads)
+    return Chain(name, loops, tensors, ops, batch=batch * heads,
+                 group=group)
 
 
 def mlp_chain(M: int, FF: int, D: int, batch: int = 1,

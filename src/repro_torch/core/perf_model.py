@@ -37,7 +37,7 @@ import dataclasses
 import math
 from dataclasses import dataclass
 
-from .chain import Chain, DTYPE_BYTES
+from .chain import Chain, DTYPE_BYTES, PARTIAL_ATTENTION
 from .dag import Schedule
 from .ring import (ICI_HOP_LATENCY_S, pipelined_overlap_seconds,
                    ring_traffic_bytes)
@@ -46,7 +46,7 @@ from .ring import (ICI_HOP_LATENCY_S, pipelined_overlap_seconds,
 # (chain, tile assignment, mesh) — new terms, retuned constants, changed
 # hoisting semantics.  core.schedule_cache folds this into every disk
 # key, so persisted schedules from an older model never resurface.
-MODEL_VERSION = 4
+MODEL_VERSION = 5
 
 
 @dataclass(frozen=True)
@@ -100,6 +100,9 @@ class GpuSpec:
     peak_flops_f32: float = 67e12     # f32 outside the tensor cores
     hbm_bw: float = 3.35e12           # bytes/s (W)
     smem_per_block: int = 232_448     # 227 KB opt-in dynamic smem
+    smem_per_sm: int = 233_472        # 228 KB: what co-resident blocks share
+    smem_reserved: int = 1_024        # the runtime's own bytes per block
+    threads_per_sm: int = 2_048
     n_sm: int = 132
     tile_unit: int = 16               # tensor-core granularity (paper's)
 
@@ -481,16 +484,87 @@ def is_attention(chain: Chain) -> bool:
     return any(op.epilogue == "online_softmax" for op in chain.ops)
 
 
+#: the bf16 tensor-core attention kernel: query rows per warp and the
+#: most warps a block takes
+MMA_ROWS = 16
+MMA_MAX_WARPS = 8
+#: keys one stage of a kernel's kv ring holds at least: whole kv tiles,
+#: max(1, keys // bkv) of them (``kMmaStageKeys`` / ``kPartialStageKeys``;
+#: the partial kernel's count is for bf16, half of it for f32)
+MMA_STAGE_KEYS = 64
+PARTIAL_STAGE_KEYS = 128
+
+
+def kv_stage_tiles(keys: int, bkv):
+    """kv tiles one stage of a kernel's 2-stage kv ring holds: as many
+    as fit ``keys``, at least one.  ``bkv`` may be a numpy array."""
+    t = keys // bkv
+    return t + (t < 1) * (1 - t)            # max(t, 1), for arrays too
+
+
+def attention_mma_bkv_max(dv: int) -> int:
+    """Largest kv tile of the bf16 tensor-core kernel at head dim ``dv``:
+    a thread holds dv / 2 O floats and the scores of a stage of the kv
+    ring (at least ``MMA_STAGE_KEYS`` keys), keys / 2 floats, and the
+    kernel's register buckets stop at 128 + 128 (dv <= 128) and
+    256 + 64."""
+    return 128 if dv <= 128 else 64
+
+
+def attention_tiles_ok(bq, bkv, d: int, dv: int, in_bytes: int):
+    """The tile rule of the normalised entry (``fused_attention``): the
+    bf16 tensor-core kernel takes head dims that are multiples of 16 up
+    to 256, at most ``MMA_MAX_WARPS`` warps of ``MMA_ROWS`` query rows
+    (bq <= 128; a bq that is no multiple of 16 is padded inside the
+    kernel) and kv tiles that are multiples of 16 up to
+    ``attention_mma_bkv_max(dv)``.  The f32 CUDA-core kernel takes any
+    tile.  ``bq``/``bkv`` may be numpy arrays (the batched model)."""
+    if in_bytes == 4:
+        return (bq > 0) & (bkv > 0)
+    if d % 16 or dv % 16 or d > 256 or dv > 256:
+        return (bq < 0) & (bkv < 0)         # False, of the tiles' shape
+    return ((bq <= MMA_ROWS * MMA_MAX_WARPS) & (bkv % 16 == 0)
+            & (bkv <= attention_mma_bkv_max(dv)))
+
+
 def attention_smem_bytes(bq, bkv, d: int, dv: int, in_bytes: int):
-    """Shared memory one thread block of the CUDA attention kernel
-    (``kernels/csrc/attention_partial.cu``) allocates: the q, k and v
-    tiles in the input type, the f32 score tile and output accumulator,
-    and three f32 per-row statistics (running max, running sum, the
-    rescale factor).  The kernel's wrapper checks launches against this
-    same function, so a tile Rule 4 admits is a tile the kernel holds.
-    ``bq``/``bkv`` may be numpy arrays (the batched model)."""
+    """Shared memory one thread block of the normalised attention kernel
+    (``kernels/csrc/attention_partial.cu``, ``fused_attention``)
+    allocates.  bf16 (tensor cores): the q tile, its rows rounded up to
+    whole warps of 16, and a 2-stage ring of k and v, each stage
+    ``kv_stage_tiles(MMA_STAGE_KEYS, bkv)`` kv tiles, every row padded
+    by 16 bytes.  f32 (CUDA cores): the q, k and v tiles, the f32
+    score tile and output accumulator, and three f32 per-row statistics
+    (running max, running sum, the rescale factor).  The kernel's
+    wrapper checks launches against this same function, so a tile
+    Rule 4 admits is a tile the kernel holds.  ``bq``/``bkv`` may be
+    numpy arrays (the batched model)."""
+    if in_bytes == 2:
+        rows = -(-bq // MMA_ROWS) * MMA_ROWS
+        sk = kv_stage_tiles(MMA_STAGE_KEYS, bkv) * bkv
+        return (rows * (d + 8) + 2 * sk * (d + 8) + 2 * sk * (dv + 8)) * 2
     return ((bq * d + bkv * d + bkv * dv) * in_bytes
             + (bq * bkv + bq * dv + 3 * bq) * 4)
+
+
+def attention_partial_smem_bytes(bq, bkv, d: int, dv: int, in_bytes: int,
+                                 group: int):
+    """Shared memory one thread block of the partial attention kernel
+    (``kernels/csrc/attention_partial.cu``, ``fused_attention_partial``)
+    allocates: a 2-stage ring of k and v in the input type, each stage
+    ``kv_stage_tiles(PARTIAL_STAGE_KEYS * 2 // in_bytes, bkv)`` kv
+    tiles, every row padded by 16 bytes, and for the block's
+    ``group * bq`` rows (the q tiles of one GQA group) q, the output
+    accumulator and the stage's scores in f32, the running max and sum,
+    and one rescale factor per kv tile of the stage.  The wrapper checks launches against this
+    same function.  ``bq``/``bkv`` may be numpy arrays (the batched
+    model)."""
+    pad = 16 // in_bytes
+    rows = group * bq
+    tiles = kv_stage_tiles(PARTIAL_STAGE_KEYS * 2 // in_bytes, bkv)
+    sk = tiles * bkv
+    return (2 * sk * (d + dv + 2 * pad) * in_bytes
+            + rows * (d + dv + sk + 2 + tiles) * 4)
 
 
 def is_mlp(chain: Chain) -> bool:
@@ -549,9 +623,11 @@ def kernel_smem_bytes(chain: Chain, tiles: dict, flat: bool):
     flat class only."""
     ops = tuple(op.name for op in chain.ops)
     if is_attention(chain):
-        return attention_smem_bytes(tiles["m"], tiles["n"],
-                                    chain.loops["k"], chain.loops["h"],
-                                    chain.tensors["Q"].dtype_bytes)
+        args = (tiles["m"], tiles["n"], chain.loops["k"], chain.loops["h"],
+                chain.tensors["Q"].dtype_bytes)
+        if chain.name == PARTIAL_ATTENTION:
+            return attention_partial_smem_bytes(*args, chain.group)
+        return attention_smem_bytes(*args)
     if is_mlp(chain):
         gated = "Wg" in chain.tensors
         be = chain.loops["h"] if flat else tiles["h"]
@@ -569,15 +645,37 @@ def kernel_smem_bytes(chain: Chain, tiles: dict, flat: bool):
     return None
 
 
+def kernel_tiles_ok(chain: Chain, tiles: dict):
+    """Whether the CUDA kernel that runs ``chain`` takes ``tiles`` at
+    all, whatever they cost in shared memory: the normalised attention
+    kernel's tile rule (``attention_tiles_ok``); every other kernel
+    takes any tile.  Tiles may be numpy arrays (the batched model)."""
+    if is_attention(chain) and chain.name != PARTIAL_ATTENTION:
+        return attention_tiles_ok(tiles["m"], tiles["n"], chain.loops["k"],
+                                  chain.loops["h"],
+                                  chain.tensors["Q"].dtype_bytes)
+    return True
+
+
+#: what Rule 4 charges a tile the kernel does not take: past any budget
+NO_KERNEL_TILE_BYTES = 1 << 62
+
+
 def smem_estimate(sched: Schedule, hw: GpuSpec = H100) -> int:
     """Rule 4 under ``GpuSpec``: shared memory per thread block.  A
     chain with a CUDA kernel (attention, the MLP chain, the two- and
     three-GEMM chains) is priced by that kernel's own layout at the
-    schedule's tiles and class (``kernel_smem_bytes``); any other chain
-    by eq (1) with every input staged once."""
+    schedule's tiles and class (``kernel_smem_bytes``), and a tile the
+    kernel does not take (``kernel_tiles_ok``) at
+    ``NO_KERNEL_TILE_BYTES``; any other chain by eq (1) with every input
+    staged once."""
     smem = kernel_smem_bytes(sched.chain, sched.tile_sizes,
                              "(" in sched.sub_expr())
-    return vmem_estimate(sched, hw) if smem is None else smem
+    if smem is None:
+        return vmem_estimate(sched, hw)
+    if not kernel_tiles_ok(sched.chain, sched.tile_sizes):
+        return NO_KERNEL_TILE_BYTES
+    return smem
 
 
 def floor_residency_bytes(chain: Chain, tiles: dict,

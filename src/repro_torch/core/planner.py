@@ -693,7 +693,8 @@ def price_plan(plan: Plan, cfg, *, hw: "TpuSpec | GpuSpec" = H100,
         if kind == "attention" and plan.paged is not None:
             tk = api.fuse_attention_paged(
                 seq, kv, cfg.dh, cfg.dh, page_size=plan.paged,
-                heads=cfg.n_heads, batch=batch, dtype=cfg.dtype,
+                heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, batch=batch,
+                dtype=cfg.dtype,
                 causal=True, window=cfg.window, hw=hw, mesh=mesh,
                 seed=seed)
         elif kind == "attention":

@@ -12,7 +12,8 @@ search for each concrete shape (``core.api.fuse_attention`` /
 
 A CUDA tensor launches the kernel or raises; only a CPU tensor runs the
 plain version, which is the same recurrence over kv blocks of ``bkv``
-in torch ops.
+in torch ops (for the partial kernel, over the same kv splits, merged
+by the same log-sum-exp combine).
 """
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ from typing import Optional
 
 import torch
 
-from ..core.perf_model import H100, attention_smem_bytes
+from ..core.perf_model import (H100, attention_partial_smem_bytes,
+                               attention_smem_bytes, attention_tiles_ok)
 
 NEG_INF = -1e30
 # Sentinel "position" for unallocated / out-of-range paged-KV slots:
@@ -70,29 +72,89 @@ def _check_qkv(q, k, v, *others):
         raise ValueError(f"tensors on several devices: {devices}")
 
 
-def _smem(bq: int, bkv: int, q, v) -> int:
-    """The tiles' shared-memory bytes; raises past the block's limit."""
-    smem = attention_smem_bytes(bq, bkv, q.shape[3], v.shape[3],
-                                q.element_size())
+def _fits(smem: int, bq: int, bkv: int) -> int:
+    """``smem``; raises past the block's limit."""
     if smem > H100.smem_per_block:
         raise ValueError(f"tiles bq={bq} bkv={bkv} need {smem} B of shared "
                          f"memory per block > {H100.smem_per_block}")
     return smem
 
 
+def _smem(bq: int, bkv: int, q, v) -> int:
+    """The normalised kernel's shared-memory bytes at these tiles;
+    raises on a bf16 head dim or tile the tensor-core kernel does not
+    take and past the block's limit."""
+    d, dv = q.shape[3], v.shape[3]
+    if q.dtype == torch.bfloat16:
+        if d % 16 or dv % 16 or d > 256 or dv > 256:
+            raise ValueError(f"bf16 head dims must be multiples of 16 up to "
+                             f"256, got {d}/{dv}")
+        if not attention_tiles_ok(bq, bkv, d, dv, 2):
+            raise ValueError(f"tiles bq={bq} bkv={bkv} are not tiles of the "
+                             f"bf16 kernel (bq <= 128, bkv a multiple of "
+                             f"16 up to the register bound)")
+    return _fits(attention_smem_bytes(bq, bkv, d, dv, q.element_size()),
+                 bq, bkv)
+
+
 def _check(q, k, v, kv_pos, q_pos, bq, bkv):
     """Raise on anything the partial kernel does not take; returns the
     clamped tiles and their shared-memory bytes."""
     _check_qkv(q, k, v, kv_pos, q_pos)
-    b, _, m, _ = q.shape
-    n = k.shape[2]
+    b, hq, m, d = q.shape
+    hkv, n, dv = v.shape[1], v.shape[2], v.shape[3]
     if kv_pos.shape not in ((n,), (b, n)) or q_pos.shape not in ((m,),
                                                                  (b, m)):
         raise ValueError(f"kv_pos {tuple(kv_pos.shape)} / q_pos "
                          f"{tuple(q_pos.shape)} must be (N,)|(B,N) and "
                          f"(M,)|(B,M)")
     bq, bkv = clamp_tiles(m, n, bq, bkv)
-    return bq, bkv, _smem(bq, bkv, q, v)
+    smem = attention_partial_smem_bytes(bq, bkv, d, dv, q.element_size(),
+                                        hq // hkv)
+    return bq, bkv, _fits(smem, bq, bkv)
+
+
+#: threads of one partial-kernel block (``kPartialThreads``)
+PARTIAL_THREADS = 256
+#: a partial-kernel block's fixed cost in keys of kv work, fitted to a
+#: sweep of split counts on an H100 (B=4, Hkv=8, N=4096, bf16: 1/16 and
+#: 1/128 tiles): a second wave of a few blocks, or many short blocks,
+#: each lost to one wave of long ones
+SPLIT_OVERHEAD_KEYS = 64
+
+
+def partial_splits(batch: int, hkv: int, q_tiles: int, n: int, bkv: int,
+                   smem: int, hw=H100) -> tuple[int, int]:
+    """(splits, kv tiles per split) of the partial kernel over ``n``
+    keys in tiles of ``bkv``: each split a run of whole tiles, none
+    empty (the last may be shorter).  The grid has batch x kv heads x q
+    tiles x splits blocks, of which ``slots`` run at once (as many as
+    the SMs' shared memory and threads hold).  A split count costs the
+    waves it needs times the keys of its longest split plus
+    ``SPLIT_OVERHEAD_KEYS`` (a block's fixed work: q in, state out, its
+    share of the merge); the cheapest count wins, the fewest splits
+    among equals."""
+    kv_tiles = n // bkv
+    blocks = batch * hkv * q_tiles
+    per_sm = min(hw.smem_per_sm // (smem + hw.smem_reserved),
+                 hw.threads_per_sm // PARTIAL_THREADS)
+    slots = hw.n_sm * max(1, per_sm)
+
+    def cost(s):
+        waves = -(-blocks * s // slots)
+        return waves * (-(-kv_tiles // s) * bkv + SPLIT_OVERHEAD_KEYS), s
+
+    best = min(range(1, kv_tiles + 1), key=cost)
+    per = -(-kv_tiles // best)
+    return -(-kv_tiles // per), per
+
+
+def _check_aligned(*ts):
+    """The kernels copy k and v (and the tensor-core kernel q) in 16-byte
+    steps from their first element."""
+    for t in ts:
+        if t.data_ptr() % 16:
+            raise ValueError("q, k and v must start on a 16-byte boundary")
 
 
 def _raise_launch_error(lib, name: str, err: int):
@@ -114,7 +176,10 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sliding-window attention.  Returns (B, Hq, M, Dv) in q's type.  The
     tiles, clamped to the dims, must divide M and N, as the JAX kernel
     asserts.  A row with no key (N < M under a causal mask) gets the
-    mean of v, as the JAX kernel gives it.
+    mean of v, as the JAX kernel gives it.  bf16 runs on tensor cores,
+    which take head dims that are multiples of 16 up to 256 and the
+    tiles of ``perf_model.attention_tiles_ok``; anything else raises,
+    on the CPU too.
 
     Forward only, like the JAX kernel: with grad mode on and an input
     that requires grad it raises rather than return a tensor without a
@@ -145,6 +210,7 @@ def _launch_final(q, k, v, bq, bkv, masked, window, scale, smem):
     from . import _build
 
     lib = _build.load("attention_partial")
+    _check_aligned(q, k, v)
     fn = lib.attn_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
@@ -203,6 +269,10 @@ def fused_attention_partial(q: torch.Tensor, k: torch.Tensor,
 
     Rows entirely masked within this shard come back as
     ``(0, NEG_INF, 0)`` — the identity of ``merge_partials``.
+
+    The kernel cuts the kv axis into ``partial_splits`` runs of whole
+    ``bkv`` tiles, one block each per kv head, and merges them; the
+    plain version on a CPU tensor takes the same splits.
     """
     b, hq, m, d = q.shape
     n = k.shape[2]
@@ -217,38 +287,49 @@ def fused_attention_partial(q: torch.Tensor, k: torch.Tensor,
     q_pos = q_pos.to(torch.int32).contiguous()
     bq, bkv, smem = _check(q, k, v, kv_pos, q_pos, bq, bkv)
     masked = causal or window > 0
+    splits, _ = partial_splits(b, k.shape[1], m // bq, n, bkv, smem)
     if dev.type == "cpu":
         return fused_attention_partial_plain(q, k, v, kv_pos, q_pos, bkv,
-                                             masked, window, scale)
+                                             masked, window, scale, splits)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     return _launch(q, k, v, kv_pos, q_pos, bq, bkv, masked, window, scale,
-                   smem)
+                   smem, splits)
 
 
 fused_attention_partial.launches = 0
 
 
-def _launch(q, k, v, kv_pos, q_pos, bq, bkv, masked, window, scale, smem):
+def _launch(q, k, v, kv_pos, q_pos, bq, bkv, masked, window, scale, smem,
+            splits=1):
     from . import _build
 
     lib = _build.load("attention_partial")
+    _check_aligned(k, v)
     fn = lib.attn_partial_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                   + [ctypes.c_int] * 13 + [ctypes.c_float,
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
+                   + [ctypes.c_int] * 15 + [ctypes.c_float,
                                             ctypes.c_longlong,
                                             ctypes.c_void_p])
     b, hq, m, d = q.shape
     _, hkv, n, dv = v.shape
-    o = torch.empty((b, hq, m, dv), dtype=torch.float32, device=q.device)
-    m_run = torch.empty((b, hq, m, 1), dtype=torch.float32, device=q.device)
-    l_run = torch.empty((b, hq, m, 1), dtype=torch.float32, device=q.device)
+    tiles = n // bkv
+    per = -(-tiles // splits)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    o = torch.empty((b, hq, m, dv), **f32)
+    m_run = torch.empty((b, hq, m, 1), **f32)
+    l_run = torch.empty((b, hq, m, 1), **f32)
+    # the splits' raw states (unused with one split)
+    parts = [torch.empty((splits, b * hq * m, dv), **f32),
+             torch.empty((splits, b * hq * m), **f32),
+             torch.empty((splits, b * hq * m), **f32)] if splits > 1 else []
+    part_ptrs = [t.data_ptr() for t in parts] or [None] * 3
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
              v.data_ptr(), kv_pos.data_ptr(), q_pos.data_ptr(), o.data_ptr(),
-             m_run.data_ptr(), l_run.data_ptr(), b, hq, hkv, m, n, d, dv, bq,
-             bkv, n if kv_pos.ndim == 2 else 0,
+             m_run.data_ptr(), l_run.data_ptr(), *part_ptrs, b, hq, hkv, m,
+             n, d, dv, bq, bkv, splits, per, n if kv_pos.ndim == 2 else 0,
              m if q_pos.ndim == 2 else 0, int(masked), int(window),
              float(scale), int(smem), stream)
     if err:
@@ -298,12 +379,35 @@ def _online_softmax(q, k, v, kv_pos, q_pos, bkv: int, masked: bool,
 
 
 def fused_attention_partial_plain(q, k, v, kv_pos, q_pos, bkv: int,
-                                  masked: bool, window: int, scale: float):
+                                  masked: bool, window: int, scale: float,
+                                  splits: int = 1):
     """The partial kernel's plain PyTorch version: ``_online_softmax``
-    with dead rows zeroed at the end.  ``kv_pos``/``q_pos`` are int32
-    (N,)|(B, N) and (M,)|(B, M)."""
-    o, m_run, l_run = _online_softmax(q, k, v, kv_pos, q_pos, bkv, masked,
-                                      window, scale)
+    over each of ``splits`` runs of whole ``bkv`` tiles (as many tiles
+    each, the last run shorter), the runs' raw states merged in order
+    with the log-sum-exp combine as the kernel merges them, and rows
+    dead across the shard zeroed at the end (a run in which a row is
+    wholly masked weighs exp(NEG_INF - m) = 0 against a live one).
+    ``kv_pos``/``q_pos`` are int32 (N,)|(B, N) and (M,)|(B, M)."""
+    n = k.shape[2]
+    step = -(-(n // bkv) // splits) * bkv
+    if step >= n:
+        o, m_run, l_run = _online_softmax(q, k, v, kv_pos, q_pos, bkv,
+                                          masked, window, scale)
+    else:
+        states = [_online_softmax(q, k[:, :, j:j + step],
+                                  v[:, :, j:j + step],
+                                  kv_pos[..., j:j + step], q_pos, bkv,
+                                  masked, window, scale)
+                  for j in range(0, n, step)]
+        m_run = states[0][1]
+        for _, m_s, _ in states[1:]:
+            m_run = torch.maximum(m_run, m_s)
+        o = torch.zeros_like(states[0][0])
+        l_run = torch.zeros_like(m_run)
+        for o_s, m_s, l_s in states:
+            w = torch.exp(m_s - m_run)
+            o = o + o_s * w
+            l_run = l_run + l_s * w
     dead = m_run <= NEG_INF * 0.5
     return (torch.where(dead, 0.0, o), m_run,
             torch.where(dead, 0.0, l_run))

@@ -163,8 +163,8 @@ class ServingEngine:
         cfg = model.cfg
         tk = api.fuse_attention_paged(
             1, self.n_ctx, cfg.dh, cfg.dh, page_size=self.page_size,
-            heads=cfg.n_heads, batch=self.max_batch, dtype=cfg.dtype,
-            causal=True)
+            heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+            batch=self.max_batch, dtype=cfg.dtype, causal=True)
         if self.verbose:
             print(f"paged regime[decode q=1 kv={self.n_ctx}]: "
                   f"paged-spatial bq={tk.params.bq} bkv={tk.params.bkv} "
