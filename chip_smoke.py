@@ -111,19 +111,6 @@ ATTN_TABLE_III = {"S2": (12, 512, 512, 64, 64), "S6": (16, 256, 256, 80, 80)}
 
 SERVE = dict(batch=4, n_requests=8, prompt_len=128, gen=32, page_size=16,
              seed=1)
-# The CUDA-core versions of the two attention kernels that the
-# tensor-core and split-kv designs replaced, as PERF.md records them
-# (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W): ms per call at
-# the shapes this script times.  Not measured by this run.
-FIRST_VERSION = {
-    "fused_attention_partial": {
-        "first_ms": 0.02890, "first_ms_long_decode_4096": 0.9424,
-        "first_tiles": [1, 160], "first_tiles_long_decode_4096": [1, 256],
-        "first_ms_origin": "PERF.md kernel table, not measured by this run"},
-    "fused_attention": {
-        "first_ms": 51.03, "first_tiles": [256, 16],
-        "first_ms_origin": "PERF.md kernel table, not measured by this run"},
-}
 
 
 def device_phase() -> str:
@@ -661,6 +648,12 @@ def slice3_check_phase(cfg) -> dict:
                  True, 0, None))
     attn.append(("M<N causal: tail rows", 1, 8, 2, 256, 512, 64, bf, True,
                  0, None))
+    # kv tiles that are no multiple of 16, padded inside the bf16 kernel:
+    # the tuner's whole-N tile at S=100, and 24-key tiles two a stage
+    attn.append(("S=100: one padded kv tile", b, hq, hkv, 100, 100, dh, bf,
+                 True, 0, None))
+    attn.append(("24-key padded tiles, window", 1, 8, 2, 240, 240, dh, bf,
+                 True, 60, (48, 24)))
     for i, (name, bb, h, g, m, n, d, dt, causal, window,
             tiles) in enumerate(attn):
         if tiles is None:
@@ -1111,7 +1104,6 @@ def main(argv=None) -> None:
         "long_decode_4096": {k: t_long[k] for k in (
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "tiles", "splits")},
-        **FIRST_VERSION["fused_attention_partial"],
         "passed": True,
     }, {
         "name": "fused_mlp_chain",
@@ -1148,7 +1140,6 @@ def main(argv=None) -> None:
         "tiles": t_attn["tiles"],
         "other_tiles_ms": t_attn["other_tiles_ms"],
         "table_iii_s2_f32": t_attn["s2_f32"],
-        **FIRST_VERSION["fused_attention"],
         "passed": True,
     }, {
         "name": "fused_gemm_chain",

@@ -6,7 +6,8 @@
     tk = api.fuse_attention(M=512, N=512, K=64, H=64, heads=12)
     o = tk(q, k, v)                           # q: (B, Hq, M, K)
     tk = api.fuse_attention_paged(1, 160, 128, 128, page_size=16,
-                                  heads=32, batch=4, dtype="bfloat16")
+                                  heads=32, kv_heads=8, batch=4,
+                                  dtype="bfloat16")
     o = tk(q, k_pages, v_pages, page_table, lengths)
     mlp = api.fuse_mlp_chain(4, 12288, 4096, dtype="bfloat16")
     e = mlp(a, w_up, w_down, wg=w_gate)       # a: (B, M, K)
@@ -181,7 +182,7 @@ def fuse_attention(M: int, N: int, K: int, H: int, heads: int = 1,
 
 
 def fuse_attention_paged(M: int, N: int, K: int, H: int, *,
-                         page_size: int, heads: int = 1, kv_heads: int = 0,
+                         page_size: int, kv_heads: int, heads: int = 1,
                          batch: int = 1,
                          dtype: str = "float32", causal: bool = True,
                          window: int = 0, scale: Optional[float] = None,
@@ -204,11 +205,10 @@ def fuse_attention_paged(M: int, N: int, K: int, H: int, *,
     pricing symmetry and must stay True for the built kernel).  Under
     ``GpuSpec`` Rule 4 prices every candidate by the partial kernel's
     layout (``perf_model.attention_partial_smem_bytes``), whose blocks
-    hold the ``heads / kv_heads`` q-heads of a GQA group
-    (``kv_heads=0``: as many kv heads as q-heads).
+    hold the ``heads / kv_heads`` q-heads of a GQA group; ``kv_heads``
+    has no default, so that no caller prices a GQA shape as group 1.
     """
     unit = hw.tile_unit if unit is None else unit
-    kv_heads = kv_heads or heads
     key = ("attn-paged", page_size, M, N, K, H, heads, kv_heads, batch,
            dtype, causal, window, scale, hw.name, unit, mesh, seed)
     if key in _CACHE:

@@ -22,7 +22,9 @@ matrix is priced as NumPy array math:
 * **Rule-4** (``PricedBatch.vmem``) is the same visit/tile products
   against the load-buffer + f32-accumulator charges — or, for a chain
   a CUDA kernel runs, under ``GpuSpec``, that kernel's own
-  shared-memory footprint (``perf_model.kernel_smem_bytes``).
+  shared-memory footprint (``perf_model.kernel_smem_bytes``), with the
+  kernel's tile rule (``perf_model.kernel_tiles_ok``) beside it in
+  ``PricedBatch.tiles_ok``.
 
 Bit-compatibility contract: for any schedule, ``ExprClassTable.price``
 on a 1-row tile matrix accumulates per-statement
@@ -42,8 +44,8 @@ import numpy as np
 
 from .chain import Chain, DTYPE_BYTES
 from .dag import bind_grid, build_schedule
-from .perf_model import (GpuSpec, H100, NO_KERNEL_TILE_BYTES, TpuSpec,
-                         kernel_smem_bytes, kernel_tiles_ok)
+from .perf_model import (GpuSpec, H100, TpuSpec, kernel_smem_bytes,
+                         kernel_tiles_ok)
 from .tiling import Scope, expr_repr
 
 
@@ -282,18 +284,17 @@ class ExprClassTable:
         t_comp = comp_total / hw.peak_flops
         alpha = (g + hw.alpha_extra) / g
         vmem = vmem_mem + vmem_comp
+        tiles_ok = np.ones(A, dtype=bool)
         if isinstance(hw, GpuSpec):
-            smem = kernel_smem_bytes(
-                self.chain, {l: tiles[:, self._col(l)] for l in self.names},
-                "(" in self.sub_expr)
+            by_loop = {l: tiles[:, self._col(l)] for l in self.names}
+            smem = kernel_smem_bytes(self.chain, by_loop,
+                                     "(" in self.sub_expr)
             if smem is not None:
-                ok = kernel_tiles_ok(
-                    self.chain,
-                    {l: tiles[:, self._col(l)] for l in self.names})
-                vmem = np.where(ok, smem, NO_KERNEL_TILE_BYTES)
+                vmem = smem
+            tiles_ok &= kernel_tiles_ok(self.chain, by_loop)
         return PricedBatch(t_mem=t_mem, t_comp=t_comp, alpha=alpha,
                            est=(t_mem + t_comp) * alpha,
-                           vmem=vmem, valid=valid)
+                           vmem=vmem, valid=valid, tiles_ok=tiles_ok)
 
 
 @dataclass(frozen=True)
@@ -306,6 +307,7 @@ class PricedBatch:
     est: np.ndarray      # (t_mem + t_comp) * alpha  (no collective term)
     vmem: np.ndarray     # Rule-4 residency (perf_model.rule4_bytes)
     valid: np.ndarray    # hard-Rule-2 mask
+    tiles_ok: np.ndarray  # the CUDA kernel takes the tiles (Rule 4)
 
 
 # ---------------------------------------------------------------------------

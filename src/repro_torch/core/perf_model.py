@@ -511,19 +511,27 @@ def attention_mma_bkv_max(dv: int) -> int:
     return 128 if dv <= 128 else 64
 
 
+def mma_padded_bkv(bkv):
+    """A kv tile of the bf16 tensor-core kernel as it lies in shared
+    memory: padded to whole 16-key chunks (zero rows whose scores are
+    -inf).  ``bkv`` may be a numpy array."""
+    return -(-bkv // 16) * 16
+
+
 def attention_tiles_ok(bq, bkv, d: int, dv: int, in_bytes: int):
     """The tile rule of the normalised entry (``fused_attention``): the
     bf16 tensor-core kernel takes head dims that are multiples of 16 up
     to 256, at most ``MMA_MAX_WARPS`` warps of ``MMA_ROWS`` query rows
     (bq <= 128; a bq that is no multiple of 16 is padded inside the
-    kernel) and kv tiles that are multiples of 16 up to
-    ``attention_mma_bkv_max(dv)``.  The f32 CUDA-core kernel takes any
-    tile.  ``bq``/``bkv`` may be numpy arrays (the batched model)."""
+    kernel) and kv tiles up to ``attention_mma_bkv_max(dv)`` (one that
+    is no multiple of 16 is padded inside the kernel).  The f32
+    CUDA-core kernel takes any tile.  ``bq``/``bkv`` may be numpy
+    arrays (the batched model)."""
     if in_bytes == 4:
         return (bq > 0) & (bkv > 0)
     if d % 16 or dv % 16 or d > 256 or dv > 256:
         return (bq < 0) & (bkv < 0)         # False, of the tiles' shape
-    return ((bq <= MMA_ROWS * MMA_MAX_WARPS) & (bkv % 16 == 0)
+    return ((bq <= MMA_ROWS * MMA_MAX_WARPS)
             & (bkv <= attention_mma_bkv_max(dv)))
 
 
@@ -532,16 +540,18 @@ def attention_smem_bytes(bq, bkv, d: int, dv: int, in_bytes: int):
     (``kernels/csrc/attention_partial.cu``, ``fused_attention``)
     allocates.  bf16 (tensor cores): the q tile, its rows rounded up to
     whole warps of 16, and a 2-stage ring of k and v, each stage
-    ``kv_stage_tiles(MMA_STAGE_KEYS, bkv)`` kv tiles, every row padded
-    by 16 bytes.  f32 (CUDA cores): the q, k and v tiles, the f32
-    score tile and output accumulator, and three f32 per-row statistics
+    ``kv_stage_tiles(MMA_STAGE_KEYS, bkvp)`` kv tiles of
+    ``bkvp = mma_padded_bkv(bkv)`` rows, every row padded by 16 bytes.
+    f32 (CUDA cores): the q, k and v tiles, the f32 score tile and
+    output accumulator, and three f32 per-row statistics
     (running max, running sum, the rescale factor).  The kernel's
     wrapper checks launches against this same function, so a tile
     Rule 4 admits is a tile the kernel holds.  ``bq``/``bkv`` may be
     numpy arrays (the batched model)."""
     if in_bytes == 2:
         rows = -(-bq // MMA_ROWS) * MMA_ROWS
-        sk = kv_stage_tiles(MMA_STAGE_KEYS, bkv) * bkv
+        bkvp = mma_padded_bkv(bkv)
+        sk = kv_stage_tiles(MMA_STAGE_KEYS, bkvp) * bkvp
         return (rows * (d + 8) + 2 * sk * (d + 8) + 2 * sk * (dv + 8)) * 2
     return ((bq * d + bkv * d + bkv * dv) * in_bytes
             + (bq * bkv + bq * dv + 3 * bq) * 4)
@@ -556,9 +566,9 @@ def attention_partial_smem_bytes(bq, bkv, d: int, dv: int, in_bytes: int,
     tiles, every row padded by 16 bytes, and for the block's
     ``group * bq`` rows (the q tiles of one GQA group) q, the output
     accumulator and the stage's scores in f32, the running max and sum,
-    and one rescale factor per kv tile of the stage.  The wrapper checks launches against this
-    same function.  ``bq``/``bkv`` may be numpy arrays (the batched
-    model)."""
+    and one rescale factor per kv tile of the stage.  The wrapper
+    checks launches against this same function.  ``bq``/``bkv`` may be
+    numpy arrays (the batched model)."""
     pad = 16 // in_bytes
     rows = group * bq
     tiles = kv_stage_tiles(PARTIAL_STAGE_KEYS * 2 // in_bytes, bkv)
@@ -657,25 +667,15 @@ def kernel_tiles_ok(chain: Chain, tiles: dict):
     return True
 
 
-#: what Rule 4 charges a tile the kernel does not take: past any budget
-NO_KERNEL_TILE_BYTES = 1 << 62
-
-
 def smem_estimate(sched: Schedule, hw: GpuSpec = H100) -> int:
     """Rule 4 under ``GpuSpec``: shared memory per thread block.  A
     chain with a CUDA kernel (attention, the MLP chain, the two- and
     three-GEMM chains) is priced by that kernel's own layout at the
-    schedule's tiles and class (``kernel_smem_bytes``), and a tile the
-    kernel does not take (``kernel_tiles_ok``) at
-    ``NO_KERNEL_TILE_BYTES``; any other chain by eq (1) with every input
-    staged once."""
+    schedule's tiles and class (``kernel_smem_bytes``); any other chain
+    by eq (1) with every input staged once."""
     smem = kernel_smem_bytes(sched.chain, sched.tile_sizes,
                              "(" in sched.sub_expr())
-    if smem is None:
-        return vmem_estimate(sched, hw)
-    if not kernel_tiles_ok(sched.chain, sched.tile_sizes):
-        return NO_KERNEL_TILE_BYTES
-    return smem
+    return vmem_estimate(sched, hw) if smem is None else smem
 
 
 def floor_residency_bytes(chain: Chain, tiles: dict,
@@ -704,3 +704,13 @@ def rule4_bytes(sched: Schedule, hw: "TpuSpec | GpuSpec" = H100) -> int:
     if isinstance(hw, GpuSpec):
         return smem_estimate(sched, hw)
     return vmem_estimate(sched, hw)
+
+
+def rule4_ok(sched: Schedule, hw: "TpuSpec | GpuSpec" = H100) -> bool:
+    """Rule 4: the schedule's residency fits ``hw.rule4_budget`` and,
+    under ``GpuSpec``, its CUDA kernel takes its tiles
+    (``kernel_tiles_ok``)."""
+    if isinstance(hw, GpuSpec) and not kernel_tiles_ok(sched.chain,
+                                                       sched.tile_sizes):
+        return False
+    return rule4_bytes(sched, hw) <= hw.rule4_budget

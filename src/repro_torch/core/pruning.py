@@ -9,10 +9,11 @@ Rule 2  Intermediate-tile blow-up: schedules that must cache multiple
 Rule 3  Padding: tile sizes that do not divide a power-of-two dim are
         discarded; otherwise padding ratio must stay < 0.05.  Dims below
         the MXU lane width are exempt (padding is mandatory there).
-Rule 4  On-chip limit (perf_model.rule4_bytes): under TpuSpec the
+Rule 4  On-chip limit (perf_model.rule4_ok): under TpuSpec the
         paper's eq. (1) VMEM residency must be <= 1.2 x VMEM; under
         GpuSpec the shared memory one thread block holds must fit the
-        per-block opt-in limit.
+        per-block opt-in limit, and the CUDA kernel must take the tiles
+        (perf_model.kernel_tiles_ok).
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from .batch_model import ExprClassTable, class_key
 from .chain import Chain
 from .dag import Schedule, build_schedule
 from .perf_model import (GpuSpec, H100, TpuSpec, floor_residency_bytes,
-                         rule4_bytes)
+                         rule4_ok)
 from .tiling import Scope, candidate_tile_sizes, enumerate_tilings
 
 
@@ -89,7 +90,7 @@ def validate_schedule(sched: Schedule, hw: "TpuSpec | GpuSpec" = H100,
             return False, f"bad_tile:{name}={t}"
         if not rule3_padding_ok(ext, t, unit):
             return False, f"rule3_padding:{name}={t}"
-    if rule4_bytes(sched, hw) > hw.rule4_budget:
+    if not rule4_ok(sched, hw):
         return False, "rule4_on_chip"
     return True, ""
 
@@ -188,7 +189,7 @@ def generate_candidates(chain: Chain, hw: "TpuSpec | GpuSpec" = H100,
 
     final = []
     for sched in kept.values():
-        if rule4_bytes(sched, hw) > hw.rule4_budget:
+        if not rule4_ok(sched, hw):
             stats.n_rule4 += 1
             continue
         final.append(sched)
@@ -209,7 +210,7 @@ class PricedClass:
     est: np.ndarray            # eq (2) estimate per tile row (no t_coll)
     vmem: np.ndarray           # Rule-4 residency per tile row
     valid: np.ndarray          # hard-Rule-2 mask per tile row
-    keep: np.ndarray           # valid & fits Rule 4 (candidate membership)
+    keep: np.ndarray           # valid & Rule 4 (candidate membership)
 
 
 @dataclass
@@ -353,7 +354,7 @@ def generate_candidates_batch(chain: Chain, hw: "TpuSpec | GpuSpec" = H100,
         table = ExprClassTable.build(chain, expr, unit=unit)
         priced = table.price(tiles, hw)
         est, vmem, valid = priced.est, priced.vmem, priced.valid
-        keep = valid & (vmem <= budget)
+        keep = valid & priced.tiles_ok & (vmem <= budget)
         pc = PricedClass(table=table, multiplicity=1, est=est,
                          vmem=vmem, valid=valid, keep=keep)
         by_class[ck] = len(classes)

@@ -21,7 +21,7 @@ from typing import Callable, Optional, Sequence
 from .chain import Chain
 from .dag import Schedule, build_schedule
 from .perf_model import (GpuSpec, H100, MeshSpec, TpuSpec, collective_bytes,
-                         estimate, rule4_bytes, t_coll_pipelined)
+                         estimate, rule4_ok, t_coll_pipelined)
 from .pruning import (CandidateMatrix, PruneStats, generate_candidates,
                       generate_candidates_batch, rule3_padding_ok)
 from .tiling import candidate_tile_sizes
@@ -78,7 +78,7 @@ def _mutate(sched: Schedule, chain: Chain, rng: random.Random,
         cand = build_schedule(chain, sched.expr, ts, hard_rule2=True)
         if not cand.valid:
             continue
-        if rule4_bytes(cand, hw) > hw.rule4_budget:
+        if not rule4_ok(cand, hw):
             continue
         return cand
     return None
@@ -212,12 +212,12 @@ def _mutate_batch(cand: tuple[int, int], cm: CandidateMatrix,
                   chain: Chain, rng: random.Random, unit: int,
                   hw: "TpuSpec | GpuSpec", loops: list[str],
                   tile_cands: dict[str, list[int]],
-                  rule3_ok: dict[str, set[int]],
-                  vmem_budget: float) -> Optional[tuple[int, int]]:
+                  rule3_ok: dict[str, set[int]]
+                  ) -> Optional[tuple[int, int]]:
     """``_mutate`` on matrix coordinates: identical rng draws and
     identical accept/reject checks (Rule 3, hard Rule 2, Rule 4), but
-    validity and VMEM come from the pre-priced class tables instead of
-    a fresh ``build_schedule``.  ``tile_cands``/``rule3_ok`` are
+    both rules come from the pre-priced class tables (``keep``) instead
+    of a fresh ``build_schedule``.  ``tile_cands``/``rule3_ok`` are
     memoized per search call (they depend only on the chain)."""
     ci, row = cand
     cls = cm.classes[ci]
@@ -232,9 +232,7 @@ def _mutate_batch(cand: tuple[int, int], cm: CandidateMatrix,
         if new not in rule3_ok[l]:
             continue
         row2 = cm.row_with(row, l, new)
-        if not cls.valid[row2]:
-            continue
-        if cls.vmem[row2] > vmem_budget:
+        if not cls.keep[row2]:
             continue
         return (ci, row2)
     return None
@@ -270,7 +268,6 @@ def _search_batch(chain: Chain, measure_fn: Optional[MeasureFn],
     rule3_ok = {l: {t for t in tile_cands[l]
                     if rule3_padding_ok(chain.loops[l], t, unit)}
                 for l in loops}
-    vmem_budget = hw.rule4_budget
 
     best_t = math.inf
     best: Optional[tuple[int, int]] = None
@@ -318,7 +315,7 @@ def _search_batch(chain: Chain, measure_fn: Optional[MeasureFn],
         seen: set[tuple] = set()
         for p in parents:
             child = _mutate_batch(p, cm, chain, rng, unit, hw, loops,
-                                  tile_cands, rule3_ok, vmem_budget) or p
+                                  tile_cands, rule3_ok) or p
             k = cm.key(child)
             if k not in seen:
                 seen.add(k)

@@ -91,8 +91,8 @@ def _smem(bq: int, bkv: int, q, v) -> int:
                              f"256, got {d}/{dv}")
         if not attention_tiles_ok(bq, bkv, d, dv, 2):
             raise ValueError(f"tiles bq={bq} bkv={bkv} are not tiles of the "
-                             f"bf16 kernel (bq <= 128, bkv a multiple of "
-                             f"16 up to the register bound)")
+                             f"bf16 kernel (bq <= 128, bkv up to the "
+                             f"register bound)")
     return _fits(attention_smem_bytes(bq, bkv, d, dv, q.element_size()),
                  bq, bkv)
 

@@ -23,13 +23,17 @@
 //   one barrier, one copy wait and one load of the Q fragments per
 //   stage, S for the whole stage at once, then the softmax tile after
 //   tile), rows padded by 16 bytes so that `ldmatrix` is free of bank
-//   conflicts.  O is rescaled only when some row's max moved.  The masks
-//   run only on tiles that cross the diagonal or the window edge of a
-//   warp's rows.  The grid puts the q-heads
-//   fastest, so the heads of one GQA group run side by side and share
-//   each kv tile through L2 (a block per group would multiply the
-//   registers a block needs by the group size); the late, long q tiles
-//   of a causal mask launch first.  The f32 entry keeps a CUDA-core
+//   conflicts.  A kv tile that is no multiple of 16 keys (the whole of
+//   an N such as 100, or a tile the clamp shrank to divide N) lies in
+//   shared memory padded with zero rows to whole 16-key chunks; the
+//   padding keys score -inf and weigh exactly 0, even in a row whose
+//   real keys are all masked.  O is rescaled only when some row's max
+//   moved.  The masks run only on tiles that cross the diagonal or the
+//   window edge of a warp's rows.  The grid puts the q-heads fastest,
+//   so the heads of one GQA group run side by side and share each kv
+//   tile through L2 (a block per group would multiply the registers a
+//   block needs by the group size); the late, long q tiles of a causal
+//   mask launch first.  The f32 entry keeps a CUDA-core
 //   loop (`attn_f32_kernel`): TF32 tensor cores would break the f32
 //   tolerance, and f32 is only the front door's Table III path.
 // * `attn_partial_launch` replaces the Pallas TPU kernel
@@ -84,6 +88,11 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -1e30f;  // NEG_INF of the JAX kernel, bit for bit
+// the score of a padding key of a ragged kv tile: -inf, so that its weight
+// exp(-inf - m) is exactly 0 even where every real key is masked
+__device__ __forceinline__ float pad_score() {
+  return __int_as_float(0xff800000);
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
@@ -173,8 +182,10 @@ constexpr int kMmaStageKeys = 64;
 // thread, and the stage's scores, keys / 2); loops over them are
 // unrolled and guarded by the real dv and stage, so the register arrays
 // keep constant indices.  (Keeping the warp's Q fragments in registers
-// too, and __expf for expf, each measured slower on the card.)
-template <int DVB, int BKVB>
+// too, and __expf for expf, each measured slower on the card.)  RAGGED:
+// bkv is no multiple of 16; the other instantiations carry none of its
+// padding arithmetic.
+template <int DVB, int BKVB, bool RAGGED>
 __global__ void __launch_bounds__(kMmaMaxWarps * 32) attn_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ o, int hq, int hkv,
@@ -192,8 +203,11 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32) attn_mma_kernel(
   const int rows = (nt >> 5) * kMmaRows;  // bq rounded up to 16
   const int ldq = d + kPad;
   const int ldv = dv + kPad;
-  const int st = max(1, kMmaStageKeys / bkv);  // kv tiles a stage
-  const int sk = st * bkv;                     // keys a stage
+  // a kv tile lies in shared memory padded to whole 16-key chunks: its
+  // padding rows are zero and their scores -inf, so they add exactly 0
+  const int bkvp = RAGGED ? (bkv + 15) / 16 * 16 : bkv;
+  const int st = max(1, kMmaStageKeys / bkvp);  // kv tiles a stage
+  const int sk = st * bkvp;                     // shared-memory rows a stage
 
   // layout == attention_smem_bytes(bq, bkv, d, dv, 2)
   extern __shared__ __align__(16) unsigned char smem[];
@@ -225,22 +239,36 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32) attn_mma_kernel(
                  q + (row_base + (valid ? r : 0)) * d + c, valid);
     }
   }
-  // the kv rows [j0, j0 + keys) into ring stage `stage`
-  auto load_kv = [&](int j0, int keys, int stage) {
+  // `tiles` kv tiles from key j0 on into ring stage `stage`; shared row
+  // r holds key r of the run, or with ragged tiles key x of tile u
+  // (r = u * bkvp + x) and zeros where x >= bkv
+  auto load_kv = [&](int j0, int tiles, int stage) {
     const bf16* kg = k + (kv_base + j0) * d;
     const bf16* vg = v + (kv_base + j0) * dv;
     bf16* ks = s_k + stage * sk * ldq;
     bf16* vs = s_v + stage * sk * ldv;
     const int kc = d / 8, vc = dv / 8;
-    for (int i = threadIdx.x; i < keys * kc; i += nt)
+    auto key = [&](int r, bool& valid) {
+      if (!RAGGED) return r;
+      const int u = r / bkvp, x = r - u * bkvp;
+      valid = x < bkv;
+      return u * bkv + (valid ? x : 0);
+    };
+    for (int i = threadIdx.x; i < tiles * bkvp * kc; i += nt) {
+      bool valid = true;
+      const int j = key(i / kc, valid);
       cp_async16(ks + (i / kc) * ldq + (i % kc) * 8,
-                 kg + (i / kc) * d + (i % kc) * 8);
-    for (int i = threadIdx.x; i < keys * vc; i += nt)
+                 kg + j * d + (i % kc) * 8, valid);
+    }
+    for (int i = threadIdx.x; i < tiles * bkvp * vc; i += nt) {
+      bool valid = true;
+      const int j = key(i / vc, valid);
       cp_async16(vs + (i / vc) * ldv + (i % vc) * 8,
-                 vg + (i / vc) * dv + (i % vc) * 8);
+                 vg + j * dv + (i % vc) * 8, valid);
+    }
   };
   const int n_stages = (n_tiles + st - 1) / st;
-  if (n_tiles > 0) load_kv(j_begin, min(st, n_tiles) * bkv, 0);
+  if (n_tiles > 0) load_kv(j_begin, min(st, n_tiles), 0);
   cp_async_commit();
 
   float acc_o[DVB / 8][4];
@@ -257,16 +285,16 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32) attn_mma_kernel(
 
   for (int it = 0; it < n_stages; ++it) {
     const int ns = min(st, n_tiles - it * st);  // kv tiles in this stage
-    const int j_stage = j_begin + it * sk;
+    const int j_stage = j_begin + it * st * bkv;
     if (it + 1 < n_stages)
-      load_kv(j_stage + sk, min(st, n_tiles - (it + 1) * st) * bkv,
+      load_kv(j_stage + st * bkv, min(st, n_tiles - (it + 1) * st),
               (it + 1) & 1);
     cp_async_commit();
     cp_async_wait_1();
     __syncthreads();
     const bf16* ks = s_k + (it & 1) * sk * ldq;
     const bf16* vs = s_v + (it & 1) * sk * ldv;
-    const int keys = ns * bkv;
+    const int rows_s = ns * bkvp;  // shared-memory rows in this stage
 
     // a kv tile masked for all 16 rows of this warp is skipped (exact,
     // as above); a tile live for all of them needs no mask
@@ -276,7 +304,7 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32) attn_mma_kernel(
     };
     // S = Q K^T over the whole stage (its kv tiles side by side, so the
     // Q fragments load once a stage): 16 rows x keys, 16 of the head
-    // dim at a time; 16-key chunks of dead tiles are skipped
+    // dim at a time; 16-row chunks of dead tiles are skipped
     float s[BKVB / 8][4];
 #pragma unroll
     for (int t = 0; t < BKVB / 8; ++t)
@@ -285,7 +313,7 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32) attn_mma_kernel(
     bool live[BKVB / 16];
 #pragma unroll
     for (int c = 0; c < BKVB / 16; ++c)
-      live[c] = c * 16 < keys && !dead(j_stage + c * 16 / bkv * bkv);
+      live[c] = c * 16 < rows_s && !dead(j_stage + c * 16 / bkvp * bkv);
     const bf16* k_frag = ks + ((lane & 7) + ((lane >> 4) << 3)) * ldq +
                          ((lane >> 3) & 1) * 8;
     for (int kc = 0; kc < d; kc += 16) {
@@ -303,13 +331,13 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32) attn_mma_kernel(
     }
 
     // the online softmax and P V, one kv tile of the stage after the
-    // other; a chunk t of 8 keys belongs to tile t * 8 / bkv
+    // other; a chunk t of 8 rows belongs to tile t * 8 / bkvp
     for (int u = 0; u < ns; ++u) {
       const int j0 = j_stage + u * bkv;
       if (dead(j0)) continue;
       const bool edge = masked && !(j0 + bkv - 1 <= lo &&
                                     (window <= 0 || j0 > hi - window));
-      const int t_lo = u * bkv / 8, t_hi = t_lo + bkv / 8;
+      const int t_lo = u * bkvp / 8, t_hi = t_lo + bkvp / 8;
       // scale, mask, row max (this thread: rows g and g + 8)
       float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -318,12 +346,18 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32) attn_mma_kernel(
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             float x = s[t][e] * scale;
-            if (edge) {
-              const int row = lo + g + (e >> 1) * 8;
-              const int col = j_stage + t * 8 + tig * 2 + (e & 1);
-              bool keep = col <= row;
-              if (window > 0) keep = keep && col > row - window;
-              if (!keep) x = kNegInf;
+            if (edge || RAGGED) {
+              // the key's position (its tile u starts at row u * bkvp)
+              const int col =
+                  j_stage + t * 8 + tig * 2 + (e & 1) + u * (bkv - bkvp);
+              if (edge) {
+                const int row = lo + g + (e >> 1) * 8;
+                bool keep = col <= row;
+                if (window > 0) keep = keep && col > row - window;
+                if (!keep) x = kNegInf;
+              }
+              if (RAGGED && col - j0 >= bkv)
+                x = pad_score();  // exp(-inf - m) = 0
             }
             s[t][e] = x;
             mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -412,13 +446,15 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
                int batch, int hq, int hkv, int m, int n, int d, int dv,
                int bq, int bkv, int masked, int window, float scale,
                size_t smem, cudaStream_t stream) {
+  auto kernel = bkv % 16 ? attn_mma_kernel<DVB, BKVB, true>
+                         : attn_mma_kernel<DVB, BKVB, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      attn_mma_kernel<DVB, BKVB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(hq, m / bq, batch);
   const int threads = (bq + kMmaRows - 1) / kMmaRows * 32;
-  attn_mma_kernel<DVB, BKVB><<<grid, threads, smem, stream>>>(
+  kernel<<<grid, threads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), hq, hkv, m, n, d,
       dv, bq, bkv, masked, window, scale);

@@ -220,7 +220,8 @@ def test_partial_split_choice_for_the_decode_shapes(port_cache):
     (128, 16, 128, 128, True), (16, 128, 128, 128, True),
     (8, 16, 64, 64, True),           # a padded warp of rows
     (256, 16, 128, 128, False),      # 16 warps: past the register budget
-    (128, 24, 128, 128, False),      # not a multiple of 16
+    (128, 24, 128, 128, True),       # padded to 32 inside the kernel
+    (100, 100, 128, 128, True),      # a whole N of 100: padded to 112
     (128, 144, 128, 128, False),     # past the kv tile's registers
     (64, 64, 256, 256, True), (64, 80, 256, 256, False),
     (64, 16, 24, 24, False),         # head dim not a multiple of 16
@@ -504,6 +505,31 @@ def test_ops_attention_runs_the_tuned_tiles(port_cache, monkeypatch):
     assert seen == [tk.params.bkv]
 
 
+def test_bf16_attention_at_a_length_no_multiple_of_16(jref, port_cache):
+    """bf16 at S = 100, where only the whole 100-key tile passes
+    Rule 3: the tuner admits it, the tensor-core kernel takes it (padded
+    inside the kernel to 112 keys), and ``ops.attention`` matches the
+    JAX kernel at those tiles."""
+    s = 100
+    from repro_torch.core import api
+    from repro_torch.core.perf_model import attention_tiles_ok
+    from repro_torch.kernels import ops
+    jnp, ref = jref
+    rng = np.random.RandomState(s)
+    q, k, v = (torch.from_numpy(rng.randn(1, hh, s, 128).astype(np.float32)
+                                ).bfloat16() for hh in (4, 2, 2))
+    p = api.fuse_attention(s, s, 128, 128, heads=4, batch=1,
+                           dtype="bfloat16", causal=True).params
+    bq, bkv = A.clamp_tiles(s, s, p.bq, p.bkv)
+    assert bkv % 16 and attention_tiles_ok(bq, bkv, 128, 128, 2)
+    got = ops.attention(q, k, v, causal=True)
+    want = ref.fused_attention(
+        *(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+          for t in (q, k, v)), bq=bq, bkv=bkv, causal=True, interpret=True)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **TOL_BF16)
+
+
 # ---------------------------------------------------------------------------
 # the wrappers' guards
 # ---------------------------------------------------------------------------
@@ -717,6 +743,10 @@ def test_partial_kernel_splits_on_card(sm90, dtype, n, bkv, splits, hq, hkv,
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,hq,hkv,m,n,d,bq,bkv,causal,window", [
     (2, 32, 8, 2048, 2048, 128, 128, 16, True, 0),  # the forward's shape
+    (2, 8, 2, 100, 100, 128, 100, 100, True, 0),    # N = 100: padded tile
+    (1, 8, 2, 240, 240, 64, 48, 24, True, 60),      # 24-key tiles, window
+    (1, 8, 2, 1000, 1000, 128, 40, 100, True, 0),   # ten 100-key tiles
+    (1, 4, 2, 120, 40, 64, 40, 40, True, 0),        # M > N, padded tile
     (2, 32, 8, 2048, 2048, 128, 64, 64, True, 0),   # around the pick
     (1, 32, 8, 1024, 1024, 128, 128, 128, True, 0),
     (1, 32, 4, 256, 256, 128, 128, 32, True, 0),    # GQA group 8

@@ -93,7 +93,8 @@ def test_fuse_attention_paged_matches_reference_under_v5e(port_cache):
     from repro.core import api as ref_api
     kw = dict(page_size=16, heads=4, batch=2, dtype="float32")
     ref = ref_api.fuse_attention_paged(1, 128, 64, 64, **kw)
-    got = api.fuse_attention_paged(1, 128, 64, 64, hw=V5E, **kw)
+    got = api.fuse_attention_paged(1, 128, 64, 64, hw=V5E, kv_heads=4,
+                                   **kw)
     assert got.report.best.key() == ref.report.best.key()
     assert got.params.as_kwargs() == ref.params.as_kwargs()
     assert got.report.best_time == ref.report.best_time
@@ -153,7 +154,7 @@ def test_h100_descriptor_terms():
 def test_schedule_cache_is_the_ports_own(port_cache, monkeypatch, tmp_path):
     other = tmp_path / "jax-cache"
     monkeypatch.setenv("REPRO_CACHE_DIR", str(other))
-    kw = dict(page_size=16, heads=2, batch=1)
+    kw = dict(page_size=16, heads=2, kv_heads=2, batch=1)
     tk = api.fuse_attention_paged(1, 4096, 128, 128, **kw)
     assert tk.source == "search"
     assert schedule_cache.host_fingerprint()
