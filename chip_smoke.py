@@ -15,7 +15,11 @@ which raises on failure:
    at N=4096 with the wrapper's kv split, one split and an uneven one
    (the plain version takes the same split), with windows and dead
    rows; the normalised one also with a window, without a mask, with
-   M < N and M > N;
+   M < N and M > N; the MLP kernel at the tuner's tiles for M = 4, 144
+   and 4096 with its n split, one split and an uneven one (the plain
+   version takes the same split), at M = 1, ragged M, N and H, each
+   activation, f32 A with bf16 weights, and two decode launches that
+   must be bitwise equal;
 4. the three main paths, each at full width — qwen3-8b (36 layers,
    bf16, random weights from a seed, no depth cut):
    a. served by the continuous-batching engine, 8 ragged requests, max
@@ -43,7 +47,9 @@ which raises on failure:
    cache-free forward: host wall time and device time by kernel;
 7. times of each kernel beside its bound, its plain version and the
    PyTorch call(s) it replaces (the normalised attention also at other
-   tiles of the forward's shape and in f32 at Table III S2).
+   tiles of the forward's shape and in f32 at Table III S2; the MLP
+   kernel at M = 4, 144 and 4096, each at the tuner's tiles and split
+   and at tiles around them).
 
 Prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -85,8 +91,11 @@ E2E_REL_TOL = 5e-2
 # differs as above; 36 layers carry that to the logits (0.018 relative
 # on an H100).  A wrong MLP or plan gives order 1.
 PLANNED_REL_TOL = 5e-2
-# The MLP kernel's decode shape (M = max batch) and one prefill shape
-MLP_SHAPES = {"decode": 4, "prefill": 144}
+# The MLP kernel's decode shape (M = max batch), one prefill shape, and
+# the cache-free forward's B x S = 2 x 2048 tokens, which the planned
+# forward of the ROADMAP would run (timed and held here; no path of
+# today launches it)
+MLP_SHAPES = {"decode": 4, "prefill": 144, "m4096": 4096}
 # The cache-free forward: batch x tokens of qwen3-8b FULL
 FORWARD = dict(batch=2, seq=2048, seed=2)
 # The normalised attention kernel rounds the unnormalised P to bf16 per
@@ -497,65 +506,147 @@ def _mlp_case(cfg, m, a_dtype, gated, act, seed):
     return (a, wu, wd, wg), tk.params.as_kwargs()
 
 
+def _mlp_run(x, act, kw, splits):
+    """One MLP kernel launch and its plain version with the same split:
+    the wrapper's own split (``splits=None``) or a forced count through
+    ``_launch``.  Returns (kernel's E, plain E, clamped tiles, splits)."""
+    from repro_torch.kernels import gemm_chain as G
+    a, wu, wd, wg = x
+    tiles, (own, _) = G._check(a, wu, wd, wg, act, **kw)
+    if splits is None:
+        splits = own
+        got = G.fused_mlp_chain(a, wu, wd, wg=wg, act=act, **kw)
+    else:
+        got = G._launch(a, wu, wd, wg, act, *tiles, splits)
+    torch.cuda.synchronize()
+    want = G.fused_mlp_chain_plain(a, wu, wd, wg, act, tiles[1], splits)
+    return got, want, tiles, splits
+
+
 def mlp_check_phase(cfg) -> float:
-    """The MLP kernel against its plain version on the card at full
-    width with the tuner's tiles; returns the largest absolute error."""
+    """The MLP kernel against its plain version on the card with the same
+    n split: at full width with the tuner's tiles (decode, prefill and
+    M=4096), with one split and an uneven split, at M=1, at ragged M, N
+    and H, each activation, and f32 A with bf16 weights; then two
+    launches of the decode case, which must be bitwise equal.  Returns
+    the largest absolute error."""
     from repro_torch.kernels import gemm_chain as G
     worst = 0.0
-    cases = [  # (name, M, A's type, gated, act)
-        ("decode, f32 A / bf16 weights", MLP_SHAPES["decode"],
-         torch.float32, True, "silu"),
-        ("decode, bf16", MLP_SHAPES["decode"], torch.bfloat16, True,
-         "silu"),
-        ("prefill, bf16", MLP_SHAPES["prefill"], torch.bfloat16, True,
-         "silu"),
-        ("ungated gelu, bf16", 16, torch.bfloat16, False, "gelu"),
+    d, ff, bf, f32 = cfg.d_model, cfg.d_ff, torch.bfloat16, torch.float32
+    ragged = dict(bm=16, bn=96, bk=32, bh=64)
+    cases = [  # (name, M, A's type, gated, act, splits, dims, tiles)
+        ("decode", MLP_SHAPES["decode"], bf, True, "silu", None, None, None),
+        # one split holds the hidden of all of N on chip: N cut to 768
+        ("decode, one split", MLP_SHAPES["decode"], bf, True, "silu", 1,
+         (768, d), None),
+        ("decode, uneven split", MLP_SHAPES["decode"], bf, True, "silu", 7,
+         None, None),
+        ("decode, f32 A / bf16 weights", MLP_SHAPES["decode"], f32, True,
+         "silu", None, None, None),
+        ("prefill", MLP_SHAPES["prefill"], bf, True, "silu", None, None,
+         None),
+        ("M=4096", MLP_SHAPES["m4096"], bf, True, "silu", None, None, None),
+        ("M=1", 1, bf, True, "silu", None, None, None),
+        ("ungated gelu", 16, bf, False, "gelu", None, None, None),
+        ("ungated relu", 16, bf, False, "relu", None, None, None),
+        ("ragged M, N, H, deep", 37, bf, True, "silu", None, (1000, 200),
+         dict(ragged, style="deep")),
+        ("ragged M, N, H, flat, uneven split", 37, bf, False, "gelu", 5,
+         (1000, 200), dict(ragged, style="flat")),
     ]
-    for i, (name, m, at, gated, act) in enumerate(cases):
+    for i, (name, m, at, gated, act, splits, dims, tiles) in enumerate(cases):
         (a, wu, wd, wg), kw = _mlp_case(cfg, m, at, gated, act, 10 + i)
-        got = G.fused_mlp_chain(a, wu, wd, wg=wg, act=act, **kw)
-        torch.cuda.synchronize()
-        want = G.fused_mlp_chain_plain(a, wu, wd, wg, act,
-                                       min(kw["bn"], cfg.d_ff))
+        if dims is not None:                 # N and H cut short
+            n, h = dims
+            wu, wd = wu[:, :, :n].contiguous(), wd[:, :n, :h].contiguous()
+            wg = None if wg is None else wg[:, :, :n].contiguous()
+            kw = tiles or kw
+        got, want, tl, sp = _mlp_run((a, wu, wd, wg), act, kw, splits)
         if got.shape != want.shape or not torch.isfinite(got).all():
             raise RuntimeError(f"bad MLP output {tuple(got.shape)}")
         torch.testing.assert_close(got, want, **TOL[at])
         err = float((got.float() - want.float()).abs().max())
         worst = max(worst, err)
-        print(f"MLP kernel vs plain [{name}] M={m} N={cfg.d_ff} "
-              f"K=H={cfg.d_model} tiles={kw}: max|err|={err:.3g} "
-              f"tol={TOL[at]} ok")
-        del a, wu, wd, wg
+        print(f"MLP kernel vs plain [{name}] M={m} N={wu.shape[2]} K={d} "
+              f"H={wd.shape[2]} {_dtname(at)} {kw['style']} tiles={tl} "
+              f"splits={sp}: max|err|={err:.3g} tol={TOL[at]} ok")
+        del a, wu, wd, wg, got, want
+    (a, wu, wd, wg), kw = _mlp_case(cfg, MLP_SHAPES["decode"], bf, True,
+                                    "silu", 30)
+    first = G.fused_mlp_chain(a, wu, wd, wg=wg, **kw)
+    second = G.fused_mlp_chain(a, wu, wd, wg=wg, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(first, second):
+        raise RuntimeError("two launches of the decode MLP differ")
+    print(f"MLP kernel determinism [decode] M={MLP_SHAPES['decode']} "
+          f"N={ff}: two launches bitwise equal")
     return worst
+
+
+def _mlp_sweep_tiles(m: int, kw: dict, n: int, k: int, h: int) -> list:
+    """The tuner's MLP tiles and a few around them (bn halved and
+    doubled, the other bk of 32 / 64, one m tile of all M rows with 64
+    columns), each one the bf16 kernel takes and whose layout fits a
+    block at the wrapper's split."""
+    from repro_torch.core.perf_model import (H100, mlp_smem_bytes,
+                                             mlp_splits, mlp_tiles_ok)
+    from repro_torch.kernels.gemm_chain import clamp_tiles
+    out = [kw]
+    bn, bk = kw["bn"], kw["bk"]
+    for alt in ({"bn": bn // 2}, {"bn": bn * 2},
+                {"bk": 64 if bk != 64 else 32}, {"bm": m, "bn": 64}):
+        t = {**kw, **alt}
+        if t in out:
+            continue
+        tiles = clamp_tiles(m, n, k, h, t["bm"], t["bn"], t["bk"], t["bh"],
+                            t["style"])
+        if t["bn"] % 16 or not mlp_tiles_ok(tiles[0], tiles[1], n, 2, 2):
+            continue
+        per = mlp_splits(1, m, n, k, h, *tiles, 2, 2, True)[1]
+        if mlp_smem_bytes(*tiles, 2, 2, True, per) <= H100.smem_per_block:
+            out.append(t)
+    return out
 
 
 def mlp_time_phase(cfg, label: str, m: int) -> dict:
     """kernel_ms, plain_ms, unfused_ms and bound_ms of the gated bf16
-    MLP at M rows.  unfused_ms is the hand-wired ``mlp_block`` (three
-    torch.matmul and silu * mul): the time the fused path replaces, as
-    no single PyTorch call computes a gated MLP."""
+    MLP at M rows with the tuner's tiles and split, the device time of
+    its two kernels (the split's and the merge) from a profile, and the
+    kernel's time at tiles around the pick.  unfused_ms is the hand-wired
+    ``mlp_block`` (three torch.matmul and silu * mul): the time the
+    fused path replaces, as no single PyTorch call computes a gated
+    MLP."""
     from repro_torch.kernels import gemm_chain as G
     from repro_torch.models import layers as L
     (a, wu, wd, wg), kw = _mlp_case(cfg, m, getattr(torch, cfg.dtype),
                                     True, "silu", 99)
-    bn = min(kw["bn"], cfg.d_ff)
+    k, n, h = cfg.d_model, cfg.d_ff, cfg.d_model
+    tiles, (splits, _) = G._check(a, wu, wd, wg, "silu", **kw)
     kernel_ms = _adaptive_ms(lambda: G.fused_mlp_chain(a, wu, wd, wg=wg,
                                                        **kw), reps=3)
     plain_ms = _time_ms(lambda: G.fused_mlp_chain_plain(a, wu, wd, wg,
-                                                        "silu", bn),
-                        iters=5, reps=3)
+                                                        "silu", tiles[1],
+                                                        splits),
+                        iters=2 if m > 1024 else 5, reps=2)
     p = {"w_gate": wg[0], "w_up": wu[0], "w_down": wd[0]}
-    unfused_ms = _time_ms(lambda: L.mlp_block(p, a[0], cfg))
-    k, n, h = cfg.d_model, cfg.d_ff, cfg.d_model
-    nbytes = (sum(t.numel() * t.element_size() for t in (a, wu, wd, wg))
-              + m * h * a.element_size())
+    unfused_ms = _adaptive_ms(lambda: L.mlp_block(p, a[0], cfg))
+    prof = profile_phase(lambda: G.fused_mlp_chain(a, wu, wd, wg=wg, **kw),
+                         f"MLP {label}", f"fused_mlp_chain M={m}", timed=3,
+                         traced=3)
+    sweep = {}
+    for t in _mlp_sweep_tiles(m, kw, n, k, h):
+        sp = G._check(a, wu, wd, wg, "silu", **t)[1][0]
+        sweep[f"{t['style']} {t['bm']}/{t['bn']}/{t['bk']}/{t['bh']} "
+              f"x{sp}"] = _adaptive_ms(
+            lambda t=t: G.fused_mlp_chain(a, wu, wd, wg=wg, **t), reps=2)
+    nbytes = _nbytes(a, wu, wd, wg) + m * h * a.element_size()
     ops = 2 * m * k * n * 2 + 2 * m * n * h
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[torch.bfloat16] * 1e3
     out = dict(kernel_ms=kernel_ms, plain_ms=plain_ms, unfused_ms=unfused_ms,
-               bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
-               tiles=kw)
+               **_bound(nbytes, ops, torch.bfloat16), tiles=kw,
+               splits=splits, tile_sweep_ms=sweep,
+               device_ms_by_kernel={
+                   r["name"].replace("void (anonymous namespace)::",
+                                     "")[:40]: r["ms"] for r in prof["top"]})
     print(f"MLP times [{label}] M={m} N={n} K=H={k} bf16 gated silu: "
           + json.dumps(out))
     return out
@@ -1119,8 +1210,14 @@ def main(argv=None) -> None:
         "bound_by": t_mlp["decode"]["bound_by"],
         "library_ms": None,
         "unfused_ms": t_mlp["decode"]["unfused_ms"],
-        "prefill": {k: t_mlp["prefill"][k] for k in (
-            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "unfused_ms")},
+        "tiles": t_mlp["decode"]["tiles"],
+        "splits": t_mlp["decode"]["splits"],
+        "tile_sweep_ms": t_mlp["decode"]["tile_sweep_ms"],
+        "device_ms_by_kernel": t_mlp["decode"]["device_ms_by_kernel"],
+        **{label: {k: t_mlp[label][k] for k in (
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "unfused_ms",
+            "tiles", "splits", "tile_sweep_ms", "device_ms_by_kernel")}
+           for label in ("prefill", "m4096")},
         "passed": True,
     }, {
         "name": "fused_attention",

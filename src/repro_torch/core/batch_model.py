@@ -45,7 +45,7 @@ import numpy as np
 from .chain import Chain, DTYPE_BYTES
 from .dag import bind_grid, build_schedule
 from .perf_model import (GpuSpec, H100, TpuSpec, kernel_smem_bytes,
-                         kernel_tiles_ok)
+                         kernel_split_terms, kernel_tiles_ok)
 from .tiling import Scope, expr_repr
 
 
@@ -276,19 +276,21 @@ class ExprClassTable:
         # NOTE: scalar vmem_estimate accumulates in Schedule.stmts order
         # (computes interleaved with loads/stores); integer addition is
         # exact so regrouping into mem + comp partial sums is identical.
+        flat = "(" in self.sub_expr
+        by_loop = {l: tiles[:, self._col(l)] for l in self.names}
+        # eq (5') counts a split kernel's blocks, eq (3) its partials
+        splits, extra = kernel_split_terms(self.chain, by_loop, flat, hw)
         g = np.maximum(1, np.prod(ext[:, [self._col(x)
                                           for x in self.grid]],
                                   axis=1, dtype=np.int64)
-                       * self.chain.batch)
-        t_mem = mem_total / hw.hbm_bw
+                       * self.chain.batch * splits)
+        t_mem = (mem_total + extra) / hw.hbm_bw
         t_comp = comp_total / hw.peak_flops
         alpha = (g + hw.alpha_extra) / g
         vmem = vmem_mem + vmem_comp
         tiles_ok = np.ones(A, dtype=bool)
         if isinstance(hw, GpuSpec):
-            by_loop = {l: tiles[:, self._col(l)] for l in self.names}
-            smem = kernel_smem_bytes(self.chain, by_loop,
-                                     "(" in self.sub_expr)
+            smem = kernel_smem_bytes(self.chain, by_loop, flat, hw)
             if smem is not None:
                 vmem = smem
             tiles_ok &= kernel_tiles_ok(self.chain, by_loop)

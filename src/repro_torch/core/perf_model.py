@@ -34,8 +34,11 @@ two copies of every streamed block).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass
+
+import numpy as np
 
 from .chain import Chain, DTYPE_BYTES, PARTIAL_ATTENTION
 from .dag import Schedule
@@ -46,7 +49,7 @@ from .ring import (ICI_HOP_LATENCY_S, pipelined_overlap_seconds,
 # (chain, tile assignment, mesh) — new terms, retuned constants, changed
 # hoisting semantics.  core.schedule_cache folds this into every disk
 # key, so persisted schedules from an older model never resurface.
-MODEL_VERSION = 5
+MODEL_VERSION = 6
 
 
 @dataclass(frozen=True)
@@ -411,7 +414,9 @@ def t_mem(sched: Schedule, hw: "TpuSpec | GpuSpec" = H100) -> float:
         bytes_per_visit = (sched.visit_elems(s, tensor.dims)
                           * tensor.dtype_bytes)
         total += bytes_per_visit * sched.trips(s)
-    return total / hw.hbm_bw
+    _, extra = kernel_split_terms(sched.chain, sched.tile_sizes,
+                                  "(" in sched.sub_expr(), hw)
+    return (total + extra) / hw.hbm_bw
 
 
 def t_comp(sched: Schedule, hw: "TpuSpec | GpuSpec" = H100) -> float:
@@ -436,7 +441,13 @@ def t_comp(sched: Schedule, hw: "TpuSpec | GpuSpec" = H100) -> float:
 
 
 def alpha(sched: Schedule, hw: "TpuSpec | GpuSpec" = H100) -> float:
-    n_grid = max(1, sched.grid_size())
+    """Eq (5'): N_grid is the schedule's grid (``Schedule.grid_size``)
+    times the blocks a split adds to each grid point
+    (``kernel_split_terms``: the MLP kernel's n splits under
+    ``GpuSpec``)."""
+    splits, _ = kernel_split_terms(sched.chain, sched.tile_sizes,
+                                   "(" in sched.sub_expr(), hw)
+    n_grid = max(1, sched.grid_size() * int(splits))
     return (n_grid + hw.alpha_extra) / n_grid
 
 
@@ -583,21 +594,213 @@ def is_mlp(chain: Chain) -> bool:
     return any(op.name == "mlp_up" and op.epilogue for op in chain.ops)
 
 
-def mlp_smem_bytes(bm, bn, bk, be, a_bytes: int, w_bytes: int,
-                   gated: bool):
-    """Shared memory one thread block of the CUDA MLP kernel
-    (``kernels/csrc/mlp_chain.cu``) allocates: the f32 up-projection
-    accumulators (bm, bn) — two when gated —, the f32 E accumulator
-    (bm, be), the A tile (bm, bk) in A's type and the weight tiles
-    (bk, bn) — Wu, and Wg when gated — in the weights' type.  ``be`` is
-    the E tile width: ``bh`` for the deep class, the whole H for the
-    flat class.  Wd is read straight from device memory, never staged.
-    The kernel's wrapper checks launches against this same function, so
-    a tile Rule 4 admits is a tile the kernel holds.  Tiles may be numpy
-    arrays (the batched model)."""
+#: the MLP kernel (``kernels/csrc/mlp_chain.cu``): threads a block; the
+#: bf16 kernel's cp.async ring, of as many stages as keep
+#: ``MLP_RING_BYTES`` in flight within [MLP_MIN_STAGES, MLP_MAX_STAGES];
+#: the E columns one chunk of its down-projection holds in registers
+#: (32 a warp)
+MLP_THREADS = 256
+MLP_MIN_STAGES = 3
+MLP_MAX_STAGES = 8
+MLP_RING_BYTES = 65536
+MLP_E_CHUNK = 256
+#: the bf16 tensor-core kernel's register arrays: a warp holds up to 9
+#: row groups of 16 rows (bm <= 144) for one 16-column group of an n
+#: block, or up to 4 for two (bn <= 256)
+MLP_MAX_ROW_GROUPS = 9
+#: blocks an SM holds by registers: the launch bounds of the tensor-core
+#: kernel (256, 1) and of the CUDA-core kernel (256, 2)
+MLP_REG_BLOCKS = {True: 1, False: 2}
+#: split counts ``mlp_splits`` weighs: up to this many blocks an SM
+MLP_MAX_SPLITS_PER_SM = 2
+
+
+def _at_least(x, lo):
+    """max(x, lo) for ints and numpy arrays alike."""
+    return x + (x < lo) * (lo - x)
+
+
+def _at_most(x, hi):
+    """min(x, hi) for ints and numpy arrays alike."""
+    return x - (x > hi) * (x - hi)
+
+
+def _ceil16(x):
+    return -(-x // 16) * 16
+
+
+def mlp_tensor_cores(a_bytes: int, w_bytes: int) -> bool:
+    """Whether the MLP kernel runs its products on tensor cores: A and
+    the weights both bf16.  Any f32 operand keeps CUDA-core arithmetic
+    (f32 parity allows no TF32)."""
+    return a_bytes == 2 and w_bytes == 2
+
+
+def mlp_tiles_ok(bm, bn, n: int, a_bytes: int, w_bytes: int):
+    """The tile rule of the MLP kernel.  The bf16 tensor-core kernel
+    pads bm, bn and bk to whole 16s inside, but its 8 warps each hold
+    the up-projection of one 16-column group of an n block for up to
+    ``MLP_MAX_ROW_GROUPS`` row groups (bm <= 144, bn <= 128), or of two
+    for up to 4 (bm <= 64, bn <= 256), in registers; and its hidden
+    columns follow the n axis only when bn is a whole number of 16s (or
+    one n block covers all of N).  The f32 CUDA-core kernel takes any
+    tile.  Tiles may be numpy arrays (the batched model)."""
+    if not mlp_tensor_cores(a_bytes, w_bytes):
+        return (bm > 0) & (bn > 0)
+    groups = -(-bm // 16)
+    cols = -(-bn // 16)
+    return ((groups <= MLP_MAX_ROW_GROUPS) & (cols <= 16)
+            & ((groups <= 4) | (cols <= 8))
+            & ((bn % 16 == 0) | (bn >= n)))
+
+
+def mlp_ring(bm, bn, bk, gated: bool):
+    """The bf16 kernel's cp.async ring at these tiles: (stages, bytes a
+    stage, rows of Wd a down-projection stage holds).  A stage is the
+    larger of an up-projection stage — the A tile (bm, bk) and the Wu
+    (and Wg) tiles (bk, bn), bm, bn and bk padded to whole 16s and every
+    row by 16 bytes — and a down-projection stage of Wd rows by
+    ``MLP_E_CHUNK`` columns, whose rows are whole 16s, as many as fit
+    the up stage (at least 16), so both phases keep about as many bytes
+    in flight; there are as many stages as keep ``MLP_RING_BYTES`` in
+    flight, within [MLP_MIN_STAGES, MLP_MAX_STAGES].  The wrapper hands
+    all three to the kernel.  Tiles may be numpy arrays."""
     nw = 2 if gated else 1
+    bkp = _ceil16(bk)
+    up = (_ceil16(bm) * (bkp + 8) + nw * bkp * (_ceil16(bn) + 8)) * 2
+    rows = 16 * _at_least(up // (16 * (MLP_E_CHUNK + 8) * 2), 1)
+    stage = _at_least(up, rows * (MLP_E_CHUNK + 8) * 2)
+    stages = _at_most(_at_least(1 + -(-MLP_RING_BYTES // stage),
+                                MLP_MIN_STAGES), MLP_MAX_STAGES)
+    return stages, stage, rows
+
+
+def mlp_smem_bytes(bm, bn, bk, be, a_bytes: int, w_bytes: int,
+                   gated: bool, per=1):
+    """Shared memory one thread block of the CUDA MLP kernel
+    (``kernels/csrc/mlp_chain.cu``) allocates, for a split of ``per``
+    n blocks of ``bn``.
+
+    bf16 (tensor cores): the cp.async ring (``mlp_ring``), then the
+    bf16 hidden tile of the whole split, (bm, per x bn), bm and bn
+    padded to whole 16s and every row by 16 bytes.  No E row is held on
+    chip.  f32 (CUDA cores): the f32 up-projection accumulators (bm,
+    bn), two when gated, the f32 E accumulator (bm, be) — ``be`` is
+    ``bh`` for the deep class, the whole H for the flat class —, the A
+    tile (bm, bk) in A's type and the weight tiles (bk, bn) in the
+    weights' type; Wd is read straight from device memory.  The
+    kernel's wrapper checks launches against this same function.  Tiles
+    may be numpy arrays (the batched model)."""
+    nw = 2 if gated else 1
+    if mlp_tensor_cores(a_bytes, w_bytes):
+        stages, stage, _ = mlp_ring(bm, bn, bk, gated)
+        return (stages * stage
+                + _ceil16(bm) * (per * _ceil16(bn) + 8) * 2)
     return (nw * bm * bn * 4 + bm * be * 4 + bm * bk * a_bytes
             + nw * bk * bn * w_bytes)
+
+
+def mlp_splits(batch: int, m: int, n: int, k: int, h: int, bm, bn, bk, be,
+               a_bytes: int, w_bytes: int, gated: bool, hw=None):
+    """(splits, n blocks per split) of the MLP kernel: the n axis cut
+    into runs of whole ``bn`` blocks, none empty (the last may be
+    shorter).  The one split rule: the wrapper launches it and the
+    tuner prices it (eqs (2') and (5')).
+
+    The grid has batch x m tiles x E tiles x splits blocks, of which
+    ``slots`` run at once (as many as an SM's shared memory, threads and
+    registers hold, on every SM).  A split count costs its waves times
+    the blocks the busiest SM runs in a wave times the time of the
+    longest run: each of its n blocks streams its Wu, Wg and Wd columns
+    at the SM's share of the memory rate, or does its operations at the
+    SM's share of the peak, whichever is longer (A is re-read from L2).
+    More than one split adds the f32 partial E: splits x M x H x 4
+    bytes, written once and read once by the merge.  A count whose
+    hidden tile does not fit a block is out.  The cheapest count wins,
+    the fewest splits among equals.  Tiles may be numpy arrays (the
+    batched model); scalars return ints."""
+    hw = H100 if hw is None else hw
+    scalar = all(np.ndim(x) == 0 for x in (bm, bn, bk, be))
+    if scalar:
+        return _mlp_splits_scalar(batch, m, n, k, h, int(bm), int(bn),
+                                  int(bk), int(be), a_bytes, w_bytes,
+                                  gated, hw)
+    return _mlp_splits(batch, m, n, k, h, bm, bn, bk, be, a_bytes, w_bytes,
+                       gated, hw)
+
+
+@functools.lru_cache(maxsize=65536)
+def _mlp_splits_scalar(*args):
+    splits, per = _mlp_splits(*args[:5], *(np.asarray([x]) for x in args[5:9]),
+                              *args[9:])
+    return int(splits[0]), int(per[0])
+
+
+def _mlp_split_candidates(batch, m, n, k, h, bm, bn, bk, be, a_bytes,
+                          w_bytes, gated, hw):
+    """(splits, per, seconds of the busiest SM's runs, seconds of the
+    partial E) for every split count ``mlp_splits`` weighs, in rising
+    order; a count whose hidden tile does not fit a block costs inf."""
+    bm, bn, bk, be = (np.asarray(x, dtype=np.int64) for x in (bm, bn, bk, be))
+    tc = mlp_tensor_cores(a_bytes, w_bytes)
+    nw = 2 if gated else 1
+    nb = -(-n // bn)
+    blocks = batch * -(-m // bm) * -(-h // be)
+    peak = hw.peak_flops if tc else hw.peak_flops_f32
+    col_s = np.maximum((k * nw + be) * w_bytes / (hw.hbm_bw / hw.n_sm),
+                       2.0 * bm * (k * nw + be) / (peak / hw.n_sm))
+    block_s = bn * col_s                 # one n block on one SM
+    partial_s = 2.0 * batch * m * h * 4 / hw.hbm_bw
+    by_threads = hw.threads_per_sm // MLP_THREADS
+    for s in range(1, min(int(nb.max()),
+                          MLP_MAX_SPLITS_PER_SM * hw.n_sm) + 1):
+        per = -(-nb // s)
+        splits = -(-nb // per)
+        smem = mlp_smem_bytes(bm, bn, bk, be, a_bytes, w_bytes, gated, per)
+        per_sm = np.minimum(hw.smem_per_sm // (smem + hw.smem_reserved),
+                            min(by_threads, MLP_REG_BLOCKS[tc]))
+        slots = hw.n_sm * _at_least(per_sm, 1)
+        total = blocks * splits
+        waves = -(-total // slots)
+        busiest = -(-np.minimum(total, slots) // hw.n_sm)
+        stream = np.where(smem > hw.smem_per_block, np.inf,
+                          waves * busiest * per * block_s)
+        yield splits, per, stream, (splits > 1) * splits * partial_s
+
+
+def _mlp_splits(*args):
+    best_cost = best_s = best_per = None
+    for splits, per, stream, partial in _mlp_split_candidates(*args):
+        cost = stream + partial
+        if best_cost is None:
+            best_cost, best_s, best_per = cost, splits, per
+            continue
+        better = cost < best_cost
+        best_cost = np.where(better, cost, best_cost)
+        best_s = np.where(better, splits, best_s)
+        best_per = np.where(better, per, best_per)
+    return best_s, best_per
+
+
+def mlp_split_costs(batch: int, m: int, n: int, k: int, h: int, bm: int,
+                    bn: int, bk: int, be: int, a_bytes: int, w_bytes: int,
+                    gated: bool, hw=None) -> dict:
+    """What ``mlp_splits`` weighs at one tile: split count -> (seconds
+    of the busiest SM's runs, seconds of the partial E)."""
+    hw = H100 if hw is None else hw
+    out = {}
+    for splits, _, stream, partial in _mlp_split_candidates(
+            batch, m, n, k, h, *(np.asarray([x]) for x in (bm, bn, bk, be)),
+            a_bytes, w_bytes, gated, hw):
+        out.setdefault(int(splits[0]), (float(stream[0]), float(partial[0])))
+    return out
+
+
+def mlp_partial_bytes(batch: int, m: int, h: int, splits):
+    """Device-memory bytes the split adds: the f32 partial E of every
+    split written once and read once by the merge (0 with one split).
+    ``splits`` may be a numpy array."""
+    return (splits > 1) * 2 * splits * batch * m * h * 4
 
 
 GEMM_CHAIN_OPS = ("matmul_C", "matmul_E")
@@ -624,13 +827,27 @@ def gemm_chain3_smem_bytes(bm, bn, bk, h: int, in_bytes: int):
     return gemm_chain_smem_bytes(bm, bn, bk, h, in_bytes)
 
 
-def kernel_smem_bytes(chain: Chain, tiles: dict, flat: bool):
+def mlp_kernel_split(chain: Chain, tiles: dict, flat: bool, hw=None):
+    """(E tile width, splits, n blocks per split) of the MLP kernel that
+    runs the MLP ``chain`` at ``tiles`` in the class ``flat`` — the
+    split ``mlp_splits`` gives.  Tiles may be numpy arrays."""
+    be = chain.loops["h"] if flat else tiles["h"]
+    splits, per = mlp_splits(
+        chain.batch, chain.loops["m"], chain.loops["n"], chain.loops["k"],
+        chain.loops["h"], tiles["m"], tiles["n"], tiles["k"], be,
+        chain.tensors["A"].dtype_bytes, chain.tensors["Wu"].dtype_bytes,
+        "Wg" in chain.tensors, hw)
+    return be, splits, per
+
+
+def kernel_smem_bytes(chain: Chain, tiles: dict, flat: bool, hw=None):
     """Shared memory of the CUDA kernel that runs ``chain`` at ``tiles``
     (loop -> tile, scalars or numpy arrays) in the schedule class
-    ``flat`` (sub-expression ``n(k,h)``: the whole E row on chip), or
+    ``flat`` (sub-expression ``n(k,h)``: the whole E row a block), or
     None for a chain no CUDA kernel runs.  Attention keeps the head
-    dims whole whatever the class; the three-GEMM kernel exists in the
-    flat class only."""
+    dims whole whatever the class; the MLP kernel's layout holds the
+    hidden tile of its split (``mlp_splits`` on ``hw``, default H100);
+    the three-GEMM kernel exists in the flat class only."""
     ops = tuple(op.name for op in chain.ops)
     if is_attention(chain):
         args = (tiles["m"], tiles["n"], chain.loops["k"], chain.loops["h"],
@@ -639,11 +856,11 @@ def kernel_smem_bytes(chain: Chain, tiles: dict, flat: bool):
             return attention_partial_smem_bytes(*args, chain.group)
         return attention_smem_bytes(*args)
     if is_mlp(chain):
-        gated = "Wg" in chain.tensors
-        be = chain.loops["h"] if flat else tiles["h"]
+        be, _, per = mlp_kernel_split(chain, tiles, flat, hw)
         return mlp_smem_bytes(tiles["m"], tiles["n"], tiles["k"], be,
                               chain.tensors["A"].dtype_bytes,
-                              chain.tensors["Wu"].dtype_bytes, gated)
+                              chain.tensors["Wu"].dtype_bytes,
+                              "Wg" in chain.tensors, per)
     if ops == GEMM_CHAIN_OPS:
         be = chain.loops["h"] if flat else tiles["h"]
         return gemm_chain_smem_bytes(tiles["m"], tiles["n"], tiles["k"],
@@ -657,14 +874,33 @@ def kernel_smem_bytes(chain: Chain, tiles: dict, flat: bool):
 
 def kernel_tiles_ok(chain: Chain, tiles: dict):
     """Whether the CUDA kernel that runs ``chain`` takes ``tiles`` at
-    all, whatever they cost in shared memory: the normalised attention
-    kernel's tile rule (``attention_tiles_ok``); every other kernel
-    takes any tile.  Tiles may be numpy arrays (the batched model)."""
+    all, whatever they cost in shared memory: the tile rules of the
+    normalised attention kernel (``attention_tiles_ok``) and of the MLP
+    kernel (``mlp_tiles_ok``); every other kernel takes any tile.  Tiles
+    may be numpy arrays (the batched model)."""
     if is_attention(chain) and chain.name != PARTIAL_ATTENTION:
         return attention_tiles_ok(tiles["m"], tiles["n"], chain.loops["k"],
                                   chain.loops["h"],
                                   chain.tensors["Q"].dtype_bytes)
+    if is_mlp(chain):
+        return mlp_tiles_ok(tiles["m"], tiles["n"], chain.loops["n"],
+                            chain.tensors["A"].dtype_bytes,
+                            chain.tensors["Wu"].dtype_bytes)
     return True
+
+
+def kernel_split_terms(chain: Chain, tiles: dict, flat: bool, hw):
+    """What a split of the reduction axis adds to eqs (2') and (5') for
+    the CUDA kernel that runs ``chain`` under ``GpuSpec``: (blocks per
+    grid point, device-memory bytes).  Only the MLP kernel splits n
+    (``mlp_splits``): its grid counts the splits and its traffic the
+    partial E (``mlp_partial_bytes``); any other chain, and every chain
+    under ``TpuSpec``, gets (1, 0).  Tiles may be numpy arrays."""
+    if not (isinstance(hw, GpuSpec) and is_mlp(chain)):
+        return 1, 0
+    _, splits, _ = mlp_kernel_split(chain, tiles, flat, hw)
+    return splits, mlp_partial_bytes(chain.batch, chain.loops["m"],
+                                     chain.loops["h"], splits)
 
 
 def smem_estimate(sched: Schedule, hw: GpuSpec = H100) -> int:
@@ -674,7 +910,7 @@ def smem_estimate(sched: Schedule, hw: GpuSpec = H100) -> int:
     schedule's tiles and class (``kernel_smem_bytes``); any other chain
     by eq (1) with every input staged once."""
     smem = kernel_smem_bytes(sched.chain, sched.tile_sizes,
-                             "(" in sched.sub_expr())
+                             "(" in sched.sub_expr(), hw)
     return vmem_estimate(sched, hw) if smem is None else smem
 
 
@@ -689,7 +925,7 @@ def floor_residency_bytes(chain: Chain, tiles: dict,
     to it; the three-GEMM kernel is flat only), any other by every tile
     staged once."""
     if isinstance(hw, GpuSpec):
-        smem = kernel_smem_bytes(chain, tiles, flat=False)
+        smem = kernel_smem_bytes(chain, tiles, flat=False, hw=hw)
         if smem is not None:
             return smem
     resident = 0

@@ -12,7 +12,9 @@ device memory.  The schedule class and tiles (style, bm, bn, bk, bh)
 come from MCFuser's analytical search (``core.api.fuse_mlp_chain`` /
 ``fuse_gemm_chain``): ``deep`` launches one block per (m tile, bh-wide
 E tile) and recomputes the first product for each; ``flat`` launches
-one block per m tile and keeps the whole E row on chip.
+one block per m tile for the whole E row.  The MLP kernel also splits
+the n axis across blocks (``perf_model.mlp_splits``, the rule the tuner
+prices) and merges the splits' f32 partial E in split order.
 
 A CUDA tensor launches the kernel or raises; only a CPU tensor runs the
 plain version.
@@ -25,7 +27,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..core.perf_model import H100, gemm_chain_smem_bytes, mlp_smem_bytes
+from ..core.perf_model import (H100, gemm_chain_smem_bytes, mlp_ring,
+                               mlp_smem_bytes, mlp_splits, mlp_tiles_ok)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ACT_CODES = {"silu": 0, "gelu": 1, "relu": 2}
@@ -56,7 +59,8 @@ def clamp_tiles(m: int, n: int, k: int, h: int, bm: int, bn: int, bk: int,
 
 def _check(a, wu, wd, wg, act, bm, bn, bk, bh, style):
     """Raise on anything the CUDA kernel does not take; returns the
-    clamped tiles (bm, bn, bk, be) and their shared-memory bytes."""
+    clamped tiles (bm, bn, bk, be), the split (splits, n blocks per
+    split) from ``mlp_splits``; raises past a block's shared memory."""
     if style not in STYLES:
         raise ValueError(f"unknown style {style!r}; expected {STYLES}")
     act_fn(act)
@@ -83,16 +87,23 @@ def _check(a, wu, wd, wg, act, bm, bn, bk, bh, style):
     devices = {t.device for t in (a, *ws)}
     if len(devices) != 1:
         raise ValueError(f"tensors on several devices: {devices}")
-    if min(bm, bn, bk, bh) < 1:
-        raise ValueError(f"tiles must be positive: {(bm, bn, bk, bh)}")
+    if min(bm, bn, bk, bh) < 1 or 0 in (m, n, k, h):
+        raise ValueError(f"tiles and dims must be positive: tiles "
+                         f"{(bm, bn, bk, bh)}, dims {(m, n, k, h)}")
     tiles = clamp_tiles(m, n, k, h, bm, bn, bk, bh, style)
-    smem = mlp_smem_bytes(*tiles, a.element_size(), wu.element_size(),
-                          wg is not None)
+    sizes = (a.element_size(), wu.element_size(), wg is not None)
+    if not mlp_tiles_ok(tiles[0], tiles[1], n, sizes[0], sizes[1]):
+        raise ValueError(f"tiles (bm, bn) = {tiles[:2]} are not tiles of "
+                         f"the bf16 kernel (bm <= 144 with bn <= 128, or "
+                         f"bm <= 64 with bn <= 256; bn a multiple of 16 "
+                         f"or all of N={n})")
+    split = mlp_splits(b, m, n, k, h, *tiles, *sizes)
+    smem = mlp_smem_bytes(*tiles, *sizes, per=split[1])
     if smem > H100.smem_per_block:
         raise ValueError(f"tiles (bm, bn, bk, E tile) = {tiles} "
                          f"({style}) need {smem} B of shared memory per "
                          f"block > {H100.smem_per_block}")
-    return tiles, smem
+    return tiles, split
 
 
 def fused_mlp_chain(a: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
@@ -105,38 +116,56 @@ def fused_mlp_chain(a: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
     float32 or bfloat16 (one type).  Returns E (B, M, H) in a's type.
     Both up-projections accumulate in f32, the hidden block rounds to
     the promoted weight type and E accumulates in f32 over the n blocks.
+    The n axis is cut into the splits ``perf_model.mlp_splits`` gives at
+    these tiles; each split's f32 partial E is summed in split order and
+    cast once (the plain version on a CPU tensor takes the same split).
     """
-    (bm, bn, bk, be), smem = _check(a, wu, wd, wg, act, bm, bn, bk, bh,
-                                    style)
+    (bm, bn, bk, be), (splits, _) = _check(a, wu, wd, wg, act, bm, bn, bk,
+                                           bh, style)
     dev = a.device
     if dev.type == "cpu":
-        return fused_mlp_chain_plain(a, wu, wd, wg, act, bn)
+        return fused_mlp_chain_plain(a, wu, wd, wg, act, bn, splits)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    return _launch(a, wu, wd, wg, act, bm, bn, bk, be, smem)
+    return _launch(a, wu, wd, wg, act, bm, bn, bk, be, splits)
 
 
 fused_mlp_chain.launches = 0
 
 
-def _launch(a, wu, wd, wg, act, bm, bn, bk, be, smem):
+def _launch(a, wu, wd, wg, act, bm, bn, bk, be, splits=1):
+    """Launch the kernel (and, with more than one split, the merge) on
+    clamped tiles, with the n blocks cut into ``splits`` runs as the
+    plain version cuts them."""
     from . import _build
 
     lib = _build.load("mlp_chain")
     fn = lib.mlp_chain_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 9 + [ctypes.c_longlong,
-                                           ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
+                   + [ctypes.c_int] * 13 + [ctypes.c_longlong,
+                                            ctypes.c_void_p])
     b, m, k = a.shape
     n, h = wu.shape[2], wd.shape[2]
+    per = -(-(-(-n // bn)) // splits)
+    splits = -(-(-(-n // bn)) // per)
+    smem = mlp_smem_bytes(bm, bn, bk, be, a.element_size(),
+                          wu.element_size(), wg is not None, per=per)
+    if smem > H100.smem_per_block:
+        raise ValueError(f"{splits} splits of {per} n blocks need {smem} B "
+                         f"of shared memory per block")
+    stages, _, wd_rows = mlp_ring(bm, bn, bk, wg is not None)
     e = torch.empty((b, m, h), dtype=a.dtype, device=a.device)
+    # the splits' f32 partial E, summed in split order by the merge
+    part = (torch.empty((splits, b, m, h), dtype=torch.float32,
+                        device=a.device) if splits > 1 else None)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = fn(_DTYPE_CODES[a.dtype], _DTYPE_CODES[wu.dtype],
              int(wg is not None), _ACT_CODES[act], a.data_ptr(),
              wu.data_ptr(), (wu if wg is None else wg).data_ptr(),
-             wd.data_ptr(), e.data_ptr(), b, m, n, k, h, bm, bn, bk, be,
-             int(smem), stream)
+             wd.data_ptr(), e.data_ptr(),
+             None if part is None else part.data_ptr(), b, m, n, k, h, bm,
+             bn, bk, be, splits, per, stages, wd_rows, int(smem), stream)
     if err:
         lib.mlp_error_string.restype = ctypes.c_char_p
         lib.mlp_error_string.argtypes = [ctypes.c_int]
@@ -148,24 +177,32 @@ def _launch(a, wu, wd, wg, act, bm, bn, bk, be, smem):
 
 def fused_mlp_chain_plain(a: torch.Tensor, wu: torch.Tensor,
                           wd: torch.Tensor, wg: Optional[torch.Tensor],
-                          act: str, bn: int) -> torch.Tensor:
+                          act: str, bn: int, splits: int = 1) -> torch.Tensor:
     """The kernel's plain PyTorch version, with its rounding points:
     f32 up-projections per n block of ``bn``, the hidden block rounded
     to the promoted weight type, E summed in f32 over the n blocks and
-    cast once to a's type.  One f32 product per n block (not per k
-    tile), so a full-width call on the card takes milliseconds."""
+    cast once to a's type.  With ``splits`` > 1 the n blocks are cut
+    into that many runs of equal length (the last may be shorter), as
+    the kernel cuts them: each run's f32 partial E is summed over its
+    blocks from zero, and the partials in split order.  One f32 product
+    per n block (not per k tile), so a full-width call on the card takes
+    milliseconds."""
     f = act_fn(act)
     hidden_t = torch.promote_types(a.dtype, wu.dtype)
     n = wu.shape[2]
+    step = -(-(-(-n // bn)) // splits) * bn
     af = a.float()
-    e = torch.zeros(a.shape[0], a.shape[1], wd.shape[2],
-                    dtype=torch.float32, device=a.device)
-    for n0 in range(0, n, bn):
-        u = torch.bmm(af, wu[:, :, n0:n0 + bn].float())
-        hid = (f(u) if wg is None
-               else f(torch.bmm(af, wg[:, :, n0:n0 + bn].float())) * u)
-        e += torch.bmm(hid.to(hidden_t).float(),
-                       wd[:, n0:n0 + bn].float())
+    e = None
+    for s0 in range(0, n, step):
+        part = torch.zeros(a.shape[0], a.shape[1], wd.shape[2],
+                           dtype=torch.float32, device=a.device)
+        for n0 in range(s0, min(n, s0 + step), bn):
+            u = torch.bmm(af, wu[:, :, n0:n0 + bn].float())
+            hid = (f(u) if wg is None
+                   else f(torch.bmm(af, wg[:, :, n0:n0 + bn].float())) * u)
+            part += torch.bmm(hid.to(hidden_t).float(),
+                              wd[:, n0:n0 + bn].float())
+        e = part if e is None else e + part
     return e.to(a.dtype)
 
 

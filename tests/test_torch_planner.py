@@ -23,7 +23,8 @@ from repro_torch.core.batch_model import (ExprClassTable,  # noqa: E402
 from repro_torch.core.chain import mlp_chain  # noqa: E402
 from repro_torch.core.dag import build_schedule  # noqa: E402
 from repro_torch.core.perf_model import (H100, V5E, estimate,  # noqa: E402
-                                         mlp_smem_bytes, rule4_bytes)
+                                         mlp_smem_bytes, mlp_splits,
+                                         rule4_bytes)
 from repro_torch.core.pruning import (iter_tile_assignments,  # noqa: E402
                                       stitched_vmem_ok)
 from repro_torch.core.search import heuristic_search  # noqa: E402
@@ -172,8 +173,10 @@ def test_h100_price_plan_never_above_hand_wired():
     priced = planner.price_plan(plan, FULL)
     assert priced["planner_seconds"] <= priced["hand_seconds"]
     mlp = priced["chains"]["+".join(_MLP)]
-    # the tuner's own model prices the fused MLP's best schedule far
-    # above the unfused GEMMs at decode (few blocks re-read Wg and Wu)
+    # the tuner's own model still prices the fused MLP's best schedule
+    # above the unfused GEMMs at decode: both read the weights at the
+    # byte bound, and eq (5') multiplies the fused kernel's by its
+    # occupancy factor (N_block + 132) / N_block over its split blocks
     assert mlp["demoted"] and mlp["fused_seconds"] > mlp["unfused_seconds"]
     # cache-free plans price through api.fuse_attention the same way
     fwd = planner.price_plan(planner.plan_model(FULL, 1, 64), FULL)
@@ -241,38 +244,64 @@ def test_plan_records_round_trip_and_quarantine(port_cache, monkeypatch):
 # Rule 4 follows the CUDA kernel's shared memory
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("m", [4, 16, 144, 160])
+@pytest.mark.parametrize("m", [1, 4, 16, 144, 160, 4096])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_h100_mlp_tiles_fit_the_kernel(m, dtype):
+    """Rule 4 prices the tuner's pick by the kernel's own layout at the
+    split the wrapper launches, and the wrapper takes the pick."""
+    from repro_torch.kernels import gemm_chain as G
     from repro_torch.kernels.gemm_chain import clamp_tiles
     tk = api.fuse_mlp_chain(m, 12288, 4096, dtype=dtype)
     p = tk.params
     tiles = clamp_tiles(m, 12288, 4096, 4096, p.bm, p.bn, p.bk, p.bh,
                         p.style)
     nbytes = {"bfloat16": 2, "float32": 4}[dtype]
-    smem = mlp_smem_bytes(*tiles, nbytes, nbytes, True)
+    _, per = mlp_splits(1, m, 12288, 4096, 4096, *tiles, nbytes, nbytes,
+                        True)
+    smem = mlp_smem_bytes(*tiles, nbytes, nbytes, True, per)
     assert smem == rule4_bytes(tk.report.best, H100)
     assert smem <= H100.smem_per_block
+    # the wrapper's guard takes the pick (shapes only: meta tensors)
+    import torch
+    dt = getattr(torch, dtype)
+    a = torch.empty(1, m, 4096, dtype=dt, device="meta")
+    w = torch.empty(1, 4096, 12288, dtype=dt, device="meta")
+    wd = torch.empty(1, 12288, 4096, dtype=dt, device="meta")
+    assert G._check(a, w, wd, w, "silu", **p.as_kwargs()) == (
+        tiles, mlp_splits(1, m, 12288, 4096, 4096, *tiles, nbytes, nbytes,
+                          True))
     # bf16 weights under an f32 A (a stitched ln2) stage in fewer bytes
-    assert mlp_smem_bytes(*tiles, nbytes, 2, True) <= smem
+    if dtype == "float32":
+        assert mlp_smem_bytes(*tiles, nbytes, 2, True) <= smem
 
 
 def test_h100_flat_prefill_pick_is_gone():
-    """The flat class keeps the whole f32 E row: at bm=16 and H=4096
-    that row alone is 262,144 B, so the M=144 flat pick that the generic
-    eq (1) admitted cannot be chosen any more."""
+    """The flat class used to keep the whole f32 E row on chip (262,144 B
+    at bm=16, H=4096), so no flat pick could run at prefill.  The bf16
+    kernel now walks H in E chunks held in registers: its shared memory
+    does not grow with the E tile, and at M=144 the tuner picks the flat
+    class, whose tiles the wrapper takes.  A flat tile whose ring stages
+    alone exceed a block still raises, and the 16/880 tile of the old
+    flat pick is outside the kernel's tile rule."""
     assert 16 * 4096 * 4 > H100.smem_per_block
-    for m in (128, 144, 160):
-        p = api.fuse_mlp_chain(m, 12288, 4096, dtype="bfloat16").params
-        assert p.style == "deep"
+    assert mlp_smem_bytes(16, 96, 32, 4096, 2, 2, True) == \
+        mlp_smem_bytes(16, 96, 32, 128, 2, 2, True)
+    assert mlp_smem_bytes(16, 96, 32, 4096, 4, 4, True) > \
+        mlp_smem_bytes(16, 96, 32, 128, 4, 4, True)   # f32 keeps its E
+    p = api.fuse_mlp_chain(144, 12288, 4096, dtype="bfloat16").params
+    assert p.style == "flat"
     import torch
     from repro_torch.kernels import gemm_chain as G
-    a = torch.zeros(1, 144, 4096, dtype=torch.bfloat16)
-    w = torch.zeros(1, 4096, 12288, dtype=torch.bfloat16)
-    wd = torch.zeros(1, 12288, 4096, dtype=torch.bfloat16)
+    a = torch.zeros(1, 144, 4096, dtype=torch.bfloat16, device="meta")
+    w = torch.zeros(1, 4096, 12288, dtype=torch.bfloat16, device="meta")
+    wd = torch.zeros(1, 12288, 4096, dtype=torch.bfloat16, device="meta")
+    G._check(a, w, wd, w, "silu", **p.as_kwargs())
     with pytest.raises(ValueError, match="shared memory"):
-        G.fused_mlp_chain(a, w, wd, wg=w, bm=16, bn=880, bk=32, bh=16,
-                          style="flat")
+        G._check(a, w, wd, w, "silu", bm=64, bn=256, bk=256, bh=16,
+                 style="flat")
+    with pytest.raises(ValueError, match="bf16 kernel"):
+        G._check(a, w, wd, w, "silu", bm=16, bn=880, bk=32, bh=16,
+                 style="flat")
 
 
 def test_h100_batched_mlp_rule4_matches_scalar():

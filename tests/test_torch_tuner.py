@@ -16,11 +16,14 @@ from repro_torch.core import api  # noqa: E402
 from repro_torch.core import schedule_cache  # noqa: E402
 from repro_torch.core.batch_model import (ExprClassTable,  # noqa: E402
                                           as_tile_matrix)
-from repro_torch.core.chain import attention_chain, gemm_chain  # noqa: E402
+from repro_torch.core.chain import (attention_chain, gemm_chain,  # noqa: E402
+                                    mlp_chain)
 from repro_torch.core.dag import build_schedule  # noqa: E402
 from repro_torch.core.perf_model import (H100, V5E, alpha,  # noqa: E402
                                          attention_smem_bytes, estimate,
-                                         rule4_bytes)
+                                         kernel_split_terms,
+                                         mlp_partial_bytes, rule4_bytes,
+                                         t_mem)
 from repro_torch.core.pruning import iter_tile_assignments  # noqa: E402
 from repro_torch.core.search import heuristic_search  # noqa: E402
 from repro_torch.core.tiling import enumerate_tilings  # noqa: E402
@@ -122,7 +125,9 @@ def test_h100_batched_model_matches_scalar():
     equal — and both search engines pick the same schedule."""
     for chain in (attention_chain(1, 160, 128, 128, heads=8, batch=2,
                                   dtype="bfloat16"),
-                  gemm_chain(256, 256, 64, 64, dtype="bfloat16")):
+                  gemm_chain(256, 256, 64, 64, dtype="bfloat16"),
+                  mlp_chain(4, 384, 64, dtype="bfloat16", gated=False,
+                            act="gelu")):
         rows = list(iter_tile_assignments(chain, unit=H100.tile_unit,
                                           rule3=True))
         tiles = as_tile_matrix(chain, rows)
@@ -149,6 +154,36 @@ def test_h100_descriptor_terms():
     assert alpha(s, V5E) == (g + V5E.pipeline_stages) / g
     assert H100.tile_unit == 16 and V5E.tile_unit == 128
     assert H100.smem_per_block == 232_448
+
+
+@pytest.mark.parametrize("m,batch", [(4, 1), (1, 1), (1, 4)])
+def test_h100_mlp_decode_pick_fills_the_sms(port_cache, m, batch):
+    """At decode the MLP kernel's grid, with the n splits the wrapper
+    launches, puts a block on at least 99 of the 132 SMs."""
+    tk = api.fuse_mlp_chain(m, 12288, 4096, batch=batch, dtype="bfloat16")
+    s = tk.report.best
+    splits, _ = kernel_split_terms(s.chain, s.tile_sizes,
+                                   "(" in s.sub_expr(), H100)
+    assert min(s.grid_size() * splits, H100.n_sm) >= 99
+
+
+def test_h100_mlp_split_enters_eqs_2_and_5():
+    """Under H100 eq (5') counts the MLP kernel's n splits and eq (2')'s
+    memory term its partial E; under V5E neither moves."""
+    chain = mlp_chain(4, 12288, 4096, dtype="bfloat16")
+    expr = next(e for e in enumerate_tilings(chain)
+                if "(" in build_schedule(chain, e, {"m": 4, "n": 96,
+                                                    "k": 32, "h": 4096}
+                                         ).sub_expr())
+    s = build_schedule(chain, expr, {"m": 4, "n": 96, "k": 32, "h": 4096})
+    splits, extra = kernel_split_terms(s.chain, s.tile_sizes, True, H100)
+    assert splits == 128 and extra == mlp_partial_bytes(1, 4, 4096, 128)
+    g = s.grid_size() * splits
+    assert alpha(s, H100) == (g + H100.n_sm) / g
+    base = t_mem(s, V5E) * V5E.hbm_bw
+    assert t_mem(s, H100) * H100.hbm_bw == pytest.approx(base + extra)
+    assert kernel_split_terms(s.chain, s.tile_sizes, True, V5E) == (1, 0)
+    assert alpha(s, V5E) == (s.grid_size() + 2) / s.grid_size()
 
 
 def test_schedule_cache_is_the_ports_own(port_cache, monkeypatch, tmp_path):
