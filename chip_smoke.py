@@ -19,7 +19,12 @@ which raises on failure:
    and 4096 with its n split, one split and an uneven one (the plain
    version takes the same split), at M = 1, ragged M, N and H, each
    activation, f32 A with bf16 weights, and two decode launches that
-   must be bitwise equal;
+   must be bitwise equal; the GEMM-chain kernel (the MLP machine with
+   the identity activation) at the tuner's tiles of Table II chains in
+   both classes with its n split, G12 and G1 also with one split and an
+   uneven one (the plain version takes the same split) and two launches
+   that must be bitwise equal; the three-GEMM kernel at the tuner's
+   tiles in f32 and bf16;
 4. the three main paths, each at full width — qwen3-8b (36 layers,
    bf16, random weights from a seed, no depth cut):
    a. served by the continuous-batching engine, 8 ragged requests, max
@@ -49,7 +54,10 @@ which raises on failure:
    PyTorch call(s) it replaces (the normalised attention also at other
    tiles of the forward's shape and in f32 at Table III S2; the MLP
    kernel at M = 4, 144 and 4096, each at the tuner's tiles and split
-   and at tiles around them).
+   and at tiles around them; the GEMM-chain kernel at G12 in bf16 with
+   its split, the device time of its split kernel and its merge, and at
+   tiles around the pick, and at the quickstart's G1 in f32; the
+   three-GEMM kernel at CHAIN3 in bf16).
 
 Prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -113,6 +121,12 @@ CHAINS = {"G1": (1, 512, 256, 64, 64), "G2": (1, 512, 256, 64, 128),
           "G4": (1, 512, 512, 256, 256), "G5": (1, 512, 512, 512, 256),
           "G11": (4, 1024, 1024, 128, 128),
           "G12": (8, 1024, 1024, 128, 128)}
+# Tiles (bm, bn, bk, bh) and class at which G12 and G1 also run one
+# split and an uneven one (3 splits of 16 and of 8 n blocks: runs of
+# 6, 6, 4 and 3, 3, 2); one split holds the hidden of all of N, which
+# the tuner's G12 tile (bm = 128) does not fit in bf16
+CHAIN_SPLIT_TILES = {"G12": (dict(bm=32, bn=64, bk=128, bh=128), "flat"),
+                     "G1": (dict(bm=16, bn=32, bk=64, bh=64), "deep")}
 # examples/fuse_custom_chain.py: (batch, M, N, K, H, G), bf16
 CHAIN3 = (1, 1024, 512, 64, 64, 64)
 # Table III attention (heads, M, N, K, H) checked on the card
@@ -396,9 +410,11 @@ def profile_phase(run, label: str, what: str, timed: int = 5,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(traced):
             step()
-    # kernel rows only: an operator's row repeats its kernels' time
+    # kernel rows only: an operator's row repeats its kernels' time; the
+    # profiler may keep fewer launches than were traced, so a kernel's
+    # time a launch is its total over the launches it kept
     rows = [(e.self_device_time_total / (traced * 1e3), e.count // traced,
-             e.key)
+             e.key, e.self_device_time_total / (e.count * 1e3))
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
@@ -407,12 +423,12 @@ def profile_phase(run, label: str, what: str, timed: int = 5,
     print(f"profile [{label}]: {what} wall {wall_ms:.3f} ms without "
           f"profiler; device busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / wall_ms:.1f}% of the wall)")
-    for ms, count, name in rows[:8]:
+    for ms, count, name, _ in rows[:8]:
         print(f"profile [{label}]:   {ms:8.3f} ms  {count:5d}x  "
               f"{name[:80]}")
     return dict(wall_ms=wall_ms, busy_ms=busy_ms,
-                top=[dict(ms=ms, count=c, name=n[:80])
-                     for ms, c, n in rows[:3]])
+                top=[dict(ms=ms, count=c, name=n[:80], ms_per_launch=one)
+                     for ms, c, n, one in rows[:3]])
 
 
 def _time_ms(fn, iters: int = 20, reps: int = 10) -> float:
@@ -646,7 +662,8 @@ def mlp_time_phase(cfg, label: str, m: int) -> dict:
                splits=splits, tile_sweep_ms=sweep,
                device_ms_by_kernel={
                    r["name"].replace("void (anonymous namespace)::",
-                                     "")[:40]: r["ms"] for r in prof["top"]})
+                                     "")[:40]: r["ms_per_launch"]
+                   for r in prof["top"]})
     print(f"MLP times [{label}] M={m} N={n} K=H={k} bf16 gated silu: "
           + json.dumps(out))
     return out
@@ -708,6 +725,25 @@ def _chain3_tiles(dt) -> dict:
                                       dtype=_dtname(dt)),
                           hw=H100, seed=0).best.tile_sizes
     return dict(bm=ts["m"], bn=ts["n"], bk=ts["k"])
+
+
+def _chain_run(x, kw, splits):
+    """One GEMM-chain kernel launch and its plain version with the same
+    split: the wrapper's own (``splits=None``) or a forced count through
+    ``_launch_chain``.  Returns (kernel's E, plain E, clamped tiles,
+    splits)."""
+    from repro_torch.kernels import gemm_chain as G
+    a, b, d = x
+    tiles, (own, _), _ = G.check_gemm_chain(
+        a, b, d, kw["bm"], kw["bn"], kw["bk"], kw["bh"], kw["style"])
+    if splits is None:
+        splits = own
+        got = G.fused_gemm_chain(a, b, d, **kw)
+    else:
+        got = G._launch_chain(a, b, d, *tiles, splits)
+    torch.cuda.synchronize()
+    want = G.fused_gemm_chain_plain(a, b, d, tiles[1], splits)
+    return got, want, tiles, splits
 
 
 def slice3_check_phase(cfg) -> dict:
@@ -773,7 +809,7 @@ def slice3_check_phase(cfg) -> dict:
               f"Hkv={g} M={m} N={n} D={d} {_dtname(dt)} causal={causal} "
               f"window={window} tiles={tiles}: max|err|={err:.3g} "
               f"tol={TOL[dt]} ok")
-    ran = set()
+    ran, split_picks = set(), 0
     for i, (name, (bb, m, n, k, h)) in enumerate(CHAINS.items()):
         for dt in (torch.float32, torch.bfloat16):
             tk = api.fuse_gemm_chain(m, n, k, h, batch=bb, dtype=_dtname(dt))
@@ -788,10 +824,13 @@ def slice3_check_phase(cfg) -> dict:
                 styles.append(other)
             except ValueError:
                 pass
-            for style in styles:
-                got = G.fused_gemm_chain(a, bm_, d, **{**kw, "style": style})
-                torch.cuda.synchronize()
-                want = G.fused_gemm_chain_plain(a, bm_, d, min(kw["bn"], n))
+            cases = [(style, kw, None) for style in styles]
+            if name in CHAIN_SPLIT_TILES:     # one split and an uneven one
+                tiles, style = CHAIN_SPLIT_TILES[name]
+                cases += [(style, tiles, 1), (style, tiles, 3)]
+            for style, tiles, splits in cases:
+                got, want, tl, sp = _chain_run(
+                    (a, bm_, d), {**tiles, "style": style}, splits)
                 if got.shape != (bb, m, h) or not torch.isfinite(got).all():
                     raise RuntimeError(f"bad chain output {tuple(got.shape)}")
                 torch.testing.assert_close(got, want, **TOL[dt])
@@ -799,12 +838,23 @@ def slice3_check_phase(cfg) -> dict:
                 worst["fused_gemm_chain"] = max(worst["fused_gemm_chain"],
                                                 err)
                 ran.add((style, dt))
+                split_picks += splits is None and sp > 1
                 print(f"gemm chain kernel vs plain [{name}] "
-                      f"{(bb, m, n, k, h)} {_dtname(dt)} {style} "
+                      f"{(bb, m, n, k, h)} {_dtname(dt)} {style} tiles={tl} "
+                      f"splits={sp}{'' if splits is None else ' (forced)'} "
                       f"(tuner: {kw}): max|err|={err:.3g} tol={TOL[dt]} ok")
-    if len(ran) != 4:
+            first = G.fused_gemm_chain(a, bm_, d, **kw)
+            second = G.fused_gemm_chain(a, bm_, d, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(first, second):
+                raise RuntimeError(f"two launches of {name} "
+                                   f"{_dtname(dt)} differ")
+    print("gemm chain kernel determinism: two launches of every pick "
+          "bitwise equal")
+    if len(ran) != 4 or not split_picks:
         raise RuntimeError(f"flat and deep did not both run in f32 and "
-                           f"bf16: {sorted(map(str, ran))}")
+                           f"bf16 ({sorted(map(str, ran))}), or no pick "
+                           f"ran its own n split")
     bb, m, n, k, h, g = CHAIN3
     for dt in (torch.bfloat16, torch.float32):
         tiles = _chain3_tiles(dt)
@@ -1032,10 +1082,40 @@ def attention_time_phase(cfg) -> dict:
     return out
 
 
-def chain_time_phase(name: str, dt) -> dict:
+def _chain_sweep_tiles(kw: dict, dims: tuple, dt) -> list:
+    """The tuner's GEMM-chain tiles and a few around them (bn x2 and x4,
+    the other class, and four tiles of whole 16-column groups for every
+    warp: bm 64 / 128 by bn 64 / 128), each one the wrapper takes."""
+    from repro_torch.kernels import gemm_chain as G
+    b, m, n, k, h = dims
+    meta = [torch.empty(s, dtype=dt, device="meta")
+            for s in ((b, m, k), (b, k, n), (b, n, h))]
+    other = "flat" if kw["style"] == "deep" else "deep"
+    cands = [kw, {**kw, "bn": kw["bn"] * 2}, {**kw, "bn": kw["bn"] * 4},
+             {**kw, "style": other}]
+    cands += [dict(style="flat", bm=bm, bn=bn, bk=k, bh=h)
+              for bm in (64, 128) for bn in (64, 128)]
+    out = []
+    for t in cands:
+        try:
+            G.check_gemm_chain(*meta, t["bm"], t["bn"], t["bk"], t["bh"],
+                               t["style"])
+        except ValueError:
+            continue
+        if t not in out:
+            out.append(t)
+    return out
+
+
+def chain_time_phase(name: str, dt, sweep=False) -> dict:
     """kernel_ms, plain_ms, unfused_ms (two cuBLAS bmm, C rounded to the
     input type between them as the kernel rounds it) and bound_ms of a
-    Table II chain with the tuner's tiles."""
+    Table II chain with the tuner's tiles and the wrapper's n split, the
+    device time of its kernels (the split's and the merge) from a
+    profile, and with ``sweep`` the kernel's time, with the wrapper's
+    split, at tiles around the pick (``True``) or at each of a list of
+    tile dicts (bm, bn, bk, bh, style) the wrapper takes
+    (``tools/chain_times.py --sweep`` passes a grid)."""
     from repro_torch.core import api
     from repro_torch.kernels import gemm_chain as G
     b, m, n, k, h = CHAINS[name]
@@ -1043,13 +1123,33 @@ def chain_time_phase(name: str, dt) -> dict:
     a, bb, d = _randn([(b, m, k), (b, k, n), (b, n, h)], dt, 97,
                       scaled=True)
     kw = tk.params.as_kwargs()
+    tiles, (splits, _), _ = G.check_gemm_chain(
+        a, bb, d, kw["bm"], kw["bn"], kw["bk"], kw["bh"], kw["style"])
     kernel_ms = _adaptive_ms(lambda: tk(a, bb, d))
     plain_ms = _adaptive_ms(lambda: G.fused_gemm_chain_plain(
-        a, bb, d, min(kw["bn"], n)), reps=1)
+        a, bb, d, tiles[1], splits), reps=1)
     unfused_ms = _adaptive_ms(lambda: torch.bmm(torch.bmm(a, bb), d))
+    # short launches: trace many, as the profiler may keep few of them
+    prof = profile_phase(lambda: tk(a, bb, d), f"gemm chain {name}",
+                         f"fused_gemm_chain {_dtname(dt)}", timed=3,
+                         traced=20)
     out = dict(kernel_ms=kernel_ms, plain_ms=plain_ms, unfused_ms=unfused_ms,
                **_bound(_nbytes(a, bb, d) + b * m * h * a.element_size(),
-                        2.0 * b * m * n * (k + h), dt), tiles=kw)
+                        2.0 * b * m * n * (k + h), dt), tiles=kw,
+               splits=splits, device_ms_by_kernel={
+                   r["name"].replace("void (anonymous namespace)::",
+                                     "")[:40]: r["ms_per_launch"]
+                   for r in prof["top"]})
+    if sweep:
+        out["tile_sweep_ms"] = {}
+        for t in (_chain_sweep_tiles(kw, CHAINS[name], dt) if sweep is True
+                  else sweep):
+            sp = G.check_gemm_chain(a, bb, d, t["bm"], t["bn"], t["bk"],
+                                    t["bh"], t["style"])[1][0]
+            out["tile_sweep_ms"][
+                f"{t['style']} {t['bm']}/{t['bn']}/{t['bk']}/{t['bh']} "
+                f"x{sp}"] = _adaptive_ms(
+                    lambda t=t: G.fused_gemm_chain(a, bb, d, **t), reps=2)
     print(f"gemm chain times [{name}] {(b, m, n, k, h)} {_dtname(dt)}: "
           + json.dumps(out))
     return out
@@ -1057,7 +1157,9 @@ def chain_time_phase(name: str, dt) -> dict:
 
 def chain3_time_phase() -> dict:
     """kernel_ms, plain_ms, unfused_ms (three cuBLAS bmm) and bound_ms
-    of the three-GEMM chain at CHAIN3 in bf16 with the tuner's tiles."""
+    of the three-GEMM chain at CHAIN3 in bf16 with the tuner's tiles
+    (one block a (m tile, batch), no split), and its device time from a
+    profile."""
     from repro_torch.kernels import gemm_chain3 as G3
     b, m, n, k, h, g = CHAIN3
     dt = torch.bfloat16
@@ -1070,10 +1172,16 @@ def chain3_time_phase() -> dict:
         *xs, tiles["bn"]), reps=1)
     unfused_ms = _adaptive_ms(
         lambda: torch.bmm(torch.bmm(torch.bmm(a, bb), d), f))
+    prof = profile_phase(lambda: G3.fused_gemm_chain3(*xs, **tiles),
+                         "gemm chain3", "fused_gemm_chain3 bf16", timed=3,
+                         traced=20)
     out = dict(kernel_ms=kernel_ms, plain_ms=plain_ms, unfused_ms=unfused_ms,
                **_bound(_nbytes(*xs) + b * m * g * a.element_size(),
                         2.0 * b * m * (n * k + n * h + h * g), dt),
-               tiles=tiles)
+               tiles=tiles, splits=1, device_ms_by_kernel={
+                   r["name"].replace("void (anonymous namespace)::",
+                                     "")[:40]: r["ms_per_launch"]
+                   for r in prof["top"]})
     print(f"gemm chain3 times {CHAIN3} bf16: " + json.dumps(out))
     return out
 
@@ -1172,7 +1280,8 @@ def main(argv=None) -> None:
     t_mlp = {label: mlp_time_phase(cfg, label, m)
              for label, m in MLP_SHAPES.items()}
     t_attn = attention_time_phase(cfg)
-    t_chain = {"G12 bf16": chain_time_phase("G12", torch.bfloat16),
+    t_chain = {"G12 bf16": chain_time_phase("G12", torch.bfloat16,
+                                            sweep=True),
                "quickstart G1 f32": chain_time_phase("G1", torch.float32)}
     t_chain3 = chain3_time_phase()
     by_path = {name: {"hand_wired": hand_launches[name],
@@ -1252,8 +1361,13 @@ def main(argv=None) -> None:
         "bound_by": t_chain["G12 bf16"]["bound_by"],
         "library_ms": None,
         "unfused_ms": t_chain["G12 bf16"]["unfused_ms"],
+        "tiles": t_chain["G12 bf16"]["tiles"],
+        "splits": t_chain["G12 bf16"]["splits"],
+        "tile_sweep_ms": t_chain["G12 bf16"]["tile_sweep_ms"],
+        "device_ms_by_kernel": t_chain["G12 bf16"]["device_ms_by_kernel"],
         "quickstart_g1_f32": {k: t_chain["quickstart G1 f32"][k] for k in (
-            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "unfused_ms")},
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "unfused_ms",
+            "tiles", "splits", "device_ms_by_kernel")},
         "passed": True,
     }, {
         "name": "fused_gemm_chain3",
@@ -1268,6 +1382,9 @@ def main(argv=None) -> None:
         "bound_by": t_chain3["bound_by"],
         "library_ms": None,
         "unfused_ms": t_chain3["unfused_ms"],
+        "tiles": t_chain3["tiles"],
+        "splits": t_chain3["splits"],
+        "device_ms_by_kernel": t_chain3["device_ms_by_kernel"],
         "passed": True,
     }]
     print(json.dumps({"kernels": kernels}))

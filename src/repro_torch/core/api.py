@@ -122,8 +122,9 @@ def fuse_gemm_chain(M: int, N: int, K: int, H: int, batch: int = 1,
     (M, N, K, H, batch) are the GLOBAL problem dims; with a ``mesh`` the
     search localizes them and the kernel is parametrized for one
     shard's block.  Under ``GpuSpec`` Rule 4 prices every candidate by
-    the kernel's own shared-memory layout
-    (``perf_model.gemm_chain_smem_bytes``)."""
+    the kernel's own shared-memory layout at the n split it launches
+    (the MLP machine's ``perf_model.mlp_smem_bytes``, ungated) and
+    admits only the tiles it takes (``perf_model.mlp_tiles_ok``)."""
     unit = hw.tile_unit if unit is None else unit
     key = ("gemm", M, N, K, H, batch, dtype, hw.name, unit, mesh, seed)
     if key in _CACHE:

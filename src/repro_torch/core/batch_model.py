@@ -44,8 +44,9 @@ import numpy as np
 
 from .chain import Chain, DTYPE_BYTES
 from .dag import bind_grid, build_schedule
-from .perf_model import (GpuSpec, H100, TpuSpec, kernel_smem_bytes,
-                         kernel_split_terms, kernel_tiles_ok)
+from .perf_model import (GpuSpec, H100, TpuSpec, chain_tie_break,
+                         kernel_smem_bytes, kernel_split_terms,
+                         kernel_tiles_ok)
 from .tiling import Scope, expr_repr
 
 
@@ -294,8 +295,9 @@ class ExprClassTable:
             if smem is not None:
                 vmem = smem
             tiles_ok &= kernel_tiles_ok(self.chain, by_loop)
+        tie = chain_tie_break(self.chain, by_loop, flat, hw)
         return PricedBatch(t_mem=t_mem, t_comp=t_comp, alpha=alpha,
-                           est=(t_mem + t_comp) * alpha,
+                           est=(t_mem + t_comp) * alpha + tie,
                            vmem=vmem, valid=valid, tiles_ok=tiles_ok)
 
 

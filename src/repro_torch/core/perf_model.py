@@ -49,7 +49,7 @@ from .ring import (ICI_HOP_LATENCY_S, pipelined_overlap_seconds,
 # (chain, tile assignment, mesh) — new terms, retuned constants, changed
 # hoisting semantics.  core.schedule_cache folds this into every disk
 # key, so persisted schedules from an older model never resurface.
-MODEL_VERSION = 6
+MODEL_VERSION = 7
 
 
 @dataclass(frozen=True)
@@ -461,7 +461,9 @@ def estimate(sched: Schedule, hw: "TpuSpec | GpuSpec" = H100,
     term prices the cross-shard combine.  mesh=None (or a 1×1 mesh)
     reproduces the paper's single-chip eq (2) exactly.
     """
-    t = (t_mem(sched, hw) + t_comp(sched, hw)) * alpha(sched, hw)
+    t = ((t_mem(sched, hw) + t_comp(sched, hw)) * alpha(sched, hw)
+         + chain_tie_break(sched.chain, sched.tile_sizes,
+                           "(" in sched.sub_expr(), hw))
     if mesh is not None and not mesh.is_single:
         t += (t_coll_pipelined(sched.chain, mesh, t) if mesh.pipelined
               else t_coll(sched, mesh))
@@ -613,6 +615,10 @@ MLP_MAX_ROW_GROUPS = 9
 MLP_REG_BLOCKS = {True: 1, False: 2}
 #: split counts ``mlp_splits`` weighs: up to this many blocks an SM
 MLP_MAX_SPLITS_PER_SM = 2
+#: what a ring step of the busiest SM adds to eq (2') for the GEMM
+#: chains' bf16 kernels (``chain_tie_break``): far below any cost the
+#: model tells apart, so it orders only schedules priced alike
+CHAIN_TIE_S = 1.0e-15
 
 
 def _at_least(x, lo):
@@ -654,7 +660,7 @@ def mlp_tiles_ok(bm, bn, n: int, a_bytes: int, w_bytes: int):
             & ((bn % 16 == 0) | (bn >= n)))
 
 
-def mlp_ring(bm, bn, bk, gated: bool):
+def mlp_ring(bm, bn, bk, gated: bool, held=None):
     """The bf16 kernel's cp.async ring at these tiles: (stages, bytes a
     stage, rows of Wd a down-projection stage holds).  A stage is the
     larger of an up-projection stage — the A tile (bm, bk) and the Wu
@@ -663,8 +669,12 @@ def mlp_ring(bm, bn, bk, gated: bool):
     ``MLP_E_CHUNK`` columns, whose rows are whole 16s, as many as fit
     the up stage (at least 16), so both phases keep about as many bytes
     in flight; there are as many stages as keep ``MLP_RING_BYTES`` in
-    flight, within [MLP_MIN_STAGES, MLP_MAX_STAGES].  The wrapper hands
-    all three to the kernel.  Tiles may be numpy arrays."""
+    flight, within [MLP_MIN_STAGES, MLP_MAX_STAGES].  The GEMM chains
+    pass the ``held`` bytes their block keeps beside the ring: their
+    ring then gives up stages, down to two (double buffering), until
+    ring and ``held`` fit a block; the MLP's ring never does.  The
+    wrapper hands all three to the kernel.  Tiles may be numpy
+    arrays."""
     nw = 2 if gated else 1
     bkp = _ceil16(bk)
     up = (_ceil16(bm) * (bkp + 8) + nw * bkp * (_ceil16(bn) + 8)) * 2
@@ -672,18 +682,30 @@ def mlp_ring(bm, bn, bk, gated: bool):
     stage = _at_least(up, rows * (MLP_E_CHUNK + 8) * 2)
     stages = _at_most(_at_least(1 + -(-MLP_RING_BYTES // stage),
                                 MLP_MIN_STAGES), MLP_MAX_STAGES)
+    if held is not None:
+        room = (H100.smem_per_block - held) // stage
+        stages = _at_least(_at_most(stages, room), 2)
     return stages, stage, rows
 
 
+def mlp_hidden_bytes(bm, bn, per=1):
+    """The bf16 hidden tile of a split of ``per`` n blocks of ``bn``:
+    (bm, per x bn), bm and bn padded to whole 16s and every row by 16
+    bytes.  Tiles may be numpy arrays."""
+    return _ceil16(bm) * (per * _ceil16(bn) + 8) * 2
+
+
 def mlp_smem_bytes(bm, bn, bk, be, a_bytes: int, w_bytes: int,
-                   gated: bool, per=1):
-    """Shared memory one thread block of the CUDA MLP kernel
-    (``kernels/csrc/mlp_chain.cu``) allocates, for a split of ``per``
+                   gated: bool, per=1, squeeze: bool = False):
+    """Shared memory one thread block of the CUDA MLP machine
+    (``kernels/csrc/chain_mma.cuh``) allocates, for a split of ``per``
     n blocks of ``bn``.
 
-    bf16 (tensor cores): the cp.async ring (``mlp_ring``), then the
-    bf16 hidden tile of the whole split, (bm, per x bn), bm and bn
-    padded to whole 16s and every row by 16 bytes.  No E row is held on
+    bf16 (tensor cores): the cp.async ring (``mlp_ring``; with
+    ``squeeze``, the two-GEMM chain's, it gives up stages where it would
+    not fit beside a hidden tile of one n block, so a tile that fits
+    with the full ring keeps it and its splits), then the bf16 hidden
+    tile of the whole split (``mlp_hidden_bytes``).  No E row is held on
     chip.  f32 (CUDA cores): the f32 up-projection accumulators (bm,
     bn), two when gated, the f32 E accumulator (bm, be) — ``be`` is
     ``bh`` for the deep class, the whole H for the flat class —, the A
@@ -693,15 +715,16 @@ def mlp_smem_bytes(bm, bn, bk, be, a_bytes: int, w_bytes: int,
     may be numpy arrays (the batched model)."""
     nw = 2 if gated else 1
     if mlp_tensor_cores(a_bytes, w_bytes):
-        stages, stage, _ = mlp_ring(bm, bn, bk, gated)
-        return (stages * stage
-                + _ceil16(bm) * (per * _ceil16(bn) + 8) * 2)
+        stages, stage, _ = mlp_ring(
+            bm, bn, bk, gated, mlp_hidden_bytes(bm, bn) if squeeze else None)
+        return stages * stage + mlp_hidden_bytes(bm, bn, per)
     return (nw * bm * bn * 4 + bm * be * 4 + bm * bk * a_bytes
             + nw * bk * bn * w_bytes)
 
 
 def mlp_splits(batch: int, m: int, n: int, k: int, h: int, bm, bn, bk, be,
-               a_bytes: int, w_bytes: int, gated: bool, hw=None):
+               a_bytes: int, w_bytes: int, gated: bool, hw=None,
+               squeeze: bool = False):
     """(splits, n blocks per split) of the MLP kernel: the n axis cut
     into runs of whole ``bn`` blocks, none empty (the last may be
     shorter).  The one split rule: the wrapper launches it and the
@@ -717,16 +740,18 @@ def mlp_splits(batch: int, m: int, n: int, k: int, h: int, bm, bn, bk, be,
     More than one split adds the f32 partial E: splits x M x H x 4
     bytes, written once and read once by the merge.  A count whose
     hidden tile does not fit a block is out.  The cheapest count wins,
-    the fewest splits among equals.  Tiles may be numpy arrays (the
-    batched model); scalars return ints."""
+    the fewest splits among equals.  ``squeeze``: the layout's ring
+    gives up stages to fit (``mlp_smem_bytes``), as the two-GEMM
+    chain's does.  Tiles may be numpy arrays (the batched model);
+    scalars return ints."""
     hw = H100 if hw is None else hw
     scalar = all(np.ndim(x) == 0 for x in (bm, bn, bk, be))
     if scalar:
         return _mlp_splits_scalar(batch, m, n, k, h, int(bm), int(bn),
                                   int(bk), int(be), a_bytes, w_bytes,
-                                  gated, hw)
+                                  gated, hw, squeeze)
     return _mlp_splits(batch, m, n, k, h, bm, bn, bk, be, a_bytes, w_bytes,
-                       gated, hw)
+                       gated, hw, squeeze)
 
 
 @functools.lru_cache(maxsize=65536)
@@ -736,8 +761,20 @@ def _mlp_splits_scalar(*args):
     return int(splits[0]), int(per[0])
 
 
+def _mlp_waves(blocks, smem, tc: bool, hw):
+    """(waves, blocks the busiest SM runs in a wave) of a grid of
+    ``blocks`` blocks of the MLP machine with ``smem`` bytes each: as
+    many run at once on every SM as its shared memory, threads and
+    registers hold."""
+    per_sm = np.minimum(hw.smem_per_sm // (smem + hw.smem_reserved),
+                        min(hw.threads_per_sm // MLP_THREADS,
+                            MLP_REG_BLOCKS[tc]))
+    slots = hw.n_sm * _at_least(per_sm, 1)
+    return -(-blocks // slots), -(-np.minimum(blocks, slots) // hw.n_sm)
+
+
 def _mlp_split_candidates(batch, m, n, k, h, bm, bn, bk, be, a_bytes,
-                          w_bytes, gated, hw):
+                          w_bytes, gated, hw, squeeze=False):
     """(splits, per, seconds of the busiest SM's runs, seconds of the
     partial E) for every split count ``mlp_splits`` weighs, in rising
     order; a count whose hidden tile does not fit a block costs inf."""
@@ -751,18 +788,13 @@ def _mlp_split_candidates(batch, m, n, k, h, bm, bn, bk, be, a_bytes,
                        2.0 * bm * (k * nw + be) / (peak / hw.n_sm))
     block_s = bn * col_s                 # one n block on one SM
     partial_s = 2.0 * batch * m * h * 4 / hw.hbm_bw
-    by_threads = hw.threads_per_sm // MLP_THREADS
     for s in range(1, min(int(nb.max()),
                           MLP_MAX_SPLITS_PER_SM * hw.n_sm) + 1):
         per = -(-nb // s)
         splits = -(-nb // per)
-        smem = mlp_smem_bytes(bm, bn, bk, be, a_bytes, w_bytes, gated, per)
-        per_sm = np.minimum(hw.smem_per_sm // (smem + hw.smem_reserved),
-                            min(by_threads, MLP_REG_BLOCKS[tc]))
-        slots = hw.n_sm * _at_least(per_sm, 1)
-        total = blocks * splits
-        waves = -(-total // slots)
-        busiest = -(-np.minimum(total, slots) // hw.n_sm)
+        smem = mlp_smem_bytes(bm, bn, bk, be, a_bytes, w_bytes, gated, per,
+                              squeeze)
+        waves, busiest = _mlp_waves(blocks * splits, smem, tc, hw)
         stream = np.where(smem > hw.smem_per_block, np.inf,
                           waves * busiest * per * block_s)
         yield splits, per, stream, (splits > 1) * splits * partial_s
@@ -807,36 +839,102 @@ GEMM_CHAIN_OPS = ("matmul_C", "matmul_E")
 GEMM_CHAIN3_OPS = ("matmul_C", "matmul_E", "matmul_G")
 
 
-def gemm_chain_smem_bytes(bm, bn, bk, be, in_bytes: int):
-    """Shared memory one thread block of the CUDA gemm-chain kernel
-    (``kernels/csrc/gemm_chain.cu``, ``fused_gemm_chain``) allocates:
-    the f32 C accumulator (bm, bn), the f32 E accumulator (bm, be), and
-    the A (bm, bk) and B (bk, bn) tiles in the input type.  ``be`` is
-    the E tile width: ``bh`` for the deep class, the whole H for the
-    flat class.  D is read straight from device memory, never staged.
-    The kernel's wrapper checks launches against this same function.
-    Tiles may be numpy arrays (the batched model)."""
-    return (bm * bn + bm * be) * 4 + (bm * bk + bk * bn) * in_bytes
+def _chain3_held_bytes(bm, bn, n: int, h: int):
+    """What the bf16 three-GEMM block holds beside its ring: C of all of
+    N — (bm, N / bn blocks of bn), bm and bn padded to whole 16s and
+    every row by 16 bytes — and the whole E row (bm, H), H padded the
+    same way."""
+    return _ceil16(bm) * (-(-n // bn) * _ceil16(bn) + 8 + _ceil16(h) + 8) * 2
 
 
-def gemm_chain3_smem_bytes(bm, bn, bk, h: int, in_bytes: int):
+def gemm_chain3_ring(bm, bn, bk, n: int, h: int):
+    """The bf16 three-GEMM kernel's ring (``mlp_ring``, ungated), given
+    up stages to fit beside C and the E row."""
+    return mlp_ring(bm, bn, bk, False, _chain3_held_bytes(bm, bn, n, h))
+
+
+def gemm_chain3_smem_bytes(bm, bn, bk, n: int, h: int, in_bytes: int):
     """Shared memory one thread block of the CUDA three-GEMM kernel
-    (``kernels/csrc/gemm_chain.cu``, ``fused_gemm_chain3``) allocates:
-    the flat gemm-chain layout with the whole (bm, H) E row; F, like D,
-    is read straight from device memory, so G adds nothing."""
-    return gemm_chain_smem_bytes(bm, bn, bk, h, in_bytes)
+    (``kernels/csrc/gemm_chain.cu``, ``fused_gemm_chain3``) allocates.
+
+    bf16 (tensor cores, ``chain3_mma_kernel``): the MLP machine's ring
+    (``gemm_chain3_ring``), then C of all of N and the whole E row
+    (``_chain3_held_bytes``); F comes through the ring.  f32 (CUDA
+    cores): the f32 C accumulator (bm, bn), the f32 E row (bm, H), and
+    the A (bm, bk) and B (bk, bn) tiles; D and F are read straight from
+    device memory.  The wrapper checks launches against this same
+    function.  Tiles may be numpy arrays."""
+    if in_bytes == 2:
+        stages, stage, _ = gemm_chain3_ring(bm, bn, bk, n, h)
+        return stages * stage + _chain3_held_bytes(bm, bn, n, h)
+    return (bm * bn + bm * h) * 4 + (bm * bk + bk * bn) * in_bytes
+
+
+def on_mlp_machine(chain: Chain) -> bool:
+    """Whether the MLP kernel's machine runs ``chain``: the MLP chain,
+    and the two-GEMM chain as its ungated case with the identity
+    activation."""
+    return is_mlp(chain) or tuple(op.name for op in chain.ops) == \
+        GEMM_CHAIN_OPS
+
+
+def _weight_bytes(chain: Chain) -> int:
+    """Bytes of an element of the chain's first weight (the MLP's Wu,
+    a GEMM chain's B)."""
+    return chain.tensors["Wu" if is_mlp(chain) else "B"].dtype_bytes
+
+
+def chain_tie_break(chain: Chain, tiles: dict, flat: bool, hw):
+    """A tie-break eq (2') adds for the GEMM chains' bf16 kernels under
+    ``GpuSpec``: ``CHAIN_TIE_S`` for each ring step the busiest SM runs
+    (its blocks in each wave, each running its up steps, n blocks x K /
+    bk, and its down steps, E chunks x its n range / Wd rows a stage —
+    and for the three-GEMM chain the G chunks x H / F rows a stage).
+    Eq (2') prices their bn = 16 to 256 alike (the same bytes,
+    operations and grid), and a narrow tile, on which most warps idle in
+    the up phase, could win the tie; this orders tied schedules by their
+    steps and nothing else.  0 for the MLP, attention, f32 and under
+    ``TpuSpec``.  Tiles may be numpy arrays."""
+    ops = tuple(op.name for op in chain.ops)
+    if not (isinstance(hw, GpuSpec)
+            and ops in (GEMM_CHAIN_OPS, GEMM_CHAIN3_OPS)):
+        return 0.0
+    nbytes = chain.tensors["A"].dtype_bytes
+    if not mlp_tensor_cores(nbytes, _weight_bytes(chain)):
+        return 0.0
+    m, n, k, h = (chain.loops[d] for d in "mnkh")
+    bm, bn, bk = tiles["m"], tiles["n"], tiles["k"]
+    if ops == GEMM_CHAIN3_OPS:
+        _, _, rows = gemm_chain3_ring(bm, bn, bk, n, h)
+        steps = (-(-n // bn) * -(-k // bk)
+                 + -(-h // MLP_E_CHUNK) * -(-_ceil16(n) // rows)
+                 + -(-chain.loops["g"] // MLP_E_CHUNK)
+                 * -(-_ceil16(h) // rows))
+        blocks = chain.batch * -(-m // bm)
+        smem = gemm_chain3_smem_bytes(bm, bn, bk, n, h, nbytes)
+    else:
+        be, splits, per = mlp_kernel_split(chain, tiles, flat, hw)
+        _, _, rows = mlp_ring(bm, bn, bk, False)
+        steps = (per * -(-k // bk) + -(-be // MLP_E_CHUNK)
+                 * -(-_ceil16(_at_most(per * bn, n)) // rows))
+        blocks = chain.batch * -(-m // bm) * -(-h // be) * splits
+        smem = mlp_smem_bytes(bm, bn, bk, be, nbytes, nbytes, False, per,
+                              True)
+    waves, busiest = _mlp_waves(blocks, smem, True, hw)
+    return waves * busiest * steps * CHAIN_TIE_S
 
 
 def mlp_kernel_split(chain: Chain, tiles: dict, flat: bool, hw=None):
-    """(E tile width, splits, n blocks per split) of the MLP kernel that
-    runs the MLP ``chain`` at ``tiles`` in the class ``flat`` — the
-    split ``mlp_splits`` gives.  Tiles may be numpy arrays."""
+    """(E tile width, splits, n blocks per split) of the MLP machine
+    that runs ``chain`` (``on_mlp_machine``) at ``tiles`` in the class
+    ``flat`` — the split ``mlp_splits`` gives.  Tiles may be numpy
+    arrays."""
     be = chain.loops["h"] if flat else tiles["h"]
     splits, per = mlp_splits(
         chain.batch, chain.loops["m"], chain.loops["n"], chain.loops["k"],
         chain.loops["h"], tiles["m"], tiles["n"], tiles["k"], be,
-        chain.tensors["A"].dtype_bytes, chain.tensors["Wu"].dtype_bytes,
-        "Wg" in chain.tensors, hw)
+        chain.tensors["A"].dtype_bytes, _weight_bytes(chain),
+        "Wg" in chain.tensors, hw, not is_mlp(chain))
     return be, splits, per
 
 
@@ -845,29 +943,26 @@ def kernel_smem_bytes(chain: Chain, tiles: dict, flat: bool, hw=None):
     (loop -> tile, scalars or numpy arrays) in the schedule class
     ``flat`` (sub-expression ``n(k,h)``: the whole E row a block), or
     None for a chain no CUDA kernel runs.  Attention keeps the head
-    dims whole whatever the class; the MLP kernel's layout holds the
-    hidden tile of its split (``mlp_splits`` on ``hw``, default H100);
-    the three-GEMM kernel exists in the flat class only."""
-    ops = tuple(op.name for op in chain.ops)
+    dims whole whatever the class; the MLP machine's layout (the MLP and
+    the two-GEMM chain) holds the hidden tile of its split
+    (``mlp_splits`` on ``hw``, default H100); the three-GEMM kernel
+    exists in the flat class only and holds C of all of N and the E
+    row."""
     if is_attention(chain):
         args = (tiles["m"], tiles["n"], chain.loops["k"], chain.loops["h"],
                 chain.tensors["Q"].dtype_bytes)
         if chain.name == PARTIAL_ATTENTION:
             return attention_partial_smem_bytes(*args, chain.group)
         return attention_smem_bytes(*args)
-    if is_mlp(chain):
+    if on_mlp_machine(chain):
         be, _, per = mlp_kernel_split(chain, tiles, flat, hw)
         return mlp_smem_bytes(tiles["m"], tiles["n"], tiles["k"], be,
                               chain.tensors["A"].dtype_bytes,
-                              chain.tensors["Wu"].dtype_bytes,
-                              "Wg" in chain.tensors, per)
-    if ops == GEMM_CHAIN_OPS:
-        be = chain.loops["h"] if flat else tiles["h"]
-        return gemm_chain_smem_bytes(tiles["m"], tiles["n"], tiles["k"],
-                                     be, chain.tensors["A"].dtype_bytes)
-    if ops == GEMM_CHAIN3_OPS:
+                              _weight_bytes(chain), "Wg" in chain.tensors,
+                              per, not is_mlp(chain))
+    if tuple(op.name for op in chain.ops) == GEMM_CHAIN3_OPS:
         return gemm_chain3_smem_bytes(tiles["m"], tiles["n"], tiles["k"],
-                                      chain.loops["h"],
+                                      chain.loops["n"], chain.loops["h"],
                                       chain.tensors["A"].dtype_bytes)
     return None
 
@@ -876,27 +971,30 @@ def kernel_tiles_ok(chain: Chain, tiles: dict):
     """Whether the CUDA kernel that runs ``chain`` takes ``tiles`` at
     all, whatever they cost in shared memory: the tile rules of the
     normalised attention kernel (``attention_tiles_ok``) and of the MLP
-    kernel (``mlp_tiles_ok``); every other kernel takes any tile.  Tiles
-    may be numpy arrays (the batched model)."""
+    machine (``mlp_tiles_ok``: the MLP, two- and three-GEMM chains);
+    every other kernel takes any tile.  Tiles may be numpy arrays (the
+    batched model)."""
     if is_attention(chain) and chain.name != PARTIAL_ATTENTION:
         return attention_tiles_ok(tiles["m"], tiles["n"], chain.loops["k"],
                                   chain.loops["h"],
                                   chain.tensors["Q"].dtype_bytes)
-    if is_mlp(chain):
+    if on_mlp_machine(chain) or tuple(
+            op.name for op in chain.ops) == GEMM_CHAIN3_OPS:
         return mlp_tiles_ok(tiles["m"], tiles["n"], chain.loops["n"],
                             chain.tensors["A"].dtype_bytes,
-                            chain.tensors["Wu"].dtype_bytes)
+                            _weight_bytes(chain))
     return True
 
 
 def kernel_split_terms(chain: Chain, tiles: dict, flat: bool, hw):
     """What a split of the reduction axis adds to eqs (2') and (5') for
     the CUDA kernel that runs ``chain`` under ``GpuSpec``: (blocks per
-    grid point, device-memory bytes).  Only the MLP kernel splits n
-    (``mlp_splits``): its grid counts the splits and its traffic the
-    partial E (``mlp_partial_bytes``); any other chain, and every chain
-    under ``TpuSpec``, gets (1, 0).  Tiles may be numpy arrays."""
-    if not (isinstance(hw, GpuSpec) and is_mlp(chain)):
+    grid point, device-memory bytes).  Only the MLP machine splits n
+    (``mlp_splits``), for the MLP and the two-GEMM chain: its grid
+    counts the splits and its traffic the partial E
+    (``mlp_partial_bytes``); any other chain, and every chain under
+    ``TpuSpec``, gets (1, 0).  Tiles may be numpy arrays."""
+    if not (isinstance(hw, GpuSpec) and on_mlp_machine(chain)):
         return 1, 0
     _, splits, _ = mlp_kernel_split(chain, tiles, flat, hw)
     return splits, mlp_partial_bytes(chain.batch, chain.loops["m"],

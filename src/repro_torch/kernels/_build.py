@@ -2,15 +2,17 @@
 
 Each source compiles with ``nvcc`` into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), named by the
-hash of its source so an edit rebuilds and an unchanged source is
-loaded as it is.  The libraries go to ``kernels/build/`` (listed in
-``.gitignore``); nothing is built until a kernel is first launched.
+hash of its source and of every header of ``csrc/`` it includes, so an
+edit to either rebuilds and an unchanged source is loaded as it is.
+The libraries go to ``kernels/build/`` (listed in ``.gitignore``);
+nothing is built until a kernel is first launched.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -37,10 +39,26 @@ def _nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every file of ``csrc/`` it includes with
+    ``#include "..."``, directly or through another such file."""
+    out, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path not in out:
+            out.append(path)
+            todo += [CSRC / inc for inc in _INCLUDE.findall(path.read_text())]
+    return out
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(name: str) -> tuple[Path, str]:

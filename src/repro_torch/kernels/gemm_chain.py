@@ -1,7 +1,7 @@
 """The fused GEMM chains of the MLP and the paper's Table II: the CUDA
 kernels ``fused_mlp_chain`` (``csrc/mlp_chain.cu``) and
-``fused_gemm_chain`` (``csrc/gemm_chain.cu``) with their plain PyTorch
-versions.
+``fused_gemm_chain`` (``csrc/gemm_chain.cu``), one machine in
+``csrc/chain_mma.cuh``, with their plain PyTorch versions.
 
     E = (act(A Wg) * (A Wu)) Wd        fused_mlp_chain, gated
     E = act(A Wu) Wd                   fused_mlp_chain, ungated
@@ -12,9 +12,10 @@ device memory.  The schedule class and tiles (style, bm, bn, bk, bh)
 come from MCFuser's analytical search (``core.api.fuse_mlp_chain`` /
 ``fuse_gemm_chain``): ``deep`` launches one block per (m tile, bh-wide
 E tile) and recomputes the first product for each; ``flat`` launches
-one block per m tile for the whole E row.  The MLP kernel also splits
-the n axis across blocks (``perf_model.mlp_splits``, the rule the tuner
-prices) and merges the splits' f32 partial E in split order.
+one block per m tile for the whole E row.  Both kernels also split the
+n axis across blocks (``perf_model.mlp_splits``, the rule the tuner
+prices; the GEMM chain is the machine's ungated case with the identity
+activation) and merge the splits' f32 partial E in split order.
 
 A CUDA tensor launches the kernel or raises; only a CPU tensor runs the
 plain version.
@@ -27,7 +28,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..core.perf_model import (H100, gemm_chain_smem_bytes, mlp_ring,
+from ..core.perf_model import (H100, mlp_hidden_bytes, mlp_ring,
                                mlp_smem_bytes, mlp_splits, mlp_tiles_ok)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -91,19 +92,40 @@ def _check(a, wu, wd, wg, act, bm, bn, bk, bh, style):
         raise ValueError(f"tiles and dims must be positive: tiles "
                          f"{(bm, bn, bk, bh)}, dims {(m, n, k, h)}")
     tiles = clamp_tiles(m, n, k, h, bm, bn, bk, bh, style)
-    sizes = (a.element_size(), wu.element_size(), wg is not None)
-    if not mlp_tiles_ok(tiles[0], tiles[1], n, sizes[0], sizes[1]):
-        raise ValueError(f"tiles (bm, bn) = {tiles[:2]} are not tiles of "
+    split, _ = _machine_split(b, m, n, k, h, tiles, a.element_size(),
+                              wu.element_size(), wg is not None, style,
+                              False)
+    return tiles, split
+
+
+def check_tile_rule(bm: int, bn: int, n: int, a_bytes: int,
+                    w_bytes: int) -> None:
+    """Raise on clamped tiles outside ``perf_model.mlp_tiles_ok``, the
+    tile rule of the machine's bf16 tensor-core kernels."""
+    if not mlp_tiles_ok(bm, bn, n, a_bytes, w_bytes):
+        raise ValueError(f"tiles (bm, bn) = {(bm, bn)} are not tiles of "
                          f"the bf16 kernel (bm <= 144 with bn <= 128, or "
                          f"bm <= 64 with bn <= 256; bn a multiple of 16 "
                          f"or all of N={n})")
-    split = mlp_splits(b, m, n, k, h, *tiles, *sizes)
-    smem = mlp_smem_bytes(*tiles, *sizes, per=split[1])
+
+
+def _machine_split(b, m, n, k, h, tiles, a_bytes, w_bytes, gated, style,
+                   squeeze):
+    """The split (splits, n blocks per split) ``mlp_splits`` gives the
+    MLP machine at clamped ``tiles`` (bm, bn, bk, E tile), and its
+    shared memory (``squeeze``: the GEMM chain's ring, which gives up
+    stages to fit); raises on a tile outside the bf16 tile rule or past
+    a block's shared memory."""
+    check_tile_rule(tiles[0], tiles[1], n, a_bytes, w_bytes)
+    split = mlp_splits(b, m, n, k, h, *tiles, a_bytes, w_bytes, gated,
+                       squeeze=squeeze)
+    smem = mlp_smem_bytes(*tiles, a_bytes, w_bytes, gated, split[1],
+                          squeeze)
     if smem > H100.smem_per_block:
         raise ValueError(f"tiles (bm, bn, bk, E tile) = {tiles} "
                          f"({style}) need {smem} B of shared memory per "
                          f"block > {H100.smem_per_block}")
-    return tiles, split
+    return split, smem
 
 
 def fused_mlp_chain(a: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
@@ -133,6 +155,41 @@ def fused_mlp_chain(a: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
 fused_mlp_chain.launches = 0
 
 
+def _machine_launch(a, wu, wd, gated, bm, bn, bk, be, splits, squeeze):
+    """What one launch of the MLP machine needs beside its operands, on
+    clamped tiles with the n blocks cut into ``splits`` runs as the
+    plain versions cut them (``squeeze``: the GEMM chain's ring, which
+    gives up stages to fit): (E, the splits' f32 partial E or None,
+    (b, m, n, k, h, bm, bn, bk, be, splits, per, stages, Wd rows a
+    ring stage), shared memory, the stream)."""
+    b, m, k = a.shape
+    n, h = wu.shape[2], wd.shape[2]
+    per = -(-(-(-n // bn)) // splits)
+    splits = -(-(-(-n // bn)) // per)
+    smem = mlp_smem_bytes(bm, bn, bk, be, a.element_size(),
+                          wu.element_size(), gated, per, squeeze)
+    if smem > H100.smem_per_block:
+        raise ValueError(f"{splits} splits of {per} n blocks need {smem} B "
+                         f"of shared memory per block")
+    stages, _, wd_rows = mlp_ring(
+        bm, bn, bk, gated, mlp_hidden_bytes(bm, bn) if squeeze else None)
+    e = torch.empty((b, m, h), dtype=a.dtype, device=a.device)
+    # the splits' f32 partial E, summed in split order by the merge
+    part = (torch.empty((splits, b, m, h), dtype=torch.float32,
+                        device=a.device) if splits > 1 else None)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    dims = (b, m, n, k, h, bm, bn, bk, be, splits, per, stages, wd_rows)
+    return e, part, dims, int(smem), stream
+
+
+def _raise_on(lib, entry: str, err: int, errors: str):
+    if err:
+        fn = getattr(lib, errors)
+        fn.restype = ctypes.c_char_p
+        fn.argtypes = [ctypes.c_int]
+        raise RuntimeError(f"{entry} failed: " + fn(err).decode())
+
+
 def _launch(a, wu, wd, wg, act, bm, bn, bk, be, splits=1):
     """Launch the kernel (and, with more than one split, the merge) on
     clamped tiles, with the n blocks cut into ``splits`` runs as the
@@ -145,32 +202,14 @@ def _launch(a, wu, wd, wg, act, bm, bn, bk, be, splits=1):
     fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
                    + [ctypes.c_int] * 13 + [ctypes.c_longlong,
                                             ctypes.c_void_p])
-    b, m, k = a.shape
-    n, h = wu.shape[2], wd.shape[2]
-    per = -(-(-(-n // bn)) // splits)
-    splits = -(-(-(-n // bn)) // per)
-    smem = mlp_smem_bytes(bm, bn, bk, be, a.element_size(),
-                          wu.element_size(), wg is not None, per=per)
-    if smem > H100.smem_per_block:
-        raise ValueError(f"{splits} splits of {per} n blocks need {smem} B "
-                         f"of shared memory per block")
-    stages, _, wd_rows = mlp_ring(bm, bn, bk, wg is not None)
-    e = torch.empty((b, m, h), dtype=a.dtype, device=a.device)
-    # the splits' f32 partial E, summed in split order by the merge
-    part = (torch.empty((splits, b, m, h), dtype=torch.float32,
-                        device=a.device) if splits > 1 else None)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
+    e, part, dims, smem, stream = _machine_launch(
+        a, wu, wd, wg is not None, bm, bn, bk, be, splits, False)
     err = fn(_DTYPE_CODES[a.dtype], _DTYPE_CODES[wu.dtype],
              int(wg is not None), _ACT_CODES[act], a.data_ptr(),
              wu.data_ptr(), (wu if wg is None else wg).data_ptr(),
              wd.data_ptr(), e.data_ptr(),
-             None if part is None else part.data_ptr(), b, m, n, k, h, bm,
-             bn, bk, be, splits, per, stages, wd_rows, int(smem), stream)
-    if err:
-        lib.mlp_error_string.restype = ctypes.c_char_p
-        lib.mlp_error_string.argtypes = [ctypes.c_int]
-        raise RuntimeError("mlp_chain_launch failed: "
-                           + lib.mlp_error_string(err).decode())
+             None if part is None else part.data_ptr(), *dims, smem, stream)
+    _raise_on(lib, "mlp_chain_launch", err, "mlp_error_string")
     fused_mlp_chain.launches += 1
     return e
 
@@ -187,7 +226,12 @@ def fused_mlp_chain_plain(a: torch.Tensor, wu: torch.Tensor,
     blocks from zero, and the partials in split order.  One f32 product
     per n block (not per k tile), so a full-width call on the card takes
     milliseconds."""
-    f = act_fn(act)
+    return _chain_plain(a, wu, wd, wg, act_fn(act), bn, splits)
+
+
+def _chain_plain(a, wu, wd, wg, f, bn: int, splits: int) -> torch.Tensor:
+    """The plain MLP machine with the activation ``f``: what
+    ``fused_mlp_chain_plain`` describes."""
     hidden_t = torch.promote_types(a.dtype, wu.dtype)
     n = wu.shape[2]
     step = -(-(-(-n // bn)) // splits) * bn
@@ -240,32 +284,25 @@ def _check_chain(tensors, bm: int, bn: int, bk: int) -> tuple:
     return bm, bn, bk
 
 
-def _raise_chain_error(lib, name: str, err: int):
-    lib.chain_error_string.restype = ctypes.c_char_p
-    lib.chain_error_string.argtypes = [ctypes.c_int]
-    raise RuntimeError(f"{name} failed: "
-                       + lib.chain_error_string(err).decode())
-
-
 def check_gemm_chain(a, b, d, bm: int, bn: int, bk: int, bh: int,
                      style: str) -> tuple:
     """Raise on anything ``fused_gemm_chain``'s kernel does not take;
-    returns the clamped tiles (bm, bn, bk, E tile) and their
-    shared-memory bytes.  Reads only shapes, types and devices."""
+    returns the clamped tiles (bm, bn, bk, E tile), the n split
+    (splits, n blocks per split) ``perf_model.mlp_splits`` gives them,
+    ungated with the squeezed ring, and their shared-memory bytes.
+    Reads only shapes, types and devices."""
     if style not in STYLES:
         raise ValueError(f"unknown style {style!r}; expected {STYLES}")
     bm, bn, bk = _check_chain((a, b, d), bm, bn, bk)
-    h = d.shape[2]
+    bsz, m, k = a.shape
+    n, h = b.shape[2], d.shape[2]
     bh = min(bh, h)
     if bh < 1 or h % bh:
         raise ValueError(f"tile bh={bh} must divide H={h}")
-    be = h if style == "flat" else bh
-    smem = gemm_chain_smem_bytes(bm, bn, bk, be, a.element_size())
-    if smem > H100.smem_per_block:
-        raise ValueError(f"tiles (bm, bn, bk, E tile) = {(bm, bn, bk, be)} "
-                         f"({style}) need {smem} B of shared memory per "
-                         f"block > {H100.smem_per_block}")
-    return (bm, bn, bk, be), smem
+    tiles = (bm, bn, bk, h if style == "flat" else bh)
+    split, smem = _machine_split(bsz, m, n, k, h, tiles, a.element_size(),
+                                 a.element_size(), False, style, True)
+    return tiles, split, smem
 
 
 def fused_gemm_chain(a: torch.Tensor, b: torch.Tensor, d: torch.Tensor,
@@ -279,52 +316,53 @@ def fused_gemm_chain(a: torch.Tensor, b: torch.Tensor, d: torch.Tensor,
     block per (m tile, bh-wide E tile) and recomputes C for each (class
     ``nk``).  Tiles are clamped to the dims and must then divide them.
     C accumulates in f32 over k and is rounded to d's type before C D;
-    E accumulates in f32 over the n blocks."""
-    (bm, bn, bk, be), smem = check_gemm_chain(a, b, d, bm, bn, bk, bh,
-                                              style)
+    E accumulates in f32 over the n blocks.  The n axis is cut into the
+    splits ``perf_model.mlp_splits`` gives at these tiles; each split's
+    f32 partial E is summed in split order and cast once (the plain
+    version on a CPU tensor takes the same split)."""
+    (bm, bn, bk, be), (splits, _), _ = check_gemm_chain(a, b, d, bm, bn,
+                                                        bk, bh, style)
     dev = a.device
     if dev.type == "cpu":
-        return fused_gemm_chain_plain(a, b, d, bn)
+        return fused_gemm_chain_plain(a, b, d, bn, splits)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    return _launch_chain(a, b, d, bm, bn, bk, be, smem)
+    return _launch_chain(a, b, d, bm, bn, bk, be, splits)
 
 
 fused_gemm_chain.launches = 0
 
 
-def _launch_chain(a, b, d, bm, bn, bk, be, smem):
+def _launch_chain(a, b, d, bm, bn, bk, be, splits=1):
+    """Launch the MLP machine with the identity activation, ungated (and,
+    with more than one split, the merge) on clamped tiles, with the n
+    blocks cut into ``splits`` runs as the plain version cuts them; one
+    count a call."""
     from . import _build
 
     lib = _build.load("gemm_chain")
     fn = lib.gemm_chain_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 9 + [ctypes.c_longlong,
-                                           ctypes.c_void_p])
-    bsz, m, k = a.shape
-    n, h = b.shape[2], d.shape[2]
-    e = torch.empty((bsz, m, h), dtype=a.dtype, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 13 + [ctypes.c_longlong,
+                                            ctypes.c_void_p])
+    e, part, dims, smem, stream = _machine_launch(a, b, d, False, bm, bn,
+                                                  bk, be, splits, True)
     err = fn(_DTYPE_CODES[a.dtype], a.data_ptr(), b.data_ptr(),
-             d.data_ptr(), e.data_ptr(), bsz, m, n, k, h, bm, bn, bk, be,
-             int(smem), stream)
-    if err:
-        _raise_chain_error(lib, "gemm_chain_launch", err)
+             d.data_ptr(), e.data_ptr(),
+             None if part is None else part.data_ptr(), *dims, smem, stream)
+    _raise_on(lib, "gemm_chain_launch", err, "chain_error_string")
     fused_gemm_chain.launches += 1
     return e
 
 
 def fused_gemm_chain_plain(a: torch.Tensor, b: torch.Tensor,
-                           d: torch.Tensor, bn: int) -> torch.Tensor:
+                           d: torch.Tensor, bn: int,
+                           splits: int = 1) -> torch.Tensor:
     """``fused_gemm_chain``'s plain PyTorch version, with its rounding
     points: C per n block of ``bn`` in f32 (one product over the whole
     k, not per k tile), rounded to d's type, E summed in f32 over the n
-    blocks and cast once to a's type."""
-    af = a.float()
-    e = torch.zeros(a.shape[0], a.shape[1], d.shape[2],
-                    dtype=torch.float32, device=a.device)
-    for n0 in range(0, b.shape[2], bn):
-        c = torch.bmm(af, b[:, :, n0:n0 + bn].float())
-        e += torch.bmm(c.to(d.dtype).float(), d[:, n0:n0 + bn].float())
-    return e.to(a.dtype)
+    blocks and cast once to a's type.  With ``splits`` > 1 the n blocks
+    are cut into that many runs as the kernel cuts them, each run's f32
+    partial E summed from zero and the partials in split order."""
+    return _chain_plain(a, b, d, None, lambda x: x, bn, splits)

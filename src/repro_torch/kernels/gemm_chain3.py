@@ -2,11 +2,11 @@
 ``fused_gemm_chain3`` (``csrc/gemm_chain.cu``) and its plain PyTorch
 version.
 
-The flat-class machine of ``fused_gemm_chain`` — one block per m tile,
-C accumulated per (n, k) step, the whole (bm, H) E row on chip — with
-one more product at the end: after the last n block E is rounded to
-F's type and G = E F is written once.  Neither C nor E reaches device
-memory.
+In bf16 the MLP machine of ``fused_gemm_chain`` (``csrc/chain_mma.cuh``)
+on tensor cores, one block per (m tile, batch) and no n split: C of all
+of N on chip, then the whole (bm, H) E row, rounded to F's type, then
+G = E F written once.  In f32 a CUDA-core kernel with the same rounding
+points.  Neither C nor E reaches device memory.
 
 A CUDA tensor launches the kernel or raises; only a CPU tensor runs the
 plain version.
@@ -17,9 +17,10 @@ import ctypes
 
 import torch
 
-from ..core.perf_model import H100, gemm_chain3_smem_bytes
-from .gemm_chain import (_DTYPE_CODES, _check_chain, _raise_chain_error,
-                         fused_gemm_chain_plain)
+from ..core.perf_model import (H100, gemm_chain3_ring,
+                               gemm_chain3_smem_bytes)
+from .gemm_chain import (_DTYPE_CODES, _check_chain, _raise_on,
+                         check_tile_rule, fused_gemm_chain_plain)
 
 
 def fused_gemm_chain3(a: torch.Tensor, b: torch.Tensor, d: torch.Tensor,
@@ -28,10 +29,13 @@ def fused_gemm_chain3(a: torch.Tensor, b: torch.Tensor, d: torch.Tensor,
     """G = ((A B) D) F fused.  a: (B, M, K), b: (B, K, N), d: (B, N, H),
     f: (B, H, G), one type, float32 or bfloat16; returns G (B, M, G) in
     a's type.  H and G stay whole; the tiles are clamped to the dims
-    and must then divide them."""
+    and must then divide them, and in bf16 lie inside the tile rule of
+    the tensor-core machine (``perf_model.mlp_tiles_ok``)."""
     bm, bn, bk = _check_chain((a, b, d, f), bm, bn, bk)
-    h, g = d.shape[2], f.shape[2]
-    smem = gemm_chain3_smem_bytes(bm, bn, bk, h, a.element_size())
+    n, h = b.shape[2], d.shape[2]
+    nbytes = a.element_size()
+    check_tile_rule(bm, bn, n, nbytes, nbytes)
+    smem = gemm_chain3_smem_bytes(bm, bn, bk, n, h, nbytes)
     if smem > H100.smem_per_block:
         raise ValueError(f"tiles (bm, bn, bk) = {(bm, bn, bk)} with H={h} "
                          f"need {smem} B of shared memory per block > "
@@ -51,17 +55,17 @@ def _launch(a, b, d, f, bm, bn, bk, smem):
     fn = lib.gemm_chain3_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 9 + [ctypes.c_longlong,
-                                           ctypes.c_void_p])
+                   + [ctypes.c_int] * 11 + [ctypes.c_longlong,
+                                            ctypes.c_void_p])
     bsz, m, k = a.shape
     n, h, g = b.shape[2], d.shape[2], f.shape[2]
+    stages, _, rows = gemm_chain3_ring(bm, bn, bk, n, h)
     out = torch.empty((bsz, m, g), dtype=a.dtype, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = fn(_DTYPE_CODES[a.dtype], a.data_ptr(), b.data_ptr(),
              d.data_ptr(), f.data_ptr(), out.data_ptr(), bsz, m, n, k, h, g,
-             bm, bn, bk, int(smem), stream)
-    if err:
-        _raise_chain_error(lib, "gemm_chain3_launch", err)
+             bm, bn, bk, stages, rows, int(smem), stream)
+    _raise_on(lib, "gemm_chain3_launch", err, "chain_error_string")
     fused_gemm_chain3.launches += 1
     return out
 

@@ -132,7 +132,7 @@ class ServingEngine:
                       "generated": 0, "slot_steps": 0, "active_steps": 0,
                       "ctx_tokens": 0, "admit_requeues": 0,
                       "deadline_evictions": 0, "preempt_failures": 0,
-                      "drained": 0}
+                      "drained": 0, "reclaimed_pages": 0}
         self.regime_source, tiles = (self._choose_regime(model)
                                      if choose_regime else (None, None))
         if tiles != model.rt.paged_block:
@@ -141,6 +141,7 @@ class ServingEngine:
                 device=model.device)
         self.model = model
         self.device = model.device
+        self._window = int(model.cfg.window or 0)
         self.cache = model.init_paged_cache(n_pages, page_size)
         self.decode_plan = None
         if model.rt.planner:
@@ -344,12 +345,30 @@ class ServingEngine:
                 self._evict_slot(i, "deadline")
                 self.stats["deadline_evictions"] += 1
 
+    def _reclaim_window(self) -> None:
+        """Sliding-window page reclamation: once a request's next write
+        position ``p`` puts every kv slot below ``p - window + 1``
+        permanently outside the attention window, the pages wholly
+        covered by those slots go back to the pool (kv_pages.py
+        ``reclaim_below``).  Bit-identical to keeping them — the window
+        mask already rejected those slots — but the freed pages fund
+        admission and growth, so long windowed generations stop
+        monopolising the pool."""
+        if self._window <= 0:
+            return
+        for slot in self.slots:
+            if slot is None:
+                continue
+            self.stats["reclaimed_pages"] += slot.alloc.reclaim_below(
+                slot.pos + 1 - self._window, self.pool)
+
     # ------------------------------------------------------------------
     def step(self) -> list[FinishedRequest]:
         """One scheduler iteration; returns requests finished in it."""
         n_done = len(self.finished)
         self.step_no += 1
         self._expire_deadlines()
+        self._reclaim_window()
         # running slots take their growth pages BEFORE admission sees
         # the free count, and admission reserves each fresh request's
         # first decode slot — so the second growth pass below can only

@@ -70,9 +70,20 @@ class PagePool:
             self._free.append(p)
 
 
+#: Placeholder left in ``RequestPages.pages`` for a logical page whose
+#: physical page was reclaimed (sliding-window attention): logical
+#: indexing must keep counting from position 0, but the table entry
+#: becomes -1 — gathered as scratch and rejected by position, exactly
+#: like a never-allocated page.
+RECLAIMED = -1
+
+
 @dataclasses.dataclass
 class RequestPages:
-    """One request's page allocation: physical pages in logical order."""
+    """One request's page allocation: physical pages in logical order.
+    Entries may be ``RECLAIMED`` (-1) after sliding-window reclamation —
+    logical order is preserved, the physical page is back in the
+    pool."""
 
     pages: list[int] = dataclasses.field(default_factory=list)
 
@@ -88,8 +99,30 @@ class RequestPages:
         self.pages.extend(got)
         return True
 
+    def reclaim_below(self, min_pos: int, pool: PagePool) -> int:
+        """Free pages wholly below kv position ``min_pos``; returns the
+        number reclaimed.
+
+        Sliding-window attention (``window=w``) masks ``kv_pos <=
+        row_pos - w``, so once every row that will ever attend is at
+        position ``p``, slots below ``min_pos = p - w + 1`` are dead.
+        Logical page ``L`` covers positions ``[L*ps, (L+1)*ps)`` and is
+        wholly dead iff ``(L+1)*ps <= min_pos``, i.e. ``L < min_pos //
+        ps``.  Freed entries become ``RECLAIMED`` placeholders: the
+        page table shows -1 there, the gather pulls scratch, and the
+        position mask rejects it — bit-identical to keeping the page
+        (the window mask already excluded those slots)."""
+        cutoff = min(min_pos // pool.page_size, len(self.pages))
+        n = 0
+        for i in range(cutoff):
+            if self.pages[i] != RECLAIMED:
+                pool.free([self.pages[i]])
+                self.pages[i] = RECLAIMED
+                n += 1
+        return n
+
     def release(self, pool: PagePool) -> None:
-        pool.free(self.pages)
+        pool.free(p for p in self.pages if p != RECLAIMED)
         self.pages = []
 
 

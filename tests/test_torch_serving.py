@@ -281,6 +281,62 @@ def test_run_planned_layer_matches_reference(weights, phase, stitch):
                                    np.asarray(wcache[k])[1:], **TOL)
 
 
+def test_window_reclamation_matches_reference_engine(weights):
+    """Sliding-window page reclamation (``kv_pages.reclaim_below`` wired
+    into the engine step): pages wholly below the attention window go
+    back to the pool mid-request, and the served tokens equal the same
+    engine's with reclamation off (``_window = 0``, the window mask
+    still on) and the reference engine's on the same carried weights,
+    which reclaims as many pages."""
+    import dataclasses
+    from repro.models.lm import LM as RefLM
+    from repro.serving import ServingEngine as RefEngine
+    ref_model, ref_params, params = weights
+    cfg = dataclasses.replace(CFG, window=6)
+    rng = np.random.RandomState(0)
+    reqs = [(rng.randint(0, cfg.vocab, size=8).astype(np.int32), 10),
+            (rng.randint(0, cfg.vocab, size=5).astype(np.int32), 12)]
+    kw = dict(max_batch=2, page_size=4, n_pages=32, max_pages_per_seq=8)
+
+    def port_engine():
+        return ServingEngine(LM(cfg, Runtime(kernel_ops=True), device="cpu"),
+                             params, **kw)
+
+    base_eng = port_engine()
+    base_eng._window = 0
+    base, base_stats = base_eng.run(list(reqs))
+    assert base_stats["reclaimed_pages"] == 0
+    eng = port_engine()
+    out, stats = eng.run(list(reqs))
+    assert stats["reclaimed_pages"] > 0
+    assert [r.tokens for r in out] == [r.tokens for r in base]
+    assert [len(r.tokens) for r in out] == [10, 12]
+    assert eng.pool.n_free == eng.pool.n_pages - 1
+    ref_out, ref_stats = RefEngine(
+        RefLM(dataclasses.replace(ref_model.cfg, window=6)), ref_params,
+        choose_regime=False, **kw).run(list(reqs))
+    assert [r.tokens for r in out] == [r.tokens for r in ref_out]
+    assert stats["reclaimed_pages"] == ref_stats["reclaimed_pages"]
+
+
+def test_reclaim_below_matches_reference(jax_cpu):
+    """``RequestPages.reclaim_below`` frees the same pages as the
+    reference's, leaves ``RECLAIMED`` placeholders that the page table
+    shows as -1, and ``release`` skips them."""
+    from repro.serving import kv_pages as RKP
+    assert KP.RECLAIMED == RKP.RECLAIMED == -1
+    pool, rpool = KP.PagePool(12, 4), RKP.PagePool(12, 4)
+    got, want = KP.RequestPages(), RKP.RequestPages()
+    assert got.ensure(22, pool) and want.ensure(22, rpool)
+    for min_pos in (3, 9, 9, 17, 40):
+        assert (got.reclaim_below(min_pos, pool)
+                == want.reclaim_below(min_pos, rpool))
+        assert got.pages == want.pages and pool.n_free == rpool.n_free
+    assert KP.table_array([got], 8)[0].tolist() == [-1] * 6 + [-1, -1]
+    got.release(pool)
+    assert got.pages == [] and pool.n_free == pool.n_pages - 1
+
+
 def test_engine_deadline_drain_and_validation():
     """Deadlines, the preemption budget and drain report honest partial
     outcomes; submit rejects what the geometry cannot hold."""

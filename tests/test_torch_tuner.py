@@ -17,7 +17,7 @@ from repro_torch.core import schedule_cache  # noqa: E402
 from repro_torch.core.batch_model import (ExprClassTable,  # noqa: E402
                                           as_tile_matrix)
 from repro_torch.core.chain import (attention_chain, gemm_chain,  # noqa: E402
-                                    mlp_chain)
+                                    gemm_chain3, mlp_chain)
 from repro_torch.core.dag import build_schedule  # noqa: E402
 from repro_torch.core.perf_model import (H100, V5E, alpha,  # noqa: E402
                                          attention_smem_bytes, estimate,
@@ -184,6 +184,47 @@ def test_h100_mlp_split_enters_eqs_2_and_5():
     assert t_mem(s, H100) * H100.hbm_bw == pytest.approx(base + extra)
     assert kernel_split_terms(s.chain, s.tile_sizes, True, V5E) == (1, 0)
     assert alpha(s, V5E) == (s.grid_size() + 2) / s.grid_size()
+
+
+def test_h100_chain_tie_break_orders_only_ties():
+    """Under H100 eq (2') breaks the bf16 GEMM chains' ties by ring
+    steps (``chain_tie_break``): the two-GEMM chain's narrow n tiles,
+    which the memory and operation terms price alike, now order by the
+    steps they run, by far less than any cost the model tells apart; so
+    do the three-GEMM chain's; the MLP, f32, the attention chain and
+    every chain under V5E add nothing."""
+    from repro_torch.core.perf_model import (CHAIN_TIE_S, chain_tie_break,
+                                             t_comp)
+    chain = gemm_chain(1024, 1024, 128, 128, batch=8, dtype="bfloat16")
+    expr = next(e for e in enumerate_tilings(chain)
+                if "(" in build_schedule(chain, e, {"m": 128, "n": 64,
+                                                    "k": 128, "h": 128}
+                                         ).sub_expr())
+    est, base = {}, {}
+    for bn in (16, 64):
+        s = build_schedule(chain, expr, {"m": 128, "n": bn, "k": 128,
+                                         "h": 128})
+        tie = chain_tie_break(chain, s.tile_sizes, True, H100)
+        assert tie > 0
+        assert tie / CHAIN_TIE_S == pytest.approx(round(tie / CHAIN_TIE_S))
+        base[bn] = (t_mem(s, H100) + t_comp(s, H100)) * alpha(s, H100)
+        assert estimate(s, H100) == base[bn] + tie
+        est[bn] = estimate(s, H100)
+        assert tie < 1e-6 * base[bn]
+        assert chain_tie_break(chain, s.tile_sizes, True, V5E) == 0
+    assert base[16] == base[64] and est[16] > est[64]
+    ts3 = {"m": 32, "n": 32, "k": 64, "h": 64, "g": 64}
+    wide = {**ts3, "n": 128}
+    chain3 = gemm_chain3(1024, 512, 64, 64, 64, dtype="bfloat16")
+    assert chain_tie_break(chain3, ts3, True, H100) > \
+        chain_tie_break(chain3, wide, True, H100) > 0
+    for other in (gemm_chain(1024, 1024, 128, 128, dtype="float32"),
+                  gemm_chain3(1024, 512, 64, 64, 64, dtype="float32"),
+                  mlp_chain(4, 384, 64, dtype="bfloat16"),
+                  attention_chain(1, 160, 128, 128, heads=8,
+                                  dtype="bfloat16")):
+        ts = {d: 16 for d in other.loops}
+        assert chain_tie_break(other, ts, True, H100) == 0
 
 
 def test_schedule_cache_is_the_ports_own(port_cache, monkeypatch, tmp_path):
