@@ -24,13 +24,19 @@ which raises on failure:
    both classes with its n split, G12 and G1 also with one split and an
    uneven one (the plain version takes the same split) and two launches
    that must be bitwise equal; the three-GEMM kernel at the tuner's
-   tiles in f32 and bf16;
-4. the three main paths, each at full width — qwen3-8b (36 layers,
-   bf16, random weights from a seed, no depth cut):
+   tiles in f32 and bf16; the partial kernel also at granite-20b's
+   decode shape (Hq=48, Hkv=1: a GQA group of 48) at the tuner's tiles
+   and tiles around them;
+4. the main paths, each at full width — qwen3-8b (36 layers, bf16,
+   random weights from a seed, no depth cut), then granite-20b (52
+   layers, 56.3 GB, after qwen3-8b's weights are freed):
    a. served by the continuous-batching engine, 8 ragged requests, max
-      batch 4, hand-wired, ``Runtime(kernel_ops=True)``: the paged
-      attention kernel's launch counter must equal decode steps x
-      layers;
+      batch 4, hand-wired, ``Runtime(kernel_ops=True)``, the decode
+      step captured in a CUDA graph and replayed, then the same
+      workload with the step eager (``eager_decode=True``): equal
+      greedy tokens, and in each run the paged attention kernel's
+      launch counter must equal decode steps x layers (the capture's
+      warm-up is counted apart);
    b. the same, planned, ``Runtime(kernel_ops=True, planner=True)``:
       every block runs from the planner's H100 plan, each fused MLP
       chain as the MLP kernel — (decode steps + prefills) x layers
@@ -38,6 +44,13 @@ which raises on failure:
    c. the cache-free ``LM.loss`` and ``LM.forward`` at B=2, S=2048 with
       ``Runtime(kernel_ops=True)``: the normalised attention kernel
       launched once per layer and call (36);
+   d. fixed-batch ``launch.serve.generate`` over a contiguous cache,
+      batch 4, prompt 128, 32 tokens, captured and then eager: equal
+      tokens, no kernel launched (none is on this path, as in the JAX
+      package), and the last step's logits against the cache-free
+      forward over the same tokens;
+   e. granite-20b served as in a., hand-wired: the partial kernel at a
+      group of 48, decode steps x 52 launches;
    and the front door, ``python -m repro_torch.launch.quickstart``: one
    launch each of the GEMM-chain and the normalised attention kernel,
    each within the f32 tolerance of its oracle;
@@ -48,10 +61,13 @@ which raises on failure:
    same step through the plain hand-wired path, and the cache-free
    loss and logits against the plain twin path
    (``Runtime(kernel_ops=False)``);
-6. a profile of that decode step on both serving paths and of one
-   cache-free forward: host wall time and device time by kernel;
+6. a profile of one full decode step (batch 4) of each served engine,
+   captured (a replay) and eager on the same inputs — host wall, device
+   busy, busy share, the step's device span — and of one cache-free
+   forward: host wall time and device time by kernel;
 7. times of each kernel beside its bound, its plain version and the
-   PyTorch call(s) it replaces (the normalised attention also at other
+   PyTorch call(s) it replaces (the partial attention also at
+   granite-20b's group of 48; the normalised attention also at other
    tiles of the forward's shape and in f32 at Table III S2; the MLP
    kernel at M = 4, 144 and 4096, each at the tuner's tiles and split
    and at tiles around them; the GEMM-chain kernel at G12 in bf16 with
@@ -134,6 +150,13 @@ ATTN_TABLE_III = {"S2": (12, 512, 512, 64, 64), "S6": (16, 256, 256, 80, 80)}
 
 SERVE = dict(batch=4, n_requests=8, prompt_len=128, gen=32, page_size=16,
              seed=1)
+# Fixed-batch generate at full width: batch x prompt, gen tokens; its
+# last step's logits are held to the cache-free forward within
+# E2E_REL_TOL, the decode-step checks' limit
+GENERATE = dict(batch=4, prompt_len=128, gen=32, seed=3)
+# The MQA config served at full width after qwen3-8b: its paged decode
+# runs the partial kernel at a GQA group of 48
+GRANITE = "granite-20b"
 
 
 def device_phase() -> str:
@@ -181,14 +204,27 @@ def _attn_inputs(dtype, b, hq, hkv, m, n, d, seed, per_request=True):
     return q, k, v, kv_pos, q_pos
 
 
-def kernel_check_phase(tuned: dict) -> float:
+def kernel_check_phase(tuned: dict, tuned_mqa: dict) -> float:
     """The partial kernel against its plain version (the same kv split
     and merge) on the card; returns the largest absolute error over all
-    cases.  ``tuned``: (N, dtype) -> the tuner's decode tiles."""
+    cases.  ``tuned``: (N, dtype) -> the tuner's decode tiles at qwen3's
+    GQA group of 4 (Hq=32, Hkv=8); ``tuned_mqa``: dtype -> the tuner's
+    tiles at granite-20b's decode shape, a group of 48 (Hq=48, Hkv=1),
+    N = the serve phases' context."""
     from repro_torch.kernels import attention as A
     n_ctx, long = sorted({n for n, _ in tuned})
     bf, f32 = torch.bfloat16, torch.float32
     worst = 0.0
+    g_bq, g_bkv = tuned_mqa[bf]
+    mqa = [  # granite-20b: the tuner's tiles and tiles around them
+        ("MQA decode bf16", bf, 1, n_ctx, g_bq, g_bkv, 0, None, None),
+        ("MQA decode f32", f32, 1, n_ctx, *tuned_mqa[f32], 0, None, None),
+        ("MQA, kv tile x2", bf, 1, n_ctx, g_bq, 2 * g_bkv, 0, "ragged",
+         None),
+        ("MQA, 80-key tiles", bf, 1, n_ctx, 1, 80, 0, "ragged", None),
+        ("MQA, one split", bf, 1, n_ctx, g_bq, g_bkv, 0, "ragged", 1),
+        ("MQA window", bf, 1, n_ctx, g_bq, g_bkv, 40, "ragged", None),
+    ]
     cases = [  # (name, dtype, m, n, bq, bkv, window, edit, splits)
         ("decode bf16", bf, 1, n_ctx, *tuned[n_ctx, bf], 0, None, None),
         ("decode f32", f32, 1, n_ctx, *tuned[n_ctx, f32], 0, None, None),
@@ -205,16 +241,17 @@ def kernel_check_phase(tuned: dict) -> float:
         ("long, one split", bf, 1, long, 1, 128, 0, "ragged", 1),
         ("long, uneven split", bf, 1, long, 1, 128, 0, "ragged", 5),
     ]
-    for i, (name, dt, m, n, bq_, bkv_, window, edit, splits) in enumerate(
-            cases):
-        q, k, v, kv_pos, q_pos = _attn_inputs(dt, 4, 32, 8, m, n, 128, i)
+    cases = [(*c, 32, 8) for c in cases] + [(*c, 48, 1) for c in mqa]
+    for i, (name, dt, m, n, bq_, bkv_, window, edit, splits, hq,
+            hkv) in enumerate(cases):
+        q, k, v, kv_pos, q_pos = _attn_inputs(dt, 4, hq, hkv, m, n, 128, i)
         if edit == "ragged":
             kv_pos[1, 17:40] = A.INVALID_POS     # unallocated slots
             q_pos[0, 0] = 90                     # a shorter request
             q_pos[2, 0] = -1                     # inactive slot: dead row
         bq_, bkv_, smem = A._check(q, k, v, kv_pos, q_pos, bq_, bkv_)
         if splits is None:                   # the wrapper's own split
-            splits = A.partial_splits(4, 8, m // bq_, n, bkv_, smem)[0]
+            splits = A.partial_splits(4, hkv, m // bq_, n, bkv_, smem)[0]
             got = A.fused_attention_partial(q, k, v, kv_pos, q_pos, bq=bq_,
                                             bkv=bkv_, causal=True,
                                             window=window)
@@ -232,9 +269,9 @@ def kernel_check_phase(tuned: dict) -> float:
         if edit == "ragged" and float(got[2][2, :, 0].abs().max()) != 0.0:
             raise RuntimeError("a dead row did not emit l = 0")
         worst = max(worst, err)
-        print(f"kernel vs plain [{name}] m={m} n={n} tiles=({bq_},{bkv_}) "
-              f"splits={splits} {str(dt)[6:]}: max|err|={err:.3g} "
-              f"tol={TOL[dt]} ok")
+        print(f"kernel vs plain [{name}] Hq={hq} Hkv={hkv} m={m} n={n} "
+              f"tiles=({bq_},{bkv_}) splits={splits} {str(dt)[6:]}: "
+              f"max|err|={err:.3g} tol={TOL[dt]} ok")
     return worst
 
 
@@ -251,40 +288,97 @@ def init_phase(cfg) -> dict:
     return params
 
 
-def serve_phase(cfg, params, planned: bool):
-    """Serve the workload on one path; returns (engine, stats, launches
-    of each kernel in this run)."""
-    from repro_torch.kernels import attention as A
-    from repro_torch.kernels import gemm_chain as G
+def _zero(*names) -> None:
+    from repro_torch.kernels import capture
+    for name in names:
+        capture.counters()[name].launches = 0
+
+
+def _read(*names) -> dict:
+    from repro_torch.kernels import capture
+    return {name: capture.counters()[name].launches for name in names}
+
+
+SERVED = ("fused_attention_partial", "fused_mlp_chain")
+
+
+def _serve_once(cfg, params, planned: bool, eager: bool):
+    """One run of the workload on one path, the served kernels' counters
+    set to 0 just before and read just after; returns (results, stats,
+    engine, launches, set-up seconds, (shapes the tuner searched inside
+    the run, their seconds))."""
+    from repro_torch.core import api
     from repro_torch.launch.serve import run_continuous
     from repro_torch.models.lm import LM, Runtime
-    label = "planned" if planned else "hand-wired"
     model = LM(cfg, Runtime(kernel_ops=True, planner=planned),
                device="cuda")
-    A.fused_attention_partial.launches = 0
-    G.fused_mlp_chain.launches = 0
+    tuned_before = set(api._CACHE)
+    _zero(*SERVED)
+    t0 = time.perf_counter()
     results, stats, engine = run_continuous(cfg, model, params, **SERVE,
-                                            verbose=True)
+                                            verbose=not eager,
+                                            eager_decode=eager)
     torch.cuda.synchronize()
-    launches = {"fused_attention_partial": A.fused_attention_partial.launches,
-                "fused_mlp_chain": G.fused_mlp_chain.launches}
-    bq, bkv = engine.model.rt.paged_block
-    print(f"[{label}] tuner paged tiles: bq={bq} bkv={bkv} "
-          f"(schedule from {engine.regime_source})")
-    print(f"[{label}] served: {len(results)} requests finished, "
-          f"{stats['generated']} tokens, {stats['decode_steps']} decode "
-          f"steps, {stats['prefills']} prefills, "
-          f"{stats['preemptions']} preemptions, "
-          f"{stats['tok_per_s']:.2f} tok/s ({stats['wall_s']:.2f}s)")
-    steps, layers = stats["decode_steps"], cfg.n_layers
-    want = {"fused_attention_partial": steps * layers,
-            "fused_mlp_chain": ((steps + stats["prefills"]) * layers
-                                if planned else 0)}
-    for name, n in launches.items():
-        print(f"[{label}] {name} launches: {n} (want {want[name]})")
-        if n != want[name]:
-            raise RuntimeError(f"the {label} path launched {name} {n} "
-                               f"times, not {want[name]}")
+    setup_s = time.perf_counter() - t0 - stats["wall_s"]
+    fresh = [tk for key, tk in api._CACHE.items() if key not in tuned_before]
+    tuning = (len(fresh), sum(tk.tuning_seconds for tk in fresh))
+    return results, stats, engine, _read(*SERVED), setup_s, tuning
+
+
+def serve_phase(cfg, params, planned: bool):
+    """Serve the workload on one path, with the engine's decode step
+    captured in a CUDA graph and then eagerly (``eager_decode``): the
+    greedy tokens must be equal, and each run's counters must read the
+    served steps' launches exactly (the capture's warm-up is counted
+    apart).  Returns (captured engine, its stats, its launches, the
+    eager engine, its stats)."""
+    label = "planned" if planned else "hand-wired"
+    runs = {}
+    for eager in (False, True):
+        mode = "eager" if eager else "captured"
+        results, stats, engine, launches, setup_s, tuning = _serve_once(
+            cfg, params, planned, eager)
+        runs[eager] = (results, stats, engine, launches)
+        if not eager:
+            bq, bkv = engine.model.rt.paged_block
+            print(f"[{label}] tuner paged tiles: bq={bq} bkv={bkv} "
+                  f"(schedule from {engine.regime_source})")
+            print(f"[{label}, captured] capture warm-up launches (apart "
+                  f"from the served count): "
+                  f"{engine.captured.warmup_launches}; "
+                  f"launches a replay adds: {engine.captured.launches}")
+        print(f"[{label}, {mode}] served: {len(results)} requests "
+              f"finished, {stats['generated']} tokens, "
+              f"{stats['decode_steps']} decode steps, {stats['prefills']} "
+              f"prefills, {stats['preemptions']} preemptions, "
+              f"{stats['tok_per_s']:.2f} tok/s ({stats['wall_s']:.2f}s; "
+              f"engine set-up {setup_s:.2f}s; the tuner searched "
+              f"{tuning[0]} new shapes in the run, {tuning[1]:.2f}s)")
+        steps, layers = stats["decode_steps"], cfg.n_layers
+        want = {"fused_attention_partial": steps * layers,
+                "fused_mlp_chain": ((steps + stats["prefills"]) * layers
+                                    if planned else 0)}
+        for name, n in launches.items():
+            print(f"[{label}, {mode}] {name} launches: {n} "
+                  f"(want {want[name]})")
+            if n != want[name]:
+                raise RuntimeError(f"the {label} {mode} path launched "
+                                   f"{name} {n} times, not {want[name]}")
+        budgets = [g for _, g in _workload(cfg)]
+        if [len(r.tokens) for r in results] != budgets or any(
+                r.outcome != "complete" for r in results):
+            raise RuntimeError("a request did not complete its budget")
+        if any(not 0 <= t < cfg.vocab for r in results for t in r.tokens):
+            raise RuntimeError("a token outside the vocabulary")
+    (got, stats, engine, launches), (want, eager_stats, eager_engine, _) = (
+        runs[False], runs[True])
+    same = [r.tokens for r in got] == [r.tokens for r in want]
+    print(f"[{label}] captured vs eager greedy tokens equal: {same}; "
+          f"tok/s captured {stats['tok_per_s']:.2f}, eager "
+          f"{eager_stats['tok_per_s']:.2f}")
+    if not same:
+        raise RuntimeError(f"the {label} captured step's tokens differ "
+                           f"from the eager step's")
     if planned:
         plan = engine.decode_plan
         for c in plan.layer.chains:
@@ -297,13 +391,7 @@ def serve_phase(cfg, params, planned: bool):
               f"{list(plan.layer.dropped)}")
         for (m, dt, act), tiles in sorted(_mlp_tiles(cfg).items()):
             print(f"[planned] MLP tiles at M={m} {dt} {act}: {tiles}")
-    budgets = [g for _, g in _workload(cfg)]
-    if [len(r.tokens) for r in results] != budgets or any(
-            r.outcome != "complete" for r in results):
-        raise RuntimeError("a request did not complete its budget")
-    if any(not 0 <= t < cfg.vocab for r in results for t in r.tokens):
-        raise RuntimeError("a token outside the vocabulary")
-    return engine, stats, launches
+    return engine, stats, launches, eager_engine, eager_stats
 
 
 def _mlp_tiles(cfg) -> dict:
@@ -338,8 +426,7 @@ def end_to_end_check(cfg, params, engine, planned_engine):
     kernel (with the engine's tuned tiles) and through the planned path
     (MLP kernel too), each against the same step through the plain
     hand-wired path: finite logits of the expected shape that agree
-    within E2E_REL_TOL / PLANNED_REL_TOL.  Returns the step's cache and
-    inputs."""
+    within E2E_REL_TOL / PLANNED_REL_TOL."""
     from repro_torch.models.lm import LM, Runtime
     from repro_torch.serving import kv_pages as KP
     model = engine.model
@@ -384,7 +471,6 @@ def end_to_end_check(cfg, params, engine, planned_engine):
         if rel > tol:
             raise RuntimeError(f"the {label} path diverges from the "
                                f"plain path")
-    return cache, args
 
 
 def profile_phase(run, label: str, what: str, timed: int = 5,
@@ -431,6 +517,132 @@ def profile_phase(run, label: str, what: str, timed: int = 5,
                      for ms, c, n, one in rows[:3]])
 
 
+def _span_ms(run, reps: int = 5) -> float:
+    """Device milliseconds from the start to the end of one ``run()``
+    (CUDA events around it, idle gaps inside included), mean of
+    ``reps`` after one warm-up."""
+    run()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def step_profile_phase(engine, label: str) -> dict:
+    """One full decode step of ``engine`` (every slot live, at contexts
+    of 135 to 156 slots, pages from the engine's idle pool), captured (a
+    replay of the engine's graph) and eager (the same step op by op on
+    the same static inputs): host wall, device busy and busy share
+    from ``profile_phase``, and the step's device span between two
+    events.  The two steps' greedy tokens must be equal."""
+    from repro_torch.serving import kv_pages as KP
+    b = engine.max_batch
+    lengths = [SERVE["prompt_len"] + SERVE["gen"] - 5 - 7 * i
+               for i in range(b)]
+    allocs = []
+    for n in lengths:
+        a = KP.RequestPages()
+        if not a.ensure(n + 1, engine.pool):
+            raise RuntimeError("the engine's pool cannot hold the step")
+        allocs.append(a)
+    engine._tokens.copy_(torch.arange(1, b + 1))
+    engine._positions.copy_(torch.tensor(lengths, dtype=torch.int32))
+    engine._table.copy_(torch.from_numpy(KP.table_array(allocs,
+                                                        engine.max_pages)))
+    what = f"decode step (batch {b}, {engine.model.cfg.n_layers} layers)"
+    out = {}
+    for mode, run in (("captured", engine.captured.replay),
+                      ("eager", engine._decode)):
+        prof = profile_phase(run, f"{label}, {mode}", what)
+        prof["span_ms"] = _span_ms(run)
+        print(f"profile [{label}, {mode}]: device span of one step "
+              f"{prof['span_ms']:.3f} ms (events)")
+        out[mode] = prof
+    got = engine.captured.replay().clone()
+    want = engine._decode()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise RuntimeError(f"the {label} replay's tokens differ from the "
+                           f"eager step's")
+    for a in allocs:
+        a.release(engine.pool)
+    return out
+
+
+def generate_phase(cfg, params) -> dict:
+    """Fixed-batch ``generate`` at full width (GENERATE: batch 4, prompt
+    128, 32 tokens) over a contiguous cache, the decode step captured in
+    a CUDA graph and then eagerly: equal greedy tokens, no kernel
+    launched (the contiguous cache reaches none, as in the JAX package;
+    every counter set to 0 just before and read after), and the last
+    step's logits within E2E_REL_TOL of the cache-free forward (the
+    plain twin path) over the same tokens."""
+    from repro_torch.kernels import capture
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.lm import LM, Runtime
+    b, plen, gen = (GENERATE[k] for k in ("batch", "prompt_len", "gen"))
+    g = torch.Generator(device="cuda").manual_seed(GENERATE["seed"])
+    prompts = torch.randint(0, cfg.vocab, (b, plen), generator=g,
+                            device="cuda")
+    model = LM(cfg, Runtime(kernel_ops=True), device="cuda")
+    names = [n for n in capture.counters() if n != "fused_gemm_chain3"]
+    runs = {}
+    for eager in (False, True):
+        mode = "eager" if eager else "captured"
+        # two tokens (the prefill, the first decode step, the capture)
+        # timed apart give one decode step's wall: (t(gen) - t(2)) /
+        # (gen - 2)
+        t0 = time.perf_counter()
+        generate(model, params, prompts, 2, eager=eager)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter() - t0
+        _zero(*names)
+        t0 = time.perf_counter()
+        tokens, logits = generate(model, params, prompts, gen, eager=eager)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = _read(*names)
+        step_ms = (dt - t2) / (gen - 2) * 1e3
+        print(f"[generate, {mode}] B={b} prompt={plen} gen={gen}: "
+              f"{b * gen / dt:.2f} tok/s ({dt:.2f}s, prefill and capture "
+              f"included); a decode step {step_ms:.3f} ms ({gen} tokens "
+              f"{dt:.3f}s - 2 tokens {t2:.3f}s over {gen - 2}); launches "
+              f"{launches} (want 0: no kernel on this path)")
+        if any(launches.values()):
+            raise RuntimeError(f"generate launched {launches}")
+        if tokens.shape != (b, gen) or not (
+                (tokens >= 0) & (tokens < cfg.vocab)).all():
+            raise RuntimeError(f"bad tokens {tokens.shape}")
+        runs[mode] = (tokens, logits, b * gen / dt, step_ms)
+    (tokens, logits, tps, step_ms), (want_tokens, want_logits, eager_tps,
+                                      eager_step_ms) = (
+        runs["captured"], runs["eager"])
+    if not (tokens == want_tokens).all():
+        raise RuntimeError("the captured generate's tokens differ from "
+                           "the eager one's")
+    full = torch.cat([prompts, torch.from_numpy(tokens[:, :-1]).cuda()], 1)
+    plain = LM(cfg, Runtime(kernel_ops=False), device="cuda")
+    with torch.inference_mode():
+        ref = plain.forward(params, full)[:, -1]
+    torch.cuda.synchronize()
+    if logits.shape != ref.shape or not torch.isfinite(logits).all():
+        raise RuntimeError(f"bad logits {tuple(logits.shape)}")
+    rel = float((logits.float() - ref.float()).norm() / ref.float().norm())
+    same = float((logits.float() - want_logits.float()).abs().max())
+    print(f"[generate] captured tokens equal the eager run's; last "
+          f"step's logits vs the cache-free forward over the same "
+          f"{full.shape[1]} tokens: rel err {rel:.3g} (tol {E2E_REL_TOL}); "
+          f"captured vs eager logits max|diff| {same:.3g}")
+    if rel > E2E_REL_TOL:
+        raise RuntimeError("generate's logits diverge from the forward")
+    return dict(tok_per_s=tps, eager_tok_per_s=eager_tps, step_ms=step_ms,
+                eager_step_ms=eager_step_ms, rel=rel)
+
+
 def _time_ms(fn, iters: int = 20, reps: int = 10) -> float:
     """Device milliseconds of one ``fn()``: ``iters`` calls captured in a
     CUDA graph and replayed ``reps`` times between two events, so the
@@ -465,12 +677,15 @@ def _adaptive_ms(fn, budget_ms: float = 200.0, reps: int = 2) -> float:
     return _time_ms(fn, iters=iters, reps=reps)
 
 
-def time_phase(n: int, tiles: tuple, label: str) -> dict:
+def time_phase(n: int, tiles: tuple, label: str, hq: int = 32,
+               hkv: int = 8, other_tiles=()) -> dict:
     """kernel_ms, bound_ms, plain_ms and library_ms of the partial
-    attention at B=4, Hq=32, Hkv=8, M=1, D=128, bf16 over N slots, with
-    the wrapper's kv split."""
+    attention at B=4, M=1, D=128, bf16 over N slots (Hq=32, Hkv=8 as
+    qwen3-8b, or Hq=48, Hkv=1 as granite-20b), with the wrapper's kv
+    split; and the kernel's time at ``other_tiles`` ((bq, bkv, splits),
+    splits None for the wrapper's own)."""
     from repro_torch.kernels import attention as A
-    b, hq, hkv, m, d, dt = 4, 32, 8, 1, 128, torch.bfloat16
+    b, m, d, dt = 4, 1, 128, torch.bfloat16
     q, k, v, kv_pos, q_pos = _attn_inputs(dt, b, hq, hkv, m, n, d, 99)
     bq, bkv, smem = A._check(q, k, v, kv_pos, q_pos, *tiles)
     splits = A.partial_splits(b, hkv, m // bq, n, bkv, smem)[0]
@@ -482,6 +697,14 @@ def time_phase(n: int, tiles: tuple, label: str) -> dict:
     mask = (kv_pos[:, None, None, :] <= q_pos[:, None, :, None])
     library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, scale=scale, enable_gqa=True))
+    other = {}
+    for obq, obkv, osplits in other_tiles:
+        obq, obkv, osmem = A._check(q, k, v, kv_pos, q_pos, obq, obkv)
+        osplits = osplits or A.partial_splits(b, hkv, m // obq, n, obkv,
+                                              osmem)[0]
+        other[f"{obq}/{obkv} x{osplits}"] = _time_ms(
+            lambda: A._launch(q, k, v, kv_pos, q_pos, obq, obkv, True, 0,
+                              scale, osmem, osplits))
     in_bytes = sum(t.numel() * t.element_size()
                    for t in (q, k, v, kv_pos, q_pos))
     out_bytes = (b * hq * m * d + 2 * b * hq * m) * 4
@@ -490,7 +713,7 @@ def time_phase(n: int, tiles: tuple, label: str) -> dict:
     out = dict(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
-               tiles=[bq, bkv], splits=splits)
+               tiles=[bq, bkv], splits=splits, other_tiles_ms=other)
     print(f"times [{label}] B={b} Hq={hq} Hkv={hkv} M={m} N={n} D={d} bf16 "
           f"tiles=({bq},{bkv}): " + json.dumps(out))
     return out
@@ -1242,41 +1465,70 @@ def main(argv=None) -> None:
             tuned[n, dt] = (p.bq, p.bkv)
     print(f"tuner's decode tiles (bq, bkv): "
           f"{ {f'N={n} {_dtname(dt)}': t for (n, dt), t in tuned.items()} }")
+    granite = get_config(GRANITE)
+    tuned_mqa = {}
+    for dt in (torch.bfloat16, torch.float32):
+        p = api.fuse_attention_paged(
+            1, n_ctx, granite.dh, granite.dh, page_size=SERVE["page_size"],
+            heads=granite.n_heads, kv_heads=granite.n_kv_heads,
+            batch=SERVE["batch"], dtype=_dtname(dt)).params
+        tuned_mqa[dt] = (p.bq, p.bkv)
+    print(f"tuner's decode tiles (bq, bkv) at {GRANITE}'s group of "
+          f"{granite.n_heads // granite.n_kv_heads}, N={n_ctx}: "
+          f"{ {_dtname(dt): t for dt, t in tuned_mqa.items()} }")
     decode_tiles = tuned[n_ctx, torch.bfloat16]
-    max_err = kernel_check_phase(tuned)
+    max_err = kernel_check_phase(tuned, tuned_mqa)
     mlp_err = mlp_check_phase(cfg)
     slice3_err = slice3_check_phase(cfg)
     # the three-GEMM kernel is on no main path, as in the JAX package:
     # its counter, set to 0 here, must still read 0 after them all
-    from repro_torch.kernels import gemm_chain3 as G3
-    G3.fused_gemm_chain3.launches = 0
+    _zero("fused_gemm_chain3")
     front = quickstart_phase()
     params = init_phase(cfg)
-    hand, _, hand_launches = serve_phase(cfg, params, planned=False)
-    planned, _, launches = serve_phase(cfg, params, planned=True)
+    hand, _, hand_launches, hand_eager, _ = serve_phase(
+        cfg, params, planned=False)
+    planned, _, launches, planned_eager, _ = serve_phase(cfg, params,
+                                                         planned=True)
     for engine in (hand, planned):
         if engine.model.rt.paged_block != decode_tiles:
             raise RuntimeError("the engine ran other tiles than the "
                                "tuner's")
-    cache, args = end_to_end_check(cfg, params, hand, planned)
-    step = "decode step (batch 2, 36 layers)"
-    profile_phase(lambda: hand.model.decode_step_paged(params, cache, *args),
-                  "hand-wired", step)
-    profile_phase(lambda: planned.model.decode_step_paged(params, cache,
-                                                          *args),
-                  "planned", step)
-    del hand, planned, cache
+    end_to_end_check(cfg, params, hand, planned)
+    steps = {"hand_wired": step_profile_phase(hand, "hand-wired"),
+             "planned": step_profile_phase(planned, "planned")}
+    del hand, planned, hand_eager, planned_eager
     torch.cuda.empty_cache()
     fwd = forward_phase(cfg, params)
-    chain3_launches = G3.fused_gemm_chain3.launches
+    generate_phase(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    gparams = init_phase(granite)
+    mqa, _, mqa_launches, mqa_eager, _ = serve_phase(
+        granite, gparams, planned=False)
+    if mqa.model.rt.paged_block != tuned_mqa[torch.bfloat16]:
+        raise RuntimeError(f"the {GRANITE} engine ran other tiles than "
+                           f"the tuner's")
+    steps["granite_20b"] = step_profile_phase(mqa, GRANITE)
+    del mqa, mqa_eager, gparams
+    torch.cuda.empty_cache()
+    chain3_launches = _read("fused_gemm_chain3")["fused_gemm_chain3"]
     print(f"[main paths] fused_gemm_chain3 launches: {chain3_launches} "
           f"(want 0)")
     if chain3_launches:
         raise RuntimeError("a main path launched fused_gemm_chain3")
-    del params
-    torch.cuda.empty_cache()
+    print("[steps] decode step wall / device busy / busy share / span (ms):"
+          + "".join(f" {path} {mode} {p['wall_ms']:.3f} / "
+                    f"{p['busy_ms']:.3f} / "
+                    f"{100 * p['busy_ms'] / p['wall_ms']:.1f}% / "
+                    f"{p['span_ms']:.3f};"
+                    for path, by in steps.items()
+                    for mode, p in by.items()))
     t_dec = time_phase(n_ctx, decode_tiles, "slice decode")
     t_long = time_phase(4096, tuned[4096, torch.bfloat16], "long decode")
+    t_mqa = time_phase(n_ctx, tuned_mqa[torch.bfloat16], f"{GRANITE} decode",
+                       hq=granite.n_heads, hkv=granite.n_kv_heads,
+                       other_tiles=((1, 16, 1), (1, 32, None), (1, 32, 1),
+                                    (1, 80, None), (1, 80, 1)))
     t_mlp = {label: mlp_time_phase(cfg, label, m)
              for label, m in MLP_SHAPES.items()}
     t_attn = attention_time_phase(cfg)
@@ -1285,7 +1537,9 @@ def main(argv=None) -> None:
                "quickstart G1 f32": chain_time_phase("G1", torch.float32)}
     t_chain3 = chain3_time_phase()
     by_path = {name: {"hand_wired": hand_launches[name],
-                      "planned": launches[name]} for name in launches}
+                      "planned": launches[name],
+                      "granite_20b": mqa_launches[name]}
+               for name in launches}
     kernels = [{
         "name": "fused_attention_partial",
         "route": "cuda",
@@ -1304,6 +1558,9 @@ def main(argv=None) -> None:
         "long_decode_4096": {k: t_long[k] for k in (
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "tiles", "splits")},
+        "granite_20b_decode": {k: t_mqa[k] for k in (
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "tiles", "splits", "other_tiles_ms")},
         "passed": True,
     }, {
         "name": "fused_mlp_chain",

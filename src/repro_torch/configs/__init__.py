@@ -10,10 +10,11 @@ import importlib
 
 from ..models.config import ModelConfig
 
-ARCHS = ["qwen3_8b"]
+ARCHS = ["qwen3_8b", "granite_20b", "codeqwen15_7b", "granite_34b"]
 
 # CLI ids (--arch) use dashes
-ALIASES = {"qwen3-8b": "qwen3_8b"}
+ALIASES = {"qwen3-8b": "qwen3_8b", "granite-20b": "granite_20b",
+           "codeqwen1.5-7b": "codeqwen15_7b", "granite-34b": "granite_34b"}
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:

@@ -684,10 +684,22 @@ def price_plan(plan: Plan, cfg, *, hw: "TpuSpec | GpuSpec" = H100,
 
     batch, seq = plan.batch, plan.seq
     kv = plan.kv_len if plan.kv_len is not None else seq
+    # The MLP's shape as priced.  The executor flattens the tokens to
+    # M = B*S at batch 1 (``layers.run_planned_layer``, ``ops.mlp_chain``
+    # and ``layers.mlp_block`` alike), reading the shared weights once;
+    # under ``GpuSpec`` both MLP sides are priced so.  ``TpuSpec`` keeps
+    # the reference's (seq, batch=batch), which charges the weights once
+    # a request, so that the V5E prices stay the reference's.
+    mlp_b, mlp_s = ((1, batch * seq) if isinstance(hw, GpuSpec)
+                    else (batch, seq))
     nodes = {n.name: n for n in plan.layer.nodes}
     templates = {ops: (kind, ch)
                  for kind, ops, ch in _template_chains(cfg, batch, seq,
-                                                       plan.kv_len)}
+                                                       plan.kv_len)
+                 if kind != "mlp"}
+    templates.update({ops: (kind, ch) for kind, ops, ch
+                      in _template_chains(cfg, mlp_b, mlp_s, plan.kv_len)
+                      if kind == "mlp"})
 
     def tuned_seconds(kind: str, ch_ops: tuple[str, ...]) -> float:
         if kind == "attention" and plan.paged is not None:
@@ -704,14 +716,15 @@ def price_plan(plan: Plan, cfg, *, hw: "TpuSpec | GpuSpec" = H100,
                 mesh=mesh, seed=seed)
         else:
             tk = api.fuse_mlp_chain(
-                seq, cfg.d_ff, cfg.d_model, batch=batch, dtype=cfg.dtype,
+                mlp_s, cfg.d_ff, cfg.d_model, batch=mlp_b, dtype=cfg.dtype,
                 gated=gated(cfg), act=act_name(cfg), hw=hw, mesh=mesh,
                 seed=seed)
         return tk.report.best_time
 
     def unfused_alt_seconds(kind: str) -> float:
+        b_, s_ = (batch, seq) if kind == "attention" else (mlp_b, mlp_s)
         t = sum(_roofline_seconds(ch, hw, mesh)
-                for _, ch in _split_chains(kind, cfg, batch, seq,
+                for _, ch in _split_chains(kind, cfg, b_, s_,
                                            plan.kv_len))
         interior = "softmax" if kind == "attention" else "act_gate"
         t += _glue_standalone_seconds(nodes[interior], cfg, batch, seq,
@@ -745,7 +758,7 @@ def price_plan(plan: Plan, cfg, *, hw: "TpuSpec | GpuSpec" = H100,
                 splits = dict(
                     _split_chains("attention", cfg, batch, seq,
                                   plan.kv_len)
-                    + _split_chains("mlp", cfg, batch, seq,
+                    + _split_chains("mlp", cfg, mlp_b, mlp_s,
                                     plan.kv_len))
                 ch = splits[c.ops]
             chosen = _roofline_seconds(ch, hw, mesh)

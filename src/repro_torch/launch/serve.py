@@ -1,24 +1,92 @@
-"""Serving entry point: continuous batching over a paged KV cache.
+"""Serving entry point: batched prefill + greedy decode over a KV cache.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --continuous \
+    PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen3-8b --batch 4 --prompt-len 64 --gen 32
 
-The Orca-style ``serving.engine.ServingEngine`` admits, prefills,
-decodes and evicts requests per iteration on a ragged workload.  The
-model runs with ``Runtime(kernel_ops=True)``, so every decode step's
-attention goes through the tuned CUDA kernel on the card;
-``--device cpu`` is the only way to the plain path.  Weights are random
-from ``--seed`` (``--full`` for the published widths, else SMOKE).
+Two batching modes, as in the JAX package:
+
+* **fixed** (default) — ``generate``: one batch of equal-length prompts,
+  prefilled into a contiguous KV cache, then every row decodes in
+  lock-step.  On the card the decode step is captured once in a CUDA
+  graph and replayed for each token (the counterpart of
+  ``jax.jit(model.decode_step)``); the prefill runs eagerly.
+* **continuous** (``--continuous``) — the Orca-style
+  ``serving.engine.ServingEngine`` over a paged KV cache admits,
+  prefills, decodes and evicts requests per iteration on a ragged
+  workload; on the card its decode step is captured in a CUDA graph
+  too.
+
+The model runs with ``Runtime(kernel_ops=True)``: every paged decode
+step's attention goes through the tuned CUDA kernel on the card (the
+contiguous cache reaches no kernel, as in the JAX package);
+``--device cpu`` is the only way to the plain path, and there every
+step runs eagerly.  Weights are random from ``--seed`` (``--full`` for
+the published widths, else SMOKE).
 """
 from __future__ import annotations
 
 import argparse
 import math
+import time
 
 import numpy as np
+import torch
 
 from ..configs import ALIASES, ARCHS, get_config
 from ..models.lm import LM, Runtime
+
+
+def generate(model, params, prompts: torch.Tensor, gen: int, *,
+             eager: bool = False) -> tuple[np.ndarray, torch.Tensor]:
+    """Greedy generation of ``gen`` tokens for each row of ``prompts``
+    (B, P), on the model's device.
+
+    The prompts are prefilled eagerly into a fresh contiguous cache.
+    On a CUDA device the decode step is then captured in a CUDA graph
+    (``kernels.capture.CapturedStep``) whose eager warm-up is the first
+    decode step; every later token is a replay.  The step reads its
+    token and position from device tensors and writes the next ones
+    back there, so nothing returns to the host until the end.
+    ``eager=True`` (and any run on the CPU) runs each step op by op.
+
+    Returns (tokens (B, gen) int64, the logits (B, V) that chose the
+    last token)."""
+    b, plen = prompts.shape
+    cache = model.init_cache(b, plen + gen)
+    logits, cache = model.prefill(params, prompts, cache)
+    tok = torch.argmax(logits, dim=-1)
+    pos = torch.full((), plen, dtype=torch.int32, device=tok.device)
+    outs = [tok.clone()]
+
+    def step() -> torch.Tensor:
+        logits, _ = model.decode_step(params, cache, tok, pos)
+        tok.copy_(torch.argmax(logits, dim=-1))
+        pos.add_(1)
+        return logits
+
+    if gen > 1 and tok.is_cuda and not eager:
+        from ..kernels.capture import CapturedStep
+        captured = CapturedStep(step, tok.device)
+        logits = captured.warmup_out
+        outs.append(tok.clone())
+        for _ in range(gen - 2):
+            logits = captured.replay()
+            outs.append(tok.clone())
+        logits = logits.clone()     # the graph's buffer dies with it
+    else:
+        for _ in range(gen - 1):
+            logits = step()
+            outs.append(tok.clone())
+    return torch.stack(outs, dim=1).cpu().numpy(), logits
+
+
+def run_generate(model, params, prompts: torch.Tensor,
+                 gen: int) -> tuple[np.ndarray, float]:
+    """``generate`` timed on the host clock, to the tokens on the host;
+    returns (tokens, seconds)."""
+    t0 = time.perf_counter()
+    tokens, _ = generate(model, params, prompts, gen)
+    return tokens, time.perf_counter() - t0
 
 
 def ragged_workload(vocab: int, n_requests: int, prompt_len: int,
@@ -36,29 +104,34 @@ def ragged_workload(vocab: int, n_requests: int, prompt_len: int,
 
 
 def make_engine(model, params, *, batch: int, prompt_len: int, gen: int,
-                page_size: int, verbose: bool = True):
+                page_size: int, verbose: bool = True,
+                eager_decode: bool = False):
     """A ``ServingEngine`` sized for ``batch`` concurrent requests of
     up to ``prompt_len + gen`` positions, with ~25% page slack so
     admission (prompt pages + one decode page of headroom) stays
-    fluid without making preemption unreachable."""
+    fluid without making preemption unreachable.  ``eager_decode``: as
+    ``ServingEngine``'s."""
     from ..serving import ServingEngine
 
     max_pages = math.ceil((prompt_len + gen) / page_size)
     n_pages = 1 + batch * (max_pages + 1) + max(1, batch * max_pages // 4)
     return ServingEngine(model, params, max_batch=batch,
                          page_size=page_size, n_pages=n_pages,
-                         max_pages_per_seq=max_pages, verbose=verbose)
+                         max_pages_per_seq=max_pages, verbose=verbose,
+                         eager_decode=eager_decode)
 
 
 def run_continuous(cfg, model, params, *, batch: int, n_requests: int,
                    prompt_len: int, gen: int, page_size: int,
-                   seed: int = 0, verbose: bool = True):
+                   seed: int = 0, verbose: bool = True,
+                   eager_decode: bool = False):
     """Continuous-batching serving of a ragged workload; returns
     (results, stats, engine)."""
     reqs = ragged_workload(cfg.vocab, n_requests, prompt_len, gen, seed)
     engine = make_engine(model, params, batch=batch,
                          prompt_len=prompt_len, gen=gen,
-                         page_size=page_size, verbose=verbose)
+                         page_size=page_size, verbose=verbose,
+                         eager_decode=eager_decode)
     results, stats = engine.run(reqs)
     return results, stats, engine
 
@@ -74,19 +147,28 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--continuous", action="store_true",
                     help="continuous batching over a paged KV cache "
-                         "(the only serving mode ported so far)")
+                         "(serving.engine) on a ragged workload")
     ap.add_argument("--requests", type=int, default=0,
                     help="ragged-workload size (default 4x batch)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernel path) or cpu (the plain path)")
     args = ap.parse_args(argv)
-    if not args.continuous:
-        ap.error("fixed-batch serving is not ported yet; pass --continuous")
 
     cfg = get_config(args.arch, smoke=not args.full)
     model = LM(cfg, Runtime(kernel_ops=True), device=args.device)
     params = model.init_params(args.seed)
+    if not args.continuous:
+        gen = torch.Generator().manual_seed(args.seed + 1)
+        prompts = torch.randint(0, cfg.vocab,
+                                (args.batch, args.prompt_len),
+                                generator=gen).to(model.device)
+        tokens, dt = run_generate(model, params, prompts, args.gen)
+        print(f"arch={cfg.name} generated {tokens.shape} in {dt:.2f}s "
+              f"({args.batch * args.gen / dt:.1f} tok/s) "
+              f"device={args.device}")
+        print("sample:", tokens[0][:16].tolist())
+        return tokens
     results, stats, _ = run_continuous(
         cfg, model, params, batch=args.batch,
         n_requests=args.requests or 4 * args.batch,

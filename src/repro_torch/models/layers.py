@@ -1,6 +1,7 @@
 """Dense decoder layers as plain functions on tensors: norms, RoPE,
-cache-free GQA attention (the forward), GQA attention over a paged KV
-cache, the MLP, and the planner-driven block (``run_planned_layer``).
+cache-free GQA attention (the forward), GQA attention over a contiguous
+KV cache (fixed-batch generation) or a paged one (the serving engine),
+the MLP, and the planner-driven block (``run_planned_layer``).
 
 Parameters are dicts of tensors with the JAX package's names and
 layouts (``wq`` is (d_model, n_heads * dh), and so on), so weights carry
@@ -12,6 +13,11 @@ CUDA kernel (``kernels.attention.fused_attention`` through
 than one token, and otherwise the model's own twins,
 ``streaming_attention`` (online softmax over kv blocks) and
 ``naive_attention`` (the whole score matrix).
+
+Attention over a contiguous cache (``init_attn_cache``) has the JAX
+package's two twins, ``streaming_attention`` with the cache's slot
+positions for a long prefill and ``_positional_attention`` otherwise;
+no kernel runs there, as none does in the JAX package.
 
 Paged attention has two bodies with one semantics: the fused CUDA
 kernel (``kernels.attention.fused_attention_paged``) for decode steps on
@@ -129,19 +135,23 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool, window: int, scale: float,
-                        bkv: int) -> torch.Tensor:
+                        bkv: int, q_offset=0,
+                        kv_positions: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """softmax(Q K^T) V over kv blocks of ``bkv`` with an online softmax,
     never materializing the (M, N) scores.  q: (B, H, M, D), k/v:
-    (B, H, N, D) (kv heads already repeated); q rows and kv slots at
-    positions ``arange``.  P stays f32 through P V, as in the JAX
-    twin."""
+    (B, H, N, D) (kv heads already repeated).  q rows sit at positions
+    ``q_offset + arange(M)`` (an int or a 0-d tensor); ``kv_positions``
+    (N,) holds each kv slot's absolute position (a ring cache's, -1 =
+    empty), default ``arange(N)``.  P stays f32 through P V, as in the
+    JAX twin."""
     b, h, m, _ = q.shape
     n = k.shape[2]
     bkv = min(bkv, n)
     while n % bkv:          # a sequence the block does not divide
         bkv -= 1
     qf = q.float() * scale
-    rows = torch.arange(m, device=q.device)[:, None]
+    rows = (q_offset + torch.arange(m, device=q.device))[:, None]
     m_run = torch.full((b, h, m, 1), NEG_INF, dtype=torch.float32,
                        device=q.device)
     l_run = torch.zeros((b, h, m, 1), dtype=torch.float32, device=q.device)
@@ -150,11 +160,18 @@ def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for j0 in range(0, n, bkv):
         s = torch.einsum("bhmd,bhnd->bhmn", qf,
                          k[:, :, j0:j0 + bkv].float())
-        if causal or window > 0:
+        if kv_positions is None:
             cols = j0 + torch.arange(bkv, device=q.device)[None, :]
-            mask = cols <= rows
+            mask = None
+        else:
+            cols = kv_positions[j0:j0 + bkv][None, :]
+            mask = cols >= 0
+        if causal or window > 0:
+            keep = cols <= rows
             if window > 0:
-                mask &= cols > rows - window
+                keep &= cols > rows - window
+            mask = keep if mask is None else mask & keep
+        if mask is not None:
             s = s.masked_fill(~mask, NEG_INF)
         m_new = torch.maximum(m_run, s.amax(dim=-1, keepdim=True))
         pexp = torch.exp(s - m_new)
@@ -186,23 +203,109 @@ def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bhmn,bhnv->bhmv", p.to(v.dtype), v).to(q.dtype)
 
 
+def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
+                    device) -> dict:
+    """One layer's contiguous KV cache: ``{"k", "v", "pos"}``, k and v
+    (B, Hkv, n, dh) in the config's type, ``pos`` (n,) int32 holding
+    each slot's absolute position (-1 = empty), shared by the batch, so
+    full and ring (windowed) caches share one code path.  ``n`` is
+    ``max_len``, or ``min(max_len, cfg.window)`` with a window: a
+    ring."""
+    win = cfg.window
+    n = min(max_len, win) if win else max_len
+    dt = getattr(torch, cfg.dtype)
+    shape = (batch, cfg.n_kv_heads, n, cfg.dh)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device),
+            "pos": torch.full((n,), -1, dtype=torch.int32, device=device)}
+
+
+def _positional_attention(q, k, v, rows_pos, kv_pos, causal: bool,
+                          window: int, scale: float) -> torch.Tensor:
+    """Attention with explicit per-slot positions (decode over a
+    contiguous cache).  q: (B, H, M, D), k/v: (B, H, N, D) (kv heads
+    already repeated); rows_pos: (M,) query positions; kv_pos: (N,)
+    slot positions, -1 = empty."""
+    s = torch.einsum("bhmd,bhnd->bhmn", q.float(), k.float()) * scale
+    cols = kv_pos[None, None, None, :]
+    rows = rows_pos[None, None, :, None]
+    mask = cols >= 0
+    if causal or window > 0:
+        mask = mask & (cols <= rows)
+        if window > 0:
+            mask &= cols > rows - window
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhmn,bhnv->bhmv", p.to(v.dtype), v).to(q.dtype)
+
+
+def _cached_attention(q, k, v, cfg: ModelConfig, *, positions, cache: dict,
+                      bkv: int) -> torch.Tensor:
+    """The contiguous cache's branch of ``attention_block``: this
+    call's k/v and positions go into the cache IN PLACE at slots
+    ``positions % n`` (a ring when windowed), then q attends over the
+    cache by position.  q: (B, Hq, S, dh), k/v: (B, Hkv, S, dh);
+    positions: (S,), an int32 tensor (a decode step's may live on the
+    card, so that a captured step reads it)."""
+    s, win = q.shape[2], cfg.window
+    nc = cache["k"].shape[2]
+    group = cfg.n_heads // cfg.n_kv_heads
+    scale = 1.0 / math.sqrt(cfg.dh)
+    if win and s >= win:
+        # prefill longer than the ring: only the last ``win`` tokens
+        # can ever be attended to again
+        ks, vs, ps_ = k[:, :, -win:], v[:, :, -win:], positions[-win:]
+    else:
+        ks, vs, ps_ = k, v, positions
+    idx = (ps_ % nc).long()
+    cache["k"][:, :, idx] = ks.to(cache["k"].dtype)
+    cache["v"][:, :, idx] = vs.to(cache["v"].dtype)
+    cache["pos"][idx] = ps_.to(torch.int32)
+    if win and s >= win:
+        # fresh long prefill: every row's window lies inside this call's
+        # k/v — the ring holds only the tail and would starve early
+        # rows, so attend over the un-cached projections
+        kk, vv, kv_pos = k, v, positions
+    else:
+        kk, vv, kv_pos = cache["k"], cache["v"], cache["pos"]
+    kk = kk.repeat_interleave(group, dim=1)
+    vv = vv.repeat_interleave(group, dim=1)
+    if cfg.use_fused_attention and kk.shape[2] > 2 * bkv and s > 1:
+        return streaming_attention(q, kk, vv, causal=True, window=win,
+                                   scale=scale, bkv=bkv,
+                                   q_offset=positions[0],
+                                   kv_positions=kv_pos)
+    # decode / short: single-block scores are already tiny
+    return _positional_attention(q, kk, vv, positions, kv_pos, True, win,
+                                 scale)
+
+
 def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor, bkv: int = 512,
-                    kernel_ops: bool = False) -> torch.Tensor:
-    """Cache-free causal GQA attention (the forward).  x: (B, S, D);
-    positions: (S,) absolute positions of x's tokens.
+                    kernel_ops: bool = False,
+                    cache: Optional[dict] = None) -> torch.Tensor:
+    """Causal GQA attention.  x: (B, S, D); positions: (S,) absolute
+    positions of x's tokens.
 
-    ``kernel_ops`` routes a sequence of more than one token through
-    ``kernels.ops.attention`` — the tuned CUDA kernel, GQA inside the
-    kernel, no head repeat; otherwise the kv heads are repeated and the
-    model's twin runs: ``streaming_attention`` past two kv blocks
+    With a contiguous ``cache`` (``init_attn_cache``) this call's k/v
+    are written into it IN PLACE and q attends over the cache by
+    position (``_cached_attention``), as the JAX package's cache branch
+    does; no kernel runs there, as in the JAX package.  Without one it
+    is the cache-free forward: ``kernel_ops`` routes a sequence of more
+    than one token through ``kernels.ops.attention`` — the tuned CUDA
+    kernel, GQA inside the kernel, no head repeat; otherwise the kv
+    heads are repeated and the model's twin runs:
+    ``streaming_attention`` past two kv blocks
     (``cfg.use_fused_attention``), ``naive_attention`` below."""
     b, s, _ = x.shape
     dh = cfg.dh
     win = cfg.window
     q, k, v = (t.transpose(1, 2) for t in _project_qkv(p, x, cfg, positions))
     scale = 1.0 / math.sqrt(dh)
-    if kernel_ops and s > 1:
+    if cache is not None:
+        o = _cached_attention(q, k, v, cfg, positions=positions,
+                              cache=cache, bkv=bkv)
+    elif kernel_ops and s > 1:
         from ..kernels import ops
         o = ops.attention(q, k, v, causal=True, window=win, scale=scale)
     else:

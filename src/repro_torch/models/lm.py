@@ -1,15 +1,21 @@
-"""Dense decoder-only LM (qwen3): the cache-free forward and loss, and
+"""Dense decoder-only LM (qwen3, granite, codeqwen): the cache-free
+forward and loss, fixed-batch decoding over a contiguous KV cache, and
 paged serving, hand-wired or run from the fusion planner's plans
 (``Runtime(planner=True)``, paged serving only).
 
 The JAX package's ``LM`` scans a stack of stacked layer parameters;
 here the layers are a Python list walked by a loop, parameters are
 dicts of tensors created directly on the model's device, and execution
-is eager.  The API:
+is eager (``launch.serve.generate`` and ``serving.engine`` capture a
+decode step in a CUDA graph on the card).  Both caches are written IN
+PLACE, where the JAX package returns updated copies.  The API:
 
     init_params(seed)                      -> params on ``device``
     forward(params, tokens)                -> logits (B, S, V)
     loss(params, batch)                    -> scalar mean cross-entropy
+    init_cache(batch, max_len)             -> per-layer {k, v, pos}
+    prefill(params, tokens, cache)         -> (last logits (B, V), cache)
+    decode_step(params, cache, tokens, pos)
     init_paged_cache(n_pages, page_size)   -> per-layer page pools
     prefill_paged(params, tokens, cache, page_table, length)
     decode_step_paged(params, cache, tokens, positions, page_table)
@@ -115,16 +121,21 @@ class LM:
 
     # ------------------------------------------------------------------
     def _apply_block(self, p: dict, x: torch.Tensor,
-                     positions: torch.Tensor) -> torch.Tensor:
-        """One cache-free block (the forward)."""
+                     positions: torch.Tensor,
+                     cache: Optional[dict] = None) -> torch.Tensor:
+        """One hand-wired block over a contiguous ``cache`` (written in
+        place), or cache-free (the forward).  The planner plans only
+        cache-free and paged blocks, so a cached block runs hand-wired
+        under ``Runtime(planner=True)`` too, as in the JAX package."""
         cfg, rt = self.cfg, self.rt
-        if rt.planner:
+        if rt.planner and cache is None:
             raise NotImplementedError(
                 "the planned cache-free forward is not ported; use "
                 "Runtime(planner=False)")
         h = L.rmsnorm(x, p["ln1"]["w"], cfg.norm_eps)
         x = x + L.attention_block(p["mix"], h, cfg, positions=positions,
-                                  bkv=rt.bkv, kernel_ops=rt.kernel_ops)
+                                  bkv=rt.bkv, kernel_ops=rt.kernel_ops,
+                                  cache=cache)
         h2 = L.rmsnorm(x, p["ln2"]["w"], cfg.norm_eps)
         return x + L.mlp_block(p["ff"], h2, cfg)
 
@@ -190,6 +201,45 @@ class LM:
     def _unembed(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         x = L.rmsnorm(x, params["final_norm"]["w"], self.cfg.norm_eps)
         return x @ params["lm_head"]
+
+    # ------------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int) -> list:
+        """One contiguous ``{"k", "v", "pos"}`` cache per layer
+        (``layers.init_attn_cache``): ``max_len`` slots, or a ring of
+        ``min(max_len, window)`` with a sliding window."""
+        return [L.init_attn_cache(self.cfg, batch, max_len, self.device)
+                for _ in range(self.cfg.n_layers)]
+
+    def _run_cached(self, params: dict, x: torch.Tensor,
+                    positions: torch.Tensor, cache: list) -> torch.Tensor:
+        for p, c in zip(params["layers"], cache):
+            x = self._apply_block(p, x, positions, c)
+        return x
+
+    @torch.no_grad()
+    def prefill(self, params: dict, tokens: torch.Tensor, cache: list
+                ) -> tuple[torch.Tensor, list]:
+        """The prompts' k/v into a fresh ``init_cache`` cache, IN PLACE.
+        tokens: (B, P), every prompt of the same length.  Returns (the
+        last prompt token's logits (B, V), cache)."""
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=tokens.device)
+        x = self._embed(params, tokens)
+        x = self._run_cached(params, x, positions, cache)
+        return self._unembed(params, x[:, -1:])[:, 0], cache
+
+    @torch.no_grad()
+    def decode_step(self, params: dict, cache: list, tokens: torch.Tensor,
+                    pos: torch.Tensor) -> tuple[torch.Tensor, list]:
+        """One lock-step decode token for the whole batch, its k/v
+        written into ``cache`` IN PLACE.  tokens: (B,); pos: a 0-d int
+        tensor, the absolute position every row writes — a tensor on
+        the model's device, so that a captured step reads it from
+        there.  Returns (logits (B, V), cache)."""
+        positions = pos.reshape(1).to(torch.int32)
+        x = self._embed(params, tokens[:, None])
+        x = self._run_cached(params, x, positions, cache)
+        return self._unembed(params, x)[:, 0], cache
 
     # ------------------------------------------------------------------
     def init_paged_cache(self, n_pages: int, page_size: int) -> list:

@@ -19,6 +19,19 @@ preempted.  Requests may carry a deadline in scheduler steps, and
 ``drain()`` stops gracefully.  Every cut-short request is reported with
 an honest ``outcome`` and its partial tokens.
 
+On the card the decode step is captured once per engine in a CUDA
+graph (``kernels.capture.CapturedStep``) and replayed on every step —
+the counterpart of the JAX package's ``jax.jit(decode_step_paged)``.
+Its inputs live in static device buffers of the step's fixed shape
+(tokens and positions of ``max_batch``, a page table ``max_pages``
+wide) that each step overwrites; the KV pool is written in place, so
+the graph's writes land in the engine's cache, and the argmax runs
+inside the graph.  The capture's warm-up runs with every position at
+-1, which writes only the scratch page.  ``eager_decode=True`` runs
+the step op by op instead (the yardstick a captured run is held
+against); on the CPU the step always runs eagerly.  Prefill stays
+eager: its shape changes with each prompt.
+
 The decode attention's (bq, bkv) tiles are a tuner decision: at
 construction the engine tunes the paged attention chain for its decode
 shape (``core.api.fuse_attention_paged``, persistent-cached) and threads
@@ -102,6 +115,9 @@ class ServingEngine:
     page_size / n_pages: the pool (page 0 is scratch, so ``n_pages - 1``
     are allocatable).  max_pages_per_seq: page-table width; a request
     may span at most ``max_pages_per_seq * page_size`` positions.
+    eager_decode: on a CUDA device, run each decode step op by op
+    instead of replaying the captured one.  A capture or replay failure
+    raises; this argument is the only way to the eager step on the card.
     """
 
     def __init__(self, model, params, *, max_batch: int = 4,
@@ -109,7 +125,8 @@ class ServingEngine:
                  max_pages_per_seq: int = 8,
                  eos_id: Optional[int] = None,
                  choose_regime: bool = True, verbose: bool = False,
-                 max_preemptions: int = 8, stall_limit: int = 8):
+                 max_preemptions: int = 8, stall_limit: int = 8,
+                 eager_decode: bool = False):
         self.params = params
         self.max_batch = max_batch
         self.page_size = page_size
@@ -153,6 +170,25 @@ class ServingEngine:
             self.decode_plan = planner.plan_model(
                 model.cfg, max_batch, 1, stitch=model.rt.stitch,
                 phase="decode", paged=page_size, kv_len=self.n_ctx)
+        # the decode step's inputs, overwritten by every step
+        dev = self.device
+        self._tokens = torch.zeros(max_batch, dtype=torch.long, device=dev)
+        self._positions = torch.full((max_batch,), -1, dtype=torch.int32,
+                                     device=dev)
+        self._table = torch.full((max_batch, max_pages_per_seq), -1,
+                                 dtype=torch.int32, device=dev)
+        self.captured = None
+        if dev.type == "cuda" and not eager_decode:
+            from ..kernels.capture import CapturedStep
+            self.captured = CapturedStep(self._decode, dev)
+
+    def _decode(self) -> torch.Tensor:
+        """One decode step over the static inputs; returns the greedy
+        tokens (max_batch,) on the device."""
+        logits, _ = self.model.decode_step_paged(
+            self.params, self.cache, self._tokens, self._positions,
+            self._table)
+        return torch.argmax(logits, dim=-1)
 
     # ------------------------------------------------------------------
     def _choose_regime(self, model):
@@ -173,7 +209,7 @@ class ServingEngine:
                   f"schedule from {tk.source})")
         return tk.source, (tk.params.bq, tk.params.bkv)
 
-    def _table(self, allocs) -> torch.Tensor:
+    def _page_table(self, allocs) -> torch.Tensor:
         return torch.from_numpy(KP.table_array(allocs, self.max_pages)).to(
             self.device)
 
@@ -237,7 +273,7 @@ class ServingEngine:
         toks[0, :plen] = pend.prompt
         logits, self.cache = self.model.prefill_paged(
             self.params, torch.from_numpy(toks).to(self.device), self.cache,
-            self._table([alloc]), plen)
+            self._page_table([alloc]), plen)
         self.stats["prefills"] += 1
         tok = int(torch.argmax(logits[0]))
         slot = _Slot(pend.rid, pend.prompt, pend.base_prompt_len,
@@ -395,12 +431,13 @@ class ServingEngine:
         for i in active:
             tokens[i] = self.slots[i].generated[-1]
             positions[i] = self.slots[i].pos
-        logits, self.cache = self.model.decode_step_paged(
-            self.params, self.cache, torch.from_numpy(tokens).to(self.device),
-            torch.from_numpy(positions).to(self.device),
-            self._table([s.alloc if s is not None else None
-                         for s in self.slots]))
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        self._tokens.copy_(torch.from_numpy(tokens))
+        self._positions.copy_(torch.from_numpy(positions))
+        self._table.copy_(torch.from_numpy(KP.table_array(
+            [s.alloc if s is not None else None for s in self.slots],
+            self.max_pages)))
+        nxt = (self.captured.replay() if self.captured is not None
+               else self._decode()).cpu().numpy()
         self.stats["decode_steps"] += 1
         self.stats["slot_steps"] += self.max_batch
         self.stats["active_steps"] += len(active)

@@ -159,8 +159,9 @@ def paged_kv_positions(page_table: torch.Tensor, page_size: int,
     pos = ((first_page + torch.arange(mp, dtype=torch.int32,
                                       device=dev))[:, None] * page_size
            + torch.arange(page_size, dtype=torch.int32, device=dev)[None, :])
-    pos = torch.where(page_table[:, :, None] >= 0, pos[None],
-                      torch.tensor(invalid, dtype=torch.int32, device=dev))
+    # a Python scalar, not a tensor made from one: that would be a host
+    # to device copy, which a captured decode step may not hold
+    pos = torch.where(page_table[:, :, None] >= 0, pos[None], invalid)
     return pos.reshape(b, mp * page_size)
 
 

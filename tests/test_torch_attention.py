@@ -704,13 +704,14 @@ def test_kernel_matches_plain_on_card(sm90, dtype, m, bq, n, bkv, window,
     (4096, 128, 5),                # uneven: 7 tiles a split, the last 4
 ])
 @pytest.mark.parametrize("hq,hkv,d", [(32, 8, 128), (8, 8, 64),
-                                      (32, 4, 128)])
+                                      (32, 4, 128), (48, 1, 128)])
 def test_partial_kernel_splits_on_card(sm90, dtype, n, bkv, splits, hq, hkv,
                                        d):
     """The partial kernel at one and several kv splits (each merged by
     the merge kernel) against the plain version with the same splits, on
     a ragged batch with a dead row and a request too short to reach
-    most splits; GQA groups 1, 4 and 8, head dims 64 and 128."""
+    most splits; GQA groups 1, 4, 8 and 48 (granite's MQA), head dims 64
+    and 128."""
     dt = getattr(torch, dtype)
     b = 4
     g = torch.Generator(device="cuda").manual_seed(n + splits + hq)

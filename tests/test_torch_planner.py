@@ -319,3 +319,26 @@ def test_h100_batched_mlp_rule4_matches_scalar():
     assert rb.best.key() == rs.best.key()
     assert rule4_bytes(rb.best, H100) <= H100.smem_per_block
     assert math.isfinite(rb.best_time) and np.all(p.vmem > 0)
+
+
+@pytest.mark.parametrize("hw_name", ["H100", "V5E"])
+def test_price_plan_prices_the_decode_mlp_where_the_executor_runs_it(
+        hw_name):
+    """The executor runs a decode block's MLP flattened to M = B*S at
+    batch 1 (``layers.run_planned_layer``, ``ops.mlp_chain``), so under
+    ``GpuSpec`` ``price_plan`` prices the fused MLP and its unfused
+    alternative there: the shared weights are read once, not once a
+    request.  Under ``V5E`` it keeps the reference's (S, batch=B)."""
+    hw = {"H100": H100, "V5E": V5E}[hw_name]
+    plan = planner.plan_model(FULL, 4, 1, phase="decode", paged=16,
+                              kv_len=160, hw=hw, use_cache=False)
+    mlp = planner.price_plan(plan, FULL, hw=hw)["chains"]["+".join(_MLP)]
+    m, batch = (4, 1) if hw is H100 else (1, 4)
+    tk = api.fuse_mlp_chain(m, FULL.d_ff, FULL.d_model, batch=batch,
+                            dtype=FULL.dtype, gated=True, act="silu", hw=hw)
+    assert mlp["fused_seconds"] == tk.report.best_time
+    # the unfused GEMMs at the same shape: three weight reads at the
+    # byte bound, once (H100) or once a request (V5E)
+    weights = 3 * FULL.d_ff * FULL.d_model * 2
+    assert mlp["unfused_seconds"] >= weights * batch / hw.hbm_bw
+    assert mlp["unfused_seconds"] < weights * batch * 1.1 / hw.hbm_bw

@@ -183,6 +183,40 @@ def test_planned_engine_tokens_match_reference_planned_engine(weights,
         assert stats[k] == ref_stats[k]
 
 
+@pytest.mark.parametrize("planned", [False, True])
+@pytest.mark.parametrize("arch", ["granite_20b", "codeqwen15_7b",
+                                  "granite_34b"])
+def test_engine_tokens_match_reference_engine_per_config(jax_cpu, arch,
+                                                         planned):
+    """The other dense configs (MQA granite, MHA codeqwen) at SMOKE,
+    weights carried from one JAX init: the port's engine emits the
+    reference engine's greedy tokens, hand-wired and planner-served."""
+    jax = jax_cpu
+    from repro.configs import get_config as ref_config
+    from repro.models.lm import LM as RefLM
+    from repro.models.lm import Runtime as RefRuntime
+    from repro.serving import ServingEngine as RefEngine
+    from repro_torch.models.convert import params_from_jax
+    cfg = get_config(arch, smoke=True)
+    ref_model = RefLM(ref_config(arch, smoke=True),
+                      RefRuntime(planner=planned))
+    ref_params = jax.jit(ref_model.init_params)(jax.random.PRNGKey(0))
+    params = params_from_jax(jax.tree.map(np.asarray, ref_params), cfg)
+    rng = np.random.RandomState(2)
+    reqs = [(rng.randint(0, cfg.vocab, size=int(rng.randint(3, 14)))
+             .astype(np.int32), int(g)) for g in (5, 1, 8, 3)]
+    kw = dict(max_batch=3, page_size=4, n_pages=24, max_pages_per_seq=6)
+    ref_out, ref_stats = RefEngine(ref_model, ref_params,
+                                   choose_regime=False, **kw).run(reqs)
+    model = LM(cfg, Runtime(kernel_ops=True, planner=planned),
+               device="cpu")
+    out, stats = ServingEngine(model, params, **kw).run(reqs)
+    assert [r.tokens for r in out] == [r.tokens for r in ref_out]
+    assert [len(r.tokens) for r in out] == [g for _, g in reqs]
+    for k in ("decode_steps", "prefills", "generated"):
+        assert stats[k] == ref_stats[k]
+
+
 def test_planned_engine_preemption_matches_reference(weights):
     rng = np.random.RandomState(1)
     reqs = [(rng.randint(0, CFG.vocab, size=6).astype(np.int32), 10)
@@ -412,6 +446,59 @@ def test_kv_pages_match_reference(jax_cpu):
                                         jnp.asarray(vals)))
     # pages other than scratch must agree (scratch write order is free)
     np.testing.assert_array_equal(got[1:], want[1:])
+
+
+# ---------------------------------------------------------------------------
+# the captured decode step on the card (needs an sm_90 card)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def sm90(tmp_path, monkeypatch):
+    if not (torch.cuda.is_available()
+            and torch.cuda.get_device_capability(0) == (9, 0)):
+        pytest.skip("needs an NVIDIA card of compute capability 9.0")
+    monkeypatch.setenv("REPRO_TORCH_CACHE_DIR", str(tmp_path))
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    return torch.device("cuda")
+
+
+@pytest.mark.sm90
+@pytest.mark.parametrize("planned", [False, True])
+@pytest.mark.parametrize("arch", ["qwen3_8b", "granite_20b"])
+def test_captured_engine_equals_eager_on_card(sm90, arch, planned):
+    """The engine replays its captured decode step on the card: its
+    greedy tokens equal the eager engine's, and the kernels' counters
+    read what the served steps launched — the paged attention kernel
+    once per layer and decode step, the MLP kernel (planned) once per
+    layer and decode step or prefill — with the capture's warm-up
+    counted apart."""
+    from repro_torch.kernels import capture
+    cfg = get_config(arch, smoke=True)
+    model = LM(cfg, Runtime(kernel_ops=True, planner=planned), device=sm90)
+    params = model.init_params(0)
+    reqs = _ragged_reqs()
+    kw = dict(max_batch=3, page_size=4, n_pages=32, max_pages_per_seq=8)
+    runs = {}
+    for eager in (False, True):
+        eng = ServingEngine(model, params, eager_decode=eager, **kw)
+        assert (eng.captured is None) == eager
+        before = capture.snapshot()
+        out, stats = eng.run(reqs)
+        torch.cuda.synchronize()
+        runs[eager] = ([r.tokens for r in out], stats,
+                       capture.since(before), eng.captured)
+    (got, stats, launches, captured), (want, _, eager_launches, _) = (
+        runs[False], runs[True])
+    warm = captured.warmup_launches
+    assert got == want
+    assert launches == eager_launches
+    steps, layers = stats["decode_steps"], cfg.n_layers
+    assert launches["fused_attention_partial"] == steps * layers
+    assert warm["fused_attention_partial"] == layers
+    if planned:
+        assert launches["fused_mlp_chain"] == (
+            (steps + stats["prefills"]) * layers)
+        assert warm["fused_mlp_chain"] == layers
 
 
 def _imports(path: pathlib.Path) -> set[str]:
