@@ -51,12 +51,26 @@ which raises on failure:
       forward over the same tokens;
    e. granite-20b served as in a., hand-wired: the partial kernel at a
       group of 48, decode steps x 52 launches;
+   every serve run, the forward, ``generate`` and the quickstart also
+   assert that nothing degraded: tier ``configured`` and no denylist
+   record in the cache directory;
    and the front door, ``python -m repro_torch.launch.quickstart``: one
    launch each of the GEMM-chain and the normalised attention kernel,
    each within the f32 tolerance of its oracle;
    each path's counters are set to 0 just before it and read after;
    the three-GEMM kernel is on no path, as in the JAX package, and its
    counter must read 0 after them all;
+   f. the reliability layer on qwen3-8b (``reliability_phase``, before
+      granite-20b): the workload of a. in fresh engines, R3 a
+      ``kernel_dispatch`` fault at the paged kernel's seam
+      (``eager_decode=True``), R4 one at the engine's prefill seam
+      (captured), R1 shadows at rate 1.0 on both paths (the engine
+      seam captured; the kernel seams with ``eager_decode=True``, each
+      kernel output held elementwise to its dtype's tolerance), R2 a
+      planted wrong answer on the planned path; each fault must fire
+      and be
+      absorbed as the reliability layer says, and the records are
+      lifted after; a ``{"reliability": ...}`` line;
 5. one full-width decode step through each serving path against the
    same step through the plain hand-wired path, and the cache-free
    loss and logits against the plain twin path
@@ -84,6 +98,10 @@ runs only the build and the cache-free forward's check against planted
 attention faults (no causal mask, one key ahead, half the context, the
 scale 1/D), printing each fault's distance from the plain twin path
 beside the limits; it fails unless every fault goes past them.
+
+    python3 chip_smoke.py --reliability
+
+runs only the build, qwen3-8b's weights and the reliability phase (4f).
 """
 from __future__ import annotations
 
@@ -325,6 +343,34 @@ def _serve_once(cfg, params, planned: bool, eager: bool):
     return results, stats, engine, _read(*SERVED), setup_s, tuning
 
 
+#: The engine's reliability counters, printed for every serve run
+REL_STATS = ("tier_demotions", "shadow_checks", "shadow_mismatches",
+             "golden_probes", "golden_mismatches", "health_evictions")
+
+
+def _deny_records() -> list:
+    from repro_torch.core import schedule_cache
+    return schedule_cache.list_quarantined()
+
+
+def _no_degradation(label: str, stats=None) -> None:
+    """With the reliability layer disarmed, nothing may have degraded:
+    the engine served on tier 0 (``configured``) and the cache
+    directory holds no ``deny-*.json`` record (every failure a guard
+    records with the breaker writes one)."""
+    if stats is not None:
+        print(f"[{label}] reliability: exec_tier {stats['exec_tier']}, "
+              + ", ".join(f"{k} {stats[k]}" for k in REL_STATS)
+              + f", watchdog breaches {stats['watchdog_breaches']}")
+        if stats["exec_tier"] != "configured" or stats["tier_demotions"]:
+            raise RuntimeError(f"[{label}] the engine degraded: "
+                               f"{stats['exec_tier']}")
+    deny = _deny_records()
+    print(f"[{label}] denylist records: {len(deny)}")
+    if deny:
+        raise RuntimeError(f"[{label}] a guard degraded: {deny}")
+
+
 def serve_phase(cfg, params, planned: bool):
     """Serve the workload on one path, with the engine's decode step
     captured in a CUDA graph and then eagerly (``eager_decode``): the
@@ -364,6 +410,7 @@ def serve_phase(cfg, params, planned: bool):
             if n != want[name]:
                 raise RuntimeError(f"the {label} {mode} path launched "
                                    f"{name} {n} times, not {want[name]}")
+        _no_degradation(f"{label}, {mode}", stats)
         budgets = [g for _, g in _workload(cfg)]
         if [len(r.tokens) for r in results] != budgets or any(
                 r.outcome != "complete" for r in results):
@@ -562,14 +609,394 @@ def step_profile_phase(engine, label: str) -> dict:
         print(f"profile [{label}, {mode}]: device span of one step "
               f"{prof['span_ms']:.3f} ms (events)")
         out[mode] = prof
-    got = engine.captured.replay().clone()
-    want = engine._decode()
+    got = engine.captured.replay()[0].clone()
+    want = engine._decode()[0]
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise RuntimeError(f"the {label} replay's tokens differ from the "
                            f"eager step's")
     for a in allocs:
         a.release(engine.pool)
+    return out
+
+
+def _fresh_process() -> None:
+    """What a relaunch starts from: no breaker memory, plan memo or
+    tuned-kernel memo; the disk cache (and its records) stays."""
+    from repro_torch.core import api, planner
+    from repro_torch.reliability import breaker
+    breaker.reset()
+    planner.clear_memo()
+    api.clear_cache()
+
+
+def _clear_records() -> None:
+    """Disarm every fault and lift every denylist record (the operator's
+    ``clear_quarantine``)."""
+    from repro_torch.core import schedule_cache
+    from repro_torch.core.perf_model import H100
+    from repro_torch.reliability import faults
+    faults.clear()
+    for rec in _deny_records():
+        schedule_cache.clear_quarantine(tuple(rec["key"]), H100)
+    _fresh_process()
+
+
+def _rel_serve(cfg, params, label: str, planned: bool = False,
+               eager: bool = False, kernel_ops: bool = True) -> dict:
+    """One run of the workload (SERVE) in a fresh engine, the served
+    kernels' counters set to 0 just before and read just after; every
+    request must complete its budget.  Prints the engine's reliability
+    counters."""
+    from repro_torch.launch.serve import run_continuous
+    from repro_torch.models.lm import LM, Runtime
+    model = LM(cfg, Runtime(kernel_ops=kernel_ops, planner=planned),
+               device="cuda")
+    _zero(*SERVED)
+    results, stats, engine = run_continuous(cfg, model, params, **SERVE,
+                                            eager_decode=eager)
+    torch.cuda.synchronize()
+    launches = _read(*SERVED)
+    walls = sorted(stats["decode_step_wall_s"])
+    print(f"[{label}] exec_tier {stats['exec_tier']}, "
+          + ", ".join(f"{k} {stats[k]}" for k in REL_STATS)
+          + f"; {stats['decode_steps']} decode steps, {stats['prefills']} "
+          f"prefills; launches {launches}; median decode step "
+          f"{1e3 * walls[len(walls) // 2]:.3f} ms; denylist records "
+          f"{len(_deny_records())}")
+    budgets = [g for _, g in _workload(cfg)]
+    if [len(r.tokens) for r in results] != budgets or any(
+            r.outcome != "complete" for r in results):
+        raise RuntimeError(f"[{label}] a request did not complete")
+    return dict(tokens=[r.tokens for r in results], stats=stats,
+                engine=engine, launches=launches,
+                median_step_ms=1e3 * walls[len(walls) // 2])
+
+
+def _fired(spec, label: str) -> int:
+    print(f"[{label}] fault fired {spec.n_fired} times "
+          f"({spec.n_seen} checks)")
+    if spec.n_fired < 1:
+        raise RuntimeError(f"[{label}] the armed fault never fired")
+    return spec.n_fired
+
+
+def _r3_paged_seam(cfg, params) -> dict:
+    """R3: ``kernel_dispatch`` at the paged seam (a trigger on its
+    ``op``, limit 1), hand-wired, ``eager_decode=True`` (a replay runs
+    no Python, so a layer seam is tested op by op): 0 partial kernel
+    launches, its denylist record, the tokens of a ``kernel_ops=False``
+    eager run (the same program), the quarantine read back by a
+    relaunch (0 launches again), and after ``clear_quarantine`` decode
+    steps x layers launches."""
+    from repro_torch.reliability import faults
+    with faults.injected("kernel_dispatch", nth=0,
+                         trigger=lambda c: c.get("op") == "attn-paged"
+                         ) as spec:
+        r3 = _rel_serve(cfg, params, "R3 paged fault, eager", eager=True)
+        fired = _fired(spec, "R3")
+    deny = _deny_records()
+    if (r3["launches"]["fused_attention_partial"] != 0 or len(deny) != 1
+            or deny[0]["key"][0] != "attn-paged"):
+        raise RuntimeError(f"[R3] the paged seam did not degrade: "
+                           f"{r3['launches']}, {deny}")
+    print(f"[R3] denylist record: key {deny[0]['key']}, reason "
+          f"{deny[0]['reason']!r}")
+    plain = _rel_serve(cfg, params, "R3 kernel_ops=False, eager",
+                       eager=True, kernel_ops=False)
+    if r3["tokens"] != plain["tokens"]:
+        raise RuntimeError("[R3] the degraded tokens differ from the "
+                           "kernel_ops=False run's")
+    _fresh_process()
+    relaunch = _rel_serve(cfg, params, "R3 relaunch, eager", eager=True)
+    if relaunch["launches"]["fused_attention_partial"] != 0:
+        raise RuntimeError("[R3] the relaunch ignored the quarantine")
+    _clear_records()
+    cleared = _rel_serve(cfg, params, "R3 cleared, eager", eager=True)
+    want = cleared["stats"]["decode_steps"] * cfg.n_layers
+    if cleared["launches"]["fused_attention_partial"] != want:
+        raise RuntimeError(f"[R3] after clear_quarantine: "
+                           f"{cleared['launches']}, want {want}")
+    return dict(fired=fired, launches_faulted=r3["launches"],
+                launches_relaunch=relaunch["launches"],
+                launches_cleared=cleared["launches"],
+                tokens_equal_plain=True)
+
+
+def _r4_engine_seam(cfg, params) -> dict:
+    """R4: ``kernel_dispatch`` at the engine's ``engine-prefill`` seam,
+    hand-wired, captured: tier 0 -> 1 on the first prefill (retried on
+    the same inputs), every request complete, the twin tier's graph
+    replayed (0 partial kernel launches), no denylist record; the
+    captured twin and the eager twin steps profiled; a relaunch starts
+    at tier 0 and launches decode steps x layers."""
+    from repro_torch.reliability import faults
+    with faults.injected("kernel_dispatch", nth=0,
+                         trigger=lambda c: c.get("op") == "engine-prefill"
+                         ) as spec:
+        r4 = _rel_serve(cfg, params, "R4 engine-prefill fault, captured")
+        fired = _fired(spec, "R4")
+    st, eng = r4.pop("stats"), r4.pop("engine")
+    if (st["exec_tier"] != "torch-twin" or st["tier_demotions"] != 1
+            or r4["launches"]["fused_attention_partial"] != 0
+            or eng.captured is None or _deny_records()):
+        raise RuntimeError(f"[R4] {st['exec_tier']} after "
+                           f"{st['tier_demotions']} demotions, launches "
+                           f"{r4['launches']}, records {_deny_records()}")
+    twin = step_profile_phase(eng, "torch-twin (R4)")
+    del eng
+    _fresh_process()
+    relaunch = _rel_serve(cfg, params, "R4 relaunch, captured")
+    want = relaunch["stats"]["decode_steps"] * cfg.n_layers
+    if (relaunch["stats"]["exec_tier"] != "configured"
+            or relaunch["launches"]["fused_attention_partial"] != want):
+        raise RuntimeError(f"[R4] relaunch {relaunch['launches']}")
+    return dict(fired=fired, tier_demotions=st["tier_demotions"],
+                launches_faulted=r4["launches"],
+                launches_relaunch=relaunch["launches"],
+                torch_twin_step_ms=twin["captured"]["wall_ms"],
+                eager_twin_step_ms=twin["eager"]["wall_ms"])
+
+
+def _r1_shadows(cfg, params, planned: bool) -> dict:
+    """R1, one serve path, captured: a disarmed run, a run armed at
+    ``DEFAULT_RATE`` (its decode step against the disarmed one's), then
+    ``shadowing(1.0, probe=True)``: one golden probe (it reaches the
+    kernels: one step's launches more than the disarmed run), a shadow
+    of every dispatch, no mismatch, tier 0, the disarmed run's tokens
+    and its pool, bitwise (the rows a shadow's twin wrote restored); the
+    largest per-request logit gap of a comparison beside the limit (and
+    the largest elementwise |diff| / (atol + rtol |twin|) at the dtype's
+    TOLERANCES, read by a spy on the comparison's inputs), the cost of a
+    shadow and of the probe.  Returns the summary and the disarmed
+    run's tokens."""
+    from repro_torch.reliability import sentinels
+    from repro_torch.serving.engine import ServingEngine
+    label = "planned" if planned else "hand-wired"
+    _fresh_process()
+    base = _rel_serve(cfg, params, f"R1 {label} disarmed", planned=planned)
+    _fresh_process()
+    with sentinels.shadowing(sentinels.DEFAULT_RATE, probe=False):
+        sampled = _rel_serve(cfg, params, f"R1 {label} armed at 1/64",
+                             planned=planned)
+    _fresh_process()
+    agree, tol_ratio = ServingEngine._agree, [0.0]
+
+    def spy(self, got, want):
+        tol_ratio[0] = max(tol_ratio[0], _tol_ratio(got, want))
+        return agree(self, got, want)
+
+    ServingEngine._agree = spy
+    try:
+        with sentinels.shadowing(1.0, probe=True) as spec:
+            r1 = _rel_serve(cfg, params, f"R1 {label} shadow 1.0",
+                            planned=planned)
+    finally:
+        ServingEngine._agree = agree
+    st, eng = r1["stats"], r1["engine"]
+    gap = {"rel_per_request": eng.shadow_gap, "tol_ratio": tol_ratio[0]}
+    # a shadow's wall runs from the configured dispatch's return to the
+    # verdict, so at decode it includes waiting for the configured step
+    # on the card: what a shadow adds to a step is the served medians'
+    # difference.  Medians; the first decode shadow also captures the
+    # save, restore and twin graphs (printed apart).
+    shadow_ms = {ph: 1e3 * sorted(w)[len(w) // 2]
+                 for ph, w in eng.shadow_wall_s.items()}
+    shadow_ms["first_decode"] = 1e3 * eng.shadow_wall_s["decode"][0]
+    shadow_ms["added_to_decode_step"] = (r1["median_step_ms"]
+                                         - base["median_step_ms"])
+    accepts = ("bitwise equality" if eng._bitwise
+               else f"rel <= {eng._rel_tol} per request")
+    print(f"[R1 {label}] largest logit gap of a comparison: per "
+          f"request, rel (2-norm) {gap['rel_per_request']:.4g}; "
+          f"max |diff| / (atol + rtol |twin|) {gap['tol_ratio']:.4g} at "
+          f"{cfg.dtype} TOLERANCES {sentinels.TOLERANCES[cfg.dtype]} "
+          f"(past 1: the elementwise test fails); the engine accepts "
+          f"{accepts}; a "
+          f"decode shadow adds {shadow_ms['added_to_decode_step']:.3f} "
+          f"ms to the served median step ({r1['median_step_ms']:.3f} "
+          f"against {base['median_step_ms']:.3f} ms: twin step, save, "
+          f"restore, compare); a shadow's wall from the dispatch's "
+          f"return to its verdict {shadow_ms['decode']:.3f} ms at decode "
+          f"(the configured step's device time included), "
+          f"{shadow_ms['prefill']:.3f} ms at prefill (medians), the "
+          f"first decode shadow {shadow_ms['first_decode']:.3f} ms (its "
+          f"graphs captured); golden probe "
+          f"{1e3 * eng.golden_probe_s:.1f} ms; kernel-level checks "
+          f"{spec.n_checked - st['shadow_checks']}, mismatches in all "
+          f"{spec.n_mismatched}; decode step disarmed "
+          f"{base['median_step_ms']:.3f} ms, armed at 1/64 "
+          f"{sampled['median_step_ms']:.3f} ms (medians; "
+          f"{sampled['stats']['shadow_checks']} sampled checks)")
+    probe = {"fused_attention_partial": cfg.n_layers,
+             "fused_mlp_chain": cfg.n_layers if planned else 0}
+    extra = {k: r1["launches"][k] - base["launches"][k] for k in SERVED}
+    ok = (st["golden_probes"] == 1 and st["golden_mismatches"] == 0
+          and st["shadow_checks"] == st["decode_steps"] + st["prefills"]
+          and st["shadow_mismatches"] == 0 == spec.n_mismatched
+          and st["exec_tier"] == "configured"
+          and r1["tokens"] == base["tokens"] and extra == probe
+          and _pool_equal(eng, base["engine"]) and not _deny_records())
+    if not ok:
+        raise RuntimeError(f"[R1 {label}] failed: "
+                           f"{ {k: st[k] for k in REL_STATS} }, tier "
+                           f"{st['exec_tier']}, tokens equal "
+                           f"{r1['tokens'] == base['tokens']}, pool equal "
+                           f"{_pool_equal(eng, base['engine'])}, launches "
+                           f"beyond the disarmed run {extra} (want "
+                           f"{probe}), records {_deny_records()}")
+    return dict(shadow_checks=st["shadow_checks"], gap=gap,
+                shadow_ms=shadow_ms,
+                golden_probe_ms=1e3 * eng.golden_probe_s,
+                step_ms_disarmed=base["median_step_ms"],
+                step_ms_armed_default_rate=sampled["median_step_ms"],
+                sampled_checks=sampled["stats"]["shadow_checks"]
+                ), base["tokens"]
+
+
+def _tol_ratio(got, want) -> float:
+    """The largest |got - want| / (atol + rtol |want|) at the dtype's
+    TOLERANCES: past 1 where the elementwise test fails."""
+    from repro_torch.reliability import sentinels
+    rtol, atol = sentinels.TOLERANCES[str(want.dtype).split(".")[-1]]
+    w = want.double()
+    return float(((got.double() - w).abs()
+                  / (atol + rtol * w.abs())).max())
+
+
+def _r1_kernel_shadows(cfg, params, planned: bool, want_tokens) -> dict:
+    """R1, one serve path, ``eager_decode=True`` under ``shadowing(1.0,
+    probe=False)``: the kernel-level seams (skipped in a capture) shadow
+    every guarded dispatch at the workload's real context lengths, each
+    kernel output held elementwise to its dtype's TOLERANCES: as many
+    kernel-level checks as kernel launches, no mismatch at any seam,
+    tier 0, no record, and the tokens of R1's disarmed run.  Prints the
+    largest elementwise ratio of each seam over the rows it compares
+    (the live slots' at the paged seam), read by a spy on the twin's
+    thunk."""
+    from repro_torch.reliability import sentinels
+    label = "planned" if planned else "hand-wired"
+    shadow, ratio = sentinels.shadow_kernel, {}
+
+    def spy(fp, out, ref_fn, rows=None):
+        def ref():
+            want = ref_fn()
+            read = rows() if rows is not None else slice(None)
+            ratio[fp[0]] = max(ratio.get(fp[0], 0.0),
+                               _tol_ratio(out[read], want[read]))
+            return want
+        return shadow(fp, out, ref, rows)
+
+    _fresh_process()
+    sentinels.shadow_kernel = spy
+    try:
+        with sentinels.shadowing(1.0, probe=False) as spec:
+            r = _rel_serve(cfg, params, f"R1 {label} kernel shadows, "
+                           f"eager", planned=planned, eager=True)
+    finally:
+        sentinels.shadow_kernel = shadow
+    st = r["stats"]
+    checks = spec.n_checked - st["shadow_checks"]
+    launches = sum(r["launches"].values())
+    print(f"[R1 {label} kernel seams] {checks} kernel-level checks for "
+          f"{launches} launches, {spec.n_mismatched} mismatches in all; "
+          f"largest max |diff| / (atol + rtol |twin|) at "
+          f"{cfg.dtype} TOLERANCES {sentinels.TOLERANCES[cfg.dtype]}: "
+          + ", ".join(f"{k} {v:.4g}" for k, v in ratio.items()))
+    if (checks != launches or set(ratio) != {
+            "attn-paged", *(["mlp"] if planned else [])}
+            or spec.n_mismatched or st["shadow_mismatches"]
+            or st["exec_tier"] != "configured" or _deny_records()
+            or r["tokens"] != want_tokens):
+        raise RuntimeError(f"[R1 {label} kernel seams] failed: {checks} "
+                           f"checks, {launches} launches, "
+                           f"{spec.n_mismatched} mismatches, tier "
+                           f"{st['exec_tier']}, records {_deny_records()}"
+                           f", tokens equal "
+                           f"{r['tokens'] == want_tokens}")
+    return dict(kernel_checks=checks, tol_ratio=ratio)
+
+
+def _pool_equal(a, b) -> bool:
+    """Two engines' KV pools equal bitwise past the scratch page."""
+    return all(torch.equal(x[k][1:], y[k][1:])
+               for x, y in zip(a.cache, b.cache)
+               for k in ("k_pages", "v_pages"))
+
+
+def _r2_wrong_answer(cfg, params) -> dict:
+    """R2: ``wrong_answer`` at the 6th ``engine-decode`` seam, sentinels
+    at 1.0, planned, captured: one shadow mismatch, one demotion, the
+    twin tier captured anew, the decode plan's denylist record with the
+    shadow's reason, every request complete; a relaunch with fresh
+    breaker memory reads the record and skips the decode preplan (the
+    decode steps run hand-wired: no MLP kernel at decode)."""
+    import itertools
+
+    from repro_torch.core import planner, schedule_cache
+    from repro_torch.core.perf_model import H100
+    from repro_torch.reliability import faults, sentinels
+    seen = itertools.count()
+    with sentinels.shadowing(1.0, probe=True) as sspec:
+        with faults.injected(
+                "wrong_answer", limit=1,
+                trigger=lambda c: (c.get("op") == "engine-decode"
+                                   and next(seen) == 5)) as spec:
+            r2 = _rel_serve(cfg, params, "R2 wrong answer, planned",
+                            planned=True)
+            fired = _fired(spec, "R2")
+    st, eng = r2.pop("stats"), r2.pop("engine")
+    rec = schedule_cache.is_quarantined(eng._decode_plan_key(), H100)
+    if (st["shadow_mismatches"] != 1 or st["tier_demotions"] != 1
+            or st["exec_tier"] != "torch-twin" or eng.captured is None
+            or rec is None or "shadow mismatch" not in rec["reason"]
+            or sspec.n_mismatched != 1):
+        raise RuntimeError(f"[R2] {st['shadow_mismatches']} mismatches, "
+                           f"{st['tier_demotions']} demotions, tier "
+                           f"{st['exec_tier']}, record {rec}")
+    print(f"[R2] decode plan quarantined: {rec['reason']!r}")
+    del eng
+    _fresh_process()
+    relaunch = _rel_serve(cfg, params, "R2 relaunch, planned",
+                          planned=True)
+    rst = relaunch["stats"]
+    want = {"fused_attention_partial": rst["decode_steps"] * cfg.n_layers,
+            "fused_mlp_chain": rst["prefills"] * cfg.n_layers}
+    if (relaunch["engine"].decode_plan is not None
+            or relaunch["launches"] != want
+            or any(k[8] == "decode" for k in planner._PLAN_MEMO)):
+        raise RuntimeError(f"[R2] the relaunch did not skip the decode "
+                           f"preplan: launches {relaunch['launches']} "
+                           f"(want {want})")
+    return dict(fired=fired, shadow_mismatches=st["shadow_mismatches"],
+                tier_demotions=st["tier_demotions"], reason=rec["reason"],
+                launches_relaunch=relaunch["launches"])
+
+
+def reliability_phase(cfg, params) -> dict:
+    """The reliability layer on qwen3-8b FULL with the serve phases'
+    workload (SERVE), each run in a fresh engine: R3 and R4 (faults at
+    a layer seam and at the engine seam), R1 on both paths (shadows at
+    rate 1.0 without a fault) and R2 (a planted wrong answer).  Every
+    phase that arms a fault asserts that it fired, then disarms it and
+    lifts the records (R5).  Prints a ``{"reliability": ...}`` line."""
+    out = {}
+    _clear_records()
+    out["R3"] = _r3_paged_seam(cfg, params)
+    _clear_records()
+    out["R4"] = _r4_engine_seam(cfg, params)
+    _clear_records()
+    out["R1"] = {}
+    for planned in (False, True):
+        label = "planned" if planned else "hand-wired"
+        out["R1"][label], tokens = _r1_shadows(cfg, params, planned)
+        out["R1"][label]["kernel_seams"] = _r1_kernel_shadows(
+            cfg, params, planned, tokens)
+    _clear_records()
+    out["R2"] = _r2_wrong_answer(cfg, params)
+    _clear_records()
+    _no_degradation("reliability phase, records lifted")
+    print(json.dumps({"reliability": out}))
     return out
 
 
@@ -1438,8 +1865,9 @@ def quickstart_phase() -> dict:
 
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--plant-faults"]):
-        raise SystemExit("usage: python3 chip_smoke.py [--plant-faults]")
+    if argv not in ([], ["--plant-faults"], ["--reliability"]):
+        raise SystemExit("usage: python3 chip_smoke.py "
+                         "[--plant-faults | --reliability]")
     smi = device_phase()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     # tuned schedules persist inside the checkout (.cache/ is gitignored)
@@ -1449,8 +1877,12 @@ def main(argv=None) -> None:
     from repro_torch.core import api
     build_phase()
     cfg = get_config("qwen3-8b")
-    if argv:
+    if argv == ["--plant-faults"]:
         fault_phase(cfg, init_phase(cfg))
+        print(smi)
+        return
+    if argv == ["--reliability"]:
+        reliability_phase(cfg, init_phase(cfg))
         print(smi)
         return
     n_ctx = SERVE["page_size"] * math.ceil(
@@ -1484,6 +1916,7 @@ def main(argv=None) -> None:
     # its counter, set to 0 here, must still read 0 after them all
     _zero("fused_gemm_chain3")
     front = quickstart_phase()
+    _no_degradation("quickstart")
     params = init_phase(cfg)
     hand, _, hand_launches, hand_eager, _ = serve_phase(
         cfg, params, planned=False)
@@ -1498,8 +1931,12 @@ def main(argv=None) -> None:
              "planned": step_profile_phase(planned, "planned")}
     del hand, planned, hand_eager, planned_eager
     torch.cuda.empty_cache()
+    reliability_phase(cfg, params)
+    torch.cuda.empty_cache()
     fwd = forward_phase(cfg, params)
+    _no_degradation("forward")
     generate_phase(cfg, params)
+    _no_degradation("generate")
     del params
     torch.cuda.empty_cache()
     gparams = init_phase(granite)

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -55,9 +56,60 @@ class TunedKernel:
         return self.fn(*args, **kwargs)
 
 
+def _host_probe_due(rec: dict) -> bool:
+    """True when a warm entry must be numerically probed before it is
+    trusted: sentinels armed with probing on, and the record's stored
+    host fingerprint differs from (or predates) the current host."""
+    from ..reliability import sentinels as _sentinels
+    spec = _sentinels.active()
+    if spec is None or not spec.probe:
+        return False
+    return rec.get("host") != schedule_cache.host_fingerprint()
+
+
+def _run_probe(kind: str, kernel_thunk, ref_thunk) -> bool:
+    """One golden probe: canned input through the rebuilt kernel vs its
+    torch twin, per-dtype tolerance.  The ``wrong_answer`` fault seam
+    (``op=f"probe-{kind}"``) perturbs the kernel side so a corrupted
+    replay is caught *before* traffic.  A probe that raises counts as a
+    mismatch — an entry that cannot even execute must not be trusted
+    either — if it is a failure the breaker may degrade from
+    (``breaker.degradable``); any other failure raises."""
+    from ..reliability import breaker as _breaker
+    from ..reliability import sentinels as _sentinels
+    spec = _sentinels.active()
+    try:
+        got = _sentinels.corrupt_if_armed(kernel_thunk(),
+                                          op=f"probe-{kind}")
+        ok = bool(_sentinels.outputs_close(got, ref_thunk()))
+    except Exception as e:  # noqa: BLE001 - unexecutable entry = mismatch
+        if not _breaker.degradable(e):
+            raise
+        ok = False
+    if spec is not None:
+        spec.note_probe(ok)
+    return ok
+
+
+def _pad_to(dim: int, tile: int) -> int:
+    return int(math.ceil(dim / max(int(tile), 1)) * max(int(tile), 1))
+
+
+def _probe_arrays(shapes: list[tuple], dtype: str) -> list:
+    """Deterministic canned probe operands (seeded, O(0.1) magnitude),
+    on the card where there is one (the kernels' device), else on the
+    CPU (their plain versions)."""
+    import numpy as np
+    import torch
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    rs = np.random.RandomState(0)
+    return [torch.from_numpy(rs.standard_normal(s) * 0.1).to(
+        dev, getattr(torch, dtype)) for s in shapes]
+
+
 def _tune_or_load(kind: str, chain: Chain, hw: "TpuSpec | GpuSpec",
                   mesh: Optional[MeshSpec], unit: int, seed: int,
-                  disk_key: tuple):
+                  disk_key: tuple, probe_fn=None):
     """(report, params, seconds, source): disk-cache hit or full search.
 
     A hit rebuilds the winning Schedule through ``build_schedule`` and
@@ -70,6 +122,15 @@ def _tune_or_load(kind: str, chain: Chain, hw: "TpuSpec | GpuSpec",
     record is quarantined to ``.corrupt`` and retuned.  Outcomes
     persist under the ``"analytic"`` trial kind (wall-clock trials on
     the card would be a separate ``"measured"`` population).
+
+    ``probe_fn(params) -> bool`` is the sentinels' warm-load golden
+    probe: when the sentinels are armed and the record's stored host
+    fingerprint differs from the current host (another torch, card or
+    platform — the replay may behave differently than where it tuned),
+    the entry must pass a numeric kernel-vs-twin probe before it is
+    served.  Pass → the record is re-stamped with the current host
+    (probes don't repeat every load); fail → the entry is quarantined
+    and retuned.
     """
     trial = "analytic"
     t0 = time.perf_counter()
@@ -87,6 +148,23 @@ def _tune_or_load(kind: str, chain: Chain, hw: "TpuSpec | GpuSpec",
                     schedule_cache.quarantine_entry(disk_key, hw, trial)
         except (AttributeError, KeyError, TypeError, ValueError):
             ok = False       # a stale or mangled entry means retune
+        if ok and probe_fn is not None and _host_probe_due(rec):
+            if probe_fn(params):
+                # probe passed on this host: re-stamp so subsequent
+                # loads skip the probe until the host changes again
+                schedule_cache.store(
+                    disk_key, hw, expr=rec["expr"],
+                    tile_sizes=rec["tile_sizes"],
+                    best_time=rec["best_time"],
+                    n_measured=rec["n_measured"],
+                    n_iterations=rec["n_iterations"],
+                    n_candidates=rec["n_candidates"],
+                    prune_stats=rec["prune_stats"],
+                    history=rec["history"], params=rec["params"],
+                    trial=trial)
+            else:
+                schedule_cache.quarantine_entry(disk_key, hw, trial)
+                ok = False
         if ok:
             report = SearchReport(
                 best=sched, best_time=rec["best_time"],
@@ -132,8 +210,23 @@ def fuse_gemm_chain(M: int, N: int, K: int, H: int, batch: int = 1,
     chain = gemm_chain(M, N, K, H, batch=batch, dtype=dtype)
     disk_key = ("gemm", M, N, K, H, batch, dtype, hw.name, unit,
                 mesh.canonical() if mesh is not None else None, seed)
+
+    def _probe(params) -> bool:
+        # warm-load golden probe (sentinels): canned input, dims padded
+        # to the entry's tiles, kernel vs the unfused torch twin
+        from ..kernels import ref as _ref
+        from ..kernels.gemm_chain import fused_gemm_chain as _k
+        kw = params.as_kwargs()
+        m, n = _pad_to(M, kw.get("bm", 1)), _pad_to(N, kw.get("bn", 1))
+        k2, h = _pad_to(K, kw.get("bk", 1)), _pad_to(H, kw.get("bh", 1))
+        a, b, d = _probe_arrays(
+            [(batch, m, k2), (batch, k2, n), (batch, n, h)], dtype)
+        return _run_probe("gemm", lambda: _k(a, b, d, **kw),
+                          lambda: _ref.gemm_chain_ref(a, b, d))
+
     report, params, dt, source = _tune_or_load(
-        "gemm", chain, hw, mesh, unit, seed, disk_key)
+        "gemm", chain, hw, mesh, unit, seed, disk_key,
+        probe_fn=_probe if mesh is None else None)
 
     from ..kernels.gemm_chain import fused_gemm_chain as kernel
 
@@ -170,8 +263,25 @@ def fuse_attention(M: int, N: int, K: int, H: int, heads: int = 1,
     disk_key = ("attn", M, N, K, H, heads, batch, dtype, causal, window,
                 scale, hw.name, unit,
                 mesh.canonical() if mesh is not None else None, seed)
+
+    def _probe(params) -> bool:
+        from ..kernels import ref as _ref
+        from ..kernels.attention import fused_attention as _k
+        kw = params.as_kwargs()
+        m, n = _pad_to(M, kw.get("bq", 1)), _pad_to(N, kw.get("bkv", 1))
+        q, k, v = _probe_arrays(
+            [(batch, heads, m, K), (batch, heads, n, K),
+             (batch, heads, n, H)], dtype)
+        return _run_probe(
+            "attn",
+            lambda: _k(q, k, v, causal=causal, window=window, scale=scale,
+                       **kw),
+            lambda: _ref.gqa_attention_ref(q, k, v, causal=causal,
+                                           window=window, scale=scale))
+
     report, params, dt, source = _tune_or_load(
-        "attn", chain, hw, mesh, unit, seed, disk_key)
+        "attn", chain, hw, mesh, unit, seed, disk_key,
+        probe_fn=_probe if mesh is None else None)
 
     from ..kernels.attention import fused_attention as kernel
 
@@ -221,6 +331,10 @@ def fuse_attention_paged(M: int, N: int, K: int, H: int, *,
     disk_key = ("attn-paged", page_size, M, N, K, H, heads, kv_heads, batch,
                 dtype, causal, window, scale, hw.name, unit,
                 mesh.canonical() if mesh is not None else None, seed)
+    # no numeric probe_fn: the paged entry is still schedule-validated
+    # on every warm load, and the serving engine's construction-time
+    # golden probe runs the full paged decode against its twin before
+    # traffic (serving/engine.py)
     report, params, dt, source = _tune_or_load(
         "attn", chain, hw, mesh, unit, seed, disk_key)
     report = dataclasses.replace(
@@ -261,8 +375,26 @@ def fuse_mlp_chain(M: int, FF: int, D: int, batch: int = 1,
                       act=act)
     disk_key = ("mlp", M, FF, D, batch, gated, act, dtype, hw.name, unit,
                 mesh.canonical() if mesh is not None else None, seed)
+
+    def _probe(params) -> bool:
+        from ..kernels import ref as _ref
+        from ..kernels.gemm_chain import fused_mlp_chain as _k
+        kw = params.as_kwargs()
+        m, n = _pad_to(M, kw.get("bm", 1)), _pad_to(FF, kw.get("bn", 1))
+        k2, h = _pad_to(D, kw.get("bk", 1)), _pad_to(D, kw.get("bh", 1))
+        shapes = [(batch, m, k2), (batch, k2, n), (batch, n, h)]
+        if gated:
+            shapes.append((batch, k2, n))
+        arrs = _probe_arrays(shapes, dtype)
+        a, wu, wd = arrs[:3]
+        wg = arrs[3] if gated else None
+        return _run_probe(
+            "mlp", lambda: _k(a, wu, wd, wg=wg, act=act, **kw),
+            lambda: _ref.mlp_chain_ref(a, wu, wd, wg=wg, act=act))
+
     report, params, dt, source = _tune_or_load(
-        "mlp", chain, hw, mesh, unit, seed, disk_key)
+        "mlp", chain, hw, mesh, unit, seed, disk_key,
+        probe_fn=_probe if mesh is None else None)
 
     from ..kernels.gemm_chain import fused_mlp_chain as kernel
 

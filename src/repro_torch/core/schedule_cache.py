@@ -32,7 +32,13 @@ valid record from an older layout) and is left in place.  Set
 Writes are atomic (temp file + ``os.replace``) and serialized per-entry
 with an advisory ``flock`` where the platform provides one, so
 concurrent writers sharing one cache directory can race ``store`` on
-the same key and readers still only ever see a complete record.
+the same key and readers still only ever see a complete record.  The
+store also holds **denylist records** (``deny-<hash>.json``,
+:func:`quarantine` / :func:`is_quarantined`): the circuit breaker in
+:mod:`repro_torch.reliability.breaker` persists a failing schedule/plan
+fingerprint there, *distinct from deletion* — the cached entry stays
+warm, dispatch-level checks skip it, and a relaunch neither retries
+the broken unit nor re-tunes it in a storm.
 
 Entries also carry a **trial kind** — ``"analytic"`` (the search was
 ranked and measured by the model alone, this container's default) or
@@ -49,6 +55,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import tempfile
 from hashlib import sha256
 from pathlib import Path
@@ -71,6 +78,7 @@ TRIAL_KINDS = ("analytic", "measured")
 
 _ENV_DIR = "REPRO_TORCH_CACHE_DIR"
 _ENV_ENABLE = "REPRO_TORCH_SCHEDULE_CACHE"
+_DENY_NAME = re.compile(r"deny-[0-9a-f]{32}\.json")
 CORRUPT_SUFFIX = ".corrupt"
 
 
@@ -140,15 +148,19 @@ def _quarantine_corrupt(path: Path) -> Optional[Path]:
         return None
 
 
-def _read_record(path: Path) -> Optional[dict]:
-    """Parse one record; None on miss.  Unparseable JSON quarantines
-    the file and misses."""
+def _read_record(path: Path, fault_kind: str) -> Optional[dict]:
+    """Parse one record; None on miss.  Unparseable JSON — or a
+    deterministically injected read fault (``fault_kind``) standing in
+    for torn/bit-rotted storage — quarantines the file and misses."""
+    from ..reliability import faults as _faults
     try:
         with open(path, encoding="utf-8") as f:
             text = f.read()
     except OSError:
         return None
     try:
+        if _faults.check(fault_kind, path=str(path)):
+            raise ValueError(f"injected {fault_kind}")
         rec = json.loads(text)
         if not isinstance(rec, dict):
             raise ValueError("record is not a JSON object")
@@ -230,7 +242,7 @@ def load(key: tuple, hw: "TpuSpec | GpuSpec",
     if not enabled():
         return None
     path = entry_path(key, hw, trial)
-    rec = _read_record(path)
+    rec = _read_record(path, "cache_corrupt")
     if rec is None:
         return None
     if rec.get("schema") != SCHEMA_VERSION:
@@ -327,7 +339,7 @@ def load_plan(key: tuple, hw: "TpuSpec | GpuSpec") -> Optional[dict]:
     if not enabled():
         return None
     path = plan_entry_path(key, hw)
-    rec = _read_record(path)
+    rec = _read_record(path, "plan_load")
     if rec is None:
         return None
     if rec.get("schema") != SCHEMA_VERSION:
@@ -356,3 +368,84 @@ def store_plan(key: tuple, hw: "TpuSpec | GpuSpec",
         "plan": plan,
     }
     return _atomic_write(plan_entry_path(key, hw), rec)
+
+
+# ---------------------------------------------------------------------------
+# Denylist records (circuit-breaker quarantine; reliability/breaker.py)
+# ---------------------------------------------------------------------------
+#
+# A denylist record marks a *fingerprint* (schedule key or plan key) as
+# quarantined after a dispatch failure or a sentinel mismatch.  It
+# deliberately does NOT remove the cached entry: deletion would make
+# every relaunch miss, re-tune, re-fail and re-tune again.  The record
+# is consulted at dispatch level (kernels/ops.py, models/layers.py,
+# models/lm.py, serving/engine.py), so loads stay warm and the degraded
+# twin is chosen without a search.
+
+def deny_path(key: tuple, hw: "TpuSpec | GpuSpec") -> Path:
+    blob = json.dumps([list(key), model_fingerprint(hw), "deny"],
+                      sort_keys=True, default=str)
+    name = "deny-" + sha256(blob.encode()).hexdigest()[:32] + ".json"
+    return cache_dir() / name
+
+
+def quarantine(key: tuple, hw: "TpuSpec | GpuSpec",
+               reason: str = "") -> Optional[Path]:
+    """Persist a denylist record for ``key``; best-effort."""
+    if not enabled():
+        return None
+    rec = {
+        "schema": SCHEMA_VERSION,
+        "model_fingerprint": model_fingerprint(hw),
+        "kind": "deny",
+        "key": _jsonable_key(key),
+        "reason": str(reason),
+    }
+    return _atomic_write(deny_path(key, hw), rec)
+
+
+def is_quarantined(key: tuple, hw: "TpuSpec | GpuSpec") -> Optional[dict]:
+    """The denylist record for ``key``, or None when not quarantined.
+
+    An unreadable denylist record still counts as quarantined (fail
+    closed: the degraded path is always correct, retrying a known-bad
+    kernel is not).
+    """
+    if not enabled():
+        return None
+    path = deny_path(key, hw)
+    try:
+        with open(path, encoding="utf-8") as f:
+            rec = json.load(f)
+        if rec.get("kind") != "deny":
+            return None
+        return rec
+    except OSError:
+        return None
+    except ValueError:
+        return {"kind": "deny", "reason": "unreadable denylist record"}
+
+
+def clear_quarantine(key: tuple, hw: "TpuSpec | GpuSpec") -> bool:
+    """Lift the quarantine for ``key`` (operator override)."""
+    try:
+        deny_path(key, hw).unlink()
+        return True
+    except OSError:
+        return False
+
+
+def list_quarantined() -> list[dict]:
+    """All readable denylist records in the cache dir."""
+    out = []
+    d = cache_dir()
+    if d.is_dir():
+        for p in sorted(d.glob("deny-*.json")):
+            if not _DENY_NAME.fullmatch(p.name):
+                continue
+            try:
+                with open(p, encoding="utf-8") as f:
+                    out.append(json.load(f))
+            except (OSError, ValueError):
+                pass
+    return out

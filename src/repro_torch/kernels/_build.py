@@ -25,6 +25,36 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
+class KernelBuildError(RuntimeError):
+    """A kernel library cannot be built: no ``nvcc``, or ``nvcc``
+    rejected the source.  No reliability guard degrades from it
+    (``reliability.breaker.degradable``): a card without a working
+    toolchain must fail loudly, not serve the twins."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel's launcher returned a CUDA error: ``code`` is the
+    ``cudaError_t``, the message its ``cudaGetErrorString`` text.  A
+    guard degrades only from a launch the card refused without running
+    it (``reliability.breaker.degradable``)."""
+
+    def __init__(self, entry: str, code: int, text: str):
+        super().__init__(f"{entry} failed: {text}")
+        self.code = code
+
+
+def check_launch(lib: ctypes.CDLL, entry: str, err: int,
+                 errors: str) -> None:
+    """Raise a ``KernelLaunchError`` if the launcher ``entry`` returned
+    the CUDA error ``err`` (0 is success); ``errors`` names the
+    library's ``cudaGetErrorString`` export."""
+    if err:
+        fn = getattr(lib, errors)
+        fn.restype = ctypes.c_char_p
+        fn.argtypes = [ctypes.c_int]
+        raise KernelLaunchError(entry, err, fn(err).decode())
+
+
 def _nvcc() -> str:
     """nvcc on PATH, else under CUDA_HOME (default: the toolkit's
     conventional prefix)."""
@@ -35,8 +65,8 @@ def _nvcc() -> str:
     candidate = os.path.join(home, "bin", "nvcc")
     if os.path.exists(candidate):
         return candidate
-    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
-                       "the CUDA toolkit is installed")
+    raise KernelBuildError("nvcc not found: the CUDA kernels build only "
+                           "where the CUDA toolkit is installed")
 
 
 _INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
@@ -78,7 +108,8 @@ def build(name: str) -> tuple[Path, str]:
              str(CSRC / f"{name}.cu")],
             capture_output=True, text=True, check=False)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
+            raise KernelBuildError(f"nvcc failed on {name}.cu:\n"
+                                   f"{proc.stderr}")
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -91,6 +122,9 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         path, _ = build(name)
-        lib = ctypes.CDLL(str(path))
+        try:
+            lib = ctypes.CDLL(str(path))
+        except OSError as e:
+            raise KernelBuildError(f"cannot load {path.name}: {e}") from e
         _LIBS[name] = lib
     return lib

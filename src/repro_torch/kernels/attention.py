@@ -157,13 +157,6 @@ def _check_aligned(*ts):
             raise ValueError("q, k and v must start on a 16-byte boundary")
 
 
-def _raise_launch_error(lib, name: str, err: int):
-    lib.attn_error_string.restype = ctypes.c_char_p
-    lib.attn_error_string.argtypes = [ctypes.c_int]
-    raise RuntimeError(f"{name} failed: "
-                       + lib.attn_error_string(err).decode())
-
-
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bq: int = 128, bkv: int = 128, causal: bool = False,
                     window: int = 0,
@@ -224,8 +217,7 @@ def _launch_final(q, k, v, bq, bkv, masked, window, scale, smem):
     err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
              v.data_ptr(), o.data_ptr(), b, hq, hkv, m, n, d, dv, bq, bkv,
              int(masked), int(window), float(scale), int(smem), stream)
-    if err:
-        _raise_launch_error(lib, "attn_launch", err)
+    _build.check_launch(lib, "attn_launch", err, "attn_error_string")
     fused_attention.launches += 1
     return o
 
@@ -332,8 +324,7 @@ def _launch(q, k, v, kv_pos, q_pos, bq, bkv, masked, window, scale, smem,
              n, d, dv, bq, bkv, splits, per, n if kv_pos.ndim == 2 else 0,
              m if q_pos.ndim == 2 else 0, int(masked), int(window),
              float(scale), int(smem), stream)
-    if err:
-        _raise_launch_error(lib, "attn_partial_launch", err)
+    _build.check_launch(lib, "attn_partial_launch", err, "attn_error_string")
     fused_attention_partial.launches += 1
     return o, m_run, l_run
 

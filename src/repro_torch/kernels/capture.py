@@ -67,7 +67,11 @@ class CapturedStep:
     also builds the CUDA libraries and fills the tuner's and planner's
     memos, so the capture records launches only.  Its result is
     ``warmup_out``.  A failure of the warm-up, of the capture or of a
-    replay raises: nothing falls back to the eager step.
+    replay raises: nothing here falls back to the eager step.  The
+    serving engine's tiers (``serving/engine.py``) decide what runs
+    after such a failure; the reliability guards inside ``fn`` run in
+    the warm-up and the capture, never in a replay, and skip their
+    shadow comparisons in both (a host sync).
     """
 
     def __init__(self, fn: Callable, device):

@@ -182,14 +182,6 @@ def _machine_launch(a, wu, wd, gated, bm, bn, bk, be, splits, squeeze):
     return e, part, dims, int(smem), stream
 
 
-def _raise_on(lib, entry: str, err: int, errors: str):
-    if err:
-        fn = getattr(lib, errors)
-        fn.restype = ctypes.c_char_p
-        fn.argtypes = [ctypes.c_int]
-        raise RuntimeError(f"{entry} failed: " + fn(err).decode())
-
-
 def _launch(a, wu, wd, wg, act, bm, bn, bk, be, splits=1):
     """Launch the kernel (and, with more than one split, the merge) on
     clamped tiles, with the n blocks cut into ``splits`` runs as the
@@ -209,7 +201,7 @@ def _launch(a, wu, wd, wg, act, bm, bn, bk, be, splits=1):
              wu.data_ptr(), (wu if wg is None else wg).data_ptr(),
              wd.data_ptr(), e.data_ptr(),
              None if part is None else part.data_ptr(), *dims, smem, stream)
-    _raise_on(lib, "mlp_chain_launch", err, "mlp_error_string")
+    _build.check_launch(lib, "mlp_chain_launch", err, "mlp_error_string")
     fused_mlp_chain.launches += 1
     return e
 
@@ -351,7 +343,7 @@ def _launch_chain(a, b, d, bm, bn, bk, be, splits=1):
     err = fn(_DTYPE_CODES[a.dtype], a.data_ptr(), b.data_ptr(),
              d.data_ptr(), e.data_ptr(),
              None if part is None else part.data_ptr(), *dims, smem, stream)
-    _raise_on(lib, "gemm_chain_launch", err, "chain_error_string")
+    _build.check_launch(lib, "gemm_chain_launch", err, "chain_error_string")
     fused_gemm_chain.launches += 1
     return e
 

@@ -19,8 +19,8 @@ import torch
 
 from ..core.perf_model import (H100, gemm_chain3_ring,
                                gemm_chain3_smem_bytes)
-from .gemm_chain import (_DTYPE_CODES, _check_chain, _raise_on,
-                         check_tile_rule, fused_gemm_chain_plain)
+from .gemm_chain import (_DTYPE_CODES, _check_chain, check_tile_rule,
+                         fused_gemm_chain_plain)
 
 
 def fused_gemm_chain3(a: torch.Tensor, b: torch.Tensor, d: torch.Tensor,
@@ -65,7 +65,7 @@ def _launch(a, b, d, f, bm, bn, bk, smem):
     err = fn(_DTYPE_CODES[a.dtype], a.data_ptr(), b.data_ptr(),
              d.data_ptr(), f.data_ptr(), out.data_ptr(), bsz, m, n, k, h, g,
              bm, bn, bk, stages, rows, int(smem), stream)
-    _raise_on(lib, "gemm_chain3_launch", err, "chain_error_string")
+    _build.check_launch(lib, "gemm_chain3_launch", err, "chain_error_string")
     fused_gemm_chain3.launches += 1
     return out
 

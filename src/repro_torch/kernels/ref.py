@@ -1,5 +1,6 @@
 """Unfused PyTorch oracles for the port's kernels: correctness
-references for tests, never called on the serving path."""
+references for tests, and the twins ``kernels/ops.py`` serves when a
+guarded kernel is quarantined or fails to dispatch."""
 from __future__ import annotations
 
 from typing import Optional

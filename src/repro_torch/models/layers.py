@@ -23,7 +23,8 @@ Paged attention has two bodies with one semantics: the fused CUDA
 kernel (``kernels.attention.fused_attention_paged``) for decode steps on
 the card under ``kernel_ops``, and the gather twin — page-table gather
 plus per-request positional attention in torch ops — everywhere else
-(prefill, and any run on the CPU).
+(prefill, and any run on the CPU), and wherever the circuit breaker
+holds the kernel's fingerprint quarantined or its dispatch fails.
 """
 from __future__ import annotations
 
@@ -381,25 +382,40 @@ def _paged_attention_body(qt: torch.Tensor, cache: dict,
                           block: Optional[tuple] = None) -> torch.Tensor:
     """The paged attention core: the fused kernel or the gather twin.
     qt: (B, Hq, S, dh); cache holds the POST-write page pools."""
-    s = qt.shape[2]
+    b, hq, s, _ = qt.shape
+    ps = cache["k_pages"].shape[2]
+
+    def _twin() -> torch.Tensor:
+        # page-table gather + per-request positional attention: the
+        # body every other path is held to, and the shadow oracle of
+        # the fused branch below
+        kk = KP.gather_pages(cache["k_pages"], page_table
+                             ).repeat_interleave(group, dim=1)
+        vv = KP.gather_pages(cache["v_pages"], page_table
+                             ).repeat_interleave(group, dim=1)
+        kv_pos = KP.paged_kv_positions(page_table, ps)
+        return _paged_positional_attention(qt, kk, vv, positions, kv_pos,
+                                           win, scale)
+
     if kernel_ops and s == 1 and qt.is_cuda:
         # decode only: the kernel's tail convention needs q rows at
         # lengths-M..lengths-1, which padded prefill rows violate.
         # ``block`` carries the tuner's winning tiles, so the executed
-        # schedule is the one the model priced.
+        # schedule is the one the model priced.  Dispatch is guarded
+        # (``kernels.ops._guarded``): a quarantined or failing kernel
+        # degrades to the gather twin, a wrong_answer fault and the
+        # sampled shadow check sit on its output, and any failure but
+        # an injected fault or a launch the card refused raises.
         from ..kernels.attention import fused_attention_paged
+        from ..kernels.ops import _guarded
         bq, bkv = block if block is not None else (128, 128)
-        return fused_attention_paged(
+        fp = ("attn-paged", b, hq, ps, page_table.shape[1], win, bq, bkv,
+              str(qt.dtype).replace("torch.", ""))
+        return _guarded(fp, lambda: fused_attention_paged(
             qt, cache["k_pages"], cache["v_pages"], page_table,
-            positions[:, -1] + 1, bq=bq, bkv=bkv, window=win, scale=scale)
-    ps = cache["k_pages"].shape[2]
-    kk = KP.gather_pages(cache["k_pages"], page_table).repeat_interleave(
-        group, dim=1)
-    vv = KP.gather_pages(cache["v_pages"], page_table).repeat_interleave(
-        group, dim=1)
-    kv_pos = KP.paged_kv_positions(page_table, ps)
-    return _paged_positional_attention(qt, kk, vv, positions, kv_pos, win,
-                                       scale)
+            positions[:, -1] + 1, bq=bq, bkv=bkv, window=win,
+            scale=scale), _twin, rows=lambda: positions[:, -1] >= 0)
+    return _twin()
 
 
 # ---------------------------------------------------------------------------

@@ -51,6 +51,10 @@ class Runtime:
     stitch: bool = True     # planner mode only: stitch memory-bound
     # glue into carved chains as prologue/epilogue; False is
     # bit-identical to the hand-wired layer.
+    sentinels: bool = False  # arm the in-step activation health
+    # monitor (reliability/sentinels.py::healthy): the serving engine
+    # checks prefill and decode logits for NaN/Inf/explosion and evicts
+    # the offending slot with the honest "health" outcome.
 
 
 def _chunk_len(s: int, target: int = 512) -> int:
@@ -169,19 +173,31 @@ class LM:
                      page_table: torch.Tensor) -> torch.Tensor:
         cfg, rt = self.cfg, self.rt
         if rt.planner:
-            # A planner or kernel failure raises: nothing here serves
-            # the hand-wired block in its place.
             from ..core import planner
+            from ..reliability import breaker as _breaker
             b, s = x.shape[:2]
             ps = cache["k_pages"].shape[2]
-            plan = planner.plan_model(
-                cfg, b, s, stitch=rt.stitch,
-                phase="prefill" if s > 1 else "decode", paged=ps,
-                kv_len=page_table.shape[1] * ps)
-            out, _ = L.run_planned_layer(
-                plan.layer, p, x, cfg, positions=positions, rt=rt,
-                cache=cache, page_table=page_table)
-            return out
+            plan_kw = dict(phase="prefill" if s > 1 else "decode",
+                           paged=ps, kv_len=page_table.shape[1] * ps)
+            pkey = planner.plan_key(cfg, b, s, rt.stitch, **plan_kw)
+            # A quarantined plan fingerprint (circuit breaker) serves
+            # the hand-wired block below — bit-identical with stitching
+            # off — instead of retrying the broken planned dispatch; a
+            # failing one is quarantined first if the breaker may
+            # degrade from its failure, else the failure raises.
+            if not _breaker.is_open(pkey):
+                try:
+                    plan = planner.plan_model(cfg, b, s, stitch=rt.stitch,
+                                              **plan_kw)
+                    out, _ = L.run_planned_layer(
+                        plan.layer, p, x, cfg, positions=positions, rt=rt,
+                        cache=cache, page_table=page_table)
+                    return out
+                except Exception as e:  # noqa: BLE001 - degrade below
+                    if not _breaker.degradable(e):
+                        raise
+                    _breaker.record_failure(
+                        pkey, reason=f"{type(e).__name__}: {e}")
         h = L.rmsnorm(x, p["ln1"]["w"], cfg.norm_eps)
         mix, _ = L.paged_attention_block(
             p["mix"], h, cfg, positions=positions, cache=cache,

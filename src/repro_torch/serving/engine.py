@@ -39,21 +39,61 @@ the winning tiles into the model's ``Runtime``.  Under
 ``Runtime(planner=True)`` it also plans the steady-state decode block
 at construction (``core.planner``), so the first step never pays the
 carve.
+
+Degradation: the engine does not die on a bad fused unit.  Execution
+runs through a **tiered fallback chain** — tier 0 is the configured
+model (planner/kernel paths as built, captured on the card), tier 1 its
+torch twin (planner and kernel_ops off, still captured on the card),
+tier 2 the same twin op by op — demoting stickily on a dispatch failure
+and, on the planned path, quarantining the decode plan through the
+circuit breaker so relaunches skip it.  Only an injected fault or a
+launch the card refused is degraded from
+(``reliability.breaker.degradable``); anything else raises, a kernel
+that does not build among them (every library the engine will launch
+is built at construction on the card).  Every degradation counts
+in ``stats`` (``tier_demotions``, ``shadow_mismatches``,
+``golden_mismatches``) or in the breaker's ``failures(key)``.  With the
+sentinels armed (``reliability.sentinels``) a golden probe runs before
+traffic and sampled steps are shadowed by the twin; since the KV pool
+is written in place, a shadow saves the pool rows the step wrote,
+runs the twin, and restores them.  A soft **watchdog** times every
+step, and ``drain()`` stops gracefully.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..reliability import breaker as _breaker
+from ..reliability import faults as _faults
+from ..reliability import sentinels as _sentinels
+from ..reliability.watchdog import StepWatchdog
 from . import kv_pages as KP
 
+#: Execution tiers, best first.
+TIERS = ("configured", "torch-twin", "eager-twin")
+
+#: Where the configured tier runs kernels, a shadow accepts its logits
+#: when each row's gap from the twin's, relative in the 2-norm, is within
+#: the dtype's ``TOLERANCES`` rtol — for bf16 within the port's stated
+#: decode-step limit of 5e-2 instead: an elementwise test fails on the
+#: logits near zero, where a kernel's rounding is as large as the
+#: logit, and a bf16 step is 0.018 from the plain step on the card
+#: while a wrong answer is order 1.
+SHADOW_REL_TOL = {"bfloat16": 5e-2}
+
 #: Per-request outcomes reported on ``FinishedRequest.outcome``.
-OUTCOMES = ("complete", "deadline", "preempt_budget", "drained")
+#: "health" = evicted by the activation health monitor
+#: (``Runtime(sentinels=True)``): its step produced NaN/Inf/exploded
+#: logits, and the partial tokens are reported honestly.
+OUTCOMES = ("complete", "deadline", "preempt_budget", "drained",
+            "health")
 
 
 @dataclasses.dataclass
@@ -115,9 +155,11 @@ class ServingEngine:
     page_size / n_pages: the pool (page 0 is scratch, so ``n_pages - 1``
     are allocatable).  max_pages_per_seq: page-table width; a request
     may span at most ``max_pages_per_seq * page_size`` positions.
-    eager_decode: on a CUDA device, run each decode step op by op
-    instead of replaying the captured one.  A capture or replay failure
-    raises; this argument is the only way to the eager step on the card.
+    watchdog_s: the soft step budget (breaches are counted, never
+    fatal).  eager_decode: on a CUDA device, run each decode step op by
+    op instead of replaying the captured one; otherwise only a demotion
+    to tier 2 (counted in ``stats["tier_demotions"]``) runs the eager
+    step on the card.
     """
 
     def __init__(self, model, params, *, max_batch: int = 4,
@@ -125,8 +167,9 @@ class ServingEngine:
                  max_pages_per_seq: int = 8,
                  eos_id: Optional[int] = None,
                  choose_regime: bool = True, verbose: bool = False,
-                 max_preemptions: int = 8, stall_limit: int = 8,
-                 eager_decode: bool = False):
+                 max_preemptions: int = 8,
+                 watchdog_s: Optional[float] = None,
+                 stall_limit: int = 8, eager_decode: bool = False):
         self.params = params
         self.max_batch = max_batch
         self.page_size = page_size
@@ -136,6 +179,7 @@ class ServingEngine:
         self.verbose = verbose
         self.max_preemptions = max_preemptions
         self.stall_limit = stall_limit
+        self.watchdog = StepWatchdog(budget_s=watchdog_s)
         self.pool = KP.PagePool(n_pages, page_size)
         self.queue: list[_Pending] = []
         self.slots: list[Optional[_Slot]] = [None] * max_batch
@@ -145,11 +189,27 @@ class ServingEngine:
         self._admit_seq = 0
         self._stall = 0              # consecutive barren steps
         self._draining = False
+        self.exec_tier = 0           # index into TIERS; sticky demotion
         self.stats = {"decode_steps": 0, "prefills": 0, "preemptions": 0,
                       "generated": 0, "slot_steps": 0, "active_steps": 0,
-                      "ctx_tokens": 0, "admit_requeues": 0,
+                      "ctx_tokens": 0, "page_slot_steps": 0,
+                      "admit_requeues": 0, "tier_demotions": 0,
                       "deadline_evictions": 0, "preempt_failures": 0,
-                      "drained": 0, "reclaimed_pages": 0}
+                      "drained": 0, "shadow_checks": 0,
+                      "shadow_mismatches": 0, "golden_probes": 0,
+                      "golden_mismatches": 0, "health_evictions": 0,
+                      "reclaimed_pages": 0}
+        # wall seconds of each decode step run() drove (inter-token
+        # latency), of each engine-level shadow by phase (from the
+        # configured dispatch's return to the verdict, so on the card
+        # a decode shadow's includes waiting for the configured step's
+        # device work), the largest gap a comparison with the twin
+        # decided on (``_agree``; 0 where it compares bitwise), and the
+        # golden probe's wall at construction
+        self.decode_step_wall_s: list[float] = []
+        self.shadow_wall_s = {"prefill": [], "decode": []}
+        self.shadow_gap = 0.0
+        self.golden_probe_s: Optional[float] = None
         self.regime_source, tiles = (self._choose_regime(model)
                                      if choose_regime else (None, None))
         if tiles != model.rt.paged_block:
@@ -157,38 +217,339 @@ class ServingEngine:
                 model.cfg, dataclasses.replace(model.rt, paged_block=tiles),
                 device=model.device)
         self.model = model
-        self.device = model.device
+        self.device = dev = model.device
         self._window = int(model.cfg.window or 0)
         self.cache = model.init_paged_cache(n_pages, page_size)
-        self.decode_plan = None
-        if model.rt.planner:
-            # every later decode_step_paged hits the plan memo (and a
-            # relaunch replays the ("plan", ..., "decode", page_size,
-            # n_ctx) disk record); prefill shapes vary per prompt and
-            # are planned, then memoized, on first sight
-            from ..core import planner
-            self.decode_plan = planner.plan_model(
-                model.cfg, max_batch, 1, stitch=model.rt.stitch,
-                phase="decode", paged=page_size, kv_len=self.n_ctx)
+        self._twin = type(model)(
+            model.cfg, dataclasses.replace(model.rt, planner=False,
+                                           kernel_ops=False),
+            device=dev)
+        # the configured tier is bitwise its twin where it computes the
+        # twin's numbers: no kernel (nor a kernel's plain version on
+        # the CPU), and no stitched glue widened to f32 in a narrower
+        # type; elsewhere a shadow is held within SHADOW_REL_TOL
+        rt = model.rt
+        self._bitwise = not rt.kernel_ops and not (
+            rt.planner and rt.stitch and model.cfg.dtype != "float32")
+        self._rel_tol = SHADOW_REL_TOL.get(
+            model.cfg.dtype,
+            _sentinels.TOLERANCES.get(model.cfg.dtype, (1e-5, 1e-6))[0])
         # the decode step's inputs, overwritten by every step
-        dev = self.device
         self._tokens = torch.zeros(max_batch, dtype=torch.long, device=dev)
         self._positions = torch.full((max_batch,), -1, dtype=torch.int32,
                                      device=dev)
         self._table = torch.full((max_batch, max_pages_per_seq), -1,
                                  dtype=torch.int32, device=dev)
-        self.captured = None
-        if dev.type == "cuda" and not eager_decode:
-            from ..kernels.capture import CapturedStep
-            self.captured = CapturedStep(self._decode, dev)
+        self._graphed = dev.type == "cuda" and not eager_decode
+        self.captured = None         # the current tier's graph
+        self._captured_gen = -1      # the breaker generation it saw
+        self._shadow_graphs = None   # (save, restore, twin) graphs
+        if dev.type == "cuda":
+            self._build_libraries()
+        self.decode_plan = None
+        if model.rt.planner:
+            # every later decode_step_paged hits the plan memo (and a
+            # relaunch replays the ("plan", ..., "decode", page_size,
+            # n_ctx) disk record); prefill shapes vary per prompt and
+            # are planned, then memoized, on first sight.  A
+            # quarantined decode plan is skipped: the layer-level
+            # dispatch serves the hand-wired block instead of
+            # re-carving a denylisted fingerprint.
+            from ..core import planner
+            if not _breaker.is_open(self._decode_plan_key()):
+                self.decode_plan = planner.plan_model(
+                    model.cfg, max_batch, 1, stitch=model.rt.stitch,
+                    phase="decode", paged=page_size, kv_len=self.n_ctx)
+        self._golden_probe()
+        if self._graphed and self.exec_tier < len(TIERS) - 1:
+            # captured with every position at -1: the warm-up writes
+            # only the scratch page
+            self._capture()
 
-    def _decode(self) -> torch.Tensor:
-        """One decode step over the static inputs; returns the greedy
-        tokens (max_batch,) on the device."""
-        logits, _ = self.model.decode_step_paged(
+    def _build_libraries(self) -> None:
+        """Build every CUDA library the configured tier will launch, so
+        that a missing toolkit or a failed compile raises here — a
+        ``KernelBuildError`` no guard degrades from — before the golden
+        probe, the capture or any traffic."""
+        from ..kernels import _build
+        rt = self.model.rt
+        if rt.kernel_ops:
+            _build.load("attention_partial")
+            if rt.planner:
+                _build.load("mlp_chain")
+
+    def _decode_plan_key(self) -> tuple:
+        from ..core import planner
+        return planner.plan_key(
+            self.model.cfg, self.max_batch, 1, self.model.rt.stitch,
+            phase="decode", paged=self.page_size, kv_len=self.n_ctx)
+
+    def _outputs(self, logits: torch.Tensor) -> tuple:
+        """(host part, logits) of a decode step: the host part holds the
+        greedy tokens (max_batch,), then under ``Runtime(sentinels=
+        True)`` each slot's health flag, so one ``.cpu()`` reads both."""
+        host = torch.argmax(logits, dim=-1)
+        if self.model.rt.sentinels:
+            host = torch.cat([host, _sentinels.healthy(logits).long()])
+        return host, logits
+
+    def _step(self, model) -> tuple:
+        """One decode step of ``model`` over the static inputs, op by
+        op; returns ``_outputs``."""
+        logits, _ = model.decode_step_paged(
             self.params, self.cache, self._tokens, self._positions,
             self._table)
-        return torch.argmax(logits, dim=-1)
+        return self._outputs(logits)
+
+    def _tier_model(self, tier: int):
+        """The model executing at ``tier``: tiers 1–2 strip the planner
+        and the kernels; what remains is the plain paged path,
+        bit-identical to tier 0 on f32 configs with stitching off when
+        tier 0 launches no kernel."""
+        return self.model if tier == 0 else self._twin
+
+    def _decode(self) -> tuple:
+        """The current tier's decode step over the static inputs, op by
+        op (``captured.replay()`` is the same step from its graph)."""
+        return self._step(self._tier_model(self.exec_tier))
+
+    def _capture(self) -> None:
+        """Capture the current tier's decode step, dropping the graph of
+        the tier before.  The breaker's generation is read after the
+        capture: its warm-up may record a failure, and the capture then
+        records what the breaker allows."""
+        from ..kernels.capture import CapturedStep
+        self.captured = None
+        self.captured = CapturedStep(self._decode, self.device)
+        self._captured_gen = _breaker.BREAKER.generation
+
+    # ------------------------------------------------------------------
+    # Tiered execution (configured -> torch twin -> eager twin)
+    # ------------------------------------------------------------------
+    def _run(self, phase: str, tier: int, args: tuple):
+        """One dispatch at ``tier``: prefill returns its logits (1, V),
+        decode ``_outputs``.  A captured tier replays its graph, captured
+        anew when the breaker recorded a failure since its capture."""
+        if phase == "prefill":
+            tokens, table, length = args
+            logits, _ = self._tier_model(tier).prefill_paged(
+                self.params, tokens, self.cache, table, length)
+            return logits
+        if self._graphed and tier < len(TIERS) - 1:
+            if (self.captured is None
+                    or self._captured_gen != _breaker.BREAKER.generation):
+                self._capture()
+            return self.captured.replay()
+        return self._step(self._tier_model(tier))
+
+    def _note_tier_failure(self, phase: str, reason: str) -> None:
+        """Quarantine what tier 0 was executing before demoting, so a
+        relaunch starts on the degraded path instead of re-failing —
+        the planned decode plan, the one fingerprint the engine owns.
+        ``reason`` is recorded verbatim on the denylist record."""
+        if self.exec_tier == 0 and self.model.rt.planner:
+            _breaker.record_failure(self._decode_plan_key(),
+                                    reason=f"engine {phase}: {reason}")
+        if self.verbose:
+            print(f"serving tier demotion on {phase}: "
+                  f"{TIERS[self.exec_tier]} -> "
+                  f"{TIERS[self.exec_tier + 1]} ({reason})")
+
+    def _demote(self) -> None:
+        """One tier down, stickily.  The captured graph is dropped: the
+        next decode at a captured tier captures that tier's step."""
+        self.exec_tier += 1
+        self.stats["tier_demotions"] += 1
+        self.captured = None
+
+    def _demote_tier0(self, phase: str, reason: str) -> None:
+        """Sticky demotion off the configured tier on a *correctness*
+        signal (shadow or golden-probe mismatch) — the crash handler's
+        quarantine and rebuild, minus the exception."""
+        if self.exec_tier != 0:
+            return
+        self._note_tier_failure(phase, reason)
+        self._demote()
+
+    def _logits(self, phase: str, out) -> torch.Tensor:
+        return out if phase == "prefill" else out[1]
+
+    def _serve(self, phase: str, logits: torch.Tensor):
+        """The dispatch result carrying ``logits`` in place of the
+        step's own (a corrupted or a twin's)."""
+        return logits if phase == "prefill" else self._outputs(logits)
+
+    def _rows(self, positions: torch.Tensor, table: torch.Tensor) -> tuple:
+        """The pool rows a step at ``positions`` (B, S) writes, and their
+        current values: (phys, off, [(k, v) of each layer]) — inactive
+        slots and prompt padding on the scratch page."""
+        phys, off = KP.slot_coords(table, positions, self.page_size)
+        phys, off = phys.long(), off.long()
+        return phys, off, [(c["k_pages"][phys, :, off],
+                            c["v_pages"][phys, :, off]) for c in self.cache]
+
+    def _restore(self, rows: tuple) -> None:
+        phys, off, saved = rows
+        for c, (k, v) in zip(self.cache, saved):
+            c["k_pages"][phys, :, off] = k
+            c["v_pages"][phys, :, off] = v
+
+    def _shadow_decode(self) -> tuple:
+        """The twin's decode logits on the static inputs, and the
+        callable that puts back the pool rows the twin wrote.  On the
+        card the save, the restore and the twin step are each captured
+        once in a graph of their own (sharing the pool) and replayed;
+        the restore is captured before the twin step, so its warm-up
+        writes back the rows just saved, and the twin's warm-up writes
+        the rows its replay writes again."""
+        rows_of = lambda: self._rows(self._positions[:, None],  # noqa: E731
+                                     self._table)
+        if not self._graphed:
+            rows = rows_of()
+            return self._step(self._twin)[1], lambda: self._restore(rows)
+        if self._shadow_graphs is None:
+            from ..kernels.capture import CapturedStep
+            save = CapturedStep(rows_of, self.device)
+            save.replay()
+            restore = CapturedStep(lambda: self._restore(save.out),
+                                   self.device)
+            twin = CapturedStep(lambda: self._step(self._twin),
+                                self.device)
+            self._shadow_graphs = (save, restore, twin)
+        else:
+            save, restore, twin = self._shadow_graphs
+            save.replay()
+        return twin.replay()[1], restore.replay
+
+    def _agree(self, got: torch.Tensor, want: torch.Tensor) -> bool:
+        """Configured logits against the twin's: bitwise where the
+        configured tier runs the twin's own ops, else each row's gap
+        from the twin's, relative in the 2-norm, within ``_rel_tol`` —
+        per row, so that one request's bad logits are not diluted by
+        the others'.  The largest gap is kept in ``shadow_gap``; one
+        host sync either way."""
+        if self._bitwise:
+            return _sentinels.outputs_equal(got, want)
+        w = want.float()
+        gap = ((got.float() - w).norm(dim=-1)
+               / w.norm(dim=-1).clamp(min=1e-30)).max().item()
+        self.shadow_gap = max(self.shadow_gap, gap)
+        return gap <= self._rel_tol
+
+    def _sentinel_check(self, phase: str, args: tuple, out):
+        """Sampled shadow verification of one tier-0 dispatch (``args``:
+        a prefill's, or a decode's live slots).  On the sampler's draw
+        the twin re-runs the SAME inputs; a mismatch
+        quarantines the decode plan (planned path), demotes stickily
+        to the twin, and serves the twin's output and pool rows.
+        Otherwise the rows the twin wrote are restored to the
+        configured tier's, so a shadow never changes a later step."""
+        spec = _sentinels.active()
+        if spec is None:
+            return out
+        if _faults.armed():
+            logits = self._logits(phase, out)
+            bad = _sentinels.corrupt_if_armed(logits, op=f"engine-{phase}")
+            if bad is not logits:
+                out = self._serve(phase, bad)
+        if not spec.sample():
+            return out
+        self.stats["shadow_checks"] += 1
+        t0 = time.perf_counter()
+        got = self._logits(phase, out)
+        if phase == "decode":
+            # live slots only: an inactive slot's logits are never read,
+            # and its dead row is zeros from the kernel but the mean of
+            # v from the gather twin
+            ref, restore = self._shadow_decode()
+            live = list(args[0])
+            ok = self._agree(got[live], ref[live])
+        else:
+            tokens, table, length = args
+            ar = torch.arange(tokens.shape[1], dtype=torch.int32,
+                              device=tokens.device)
+            rows = self._rows(torch.where(ar < length, ar, -1)[None, :],
+                              table)
+            ref = self._run(phase, 2, args)
+            ok = self._agree(got, ref)
+            restore = lambda: self._restore(rows)  # noqa: E731
+        spec.note_check(ok)
+        if ok:
+            restore()
+        self.shadow_wall_s[phase].append(time.perf_counter() - t0)
+        if ok:
+            return out
+        self.stats["shadow_mismatches"] += 1
+        self._demote_tier0(
+            phase, "shadow mismatch: configured output diverged from the "
+                   "torch twin on identical inputs")
+        return self._serve(phase, ref)
+
+    def _golden_probe(self) -> None:
+        """Golden probe at construction: before any traffic, one canned
+        decode dispatch runs through the configured tier AND the twin,
+        op by op, and must agree.  The dispatch is live (every slot at
+        position 0 with only the scratch page in its table), so it
+        reaches the decode kernel and writes nothing but the scratch
+        page; an all-inactive one would compare the kernel's dead rows
+        (zeros) with the twin's (the mean of v).  A mismatch, or a
+        probe that raises, quarantines the decode plan and starts the
+        engine on the twin tier."""
+        spec = _sentinels.active()
+        if spec is None or not spec.probe:
+            return
+        t0 = time.perf_counter()
+        self.stats["golden_probes"] += 1
+        self._tokens.zero_()
+        self._positions.zero_()
+        self._table[:, 0] = KP.SCRATCH_PAGE
+        try:
+            out = self._step(self.model)[1]
+            out = _sentinels.corrupt_if_armed(out, op="engine-golden")
+            ref = self._step(self._twin)[1]
+            ok = self._agree(out, ref)
+        except Exception as e:  # noqa: BLE001 - probe failure = mismatch
+            if not _breaker.degradable(e):
+                raise
+            ok = False
+            if self.verbose:
+                print(f"golden probe raised: {type(e).__name__}: {e}")
+        finally:
+            self._positions.fill_(-1)
+            self._table.fill_(-1)
+        spec.note_probe(ok)
+        if not ok:
+            self.stats["golden_mismatches"] += 1
+            self._demote_tier0(
+                "decode", "golden probe: canned dispatch diverged from "
+                          "the torch twin before serving")
+        self.golden_probe_s = time.perf_counter() - t0
+
+    def _exec(self, phase: str, *args):
+        """Run one prefill/decode dispatch through the fallback chain.
+
+        A failed dispatch is retried at the next tier on the SAME
+        inputs (the pool rows a failed attempt wrote are rewritten by
+        the retry), so degradation changes which program computes the
+        step, never which step is computed.  A failure the breaker may
+        not degrade from raises at every tier."""
+        while True:
+            try:
+                if self.exec_tier == 0:
+                    _faults.fault_point("kernel_dispatch",
+                                        op=f"engine-{phase}")
+                _faults.fault_point("engine_step", op=phase,
+                                    tier=self.exec_tier)
+                out = self._run(phase, self.exec_tier, args)
+                if self.exec_tier == 0:
+                    out = self._sentinel_check(phase, args, out)
+                return out
+            except Exception as e:  # noqa: BLE001 - demote and retry
+                if (self.exec_tier >= len(TIERS) - 1
+                        or not _breaker.degradable(e)):
+                    raise
+                self._note_tier_failure(phase, f"{type(e).__name__}: {e}")
+                self._demote()
 
     # ------------------------------------------------------------------
     def _choose_regime(self, model):
@@ -271,10 +632,20 @@ class ServingEngine:
         s_pad = math.ceil(plen / self.page_size) * self.page_size
         toks = np.zeros((1, s_pad), np.int64)
         toks[0, :plen] = pend.prompt
-        logits, self.cache = self.model.prefill_paged(
-            self.params, torch.from_numpy(toks).to(self.device), self.cache,
-            self._page_table([alloc]), plen)
+        logits = self._exec("prefill", torch.from_numpy(toks).to(
+            self.device), self._page_table([alloc]), plen)
         self.stats["prefills"] += 1
+        if self.model.rt.sentinels and not bool(
+                _sentinels.healthy(logits[:1]).all()):
+            # activation health monitor: the prefill produced
+            # NaN/Inf/exploded logits — evict honestly instead of
+            # admitting a request whose every future token is garbage
+            alloc.release(self.pool)
+            self.stats["health_evictions"] += 1
+            self._finish_request(pend.rid, pend.base_prompt_len,
+                                 pend.done, pend.submit_step,
+                                 pend.n_preempted, "health")
+            return True
         tok = int(torch.argmax(logits[0]))
         slot = _Slot(pend.rid, pend.prompt, pend.base_prompt_len,
                      pend.done + [tok], pend.max_new, alloc,
@@ -403,6 +774,11 @@ class ServingEngine:
         """One scheduler iteration; returns requests finished in it."""
         n_done = len(self.finished)
         self.step_no += 1
+        with self.watchdog.watch(f"step{self.step_no}"):
+            self._step_inner()
+        return self.finished[n_done:]
+
+    def _step_inner(self) -> None:
         self._expire_deadlines()
         self._reclaim_window()
         # running slots take their growth pages BEFORE admission sees
@@ -423,7 +799,7 @@ class ServingEngine:
                         "scheduler stalled: pool cannot cover the "
                         "queue head even when idle — shrink prompts "
                         "or grow n_pages")
-            return self.finished[n_done:]
+            return
         self._stall = 0
 
         tokens = np.zeros((self.max_batch,), np.int64)
@@ -436,17 +812,27 @@ class ServingEngine:
         self._table.copy_(torch.from_numpy(KP.table_array(
             [s.alloc if s is not None else None for s in self.slots],
             self.max_pages)))
-        nxt = (self.captured.replay() if self.captured is not None
-               else self._decode()).cpu().numpy()
+        host, _ = self._exec("decode", active)
+        host = host.cpu().numpy()
+        nxt = host[:self.max_batch]
+        health = host[self.max_batch:] if self.model.rt.sentinels else None
         self.stats["decode_steps"] += 1
         self.stats["slot_steps"] += self.max_batch
         self.stats["active_steps"] += len(active)
         for i in active:
             slot = self.slots[i]
             self.stats["ctx_tokens"] += slot.pos + 1
+            self.stats["page_slot_steps"] += sum(
+                1 for p in slot.alloc.pages if p != KP.RECLAIMED)
+            if health is not None and not health[i]:
+                # activation health monitor: this slot's logits went
+                # NaN/Inf/exploded — its kv is poisoned, evict with the
+                # partial tokens instead of sampling from garbage
+                self.stats["health_evictions"] += 1
+                self._evict_slot(i, "health")
+                continue
             slot.generated.append(int(nxt[i]))
             self._maybe_finish(i)
-        return self.finished[n_done:]
 
     def drain(self, deadline: Optional[float] = None,
               max_steps: Optional[int] = None) -> list[FinishedRequest]:
@@ -487,20 +873,53 @@ class ServingEngine:
             self._draining = False
         return self.finished[n_done:]
 
+    def reset(self) -> None:
+        """Zero the counters between ``run()`` calls.  With requests in
+        flight it warns (``DeprecationWarning``) and drains them first
+        (``drain(deadline=0)``): in-flight work is evicted honestly as
+        ``outcome="drained"`` before the counters zero."""
+        if self.queue or any(s is not None for s in self.slots):
+            warnings.warn(
+                "reset() with requests in flight is deprecated; "
+                "draining them first — call drain() explicitly to "
+                "control the deadline", DeprecationWarning,
+                stacklevel=2)
+            self.drain(deadline=0.0)
+        assert self.pool.n_free == self.pool.n_pages - 1
+        self.finished = []
+        self.step_no = 0
+        self._next_rid = 0
+        self._stall = 0
+        self.watchdog.reset()
+        self.decode_step_wall_s = []
+        for k in self.stats:
+            self.stats[k] = 0
+
     def run(self, requests) -> tuple[list[FinishedRequest], dict]:
         """Drive ``step()`` until every submitted request finishes.
 
         requests: iterable of (prompt, max_new).  Returns results in
-        submission order plus a stats dict (wall seconds, tokens/s, and
-        the step counters)."""
+        submission order plus a stats dict (wall seconds, tokens/s, the
+        step counters, the execution tier, the watchdog's readings and
+        the wall of each decode step)."""
         for prompt, max_new in requests:
             self.submit(prompt, max_new)
         t0 = time.perf_counter()
         while self.queue or any(s is not None for s in self.slots):
+            before = self.stats["decode_steps"]
+            ts = time.perf_counter()
             self.step()
+            if self.stats["decode_steps"] > before:
+                # a step that ran the batched decode: its wall time is
+                # the inter-token latency every active slot just paid
+                self.decode_step_wall_s.append(time.perf_counter() - ts)
         dt = time.perf_counter() - t0
         out = sorted(self.finished, key=lambda r: r.rid)
         stats = dict(self.stats)
         stats["wall_s"] = dt
         stats["tok_per_s"] = stats["generated"] / dt if dt > 0 else 0.0
+        stats["exec_tier"] = TIERS[self.exec_tier]
+        stats["watchdog_breaches"] = self.watchdog.breaches
+        stats["max_step_s"] = self.watchdog.max_step_s
+        stats["decode_step_wall_s"] = list(self.decode_step_wall_s)
         return out, stats

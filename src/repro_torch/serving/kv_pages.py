@@ -53,10 +53,14 @@ class PagePool:
     def alloc(self, n: int) -> Optional[list[int]]:
         """``n`` pages, or None (and no state change) when the pool
         cannot cover the request — admission backs off instead of
-        partially allocating."""
+        partially allocating.  An armed ``page_exhaustion`` fault
+        (reliability/faults.py) denies the same way a genuinely empty
+        pool does, so every caller's back-off path is exercised."""
+        from ..reliability import faults as _faults
         if n < 0:
             raise ValueError(f"bad page count {n}")
-        if n > len(self._free):
+        if n > len(self._free) or _faults.check(
+                "page_exhaustion", n=n, n_free=len(self._free)):
             return None
         pages = [self._free.pop() for _ in range(n)]
         self._live.update(pages)
