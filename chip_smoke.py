@@ -71,6 +71,26 @@ which raises on failure:
       and be
       absorbed as the reliability layer says, and the records are
       lifted after; a ``{"reliability": ...}`` line;
+   g. training (``training_phase``), after every serving phase with
+      their weights freed: qwen3-8b at every FULL width with the depth
+      cut to 8 of 36 layers (AdamW's 16 B a parameter: 131 GB for 36
+      layers, 44.6 GB for 8), one TokenPipeline batch of B=1 x S=2048
+      (the streaming twin under autograd) — T1 one step's bf16 loss,
+      global grad norm and every leaf's gradient against the same step
+      with the weights upcast to f32, each within its stated limit; T2
+      20 steps of ``launch.train.train`` with the CLI's defaults, every
+      loss and grad norm finite, the mean of the last 5 losses below
+      the first 5's, every kernel counter 0 (no kernel is on the
+      training path, as in the JAX package), the step wall, tokens/s,
+      peak memory, the model-FLOPs share of 989 TFLOP/s with its formula,
+      and where one step's device time goes (five pieces by events and
+      by kernel class, the attention twin of one layer); T3 restart at
+      qwen3 SMOKE on the card: a StepFailure planted at step 6 of 10
+      under a StepRunner checkpointing every 4 steps (latest step 10,
+      the replayed batches bitwise equal, each loss within its limit of
+      an uninterrupted run's), a second runner resuming from step 8 for
+      two steps, a bf16 state restored bit for bit; a ``{"train": ...}``
+      line before the kernels line;
 5. one full-width decode step through each serving path against the
    same step through the plain hand-wired path, and the cache-free
    loss and logits against the plain twin path
@@ -97,11 +117,18 @@ limit, then ``{"ok": true, "device": {...}}`` as the last line.
 runs only the build and the cache-free forward's check against planted
 attention faults (no causal mask, one key ahead, half the context, the
 scale 1/D), printing each fault's distance from the plain twin path
-beside the limits; it fails unless every fault goes past them.
+beside the limits, then T1 of 4g unfaulted and with one layer's
+attention output detached (its attention weights get no gradient); it
+fails unless every fault goes past the limits.
 
     python3 chip_smoke.py --reliability
 
 runs only the build, qwen3-8b's weights and the reliability phase (4f).
+
+    python3 chip_smoke.py --train
+
+runs only the device phase and the training phase (4g), and prints its
+``{"train": ...}`` line.
 """
 from __future__ import annotations
 
@@ -175,6 +202,38 @@ GENERATE = dict(batch=4, prompt_len=128, gen=32, seed=3)
 # The MQA config served at full width after qwen3-8b: its paged decode
 # runs the partial kernel at a GQA group of 48
 GRANITE = "granite-20b"
+# Phase 4g, training: qwen3-8b at every FULL width, the depth cut to 8
+# of 36 layers.  AdamW keeps 16 B a parameter (bf16 weight and
+# gradient, f32 master, m and v): the 8.19 B parameters of 36 layers
+# need 131 GB, more than one 80 GB card; 8 layers (2.79 B parameters)
+# need 44.6 GB.  One TokenPipeline(seed 0) batch of B=1 x S=2048 (more
+# than 2 bkv: the streaming twin runs under autograd), the train CLI's
+# defaults (lr 3e-4, warmup min(10, steps // 4 + 1), clip 1.0, decay 0.1)
+TRAIN = dict(n_layers=8, batch=1, seq=2048, steps=20, seed=0, lr=3e-4)
+# T1 holds one bf16 step's loss and gradients to the same step with the
+# weights upcast to f32 (TF32 off).  bf16 rounds every product's output
+# (2^-9 relative) through 8 layers forward and back.  The loss averages
+# 2048 terms, so its roundings mostly cancel (3.8e-6 relative on an
+# H100); the global norm is dominated by the large leaves (1.1e-4); a
+# leaf's gradient carries the roundings of its layer and those above it
+# (median 0.021, worst 0.027 at a qk-norm scale, lowest cosine 0.9996).
+# Each limit sits well above its reading; a gradient that is missing or
+# wrong is at relative error ~1 (the planted fault below: exactly 1).
+TRAIN_LOSS_REL_TOL = 1e-4
+TRAIN_GNORM_REL_TOL = 2e-3
+TRAIN_GRAD_REL_TOL = 0.1     # each leaf, relative error in the 2-norm
+# ``--plant-faults``' training fault: one layer's attention output
+# detached, so its q/k/v/o projections and qk-norm get no gradient
+TRAIN_FAULT_LAYER = 3
+# T3, restart on the card: qwen3 SMOKE (f32), a StepRunner
+# checkpointing every 4 steps, a StepFailure planted at step 6 of 10,
+# and a second runner resuming from step 8.  Restored state is bitwise
+# the saved one and the steps run under torch.use_deterministic_algorithms,
+# so each loss must equal the uninterrupted run's up to one f32
+# rounding of a reduction.
+RESTART = dict(steps=10, ckpt_every=4, fail_at=6, resume_at=8, batch=4,
+               seq=64, lr=1e-2)
+RESTART_LOSS_REL_TOL = 1e-6
 
 
 def device_phase() -> str:
@@ -294,11 +353,12 @@ def kernel_check_phase(tuned: dict, tuned_mqa: dict) -> float:
 
 
 def init_phase(cfg) -> dict:
+    from repro_torch import tree as T
     from repro_torch.models.lm import LM
     t0 = time.perf_counter()
     params = LM(cfg, device="cuda").init_params(0)
     torch.cuda.synchronize()
-    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in T.leaves(params))
     print(f"model: {cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
           f"heads={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.dh} d_ff={cfg.d_ff} "
           f"vocab={cfg.vocab} {cfg.dtype} weights={n_bytes / 1e9:.2f} GB "
@@ -449,17 +509,6 @@ def _mlp_tiles(cfg) -> dict:
             tk.params.as_kwargs()
             for k, tk in api._CACHE.items()
             if k[0] == "mlp" and k[2:4] == (cfg.d_ff, cfg.d_model)}
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def _workload(cfg):
@@ -1863,11 +1912,522 @@ def quickstart_phase() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 4g. training (T1 numerics, T2 training, T3 restart)
+# ---------------------------------------------------------------------------
+
+def _train_cfg():
+    """qwen3-8b FULL with the depth cut to ``TRAIN["n_layers"]``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("qwen3-8b"),
+                               n_layers=TRAIN["n_layers"])
+
+
+def _train_batch(cfg, step: int = 0) -> dict:
+    """``launch.train``'s batch ``step`` (TokenPipeline, seed 0) on the
+    card."""
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq"],
+                                    global_batch=TRAIN["batch"],
+                                    seed=TRAIN["seed"]))
+    return {k: torch.from_numpy(v).to("cuda", torch.long)
+            for k, v in pipe.batch_at(step).items()}
+
+
+def _detach_attention(layer: int):
+    """A stand-in for ``layers.attention_block`` whose call for
+    ``layer`` (one call per layer and forward) returns its output
+    detached from the graph: the forward is unchanged and that layer's
+    attention weights get no gradient."""
+    from repro_torch.models import layers as L
+    block, calls = L.attention_block, []
+
+    def faulty(*a, **k):
+        out = block(*a, **k)
+        calls.append(1)
+        return out.detach() if len(calls) == layer + 1 else out
+    return faulty
+
+
+def _loss_and_grads(model, params, batch, fault=None) -> tuple:
+    """(loss, each leaf's gradient in leaf order, None for a leaf that
+    got none) of one ``LM.loss`` backward; the ``.grad`` are cleared."""
+    from repro_torch import tree as T
+    from repro_torch.models import layers as L
+    from repro_torch.models.lm import requires_grad
+    requires_grad(params)
+    block = L.attention_block
+    if fault is not None:
+        L.attention_block = fault
+    try:
+        loss = model.loss(params, batch)
+        loss.backward()
+    finally:
+        L.attention_block = block
+    grads = [p.grad for p in T.leaves(params)]
+    for p in T.leaves(params):
+        p.grad = None
+    return loss.detach(), grads
+
+
+def _norm(grads) -> float:
+    return math.sqrt(sum(float(torch.sum(torch.square(g.float())))
+                         for g in grads if g is not None))
+
+
+def _grad_distance(got, want: torch.Tensor) -> tuple[float, float]:
+    """(relative error in the 2-norm, cosine) of one leaf's gradient
+    against the f32 step's; a missing gradient is zeros (relative error
+    1, cosine 0)."""
+    w = want.float()
+    g = torch.zeros_like(w) if got is None else got.float()
+    wn = float(w.norm())
+    rel = float((g - w).norm()) / max(wn, 1e-30)
+    cos = float(torch.sum(g * w)) / max(float(g.norm()) * wn, 1e-30)
+    return rel, cos
+
+
+def train_numerics_phase(cfg, faults=("none",)) -> dict:
+    """T1: one step's loss and gradients at ``cfg`` in bf16 against the
+    same step with the weights upcast to f32 (TF32 off), seed-0
+    weights, ``launch.train``'s first batch.  Each entry of ``faults``
+    is run: ``none`` must be within TRAIN_LOSS_REL_TOL,
+    TRAIN_GNORM_REL_TOL and TRAIN_GRAD_REL_TOL (every leaf), and
+    ``detach_attention`` (layer TRAIN_FAULT_LAYER's attention output
+    detached) must go past the gradient limit."""
+    from repro_torch import tree as T
+    from repro_torch.models.lm import LM, Runtime
+    model = LM(cfg, Runtime(), device="cuda")
+    params = model.init_params(TRAIN["seed"])
+    batch = _train_batch(cfg)
+    keys = [k for k, _ in T.leaves_with_paths(params)]
+    t0 = time.perf_counter()
+    want_loss, want = _loss_and_grads(
+        model, T.map_tree(lambda p: p.detach().float(), params), batch)
+    torch.cuda.synchronize()
+    f32_s = time.perf_counter() - t0
+    want_norm = _norm(want)
+    results = {}
+    for name in faults:
+        fault = (None if name == "none"
+                 else _detach_attention(TRAIN_FAULT_LAYER))
+        t0 = time.perf_counter()
+        loss, grads = _loss_and_grads(model, params, batch, fault)
+        torch.cuda.synchronize()
+        bf16_s = time.perf_counter() - t0
+        norm = _norm(grads)
+        per_leaf = {k: _grad_distance(g, w)
+                    for k, g, w in zip(keys, grads, want)}
+        del grads
+        worst = sorted(per_leaf, key=lambda k: -per_leaf[k][0])
+        loss_rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+        gnorm_rel = abs(norm - want_norm) / want_norm
+        r = dict(loss=float(loss), f32_loss=float(want_loss),
+                 loss_rel=loss_rel, grad_norm=norm, f32_grad_norm=want_norm,
+                 gnorm_rel=gnorm_rel, worst_leaf=worst[0],
+                 worst_rel=per_leaf[worst[0]][0],
+                 worst_cos=min(c for _, c in per_leaf.values()),
+                 median_rel=sorted(r_ for r_, _ in per_leaf.values())[
+                     len(per_leaf) // 2],
+                 leaves=len(per_leaf), bf16_s=bf16_s, f32_s=f32_s)
+        r["within"] = (loss_rel <= TRAIN_LOSS_REL_TOL
+                       and gnorm_rel <= TRAIN_GNORM_REL_TOL
+                       and r["worst_rel"] <= TRAIN_GRAD_REL_TOL)
+        results[name] = r
+        print(f"[train T1, {name}] {cfg.name} {cfg.n_layers} layers B="
+              f"{TRAIN['batch']} S={TRAIN['seq']}: bf16 loss "
+              f"{r['loss']:.6f} vs f32 {r['f32_loss']:.6f} (rel "
+              f"{loss_rel:.3g}, tol {TRAIN_LOSS_REL_TOL}); grad norm "
+              f"{norm:.6g} vs {want_norm:.6g} (rel {gnorm_rel:.3g}, tol "
+              f"{TRAIN_GNORM_REL_TOL}); per leaf ({len(per_leaf)}) rel err "
+              f"median {r['median_rel']:.3g}, worst {r['worst_rel']:.3g} at "
+              f"{worst[0]} (tol {TRAIN_GRAD_REL_TOL}), lowest cosine "
+              f"{r['worst_cos']:.5f}; bf16 step {bf16_s:.2f}s, f32 "
+              f"{f32_s:.2f}s (first calls): "
+              f"{'within' if r['within'] else 'past the limits'}")
+        print(f"[train T1, {name}] worst leaves: "
+              + ", ".join(f"{k} {per_leaf[k][0]:.3g}/{per_leaf[k][1]:.4f}"
+                          for k in worst[:6]))
+    del want, params
+    torch.cuda.empty_cache()
+    if not results["none"]["within"]:
+        raise RuntimeError("a bf16 training step diverges from the f32 one")
+    missed = [n for n, r in results.items()
+              if n != "none" and r["worst_rel"] <= TRAIN_GRAD_REL_TOL]
+    if missed:
+        raise RuntimeError(f"planted training faults within the limit: "
+                           f"{missed}")
+    return results
+
+
+def _train_flops(cfg, b: int, s: int) -> tuple[float, str]:
+    """Model FLOPs of one training step: 6 x matmul parameters x tokens
+    (forward 2, backward 4), plus the attention's two products over the
+    causal (row, key) pairs, forward and backward (3 x)."""
+    layer = (cfg.d_model * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.dh
+             + cfg.n_heads * cfg.dh * cfg.d_model
+             + 3 * cfg.d_model * cfg.d_ff)
+    n_mm = cfg.n_layers * layer + cfg.d_model * cfg.vocab
+    pairs = s * (s + 1) // 2
+    attn = 3 * 2 * 2 * b * cfg.n_heads * cfg.dh * pairs * cfg.n_layers
+    formula = (f"6 x {n_mm} matmul params (layers x (qkvo + 3 x d x ff) + "
+               f"lm_head) x {b * s} tokens + 3 x 2 products x 2 x B={b} x "
+               f"Hq={cfg.n_heads} x dh={cfg.dh} x S(S+1)/2={pairs} x "
+               f"{cfg.n_layers} layers")
+    return 6 * n_mm * b * s + attn, formula
+
+
+def _kernel_class(name: str) -> str:
+    n = name.lower()
+    if any(s in n for s in ("gemm", "nvjet", "cutlass", "xmma", "cublas",
+                            "gemv", "splitk")):
+        return "gemm"
+    if any(s in n for s in ("index", "gather", "scatter", "embedding")):
+        return "index"
+    if "reduce" in n or "softmax" in n:
+        return "reduce"
+    if "elementwise" in n or "foreach" in n:
+        return "elementwise"
+    return "other"
+
+
+def _profile_groups(fn) -> dict:
+    """Device ms of ``fn()`` by kernel class, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    groups: dict = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            c = _kernel_class(e.key)
+            groups[c] = groups.get(c, 0.0) + e.self_device_time_total / 1e3
+    return groups
+
+
+def train_profile_phase(cfg, state) -> dict:
+    """Where one training step's time goes, on T2's state and the next
+    batch, after one warm-up step: the step cut at the final hidden
+    state into five pieces —
+    the stack's forward, the loss forward (final norm, lm_head, chunked
+    cross-entropy), the loss backward, the stack's backward (fed the
+    loss backward's gradient: together the step's backward) and the
+    AdamW update — each piece's device span between CUDA events in one
+    step, then each piece's device time by kernel class in a
+    profiled step; and the streaming attention's forward and backward
+    of one layer at the step's shape, by events."""
+    from repro_torch import tree as T
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as TR
+    from repro_torch.models import layers as L
+    from repro_torch.models.lm import Runtime, chunked_ce, requires_grad
+    model = S.build_model(cfg, Runtime(), device="cuda")
+    opt = TR.make_optimizer(TRAIN["lr"], TRAIN["steps"])
+    params, opt_state = state
+    batch = _train_batch(cfg, TRAIN["steps"])
+    ctx = {}
+
+    def stack_forward():
+        requires_grad(params)
+        ctx["x"] = model._hidden(params, batch["tokens"])
+
+    def loss_forward():
+        ctx["xd"] = ctx["x"].detach().requires_grad_()
+        h = L.rmsnorm(ctx["xd"], params["final_norm"]["w"], cfg.norm_eps)
+        ctx["loss"] = chunked_ce(h, params["lm_head"], batch["labels"])
+
+    def loss_backward():
+        ctx.pop("loss").backward()
+
+    def stack_backward():
+        ctx.pop("x").backward(ctx.pop("xd").grad)
+
+    def adamw():
+        opt.update(params, [p.grad for p in T.leaves(params)], opt_state)
+        for p in T.leaves(params):
+            p.grad = None
+
+    pieces = [("stack forward", stack_forward),
+              ("loss forward", loss_forward),
+              ("loss backward", loss_backward),
+              ("stack backward", stack_backward), ("adamw", adamw)]
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    t0 = time.perf_counter()
+    for _, fn in pieces:          # a warm-up step, cut the same way
+        fn()
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    t0 = time.perf_counter()
+    ev[0].record()
+    for i, (_, fn) in enumerate(pieces):
+        fn()
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    span = {n: ev[i].elapsed_time(ev[i + 1])
+            for i, (n, _) in enumerate(pieces)}
+    retries = torch.cuda.memory_stats().get("num_alloc_retries",
+                                            0) - retries
+    groups = {n: _profile_groups(fn) for n, fn in pieces}
+    # the streaming attention twin of one layer at the step's shape
+    b, s, hq, dh = TRAIN["batch"], TRAIN["seq"], cfg.n_heads, cfg.dh
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, go = (torch.randn(b, hq, s, dh, generator=g, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    q.requires_grad_()
+    k.requires_grad_()
+    v.requires_grad_()
+    attn_ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for rep in range(2):          # the second repetition is timed
+        attn_ev[0].record()
+        o = L.streaming_attention(q, k, v, causal=True, window=0,
+                                  scale=dh ** -0.5, bkv=Runtime().bkv)
+        attn_ev[1].record()
+        o.backward(go)
+        attn_ev[2].record()
+        torch.cuda.synchronize()
+    attn = {"forward_ms": attn_ev[0].elapsed_time(attn_ev[1]),
+            "backward_ms": attn_ev[1].elapsed_time(attn_ev[2])}
+    del q, k, v, go, o
+    total = sum(span.values())
+    print(f"[train profile] one step, cut in five pieces: wall "
+          f"{wall_ms:.2f} ms, device span {total:.2f} ms (the warm-up "
+          f"step's wall {warm_ms:.2f} ms; {retries} allocator retries "
+          f"over both)")
+    for n in span:
+        print(f"[train profile]   {n:15s} span {span[n]:8.3f} ms; device ms "
+              f"by kernel class: "
+              + ", ".join(f"{c} {ms:.3f}" for c, ms in sorted(
+                  groups[n].items(), key=lambda kv: -kv[1])))
+    print(f"[train profile] streaming attention (twin) of one layer, "
+          f"B={b} Hq={hq} S={s} dh={dh}: forward {attn['forward_ms']:.3f} "
+          f"ms, backward {attn['backward_ms']:.3f} ms; x {cfg.n_layers} "
+          f"layers = {cfg.n_layers * sum(attn.values()):.2f} ms a step")
+    return dict(wall_ms=wall_ms, warmup_wall_ms=warm_ms,
+                alloc_retries=retries, span_ms=span, groups_ms=groups,
+                attention_layer_ms=attn)
+
+
+def train_phase(cfg) -> dict:
+    """T2: ``launch.train.train`` at ``cfg`` for TRAIN["steps"] steps
+    with the CLI's defaults, every kernel counter set to 0 just before
+    and read just after (no kernel is on the training path, as in the
+    JAX package: each must read 0); every loss and grad norm finite,
+    the mean of the last 5 losses below the mean of the first 5; the
+    step wall (median of steps 2 to the last), tokens/s, peak memory
+    and the model-FLOPs share; then ``train_profile_phase`` on the
+    trained state."""
+    from repro_torch.kernels import capture
+    from repro_torch.launch import train as TR
+    names = list(capture.counters())
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    _zero(*names)
+    t0 = time.perf_counter()
+    out = TR.train(cfg, steps=TRAIN["steps"], batch=TRAIN["batch"],
+                   seq=TRAIN["seq"], lr=TRAIN["lr"], seed=TRAIN["seed"],
+                   device="cuda")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = _read(*names)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # an allocation the caching allocator could not place frees its
+    # cache and retries (a device sync): counted, as it inflates a step
+    retries = torch.cuda.memory_stats().get("num_alloc_retries",
+                                            0) - retries
+    losses, norms = out["losses"], out["grad_norms"]
+    times = sorted(out["step_times"][2:])
+    step_ms = times[len(times) // 2] * 1e3
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    flops, formula = _train_flops(cfg, TRAIN["batch"], TRAIN["seq"])
+    share = flops / (step_ms / 1e3) / PEAK_OPS[torch.bfloat16]
+    first5, last5 = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    print(f"[train T2] {TRAIN['steps']} steps in {wall_s:.1f}s (init "
+          f"included): losses {[round(x, 4) for x in losses]}; grad norms "
+          f"{[round(x, 3) for x in norms]}")
+    print(f"[train T2] mean loss of the first 5 steps {first5:.5f}, of "
+          f"the last 5 {last5:.5f}; kernel launches {launches} (want 0)")
+    print(f"[train T2] step wall {step_ms:.2f} ms (median of steps 2-"
+          f"{TRAIN['steps'] - 1}, synchronised; first step "
+          f"{out['step_times'][0] * 1e3:.1f} ms); {tokens / step_ms * 1e3:.1f}"
+          f" tokens/s; peak memory {peak_gb:.2f} GB "
+          f"(torch.cuda.max_memory_allocated; {held_gb:.2f} GB of it held "
+          f"before the phase), {retries} allocator retries")
+    print(f"[train T2] model FLOPs {flops / 1e12:.3f} TFLOP a step = "
+          f"{formula}; {100 * share:.2f}% of 989 TFLOP/s at {step_ms:.2f} ms")
+    finite = all(math.isfinite(x) for x in losses + norms)
+    if not finite:
+        raise RuntimeError("a non-finite training loss or grad norm")
+    if not last5 < first5:
+        raise RuntimeError(f"the training loss did not fall: {losses}")
+    if any(launches.values()):
+        raise RuntimeError(f"the training path launched {launches}")
+    first_ms = out["step_times"][0] * 1e3
+    prof = train_profile_phase(cfg, out["state"])
+    del out
+    torch.cuda.empty_cache()
+    return dict(losses=losses, grad_norms=norms, first5=first5,
+                last5=last5, step_ms=step_ms, first_step_ms=first_ms,
+                tokens_per_s=tokens / step_ms * 1e3, peak_gb=peak_gb,
+                held_before_gb=held_gb, alloc_retries=retries,
+                model_tflop=flops / 1e12, flops_share=share,
+                flops_formula=formula, launches=launches, profile=prof)
+
+
+def restart_phase() -> dict:
+    """T3: restart on the card at qwen3 SMOKE (RESTART): an uninterrupted
+    run of 10 steps, then a StepRunner checkpointing every 4 steps into
+    a temporary directory with a StepFailure planted at step 6 —
+    ``latest_step`` 10, the replayed steps' batches bitwise equal, every
+    loss within RESTART_LOSS_REL_TOL of the uninterrupted run's — then
+    a runner that stops at step 8 and a second one that resumes there
+    and runs only steps 8 and 9, and a bf16 state saved (async) and
+    restored bit for bit.  Deterministic algorithms are on for the
+    phase; the directory is removed after."""
+    import shutil
+    import tempfile
+    from repro_torch import tree as T
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import steps as S
+    from repro_torch.models.lm import Runtime
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.runtime.fault_tolerance import StepFailure, StepRunner
+    r = RESTART
+    cfg = get_config("qwen3-8b", smoke=True)
+    model = S.build_model(cfg, Runtime(), device="cuda")
+    opt = AdamW(lr=cosine_schedule(r["lr"], warmup=2, total=r["steps"]))
+    train_step = S.make_train_step(model, opt)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=r["seq"],
+                                    global_batch=r["batch"], seed=0))
+
+    def batch_at(t: int) -> dict:
+        return {k: torch.from_numpy(v).to("cuda", torch.long)
+                for k, v in pipe.batch_at(t).items()}
+
+    def fresh():
+        params = model.init_params(0)
+        return params, opt.init(params)
+
+    def step_fn(log: list, fail_at=None):
+        armed = [fail_at is not None]
+
+        def fn(state, batch):
+            n = int(state[1]["step"])
+            if armed[0] and n == fail_at:
+                armed[0] = False
+                raise StepFailure(f"planted at step {n}")
+            params, opt_state, info = train_step(*state, batch)
+            log.append((n, float(info["loss"]),
+                        batch["tokens"].cpu().numpy().tobytes()))
+            return (params, opt_state), {"loss": log[-1][1]}
+        return fn
+
+    def worst(log, want) -> float:
+        return max(abs(loss - want[n]) / abs(want[n]) for n, loss, _ in log)
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    os.makedirs(os.path.join(ROOT, ".cache"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="train-restart-",
+                           dir=os.path.join(ROOT, ".cache"))
+    try:
+        ref_log = []
+        state, fn = fresh(), step_fn(ref_log)
+        for t in range(r["steps"]):
+            state, _ = fn(state, batch_at(t))
+        want = {n: loss for n, loss, _ in ref_log}
+        # A: the planted failure, restored from the step-4 checkpoint
+        a_log = []
+        state, _ = StepRunner(step_fn(a_log, r["fail_at"]), batch_at,
+                              os.path.join(tmp, "a"),
+                              ckpt_every=r["ckpt_every"]).run(
+            fresh(), r["steps"])
+        latest = ckpt.latest_step(os.path.join(tmp, "a"))
+        order = [n for n, _, _ in a_log]
+        replays = {n: [b for m, _, b in a_log if m == n]
+                   for n in set(order) if order.count(n) > 1}
+        # B: a process stops at step 8, the next resumes there
+        StepRunner(step_fn([]), batch_at, os.path.join(tmp, "b"),
+                   ckpt_every=r["ckpt_every"]).run(fresh(), r["resume_at"])
+        b_log = []
+        b_state, _ = StepRunner(step_fn(b_log), batch_at,
+                                os.path.join(tmp, "b"),
+                                ckpt_every=r["ckpt_every"]).run(
+            fresh(), r["steps"])
+        # C: a bf16 state, saved async, restored bit for bit
+        g = torch.Generator(device="cuda").manual_seed(5)
+        w = torch.randn(257, 129, generator=g, device="cuda")
+        tree = {"w": w.to(torch.bfloat16), "master": w,
+                "step": torch.tensor(3, dtype=torch.int32, device="cuda")}
+        ckpt.save(os.path.join(tmp, "c"), 1, tree, blocking=False).join()
+        got = ckpt.restore(os.path.join(tmp, "c"), 1,
+                           T.map_tree(torch.empty_like, tree))
+        bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32,
+                torch.int32: torch.int32}
+        bit_exact = all(
+            a.dtype == b.dtype and b.is_cuda
+            and torch.equal(a.view(bits[a.dtype]), b.view(bits[b.dtype]))
+            for a, b in zip(T.leaves(tree), T.leaves(got)))
+    finally:
+        torch.use_deterministic_algorithms(was)
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = dict(order=order, latest_step=latest,
+               replayed=sorted(replays),
+               replay_batches_equal=all(len(set(v)) == 1
+                                        for v in replays.values()),
+               loss_rel_failure=worst(a_log, want),
+               resumed_steps=[n for n, _, _ in b_log],
+               loss_rel_resume=worst(b_log, want) if b_log else None,
+               final_step=int(state[1]["step"]),
+               resumed_final_step=int(b_state[1]["step"]),
+               bf16_bit_exact=bit_exact)
+    print(f"[train T3] qwen3 SMOKE on the card, failure planted at step "
+          f"{r['fail_at']}: steps run {order}; latest checkpoint "
+          f"{latest}; replayed {res['replayed']} with equal batches "
+          f"{res['replay_batches_equal']}; losses vs the uninterrupted "
+          f"run rel {res['loss_rel_failure']:.3g} (tol "
+          f"{RESTART_LOSS_REL_TOL}); resumed from {r['resume_at']}: steps "
+          f"{res['resumed_steps']}, rel {res['loss_rel_resume']:.3g}; bf16 "
+          f"state bit-exact {bit_exact}")
+    if not (latest == r["steps"] == res["final_step"]
+            == res["resumed_final_step"]
+            and res["replayed"] == list(range(r["ckpt_every"], r["fail_at"]))
+            and res["replay_batches_equal"]
+            and res["resumed_steps"] == list(range(r["resume_at"],
+                                                   r["steps"]))
+            and max(res["loss_rel_failure"], res["loss_rel_resume"])
+            <= RESTART_LOSS_REL_TOL and bit_exact):
+        raise RuntimeError(f"the training restart failed: {res}")
+    return res
+
+
+def training_phase(card: str) -> dict:
+    """4g: T1 at the depth-cut qwen3-8b, T2 (with the step profile) on
+    its weights, T3; the ``{"train": ...}`` line's content."""
+    from repro_torch.configs import get_config
+    print(f"[train] held on the card before the phase: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    cfg = _train_cfg()
+    t1 = train_numerics_phase(cfg)
+    t2 = train_phase(cfg)
+    t3 = restart_phase()
+    return dict(card=card, config=dict(
+        name=cfg.name, full_layers=get_config("qwen3-8b").n_layers,
+        **TRAIN), t1=t1["none"], t2=t2, t3=t3)
+
+
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--plant-faults"], ["--reliability"]):
+    if argv not in ([], ["--plant-faults"], ["--reliability"], ["--train"]):
         raise SystemExit("usage: python3 chip_smoke.py "
-                         "[--plant-faults | --reliability]")
+                         "[--plant-faults | --reliability | --train]")
     smi = device_phase()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     # tuned schedules persist inside the checkout (.cache/ is gitignored)
@@ -1875,10 +2435,19 @@ def main(argv=None) -> None:
                           os.path.join(ROOT, ".cache", "schedules"))
     from repro_torch.configs import get_config
     from repro_torch.core import api
+    if argv == ["--train"]:
+        print(json.dumps({"train": training_phase(smi)}))
+        print(smi)
+        return
     build_phase()
     cfg = get_config("qwen3-8b")
     if argv == ["--plant-faults"]:
-        fault_phase(cfg, init_phase(cfg))
+        params = init_phase(cfg)
+        fault_phase(cfg, params)
+        del params
+        torch.cuda.empty_cache()
+        train_numerics_phase(_train_cfg(),
+                             faults=("none", "detach_attention"))
         print(smi)
         return
     if argv == ["--reliability"]:
@@ -1929,7 +2498,9 @@ def main(argv=None) -> None:
     end_to_end_check(cfg, params, hand, planned)
     steps = {"hand_wired": step_profile_phase(hand, "hand-wired"),
              "planned": step_profile_phase(planned, "planned")}
-    del hand, planned, hand_eager, planned_eager
+    # ``engine``, the loop variable above, holds the planned engine and
+    # with it qwen3-8b's weights (17.3 GB on the card)
+    del hand, planned, hand_eager, planned_eager, engine
     torch.cuda.empty_cache()
     reliability_phase(cfg, params)
     torch.cuda.empty_cache()
@@ -1953,6 +2524,8 @@ def main(argv=None) -> None:
           f"(want 0)")
     if chain3_launches:
         raise RuntimeError("a main path launched fused_gemm_chain3")
+    # 4g, after every serving phase and the counters' last read
+    train = training_phase(smi)
     print("[steps] decode step wall / device busy / busy share / span (ms):"
           + "".join(f" {path} {mode} {p['wall_ms']:.3f} / "
                     f"{p['busy_ms']:.3f} / "
@@ -2081,6 +2654,7 @@ def main(argv=None) -> None:
         "device_ms_by_kernel": t_chain3["device_ms_by_kernel"],
         "passed": True,
     }]
+    print(json.dumps({"train": train}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

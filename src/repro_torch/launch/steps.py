@@ -1,0 +1,51 @@
+"""Step builders of the training path — the port of the JAX package's
+``repro.launch.steps`` for one device.
+
+``make_train_step`` returns the eager step ``launch.train`` runs: the
+loss under autograd, the backward into each parameter's ``.grad``, the
+AdamW update in place, and the gradients cleared.  The JAX package's
+``make_compressed_train_step`` and ``init_grad_residuals`` (int8
+gradient reduction over a data axis) come with the port's distributed
+slice; its dry-run specs (``input_specs``, ``batch_specs``,
+``abstract_cache``, ``shardings_for``) with the distributed and the
+analysis slices.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from .. import tree as T
+from ..models.config import ModelConfig
+from ..models.lm import LM, Runtime, requires_grad
+from ..optim.adamw import AdamW, cosine_schedule
+
+
+def build_model(cfg: ModelConfig, rt: Optional[Runtime] = None,
+                device="cuda") -> LM:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name} is a {cfg.family} model; the port builds dense "
+            f"decoders (the other families: ROADMAP Queue 1 item 6)")
+    return LM(cfg, rt, device=device)
+
+
+def default_optimizer(total_steps: int = 10000) -> AdamW:
+    return AdamW(lr=cosine_schedule(3e-4, warmup=200, total=total_steps))
+
+
+def make_train_step(model: LM, opt: AdamW):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    info)``: params and state updated in place and returned, ``info``
+    ``{"loss", "grad_norm", "lr"}`` as 0-d tensors.  batch:
+    ``{"tokens", "labels"}`` on the model's device."""
+    def train_step(params, opt_state, batch):
+        requires_grad(params)
+        loss = model.loss(params, batch)
+        loss.backward()
+        info = opt.update(params, [p.grad for p in T.leaves(params)],
+                          opt_state)
+        for p in T.leaves(params):
+            p.grad = None
+        info["loss"] = loss.detach()
+        return params, opt_state, info
+    return train_step

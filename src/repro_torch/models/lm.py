@@ -13,6 +13,8 @@ PLACE, where the JAX package returns updated copies.  The API:
     init_params(seed)                      -> params on ``device``
     forward(params, tokens)                -> logits (B, S, V)
     loss(params, batch)                    -> scalar mean cross-entropy
+                                              (under autograd after
+                                              ``requires_grad(params)``)
     init_cache(batch, max_len)             -> per-layer {k, v, pos}
     prefill(params, tokens, cache)         -> (last logits (B, V), cache)
     decode_step(params, cache, tokens, pos)
@@ -27,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from .. import tree as T
 from . import layers as L
 from .config import ModelConfig
 
@@ -86,6 +89,17 @@ def chunked_ce(hidden: torch.Tensor, unembed_w: torch.Tensor,
         tot = tot + ((lse - tgt) * mask).sum()
         cnt = cnt + mask.sum()
     return tot / torch.clamp(cnt, min=1.0)
+
+
+def requires_grad(params: dict) -> dict:
+    """Mark every parameter leaf as requiring grad, IN PLACE, so that
+    ``LM.loss`` back-propagates into ``.grad`` (the training step's
+    counterpart of ``jax.value_and_grad``); returns ``params``.  The
+    kernel path stays forward-only: ``Runtime(kernel_ops=True)`` raises
+    under grad mode, as the JAX kernels have no gradient."""
+    for t in T.leaves(params):
+        t.requires_grad_(True)
+    return params
 
 
 class LM:

@@ -1,0 +1,105 @@
+"""AdamW with f32 master weights + cosine LR schedule + global-norm
+clipping — the port of the JAX package's ``repro.optim.adamw``, with
+its arithmetic in its order.
+
+Optimizer state mirrors the parameter tree leaf for leaf:
+``{"step", "m", "v", "master"}``, ``step`` a 0-d int32 tensor on the
+parameters' device (so a checkpoint carries it and the schedule reads
+it without a host sync).  Where the JAX optimizer returns new trees,
+``AdamW.update`` writes the state and each parameter IN PLACE (the
+model's tensors keep their identity) and returns only the step's
+``{"grad_norm", "lr"}``.  It walks the leaves one at a time, so its
+temporaries are a few copies of the largest leaf, not of the tree.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from .. import tree as T
+
+
+def cosine_schedule(base_lr: float, warmup: int, total: int,
+                    min_frac: float = 0.1
+                    ) -> Callable[[torch.Tensor], torch.Tensor]:
+    def lr(step) -> torch.Tensor:
+        step = torch.as_tensor(step).to(torch.float32)
+        warm = base_lr * torch.clamp(step / max(warmup, 1), max=1.0)
+        t = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = min_frac + (1 - min_frac) * 0.5 * (1 + torch.cos(math.pi * t))
+        return torch.where(step < warmup, warm, base_lr * cos)
+    return lr
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in T.leaves(tree)))
+
+
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
+def _clipped(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The JAX package's clip of one leaf: scaled in f32, cast back to
+    the gradient's type."""
+    return (g.float() * scale).to(g.dtype)
+
+
+def clip_by_global_norm(tree, max_norm: float):
+    norm = global_norm(tree)
+    scale = _clip_scale(norm, max_norm)
+    return T.map_tree(lambda g: _clipped(g, scale), tree), norm
+
+
+@dataclass(frozen=True)
+class AdamW:
+    lr: Callable[[torch.Tensor], torch.Tensor]
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+
+    def init(self, params) -> dict:
+        f32_zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device)
+        return {
+            "step": torch.zeros((), dtype=torch.int32,
+                                device=T.leaves(params)[0].device),
+            "m": T.map_tree(f32_zeros, params),
+            "v": T.map_tree(f32_zeros, params),
+            # an explicit copy: for f32 params .float() is the same tensor
+            "master": T.map_tree(
+                lambda p: p.detach().to(torch.float32, copy=True), params),
+        }
+
+    @torch.no_grad()
+    def update(self, params, grads, state) -> dict[str, torch.Tensor]:
+        """One step: clip ``grads`` (a tree, or a list of the leaves, in
+        ``params``' leaf order) by their global norm, then the AdamW
+        update of ``state`` and ``params`` in place.  Returns the
+        pre-clip ``grad_norm`` and the step's ``lr`` (0-d tensors)."""
+        flat_g = T.leaves(grads)
+        gnorm = global_norm(flat_g)
+        scale = _clip_scale(gnorm, self.clip_norm)
+        state["step"].add_(1)
+        lr = self.lr(state["step"])
+        step = state["step"].to(torch.float32)
+        b1, b2 = self.b1, self.b2
+        bc1 = 1 - b1 ** step
+        bc2 = 1 - b2 ** step
+        for p, g, m, v, w in zip(T.leaves(params), flat_g,
+                                 T.leaves(state["m"]), T.leaves(state["v"]),
+                                 T.leaves(state["master"])):
+            g = _clipped(g, scale).float()
+            m.mul_(b1).add_(g, alpha=1 - b1)
+            v.mul_(b2).addcmul_(g, g, value=1 - b2)
+            upd = (m / bc1).div_((v / bc2).sqrt_().add_(self.eps))
+            upd.add_(w, alpha=self.weight_decay)
+            w.sub_(upd.mul_(lr))
+            p.copy_(w)
+        return {"grad_norm": gnorm, "lr": lr}
