@@ -88,8 +88,15 @@ class OpNode:
 
 def plannable(cfg) -> bool:
     """Configs the planner can trace: a homogeneous stack of dense
-    attention blocks with an MLP (the only family the port has)."""
-    return cfg.family == "dense" and cfg.d_ff > 0
+    attention blocks with an MLP.  MoE (capacity-dropped routing),
+    SSM/RG-LRU recurrences and encoder-decoder wiring have op DAGs this
+    tracer does not model; ``Runtime(planner=True)`` runs the
+    hand-wired blocks for them.  A field the port's config does not
+    carry yet reads as absent."""
+    return (all(k == "attn" for k in getattr(cfg, "pattern", ("attn",)))
+            and all(getattr(cfg, f, None) is None
+                    for f in ("moe", "ssm", "rglru", "encoder"))
+            and cfg.d_ff > 0)
 
 
 def gated(cfg) -> bool:

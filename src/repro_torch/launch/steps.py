@@ -22,10 +22,11 @@ from ..optim.adamw import AdamW, cosine_schedule
 
 def build_model(cfg: ModelConfig, rt: Optional[Runtime] = None,
                 device="cuda") -> LM:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name} is a {cfg.family} model; the port builds dense "
-            f"decoders (the other families: ROADMAP Queue 1 item 6)")
+            f"and MoE decoders (the other families: ROADMAP Queue 1 "
+            f"item 6)")
     return LM(cfg, rt, device=device)
 
 

@@ -1,6 +1,7 @@
 """Model configuration schema: the fields of the JAX package's
-``ModelConfig`` that the dense decoder path reads.  The other families'
-fields (MoE, SSM, recurrent, encoder) come with their slices."""
+``ModelConfig`` that the dense and mixture-of-experts decoder paths
+read.  The other families' fields (SSM, recurrent, encoder) come with
+their slices."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -8,9 +9,20 @@ from typing import Optional
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    """Token-choice top-k routing over ``n_experts`` gated MLPs, each
+    expert taking at most ``capacity_factor`` times its even share of
+    the token-expert assignments (``models.layers.moe_local``)."""
+
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense (the only family ported so far)
+    family: str                 # dense | moe (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -27,6 +39,7 @@ class ModelConfig:
     rope_theta: float = 1e4
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
+    moe: Optional[MoEConfig] = None
 
     @property
     def dh(self) -> int:

@@ -21,14 +21,16 @@ def params_from_jax(np_params: dict, cfg: ModelConfig,
 
     The dense stack ``stack["b0_attn"]`` carries a leading ``n_super``
     axis (the JAX model scans over it); it is unstacked into one dict
-    per layer, followed by the unscanned ``tail`` layers.  Matrices keep
-    the config dtype; norm scales stay f32 as in the JAX package."""
+    per layer, followed by the unscanned ``tail`` layers (an MoE
+    layer's experts keep their leading E axis).  Matrices keep the
+    config dtype; norm scales and the MoE router stay f32 as in the JAX
+    package."""
     dt = getattr(torch, cfg.dtype)
 
     def conv(tree):
         return {k: (conv(v) if isinstance(v, dict) else
-                    _tensor(v, dt if np.ndim(v) >= 2 else torch.float32,
-                            device))
+                    _tensor(v, dt if np.ndim(v) >= 2 and k != "router"
+                            else torch.float32, device))
                 for k, v in tree.items()}
 
     stack = np_params["stack"]

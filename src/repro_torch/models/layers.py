@@ -1,7 +1,9 @@
-"""Dense decoder layers as plain functions on tensors: norms, RoPE,
+"""Decoder layers as plain functions on tensors: norms, RoPE,
 cache-free GQA attention (the forward), GQA attention over a contiguous
 KV cache (fixed-batch generation) or a paged one (the serving engine),
-the MLP, and the planner-driven block (``run_planned_layer``).
+the MLP, the mixture of experts (``moe_block``: routing and expert
+products in torch ops, as the JAX package's are outside any kernel),
+and the planner-driven block (``run_planned_layer``).
 
 Parameters are dicts of tensors with the JAX package's names and
 layouts (``wq`` is (d_model, n_heads * dh), and so on), so weights carry
@@ -115,6 +117,135 @@ def mlp_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if gated(cfg):
         return (f(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
     return f(x @ p["w_up"]) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts (one device; the JAX package's expert-parallel and
+# tensor-parallel layouts come with the distributed slice)
+# ---------------------------------------------------------------------------
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    """The router (D, E) in f32, and each expert's MLP stacked on a
+    leading E axis in the model's type."""
+    dt = getattr(torch, cfg.dtype)
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    p = {"router": dense_init(gen, (d, e), torch.float32, device),
+         "w_up": dense_init(gen, (e, d, ff), dt, device),
+         "w_down": dense_init(gen, (e, ff, d), dt, device)}
+    if cfg.act == "swiglu":
+        p["w_gate"] = dense_init(gen, (e, d, ff), dt, device)
+    return p
+
+
+def route(p: dict, x2d: torch.Tensor, cfg: ModelConfig) -> tuple:
+    """Token-choice routing of x2d (T, D): f32 router logits and
+    softmax, the top-k experts of each token — among equal
+    probabilities the lower index first, as ``jax.lax.top_k`` (a stable
+    descending sort) — and their weights renormalised.  Returns (topw
+    (T, K) f32, topi (T, K) int64)."""
+    probs = torch.softmax(x2d.float() @ p["router"], dim=-1)
+    topw, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.moe.top_k
+    topw, topi = topw[:, :k], topi[:, :k]
+    return topw / topw.sum(dim=-1, keepdim=True), topi
+
+
+def _combine(yflat: torch.Tensor, dest: torch.Tensor, order: torch.Tensor,
+             t: int, k: int) -> torch.Tensor:
+    """The weighted expert rows back onto their tokens, in f32.  yflat:
+    (slots, D) f32; dest: each expert-sorted assignment's slot (``slots``
+    where it was dropped); order: the sort's permutation of the (T*K)
+    token-major assignments.  Each token sums its kept rows in
+    ascending expert order, starting from zero: the order of the JAX
+    package's scatter-add over the expert-sorted slots, and one that
+    needs no atomics, so two launches add alike."""
+    slots, d = yflat.shape
+    yext = torch.cat([yflat, yflat.new_zeros(1, d)])     # dropped: 0
+    dest_tk = torch.empty_like(dest).scatter_(0, order, dest)
+    dest_tk = dest_tk.reshape(t, k).sort(dim=1).values  # expert order
+    out = yflat.new_zeros(t, d)
+    for j in range(k):
+        out = out + yext.index_select(0, dest_tk[:, j])
+    return out
+
+
+def moe_local(p: dict, x2d: torch.Tensor, cfg: ModelConfig,
+              expert_slice: Optional[tuple] = None,
+              cap_slice: Optional[tuple] = None,
+              scan_threshold: int = 1 << 27) -> torch.Tensor:
+    """Token-choice top-k routing on a token block, the JAX package's
+    ``_moe_local``.
+
+    x2d: (T, D).  Every expert takes at most ``cap`` assignments in
+    token order; the rest are dropped.  expert_slice: (start, count) of
+    the experts ``p`` holds (their weights only); None = all.
+    cap_slice: (offset, size) window of each expert's capacity handled
+    here.  Returns the *partial* f32 output (T, D) of those experts and
+    slots.  The capacity is a host integer of the static T, and every
+    buffer has a fixed shape, so the step captures in a CUDA graph.
+
+    Each local expert runs its gated MLP over its ``cap`` slots, unused
+    slots reading token 0 with weight 0: all E experts at once (batched
+    products) while the (E, cap, D) dispatch buffer stays within
+    ``scan_threshold`` elements, else one expert at a time.
+    """
+    moe = cfg.moe
+    t, d = x2d.shape
+    e, k = moe.n_experts, moe.top_k
+    dev = x2d.device
+    topw, topi = route(p, x2d, cfg)
+    flat_e = topi.reshape(-1)
+    flat_t = torch.arange(t * k, device=dev) // k
+    se, order = torch.sort(flat_e, stable=True)
+    st, sw = flat_t[order], topw.reshape(-1)[order]
+    first = torch.searchsorted(se, torch.arange(e, device=dev))
+    pos = torch.arange(t * k, device=dev) - first[se]     # slot in expert
+
+    cap = max(8, int(math.ceil(k * t * moe.capacity_factor / e / 8)) * 8)
+    e0, e_loc = expert_slice if expert_slice is not None else (0, e)
+    c0, cap_loc = cap_slice if cap_slice is not None else (0, cap)
+    slots = e_loc * cap_loc
+    local = ((se >= e0) & (se < e0 + e_loc) & (pos >= c0)
+             & (pos < c0 + cap_loc))
+    dest = torch.where(local, (se - e0) * cap_loc + (pos - c0), slots)
+    slot_tok = torch.zeros(slots + 1, dtype=st.dtype, device=dev
+                           ).scatter(0, dest, st)[:-1]
+    slot_w = torch.zeros(slots + 1, device=dev).scatter(0, dest, sw)[:-1]
+
+    f = act_fn(act_name(cfg))
+    is_gated = gated(cfg)
+    if slots * d <= scan_threshold:
+        xe = x2d.index_select(0, slot_tok).reshape(e_loc, cap_loc, d)
+        if is_gated:
+            h = f(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
+        else:
+            h = f(torch.bmm(xe, p["w_up"]))
+        ye = torch.bmm(h, p["w_down"]).reshape(slots, d)
+    else:
+        ys = []
+        for i in range(e_loc):
+            xe = x2d.index_select(0, slot_tok[i * cap_loc:(i + 1) * cap_loc])
+            if is_gated:
+                h = f(xe @ p["w_gate"][i]) * (xe @ p["w_up"][i])
+            else:
+                h = f(xe @ p["w_up"][i])
+            ys.append(h @ p["w_down"][i])
+        ye = torch.cat(ys)
+    yflat = ye * slot_w[:, None].to(ye.dtype)
+    return _combine(yflat.float(), dest, order, t, k)
+
+
+def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D): every token of the block routed
+    together (the JAX package's single-device branch)."""
+    b, s, d = x.shape
+    return moe_local(p, x.reshape(b * s, d), cfg).to(x.dtype).reshape(b, s, d)
+
+
+def feed_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The block's feed-forward: the experts of an MoE config, the MLP
+    otherwise."""
+    return moe_block(p, x, cfg) if cfg.moe else mlp_block(p, x, cfg)
 
 
 def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,

@@ -1,7 +1,9 @@
-"""Dense decoder-only LM (qwen3, granite, codeqwen): the cache-free
-forward and loss, fixed-batch decoding over a contiguous KV cache, and
-paged serving, hand-wired or run from the fusion planner's plans
-(``Runtime(planner=True)``, paged serving only).
+"""Decoder-only LM, dense (qwen3, granite, codeqwen) or mixture of
+experts (olmoe, mixtral): the cache-free forward and loss, fixed-batch
+decoding over a contiguous KV cache, and paged serving, hand-wired or
+run from the fusion planner's plans (``Runtime(planner=True)``, paged
+serving of the configs the planner can plan; the others run hand-wired,
+as in the JAX package).
 
 The JAX package's ``LM`` scans a stack of stacked layer parameters;
 here the layers are a Python list walked by a loop, parameters are
@@ -30,6 +32,7 @@ from typing import Optional
 import torch
 
 from .. import tree as T
+from ..core import planner
 from . import layers as L
 from .config import ModelConfig
 
@@ -50,7 +53,9 @@ class Runtime:
     # core.planner's plan for its phase (prefill/decode) — chains carved
     # and glue stitched from the config alone under the H100 descriptor;
     # with kernel_ops, each fused MLP chain runs as the fused_mlp_chain
-    # CUDA kernel.  The cache-free forward has no planned path yet.
+    # CUDA kernel.  A config the planner cannot plan
+    # (core.planner.plannable: MoE) runs hand-wired.  The cache-free
+    # forward has no planned path yet.
     stitch: bool = True     # planner mode only: stitch memory-bound
     # glue into carved chains as prologue/epilogue; False is
     # bit-identical to the hand-wired layer.
@@ -105,11 +110,13 @@ def requires_grad(params: dict) -> dict:
 class LM:
     def __init__(self, cfg: ModelConfig, rt: Optional[Runtime] = None,
                  device="cuda"):
-        if (cfg.family, cfg.norm, cfg.use_rope) != ("dense", "rmsnorm",
-                                                     True):
+        if (cfg.family not in ("dense", "moe") or cfg.norm != "rmsnorm"
+                or not cfg.use_rope):
             raise NotImplementedError(
-                f"the port serves dense rmsnorm/rope decoders; {cfg.name} "
-                f"is {cfg.family} with {cfg.norm} (rope: {cfg.use_rope})")
+                f"the port serves dense and MoE rmsnorm/rope decoders; "
+                f"{cfg.name} is {cfg.family} with {cfg.norm} (rope: "
+                f"{cfg.use_rope}); the other families: ROADMAP Queue 1 "
+                f"item 6")
         self.cfg = cfg
         self.rt = rt or Runtime()
         self.device = torch.device(device)
@@ -127,7 +134,8 @@ class LM:
                 "ln1": {"w": torch.zeros(cfg.d_model, device=dev)},
                 "mix": L.init_attention(gen, cfg, dev),
                 "ln2": {"w": torch.zeros(cfg.d_model, device=dev)},
-                "ff": L.init_mlp(gen, cfg, dev),
+                "ff": (L.init_moe(gen, cfg, dev) if cfg.moe
+                       else L.init_mlp(gen, cfg, dev)),
             })
         return {
             "embed": L.dense_init(gen, (cfg.vocab, cfg.d_model), dt, dev,
@@ -143,10 +151,11 @@ class LM:
                      cache: Optional[dict] = None) -> torch.Tensor:
         """One hand-wired block over a contiguous ``cache`` (written in
         place), or cache-free (the forward).  The planner plans only
-        cache-free and paged blocks, so a cached block runs hand-wired
+        cache-free and paged blocks of the configs it can plan, so a
+        cached block, and any block of an MoE config, runs hand-wired
         under ``Runtime(planner=True)`` too, as in the JAX package."""
         cfg, rt = self.cfg, self.rt
-        if rt.planner and cache is None:
+        if rt.planner and cache is None and planner.plannable(cfg):
             raise NotImplementedError(
                 "the planned cache-free forward is not ported; use "
                 "Runtime(planner=False)")
@@ -155,7 +164,7 @@ class LM:
                                   bkv=rt.bkv, kernel_ops=rt.kernel_ops,
                                   cache=cache)
         h2 = L.rmsnorm(x, p["ln2"]["w"], cfg.norm_eps)
-        return x + L.mlp_block(p["ff"], h2, cfg)
+        return x + L.feed_forward(p["ff"], h2, cfg)
 
     def _hidden(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
         """The cache-free stack's output before the final norm."""
@@ -186,8 +195,7 @@ class LM:
                      positions: torch.Tensor, cache: dict,
                      page_table: torch.Tensor) -> torch.Tensor:
         cfg, rt = self.cfg, self.rt
-        if rt.planner:
-            from ..core import planner
+        if rt.planner and planner.plannable(cfg):
             from ..reliability import breaker as _breaker
             b, s = x.shape[:2]
             ps = cache["k_pages"].shape[2]
@@ -219,7 +227,7 @@ class LM:
             block=rt.paged_block)
         x = x + mix
         h2 = L.rmsnorm(x, p["ln2"]["w"], cfg.norm_eps)
-        return x + L.mlp_block(p["ff"], h2, cfg)
+        return x + L.feed_forward(p["ff"], h2, cfg)
 
     def _run_layers(self, params: dict, x: torch.Tensor,
                     positions: torch.Tensor, cache: list,

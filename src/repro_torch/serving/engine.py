@@ -224,13 +224,18 @@ class ServingEngine:
             model.cfg, dataclasses.replace(model.rt, planner=False,
                                            kernel_ops=False),
             device=dev)
+        rt = model.rt
+        from ..core import planner
+        # the planner runs only the configs it can plan; the others
+        # serve hand-wired blocks under Runtime(planner=True), as in the
+        # JAX package
+        self._planned = rt.planner and planner.plannable(model.cfg)
         # the configured tier is bitwise its twin where it computes the
         # twin's numbers: no kernel (nor a kernel's plain version on
         # the CPU), and no stitched glue widened to f32 in a narrower
         # type; elsewhere a shadow is held within SHADOW_REL_TOL
-        rt = model.rt
         self._bitwise = not rt.kernel_ops and not (
-            rt.planner and rt.stitch and model.cfg.dtype != "float32")
+            self._planned and rt.stitch and model.cfg.dtype != "float32")
         self._rel_tol = SHADOW_REL_TOL.get(
             model.cfg.dtype,
             _sentinels.TOLERANCES.get(model.cfg.dtype, (1e-5, 1e-6))[0])
@@ -247,7 +252,7 @@ class ServingEngine:
         if dev.type == "cuda":
             self._build_libraries()
         self.decode_plan = None
-        if model.rt.planner:
+        if self._planned:
             # every later decode_step_paged hits the plan memo (and a
             # relaunch replays the ("plan", ..., "decode", page_size,
             # n_ctx) disk record); prefill shapes vary per prompt and
@@ -255,7 +260,6 @@ class ServingEngine:
             # quarantined decode plan is skipped: the layer-level
             # dispatch serves the hand-wired block instead of
             # re-carving a denylisted fingerprint.
-            from ..core import planner
             if not _breaker.is_open(self._decode_plan_key()):
                 self.decode_plan = planner.plan_model(
                     model.cfg, max_batch, 1, stitch=model.rt.stitch,
@@ -275,7 +279,7 @@ class ServingEngine:
         rt = self.model.rt
         if rt.kernel_ops:
             _build.load("attention_partial")
-            if rt.planner:
+            if self._planned:
                 _build.load("mlp_chain")
 
     def _decode_plan_key(self) -> tuple:
@@ -347,7 +351,7 @@ class ServingEngine:
         relaunch starts on the degraded path instead of re-failing —
         the planned decode plan, the one fingerprint the engine owns.
         ``reason`` is recorded verbatim on the denylist record."""
-        if self.exec_tier == 0 and self.model.rt.planner:
+        if self.exec_tier == 0 and self._planned:
             _breaker.record_failure(self._decode_plan_key(),
                                     reason=f"engine {phase}: {reason}")
         if self.verbose:

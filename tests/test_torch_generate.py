@@ -5,9 +5,10 @@ SMOKE configs in f32 with weights carried over from the JAX init
 over a contiguous KV cache match the reference's logits within TOL at
 every step, ``launch.serve.generate`` emits the reference's greedy
 tokens, and every ported config equals the reference's field by field.
-Parametrised over qwen3-8b (GQA, qk-norm), granite-20b (MQA) and
-codeqwen1.5-7b (MHA), plus a sliding-window qwen3 whose cache is a ring
-and whose prefill streams kv blocks.  The captured (CUDA-graph) decode
+Parametrised over qwen3-8b (GQA, qk-norm), granite-20b (MQA),
+codeqwen1.5-7b (MHA) and the MoE olmoe-1b-7b and mixtral-8x7b, plus a
+sliding-window qwen3 whose cache is a ring and whose prefill streams kv
+blocks.  The captured (CUDA-graph) decode
 is held against the eager one on the card (``sm90``).
 """
 import dataclasses
@@ -28,6 +29,8 @@ BATCH, PLEN, GEN = 3, 7, 6
 CASES = {"qwen3_8b": ("qwen3_8b", 0, 512),
          "granite_20b": ("granite_20b", 0, 512),
          "codeqwen15_7b": ("codeqwen15_7b", 0, 512),
+         "olmoe_1b_7b": ("olmoe_1b_7b", 0, 512),
+         "mixtral_8x7b": ("mixtral_8x7b", 32, 512),
          "qwen3_8b-window": ("qwen3_8b", 5, 2),
          "qwen3_8b-streamed": ("qwen3_8b", 0, 2)}
 
@@ -131,16 +134,22 @@ def test_fixed_batch_cli_runs_on_the_cpu(capsys):
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_config_fields_equal_reference(arch, smoke):
-    """Every field of a ported config equals the JAX package's, and the
-    reference's fields the port lacks keep their dense defaults."""
+    """Every field of a ported config equals the JAX package's (an MoE
+    config's ``moe`` field by field: the two packages' ``MoEConfig``
+    classes never compare equal), and the reference's fields the port
+    lacks keep their dense defaults."""
     pytest.importorskip("jax")
     from repro.configs import ALIASES as REF_ALIASES
     from repro.configs import get_config as ref_config
     from repro_torch.configs import ALIASES
     cfg, rcfg = get_config(arch, smoke=smoke), ref_config(arch, smoke=smoke)
     for f in dataclasses.fields(cfg):
-        assert getattr(cfg, f.name) == getattr(rcfg, f.name), f.name
-    assert (rcfg.moe, rcfg.ssm, rcfg.rglru, rcfg.encoder) == (None,) * 4
+        got, want = getattr(cfg, f.name), getattr(rcfg, f.name)
+        if f.name == "moe" and want is not None:
+            got, want = dataclasses.asdict(got), dataclasses.asdict(want)
+        assert got == want, f.name
+    assert (cfg.moe is None) == (cfg.family != "moe")
+    assert (rcfg.ssm, rcfg.rglru, rcfg.encoder) == (None,) * 3
     assert (rcfg.tie_embeddings, rcfg.n_prefix_embeds) == (False, 0)
     assert rcfg.pattern == ("attn",)
     assert {a: m for a, m in REF_ALIASES.items() if m == arch} == {
@@ -149,15 +158,23 @@ def test_config_fields_equal_reference(arch, smoke):
 
 def test_config_weight_sizes():
     """The bf16 weight bytes the ROADMAP states: granite-34b does not
-    fit one 80 GB card, granite-20b and codeqwen1.5-7b do."""
-    def params(cfg):
+    fit one 80 GB card, granite-20b and codeqwen1.5-7b do; nor does
+    mixtral-8x7b at its 32 layers, but 16 of them do, and olmoe-1b-7b
+    does (its f32 router counted at 2 bytes, as the ROADMAP's sums)."""
+    def params(cfg, n_layers=None):
         attn = cfg.d_model * cfg.dh * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
-        return (cfg.n_layers * (attn + 3 * cfg.d_model * cfg.d_ff)
+        ff = 3 * cfg.d_model * cfg.d_ff
+        if cfg.moe:
+            ff = cfg.moe.n_experts * (ff + cfg.d_model)
+        return ((n_layers or cfg.n_layers) * (attn + ff)
                 + 2 * cfg.vocab * cfg.d_model)
     gb = {a: 2 * params(get_config(a)) / 1e9 for a in ARCHS}
     assert round(gb["granite_34b"], 1) == 94.5
     assert round(gb["granite_20b"], 1) == 56.3
     assert round(gb["codeqwen15_7b"], 1) == 16.4
+    assert round(gb["olmoe_1b_7b"], 2) == 13.84
+    assert round(gb["mixtral_8x7b"], 1) == 93.4
+    assert round(2 * params(get_config("mixtral_8x7b"), 16) / 1e9, 2) == 46.96
 
 
 # ---------------------------------------------------------------------------

@@ -185,12 +185,15 @@ def test_planned_engine_tokens_match_reference_planned_engine(weights,
 
 @pytest.mark.parametrize("planned", [False, True])
 @pytest.mark.parametrize("arch", ["granite_20b", "codeqwen15_7b",
-                                  "granite_34b"])
+                                  "granite_34b", "olmoe_1b_7b",
+                                  "mixtral_8x7b"])
 def test_engine_tokens_match_reference_engine_per_config(jax_cpu, arch,
                                                          planned):
-    """The other dense configs (MQA granite, MHA codeqwen) at SMOKE,
-    weights carried from one JAX init: the port's engine emits the
-    reference engine's greedy tokens, hand-wired and planner-served."""
+    """The other configs (MQA granite, MHA codeqwen, the MoE olmoe and
+    mixtral) at SMOKE, weights carried from one JAX init: the port's
+    engine emits the reference engine's greedy tokens, hand-wired and
+    planner-requested (planner-served where the config can be planned,
+    hand-wired blocks where it cannot, on both sides)."""
     jax = jax_cpu
     from repro.configs import get_config as ref_config
     from repro.models.lm import LM as RefLM

@@ -202,7 +202,7 @@ def test_train_cli_refuses_distributed_flags(flag, capsys):
 def test_build_model_refuses_other_families():
     import dataclasses
     cfg = dataclasses.replace(get_config("qwen3_8b", smoke=True),
-                              family="moe")
+                              family="ssm")
     with pytest.raises(NotImplementedError, match="item 6"):
         S.build_model(cfg, device="cpu")
 
