@@ -31,7 +31,11 @@ which raises on failure:
    tuner's tiles and around them, and at mixtral-8x7b's windowed decode
    (Hq=32, Hkv=8, N=4128, window 4096) over page tables whose first
    entries are RECLAIMED as the engine's reclamation leaves them; the
-   normalised kernel at olmoe's forward (B=2, Hq=Hkv=16, S=2048);
+   normalised kernel at olmoe's forward (B=2, Hq=Hkv=16, S=2048); and
+   at 4i's shapes: the normalised kernel at recurrentgemma-2b's head
+   dim 256 and GQA group of 10 with its window of 2048 (S=2560) at the
+   tuner's tiles and around them, bf16 and f32, and at pixtral-12b's
+   forward;
 4. the main paths, each at full width — qwen3-8b (36 layers, bf16,
    random weights from a seed, no depth cut), then granite-20b (52
    layers, 56.3 GB, after qwen3-8b's weights are freed):
@@ -93,6 +97,26 @@ which raises on failure:
       tokens that crosses the window of 4096, captured, eager and with
       reclamation off: reclaimed pages above 0 and equal tokens; a
       ``{"moe": ...}`` line;
+   i. the hybrid and vision-prefix decoders (``archs_phase``), after
+      the MoE family's weights are freed, each model freed before the
+      next: recurrentgemma-2b at every FULL width and depth (26 layers
+      = 8 x (rglru, rglru, attn) + (rglru, rglru), head dim 256, 10
+      q-heads on one kv head, local window 2048, tied embeddings), its
+      cache-free loss and forward at B=1 x S=4096 (8 attention
+      launches each, the window crossed) against the plain twin path,
+      fixed-batch ``generate`` (batch 4, prompt 2040, 32 tokens: the
+      decode wraps the 2048-slot ring; the RG-LRU state written in
+      place by every replay) captured and eager against the forward,
+      and 16 teacher-forced decode steps after a prefill against the
+      forward's rows; then pixtral-12b at every FULL width and depth
+      (40 layers, 24.5 GB) the same way over 1024 prefix embeddings
+      (B=2 x (1024 + 1024), 40 launches; ``generate`` batch 4, prompt
+      128); then training, no kernel: T1 of 4g at recurrentgemma's full
+      depth within its own limits (RG_T1_LIMITS), one step of it
+      (46.3 GB of weights and AdamW state) and one of pixtral cut to 6
+      of 40 layers (47.7 GB) over 1024 prefix embeddings and 2048
+      tokens; walls, busy shares and peak memory printed; an
+      ``{"archs": ...}`` line;
    g. training (``training_phase``), after every serving phase with
       their weights freed: qwen3-8b at every FULL width with the depth
       cut to 8 of 36 layers (AdamW's 16 B a parameter: 131 GB for 36
@@ -129,7 +153,9 @@ which raises on failure:
    and at tiles around them; the GEMM-chain kernel at G12 in bf16 with
    its split, the device time of its split kernel and its merge, and at
    tiles around the pick, and at the quickstart's G1 in f32; the
-   three-GEMM kernel at CHAIN3 in bf16).
+   three-GEMM kernel at CHAIN3 in bf16; the normalised attention at
+   recurrentgemma-2b's forward, D=256 with its window, and at
+   pixtral-12b's, beside SDPA with the same mask).
 
 Prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -140,8 +166,10 @@ runs only the build and the cache-free forward's check against planted
 attention faults (no causal mask, one key ahead, half the context, the
 scale 1/D), printing each fault's distance from the plain twin path
 beside the limits, then T1 of 4g unfaulted and with one layer's
-attention output detached (its attention weights get no gradient); it
-fails unless every fault goes past the limits.
+attention output detached (its attention weights get no gradient), and
+T1 of 4i (recurrentgemma-2b at full depth, RG_T1_LIMITS) unfaulted,
+with one RG-LRU block's output detached, and with the RG-LRU scan off
+by one position; it fails unless every fault goes past its limit.
 
     python3 chip_smoke.py --reliability
 
@@ -151,6 +179,12 @@ runs only the build, qwen3-8b's weights and the reliability phase (4f).
 
 runs only the device, build and MoE phases: phase 3 at the MoE shapes,
 4h, and the kernel times at the MoE shapes; prints a ``{"moe": ...}``
+line.
+
+    python3 chip_smoke.py --archs
+
+runs only the device, build and 4i phases: phase 3 at 4i's shapes, 4i,
+and the kernel times at 4i's shapes; prints an ``{"archs": ...}``
 line.
 
     python3 chip_smoke.py --train
@@ -277,8 +311,9 @@ TRAIN = dict(n_layers=8, batch=1, seq=2048, steps=20, seed=0, lr=3e-4)
 TRAIN_LOSS_REL_TOL = 1e-4
 TRAIN_GNORM_REL_TOL = 2e-3
 TRAIN_GRAD_REL_TOL = 0.1     # each leaf, relative error in the 2-norm
-# ``--plant-faults``' training fault: one layer's attention output
-# detached, so its q/k/v/o projections and qk-norm get no gradient
+# ``--plant-faults``' training faults (TRAIN_FAULTS) detach the output
+# of this layer's block of one kind (the fourth attention or RG-LRU
+# block), so that its weights get no gradient
 TRAIN_FAULT_LAYER = 3
 # T3, restart on the card: qwen3 SMOKE (f32), a StepRunner
 # checkpointing every 4 steps, a StepFailure planted at step 6 of 10,
@@ -289,6 +324,51 @@ TRAIN_FAULT_LAYER = 3
 RESTART = dict(steps=10, ckpt_every=4, fail_at=6, resume_at=8, batch=4,
                seq=64, lr=1e-2)
 RESTART_LOSS_REL_TOL = 1e-6
+# Phase 4i, the hybrid and vision-prefix decoders at every FULL width,
+# random weights from seed 0: recurrentgemma-2b (26 layers = 8 x (rglru,
+# rglru, attn) + (rglru, rglru), 10 q-heads on 1 kv head of 256, local
+# window 2048, tied embeddings; no depth cut) and pixtral-12b (40 dense
+# layers after 1024 prefix embeddings; no depth cut but in training).
+RG = "recurrentgemma-2b"
+PIXTRAL = "pixtral-12b"
+# The cache-free forward of each: recurrentgemma at B=1 x S=4096, so
+# that the window of 2048 bites (8 attention launches a call); pixtral
+# at B=2 x (1024 prefix + 1024 tokens), qwen3-8b's kernel shape (40)
+RG_FORWARD = dict(b=1, s=4096)
+PIXTRAL_FORWARD = dict(b=2, s=2048)
+# generate: recurrentgemma's decode positions 2040..2071 wrap the
+# attention layers' ring of 2048 slots; pixtral's follow 1024 prefix
+# embeddings and a prompt of 128
+RG_GENERATE = dict(batch=4, prompt_len=2040, gen=32, seed=3)
+PIXTRAL_GENERATE = GENERATE
+# A prefill and then teacher-forced decode steps (B=1), each step's
+# logits against the cache-free forward's row over the same positions,
+# within E2E_REL_TOL (tests/test_archs_smoke.py:89-106 at full width):
+# recurrentgemma's steps cross the ring of 2048
+DECODE_CHECK = {RG: dict(prompt_len=2040, steps=16, seed=6),
+                PIXTRAL: dict(prompt_len=128, steps=16, seed=6)}
+# One training step of each (``launch.train.train``, B=1 x S=2048
+# tokens, after 1024 prefix embeddings for pixtral), no kernel: AdamW
+# keeps 16 B a parameter, so recurrentgemma at full depth (2.894 B) is
+# 46.3 GB; pixtral's 40 layers (12.25 B) need 196 GB, and 6 of them
+# (1.342 B of embedding and head, 1.636 B of blocks) 47.7 GB
+ARCH_TRAIN = dict(batch=1, seq=2048)
+PIXTRAL_TRAIN_LAYERS = 6
+# T1 at recurrentgemma-2b's full depth: one bf16 step against the f32
+# step, as 4g does at 8 of qwen3-8b's layers, where the readings were
+# loss 3.8e-6, grad norm 1.1e-4, a leaf's worst 0.027.  26 layers carry
+# 3.25x the layers' roundings forward and back; the recurrence itself is
+# f32 (its gates' products are bf16).  Scaled linearly: norm ~3.6e-4,
+# worst leaf ~0.09; the limits keep 4g's margin for the norm (2e-3) and
+# 2.8x for a leaf (0.25), 4x below a gradient that is missing or wrong
+# (relative error ~1).  The loss is another matter (PERF.md §6):
+# the model scales its tied embedding by x50 and reads logits over a
+# 256000 vocab at a loss of 14.5, so one bf16 step's loss sits ~1e-4
+# from the f32 step's at any depth (a CPU probe at these widths and 3 to
+# 12 layers: 6e-5 to 1.5e-4); the limit 1e-3 is 7x that, and below what
+# the sqrt(d_model) constant left unrounded in the f32 step alone gives
+# (1.5e-3 on the card).
+RG_T1_LIMITS = (1e-3, 2e-3, 0.25)
 
 
 def device_phase() -> str:
@@ -1134,49 +1214,61 @@ def reliability_phase(cfg, params) -> dict:
     return out
 
 
-def generate_phase(cfg, params) -> dict:
-    """Fixed-batch ``generate`` at full width (GENERATE: batch 4, prompt
-    128, 32 tokens) over a contiguous cache, the decode step captured in
-    a CUDA graph and then eagerly: equal greedy tokens, no kernel
-    launched (the contiguous cache reaches none, as in the JAX package;
-    every counter set to 0 just before and read after), and the last
-    step's logits within E2E_REL_TOL of the cache-free forward (the
-    plain twin path) over the same tokens.  An MoE config's forward
-    routes all 636 tokens together, so its expert capacity, and with it
-    what drops, differs from the decode step's by design (the JAX
-    package's own MoE decode-vs-forward test allows 0.5): there the
-    distance is printed and the tokens are what is held."""
+def generate_phase(cfg, params, spec=GENERATE) -> dict:
+    """Fixed-batch ``generate`` at full width (``spec``; GENERATE: batch
+    4, prompt 128, 32 tokens) over a contiguous cache, after a vision
+    config's prefix embeddings (``launch.serve.demo_side_inputs``), the
+    decode step captured in a CUDA graph and then eagerly: equal greedy
+    tokens, no kernel launched (the contiguous cache reaches none, as in
+    the JAX package; every counter set to 0 just before and read after),
+    and the last step's logits within E2E_REL_TOL of the cache-free
+    forward (the plain twin path) over the same prefix and tokens.  An
+    MoE config's forward routes all 636 tokens together, so its expert
+    capacity, and with it what drops, differs from the decode step's by
+    design (the JAX package's own MoE decode-vs-forward test allows
+    0.5): there the distance is printed and the tokens are what is
+    held."""
     from repro_torch.kernels import capture
-    from repro_torch.launch.serve import generate
+    from repro_torch.launch.serve import demo_side_inputs, generate
     from repro_torch.models.lm import LM, Runtime
-    b, plen, gen = (GENERATE[k] for k in ("batch", "prompt_len", "gen"))
-    g = torch.Generator(device="cuda").manual_seed(GENERATE["seed"])
+    b, plen, gen = (spec[k] for k in ("batch", "prompt_len", "gen"))
+    g = torch.Generator(device="cuda").manual_seed(spec["seed"])
     prompts = torch.randint(0, cfg.vocab, (b, plen), generator=g,
                             device="cuda")
+    side = demo_side_inputs(cfg, b, "cuda", spec["seed"])
     model = LM(cfg, Runtime(kernel_ops=True), device="cuda")
     names = [n for n in capture.counters() if n != "fused_gemm_chain3"]
     runs = {}
     for eager in (False, True):
         mode = "eager" if eager else "captured"
-        # two tokens (the prefill, the first decode step, the capture)
-        # timed apart give one decode step's wall: (t(gen) - t(2)) /
-        # (gen - 2)
+        # half the tokens (the prefill, the capture and half the steps)
+        # timed apart give one decode step's wall: (t(gen) - t(half)) /
+        # (gen - half).  Not 2 tokens: the cache of prompt + 2 slots may
+        # have a length whose only small divisor sends the prefill's
+        # streaming twin through blocks of 2 keys (2042 = 2 x 1021);
+        # recurrentgemma's 2056 and 2072 both hold the ring of 2048.  A
+        # first untimed run takes the shapes' first calls.
+        half = gen // 2
+        generate(model, params, prompts, half, eager=eager, **side)
         t0 = time.perf_counter()
-        generate(model, params, prompts, 2, eager=eager)
+        generate(model, params, prompts, half, eager=eager, **side)
         torch.cuda.synchronize()
-        t2 = time.perf_counter() - t0
+        t_half = time.perf_counter() - t0
         _zero(*names)
         t0 = time.perf_counter()
-        tokens, logits = generate(model, params, prompts, gen, eager=eager)
+        tokens, logits = generate(model, params, prompts, gen, eager=eager,
+                                  **side)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = _read(*names)
-        step_ms = (dt - t2) / (gen - 2) * 1e3
-        print(f"[generate, {mode}] B={b} prompt={plen} gen={gen}: "
+        step_ms = (dt - t_half) / (gen - half) * 1e3
+        print(f"[generate {cfg.name}, {mode}] B={b} prefix="
+              f"{cfg.n_prefix_embeds} prompt={plen} gen={gen}: "
               f"{b * gen / dt:.2f} tok/s ({dt:.2f}s, prefill and capture "
               f"included); a decode step {step_ms:.3f} ms ({gen} tokens "
-              f"{dt:.3f}s - 2 tokens {t2:.3f}s over {gen - 2}); launches "
-              f"{launches} (want 0: no kernel on this path)")
+              f"{dt:.3f}s - {half} tokens {t_half:.3f}s over "
+              f"{gen - half}); launches {launches} (want 0: no kernel on "
+              f"this path)")
         if any(launches.values()):
             raise RuntimeError(f"generate launched {launches}")
         if tokens.shape != (b, gen) or not (
@@ -1192,15 +1284,16 @@ def generate_phase(cfg, params) -> dict:
     full = torch.cat([prompts, torch.from_numpy(tokens[:, :-1]).cuda()], 1)
     plain = LM(cfg, Runtime(kernel_ops=False), device="cuda")
     with torch.inference_mode():
-        ref = plain.forward(params, full)[:, -1]
+        ref = plain.forward(params, full, side.get("prefix_embeds"))[:, -1]
     torch.cuda.synchronize()
     if logits.shape != ref.shape or not torch.isfinite(logits).all():
         raise RuntimeError(f"bad logits {tuple(logits.shape)}")
     rel = float((logits.float() - ref.float()).norm() / ref.float().norm())
     same = float((logits.float() - want_logits.float()).abs().max())
-    print(f"[generate] captured tokens equal the eager run's; last "
-          f"step's logits vs the cache-free forward over the same "
-          f"{full.shape[1]} tokens: rel err {rel:.3g} (tol "
+    print(f"[generate {cfg.name}] captured tokens equal the eager run's; "
+          f"last step's logits vs the cache-free forward over the same "
+          f"{cfg.n_prefix_embeds} + {full.shape[1]} positions: rel err "
+          f"{rel:.3g} (tol "
           f"{'not held: MoE capacity' if cfg.moe else E2E_REL_TOL}); "
           f"captured vs eager logits max|diff| {same:.3g}")
     if rel > E2E_REL_TOL and not cfg.moe:
@@ -1680,14 +1773,20 @@ def slice3_check_phase(cfg) -> dict:
     return worst
 
 
-def _forward_batch(cfg) -> dict:
-    """B=2 x S=2048 seeded tokens of the cache-free path, on the card."""
-    b, s = FORWARD["batch"], FORWARD["seq"]
+def _forward_batch(cfg, b: int = FORWARD["batch"],
+                   s: int = FORWARD["seq"]) -> dict:
+    """B x S seeded positions of the cache-free path, on the card (B=2 x
+    S=2048 unless given): S tokens, or for a vision config its prefix
+    embeddings (``launch.serve.demo_side_inputs``) and S - prefix
+    tokens."""
+    from repro_torch.launch.serve import demo_side_inputs
     g = torch.Generator(device="cuda").manual_seed(FORWARD["seed"])
-    tokens = torch.randint(0, cfg.vocab, (b, s), generator=g, device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (b, s - cfg.n_prefix_embeds),
+                           generator=g, device="cuda")
     labels = torch.roll(tokens, -1, dims=1)
     labels[:, -1] = -100
-    return {"tokens": tokens, "labels": labels}
+    return {"tokens": tokens, "labels": labels,
+            **demo_side_inputs(cfg, b, "cuda", FORWARD["seed"])}
 
 
 def _divergence(loss, logits, want_loss, want) -> dict:
@@ -1702,19 +1801,22 @@ def _divergence(loss, logits, want_loss, want) -> dict:
                 within=loss_rel <= LOSS_REL_TOL and rel <= FORWARD_REL_TOL)
 
 
-def forward_phase(cfg, params) -> dict:
+def forward_phase(cfg, params, batch=None) -> dict:
     """The cache-free path at full width: ``LM.loss`` and ``LM.forward``
-    of B=2 x S=2048 seeded tokens with ``Runtime(kernel_ops=True)``,
-    each with the attention kernel's counter set to 0 just before and
-    read just after (36 = one launch per layer), each against the same
-    call on the plain twin path; then a profile of one forward."""
+    of ``batch`` (B=2 x S=2048 seeded tokens unless given; a vision
+    config's prefix embeddings ahead of them) with
+    ``Runtime(kernel_ops=True)``, each with the attention kernel's
+    counter set to 0 just before and read just after (one launch per
+    attention layer: 36 for qwen3-8b), each against the same call on the
+    plain twin path; then a profile of one forward."""
     from repro_torch.kernels import attention as A
     from repro_torch.models.lm import LM, Runtime
-    batch = _forward_batch(cfg)
-    tokens = batch["tokens"]
-    b, s = tokens.shape
+    batch = _forward_batch(cfg) if batch is None else batch
+    tokens, prefix = batch["tokens"], batch.get("prefix_embeds")
     kern = LM(cfg, Runtime(kernel_ops=True), device="cuda")
     plain = LM(cfg, Runtime(kernel_ops=False), device="cuda")
+    b, s = tokens.shape[0], tokens.shape[1] + cfg.n_prefix_embeds
+    n_attn = kern.kinds.count("attn")
     launches = {}
     with torch.inference_mode():
         A.fused_attention.launches = 0
@@ -1725,37 +1827,40 @@ def forward_phase(cfg, params) -> dict:
         launches["loss"] = A.fused_attention.launches
         A.fused_attention.launches = 0
         t0 = time.perf_counter()
-        logits = kern.forward(params, tokens)
+        logits = kern.forward(params, tokens, prefix)
         torch.cuda.synchronize()
         fwd_s = time.perf_counter() - t0
         launches["forward"] = A.fused_attention.launches
-        print(f"[forward] B={b} S={s}: loss {float(loss):.5f} in "
+        print(f"[forward {cfg.name}] B={b} S={s} (prefix "
+              f"{cfg.n_prefix_embeds}): loss {float(loss):.5f} in "
               f"{loss_s:.2f}s, forward {tuple(logits.shape)} in "
               f"{fwd_s:.2f}s (first calls); fused_attention launches "
-              f"{launches} (want {cfg.n_layers} each)")
-        if any(n != cfg.n_layers for n in launches.values()):
+              f"{launches} (want {n_attn} each)")
+        if any(n != n_attn for n in launches.values()):
             raise RuntimeError(f"the forward launched fused_attention "
-                               f"{launches} times, not {cfg.n_layers}")
+                               f"{launches} times, not {n_attn}")
         if logits.shape != (b, s, cfg.vocab) or not (
                 torch.isfinite(logits).all() and torch.isfinite(loss)):
             raise RuntimeError("non-finite or misshapen forward output")
         want_loss = plain.loss(params, batch)
-        want = plain.forward(params, tokens)
+        want = plain.forward(params, tokens, prefix)
         torch.cuda.synchronize()
         div = _divergence(loss, logits, want_loss, want)
         del want
-        print(f"[forward] kernel path vs the plain twin path at full "
-              f"width: loss {div['loss']:.5f} vs {div['plain_loss']:.5f} "
-              f"(rel {div['loss_rel']:.3g}, tol {LOSS_REL_TOL}); logits "
+        print(f"[forward {cfg.name}] kernel path vs the plain twin path "
+              f"at full width: loss {div['loss']:.5f} vs "
+              f"{div['plain_loss']:.5f} (rel {div['loss_rel']:.3g}, tol "
+              f"{LOSS_REL_TOL}); logits "
               f"rel err {div['logits_rel']:.3g} (tol {FORWARD_REL_TOL}), "
               f"argmax agree {div['argmax_agree']:.4f}")
         if not div["within"]:
             raise RuntimeError("the kernel forward diverges from the plain "
                                "twin path")
         del logits
-        prof = profile_phase(lambda: kern.forward(params, tokens),
-                             "forward", f"cache-free forward (B={b}, S={s}, "
-                             f"{cfg.n_layers} layers)", timed=2, traced=1)
+        prof = profile_phase(lambda: kern.forward(params, tokens, prefix),
+                             f"forward {cfg.name}", f"cache-free forward "
+                             f"(B={b}, S={s}, {cfg.n_layers} layers)",
+                             timed=2, traced=1)
     return dict(launches=launches, profile=prof, **div)
 
 
@@ -1837,36 +1942,47 @@ def fault_phase(cfg, params) -> dict:
     return results
 
 
-def attention_time_phase(cfg, table_iii: bool = True) -> dict:
-    """kernel_ms, plain_ms, library_ms (SDPA, causal, GQA) and bound_ms
-    of the normalised attention at the forward's shape of ``cfg`` with
-    the tuner's tiles, the kernel's time at other tiles of the same
+def attention_time_phase(cfg, table_iii: bool = True,
+                         b: int = FORWARD["batch"], m: int = FORWARD["seq"],
+                         window: int = 0,
+                         other=((64, 64), (128, 64), (128, 128))) -> dict:
+    """kernel_ms, plain_ms, library_ms (SDPA with the same causal and
+    window mask, GQA) and bound_ms of the normalised attention at the
+    forward's shape of ``cfg`` (B x S, B=2 x S=2048 unless given) with
+    the tuner's tiles, the kernel's time at ``other`` tiles of the same
     shape, and (``table_iii``) the f32 (CUDA-core) entry at Table III
     S2 beside its bound, plain version and SDPA."""
     from repro_torch.core import api
     from repro_torch.kernels import attention as A
-    b, m, d, dt = FORWARD["batch"], FORWARD["seq"], cfg.dh, torch.bfloat16
+    d, dt = cfg.dh, torch.bfloat16
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     tk = api.fuse_attention(m, m, d, d, heads=hq, batch=b,
-                            dtype=_dtname(dt), causal=True)
+                            dtype=_dtname(dt), causal=True, window=window)
     q, k, v = _randn([(b, hq, m, d), (b, hkv, m, d), (b, hkv, m, d)], dt, 98)
     scale = 1.0 / d ** 0.5
+    if window:
+        rows = torch.arange(m, device="cuda")[:, None]
+        cols = torch.arange(m, device="cuda")[None, :]
+        mask = dict(attn_mask=(cols <= rows) & (cols > rows - window))
+    else:
+        mask = dict(is_causal=True)
     with torch.inference_mode():
         kernel_ms = _adaptive_ms(lambda: tk(q, k, v))
         plain_ms = _adaptive_ms(lambda: A.fused_attention_plain(
-            q, k, v, tk.params.bkv, True, 0, scale), reps=1)
+            q, k, v, tk.params.bkv, True, window, scale), reps=1)
         library_ms = _adaptive_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, scale=scale, enable_gqa=True))
+            q, k, v, scale=scale, enable_gqa=True, **mask))
         other_tiles = {f"{bq}/{bkv}": _adaptive_ms(
             lambda bq=bq, bkv=bkv: A.fused_attention(
-                q, k, v, bq=bq, bkv=bkv, causal=True, scale=scale))
-            for bq, bkv in ((64, 64), (128, 64), (128, 128))}
+                q, k, v, bq=bq, bkv=bkv, causal=True, window=window,
+                scale=scale))
+            for bq, bkv in other}
     out = dict(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                **_bound(_nbytes(q, k, v, q),
-                        _attention_ops(b, hq, m, m, d, d, True), dt),
+                        _attention_ops(b, hq, m, m, d, d, True, window), dt),
                tiles=tk.params.as_kwargs(), other_tiles_ms=other_tiles)
     print(f"attention times [{cfg.name} forward] B={b} Hq={hq} Hkv={hkv} "
-          f"M=N={m} D={d} bf16 causal: " + json.dumps(out))
+          f"M=N={m} D={d} bf16 causal window={window}: " + json.dumps(out))
     if not table_iii:
         return out
     h, m2, n2, k2, _ = ATTN_TABLE_III["S2"]
@@ -2045,36 +2161,67 @@ def _train_batch(cfg, step: int = 0) -> dict:
             for k, v in pipe.batch_at(step).items()}
 
 
-def _detach_attention(layer: int):
-    """A stand-in for ``layers.attention_block`` whose call for
-    ``layer`` (one call per layer and forward) returns its output
-    detached from the graph: the forward is unchanged and that layer's
-    attention weights get no gradient."""
+def _detach_output(name: str, layer: int):
+    """A stand-in for ``layers.<name>`` (``attention_block`` or
+    ``rglru_block``) whose call for ``layer`` (one call per layer of
+    that kind and forward) returns its output detached from the graph:
+    the forward is unchanged and that layer's weights of the block get
+    no gradient."""
     from repro_torch.models import layers as L
-    block, calls = L.attention_block, []
+    block, calls = getattr(L, name), []
 
     def faulty(*a, **k):
         out = block(*a, **k)
         calls.append(1)
         return out.detach() if len(calls) == layer + 1 else out
-    return faulty
+    return name, faulty
+
+
+def _exclusive_scan():
+    """A stand-in for ``layers.linear_scan`` off by one position (an
+    exclusive scan: h_t takes h_{t-1}'s value), in every RG-LRU layer:
+    the forward changes."""
+    from repro_torch.models import layers as L
+    scan = L.linear_scan
+
+    def faulty(a, b):
+        a_sc, h = scan(a, b)
+        return a_sc, torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]],
+                               dim=1)
+    return "linear_scan", faulty
+
+
+# ``--plant-faults``' training faults, each with the T1 limit it must go
+# past: a detached block output leaves its weights without gradient (a
+# leaf at relative error 1); the scan fault changes the forward, so the
+# loss
+TRAIN_FAULTS = {
+    "detach_attention": (lambda: _detach_output("attention_block",
+                                                TRAIN_FAULT_LAYER), "grad"),
+    "detach_rglru": (lambda: _detach_output("rglru_block",
+                                            TRAIN_FAULT_LAYER), "grad"),
+    "exclusive_scan": (_exclusive_scan, "loss"),
+}
 
 
 def _loss_and_grads(model, params, batch, fault=None) -> tuple:
     """(loss, each leaf's gradient in leaf order, None for a leaf that
-    got none) of one ``LM.loss`` backward; the ``.grad`` are cleared."""
+    got none) of one ``LM.loss`` backward, with ``fault`` (a (name of a
+    ``layers`` function, stand-in) pair) patched in; the ``.grad`` are
+    cleared."""
     from repro_torch import tree as T
     from repro_torch.models import layers as L
     from repro_torch.models.lm import requires_grad
     requires_grad(params)
-    block = L.attention_block
-    if fault is not None:
-        L.attention_block = fault
+    name, stand_in = fault or ("attention_block", None)
+    orig = getattr(L, name)
+    if stand_in is not None:
+        setattr(L, name, stand_in)
     try:
         loss = model.loss(params, batch)
         loss.backward()
     finally:
-        L.attention_block = block
+        setattr(L, name, orig)
     grads = [p.grad for p in T.leaves(params)]
     for p in T.leaves(params):
         p.grad = None
@@ -2098,14 +2245,16 @@ def _grad_distance(got, want: torch.Tensor) -> tuple[float, float]:
     return rel, cos
 
 
-def train_numerics_phase(cfg, faults=("none",)) -> dict:
+def train_numerics_phase(cfg, faults=("none",), limits=None) -> dict:
     """T1: one step's loss and gradients at ``cfg`` in bf16 against the
     same step with the weights upcast to f32 (TF32 off), seed-0
     weights, ``launch.train``'s first batch.  Each entry of ``faults``
-    is run: ``none`` must be within TRAIN_LOSS_REL_TOL,
-    TRAIN_GNORM_REL_TOL and TRAIN_GRAD_REL_TOL (every leaf), and
-    ``detach_attention`` (layer TRAIN_FAULT_LAYER's attention output
-    detached) must go past the gradient limit."""
+    is run: ``none`` must be within ``limits`` (loss, grad norm, every
+    leaf; TRAIN_LOSS_REL_TOL, TRAIN_GNORM_REL_TOL and TRAIN_GRAD_REL_TOL
+    unless given), and each planted fault of TRAIN_FAULTS must go past
+    the limit it names there."""
+    loss_tol, gnorm_tol, grad_tol = limits or (
+        TRAIN_LOSS_REL_TOL, TRAIN_GNORM_REL_TOL, TRAIN_GRAD_REL_TOL)
     from repro_torch import tree as T
     from repro_torch.models.lm import LM, Runtime
     model = LM(cfg, Runtime(), device="cuda")
@@ -2120,8 +2269,7 @@ def train_numerics_phase(cfg, faults=("none",)) -> dict:
     want_norm = _norm(want)
     results = {}
     for name in faults:
-        fault = (None if name == "none"
-                 else _detach_attention(TRAIN_FAULT_LAYER))
+        fault = None if name == "none" else TRAIN_FAULTS[name][0]()
         t0 = time.perf_counter()
         loss, grads = _loss_and_grads(model, params, batch, fault)
         torch.cuda.synchronize()
@@ -2141,18 +2289,17 @@ def train_numerics_phase(cfg, faults=("none",)) -> dict:
                  median_rel=sorted(r_ for r_, _ in per_leaf.values())[
                      len(per_leaf) // 2],
                  leaves=len(per_leaf), bf16_s=bf16_s, f32_s=f32_s)
-        r["within"] = (loss_rel <= TRAIN_LOSS_REL_TOL
-                       and gnorm_rel <= TRAIN_GNORM_REL_TOL
-                       and r["worst_rel"] <= TRAIN_GRAD_REL_TOL)
+        r["within"] = (loss_rel <= loss_tol and gnorm_rel <= gnorm_tol
+                       and r["worst_rel"] <= grad_tol)
         results[name] = r
         print(f"[train T1, {name}] {cfg.name} {cfg.n_layers} layers B="
               f"{TRAIN['batch']} S={TRAIN['seq']}: bf16 loss "
               f"{r['loss']:.6f} vs f32 {r['f32_loss']:.6f} (rel "
-              f"{loss_rel:.3g}, tol {TRAIN_LOSS_REL_TOL}); grad norm "
+              f"{loss_rel:.3g}, tol {loss_tol}); grad norm "
               f"{norm:.6g} vs {want_norm:.6g} (rel {gnorm_rel:.3g}, tol "
-              f"{TRAIN_GNORM_REL_TOL}); per leaf ({len(per_leaf)}) rel err "
+              f"{gnorm_tol}); per leaf ({len(per_leaf)}) rel err "
               f"median {r['median_rel']:.3g}, worst {r['worst_rel']:.3g} at "
-              f"{worst[0]} (tol {TRAIN_GRAD_REL_TOL}), lowest cosine "
+              f"{worst[0]} (tol {grad_tol}), lowest cosine "
               f"{r['worst_cos']:.5f}; bf16 step {bf16_s:.2f}s, f32 "
               f"{f32_s:.2f}s (first calls): "
               f"{'within' if r['within'] else 'past the limits'}")
@@ -2163,8 +2310,9 @@ def train_numerics_phase(cfg, faults=("none",)) -> dict:
     torch.cuda.empty_cache()
     if not results["none"]["within"]:
         raise RuntimeError("a bf16 training step diverges from the f32 one")
-    missed = [n for n, r in results.items()
-              if n != "none" and r["worst_rel"] <= TRAIN_GRAD_REL_TOL]
+    missed = [n for n, r in results.items() if n != "none" and (
+        r["worst_rel"] <= grad_tol if TRAIN_FAULTS[n][1] == "grad"
+        else r["loss_rel"] <= loss_tol)]
     if missed:
         raise RuntimeError(f"planted training faults within the limit: "
                            f"{missed}")
@@ -2864,7 +3012,8 @@ def moe_forward_phase(cfg, params) -> dict:
         positions = torch.arange(s, dtype=torch.int32, device="cuda")
         held = _layerwise(f"{cfg.name} forward", cfg, kern, plain,
                           params["layers"], kern._embed(params, tokens),
-                          lambda m, p, x, i: m._apply_block(p, x, positions),
+                          lambda m, p, x, i: m._apply_block("attn", p, x,
+                                                            positions),
                           FORWARD_REL_TOL)
         want_loss = plain.loss(params, batch)
         with _Routes() as plain_routes:
@@ -3090,13 +3239,210 @@ def moe_time_phase(olmoe, mixtral, tiles: dict, n_ctx: int) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# Phase 4i: the hybrid and vision-prefix decoders
+# ---------------------------------------------------------------------------
+
+def archs_kernel_check_phase(rg, pixtral) -> float:
+    """Phase 3 at 4i's shapes: the normalised attention kernel against
+    its plain version at recurrentgemma-2b's head dim 256 and GQA group
+    of 10 (Hq=10, Hkv=1) with its window of 2048 — at its forward's
+    shape (B=1, S=4096) and at S=2560 at the tuner's tiles and tiles
+    around them, bf16 (the ``<256, 64>`` register bucket) and f32 — and
+    at pixtral-12b's forward shape (qwen3-8b's); returns the largest
+    absolute error."""
+    bf, f32 = torch.bfloat16, torch.float32
+    hq, hkv, d = rg.n_heads, rg.n_kv_heads, rg.dh
+    win = rg.attn_window
+    s, sf = win + 512, RG_FORWARD["s"]
+    cases = [(f"{RG} D={d} group {hq // hkv} window {win}", 1, hq, hkv, s,
+              s, d, bf, True, win, None)]
+    cases += [(f"{RG} shape, tiles {t}", 1, hq, hkv, s, s, d, bf, True, win,
+               t) for t in ((64, 64), (128, 64), (128, 32), (16, 16))]
+    cases.append((f"{RG} shape f32, window 256", 1, hq, hkv, 512, 512, d,
+                  f32, True, 256, None))
+    cases.append((f"{PIXTRAL} forward", PIXTRAL_FORWARD["b"],
+                  pixtral.n_heads, pixtral.n_kv_heads, PIXTRAL_FORWARD["s"],
+                  PIXTRAL_FORWARD["s"], pixtral.dh, bf, True, 0, None))
+    cases.append((f"{RG} forward", RG_FORWARD["b"], hq, hkv, sf, sf, d, bf,
+                  True, win, None))
+    return _attention_cases(cases, seed0=80)
+
+
+def decode_check(cfg, params) -> dict:
+    """A batch-4 prefill of seeded prompts (after a vision config's
+    prefix embeddings), then teacher-forced ``decode_step`` calls over
+    the contiguous cache (DECODE_CHECK), each step's logits against the
+    cache-free forward's row at the same position on the plain twin
+    path; the largest relative error (per step, 2-norm over the batch)
+    is held to E2E_REL_TOL.  Then a profile of one decode step at the
+    last position (rewriting its kv slot), captured (``CapturedStep``,
+    a replay) and eager: host wall, device busy and share, device
+    span."""
+    from repro_torch.kernels.capture import CapturedStep
+    from repro_torch.launch.serve import demo_side_inputs
+    from repro_torch.models.lm import LM, Runtime
+    spec = DECODE_CHECK[cfg.name]
+    plen, steps, n_pre = spec["prompt_len"], spec["steps"], \
+        cfg.n_prefix_embeds
+    b = GENERATE["batch"]
+    g = torch.Generator(device="cuda").manual_seed(spec["seed"])
+    tokens = torch.randint(0, cfg.vocab, (b, plen + steps), generator=g,
+                           device="cuda")
+    side = demo_side_inputs(cfg, b, "cuda", spec["seed"])
+    model = LM(cfg, Runtime(kernel_ops=True), device="cuda")
+    plain = LM(cfg, Runtime(kernel_ops=False), device="cuda")
+    with torch.inference_mode():
+        cache = model.init_cache(b, n_pre + plen + steps)
+        model.prefill(params, tokens[:, :plen], cache, **side)
+        got = []
+        for t in range(plen, plen + steps):
+            logits, _ = model.decode_step(
+                params, cache, tokens[:, t],
+                torch.tensor(n_pre + t, dtype=torch.int32, device="cuda"))
+            got.append(logits.float())
+        want = plain.forward(params, tokens, side.get("prefix_embeds"))[
+            :, n_pre + plen:].float()
+        got = torch.stack(got, dim=1)
+        rel = ((got - want).norm(dim=(0, 2))
+               / want.norm(dim=(0, 2))).tolist()
+        del got, want
+        ring = [c["k"].shape[2] for c in cache if "k" in c]
+        print(f"[decode {cfg.name}] B={b} prefill of {n_pre} + {plen} "
+              f"positions, {steps} decode steps (positions {n_pre + plen}"
+              f"..{n_pre + plen + steps - 1}; attention caches of "
+              f"{ring[0]} slots) vs the cache-free forward: rel err per "
+              f"step max {max(rel):.3g}, last {rel[-1]:.3g} (tol "
+              f"{E2E_REL_TOL})")
+        if max(rel) > E2E_REL_TOL or not all(map(math.isfinite, rel)):
+            raise RuntimeError(f"{cfg.name}'s decode steps diverge from "
+                               f"its forward")
+        tok = tokens[:, -1].clone()
+        pos = torch.tensor(n_pre + plen + steps - 1, dtype=torch.int32,
+                           device="cuda")
+
+        def step():
+            return model.decode_step(params, cache, tok, pos)[0]
+        captured = CapturedStep(step, "cuda")
+        what = f"decode step (batch {b}, {cfg.n_layers} layers)"
+        prof = {}
+        for mode, run in (("captured", captured.replay), ("eager", step)):
+            prof[mode] = profile_phase(run, f"{cfg.name}, {mode}", what)
+            prof[mode]["span_ms"] = _span_ms(run)
+            print(f"profile [{cfg.name}, {mode}]: device span of one step "
+                  f"{prof[mode]['span_ms']:.3f} ms (events)")
+        del captured
+    return dict(rel_max=max(rel), rel_last=rel[-1], ring_slots=ring[0],
+                step_profile=prof)
+
+
+def arch_train_step(cfg, depth: str) -> dict:
+    """One step of ``launch.train.train`` at ``cfg`` (ARCH_TRAIN, the
+    CLI's defaults, a vision config's prefix embeddings in its batch),
+    every kernel counter set to 0 just before and read just after (each
+    must read 0: no kernel is on the training path); the loss and grad
+    norm finite; the step's wall (its first call), the bytes of weights
+    and optimizer state from their tensors, and the peak memory."""
+    from repro_torch import tree as T
+    from repro_torch.kernels import capture
+    from repro_torch.launch import train as TR
+    names = list(capture.counters())
+    torch.cuda.reset_peak_memory_stats()
+    _zero(*names)
+    out = TR.train(cfg, steps=1, batch=ARCH_TRAIN["batch"],
+                   seq=ARCH_TRAIN["seq"], lr=TRAIN["lr"], seed=0,
+                   device="cuda")
+    torch.cuda.synchronize()
+    launches = _read(*names)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in T.leaves(out["state"])) / 1e9
+    n = sum(t.numel() for t in T.leaves(out["state"][0]))
+    r = dict(loss=out["losses"][0], grad_norm=out["grad_norms"][0],
+             step_s=out["step_times"][0], params_b=n / 1e9,
+             state_gb=state_gb, peak_gb=peak_gb, launches=launches)
+    print(f"[train {cfg.name}] {cfg.n_layers} layers ({depth}), B="
+          f"{ARCH_TRAIN['batch']} x ({cfg.n_prefix_embeds} prefix + "
+          f"{ARCH_TRAIN['seq']} tokens): loss {r['loss']:.5f}, grad norm "
+          f"{r['grad_norm']:.4g}, one step {r['step_s']:.2f}s (first "
+          f"call); {r['params_b']:.3f} B parameters, weights and AdamW "
+          f"state {state_gb:.2f} GB, peak {peak_gb:.2f} GB; kernel "
+          f"launches {launches} (want 0)")
+    del out
+    torch.cuda.empty_cache()
+    if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])):
+        raise RuntimeError(f"a non-finite training step at {cfg.name}")
+    if any(launches.values()):
+        raise RuntimeError(f"the training path launched {launches}")
+    return r
+
+
+def _arch_serve(cfg, forward: dict, spec: dict) -> dict:
+    """4i's inference paths at one config, its weights freed after: the
+    cache-free forward and loss against the plain twin path, captured and
+    eager ``generate`` against the forward, the decode check; nothing
+    may degrade; the peak memory."""
+    params = init_phase(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    out = {"forward": forward_phase(cfg, params,
+                                    _forward_batch(cfg, **forward))}
+    _no_degradation(f"{cfg.name} forward")
+    out["generate"] = generate_phase(cfg, params, spec)
+    _no_degradation(f"{cfg.name} generate")
+    out["decode"] = decode_check(cfg, params)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[{cfg.name}] peak memory of the inference paths "
+          f"{out['peak_gb']:.2f} GB")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def archs_phase() -> dict:
+    """Phase 4i: recurrentgemma-2b, then pixtral-12b, each at every FULL
+    width and depth through ``_arch_serve``, each model freed before the
+    next; then training: T1 at recurrentgemma's full depth within
+    RG_T1_LIMITS, one step of it, and one step of pixtral at
+    PIXTRAL_TRAIN_LAYERS layers.  Nothing here is caught: a failure
+    raises."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    rg, pixtral = get_config(RG), get_config(PIXTRAL)
+    out = {RG: _arch_serve(rg, RG_FORWARD, RG_GENERATE),
+           PIXTRAL: _arch_serve(pixtral, PIXTRAL_FORWARD, PIXTRAL_GENERATE)}
+    out[RG]["t1"] = train_numerics_phase(rg, limits=RG_T1_LIMITS)["none"]
+    out[RG]["train"] = arch_train_step(rg, "no depth cut")
+    out[PIXTRAL]["train"] = arch_train_step(
+        dataclasses.replace(pixtral, n_layers=PIXTRAL_TRAIN_LAYERS),
+        f"depth cut to {PIXTRAL_TRAIN_LAYERS} of {pixtral.n_layers}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[archs] phase seconds: {out['seconds']:.1f}")
+    return out
+
+
+def archs_time_phase(rg, pixtral) -> dict:
+    """Phase 7 at 4i's shapes: the normalised kernel at recurrentgemma's
+    forward (B=1, S=4096, D=256, group 10, window 2048) with tiles
+    around the pick, and at pixtral's (qwen3-8b's shape)."""
+    return {
+        "recurrentgemma_forward": attention_time_phase(
+            rg, table_iii=False, b=RG_FORWARD["b"], m=RG_FORWARD["s"],
+            window=rg.attn_window,
+            other=((64, 64), (128, 64), (128, 32))),
+        "pixtral_forward": attention_time_phase(
+            pixtral, table_iii=False, b=PIXTRAL_FORWARD["b"],
+            m=PIXTRAL_FORWARD["s"]),
+    }
+
+
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--plant-faults"], ["--reliability"], ["--train"],
-                    ["--moe"]):
+                    ["--moe"], ["--archs"]):
         raise SystemExit("usage: python3 chip_smoke.py "
                          "[--plant-faults | --reliability | --train | "
-                         "--moe]")
+                         "--moe | --archs]")
     smi = device_phase()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     # tuned schedules persist inside the checkout (.cache/ is gitignored)
@@ -3117,6 +3463,9 @@ def main(argv=None) -> None:
         torch.cuda.empty_cache()
         train_numerics_phase(_train_cfg(),
                              faults=("none", "detach_attention"))
+        train_numerics_phase(get_config(RG), limits=RG_T1_LIMITS,
+                             faults=("none", "detach_rglru",
+                                     "exclusive_scan"))
         print(smi)
         return
     if argv == ["--reliability"]:
@@ -3127,6 +3476,15 @@ def main(argv=None) -> None:
         (SERVE["prompt_len"] + SERVE["gen"]) / SERVE["page_size"])
     olmoe, mixtral = get_config(OLMOE), get_config(MIXTRAL)
     moe_tiles = _moe_tiles(olmoe, mixtral, n_ctx)
+    rg, pixtral = get_config(RG), get_config(PIXTRAL)
+    if argv == ["--archs"]:
+        archs_err = archs_kernel_check_phase(rg, pixtral)
+        archs = archs_phase()
+        archs["max_abs_err"] = archs_err
+        archs["times"] = archs_time_phase(rg, pixtral)
+        print(json.dumps({"archs": archs}, default=str))
+        print(smi)
+        return
     if argv == ["--moe"]:
         moe_err = moe_kernel_check_phase(olmoe, mixtral, moe_tiles, n_ctx)
         moe = moe_phase()
@@ -3161,6 +3519,7 @@ def main(argv=None) -> None:
     mlp_err = mlp_check_phase(cfg)
     slice3_err = slice3_check_phase(cfg)
     moe_err = moe_kernel_check_phase(olmoe, mixtral, moe_tiles, n_ctx)
+    archs_err = archs_kernel_check_phase(rg, pixtral)
     # the three-GEMM kernel is on no main path, as in the JAX package:
     # its counter, set to 0 here, must still read 0 after them all
     _zero("fused_gemm_chain3")
@@ -3202,6 +3561,7 @@ def main(argv=None) -> None:
     moe = moe_phase()
     steps[OLMOE] = moe["step_profile"]
     steps[MIXTRAL] = moe["mixtral_step_profile"]
+    archs = archs_phase()
     chain3_launches = _read("fused_gemm_chain3")["fused_gemm_chain3"]
     print(f"[main paths] fused_gemm_chain3 launches: {chain3_launches} "
           f"(want 0)")
@@ -3230,6 +3590,7 @@ def main(argv=None) -> None:
                "quickstart G1 f32": chain_time_phase("G1", torch.float32)}
     t_chain3 = chain3_time_phase()
     t_moe = moe_time_phase(olmoe, mixtral, moe_tiles, n_ctx)
+    t_archs = archs_time_phase(rg, pixtral)
     moe_paths = {f"{OLMOE} hand_wired": "hand_wired",
                  f"{OLMOE} planner_requested": "planner_requested",
                  f"{MIXTRAL} (16 layers)": "mixtral",
@@ -3302,9 +3663,11 @@ def main(argv=None) -> None:
             "forward": fwd["launches"]["forward"],
             "quickstart": front["fused_attention"],
             f"{OLMOE} loss": moe["forward"]["launches"]["loss"],
-            f"{OLMOE} forward": moe["forward"]["launches"]["forward"]},
+            f"{OLMOE} forward": moe["forward"]["launches"]["forward"],
+            **{f"{arch} {call}": archs[arch]["forward"]["launches"][call]
+               for arch in (RG, PIXTRAL) for call in ("loss", "forward")}},
         "max_abs_err": max(slice3_err["fused_attention"],
-                           moe_err["fused_attention"]),
+                           moe_err["fused_attention"], archs_err),
         "ms": t_attn["kernel_ms"],
         "plain_ms": t_attn["plain_ms"],
         "bound_ms": t_attn["bound_ms"],
@@ -3316,6 +3679,8 @@ def main(argv=None) -> None:
         "olmoe_1b_7b_forward": {k: t_moe["olmoe_forward"][k] for k in (
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "tiles", "other_tiles_ms")},
+        "recurrentgemma_2b_forward_d256": t_archs["recurrentgemma_forward"],
+        "pixtral_12b_forward": t_archs["pixtral_forward"],
         "passed": True,
     }, {
         "name": "fused_gemm_chain",
@@ -3361,6 +3726,7 @@ def main(argv=None) -> None:
     print(json.dumps({"moe": {k: moe[k] for k in (
         "golden_probe", "decode_step", "floor", "mixtral_floor", "forward",
         "generate", "mixtral_long", "seconds")}}, default=str))
+    print(json.dumps({"archs": archs}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

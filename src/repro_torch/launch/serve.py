@@ -37,25 +37,32 @@ from ..models.lm import LM, Runtime
 
 
 def generate(model, params, prompts: torch.Tensor, gen: int, *,
-             eager: bool = False) -> tuple[np.ndarray, torch.Tensor]:
+             eager: bool = False, prefix_embeds=None
+             ) -> tuple[np.ndarray, torch.Tensor]:
     """Greedy generation of ``gen`` tokens for each row of ``prompts``
-    (B, P), on the model's device.
+    (B, P), on the model's device, after ``prefix_embeds`` (B, E, D) if
+    given (a vision config's patch embeddings).
 
-    The prompts are prefilled eagerly into a fresh contiguous cache.
-    On a CUDA device the decode step is then captured in a CUDA graph
+    The prefix and the prompts are prefilled eagerly into a fresh
+    contiguous cache of E + P + gen positions.  On a CUDA device the
+    decode step is then captured in a CUDA graph
     (``kernels.capture.CapturedStep``) whose eager warm-up is the first
     decode step; every later token is a replay.  The step reads its
     token and position from device tensors and writes the next ones
-    back there, so nothing returns to the host until the end.
-    ``eager=True`` (and any run on the CPU) runs each step op by op.
+    back there — and every KV cache and recurrent state in place — so
+    nothing returns to the host until the end.  ``eager=True`` (and any
+    run on the CPU) runs each step op by op.
 
     Returns (tokens (B, gen) int64, the logits (B, V) that chose the
     last token)."""
     b, plen = prompts.shape
-    cache = model.init_cache(b, plen + gen)
-    logits, cache = model.prefill(params, prompts, cache)
+    start = plen + (prefix_embeds.shape[1] if prefix_embeds is not None
+                    else 0)
+    cache = model.init_cache(b, start + gen)
+    logits, cache = model.prefill(params, prompts, cache,
+                                  prefix_embeds=prefix_embeds)
     tok = torch.argmax(logits, dim=-1)
-    pos = torch.full((), plen, dtype=torch.int32, device=tok.device)
+    pos = torch.full((), start, dtype=torch.int32, device=tok.device)
     outs = [tok.clone()]
 
     def step() -> torch.Tensor:
@@ -80,12 +87,25 @@ def generate(model, params, prompts: torch.Tensor, gen: int, *,
     return torch.stack(outs, dim=1).cpu().numpy(), logits
 
 
-def run_generate(model, params, prompts: torch.Tensor,
-                 gen: int) -> tuple[np.ndarray, float]:
+def demo_side_inputs(cfg, batch: int, device, seed: int) -> dict:
+    """``generate``'s side inputs for a config that needs them: random
+    stand-in patch embeddings (batch, n_prefix_embeds, d_model) in the
+    model's type, drawn from ``seed``, for a vision config; none
+    otherwise."""
+    if not cfg.n_prefix_embeds:
+        return {}
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return {"prefix_embeds": torch.randn(
+        (batch, cfg.n_prefix_embeds, cfg.d_model), generator=gen,
+        device=device).to(getattr(torch, cfg.dtype))}
+
+
+def run_generate(model, params, prompts: torch.Tensor, gen: int,
+                 **side) -> tuple[np.ndarray, float]:
     """``generate`` timed on the host clock, to the tokens on the host;
-    returns (tokens, seconds)."""
+    ``side``: ``demo_side_inputs``.  Returns (tokens, seconds)."""
     t0 = time.perf_counter()
-    tokens, _ = generate(model, params, prompts, gen)
+    tokens, _ = generate(model, params, prompts, gen, **side)
     return tokens, time.perf_counter() - t0
 
 
@@ -126,7 +146,14 @@ def run_continuous(cfg, model, params, *, batch: int, n_requests: int,
                    seed: int = 0, verbose: bool = True,
                    eager_decode: bool = False):
     """Continuous-batching serving of a ragged workload; returns
-    (results, stats, engine)."""
+    (results, stats, engine).  A config with prefix embeddings is
+    refused, as in the JAX package (a hybrid's refusal comes from its
+    paged cache)."""
+    if cfg.n_prefix_embeds:
+        raise NotImplementedError(
+            f"--continuous covers decoder-only attention archs without "
+            f"side inputs; {cfg.name} needs prefix embeddings — serve it "
+            f"fixed-batch")
     reqs = ragged_workload(cfg.vocab, n_requests, prompt_len, gen, seed)
     engine = make_engine(model, params, batch=batch,
                          prompt_len=prompt_len, gen=gen,
@@ -163,7 +190,9 @@ def main(argv=None):
         prompts = torch.randint(0, cfg.vocab,
                                 (args.batch, args.prompt_len),
                                 generator=gen).to(model.device)
-        tokens, dt = run_generate(model, params, prompts, args.gen)
+        tokens, dt = run_generate(
+            model, params, prompts, args.gen,
+            **demo_side_inputs(cfg, args.batch, model.device, args.seed + 2))
         print(f"arch={cfg.name} generated {tokens.shape} in {dt:.2f}s "
               f"({args.batch * args.gen / dt:.1f} tok/s) "
               f"device={args.device}")

@@ -22,11 +22,8 @@ from ..optim.adamw import AdamW, cosine_schedule
 
 def build_model(cfg: ModelConfig, rt: Optional[Runtime] = None,
                 device="cuda") -> LM:
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"{cfg.name} is a {cfg.family} model; the port builds dense "
-            f"and MoE decoders (the other families: ROADMAP Queue 1 "
-            f"item 6)")
+    """The decoder of ``cfg``: dense, MoE or hybrid (``LM`` refuses the
+    families not ported yet, naming ROADMAP Queue 1 item 6)."""
     return LM(cfg, rt, device=device)
 
 
@@ -38,7 +35,8 @@ def make_train_step(model: LM, opt: AdamW):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     info)``: params and state updated in place and returned, ``info``
     ``{"loss", "grad_norm", "lr"}`` as 0-d tensors.  batch:
-    ``{"tokens", "labels"}`` on the model's device."""
+    ``{"tokens", "labels"[, "prefix_embeds"]}`` on the model's device
+    (``LM.loss`` reads the prefix embeddings of a vision config)."""
     def train_step(params, opt_state, batch):
         requires_grad(params)
         loss = model.loss(params, batch)

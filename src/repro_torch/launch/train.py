@@ -22,6 +22,7 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from .. import tree as T
@@ -40,6 +41,20 @@ def make_optimizer(lr: float, steps: int) -> AdamW:
     return AdamW(lr=cosine_schedule(lr, warmup=min(10, steps // 4 + 1),
                                     total=max(steps, 100)),
                  clip_norm=1.0)
+
+
+def prefix_embeds(cfg: ModelConfig, batch: int, seed: int, step: int,
+                  device) -> torch.Tensor:
+    """Step ``step``'s stand-in vision embeddings (batch,
+    n_prefix_embeds, d_model): a standard normal draw in the model's
+    type from a generator seeded with (seed, step), as the JAX package's
+    ``launch.train`` draws them from ``fold_in(PRNGKey(seed), step)``
+    (the pair mixed into the 32 bits a CPU generator keeps)."""
+    mixed = np.random.SeedSequence((seed, step)).generate_state(1)[0]
+    gen = torch.Generator(device=device).manual_seed(int(mixed))
+    return torch.randn((batch, cfg.n_prefix_embeds, cfg.d_model),
+                       generator=gen, device=device
+                       ).to(getattr(torch, cfg.dtype))
 
 
 def train(cfg: ModelConfig, *, steps: int = 20, batch: int = 4,
@@ -64,8 +79,12 @@ def train(cfg: ModelConfig, *, steps: int = 20, batch: int = 4,
     train_step = S.make_train_step(model, opt)
 
     def batch_for(step: int) -> dict:
-        return {k: torch.from_numpy(v).to(model.device, torch.long)
-                for k, v in pipe.batch_at(step).items()}
+        out = {k: torch.from_numpy(v).to(model.device, torch.long)
+               for k, v in pipe.batch_at(step).items()}
+        if cfg.n_prefix_embeds:
+            out["prefix_embeds"] = prefix_embeds(cfg, batch, seed, step,
+                                                 model.device)
+        return out
 
     losses, grad_norms, step_times = [], [], []
 

@@ -1,7 +1,7 @@
 """Model configuration schema: the fields of the JAX package's
-``ModelConfig`` that the dense and mixture-of-experts decoder paths
-read.  The other families' fields (SSM, recurrent, encoder) come with
-their slices."""
+``ModelConfig`` that the dense, mixture-of-experts, hybrid (RG-LRU plus
+local attention) and vision-prefix decoder paths read.  The SSM and
+encoder fields come with their slices."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -20,9 +20,20 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class RGLRUConfig:
+    """Griffin / RecurrentGemma recurrent block
+    (``models.layers.rglru_block``)."""
+
+    width_mult: float = 1.0     # lru width = d_model * mult (RG uses 1.0)
+    conv_kernel: int = 4
+    c_exponent: float = 8.0
+    local_window: int = 2048    # window of the interleaved local-attn layers
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | moe (the families ported so far)
+    family: str                 # dense | moe | hybrid (the families ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -38,9 +49,61 @@ class ModelConfig:
     use_rope: bool = True       # False: learned absolute positions
     rope_theta: float = 1e4
     norm_eps: float = 1e-6
+    tie_embeddings: bool = False
     dtype: str = "bfloat16"
     moe: Optional[MoEConfig] = None
+    rglru: Optional[RGLRUConfig] = None
+    frontend: Optional[str] = None   # vision: precomputed prefix embeds
+    n_prefix_embeds: int = 0         # vision stub: patch embeds per sample
+    # layer layout for hybrids: e.g. ("rglru", "rglru", "attn") repeated
+    pattern: tuple[str, ...] = ("attn",)
 
     @property
     def dh(self) -> int:
         return self.head_dim if self.head_dim else self.d_model // self.n_heads
+
+    @property
+    def attn_window(self) -> int:
+        """The attention layers' window (0 = full): a hybrid's local
+        window, else ``window``."""
+        return self.rglru.local_window if self.rglru else self.window
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch decode at 500k context? (the reference's skip
+        rule)."""
+        return self.family in ("ssm", "hybrid") or self.window > 0
+
+    def n_params(self) -> int:
+        """Approximate parameter count (embeddings + blocks), the JAX
+        package's formula as it stands: a GeGLU MLP counts two matrices
+        where ``init_mlp`` makes three (ROADMAP Queue 3), so
+        recurrentgemma-2b reads 2.383 B against the 2.894 B its tensors
+        hold.  Bytes on the card are counted from the tensors."""
+        d, f, v = self.d_model, self.d_ff, self.vocab
+        counts = {"attn": 0, "rglru": 0}
+        pat = list(self.pattern)
+        for i in range(self.n_layers):
+            counts[pat[i % len(pat)]] += 1
+        qkv = d * self.n_heads * self.dh + 2 * d * self.n_kv_heads * self.dh
+        attn = qkv + self.n_heads * self.dh * d
+        mats = 3 if self.act == "swiglu" else 2    # geglu: 3 held
+        if self.moe:
+            ff = self.moe.n_experts * mats * d * f
+            ff += d * self.moe.n_experts  # router
+        else:
+            ff = mats * d * f
+        per = counts["attn"] * (attn + ff)
+        if counts["rglru"]:
+            w = int(self.rglru.width_mult * d)
+            per += counts["rglru"] * (d * 2 * w + 2 * w * w + w * d + ff)
+        return per + 2 * d * v if not self.tie_embeddings else per + d * v
+
+    def active_params(self) -> int:
+        """Params touched per token (MoE: top_k of n_experts)."""
+        if not self.moe:
+            return self.n_params()
+        d, f = self.d_model, self.d_ff
+        dense_ff = (3 if self.act == "swiglu" else 2) * d * f
+        inactive = (self.moe.n_experts - self.moe.top_k) * dense_ff
+        return self.n_params() - self.n_layers * inactive

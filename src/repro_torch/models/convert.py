@@ -5,6 +5,10 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
+from .lm import layer_kinds
+
+# leaves of two or more dims that stay f32, as in the JAX package
+_F32 = ("router", "conv_w")
 
 
 def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -19,39 +23,45 @@ def params_from_jax(np_params: dict, cfg: ModelConfig,
     """The port's parameter dict from the JAX parameter tree passed
     through numpy (``jax.tree.map(np.asarray, params)``).
 
-    The dense stack ``stack["b0_attn"]`` carries a leading ``n_super``
-    axis (the JAX model scans over it); it is unstacked into one dict
-    per layer, followed by the unscanned ``tail`` layers (an MoE
-    layer's experts keep their leading E axis).  Matrices keep the
-    config dtype; norm scales and the MoE router stay f32 as in the JAX
-    package."""
+    The stack ``stack["b{i}_{kind}"]`` holds pattern position ``i``'s
+    layers with a leading ``n_super`` axis (the JAX model scans over
+    it); it is unstacked and interleaved into one dict per layer —
+    b0[j], b1[j], ... for each super-block j — followed by the unscanned
+    ``tail`` layers, the order of ``lm.layer_kinds(cfg)``, which the
+    stack's kinds are checked against (an MoE layer's experts keep
+    their leading E axis).  Matrices keep the config dtype; norm scales,
+    the RG-LRU's ``lam`` and ``conv_w`` and the MoE router stay f32 as
+    in the JAX package.  ``lm_head`` is read only where the JAX tree has
+    one (tied embeddings have none)."""
     dt = getattr(torch, cfg.dtype)
 
     def conv(tree):
         return {k: (conv(v) if isinstance(v, dict) else
-                    _tensor(v, dt if np.ndim(v) >= 2 and k != "router"
+                    _tensor(v, dt if np.ndim(v) >= 2 and k not in _F32
                             else torch.float32, device))
                 for k, v in tree.items()}
 
     stack = np_params["stack"]
-    if set(stack) != {"b0_attn"}:
-        raise ValueError(f"not a dense attention stack: {sorted(stack)}")
-    stacked = stack["b0_attn"]
-    n_super = np.shape(stacked["ln1"]["w"])[0]
+    names = sorted(stack, key=lambda n: int(n.split("_")[0][1:]))
+    n_super = np.shape(stack[names[0]]["ln1"]["w"])[0]
 
-    def layer(i, tree):
-        return {k: (layer(i, v) if isinstance(v, dict) else v[i])
+    def layer(j, tree):
+        return {k: (layer(j, v) if isinstance(v, dict) else v[j])
                 for k, v in tree.items()}
 
-    layers = [conv(layer(i, stacked)) for i in range(n_super)]
+    layers = [conv(layer(j, stack[n])) for j in range(n_super)
+              for n in names]
     layers += [conv(t) for t in np_params["tail"]]
-    if len(layers) != cfg.n_layers:
-        raise ValueError(f"{len(layers)} layers for a {cfg.n_layers}-layer "
-                         f"config")
-    return {
+    kinds = ["rglru" if "lam" in p["mix"] else "attn" for p in layers]
+    if kinds != layer_kinds(cfg):
+        raise ValueError(f"the JAX tree's layers {kinds} are not the "
+                         f"config's {layer_kinds(cfg)}")
+    out = {
         "embed": _tensor(np_params["embed"], dt, device),
         "final_norm": {"w": _tensor(np_params["final_norm"]["w"],
                                     torch.float32, device)},
-        "lm_head": _tensor(np_params["lm_head"], dt, device),
-        "layers": layers,
     }
+    if "lm_head" in np_params:
+        out["lm_head"] = _tensor(np_params["lm_head"], dt, device)
+    out["layers"] = layers
+    return out

@@ -3,6 +3,8 @@ cache-free GQA attention (the forward), GQA attention over a contiguous
 KV cache (fixed-batch generation) or a paged one (the serving engine),
 the MLP, the mixture of experts (``moe_block``: routing and expert
 products in torch ops, as the JAX package's are outside any kernel),
+the RG-LRU recurrent block of the hybrid family (``rglru_block`` with
+its ``causal_conv1d`` and parallel ``linear_scan``, torch ops as well),
 and the planner-driven block (``run_planned_layer``).
 
 Parameters are dicts of tensors with the JAX package's names and
@@ -34,6 +36,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..core.planner import act_name, gated
 from ..kernels.gemm_chain import act_fn
@@ -248,6 +251,97 @@ def feed_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return moe_block(p, x, cfg) if cfg.moe else mlp_block(p, x, cfg)
 
 
+# ---------------------------------------------------------------------------
+# The RG-LRU recurrent block (Griffin / RecurrentGemma, arXiv:2402.19427):
+# torch ops, as the JAX package's are outside any kernel
+# ---------------------------------------------------------------------------
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  state: Optional[torch.Tensor] = None) -> tuple:
+    """Depthwise causal conv with a silu, accumulated in f32.  x: (B, S,
+    C), w: (K, C); state: (B, K-1, C), the inputs before x (zeros when
+    None).  Returns (y in x's type, the new state: the trailing K-1
+    inputs)."""
+    b, s, c = x.shape
+    k = w.shape[0]
+    if state is None:
+        state = x.new_zeros(b, k - 1, c)
+    xin = torch.cat([state.to(x.dtype), x], dim=1)      # (B, K-1+S, C)
+    y = torch.zeros(b, s, c, dtype=torch.float32, device=x.device)
+    for i in range(k):
+        y = y + xin[:, i:i + s].float() * w[i].float()
+    return F.silu(y).to(x.dtype), xin[:, s:]
+
+
+def init_rglru(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    """The recurrent block's weights: the gate branch, the main branch
+    with its conv (f32), the recurrence and input gates, ``lam`` (f32,
+    a = sigmoid(lam)^(c r)) and the output projection."""
+    dt = getattr(torch, cfg.dtype)
+    d = cfg.d_model
+    w = int(cfg.rglru.width_mult * d)
+    return {
+        "w_gate_br": dense_init(gen, (d, w), dt, device),
+        "w_main": dense_init(gen, (d, w), dt, device),
+        "conv_w": dense_init(gen, (cfg.rglru.conv_kernel, w), torch.float32,
+                             device, scale=0.5),
+        "w_a": dense_init(gen, (w, w), dt, device),
+        "w_i": dense_init(gen, (w, w), dt, device),
+        "lam": torch.full((w,), 2.0, dtype=torch.float32, device=device),
+        "w_out": dense_init(gen, (w, d), dt, device),
+    }
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """Inclusive scan of h_t = a_t h_{t-1} + b_t (h_{-1} = 0) along axis
+    1: log2(S) Hillis-Steele steps of the pair composition
+    (a1, b1) then (a2, b2) = (a2 a1, a2 b1 + b2), out of place, so that
+    autograd runs through it.  Returns (the cumulative products of a,
+    h)."""
+    s, d = a.shape[1], 1
+    while d < s:
+        b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+        d *= 2
+    return a, b
+
+
+def rglru_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                state: Optional[dict] = None) -> torch.Tensor:
+    """The Griffin recurrent block: a gelu gate branch times (causal
+    conv -> RG-LRU).  x: (B, S, D) -> (B, S, D).  The gates, a and beta
+    are f32.  Cache-free (``state`` None) or over a state dict ``{"conv"
+    (B, K-1, w), "lru" (B, w) f32}``, which is written IN PLACE, so that
+    a captured decode step reads and writes the same tensors.  More than
+    one token is a parallel scan (``linear_scan``) with the state folded
+    in; one token with a state is a·h + b."""
+    g = cfg.rglru
+    s = x.shape[1]
+    gate = act_fn("gelu")(x @ p["w_gate_br"])
+    main, new_conv = causal_conv1d(
+        x @ p["w_main"], p["conv_w"],
+        state["conv"] if state is not None else None)
+    r = torch.sigmoid((main @ p["w_a"]).float())
+    i = torch.sigmoid((main @ p["w_i"]).float())
+    log_a = g.c_exponent * r * F.logsigmoid(p["lam"])   # (B, S, w) < 0
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9))
+    bt = beta * i * main.float()
+    if state is None or s > 1:
+        a_sc, h = linear_scan(a, bt)
+        if state is not None:
+            h = h + a_sc * state["lru"][:, None]
+        h_last = h[:, -1]
+    else:
+        h_last = a[:, 0] * state["lru"] + bt[:, 0]
+        h = h_last[:, None]
+    if state is not None:
+        state["conv"].copy_(new_conv)
+        state["lru"].copy_(h_last)
+    y = (gate.float() * h).to(x.dtype)
+    return y @ p["w_out"]
+
+
 def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor) -> tuple:
     """The start of every attention block: the q/k/v projections of x
@@ -341,9 +435,9 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
     (B, Hkv, n, dh) in the config's type, ``pos`` (n,) int32 holding
     each slot's absolute position (-1 = empty), shared by the batch, so
     full and ring (windowed) caches share one code path.  ``n`` is
-    ``max_len``, or ``min(max_len, cfg.window)`` with a window: a
+    ``max_len``, or ``min(max_len, cfg.attn_window)`` with a window: a
     ring."""
-    win = cfg.window
+    win = cfg.attn_window
     n = min(max_len, win) if win else max_len
     dt = getattr(torch, cfg.dtype)
     shape = (batch, cfg.n_kv_heads, n, cfg.dh)
@@ -379,7 +473,7 @@ def _cached_attention(q, k, v, cfg: ModelConfig, *, positions, cache: dict,
     cache by position.  q: (B, Hq, S, dh), k/v: (B, Hkv, S, dh);
     positions: (S,), an int32 tensor (a decode step's may live on the
     card, so that a captured step reads it)."""
-    s, win = q.shape[2], cfg.window
+    s, win = q.shape[2], cfg.attn_window
     nc = cache["k"].shape[2]
     group = cfg.n_heads // cfg.n_kv_heads
     scale = 1.0 / math.sqrt(cfg.dh)
@@ -416,8 +510,8 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor, bkv: int = 512,
                     kernel_ops: bool = False,
                     cache: Optional[dict] = None) -> torch.Tensor:
-    """Causal GQA attention.  x: (B, S, D); positions: (S,) absolute
-    positions of x's tokens.
+    """Causal GQA attention over ``cfg.attn_window``.  x: (B, S, D);
+    positions: (S,) absolute positions of x's tokens.
 
     With a contiguous ``cache`` (``init_attn_cache``) this call's k/v
     are written into it IN PLACE and q attends over the cache by
@@ -431,7 +525,7 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     (``cfg.use_fused_attention``), ``naive_attention`` below."""
     b, s, _ = x.shape
     dh = cfg.dh
-    win = cfg.window
+    win = cfg.attn_window
     q, k, v = (t.transpose(1, 2) for t in _project_qkv(p, x, cfg, positions))
     scale = 1.0 / math.sqrt(dh)
     if cache is not None:

@@ -1,24 +1,32 @@
-"""Decoder-only LM, dense (qwen3, granite, codeqwen) or mixture of
-experts (olmoe, mixtral): the cache-free forward and loss, fixed-batch
-decoding over a contiguous KV cache, and paged serving, hand-wired or
-run from the fusion planner's plans (``Runtime(planner=True)``, paged
-serving of the configs the planner can plan; the others run hand-wired,
-as in the JAX package).
+"""Decoder-only LM, dense (qwen3, granite, codeqwen, the pixtral
+backbone with its prefix embeddings), mixture of experts (olmoe,
+mixtral) or hybrid (recurrentgemma: RG-LRU blocks and local attention
+in a repeating ``pattern``): the cache-free forward and loss,
+fixed-batch decoding over a contiguous cache, and paged serving of the
+attention-only stacks, hand-wired or run from the fusion planner's
+plans (``Runtime(planner=True)``, paged serving of the configs the
+planner can plan; the others run hand-wired, as in the JAX package).
 
-The JAX package's ``LM`` scans a stack of stacked layer parameters;
-here the layers are a Python list walked by a loop, parameters are
+The JAX package's ``LM`` scans a stack of stacked layer parameters
+(``n_super`` repeats of the pattern) and runs the remainder as an
+unscanned tail; here the layers are one Python list in the same order
+(``layer_kinds``), walked by a loop, with each layer's kind kept on the
+model (``LM.kinds``) rather than in the parameter tree; parameters are
 dicts of tensors created directly on the model's device, and execution
 is eager (``launch.serve.generate`` and ``serving.engine`` capture a
-decode step in a CUDA graph on the card).  Both caches are written IN
-PLACE, where the JAX package returns updated copies.  The API:
+decode step in a CUDA graph on the card).  Every cache and recurrent
+state is written IN PLACE, where the JAX package returns updated
+copies.  The API:
 
     init_params(seed)                      -> params on ``device``
-    forward(params, tokens)                -> logits (B, S, V)
+    forward(params, tokens[, prefix_embeds]) -> logits (B, P + S, V)
     loss(params, batch)                    -> scalar mean cross-entropy
                                               (under autograd after
                                               ``requires_grad(params)``)
-    init_cache(batch, max_len)             -> per-layer {k, v, pos}
-    prefill(params, tokens, cache)         -> (last logits (B, V), cache)
+    init_cache(batch, max_len)             -> per-layer {k, v, pos} or
+                                              {conv, lru}
+    prefill(params, tokens, cache[, prefix_embeds])
+                                           -> (last logits (B, V), cache)
     decode_step(params, cache, tokens, pos)
     init_paged_cache(n_pages, page_size)   -> per-layer page pools
     prefill_paged(params, tokens, cache, page_table, length)
@@ -27,6 +35,7 @@ PLACE, where the JAX package returns updated copies.  The API:
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -63,6 +72,16 @@ class Runtime:
     # monitor (reliability/sentinels.py::healthy): the serving engine
     # checks prefill and decode logits for NaN/Inf/explosion and evicts
     # the offending slot with the honest "health" outcome.
+
+
+def layer_kinds(cfg: ModelConfig) -> list[str]:
+    """Every layer's kind in the JAX package's order: the pattern
+    ``n_layers // len(pattern)`` times (its scanned super-blocks), then
+    the unscanned tail — recurrentgemma's 26 = 8 x (rglru, rglru, attn)
+    + (rglru, rglru)."""
+    pat = list(cfg.pattern)
+    n_super = cfg.n_layers // len(pat)
+    return pat * n_super + pat[:cfg.n_layers - n_super * len(pat)]
 
 
 def _chunk_len(s: int, target: int = 512) -> int:
@@ -110,85 +129,140 @@ def requires_grad(params: dict) -> dict:
 class LM:
     def __init__(self, cfg: ModelConfig, rt: Optional[Runtime] = None,
                  device="cuda"):
-        if (cfg.family not in ("dense", "moe") or cfg.norm != "rmsnorm"
-                or not cfg.use_rope):
+        kinds = layer_kinds(cfg)
+        if (cfg.family not in ("dense", "moe", "hybrid")
+                or cfg.norm != "rmsnorm" or not cfg.use_rope
+                or not set(kinds) <= {"attn", "rglru"}
+                or ("rglru" in kinds and cfg.rglru is None)):
             raise NotImplementedError(
-                f"the port serves dense and MoE rmsnorm/rope decoders; "
-                f"{cfg.name} is {cfg.family} with {cfg.norm} (rope: "
-                f"{cfg.use_rope}); the other families: ROADMAP Queue 1 "
-                f"item 6")
+                f"the port runs dense, MoE and RG-LRU hybrid rmsnorm/rope "
+                f"decoders; {cfg.name} is {cfg.family} with {cfg.norm} "
+                f"(rope: {cfg.use_rope}, layers {sorted(set(kinds))}); "
+                f"the other families: ROADMAP Queue 1 item 6")
         self.cfg = cfg
         self.rt = rt or Runtime()
         self.device = torch.device(device)
+        self.kinds = kinds
+        # tied embeddings are scaled by sqrt(d_model) rounded to the
+        # config's type, as the JAX package's weakly typed scalar is (a
+        # constant of the model, which a step with the weights upcast to
+        # f32 keeps)
+        self._embed_scale = (
+            float(torch.tensor(math.sqrt(cfg.d_model),
+                               dtype=getattr(torch, cfg.dtype)))
+            if cfg.tie_embeddings else None)
 
     # ------------------------------------------------------------------
     def init_params(self, seed: int) -> dict:
         """Seeded random weights made on ``self.device`` (a full-width
-        bf16 model is never staged on the host)."""
+        bf16 model is never staged on the host).  A config with tied
+        embeddings has no ``lm_head``."""
         cfg, dev = self.cfg, self.device
         gen = torch.Generator(device=dev).manual_seed(seed)
         dt = getattr(torch, cfg.dtype)
         layers = []
-        for _ in range(cfg.n_layers):
+        for kind in self.kinds:
             layers.append({
                 "ln1": {"w": torch.zeros(cfg.d_model, device=dev)},
-                "mix": L.init_attention(gen, cfg, dev),
+                "mix": (L.init_attention(gen, cfg, dev) if kind == "attn"
+                        else L.init_rglru(gen, cfg, dev)),
                 "ln2": {"w": torch.zeros(cfg.d_model, device=dev)},
                 "ff": (L.init_moe(gen, cfg, dev) if cfg.moe
                        else L.init_mlp(gen, cfg, dev)),
             })
-        return {
+        params = {
             "embed": L.dense_init(gen, (cfg.vocab, cfg.d_model), dt, dev,
                                   scale=0.02),
             "final_norm": {"w": torch.zeros(cfg.d_model, device=dev)},
-            "lm_head": L.dense_init(gen, (cfg.d_model, cfg.vocab), dt, dev),
-            "layers": layers,
         }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab),
+                                             dt, dev)
+        params["layers"] = layers
+        return params
 
     # ------------------------------------------------------------------
-    def _apply_block(self, p: dict, x: torch.Tensor,
+    def _apply_block(self, kind: str, p: dict, x: torch.Tensor,
                      positions: torch.Tensor,
                      cache: Optional[dict] = None) -> torch.Tensor:
-        """One hand-wired block over a contiguous ``cache`` (written in
-        place), or cache-free (the forward).  The planner plans only
-        cache-free and paged blocks of the configs it can plan, so a
-        cached block, and any block of an MoE config, runs hand-wired
-        under ``Runtime(planner=True)`` too, as in the JAX package."""
+        """One hand-wired block of ``kind`` over its contiguous ``cache``
+        (a KV cache or a recurrent state, written in place), or
+        cache-free (the forward).  The planner plans only cache-free and
+        paged blocks of the configs it can plan, so a cached block, and
+        any block of an MoE or hybrid config, runs hand-wired under
+        ``Runtime(planner=True)`` too, as in the JAX package.  The
+        attention layers use ``cfg.attn_window``."""
         cfg, rt = self.cfg, self.rt
         if rt.planner and cache is None and planner.plannable(cfg):
             raise NotImplementedError(
                 "the planned cache-free forward is not ported; use "
                 "Runtime(planner=False)")
         h = L.rmsnorm(x, p["ln1"]["w"], cfg.norm_eps)
-        x = x + L.attention_block(p["mix"], h, cfg, positions=positions,
-                                  bkv=rt.bkv, kernel_ops=rt.kernel_ops,
-                                  cache=cache)
+        if kind == "attn":
+            x = x + L.attention_block(p["mix"], h, cfg, positions=positions,
+                                      bkv=rt.bkv, kernel_ops=rt.kernel_ops,
+                                      cache=cache)
+        else:
+            x = x + L.rglru_block(p["mix"], h, cfg, state=cache)
         h2 = L.rmsnorm(x, p["ln2"]["w"], cfg.norm_eps)
         return x + L.feed_forward(p["ff"], h2, cfg)
 
-    def _hidden(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        """The cache-free stack's output before the final norm."""
-        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                                 device=tokens.device)
-        x = self._embed(params, tokens)
-        for p in params["layers"]:
-            x = self._apply_block(p, x, positions)
+    def _positions(self, tokens: torch.Tensor,
+                   prefix_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+        """Positions 0.. over the prefix embeddings and the tokens."""
+        n_pre = prefix_embeds.shape[1] if prefix_embeds is not None else 0
+        return torch.arange(n_pre + tokens.shape[1], dtype=torch.int32,
+                            device=tokens.device)
+
+    def _hidden(self, params: dict, tokens: torch.Tensor,
+                prefix_embeds: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """The cache-free stack's output before the final norm, over the
+        prefix embeddings and the tokens."""
+        positions = self._positions(tokens, prefix_embeds)
+        x = self._embed(params, tokens, prefix_embeds)
+        for kind, p in zip(self.kinds, params["layers"]):
+            x = self._apply_block(kind, p, x, positions)
         return x
 
-    def _embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens]
+    def _embed(self, params: dict, tokens: torch.Tensor,
+               prefix_embeds: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+        """The token embeddings — tied ones times ``_embed_scale`` —
+        after the prefix embeddings, if any."""
+        x = params["embed"][tokens]
+        if self._embed_scale is not None:
+            x = x * self._embed_scale
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        return x
 
-    def forward(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        """The cache-free forward: tokens (B, S) -> logits (B, S, V)."""
-        return self._unembed(params, self._hidden(params, tokens))
+    def _unembed_w(self, params: dict) -> torch.Tensor:
+        """The (D, V) unembedding: the tied embedding transposed, or
+        ``lm_head``."""
+        if self.cfg.tie_embeddings:
+            return params["embed"].t()
+        return params["lm_head"]
+
+    def forward(self, params: dict, tokens: torch.Tensor,
+                prefix_embeds: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """The cache-free forward: tokens (B, S) after prefix embeddings
+        (B, P, D) -> logits (B, P + S, V)."""
+        return self._unembed(params,
+                             self._hidden(params, tokens, prefix_embeds))
 
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
-        """batch: {"tokens", "labels"}, labels aligned with tokens (-100 =
-        masked).  Mean cross-entropy by ``chunked_ce``: no (B, S, V)
-        logits."""
-        x = L.rmsnorm(self._hidden(params, batch["tokens"]),
+        """batch: {"tokens", "labels"[, "prefix_embeds"]}, labels aligned
+        with tokens (-100 = masked); the prefix rows are dropped after
+        the final norm.  Mean cross-entropy by ``chunked_ce``: no (B, S,
+        V) logits."""
+        prefix = batch.get("prefix_embeds")
+        x = L.rmsnorm(self._hidden(params, batch["tokens"], prefix),
                       params["final_norm"]["w"], self.cfg.norm_eps)
-        return chunked_ce(x, params["lm_head"], batch["labels"])
+        if prefix is not None:
+            x = x[:, prefix.shape[1]:]
+        return chunked_ce(x, self._unembed_w(params), batch["labels"])
 
     # ------------------------------------------------------------------
     def _apply_layer(self, p: dict, x: torch.Tensor,
@@ -238,31 +312,46 @@ class LM:
 
     def _unembed(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         x = L.rmsnorm(x, params["final_norm"]["w"], self.cfg.norm_eps)
-        return x @ params["lm_head"]
+        return x @ self._unembed_w(params)
 
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> list:
-        """One contiguous ``{"k", "v", "pos"}`` cache per layer
-        (``layers.init_attn_cache``): ``max_len`` slots, or a ring of
-        ``min(max_len, window)`` with a sliding window."""
-        return [L.init_attn_cache(self.cfg, batch, max_len, self.device)
-                for _ in range(self.cfg.n_layers)]
+        """One contiguous cache per layer: an attention layer's ``{"k",
+        "v", "pos"}`` (``layers.init_attn_cache``) of ``max_len`` slots,
+        or a ring of ``min(max_len, cfg.attn_window)`` with a window; an
+        RG-LRU layer's state ``{"conv": (B, K-1, w)
+        in the model's type, "lru": (B, w) f32}``."""
+        cfg, dev = self.cfg, self.device
+        caches = []
+        for kind in self.kinds:
+            if kind == "attn":
+                caches.append(L.init_attn_cache(cfg, batch, max_len, dev))
+                continue
+            w = int(cfg.rglru.width_mult * cfg.d_model)
+            caches.append({
+                "conv": torch.zeros(batch, cfg.rglru.conv_kernel - 1, w,
+                                    dtype=getattr(torch, cfg.dtype),
+                                    device=dev),
+                "lru": torch.zeros(batch, w, dtype=torch.float32,
+                                   device=dev)})
+        return caches
 
     def _run_cached(self, params: dict, x: torch.Tensor,
                     positions: torch.Tensor, cache: list) -> torch.Tensor:
-        for p, c in zip(params["layers"], cache):
-            x = self._apply_block(p, x, positions, c)
+        for kind, p, c in zip(self.kinds, params["layers"], cache):
+            x = self._apply_block(kind, p, x, positions, c)
         return x
 
     @torch.no_grad()
-    def prefill(self, params: dict, tokens: torch.Tensor, cache: list
+    def prefill(self, params: dict, tokens: torch.Tensor, cache: list,
+                prefix_embeds: Optional[torch.Tensor] = None
                 ) -> tuple[torch.Tensor, list]:
-        """The prompts' k/v into a fresh ``init_cache`` cache, IN PLACE.
-        tokens: (B, P), every prompt of the same length.  Returns (the
-        last prompt token's logits (B, V), cache)."""
-        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                                 device=tokens.device)
-        x = self._embed(params, tokens)
+        """The prompts, after their prefix embeddings (B, P, D) if any,
+        into a fresh ``init_cache`` cache, IN PLACE.  tokens: (B, S),
+        every prompt of the same length.  Returns (the last prompt
+        token's logits (B, V), cache)."""
+        positions = self._positions(tokens, prefix_embeds)
+        x = self._embed(params, tokens, prefix_embeds)
         x = self._run_cached(params, x, positions, cache)
         return self._unembed(params, x[:, -1:])[:, 0], cache
 
@@ -284,8 +373,18 @@ class LM:
         """One ``{"k_pages", "v_pages"}`` pool of shape ``(n_pages,
         n_kv_heads, page_size, dh)`` per layer, no batch dim — the
         engine's page tables map requests onto pages, and page 0 is the
-        scratch page (``serving.kv_pages``)."""
+        scratch page (``serving.kv_pages``).  Attention-only stacks
+        without prefix embeddings, as in the JAX package: a recurrent
+        state is per request, not per position."""
         cfg = self.cfg
+        if any(kind != "attn" for kind in self.kinds):
+            raise NotImplementedError(
+                f"paged serving covers attention-only stacks; "
+                f"{cfg.name} has pattern {cfg.pattern}")
+        if cfg.n_prefix_embeds:
+            raise NotImplementedError(
+                f"paged serving does not thread prefix embeddings yet; "
+                f"{cfg.name} needs n_prefix_embeds={cfg.n_prefix_embeds}")
         shape = (n_pages, cfg.n_kv_heads, page_size, cfg.dh)
         dt = getattr(torch, cfg.dtype)
         return [{"k_pages": torch.zeros(shape, dtype=dt, device=self.device),

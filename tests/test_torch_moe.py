@@ -486,9 +486,11 @@ def test_model_and_builder_take_moe_and_refuse_the_rest():
     ff = model.init_params(0)["layers"][0]["ff"]
     assert ff["router"].dtype == torch.float32
     assert ff["w_up"].shape == (8, 64, 64)
-    for family in ("ssm", "hybrid", "encdec"):
+    for family in ("ssm", "encdec"):
         with pytest.raises(NotImplementedError, match="item 6"):
             LM(dataclasses.replace(cfg, family=family), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        LM(dataclasses.replace(cfg, pattern=("mamba", "attn")), device="cpu")
     with pytest.raises(NotImplementedError, match="item 6"):
         LM(dataclasses.replace(cfg, norm="layernorm"), device="cpu")
 
