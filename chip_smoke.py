@@ -117,6 +117,27 @@ which raises on failure:
       of 40 layers (47.7 GB) over 1024 prefix embeddings and 2048
       tokens; walls, busy shares and peak memory printed; an
       ``{"archs": ...}`` line;
+   j. the state-space and encoder-decoder families
+      (``ssm_encdec_phase``), after 4i, each model freed before the
+      next, no kernel on any of their paths (every counter 0 after each
+      path, as in the JAX package; nothing degraded): mamba2-1.3b at
+      every FULL width and depth (48 Mamba-2 layers, chunk 256, 2.69
+      GB) — the chunked SSD on one layer's real inputs of a B=2 x S=4096
+      forward against the one-token recurrence stepped over all 4096
+      positions (SSD_REL_TOL), the cache-free loss and forward at B=2 x
+      S=4096 (wall, busy share, peak memory), 16 teacher-forced decode
+      steps after a prefill of 4080 against the forward's rows, in bf16
+      (MAMBA_DECODE_REL_TOL) and with the weights upcast to f32,
+      ``generate`` (batch 4, prompt 128, 32 tokens) captured and eager
+      (its last logits' distance to the forward printed),
+      T1 at 48 layers within MAMBA_T1_LIMITS and one ``launch.train``
+      step —; then whisper-small (12 + 12 layers, 0.58 GB) — the
+      encoder's streaming twin at 1500 frames (kv block 500) against
+      ``naive_attention``, the loss and forward at B=4 over 1500 frames
+      and 448 tokens, 16 teacher-forced decode steps after 432 tokens,
+      ``generate`` (batch 4, prompt 64, 32 tokens, decoded from position
+      64 + 1500 as the JAX package's) captured and eager, one training
+      step at B=4 x 448 —; an ``{"ssm_encdec": ...}`` line;
    g. training (``training_phase``), after every serving phase with
       their weights freed: qwen3-8b at every FULL width with the depth
       cut to 8 of 36 layers (AdamW's 16 B a parameter: 131 GB for 36
@@ -169,7 +190,10 @@ beside the limits, then T1 of 4g unfaulted and with one layer's
 attention output detached (its attention weights get no gradient), and
 T1 of 4i (recurrentgemma-2b at full depth, RG_T1_LIMITS) unfaulted,
 with one RG-LRU block's output detached, and with the RG-LRU scan off
-by one position; it fails unless every fault goes past its limit.
+by one position, then mamba2-1.3b's SSD check with the inter-chunk
+term dropped and whisper-small's decode check with every layer's
+cross-attention fed the layer below's k/v; it fails unless every fault
+goes past its limit.
 
     python3 chip_smoke.py --reliability
 
@@ -183,9 +207,9 @@ line.
 
     python3 chip_smoke.py --archs
 
-runs only the device, build and 4i phases: phase 3 at 4i's shapes, 4i,
-and the kernel times at 4i's shapes; prints an ``{"archs": ...}``
-line.
+runs only the device, build, 4i and 4j phases: phase 3 at 4i's
+shapes, 4i, 4j, and the kernel times at 4i's shapes; prints an
+``{"archs": ...}`` and an ``{"ssm_encdec": ...}`` line.
 
     python3 chip_smoke.py --train
 
@@ -369,6 +393,69 @@ PIXTRAL_TRAIN_LAYERS = 6
 # the sqrt(d_model) constant left unrounded in the f32 step alone gives
 # (1.5e-3 on the card).
 RG_T1_LIMITS = (1e-3, 2e-3, 0.25)
+# Phase 4j, the state-space and encoder-decoder families at every FULL
+# width and depth, bf16, random weights from seed 0, no kernel on any of
+# their paths (as in the JAX package): mamba2-1.3b (48 Mamba-2 layers,
+# d_model 2048, 64 SSD heads of 64, state 128, chunk 256, no MLP, tied
+# vocab 50280; 1.34 B parameters, 2.69 GB) and whisper-small (12 encoder
+# and 12 decoder layers, d_model 768, 12 heads of 64, 1500 frames,
+# 65536 learned decoder positions, tied vocab 51865; 0.29 B, 0.58 GB)
+MAMBA = "mamba2-1.3b"
+WHISPER = "whisper-small"
+# mamba's cache-free forward and loss: B=2 x S=4096, 16 chunks of 256.
+# The SSD's decay is (2, 16, 64, 256, 256) f32, 537 MB a layer, and its
+# product with C B another; both transient under inference mode
+MAMBA_FORWARD = dict(b=2, s=4096)
+# The SSD check takes this layer's inputs from that forward and runs the
+# chunked form against the one-token recurrence stepped over all 4096
+# positions, both in f32 (TF32 off).  The chunked form exponentiates
+# differences of cumulative sums that reach ~-200 over a chunk (dA ~
+# -0.8 a step), each good to ~1e-5 relative; the recurrence multiplies
+# exps of one step.  So y and the final state agree to ~1e-5 in the
+# 2-norm; the limit is 10x that.  Dropping the inter-chunk term (the
+# planted fault) loses what each chunk's first rows read from the
+# chunks before: a few percent of y.
+SSD_LAYER = 24
+SSD_REL_TOL = 1e-4
+# whisper's cache-free loss and forward: B=4 over 1500 frames and 448
+# tokens (its published decoder context)
+WHISPER_FORWARD = dict(b=4, s=448)
+# generate: mamba batch 4, prompt 128, 32 tokens; whisper batch 4,
+# prompt 64, 32 tokens, decoded from position 64 + 1500 as the JAX
+# package's generate does
+MAMBA_GENERATE = GENERATE
+WHISPER_GENERATE = dict(batch=4, prompt_len=64, gen=32, seed=3)
+# teacher-forced decode after a prefill (B=4): mamba 16 steps after
+# 4080 tokens (the prefill zero-padded to 4096), whisper 16 steps after
+# 432 tokens (to its 448)
+DECODE_CHECK[MAMBA] = dict(prompt_len=4080, steps=16, seed=6)
+DECODE_CHECK[WHISPER] = dict(prompt_len=432, steps=16, seed=6)
+# mamba2's decode steps and generate's last logits against the forward.
+# The decode path is exact: in f32 the check reads ~3e-6 (a CPU probe at
+# full width, 2 layers), and on the card it runs in f32 too, held to
+# MAMBA_F32_REL_TOL (3.95e-5 on an H100).  In bf16 each GEMM rounds a decode step's rows
+# otherwise than the forward's (another M), and this random model carries
+# those roundings through its layers, growing with depth and varying with
+# the tokens: 0.003 at 2 layers and 0.011 to 0.06 at 8 (the same probe),
+# on an H100 at 48 layers 0.0764 over 16 random tokens after 4080 (this
+# check's first run, then held to E2E_REL_TOL) and 0.407 at generate's
+# last step over a greedy run of one repeated token, where even the f32
+# weights read 1.8e-3 (f32 roundings carried as far).  The decode check
+# is held to 2x its bf16 reading (a state lost or misplaced reads order
+# 1) and in f32; generate's distance is printed, not held.
+MAMBA_DECODE_REL_TOL = 0.15
+MAMBA_F32_REL_TOL = 1e-3
+# One training step of each: mamba at B=1 x S=2048 (AdamW's 16 B a
+# parameter: 21.5 GB, and the SSD's saved f32 tensors, ~0.3 GB a layer),
+# whisper at B=4 x 448 tokens over 1500 frames (4.6 GB)
+WHISPER_TRAIN = dict(batch=4, seq=448)
+# T1 at mamba2's 48 layers (4g's B=1 x S=2048).  A CPU probe at these
+# widths (B=1, S=256 to 512, weights from seed 0) read loss 2.7e-4, grad
+# norm 1.2e-2 and a worst leaf of 0.36 (median 0.22) at 48 layers,
+# worst leaf 0.16 / 0.24 at 12 / 24: this random model's bf16 noise grows
+# with depth.  The limits sit 7x, 4x and 2x above; a gradient that is
+# missing or wrong reads 1 per leaf.
+MAMBA_T1_LIMITS = (2e-3, 5e-2, 0.75)
 
 
 def device_phase() -> str:
@@ -505,9 +592,9 @@ def _partial_cases(cases, seed0: int = 0) -> float:
 
 def init_phase(cfg, depth: str = "no depth cut") -> dict:
     from repro_torch import tree as T
-    from repro_torch.models.lm import LM
+    from repro_torch.launch.steps import build_model
     t0 = time.perf_counter()
-    params = LM(cfg, device="cuda").init_params(0)
+    params = build_model(cfg, device="cuda").init_params(0)
     torch.cuda.synchronize()
     n_bytes = sum(t.numel() * t.element_size() for t in T.leaves(params))
     print(f"model: {cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
@@ -526,6 +613,14 @@ def _zero(*names) -> None:
 def _read(*names) -> dict:
     from repro_torch.kernels import capture
     return {name: capture.counters()[name].launches for name in names}
+
+
+def _path_counters() -> list:
+    """Every kernel counter a path sets to 0 and reads: all but the
+    three-GEMM kernel's, which the main paths leave running to be read
+    once after them all."""
+    from repro_torch.kernels import capture
+    return [n for n in capture.counters() if n != "fused_gemm_chain3"]
 
 
 SERVED = ("fused_attention_partial", "fused_mlp_chain")
@@ -1214,30 +1309,34 @@ def reliability_phase(cfg, params) -> dict:
     return out
 
 
-def generate_phase(cfg, params, spec=GENERATE) -> dict:
+def generate_phase(cfg, params, spec=GENERATE, tol=E2E_REL_TOL) -> dict:
     """Fixed-batch ``generate`` at full width (``spec``; GENERATE: batch
     4, prompt 128, 32 tokens) over a contiguous cache, after a vision
     config's prefix embeddings (``launch.serve.demo_side_inputs``), the
     decode step captured in a CUDA graph and then eagerly: equal greedy
     tokens, no kernel launched (the contiguous cache reaches none, as in
     the JAX package; every counter set to 0 just before and read after),
-    and the last step's logits within E2E_REL_TOL of the cache-free
+    and the last step's logits within ``tol`` (None: printed, not held)
+    of the cache-free
     forward (the plain twin path) over the same prefix and tokens.  An
     MoE config's forward routes all 636 tokens together, so its expert
     capacity, and with it what drops, differs from the decode step's by
     design (the JAX package's own MoE decode-vs-forward test allows
     0.5): there the distance is printed and the tokens are what is
-    held."""
-    from repro_torch.kernels import capture
+    held.  An encoder-decoder's ``generate`` decodes from position
+    prompt + n_frames, as the JAX package's does (ROADMAP Queue 3), where
+    its forward puts the same tokens at prompt..: there no forward
+    matches, and ``decode_check`` holds its decode steps instead."""
     from repro_torch.launch.serve import demo_side_inputs, generate
-    from repro_torch.models.lm import LM, Runtime
+    from repro_torch.launch.steps import build_model
+    from repro_torch.models.lm import Runtime
     b, plen, gen = (spec[k] for k in ("batch", "prompt_len", "gen"))
     g = torch.Generator(device="cuda").manual_seed(spec["seed"])
     prompts = torch.randint(0, cfg.vocab, (b, plen), generator=g,
                             device="cuda")
     side = demo_side_inputs(cfg, b, "cuda", spec["seed"])
-    model = LM(cfg, Runtime(kernel_ops=True), device="cuda")
-    names = [n for n in capture.counters() if n != "fused_gemm_chain3"]
+    model = build_model(cfg, Runtime(kernel_ops=True), device="cuda")
+    names = _path_counters()
     runs = {}
     for eager in (False, True):
         mode = "eager" if eager else "captured"
@@ -1262,8 +1361,9 @@ def generate_phase(cfg, params, spec=GENERATE) -> dict:
         dt = time.perf_counter() - t0
         launches = _read(*names)
         step_ms = (dt - t_half) / (gen - half) * 1e3
-        print(f"[generate {cfg.name}, {mode}] B={b} prefix="
-              f"{cfg.n_prefix_embeds} prompt={plen} gen={gen}: "
+        print(f"[generate {cfg.name}, {mode}] B={b} side inputs "
+              f"{ {k: tuple(t.shape) for k, t in side.items()} } "
+              f"prompt={plen} gen={gen}: "
               f"{b * gen / dt:.2f} tok/s ({dt:.2f}s, prefill and capture "
               f"included); a decode step {step_ms:.3f} ms ({gen} tokens "
               f"{dt:.3f}s - {half} tokens {t_half:.3f}s over "
@@ -1281,25 +1381,33 @@ def generate_phase(cfg, params, spec=GENERATE) -> dict:
     if not (tokens == want_tokens).all():
         raise RuntimeError("the captured generate's tokens differ from "
                            "the eager one's")
+    out = dict(tok_per_s=tps, eager_tok_per_s=eager_tps, step_ms=step_ms,
+               eager_step_ms=eager_step_ms)
+    if cfg.family == "encdec":
+        print(f"[generate {cfg.name}] captured tokens equal the eager "
+              f"run's; decoded from position {plen} + "
+              f"{cfg.encoder.n_frames} frames, so no forward matches its "
+              f"logits (decode_check holds the decode steps)")
+        return out
     full = torch.cat([prompts, torch.from_numpy(tokens[:, :-1]).cuda()], 1)
-    plain = LM(cfg, Runtime(kernel_ops=False), device="cuda")
+    plain = build_model(cfg, Runtime(kernel_ops=False), device="cuda")
     with torch.inference_mode():
-        ref = plain.forward(params, full, side.get("prefix_embeds"))[:, -1]
+        ref = plain.forward(params, full, **side)[:, -1]
     torch.cuda.synchronize()
     if logits.shape != ref.shape or not torch.isfinite(logits).all():
         raise RuntimeError(f"bad logits {tuple(logits.shape)}")
     rel = float((logits.float() - ref.float()).norm() / ref.float().norm())
     same = float((logits.float() - want_logits.float()).abs().max())
+    held = tol is not None and not cfg.moe
+    why = "MoE capacity" if cfg.moe else "rounding carried by the model"
     print(f"[generate {cfg.name}] captured tokens equal the eager run's; "
           f"last step's logits vs the cache-free forward over the same "
           f"{cfg.n_prefix_embeds} + {full.shape[1]} positions: rel err "
-          f"{rel:.3g} (tol "
-          f"{'not held: MoE capacity' if cfg.moe else E2E_REL_TOL}); "
-          f"captured vs eager logits max|diff| {same:.3g}")
-    if rel > E2E_REL_TOL and not cfg.moe:
+          f"{rel:.3g} (tol {tol if held else 'not held: ' + why}; "
+          f"{cfg.dtype}); captured vs eager logits max|diff| {same:.3g}")
+    if held and rel > tol:
         raise RuntimeError("generate's logits diverge from the forward")
-    return dict(tok_per_s=tps, eager_tok_per_s=eager_tps, step_ms=step_ms,
-                eager_step_ms=eager_step_ms, rel=rel)
+    return dict(out, rel=rel)
 
 
 def _time_ms(fn, iters: int = 20, reps: int = 10) -> float:
@@ -2937,7 +3045,7 @@ def moe_decode_check(cfg, params, engine) -> dict:
     with torch.inference_mode():
         held = _layerwise(f"{cfg.name} decode step", cfg, kern, plain,
                           params["layers"],
-                          kern._embed(params, tokens[:, None]),
+                          kern._embed(params, tokens[:, None], pos2),
                           lambda m, p, x, i: m._apply_layer(
                               p, x, pos2, cache[i], table), E2E_REL_TOL)
         with _Routes() as plain_routes:
@@ -3011,7 +3119,8 @@ def moe_forward_phase(cfg, params) -> dict:
             raise RuntimeError("non-finite or misshapen forward output")
         positions = torch.arange(s, dtype=torch.int32, device="cuda")
         held = _layerwise(f"{cfg.name} forward", cfg, kern, plain,
-                          params["layers"], kern._embed(params, tokens),
+                          params["layers"],
+                          kern._embed(params, tokens, positions),
                           lambda m, p, x, i: m._apply_block("attn", p, x,
                                                             positions),
                           FORWARD_REL_TOL)
@@ -3269,19 +3378,34 @@ def archs_kernel_check_phase(rg, pixtral) -> float:
     return _attention_cases(cases, seed0=80)
 
 
-def decode_check(cfg, params) -> dict:
+def _wrong_cross_layer(cache) -> None:
+    """``--plant-faults``' encoder-decoder fault: every decoder layer's
+    cross-attention k/v replaced, in place, by the layer below's (the
+    first layer's by the last's)."""
+    kv = [{k: c["cross"][k].clone() for k in ("k", "v")} for c in cache]
+    for i, c in enumerate(cache):
+        for k in ("k", "v"):
+            c["cross"][k].copy_(kv[i - 1][k])
+
+
+def decode_check(cfg, params, fault=None, tol=E2E_REL_TOL,
+                 profile=True) -> dict:
     """A batch-4 prefill of seeded prompts (after a vision config's
-    prefix embeddings), then teacher-forced ``decode_step`` calls over
-    the contiguous cache (DECODE_CHECK), each step's logits against the
-    cache-free forward's row at the same position on the plain twin
-    path; the largest relative error (per step, 2-norm over the batch)
-    is held to E2E_REL_TOL.  Then a profile of one decode step at the
-    last position (rewriting its kv slot), captured (``CapturedStep``,
-    a replay) and eager: host wall, device busy and share, device
-    span."""
+    prefix embeddings, over an encoder-decoder's frames), then
+    teacher-forced ``decode_step`` calls over the contiguous cache
+    (DECODE_CHECK), each step's logits against the cache-free forward's
+    row at the same position on the plain twin path; the largest
+    relative error (per step, 2-norm over the batch) is held to ``tol``.
+    Then, with ``profile``, a profile of one decode step at the last
+    position (rewriting its kv slot), captured (``CapturedStep``, a
+    replay) and eager: host wall, device busy and share, device span.
+    ``fault``
+    (``_wrong_cross_layer``) is applied to the cache after the prefill;
+    then the distance is returned unheld and nothing is profiled."""
     from repro_torch.kernels.capture import CapturedStep
     from repro_torch.launch.serve import demo_side_inputs
-    from repro_torch.models.lm import LM, Runtime
+    from repro_torch.launch.steps import build_model
+    from repro_torch.models.lm import Runtime
     spec = DECODE_CHECK[cfg.name]
     plen, steps, n_pre = spec["prompt_len"], spec["steps"], \
         cfg.n_prefix_embeds
@@ -3290,33 +3414,44 @@ def decode_check(cfg, params) -> dict:
     tokens = torch.randint(0, cfg.vocab, (b, plen + steps), generator=g,
                            device="cuda")
     side = demo_side_inputs(cfg, b, "cuda", spec["seed"])
-    model = LM(cfg, Runtime(kernel_ops=True), device="cuda")
-    plain = LM(cfg, Runtime(kernel_ops=False), device="cuda")
+    model = build_model(cfg, Runtime(kernel_ops=True), device="cuda")
+    plain = build_model(cfg, Runtime(kernel_ops=False), device="cuda")
     with torch.inference_mode():
         cache = model.init_cache(b, n_pre + plen + steps)
         model.prefill(params, tokens[:, :plen], cache, **side)
+        if fault is not None:
+            fault(cache)
         got = []
         for t in range(plen, plen + steps):
             logits, _ = model.decode_step(
                 params, cache, tokens[:, t],
                 torch.tensor(n_pre + t, dtype=torch.int32, device="cuda"))
             got.append(logits.float())
-        want = plain.forward(params, tokens, side.get("prefix_embeds"))[
+        want = plain.forward(params, tokens, **side)[
             :, n_pre + plen:].float()
         got = torch.stack(got, dim=1)
         rel = ((got - want).norm(dim=(0, 2))
                / want.norm(dim=(0, 2))).tolist()
         del got, want
-        ring = [c["k"].shape[2] for c in cache if "k" in c]
-        print(f"[decode {cfg.name}] B={b} prefill of {n_pre} + {plen} "
-              f"positions, {steps} decode steps (positions {n_pre + plen}"
-              f"..{n_pre + plen + steps - 1}; attention caches of "
-              f"{ring[0]} slots) vs the cache-free forward: rel err per "
-              f"step max {max(rel):.3g}, last {rel[-1]:.3g} (tol "
-              f"{E2E_REL_TOL})")
-        if max(rel) > E2E_REL_TOL or not all(map(math.isfinite, rel)):
+        kv = [c.get("self", c) for c in cache]
+        ring = next((c["k"].shape[2] for c in kv if "k" in c), None)
+        slots = (f"attention caches of {ring} slots" if ring
+                 else "no attention cache")
+        print(f"[decode {cfg.name}{', ' + fault.__name__ if fault else ''}"
+              f"] B={b} prefill of {n_pre} + {plen} positions, {steps} "
+              f"decode steps (positions {n_pre + plen}.."
+              f"{n_pre + plen + steps - 1}; {slots}"
+              f") vs the cache-free forward: rel err per step max "
+              f"{max(rel):.3g}, last {rel[-1]:.3g} (tol {tol}; "
+              f"{cfg.dtype})")
+        out = dict(rel_max=max(rel), rel_last=rel[-1], ring_slots=ring)
+        if fault is not None:
+            return out
+        if max(rel) > tol or not all(map(math.isfinite, rel)):
             raise RuntimeError(f"{cfg.name}'s decode steps diverge from "
                                f"its forward")
+        if not profile:
+            return out
         tok = tokens[:, -1].clone()
         pos = torch.tensor(n_pre + plen + steps - 1, dtype=torch.int32,
                            device="cuda")
@@ -3332,26 +3467,25 @@ def decode_check(cfg, params) -> dict:
             print(f"profile [{cfg.name}, {mode}]: device span of one step "
                   f"{prof[mode]['span_ms']:.3f} ms (events)")
         del captured
-    return dict(rel_max=max(rel), rel_last=rel[-1], ring_slots=ring[0],
-                step_profile=prof)
+    return dict(out, step_profile=prof)
 
 
-def arch_train_step(cfg, depth: str) -> dict:
-    """One step of ``launch.train.train`` at ``cfg`` (ARCH_TRAIN, the
-    CLI's defaults, a vision config's prefix embeddings in its batch),
-    every kernel counter set to 0 just before and read just after (each
-    must read 0: no kernel is on the training path); the loss and grad
-    norm finite; the step's wall (its first call), the bytes of weights
-    and optimizer state from their tensors, and the peak memory."""
+def arch_train_step(cfg, depth: str, batch: int = ARCH_TRAIN["batch"],
+                    seq: int = ARCH_TRAIN["seq"]) -> dict:
+    """One step of ``launch.train.train`` at ``cfg`` (B=1 x S=2048
+    unless given, the CLI's defaults, a vision config's prefix
+    embeddings or an encoder-decoder's frames in its batch), every
+    kernel counter set to 0 just before and read just after (each must
+    read 0: no kernel is on the training path); the loss and grad norm
+    finite; the step's wall (its first call), the bytes of weights and
+    optimizer state from their tensors, and the peak memory."""
     from repro_torch import tree as T
-    from repro_torch.kernels import capture
     from repro_torch.launch import train as TR
-    names = list(capture.counters())
+    names = _path_counters()
     torch.cuda.reset_peak_memory_stats()
     _zero(*names)
-    out = TR.train(cfg, steps=1, batch=ARCH_TRAIN["batch"],
-                   seq=ARCH_TRAIN["seq"], lr=TRAIN["lr"], seed=0,
-                   device="cuda")
+    out = TR.train(cfg, steps=1, batch=batch, seq=seq, lr=TRAIN["lr"],
+                   seed=0, device="cuda")
     torch.cuda.synchronize()
     launches = _read(*names)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -3361,9 +3495,10 @@ def arch_train_step(cfg, depth: str) -> dict:
     r = dict(loss=out["losses"][0], grad_norm=out["grad_norms"][0],
              step_s=out["step_times"][0], params_b=n / 1e9,
              state_gb=state_gb, peak_gb=peak_gb, launches=launches)
+    frames = cfg.encoder.n_frames if cfg.encoder else 0
     print(f"[train {cfg.name}] {cfg.n_layers} layers ({depth}), B="
-          f"{ARCH_TRAIN['batch']} x ({cfg.n_prefix_embeds} prefix + "
-          f"{ARCH_TRAIN['seq']} tokens): loss {r['loss']:.5f}, grad norm "
+          f"{batch} x ({cfg.n_prefix_embeds} prefix + {seq} tokens, "
+          f"{frames} frames): loss {r['loss']:.5f}, grad norm "
           f"{r['grad_norm']:.4g}, one step {r['step_s']:.2f}s (first "
           f"call); {r['params_b']:.3f} B parameters, weights and AdamW "
           f"state {state_gb:.2f} GB, peak {peak_gb:.2f} GB; kernel "
@@ -3436,6 +3571,244 @@ def archs_time_phase(rg, pixtral) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# Phase 4j: the state-space and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+def _no_launches(label: str, fn):
+    """``fn()`` with every path counter set to 0 just before and read just
+    after: each must read 0 (no kernel is on 4j's paths, as in the JAX
+    package); nothing may have degraded."""
+    names = _path_counters()
+    _zero(*names)
+    out = fn()
+    torch.cuda.synchronize()
+    launches = _read(*names)
+    if any(launches.values()):
+        raise RuntimeError(f"[{label}] launched {launches}")
+    _no_degradation(label)
+    return out
+
+
+def _drop_inter():
+    """``--plant-faults``' SSD fault: a stand-in for
+    ``layers._ssd_inter`` that returns zeros (the inter-chunk term
+    dropped)."""
+    from repro_torch.models import layers as L
+    inter = L._ssd_inter
+    return "_ssd_inter", lambda *a: torch.zeros_like(inter(*a))
+
+
+def ssd_check(cfg, params, faults=("none",)) -> dict:
+    """The chunked SSD against its recurrence on real inputs: layer
+    SSD_LAYER's (xh, dA, B, C) recorded from a cache-free forward at
+    MAMBA_FORWARD (16 chunks of 256), run through ``_ssd_chunked`` and
+    through ``ssd_step`` stepped over all 4096 positions; y and the
+    final state as relative errors in the 2-norm.  ``none`` must be
+    within SSD_REL_TOL, each planted fault (``drop_inter``) past it."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.lm import LM, Runtime
+    model = LM(cfg, Runtime(), device="cuda")
+    tokens = _forward_batch(cfg, **MAMBA_FORWARD)["tokens"]
+    chunked, seen = L._ssd_chunked, []
+
+    def record(*a):
+        seen.append(a if len(seen) == SSD_LAYER else None)
+        return chunked(*a)
+    L._ssd_chunked = record
+    try:
+        with torch.inference_mode():
+            model.forward(params, tokens)
+    finally:
+        L._ssd_chunked = chunked
+    xh, da, bm, cm, chunk = seen[SSD_LAYER]
+    del seen
+    b, s, nh, pd = xh.shape
+    out = {}
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        h = xh.new_zeros(b, nh, bm.shape[-1], pd)
+        ys = torch.empty_like(xh)
+        for t in range(s):
+            ys[:, t], h = L.ssd_step(h, xh[:, t], da[:, t], bm[:, t],
+                                     cm[:, t])
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+        for name in faults:
+            stand_in = None if name == "none" else _drop_inter()
+            if stand_in is not None:
+                inter = L._ssd_inter
+                L._ssd_inter = stand_in[1]
+            try:
+                y, h_last = L._ssd_chunked(xh, da, bm, cm, chunk)
+            finally:
+                if stand_in is not None:
+                    L._ssd_inter = inter
+            r = dict(y_rel=float((y - ys).norm() / ys.norm()),
+                     state_rel=float((h_last - h).norm() / h.norm()))
+            r["within"] = max(r.values()) <= SSD_REL_TOL
+            out[name] = r
+            print(f"[ssd {cfg.name}, {name}] layer {SSD_LAYER}'s inputs "
+                  f"of a B={b} x S={s} forward ({s // chunk} chunks of "
+                  f"{chunk}, H={nh}, N={bm.shape[-1]}, P={pd}; dA mean "
+                  f"{float(da.mean()):.3f}): chunked vs the recurrence "
+                  f"stepped {s} times ({seq_s:.2f}s): y rel "
+                  f"{r['y_rel']:.3g}, final state rel "
+                  f"{r['state_rel']:.3g} (tol {SSD_REL_TOL}): "
+                  f"{'within' if r['within'] else 'past the limit'}")
+    if not out["none"]["within"]:
+        raise RuntimeError("the chunked SSD diverges from its recurrence")
+    missed = [n for n, r in out.items() if n != "none" and r["within"]]
+    if missed:
+        raise RuntimeError(f"planted SSD faults within the limit: {missed}")
+    return out
+
+
+def encoder_attention_check(cfg) -> dict:
+    """The encoder's streaming twin at whisper's 1500 frames (B=4, its
+    heads, bf16, not causal): the kv block of 512 shrinks to 500, three
+    blocks; held against ``naive_attention`` on the card within the
+    bf16 tolerance (the twin keeps P in f32, the naive one rounds it to
+    bf16)."""
+    from repro_torch.models import layers as L
+    n, bkv = cfg.encoder.n_frames, 512
+    while n % bkv:
+        bkv -= 1
+    q, k, v, _, _ = _attn_inputs(torch.bfloat16, GENERATE["batch"],
+                                 cfg.n_heads, cfg.n_heads, n, n, cfg.dh,
+                                 seed=90)
+    scale = 1.0 / math.sqrt(cfg.dh)
+    with torch.inference_mode():
+        got = L.streaming_attention(q, k, v, causal=False, window=0,
+                                    scale=scale, bkv=512)
+        want = L.naive_attention(q, k, v, causal=False, window=0,
+                                 scale=scale)
+    err = float((got.float() - want.float()).abs().max())
+    print(f"[attention {cfg.name}] encoder twin, {n} frames (kv block "
+          f"512 -> {bkv}, {n // bkv} blocks), B={q.shape[0]} H={q.shape[1]}"
+          f" D={cfg.dh} bf16, not causal, vs naive_attention: max |err| "
+          f"{err:.3g}")
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+    return dict(max_abs_err=err, bkv=bkv)
+
+
+def cache_free_phase(cfg, params, batch) -> dict:
+    """4j's cache-free loss and forward of ``batch`` (with an
+    encoder-decoder's frames), each under ``_no_launches``: the loss
+    finite, the logits finite and (B, S, V); each call's wall (its first
+    call) and the peak memory of the two, then a profile of one forward
+    (wall, device busy and share)."""
+    from repro_torch.launch.steps import build_model
+    from repro_torch.models.lm import Runtime
+    model = build_model(cfg, Runtime(kernel_ops=True), device="cuda")
+    tokens = batch["tokens"]
+    side = {k: batch[k] for k in ("frames",) if k in batch}
+    b, s = tokens.shape
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        loss = _no_launches(f"{cfg.name} loss",
+                            lambda: model.loss(params, batch))
+        loss_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        logits = _no_launches(f"{cfg.name} forward",
+                              lambda: model.forward(params, tokens, **side))
+        fwd_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        ok = (logits.shape == (b, s, cfg.vocab)
+              and bool(torch.isfinite(logits).all())
+              and math.isfinite(float(loss)))
+        print(f"[forward {cfg.name}] B={b} S={s} "
+              f"{ {k: tuple(t.shape) for k, t in side.items()} }: loss "
+              f"{float(loss):.5f} in {loss_s:.3f}s, forward "
+              f"{tuple(logits.shape)} in {fwd_s:.3f}s (first calls); peak "
+              f"{peak_gb:.2f} GB")
+        if not ok:
+            raise RuntimeError("non-finite or misshapen forward output")
+        del logits
+        prof = profile_phase(lambda: model.forward(params, tokens, **side),
+                             f"forward {cfg.name}", f"cache-free forward "
+                             f"(B={b}, S={s}, {cfg.n_layers} layers)",
+                             timed=2, traced=1)
+    return dict(loss=float(loss), loss_s=loss_s, forward_s=fwd_s,
+                peak_gb=peak_gb, profile=prof)
+
+
+def plant_ssm_encdec_faults() -> None:
+    """``--plant-faults``' 4j faults, each of which must go past its
+    check's limit: mamba's inter-chunk term dropped in the SSD check,
+    and whisper's cross-attention fed the layer below's k/v in the
+    decode check (its sound reading printed first)."""
+    from repro_torch.configs import get_config
+    mamba, whisper = get_config(MAMBA), get_config(WHISPER)
+    params = init_phase(mamba)
+    ssd_check(mamba, params, faults=("none", "drop_inter"))
+    del params
+    torch.cuda.empty_cache()
+    params = init_phase(whisper)
+    sound = decode_check(whisper, params)
+    faulty = decode_check(whisper, params, fault=_wrong_cross_layer)
+    print(f"[decode {WHISPER}] sound rel {sound['rel_max']:.3g}, wrong "
+          f"cross layer rel {faulty['rel_max']:.3g} (tol {E2E_REL_TOL})")
+    if faulty["rel_max"] <= E2E_REL_TOL:
+        raise RuntimeError("the planted cross-attention fault is within "
+                           "the decode check's limit")
+    del params
+    torch.cuda.empty_cache()
+
+
+def ssm_encdec_phase() -> dict:
+    """Phase 4j: mamba2-1.3b, then whisper-small, each at every FULL
+    width and depth, its weights freed before the next: mamba's SSD
+    check, cache-free loss and forward, teacher-forced decode in bf16
+    (MAMBA_DECODE_REL_TOL) and with the weights upcast to f32
+    (MAMBA_F32_REL_TOL), captured and eager ``generate`` (its distance
+    to the forward printed), T1 within MAMBA_T1_LIMITS and one
+    ``launch.train`` step; whisper's encoder attention twin, loss and
+    forward, teacher-forced decode, ``generate`` and one training step.
+    Every path under ``_no_launches`` or its own zero-launch check.
+    Nothing here is caught: a failure raises."""
+    import dataclasses
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    mamba, whisper = get_config(MAMBA), get_config(WHISPER)
+    out = {MAMBA: {}, WHISPER: {}}
+    m = out[MAMBA]
+    params = init_phase(mamba)
+    m["ssd"] = ssd_check(mamba, params)["none"]
+    m["forward"] = cache_free_phase(mamba, params,
+                                    _forward_batch(mamba, **MAMBA_FORWARD))
+    m["decode"] = _no_launches(f"{MAMBA} decode", lambda: decode_check(
+        mamba, params, tol=MAMBA_DECODE_REL_TOL))
+    m["generate"] = generate_phase(mamba, params, MAMBA_GENERATE, tol=None)
+    _no_degradation(f"{MAMBA} generate")
+    params = T.map_tree(lambda t: t.float(), params)
+    m["decode_f32"] = _no_launches(f"{MAMBA} decode, f32", lambda: (
+        decode_check(dataclasses.replace(mamba, dtype="float32"), params,
+                     tol=MAMBA_F32_REL_TOL, profile=False)))
+    del params
+    torch.cuda.empty_cache()
+    m["t1"] = train_numerics_phase(mamba, limits=MAMBA_T1_LIMITS)["none"]
+    m["train"] = arch_train_step(mamba, "no depth cut")
+    w = out[WHISPER]
+    w["encoder_attention"] = encoder_attention_check(whisper)
+    params = init_phase(whisper)
+    w["forward"] = cache_free_phase(
+        whisper, params, _forward_batch(whisper, **WHISPER_FORWARD))
+    w["decode"] = _no_launches(f"{WHISPER} decode",
+                               lambda: decode_check(whisper, params))
+    w["generate"] = generate_phase(whisper, params, WHISPER_GENERATE)
+    _no_degradation(f"{WHISPER} generate")
+    del params
+    torch.cuda.empty_cache()
+    w["train"] = arch_train_step(whisper, "no depth cut", **WHISPER_TRAIN)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[ssm_encdec] phase seconds: {out['seconds']:.1f}")
+    return out
+
+
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--plant-faults"], ["--reliability"], ["--train"],
@@ -3466,6 +3839,7 @@ def main(argv=None) -> None:
         train_numerics_phase(get_config(RG), limits=RG_T1_LIMITS,
                              faults=("none", "detach_rglru",
                                      "exclusive_scan"))
+        plant_ssm_encdec_faults()
         print(smi)
         return
     if argv == ["--reliability"]:
@@ -3480,9 +3854,11 @@ def main(argv=None) -> None:
     if argv == ["--archs"]:
         archs_err = archs_kernel_check_phase(rg, pixtral)
         archs = archs_phase()
+        ssm_encdec = ssm_encdec_phase()
         archs["max_abs_err"] = archs_err
         archs["times"] = archs_time_phase(rg, pixtral)
         print(json.dumps({"archs": archs}, default=str))
+        print(json.dumps({"ssm_encdec": ssm_encdec}, default=str))
         print(smi)
         return
     if argv == ["--moe"]:
@@ -3562,6 +3938,7 @@ def main(argv=None) -> None:
     steps[OLMOE] = moe["step_profile"]
     steps[MIXTRAL] = moe["mixtral_step_profile"]
     archs = archs_phase()
+    ssm_encdec = ssm_encdec_phase()
     chain3_launches = _read("fused_gemm_chain3")["fused_gemm_chain3"]
     print(f"[main paths] fused_gemm_chain3 launches: {chain3_launches} "
           f"(want 0)")
@@ -3727,6 +4104,7 @@ def main(argv=None) -> None:
         "golden_probe", "decode_step", "floor", "mixtral_floor", "forward",
         "generate", "mixtral_long", "seconds")}}, default=str))
     print(json.dumps({"archs": archs}, default=str))
+    print(json.dumps({"ssm_encdec": ssm_encdec}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

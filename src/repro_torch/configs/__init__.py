@@ -11,14 +11,16 @@ import importlib
 from ..models.config import ModelConfig
 
 ARCHS = ["qwen3_8b", "granite_20b", "codeqwen15_7b", "granite_34b",
-         "olmoe_1b_7b", "mixtral_8x7b", "pixtral_12b", "recurrentgemma_2b"]
+         "olmoe_1b_7b", "mixtral_8x7b", "pixtral_12b", "recurrentgemma_2b",
+         "mamba2_1p3b", "whisper_small"]
 
 # CLI ids (--arch) use dashes
 ALIASES = {"qwen3-8b": "qwen3_8b", "granite-20b": "granite_20b",
            "codeqwen1.5-7b": "codeqwen15_7b", "granite-34b": "granite_34b",
            "olmoe-1b-7b": "olmoe_1b_7b", "mixtral-8x7b": "mixtral_8x7b",
            "pixtral-12b": "pixtral_12b",
-           "recurrentgemma-2b": "recurrentgemma_2b"}
+           "recurrentgemma-2b": "recurrentgemma_2b",
+           "mamba2-1.3b": "mamba2_1p3b", "whisper-small": "whisper_small"}
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:

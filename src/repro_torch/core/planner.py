@@ -91,11 +91,10 @@ def plannable(cfg) -> bool:
     attention blocks with an MLP.  MoE (capacity-dropped routing),
     SSM/RG-LRU recurrences and encoder-decoder wiring have op DAGs this
     tracer does not model; ``Runtime(planner=True)`` runs the
-    hand-wired blocks for them.  A field the port's config does not
-    carry yet reads as absent."""
-    return (all(k == "attn" for k in getattr(cfg, "pattern", ("attn",)))
-            and all(getattr(cfg, f, None) is None
-                    for f in ("moe", "ssm", "rglru", "encoder"))
+    hand-wired blocks for them."""
+    return (all(k == "attn" for k in cfg.pattern)
+            and cfg.moe is None and cfg.ssm is None
+            and cfg.rglru is None and cfg.encoder is None
             and cfg.d_ff > 0)
 
 

@@ -16,9 +16,10 @@ Two batching modes, as in the JAX package:
   workload; on the card its decode step is captured in a CUDA graph
   too.
 
-The model runs with ``Runtime(kernel_ops=True)``: every paged decode
-step's attention goes through the tuned CUDA kernel on the card (the
-contiguous cache reaches no kernel, as in the JAX package);
+The model (``launch.steps.build_model``: an ``LM``, or an ``EncDec`` for
+an encoder-decoder config) runs with ``Runtime(kernel_ops=True)``: every
+paged decode step's attention goes through the tuned CUDA kernel on the
+card (the contiguous cache reaches no kernel, as in the JAX package);
 ``--device cpu`` is the only way to the plain path, and there every
 step runs eagerly.  Weights are random from ``--seed`` (``--full`` for
 the published widths, else SMOKE).
@@ -33,18 +34,24 @@ import numpy as np
 import torch
 
 from ..configs import ALIASES, ARCHS, get_config
-from ..models.lm import LM, Runtime
+from ..models.lm import Runtime
+from .steps import build_model
 
 
 def generate(model, params, prompts: torch.Tensor, gen: int, *,
-             eager: bool = False, prefix_embeds=None
+             eager: bool = False, prefix_embeds=None, frames=None
              ) -> tuple[np.ndarray, torch.Tensor]:
     """Greedy generation of ``gen`` tokens for each row of ``prompts``
     (B, P), on the model's device, after ``prefix_embeds`` (B, E, D) if
-    given (a vision config's patch embeddings).
+    given (a vision config's patch embeddings), or over ``frames`` (B,
+    E, D) (an encoder-decoder's).
 
     The prefix and the prompts are prefilled eagerly into a fresh
-    contiguous cache of E + P + gen positions.  On a CUDA device the
+    contiguous cache of E + P + gen positions, and decoding starts at
+    position E + P, as in the JAX package — for an encoder-decoder too,
+    whose prompts sit at positions 0..P-1, so that its first decoded
+    token reads the learned position P + n_frames (ROADMAP Queue 3).
+    On a CUDA device the
     decode step is then captured in a CUDA graph
     (``kernels.capture.CapturedStep``) whose eager warm-up is the first
     decode step; every later token is a replay.  The step reads its
@@ -56,11 +63,11 @@ def generate(model, params, prompts: torch.Tensor, gen: int, *,
     Returns (tokens (B, gen) int64, the logits (B, V) that chose the
     last token)."""
     b, plen = prompts.shape
-    start = plen + (prefix_embeds.shape[1] if prefix_embeds is not None
-                    else 0)
+    embeds = frames if frames is not None else prefix_embeds
+    side = {"frames" if frames is not None else "prefix_embeds": embeds}
+    start = plen + (embeds.shape[1] if embeds is not None else 0)
     cache = model.init_cache(b, start + gen)
-    logits, cache = model.prefill(params, prompts, cache,
-                                  prefix_embeds=prefix_embeds)
+    logits, cache = model.prefill(params, prompts, cache, **side)
     tok = torch.argmax(logits, dim=-1)
     pos = torch.full((), start, dtype=torch.int32, device=tok.device)
     outs = [tok.clone()]
@@ -88,16 +95,20 @@ def generate(model, params, prompts: torch.Tensor, gen: int, *,
 
 
 def demo_side_inputs(cfg, batch: int, device, seed: int) -> dict:
-    """``generate``'s side inputs for a config that needs them: random
-    stand-in patch embeddings (batch, n_prefix_embeds, d_model) in the
-    model's type, drawn from ``seed``, for a vision config; none
-    otherwise."""
-    if not cfg.n_prefix_embeds:
+    """``generate``'s side inputs for a config that needs them, standard
+    normal draws from ``seed`` in the model's type: stand-in frame
+    embeddings ``frames`` (batch, n_frames, d_model) for an
+    encoder-decoder config, patch embeddings ``prefix_embeds`` (batch,
+    n_prefix_embeds, d_model) for a vision config; none otherwise."""
+    if cfg.family == "encdec":
+        name, rows = "frames", cfg.encoder.n_frames
+    elif cfg.n_prefix_embeds:
+        name, rows = "prefix_embeds", cfg.n_prefix_embeds
+    else:
         return {}
     gen = torch.Generator(device=device).manual_seed(seed)
-    return {"prefix_embeds": torch.randn(
-        (batch, cfg.n_prefix_embeds, cfg.d_model), generator=gen,
-        device=device).to(getattr(torch, cfg.dtype))}
+    return {name: torch.randn((batch, rows, cfg.d_model), generator=gen,
+                              device=device).to(getattr(torch, cfg.dtype))}
 
 
 def run_generate(model, params, prompts: torch.Tensor, gen: int,
@@ -146,14 +157,14 @@ def run_continuous(cfg, model, params, *, batch: int, n_requests: int,
                    seed: int = 0, verbose: bool = True,
                    eager_decode: bool = False):
     """Continuous-batching serving of a ragged workload; returns
-    (results, stats, engine).  A config with prefix embeddings is
-    refused, as in the JAX package (a hybrid's refusal comes from its
-    paged cache)."""
-    if cfg.n_prefix_embeds:
+    (results, stats, engine).  An encoder-decoder config or one with
+    prefix embeddings is refused, as in the JAX package (a hybrid's or
+    a state-space config's refusal comes from its paged cache)."""
+    if cfg.family == "encdec" or cfg.n_prefix_embeds:
         raise NotImplementedError(
             f"--continuous covers decoder-only attention archs without "
-            f"side inputs; {cfg.name} needs prefix embeddings — serve it "
-            f"fixed-batch")
+            f"side inputs; {cfg.name} needs encoder frames / prefix "
+            f"embeddings — serve it fixed-batch")
     reqs = ragged_workload(cfg.vocab, n_requests, prompt_len, gen, seed)
     engine = make_engine(model, params, batch=batch,
                          prompt_len=prompt_len, gen=gen,
@@ -183,7 +194,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=not args.full)
-    model = LM(cfg, Runtime(kernel_ops=True), device=args.device)
+    model = build_model(cfg, Runtime(kernel_ops=True), device=args.device)
     params = model.init_params(args.seed)
     if not args.continuous:
         gen = torch.Generator().manual_seed(args.seed + 1)

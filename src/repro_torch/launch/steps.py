@@ -17,13 +17,16 @@ from typing import Optional
 from .. import tree as T
 from ..models.config import ModelConfig
 from ..models.lm import LM, Runtime, requires_grad
+from ..models.whisper import EncDec
 from ..optim.adamw import AdamW, cosine_schedule
 
 
 def build_model(cfg: ModelConfig, rt: Optional[Runtime] = None,
-                device="cuda") -> LM:
-    """The decoder of ``cfg``: dense, MoE or hybrid (``LM`` refuses the
-    families not ported yet, naming ROADMAP Queue 1 item 6)."""
+                device="cuda"):
+    """The model of ``cfg``: ``EncDec`` for an encoder-decoder config,
+    ``LM`` for every other."""
+    if cfg.family == "encdec":
+        return EncDec(cfg, rt, device=device)
     return LM(cfg, rt, device=device)
 
 
@@ -31,12 +34,13 @@ def default_optimizer(total_steps: int = 10000) -> AdamW:
     return AdamW(lr=cosine_schedule(3e-4, warmup=200, total=total_steps))
 
 
-def make_train_step(model: LM, opt: AdamW):
+def make_train_step(model, opt: AdamW):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
-    info)``: params and state updated in place and returned, ``info``
-    ``{"loss", "grad_norm", "lr"}`` as 0-d tensors.  batch:
-    ``{"tokens", "labels"[, "prefix_embeds"]}`` on the model's device
-    (``LM.loss`` reads the prefix embeddings of a vision config)."""
+    info)`` for an ``LM`` or an ``EncDec``: params and state updated in
+    place and returned, ``info`` ``{"loss", "grad_norm", "lr"}`` as 0-d
+    tensors.  batch: ``{"tokens", "labels"[, "prefix_embeds" | "frames"]}``
+    on the model's device (a vision config's prefix embeddings, an
+    encoder-decoder's frames)."""
     def train_step(params, opt_state, batch):
         requires_grad(params)
         loss = model.loss(params, batch)

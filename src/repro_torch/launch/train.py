@@ -15,7 +15,9 @@ this path.
         --steps 6 --batch 2 --seq 64
 
 ``train(cfg, ...)`` is ``main``'s body for any ``ModelConfig``
-(``chip_smoke.py`` runs it at a depth-cut qwen3-8b).
+(``chip_smoke.py`` runs it at a depth-cut qwen3-8b); an encoder-decoder
+config's batches carry per-step frame embeddings, a vision config's
+prefix embeddings.
 """
 from __future__ import annotations
 
@@ -43,18 +45,23 @@ def make_optimizer(lr: float, steps: int) -> AdamW:
                  clip_norm=1.0)
 
 
-def prefix_embeds(cfg: ModelConfig, batch: int, seed: int, step: int,
-                  device) -> torch.Tensor:
-    """Step ``step``'s stand-in vision embeddings (batch,
-    n_prefix_embeds, d_model): a standard normal draw in the model's
-    type from a generator seeded with (seed, step), as the JAX package's
-    ``launch.train`` draws them from ``fold_in(PRNGKey(seed), step)``
-    (the pair mixed into the 32 bits a CPU generator keeps)."""
+def side_embeds(cfg: ModelConfig, rows: int, batch: int, seed: int,
+                step: int, device) -> torch.Tensor:
+    """Step ``step``'s stand-in embeddings (batch, rows, d_model): a
+    standard normal draw in the model's type from a generator seeded
+    with (seed, step), as the JAX package's ``launch.train`` draws them
+    from ``fold_in(PRNGKey(seed), step)`` (the pair mixed into the 32
+    bits a CPU generator keeps)."""
     mixed = np.random.SeedSequence((seed, step)).generate_state(1)[0]
     gen = torch.Generator(device=device).manual_seed(int(mixed))
-    return torch.randn((batch, cfg.n_prefix_embeds, cfg.d_model),
-                       generator=gen, device=device
-                       ).to(getattr(torch, cfg.dtype))
+    return torch.randn((batch, rows, cfg.d_model), generator=gen,
+                       device=device).to(getattr(torch, cfg.dtype))
+
+
+def prefix_embeds(cfg: ModelConfig, batch: int, seed: int, step: int,
+                  device) -> torch.Tensor:
+    """A vision config's patch embeddings of step ``step``."""
+    return side_embeds(cfg, cfg.n_prefix_embeds, batch, seed, step, device)
 
 
 def train(cfg: ModelConfig, *, steps: int = 20, batch: int = 4,
@@ -81,6 +88,9 @@ def train(cfg: ModelConfig, *, steps: int = 20, batch: int = 4,
     def batch_for(step: int) -> dict:
         out = {k: torch.from_numpy(v).to(model.device, torch.long)
                for k, v in pipe.batch_at(step).items()}
+        if cfg.family == "encdec":
+            out["frames"] = side_embeds(cfg, cfg.encoder.n_frames, batch,
+                                        seed, step, model.device)
         if cfg.n_prefix_embeds:
             out["prefix_embeds"] = prefix_embeds(cfg, batch, seed, step,
                                                  model.device)

@@ -1,7 +1,7 @@
-"""Model configuration schema: the fields of the JAX package's
-``ModelConfig`` that the dense, mixture-of-experts, hybrid (RG-LRU plus
-local attention) and vision-prefix decoder paths read.  The SSM and
-encoder fields come with their slices."""
+"""Model configuration schema: the JAX package's ``ModelConfig`` for
+the dense, mixture-of-experts, hybrid (RG-LRU plus local attention),
+vision-prefix, state-space (Mamba-2) and encoder-decoder (whisper)
+families."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -20,6 +20,18 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 SSD block (``models.layers.mamba_block``)."""
+
+    d_state: int = 128
+    head_dim: int = 64          # P
+    expand: int = 2             # d_inner = expand * d_model
+    chunk: int = 128            # SSD chunk length
+    conv_kernel: int = 4
+    n_groups: int = 1
+
+
+@dataclass(frozen=True)
 class RGLRUConfig:
     """Griffin / RecurrentGemma recurrent block
     (``models.layers.rglru_block``)."""
@@ -31,9 +43,19 @@ class RGLRUConfig:
 
 
 @dataclass(frozen=True)
+class EncoderConfig:
+    """Whisper-style encoder (``models.whisper.EncDec``; the frontend is
+    a stand-in: precomputed frame embeddings)."""
+
+    n_layers: int
+    n_frames: int = 1500        # whisper 30s @ 50Hz after conv stem
+    d_model: Optional[int] = None  # defaults to decoder d_model
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | moe | hybrid (the families ported)
+    family: str                 # dense | moe | ssm | hybrid | encdec
     n_layers: int
     d_model: int
     n_heads: int
@@ -52,8 +74,10 @@ class ModelConfig:
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
-    frontend: Optional[str] = None   # vision: precomputed prefix embeds
+    encoder: Optional[EncoderConfig] = None
+    frontend: Optional[str] = None   # audio | vision: precomputed embeds
     n_prefix_embeds: int = 0         # vision stub: patch embeds per sample
     # layer layout for hybrids: e.g. ("rglru", "rglru", "attn") repeated
     pattern: tuple[str, ...] = ("attn",)
@@ -81,7 +105,7 @@ class ModelConfig:
         recurrentgemma-2b reads 2.383 B against the 2.894 B its tensors
         hold.  Bytes on the card are counted from the tensors."""
         d, f, v = self.d_model, self.d_ff, self.vocab
-        counts = {"attn": 0, "rglru": 0}
+        counts = {"attn": 0, "mamba": 0, "rglru": 0}
         pat = list(self.pattern)
         for i in range(self.n_layers):
             counts[pat[i % len(pat)]] += 1
@@ -94,6 +118,11 @@ class ModelConfig:
         else:
             ff = mats * d * f
         per = counts["attn"] * (attn + ff)
+        if counts["mamba"]:
+            s = self.ssm
+            din = s.expand * d
+            per += counts["mamba"] * (d * (2 * din + 2 * s.n_groups * s.d_state
+                                           + din // s.head_dim) + din * d + ff)
         if counts["rglru"]:
             w = int(self.rglru.width_mult * d)
             per += counts["rglru"] * (d * 2 * w + 2 * w * w + w * d + ff)

@@ -5,7 +5,10 @@ the MLP, the mixture of experts (``moe_block``: routing and expert
 products in torch ops, as the JAX package's are outside any kernel),
 the RG-LRU recurrent block of the hybrid family (``rglru_block`` with
 its ``causal_conv1d`` and parallel ``linear_scan``, torch ops as well),
-and the planner-driven block (``run_planned_layer``).
+the Mamba-2 block of the state-space family (``mamba_block``: the
+chunked SSD in f32 torch ops, ``_ssd_chunked``), the encoder-decoder's
+cross-attention (``cross_attention_block``), and the planner-driven
+block (``run_planned_layer``).
 
 Parameters are dicts of tensors with the JAX package's names and
 layouts (``wq`` is (d_model, n_heads * dh), and so on), so weights carry
@@ -21,7 +24,8 @@ than one token, and otherwise the model's own twins,
 Attention over a contiguous cache (``init_attn_cache``) has the JAX
 package's two twins, ``streaming_attention`` with the cache's slot
 positions for a long prefill and ``_positional_attention`` otherwise;
-no kernel runs there, as none does in the JAX package.
+no kernel runs there, as none does in the JAX package.  Nor does one
+run in the recurrent blocks or the cross-attention.
 
 Paged attention has two bodies with one semantics: the fused CUDA
 kernel (``kernels.attention.fused_attention_paged``) for decode steps on
@@ -65,6 +69,38 @@ def _rmsnorm_f32(x: torch.Tensor, w: torch.Tensor,
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return _rmsnorm_f32(x, w, eps).to(x.dtype)
+
+
+def _layernorm_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   eps: float) -> torch.Tensor:
+    """layernorm without the trailing downcast (the biased variance)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    return (xf - mu) * torch.rsqrt(var + eps) * w + b
+
+
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float) -> torch.Tensor:
+    return _layernorm_f32(x, w, b, eps).to(x.dtype)
+
+
+def apply_norm(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``cfg.norm``: layernorm with ``p["w"]`` and ``p["b"]``, or rmsnorm
+    with the scale ``1 + p["w"]``."""
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["w"], p["b"], cfg.norm_eps)
+    return rmsnorm(x, p["w"], cfg.norm_eps)
+
+
+def init_norm(cfg: ModelConfig, device) -> dict:
+    """A norm's f32 parameters: layernorm's ``w`` (ones) and ``b``
+    (zeros), or rmsnorm's ``w`` (zeros: the scale is 1 + w)."""
+    d = cfg.d_model
+    if cfg.norm == "layernorm":
+        return {"w": torch.ones(d, device=device),
+                "b": torch.zeros(d, device=device)}
+    return {"w": torch.zeros(d, device=device)}
 
 
 def _rope_f32(x: torch.Tensor, positions: torch.Tensor,
@@ -342,11 +378,152 @@ def rglru_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     return y @ p["w_out"]
 
 
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD, state-space duality, arXiv:2405.21060): torch ops in f32,
+# as the JAX package's are outside any kernel
+# ---------------------------------------------------------------------------
+
+def init_mamba(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    """The Mamba-2 block's weights: the input projection to (z, x, B, C,
+    dt), the conv over (x, B, C), ``A_log``, ``D``, ``dt_bias`` and the
+    gated norm's ``norm_w`` (all f32), and the output projection."""
+    dt = getattr(torch, cfg.dtype)
+    s = cfg.ssm
+    d = cfg.d_model
+    din = s.expand * d
+    h = din // s.head_dim
+    n = s.n_groups * s.d_state
+    return {
+        "w_in": dense_init(gen, (d, 2 * din + 2 * n + h), dt, device),
+        "conv_w": dense_init(gen, (s.conv_kernel, din + 2 * n),
+                             torch.float32, device, scale=0.5),
+        "A_log": torch.zeros(h, device=device),     # A = -exp(A_log) = -1
+        "D": torch.ones(h, device=device),
+        "dt_bias": torch.zeros(h, device=device),
+        "norm_w": torch.zeros(din, device=device),
+        "w_out": dense_init(gen, (din, d), dt, device),
+    }
+
+
+def ssd_step(h: torch.Tensor, xh: torch.Tensor, da: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor) -> tuple:
+    """One step of the SSD recurrence h_t = exp(dA_t) h_{t-1} + B_t x_t,
+    y_t = C_t h_t.  h: (b, H, N, P); xh: (b, H, P) scaled by dt; da:
+    (b, H); b, c: (b, N).  Returns (y (b, H, P), the new h)."""
+    h = h * torch.exp(da)[:, :, None, None] + b[:, None, :, None] \
+        * xh[:, :, None, :]
+    return (c[:, None, None, :] @ h)[:, :, 0], h
+
+
+def _ssd_inter(cc: torch.Tensor, prev: torch.Tensor,
+               cums: torch.Tensor) -> torch.Tensor:
+    """The inter-chunk term: each row's read of the state its chunk
+    starts from, decayed to the row.  cc: (b, nc, q, N); prev: (b, nc, H,
+    N, P); cums: (b, nc, q, H).  Returns (b, nc, q, H, P)."""
+    y = (cc[:, :, None] @ prev).permute(0, 1, 3, 2, 4)     # (b,nc,q,H,P)
+    return y * torch.exp(cums)[..., None]
+
+
+def _ssd_chunked(xh: torch.Tensor, da: torch.Tensor, b: torch.Tensor,
+                 c: torch.Tensor, chunk: int) -> tuple:
+    """The SSD in chunked matrix form, the JAX package's ``_ssd_chunked``
+    in f32: within a chunk the (l, s) decay matrix, across chunks the
+    boundary states carried by a loop over the chunks.  xh: (b, s, H,
+    P) scaled by dt; da: (b, s, H) = dt A (<= 0); b, c: (b, s, N) (one
+    group); s a multiple of ``chunk``.  Returns (y (b, s, H, P), the
+    final state (b, H, N, P)).
+
+    The decay is laid out (b, nc, H, l, s), 4 B x b x s x chunk x H:
+    537 MB at b=2, s=4096, chunk 256 and H=64.  Its upper triangle is
+    masked before the exp, where the JAX package exponentiates and then
+    selects: the same values, and no exp(seg) past f32's range for the
+    backward to multiply by a zero cotangent."""
+    bs, s, nh, pd = xh.shape
+    nc, q = s // chunk, chunk
+    xc = xh.reshape(bs, nc, q, nh, pd)
+    bc = b.reshape(bs, nc, q, -1)
+    cc = c.reshape(bs, nc, q, -1)
+    cums = torch.cumsum(da.reshape(bs, nc, q, nh), dim=2)   # (b,nc,q,H)
+    total = cums[:, :, -1]                                   # (b,nc,H)
+
+    # intra-chunk (diagonal blocks): cb[l, s] decay[l, s] x[s], summed
+    # over s in two steps (the product, then a batched matmul)
+    cb = cc @ bc.transpose(-1, -2)                           # (b,nc,l,s)
+    ch = cums.transpose(2, 3)                                # (b,nc,H,q)
+    seg = ch[..., :, None] - ch[..., None, :]                # (b,nc,H,l,s)
+    causal = torch.ones(q, q, dtype=torch.bool, device=xh.device).tril()
+    decay = torch.exp(seg.masked_fill(~causal, -math.inf))
+    xt = xc.permute(0, 1, 3, 2, 4)                           # (b,nc,H,s,P)
+    y_intra = ((cb[:, :, None] * decay) @ xt).permute(0, 1, 3, 2, 4)
+
+    # chunk boundary states: S_c = sum_s B_s x_s exp(total - cum_s)
+    dec_out = torch.exp(total[:, :, None, :] - cums)         # (b,nc,q,H)
+    xd = (xc * dec_out[..., None]).permute(0, 1, 3, 2, 4)    # (b,nc,H,s,P)
+    states = bc.transpose(-1, -2)[:, :, None] @ xd           # (b,nc,H,N,P)
+
+    # inter-chunk recurrence over the nc chunks, in order
+    h = xh.new_zeros(bs, nh, bc.shape[-1], pd)
+    prev = []
+    for i in range(nc):
+        prev.append(h)                  # the state before chunk i
+        h = h * torch.exp(total[:, i])[:, :, None, None] + states[:, i]
+    y = y_intra + _ssd_inter(cc, torch.stack(prev, dim=1), cums)
+    return y.reshape(bs, s, nh, pd), h
+
+
+def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                state: Optional[dict] = None) -> torch.Tensor:
+    """The Mamba-2 block: in-projection, causal conv over (x, B, C),
+    softplus dt, A = -exp(A_log), the SSD, the D skip, the gated
+    rmsnorm and the out-projection.  x: (B, S, D) -> (B, S, D).
+
+    Cache-free (``state`` None) or over a state dict ``{"conv" (B, K-1,
+    din + 2N), "ssm" (B, H, N, P) f32}`` written IN PLACE, so that a
+    captured decode step reads and writes the same tensors.  More than
+    one token runs the chunked SSD from a zero state (a prefill into a
+    fresh cache, as in the JAX package), zero-padded to a chunk multiple
+    (the padded steps carry dA = 0 and x = 0, so the final state is
+    unchanged); one token with a state is ``ssd_step``."""
+    sc = cfg.ssm
+    b, s, d = x.shape
+    din = sc.expand * d
+    nh = din // sc.head_dim
+    n = sc.n_groups * sc.d_state
+    z, xbc, dt = torch.split(x @ p["w_in"], [din, din + 2 * n, nh], dim=-1)
+    xbc, new_conv = causal_conv1d(
+        xbc, p["conv_w"], state["conv"] if state is not None else None)
+    xb, bm, cm = torch.split(xbc, [din, n, n], dim=-1)
+    dtv = F.softplus(dt.float() + p["dt_bias"])              # (B,S,H)
+    xr = xb.reshape(b, s, nh, sc.head_dim).float()
+    xh = xr * dtv[..., None]
+    da = dtv * -torch.exp(p["A_log"])
+    bm, cm = bm.float(), cm.float()
+    if state is None or s > 1:
+        pad = (-s) % sc.chunk
+        y, h_last = _ssd_chunked(F.pad(xh, (0, 0, 0, 0, 0, pad)),
+                                 F.pad(da, (0, 0, 0, pad)),
+                                 F.pad(bm, (0, 0, 0, pad)),
+                                 F.pad(cm, (0, 0, 0, pad)), sc.chunk)
+        y = y[:, :s]
+    else:
+        y, h_last = ssd_step(state["ssm"], xh[:, 0], da[:, 0], bm[:, 0],
+                             cm[:, 0])
+        y = y[:, None]
+    if state is not None:
+        state["conv"].copy_(new_conv)
+        state["ssm"].copy_(h_last)
+    y = (y + xr * p["D"][:, None]).reshape(b, s, din)
+    y = rmsnorm(y.to(x.dtype), p["norm_w"], cfg.norm_eps) * F.silu(z)
+    return y @ p["w_out"]
+
+
 def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor) -> tuple:
     """The start of every attention block: the q/k/v projections of x
-    (B, S, D), qk-norm, and rope at ``positions`` ((S,) or (B, S)).
-    Returns q (B, S, Hq, dh) and k, v (B, S, Hkv, dh)."""
+    (B, S, D), qk-norm, and rope at ``positions`` ((S,) or (B, S)) where
+    ``cfg.use_rope`` (a config with learned positions adds them to its
+    embeddings instead).  Returns q (B, S, Hq, dh) and k, v (B, S, Hkv,
+    dh)."""
     b, s, _ = x.shape
     dh = cfg.dh
     q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, dh)
@@ -355,8 +532,10 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    return (rope(q, positions, cfg.rope_theta),
-            rope(k, positions, cfg.rope_theta), v)
+    if cfg.use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
 
 
 def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -466,7 +645,7 @@ def _positional_attention(q, k, v, rows_pos, kv_pos, causal: bool,
 
 
 def _cached_attention(q, k, v, cfg: ModelConfig, *, positions, cache: dict,
-                      bkv: int) -> torch.Tensor:
+                      bkv: int, causal: bool) -> torch.Tensor:
     """The contiguous cache's branch of ``attention_block``: this
     call's k/v and positions go into the cache IN PLACE at slots
     ``positions % n`` (a ring when windowed), then q attends over the
@@ -497,21 +676,23 @@ def _cached_attention(q, k, v, cfg: ModelConfig, *, positions, cache: dict,
     kk = kk.repeat_interleave(group, dim=1)
     vv = vv.repeat_interleave(group, dim=1)
     if cfg.use_fused_attention and kk.shape[2] > 2 * bkv and s > 1:
-        return streaming_attention(q, kk, vv, causal=True, window=win,
+        return streaming_attention(q, kk, vv, causal=causal, window=win,
                                    scale=scale, bkv=bkv,
                                    q_offset=positions[0],
                                    kv_positions=kv_pos)
     # decode / short: single-block scores are already tiny
-    return _positional_attention(q, kk, vv, positions, kv_pos, True, win,
+    return _positional_attention(q, kk, vv, positions, kv_pos, causal, win,
                                  scale)
 
 
 def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor, bkv: int = 512,
                     kernel_ops: bool = False,
-                    cache: Optional[dict] = None) -> torch.Tensor:
-    """Causal GQA attention over ``cfg.attn_window``.  x: (B, S, D);
-    positions: (S,) absolute positions of x's tokens.
+                    cache: Optional[dict] = None,
+                    causal: bool = True) -> torch.Tensor:
+    """GQA attention over ``cfg.attn_window``, causal unless ``causal``
+    is False (an encoder's).  x: (B, S, D); positions: (S,) absolute
+    positions of x's tokens.
 
     With a contiguous ``cache`` (``init_attn_cache``) this call's k/v
     are written into it IN PLACE and q attends over the cache by
@@ -530,22 +711,50 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     scale = 1.0 / math.sqrt(dh)
     if cache is not None:
         o = _cached_attention(q, k, v, cfg, positions=positions,
-                              cache=cache, bkv=bkv)
+                              cache=cache, bkv=bkv, causal=causal)
     elif kernel_ops and s > 1:
         from ..kernels import ops
-        o = ops.attention(q, k, v, causal=True, window=win, scale=scale)
+        o = ops.attention(q, k, v, causal=causal, window=win, scale=scale)
     else:
         group = cfg.n_heads // cfg.n_kv_heads
         kk = k.repeat_interleave(group, dim=1)
         vv = v.repeat_interleave(group, dim=1)
         if cfg.use_fused_attention and s > 2 * bkv:
-            o = streaming_attention(q, kk, vv, causal=True, window=win,
+            o = streaming_attention(q, kk, vv, causal=causal, window=win,
                                     scale=scale, bkv=bkv)
         else:
-            o = naive_attention(q, kk, vv, causal=True, window=win,
+            o = naive_attention(q, kk, vv, causal=causal, window=win,
                                 scale=scale)
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * dh)
     return o @ p["wo"]
+
+
+def cross_attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                          enc_out: Optional[torch.Tensor] = None,
+                          kv_cache: Optional[dict] = None) -> torch.Tensor:
+    """The decoder's attention over the encoder output, non-causal and
+    unfused (``naive_attention``), as in the JAX package.  x: (B, S, D);
+    the keys and values are ``enc_out``'s (B, T, D) projections —
+    written into ``kv_cache`` ``{"k", "v"}`` (B, Hkv, T, dh) IN PLACE
+    when one is given (a prefill) — or, without ``enc_out``, read from
+    ``kv_cache`` (a decode step)."""
+    b, s, _ = x.shape
+    dh = cfg.dh
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, dh).transpose(1, 2)
+    if enc_out is not None:
+        t = enc_out.shape[1]
+        k, v = ((enc_out @ p[w]).reshape(b, t, cfg.n_kv_heads, dh)
+                .transpose(1, 2) for w in ("wk", "wv"))
+        if kv_cache is not None:
+            kv_cache["k"].copy_(k)
+            kv_cache["v"].copy_(v)
+    else:
+        k, v = kv_cache["k"], kv_cache["v"]
+    group = cfg.n_heads // cfg.n_kv_heads
+    o = naive_attention(q, k.repeat_interleave(group, dim=1),
+                        v.repeat_interleave(group, dim=1), causal=False,
+                        window=0, scale=1.0 / math.sqrt(dh))
+    return o.transpose(1, 2).reshape(b, s, cfg.n_heads * dh) @ p["wo"]
 
 
 def _paged_positional_attention(q, k, v, rows_pos, kv_pos, window: int,

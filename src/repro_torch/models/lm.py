@@ -1,7 +1,8 @@
 """Decoder-only LM, dense (qwen3, granite, codeqwen, the pixtral
 backbone with its prefix embeddings), mixture of experts (olmoe,
-mixtral) or hybrid (recurrentgemma: RG-LRU blocks and local attention
-in a repeating ``pattern``): the cache-free forward and loss,
+mixtral), hybrid (recurrentgemma: RG-LRU blocks and local attention
+in a repeating ``pattern``) or state-space (mamba2: Mamba-2 blocks
+without an MLP): the cache-free forward and loss,
 fixed-batch decoding over a contiguous cache, and paged serving of the
 attention-only stacks, hand-wired or run from the fusion planner's
 plans (``Runtime(planner=True)``, paged serving of the configs the
@@ -23,8 +24,8 @@ copies.  The API:
     loss(params, batch)                    -> scalar mean cross-entropy
                                               (under autograd after
                                               ``requires_grad(params)``)
-    init_cache(batch, max_len)             -> per-layer {k, v, pos} or
-                                              {conv, lru}
+    init_cache(batch, max_len)             -> per-layer {k, v, pos},
+                                              {conv, lru} or {conv, ssm}
     prefill(params, tokens, cache[, prefix_embeds])
                                            -> (last logits (B, V), cache)
     decode_step(params, cache, tokens, pos)
@@ -126,19 +127,23 @@ def requires_grad(params: dict) -> dict:
     return params
 
 
+_MIXERS = {"attn": (L.init_attention, None),
+           "rglru": (L.init_rglru, "rglru"),
+           "mamba": (L.init_mamba, "ssm")}
+
+
 class LM:
     def __init__(self, cfg: ModelConfig, rt: Optional[Runtime] = None,
                  device="cuda"):
         kinds = layer_kinds(cfg)
-        if (cfg.family not in ("dense", "moe", "hybrid")
-                or cfg.norm != "rmsnorm" or not cfg.use_rope
-                or not set(kinds) <= {"attn", "rglru"}
-                or ("rglru" in kinds and cfg.rglru is None)):
+        bad = [k for k in set(kinds) if k not in _MIXERS
+               or (_MIXERS[k][1] and getattr(cfg, _MIXERS[k][1]) is None)]
+        if cfg.family == "encdec" or bad:
             raise NotImplementedError(
-                f"the port runs dense, MoE and RG-LRU hybrid rmsnorm/rope "
-                f"decoders; {cfg.name} is {cfg.family} with {cfg.norm} "
-                f"(rope: {cfg.use_rope}, layers {sorted(set(kinds))}); "
-                f"the other families: ROADMAP Queue 1 item 6")
+                f"LM runs decoder-only stacks of {sorted(_MIXERS)} layers, "
+                f"each with its config field; {cfg.name} is {cfg.family} "
+                f"with layers {sorted(set(kinds))} (an encoder-decoder "
+                f"config is models.whisper.EncDec's)")
         self.cfg = cfg
         self.rt = rt or Runtime()
         self.device = torch.device(device)
@@ -155,26 +160,30 @@ class LM:
     # ------------------------------------------------------------------
     def init_params(self, seed: int) -> dict:
         """Seeded random weights made on ``self.device`` (a full-width
-        bf16 model is never staged on the host).  A config with tied
-        embeddings has no ``lm_head``."""
+        bf16 model is never staged on the host).  A layer has ``ln2`` and
+        ``ff`` only where ``d_ff > 0`` (mamba2 has none); a config with
+        tied embeddings has no ``lm_head``, one without rope has learned
+        positions ``pos_embed`` (65536 rows)."""
         cfg, dev = self.cfg, self.device
         gen = torch.Generator(device=dev).manual_seed(seed)
         dt = getattr(torch, cfg.dtype)
         layers = []
         for kind in self.kinds:
-            layers.append({
-                "ln1": {"w": torch.zeros(cfg.d_model, device=dev)},
-                "mix": (L.init_attention(gen, cfg, dev) if kind == "attn"
-                        else L.init_rglru(gen, cfg, dev)),
-                "ln2": {"w": torch.zeros(cfg.d_model, device=dev)},
-                "ff": (L.init_moe(gen, cfg, dev) if cfg.moe
-                       else L.init_mlp(gen, cfg, dev)),
-            })
+            layer = {"ln1": L.init_norm(cfg, dev),
+                     "mix": _MIXERS[kind][0](gen, cfg, dev)}
+            if cfg.d_ff > 0:
+                layer["ln2"] = L.init_norm(cfg, dev)
+                layer["ff"] = (L.init_moe(gen, cfg, dev) if cfg.moe
+                               else L.init_mlp(gen, cfg, dev))
+            layers.append(layer)
         params = {
             "embed": L.dense_init(gen, (cfg.vocab, cfg.d_model), dt, dev,
                                   scale=0.02),
-            "final_norm": {"w": torch.zeros(cfg.d_model, device=dev)},
+            "final_norm": L.init_norm(cfg, dev),
         }
+        if not cfg.use_rope:
+            params["pos_embed"] = L.dense_init(gen, (65536, cfg.d_model), dt,
+                                               dev, scale=0.02)
         if not cfg.tie_embeddings:
             params["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab),
                                              dt, dev)
@@ -197,14 +206,18 @@ class LM:
             raise NotImplementedError(
                 "the planned cache-free forward is not ported; use "
                 "Runtime(planner=False)")
-        h = L.rmsnorm(x, p["ln1"]["w"], cfg.norm_eps)
+        h = L.apply_norm(p["ln1"], x, cfg)
         if kind == "attn":
             x = x + L.attention_block(p["mix"], h, cfg, positions=positions,
                                       bkv=rt.bkv, kernel_ops=rt.kernel_ops,
                                       cache=cache)
+        elif kind == "mamba":
+            x = x + L.mamba_block(p["mix"], h, cfg, state=cache)
         else:
             x = x + L.rglru_block(p["mix"], h, cfg, state=cache)
-        h2 = L.rmsnorm(x, p["ln2"]["w"], cfg.norm_eps)
+        if cfg.d_ff <= 0:
+            return x
+        h2 = L.apply_norm(p["ln2"], x, cfg)
         return x + L.feed_forward(p["ff"], h2, cfg)
 
     def _positions(self, tokens: torch.Tensor,
@@ -220,21 +233,25 @@ class LM:
         """The cache-free stack's output before the final norm, over the
         prefix embeddings and the tokens."""
         positions = self._positions(tokens, prefix_embeds)
-        x = self._embed(params, tokens, prefix_embeds)
+        x = self._embed(params, tokens, positions, prefix_embeds)
         for kind, p in zip(self.kinds, params["layers"]):
             x = self._apply_block(kind, p, x, positions)
         return x
 
     def _embed(self, params: dict, tokens: torch.Tensor,
+               positions: torch.Tensor,
                prefix_embeds: Optional[torch.Tensor] = None
                ) -> torch.Tensor:
         """The token embeddings — tied ones times ``_embed_scale`` —
-        after the prefix embeddings, if any."""
+        after the prefix embeddings, if any, plus the learned positions
+        at ``positions`` of a config without rope."""
         x = params["embed"][tokens]
         if self._embed_scale is not None:
             x = x * self._embed_scale
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        if not self.cfg.use_rope:
+            x = x + params["pos_embed"][positions.long()]
         return x
 
     def _unembed_w(self, params: dict) -> torch.Tensor:
@@ -258,8 +275,9 @@ class LM:
         the final norm.  Mean cross-entropy by ``chunked_ce``: no (B, S,
         V) logits."""
         prefix = batch.get("prefix_embeds")
-        x = L.rmsnorm(self._hidden(params, batch["tokens"], prefix),
-                      params["final_norm"]["w"], self.cfg.norm_eps)
+        x = L.apply_norm(params["final_norm"],
+                         self._hidden(params, batch["tokens"], prefix),
+                         self.cfg)
         if prefix is not None:
             x = x[:, prefix.shape[1]:]
         return chunked_ce(x, self._unembed_w(params), batch["labels"])
@@ -294,13 +312,13 @@ class LM:
                         raise
                     _breaker.record_failure(
                         pkey, reason=f"{type(e).__name__}: {e}")
-        h = L.rmsnorm(x, p["ln1"]["w"], cfg.norm_eps)
+        h = L.apply_norm(p["ln1"], x, cfg)
         mix, _ = L.paged_attention_block(
             p["mix"], h, cfg, positions=positions, cache=cache,
             page_table=page_table, kernel_ops=rt.kernel_ops,
             block=rt.paged_block)
         x = x + mix
-        h2 = L.rmsnorm(x, p["ln2"]["w"], cfg.norm_eps)
+        h2 = L.apply_norm(p["ln2"], x, cfg)
         return x + L.feed_forward(p["ff"], h2, cfg)
 
     def _run_layers(self, params: dict, x: torch.Tensor,
@@ -311,7 +329,7 @@ class LM:
         return x
 
     def _unembed(self, params: dict, x: torch.Tensor) -> torch.Tensor:
-        x = L.rmsnorm(x, params["final_norm"]["w"], self.cfg.norm_eps)
+        x = L.apply_norm(params["final_norm"], x, self.cfg)
         return x @ self._unembed_w(params)
 
     # ------------------------------------------------------------------
@@ -319,19 +337,31 @@ class LM:
         """One contiguous cache per layer: an attention layer's ``{"k",
         "v", "pos"}`` (``layers.init_attn_cache``) of ``max_len`` slots,
         or a ring of ``min(max_len, cfg.attn_window)`` with a window; an
-        RG-LRU layer's state ``{"conv": (B, K-1, w)
-        in the model's type, "lru": (B, w) f32}``."""
+        RG-LRU layer's state ``{"conv": (B, K-1, w) in the model's type,
+        "lru": (B, w) f32}``; a Mamba-2 layer's ``{"conv": (B, K-1, din +
+        2N) in the model's type, "ssm": (B, H, N, P) f32}``."""
         cfg, dev = self.cfg, self.device
+        dt = getattr(torch, cfg.dtype)
         caches = []
         for kind in self.kinds:
             if kind == "attn":
                 caches.append(L.init_attn_cache(cfg, batch, max_len, dev))
                 continue
+            if kind == "mamba":
+                s = cfg.ssm
+                din = s.expand * cfg.d_model
+                n = s.n_groups * s.d_state
+                caches.append({
+                    "conv": torch.zeros(batch, s.conv_kernel - 1,
+                                        din + 2 * n, dtype=dt, device=dev),
+                    "ssm": torch.zeros(batch, din // s.head_dim, n,
+                                       s.head_dim, dtype=torch.float32,
+                                       device=dev)})
+                continue
             w = int(cfg.rglru.width_mult * cfg.d_model)
             caches.append({
                 "conv": torch.zeros(batch, cfg.rglru.conv_kernel - 1, w,
-                                    dtype=getattr(torch, cfg.dtype),
-                                    device=dev),
+                                    dtype=dt, device=dev),
                 "lru": torch.zeros(batch, w, dtype=torch.float32,
                                    device=dev)})
         return caches
@@ -351,7 +381,7 @@ class LM:
         every prompt of the same length.  Returns (the last prompt
         token's logits (B, V), cache)."""
         positions = self._positions(tokens, prefix_embeds)
-        x = self._embed(params, tokens, prefix_embeds)
+        x = self._embed(params, tokens, positions, prefix_embeds)
         x = self._run_cached(params, x, positions, cache)
         return self._unembed(params, x[:, -1:])[:, 0], cache
 
@@ -364,7 +394,7 @@ class LM:
         the model's device, so that a captured step reads it from
         there.  Returns (logits (B, V), cache)."""
         positions = pos.reshape(1).to(torch.int32)
-        x = self._embed(params, tokens[:, None])
+        x = self._embed(params, tokens[:, None], positions)
         x = self._run_cached(params, x, positions, cache)
         return self._unembed(params, x)[:, 0], cache
 
@@ -404,7 +434,7 @@ class LM:
         b, s = tokens.shape
         ar = torch.arange(s, dtype=torch.int32, device=tokens.device)
         positions = torch.where(ar < length, ar, -1)[None, :].expand(b, s)
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, positions)
         x = self._run_layers(params, x, positions, cache, page_table)
         logits = self._unembed(params, x[:, max(length - 1, 0)][:, None])
         return logits[:, 0], cache
@@ -421,6 +451,6 @@ class LM:
         slot: kv goes to the scratch page, logits are ignored);
         page_table: (B, max_pages).  Returns (logits (B, V), cache)."""
         pos2 = positions.to(torch.int32)[:, None]
-        x = self._embed(params, tokens[:, None])
+        x = self._embed(params, tokens[:, None], pos2)
         x = self._run_layers(params, x, pos2, cache, page_table)
         return self._unembed(params, x)[:, 0], cache

@@ -135,9 +135,10 @@ def test_fixed_batch_cli_runs_on_the_cpu(capsys):
 @pytest.mark.parametrize("smoke", [False, True])
 def test_config_fields_equal_reference(arch, smoke):
     """Every field of a ported config equals the JAX package's (an MoE
-    config's ``moe`` and a hybrid's ``rglru`` field by field: the two
-    packages' classes never compare equal), and the reference's fields
-    the port lacks (``ssm``, ``encoder``) are unset."""
+    config's ``moe``, a hybrid's ``rglru``, a state-space config's
+    ``ssm`` and an encoder-decoder's ``encoder`` field by field: the two
+    packages' classes never compare equal), and the port has every
+    field the reference has."""
     pytest.importorskip("jax")
     from repro.configs import ALIASES as REF_ALIASES
     from repro.configs import get_config as ref_config
@@ -145,12 +146,16 @@ def test_config_fields_equal_reference(arch, smoke):
     cfg, rcfg = get_config(arch, smoke=smoke), ref_config(arch, smoke=smoke)
     for f in dataclasses.fields(cfg):
         got, want = getattr(cfg, f.name), getattr(rcfg, f.name)
-        if f.name in ("moe", "rglru") and want is not None:
+        if (f.name in ("moe", "ssm", "rglru", "encoder")
+                and want is not None):
             got, want = dataclasses.asdict(got), dataclasses.asdict(want)
         assert got == want, f.name
+    assert {f.name for f in dataclasses.fields(cfg)} == {
+        f.name for f in dataclasses.fields(rcfg)}
     assert (cfg.moe is None) == (cfg.family != "moe")
     assert (cfg.rglru is None) == (cfg.family != "hybrid")
-    assert (rcfg.ssm, rcfg.encoder) == (None, None)
+    assert (cfg.ssm is None) == (cfg.family != "ssm")
+    assert (cfg.encoder is None) == (cfg.family != "encdec")
     assert {a: m for a, m in REF_ALIASES.items() if m == arch} == {
         a: m for a, m in ALIASES.items() if m == arch}
 
