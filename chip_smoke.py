@@ -59,7 +59,10 @@ which raises on failure:
       package), and the last step's logits against the cache-free
       forward over the same tokens;
    e. granite-20b served as in a., hand-wired: the partial kernel at a
-      group of 48, decode steps x 52 launches;
+      group of 48, decode steps x 52 launches; before it, codeqwen1.5-7b
+      (32 layers, 16.4 GB, MHA: the partial kernel at a group of 1) as
+      in a. (decode steps x 32 launches) and d. (``generate`` against
+      its forward);
    every serve run, the forward, ``generate`` and the quickstart also
    assert that nothing degraded: tier ``configured`` and no denylist
    record in the cache directory;
@@ -138,6 +141,36 @@ which raises on failure:
       ``generate`` (batch 4, prompt 64, 32 tokens, decoded from position
       64 + 1500 as the JAX package's) captured and eager, one training
       step at B=4 x 448 —; an ``{"ssm_encdec": ...}`` line;
+   k. the distributed serving regimes (``dist_phase``), after
+      granite-20b's weights are freed: a world of 4 spawned ranks
+      (gloo, every rank on the one card; ``repro_torch.launch.mesh``)
+      over a 1 x 4 ("data", "model") mesh, held to single-card results
+      the parent computed and freed before (``dist_refs``), every step
+      with the counters set to 0 just before it and read after, in
+      every rank: (a) ``ops.gemm_chain`` at tests/test_dist_exec.py's
+      shape in f32 and bf16 and at G12 bf16, ``ops.attention`` at
+      qwen3-8b's forward and at one row over 4096 keys, each regime
+      forced (spatial, ring, ring-pipelined), each within TOL of the
+      single-card kernel, the tuner's pick printed; (b) qwen3-8b FULL,
+      ``loss`` and ``forward`` at B=2 x S=2048 with
+      ``Runtime(kernel_ops=True)`` within LOSS_REL_TOL / FORWARD_REL_TOL
+      of the single-card kernel path, 36 attention launches a rank a
+      call; (c) ``generate`` on the sharded runtime of ``launch.serve
+      --shard-model 4`` (batch 4, prompt 128, 32 tokens) for qwen3-8b
+      (heads-sharded cache) and granite-20b (sequence-sharded cache,
+      ``distributed_decode_attention``): the greedy tokens' agreement
+      printed, and the last step's logits, its inputs forced to the
+      single-card run's tokens, within E2E_REL_TOL; (d) the continuous
+      engine under the mesh on qwen3-8b, 8 ragged requests of up to 96
+      + 32 positions (8 pages of 16), the tuner's paged regime printed,
+      then paged-ring and paged-ring-pipelined each served, forced:
+      partial launches = decode steps x 36 a rank, one decode step's
+      logits on the same pages within E2E_REL_TOL of the single-card
+      engine's, token agreement printed; no rank may degrade, and every
+      rank must launch alike; the parent prints the backend, the tensors
+      moved through host memory, the launches summed over the ranks and
+      the walls (through gloo on one card, not kernel times); a
+      ``{"dist": ...}`` line;
    g. training (``training_phase``), after every serving phase with
       their weights freed: qwen3-8b at every FULL width with the depth
       cut to 8 of 36 layers (AdamW's 16 B a parameter: 131 GB for 36
@@ -176,7 +209,11 @@ which raises on failure:
    tiles around the pick, and at the quickstart's G1 in f32; the
    three-GEMM kernel at CHAIN3 in bf16; the normalised attention at
    recurrentgemma-2b's forward, D=256 with its window, and at
-   pixtral-12b's, beside SDPA with the same mask).
+   pixtral-12b's, beside SDPA with the same mask; and phase 4k's
+   kernels at one rank's block, timed in the parent alone on the card:
+   the GEMM chain on G12's H / 4 columns, the normalised attention on
+   qwen3-8b's forward at a quarter of its heads, the partial kernel on
+   a quarter of its keys, each at the tuner's tiles for that block).
 
 Prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -211,6 +248,12 @@ runs only the device, build, 4i and 4j phases: phase 3 at 4i's
 shapes, 4i, 4j, and the kernel times at 4i's shapes; prints an
 ``{"archs": ...}`` and an ``{"ssm_encdec": ...}`` line.
 
+    python3 chip_smoke.py --dist
+
+runs only the device and build phases, qwen3-8b's and granite-20b's
+single-card results and phase 4k, then its kernel times; prints a
+``{"dist": ...}`` line.
+
     python3 chip_smoke.py --train
 
 runs only the device phase and the training phase (4g), and prints its
@@ -219,11 +262,16 @@ runs only the device phase and the training phase (4g), and prints its
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import dataclasses
+import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -288,6 +336,9 @@ GENERATE = dict(batch=4, prompt_len=128, gen=32, seed=3)
 # The MQA config served at full width after qwen3-8b: its paged decode
 # runs the partial kernel at a GQA group of 48
 GRANITE = "granite-20b"
+# The MHA config served at full width after qwen3-8b: its paged decode
+# runs the partial kernel at a GQA group of 1 (16.4 GB of bf16)
+CODEQWEN = "codeqwen1.5-7b"
 # Phase 4h, the MoE family served: olmoe-1b-7b at every FULL width and
 # depth (6.92 B parameters, 13.84 GB in bf16), then mixtral-8x7b at
 # every FULL width with its depth cut to 16 of 32 layers (46.70 B
@@ -762,10 +813,10 @@ def _mlp_tiles(cfg) -> dict:
             if k[0] == "mlp" and k[2:4] == (cfg.d_ff, cfg.d_model)}
 
 
-def _workload(cfg):
+def _workload(cfg, spec=SERVE):
     from repro_torch.launch.serve import ragged_workload
-    return ragged_workload(cfg.vocab, SERVE["n_requests"],
-                           SERVE["prompt_len"], SERVE["gen"], SERVE["seed"])
+    return ragged_workload(cfg.vocab, spec["n_requests"],
+                           spec["prompt_len"], spec["gen"], spec["seed"])
 
 
 def end_to_end_check(cfg, params, engine, planned_engine):
@@ -799,33 +850,36 @@ def end_to_end_check(cfg, params, engine, planned_engine):
                                f"plain path")
 
 
-def _two_request_step(cfg, params, engine) -> tuple:
-    """A fresh paged cache holding the first two requests' prompts,
-    prefilled through ``engine``'s model, and the arguments of their
-    first decode step: (cache, (tokens, positions, page table))."""
+def _two_request_step(cfg, params, engine, spec=SERVE) -> tuple:
+    """A fresh paged cache holding the first two requests' prompts (of
+    the workload ``spec``), prefilled through ``engine``'s model, and
+    the arguments of their first decode step: (cache, (tokens,
+    positions, page table))."""
     from repro_torch.serving import kv_pages as KP
     model = engine.model
     ps, mp = engine.page_size, engine.max_pages
     pool = KP.PagePool(engine.pool.n_pages, ps)
     cache = model.init_paged_cache(engine.pool.n_pages, ps)
-    reqs = _workload(cfg)[:2]
+    reqs = _workload(cfg, spec)[:2]
     allocs, last, lengths = [], [], []
     for prompt, _ in reqs:
         a = KP.RequestPages()
         if not a.ensure(len(prompt) + 1, pool):
             raise RuntimeError("the check's page pool is too small")
         toks = torch.zeros((1, math.ceil(len(prompt) / ps) * ps),
-                           dtype=torch.long, device="cuda")
+                           dtype=torch.long, device=engine.device)
         toks[0, :len(prompt)] = torch.from_numpy(prompt).long()
         logits, cache = model.prefill_paged(
             params, toks, cache,
-            torch.from_numpy(KP.table_array([a], mp)).cuda(), len(prompt))
+            torch.from_numpy(KP.table_array([a], mp)).to(engine.device),
+            len(prompt))
         allocs.append(a)
         last.append(int(torch.argmax(logits[0])))
         lengths.append(len(prompt))
-    args = (torch.tensor(last, device="cuda"),
-            torch.tensor(lengths, dtype=torch.int32, device="cuda"),
-            torch.from_numpy(KP.table_array(allocs, mp)).cuda())
+    dev = engine.device
+    args = (torch.tensor(last, device=dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev),
+            torch.from_numpy(KP.table_array(allocs, mp)).to(dev))
     return cache, args
 
 
@@ -3809,13 +3863,718 @@ def ssm_encdec_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 4k: the distributed serving regimes
+# ---------------------------------------------------------------------------
+
+# A world of DIST["world"] ranks, one process each, gloo, every rank on the
+# one card (NCCL refuses two ranks on one device), over a 1 x 4 ("data",
+# "model") mesh.  Ranks sharing a card contend, so no kernel is timed
+# inside the world: its walls are walls through gloo on one card, and
+# the local-shape kernel times come from the parent, alone on the card.
+# (a)'s attention held as a relative norm error: PERF.md §2's bf16
+# limit, against outputs of order 1 (``_dist_attn_inputs``).  A ring
+# that drops one rank's partial, or sums the partials without rescaling
+# them to the global max, goes far past it: both are planted in (a).
+DIST_ATTN_REL_TOL = 2e-2
+DIST = dict(
+    world=4,
+    # (a) kernel level: the gemm chain of tests/test_dist_exec.py in f32
+    # and bf16 and Table II G12 in bf16 ((B, M, N, K, H)); qwen3-8b's
+    # forward attention and one query row over 4096 keys ((B, Hq, Hkv,
+    # M, N), D = 128, causal, bf16)
+    gemm={"test f32": ((4, 256, 256, 128, 512), torch.float32),
+          "test bf16": ((4, 256, 256, 128, 512), torch.bfloat16),
+          "G12 bf16": (CHAINS["G12"], torch.bfloat16)},
+    attn={"forward": (2, 32, 8, 2048, 2048), "decode 4096": (2, 32, 8, 1,
+                                                             4096)},
+    head_dim=128,
+    # (b) the cache-free forward of qwen3-8b FULL, (c) generate, (d) the
+    # engine on 8 ragged requests of up to 96 + 32 positions: 8 pages of
+    # 16, which the model dim of 4 divides, so the paged ring regimes
+    # are offered
+    forward=FORWARD, generate=GENERATE,
+    serve=dict(SERVE, prompt_len=96),
+    archs=("qwen3-8b", GRANITE))
+
+
+def _seeded(shapes, dt, seed, dev, scaled=True):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [(torch.randn(*s, generator=g, device=dev)
+             / (s[1] ** 0.5 if i and scaled else 1.0)).to(dt)
+            for i, s in enumerate(shapes)]
+
+
+def _dist_gemm_inputs(spec, dev):
+    (b, m, n, k, h), dt = spec
+    return _seeded([(b, m, k), (b, k, n), (b, n, h)], dt, 301, dev)
+
+
+def _dist_attn_inputs(spec, d, dev):
+    """(a)'s q, k, v: unit-variance k and v and q at 4x, so the scores'
+    spread is 4 and each row's softmax is peaked, with outputs of order
+    1 against which a wrong combine shows (``DIST_ATTN_REL_TOL``)."""
+    b, hq, hkv, m, n = spec
+    q, k, v = _seeded([(b, hq, m, d), (b, hkv, n, d), (b, hkv, n, d)],
+                      torch.float32, 302, dev, scaled=False)
+    dt = torch.bfloat16 if dev == "cuda" else torch.float32
+    return (q * 4.0).to(dt), k.to(dt), v.to(dt)
+
+
+def _dist_batch(cfg, spec, dev) -> dict:
+    g = torch.Generator(device=dev).manual_seed(spec["seed"])
+    tokens = torch.randint(0, cfg.vocab, (spec["batch"], spec["seq"]),
+                           generator=g, device=dev)
+    labels = torch.roll(tokens, -1, dims=1)
+    labels[:, -1] = -100
+    return {"tokens": tokens, "labels": labels}
+
+
+def _dist_prompts(cfg, spec, dev):
+    g = torch.Generator(device=dev).manual_seed(spec["seed"])
+    return torch.randint(0, cfg.vocab, (spec["batch"], spec["prompt_len"]),
+                         generator=g, device=dev)
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def _rms(t) -> float:
+    return float(t.float().pow(2).mean().sqrt())
+
+
+@contextlib.contextmanager
+def _planted_combine(fault: str):
+    """A fault planted in the ring's combine for the duration
+    (``ring_attention`` calls ``ring_dispatch.ring_combine``): rank 1's
+    partial replaced by the merge's identity, or every rank's max set
+    to 0 so the partials are summed without their rescale to the
+    global max."""
+    from repro_torch.dist import ring_dispatch
+    real = ring_dispatch.ring_combine
+
+    def combine(o, m, l, ax, *args):
+        if fault == "no rescale":
+            m = torch.zeros_like(m)
+        elif ax.index == 1:
+            o, l = torch.zeros_like(o), torch.zeros_like(l)
+            m = torch.full_like(m, -1e30)
+        return real(o, m, l, ax, *args)
+
+    ring_dispatch.ring_combine = combine
+    try:
+        yield
+    finally:
+        ring_dispatch.ring_combine = real
+
+
+def _forced_generate(model, params, prompts, tokens) -> torch.Tensor:
+    """The last decode step's logits of ``generate`` with its inputs
+    forced to ``tokens`` (B, gen), another run's greedy tokens: the
+    prompts prefilled, then ``tokens[:, j]`` decoded at position P + j
+    for j < gen - 1."""
+    b, plen = prompts.shape
+    gen = tokens.shape[1]
+    cache = model.init_cache(b, plen + gen)
+    logits, cache = model.prefill(params, prompts, cache)
+    for j in range(gen - 1):
+        pos = torch.tensor(plen + j, dtype=torch.int32, device=prompts.device)
+        logits, cache = model.decode_step(params, cache, tokens[:, j], pos)
+    return logits
+
+
+def _free(dev) -> None:
+    """Collect the cycles an engine forms (each holds its model's
+    weights) and return the freed blocks to the card."""
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+
+def dist_refs(cfg, params, refdir, first: bool, dist=DIST,
+              dev="cuda") -> dict:
+    """The single-card results phase 4k holds the world to, for one
+    model (``params`` on the card): for the ``first`` (qwen3-8b) also
+    the kernel-level
+    outputs of each ``ops`` call at (a)'s shapes, the kernel path's loss
+    and logits (b), and the engine's tokens and one decode step's
+    logits on the same pages (d); for every model ``generate``'s tokens
+    and last logits (c).  Saved under ``refdir``; returns their
+    summary."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate, run_continuous
+    from repro_torch.models.lm import LM, Runtime
+    t0 = time.perf_counter()
+    refs = {}
+    model = LM(cfg, Runtime(kernel_ops=True), device=dev)
+    with torch.inference_mode():
+        if first:
+            for label, spec in dist["gemm"].items():
+                refs[f"gemm {label}"] = ops.gemm_chain(
+                    *_dist_gemm_inputs(spec, dev)).cpu()
+            for label, spec in dist["attn"].items():
+                refs[f"attn {label}"] = ops.attention(
+                    *_dist_attn_inputs(spec, dist["head_dim"], dev),
+                    causal=True).cpu()
+            batch = _dist_batch(cfg, dist["forward"], dev)
+            refs["loss"] = float(model.loss(params, batch))
+            refs["logits"] = model.forward(params, batch["tokens"]).cpu()
+            results, _, engine = run_continuous(
+                cfg, model, params, **dist["serve"], verbose=False)
+            refs["engine tokens"] = [r.tokens for r in results]
+            cache, args = _two_request_step(cfg, params, engine,
+                                            dist["serve"])
+            refs["engine step"] = engine.model.decode_step_paged(
+                params, cache, *args)[0].cpu()
+            del engine, cache
+        prompts = _dist_prompts(cfg, dist["generate"], dev)
+        tokens, logits = generate(model, params, prompts,
+                                  dist["generate"]["gen"])
+        refs["generate tokens"] = torch.from_numpy(tokens)
+        refs["generate logits"] = logits.cpu()
+    torch.save(refs, os.path.join(refdir, f"{cfg.name}.pt"))
+    _free(dev)
+    print(f"[4k refs {cfg.name}] single-card results saved in "
+          f"{time.perf_counter() - t0:.1f}s: {sorted(refs)}")
+    return {k: v for k, v in refs.items() if isinstance(v, float)}
+
+
+class _DistRank:
+    """One rank of phase 4k (module doc, 4k): its mesh and rules, and a
+    record of every step — the kernel counters set to 0 just before it
+    and read just after, its wall and the device memory held after —
+    and of every held check; rank 0 prints."""
+
+    def __init__(self, rank, dist, dev):
+        from repro_torch.dist.sharding import Rules
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.launch.serve import sharded_runtime
+        self.dist, self.dev, self.say = dist, dev, rank == 0
+        self.mesh = make_host_mesh(dist["world"])
+        self.rules = Rules(data=("data",), model="model", tp="model",
+                           fsdp=False)
+        self.rt = sharded_runtime(dist["world"], self.mesh)[2]
+        self.names = _path_counters()
+        self.out = {"launches": {}, "walls": {}, "checks": {}, "tiers": {},
+                    "agree": {}, "regimes": {}, "memory_gb": {}}
+
+    def step(self, label, fn):
+        out = self.out
+        _zero(*self.names)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            r = fn()
+        if self.dev == "cuda":
+            torch.cuda.synchronize()
+        out["walls"][label] = time.perf_counter() - t0
+        out["launches"][label] = {k: v for k, v in _read(*self.names).items()
+                                  if v}
+        out["memory_gb"][label] = (torch.cuda.memory_allocated() / 1e9
+                                   if self.dev == "cuda" else 0.0)
+        if self.say:
+            print(f"[4k wall] {label}: {out['walls'][label]:.2f}s, "
+                  f"{out['memory_gb'][label]:.2f} GB held after; "
+                  f"{out['launches'][label]}", flush=True)
+        return r
+
+    def held(self, label, value, tol):
+        self.out["checks"][label] = value
+        if self.say:
+            print(f"[4k {label}] {value:.4g} (tol {tol})")
+        if value > tol:
+            raise RuntimeError(f"[4k {label}] {value} > {tol}")
+
+    def kernels(self, refs) -> None:
+        """(a) each regime forced by calling its function — the spatial
+        body on the rank's heads, ``ring_attention`` serial and
+        pipelined — against the single-card kernel; then the serial
+        ring with a fault planted in its combine, which must fail the
+        check."""
+        from repro_torch.kernels import ops
+        dist, dev, mesh, rules = self.dist, self.dev, self.mesh, self.rules
+        for label, spec in dist["gemm"].items():
+            a, b, d = _dist_gemm_inputs(spec, dev)
+            got = self.step(f"gemm {label}", lambda: ops.gemm_chain(
+                a, b, d, mesh=mesh, rules=rules))
+            self._close(f"gemm {label}", got, refs[f"gemm {label}"])
+        for label, (b, hq, hkv, m, n) in dist["attn"].items():
+            q, k, v = _dist_attn_inputs((b, hq, hkv, m, n),
+                                        dist["head_dim"], dev)
+            want = refs[f"attn {label}"]
+            choice, plan = ops.attention_regime_choice(
+                rules, mesh, batch=b, q_heads=hq, kv_heads=hkv, q_len=m,
+                kv_len=n, head_dim=dist["head_dim"], dtype=_dtname(q.dtype),
+                causal=True)
+            self.out["regimes"][f"attn {label}"] = choice.regime
+            if self.say:
+                print(f"[4k attn {label}] the tuner picks {choice.regime}: "
+                      + " ".join(f"{r}={t * 1e6:.2f}us"
+                                 for r, t in choice.times.items())
+                      + " (modelled, H100 at 450 GB/s a link); the "
+                      f"single-card output's rms {_rms(want):.4g}")
+            regimes = ["spatial", "ring"]
+            if ops._pipelined_rows_ok(plan, b, hq, m):
+                regimes.append("ring-pipelined")
+            for regime in regimes:
+                got = self.step(f"attn {label} {regime}",
+                                lambda: self._forced(q, k, v, plan, regime))
+                self._close(f"attn {label} {regime}", got, want)
+            for fault in ("one rank's partial dropped", "no rescale"):
+                with _planted_combine(fault), torch.inference_mode():
+                    got = self._forced(q, k, v, plan, "ring")
+                err = _rel(got, want.to(got.device))
+                self.out["checks"][f"attn {label} planted {fault}"] = err
+                if self.say:
+                    print(f"[4k attn {label} planted: {fault}] rel {err:.4g}"
+                          f" (must exceed {DIST_ATTN_REL_TOL})")
+                if not err > DIST_ATTN_REL_TOL:
+                    raise RuntimeError(f"[4k attn {label}] the planted "
+                                       f"fault {fault!r} passed: {err}")
+
+    def _forced(self, q, k, v, plan, regime):
+        """Mesh attention on the whole q/k/v in ``regime``, by calling its
+        function: ``ops._attn_body`` on this rank's heads (the spatial
+        placement of the 1 x n mesh) gathered after, or ``ring_attention``
+        on every head at the tiles the tuner gives its partial kernel."""
+        from repro_torch.core import api
+        from repro_torch.core.perf_model import H100
+        from repro_torch.dist.collectives import axis
+        from repro_torch.dist.ring_dispatch import ring_attention, ring_group
+        from repro_torch.dist.sharding import dispatch_mesh_spec
+        from repro_torch.kernels import ops
+        b, hq, m, d = q.shape
+        hkv, n = k.shape[1], k.shape[2]
+        if regime == "spatial":
+            spec, baxes, hax = dispatch_mesh_spec(
+                self.rules, self.mesh, kind="attention", batch=b,
+                feature_dims=(hkv, hq), ici_bw=H100.ici_bw)
+            hx = axis(self.mesh, hax)
+            if baxes or hx is None:
+                raise RuntimeError(f"[4k] a spatial placement {baxes, hax} "
+                                   f"this check does not shard")
+            o = ops._attn_body(*(hx.shard(t, 1) for t in (q, k, v)),
+                               spec=spec, batch=b, heads=hq, causal=True,
+                               window=0, scale=None)
+            return hx.all_gather(o, 1)
+        p = api.fuse_attention(m, n, d, d, heads=hq, batch=b,
+                               dtype=_dtname(q.dtype), causal=True,
+                               mesh=plan.spec,
+                               group=ring_group(hq, hkv, m)).params
+        return ring_attention(q, k, v, mesh=self.mesh, axis_name=plan.axis,
+                              causal=True, bq=p.bq, bkv=p.bkv,
+                              pipelined=regime == "ring-pipelined")
+
+    def _close(self, label, got, want) -> None:
+        want = want.to(got.device)
+        tol = TOL[got.dtype]
+        torch.testing.assert_close(got, want, **tol)
+        if label.startswith("attn"):
+            self.held(f"{label} rel", _rel(got, want), DIST_ATTN_REL_TOL)
+        self.held(f"{label} max|err|",
+                  float((got.float() - want.float()).abs().max()),
+                  tol["atol"] + tol["rtol"] * float(want.abs().max()))
+
+    def forward(self, cfg, refs, params) -> None:
+        """(b) the cache-free loss and forward with the kernels, against
+        the single-card kernel path; one attention launch a layer a
+        call, in the tuner's regime."""
+        from repro_torch.models.lm import LM, Runtime
+        fwd, dev = self.dist["forward"], self.dev
+        model = LM(cfg, Runtime(kernel_ops=True, rules=self.rules,
+                                mesh=self.mesh), device=dev)
+        batch = _dist_batch(cfg, fwd, dev)
+        loss = self.step("loss", lambda: model.loss(params, batch))
+        self.held("loss rel",
+                  abs(float(loss) - refs["loss"]) / abs(refs["loss"]),
+                  LOSS_REL_TOL)
+        logits = self.step("forward", lambda: model.forward(
+            params, batch["tokens"]))
+        if not torch.isfinite(logits).all():
+            raise RuntimeError("non-finite sharded logits")
+        if self.say:       # every rank holds the same gathered logits
+            want, num, den = refs["logits"], 0.0, 0.0
+            for c0 in range(0, want.shape[1], 256):
+                w = want[:, c0:c0 + 256].to(logits.device).float()
+                num += float((logits[:, c0:c0 + 256].float() - w).norm()) ** 2
+                den += float(w.norm()) ** 2
+            self.held("forward logits rel", (num / den) ** 0.5,
+                      FORWARD_REL_TOL)
+        for call in ("loss", "forward"):
+            got = self.out["launches"][call]
+            n_attn = sum(got.get(k, 0) for k in (
+                "fused_attention", "fused_attention_partial"))
+            if dev == "cuda" and (n_attn != cfg.n_layers or len(got) != 1):
+                raise RuntimeError(f"[4k {call}] launches {got}, not "
+                                   f"{cfg.n_layers} attention launches")
+
+    def generate(self, arch, cfg, refs, params) -> None:
+        """(c) ``generate`` on the sharded runtime of ``launch.serve
+        --shard-model``: the tokens' agreement printed, the last logits
+        with the inputs forced to the single-card tokens held."""
+        from repro_torch.launch.serve import generate
+        from repro_torch.models.lm import LM
+        gen = self.dist["generate"]
+        model = LM(cfg, self.rt, device=self.dev)
+        prompts = _dist_prompts(cfg, gen, self.dev)
+        tokens, _ = self.step(f"generate {arch}", lambda: generate(
+            model, params, prompts, gen["gen"]))
+        want = refs["generate tokens"].numpy()
+        agree = self.out["agree"][f"generate {arch}"] = (
+            int((tokens == want).sum()), tokens.size)
+        forced = self.step(f"generate {arch} forced", lambda: _forced_generate(
+            model, params, prompts, torch.from_numpy(want).to(prompts.device)))
+        if self.say:
+            cache = model.init_cache(prompts.shape[0],
+                                     prompts.shape[1] + gen["gen"])[0]["k"]
+            print(f"[4k generate {arch}] greedy tokens equal to the "
+                  f"single-card run's: {agree} (printed, not held: bf16 "
+                  f"all-reduces round in another order); a layer's k cache "
+                  f"a rank {tuple(cache.shape)}")
+        self.held(f"generate {arch} last logits rel",
+                  _rel(forced, refs["generate logits"].to(forced.device)),
+                  E2E_REL_TOL)
+
+    def engines(self, cfg, refs, params) -> None:
+        """(d) the continuous engine under the mesh: the tuner's paged
+        regime printed, then paged-ring and paged-ring-pipelined each
+        served once, forced; partial launches = decode steps x layers a
+        rank, one decode step's logits on the same pages held to the
+        single-card engine's, the tokens' agreement printed, nothing
+        degraded."""
+        from repro_torch.kernels import ops
+        from repro_torch.models.lm import LM
+        dev, out, serve = self.dev, self.out, self.dist["serve"]
+        ps = serve["page_size"]
+        n_ctx = ps * math.ceil((serve["prompt_len"] + serve["gen"]) / ps)
+        choice, _ = ops.paged_attention_regime_choice(
+            self.rules, self.mesh, batch=serve["batch"],
+            q_heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, q_len=1,
+            kv_len=n_ctx, head_dim=cfg.dh, page_size=ps, dtype=cfg.dtype)
+        out["regimes"]["engine tuner"] = choice.regime
+        if self.say:
+            print(f"[4k engine] the tuner picks {choice.regime}: "
+                  + " ".join(f"{r}={t * 1e6:.2f}us"
+                             for r, t in choice.times.items())
+                  + f" (modelled, q=1 over {n_ctx} paged slots)")
+        for regime in ("paged-ring", "paged-ring-pipelined"):
+            key = f"engine {regime}"
+            # forced by the Runtime's flags, at the tiles the search gave
+            # the regime, with the search off
+            model = LM(cfg, dataclasses.replace(
+                self.rt, dist_decode_attn=True,
+                dist_decode_pipelined=regime == "paged-ring-pipelined",
+                paged_block=(choice.kernels[regime].params.bq,
+                             choice.kernels[regime].params.bkv)),
+                device=dev)
+            res, stats, engine = self.step(key, lambda: _forced_engine(
+                cfg, model, params, serve, self.say))
+            out["regimes"][key] = stats["regime"]
+            out["tiers"][key] = (stats["exec_tier"], stats["tier_demotions"],
+                                 stats["decode_graph"])
+            got = out["launches"][key]
+            want_n = stats["decode_steps"] * cfg.n_layers \
+                if dev == "cuda" else 0
+            if got.get("fused_attention_partial", 0) != want_n or set(
+                    got) - {"fused_attention_partial"}:
+                raise RuntimeError(f"[4k {key}] launches {got}, want "
+                                   f"{want_n} partial launches")
+            flat = [a == w for t, wt in zip([r.tokens for r in res],
+                                            refs["engine tokens"])
+                    for a, w in zip(t, wt)]
+            out["agree"][key] = (sum(flat), len(flat))
+            cache, args = _two_request_step(cfg, params, engine,
+                                            self.dist["serve"])
+            with torch.inference_mode():
+                lg = engine.model.decode_step_paged(params, cache, *args)[0]
+            if self.say:
+                print(f"[4k {key}] regime {stats['regime']}: "
+                      f"{stats['decode_steps']} decode steps, "
+                      f"{stats['generated']} tokens, decode "
+                      f"{stats['decode_graph']}, tier {stats['exec_tier']}, "
+                      f"partial launches {want_n}; tokens equal to the "
+                      f"single-card engine's {out['agree'][key]}")
+            self.held(f"{key} decode step rel",
+                      _rel(lg, refs["engine step"].to(lg.device)),
+                      E2E_REL_TOL)
+            if stats["exec_tier"] != "configured" or stats["tier_demotions"]:
+                raise RuntimeError(f"[4k {key}] the engine degraded")
+            del engine, cache
+            _free(dev)
+
+
+def _forced_engine(cfg, model, params, serve, verbose) -> tuple:
+    """``launch.serve.run_continuous``'s workload on an engine sized as
+    ``launch.serve.make_engine`` sizes it, with the regime search off
+    (``choose_regime=False``): the engine runs the regime and tiles of
+    ``model``'s Runtime.  (results, stats, engine)."""
+    from repro_torch.serving import ServingEngine
+    ps = serve["page_size"]
+    max_pages = math.ceil((serve["prompt_len"] + serve["gen"]) / ps)
+    b = serve["batch"]
+    engine = ServingEngine(
+        model, params, max_batch=b, page_size=ps,
+        n_pages=1 + b * (max_pages + 1) + max(1, b * max_pages // 4),
+        max_pages_per_seq=max_pages, verbose=verbose, choose_regime=False)
+    results, stats = engine.run(_workload(cfg, serve))
+    return results, stats, engine
+
+
+def _dist_rank(rank, refdir, dist, dev, arch):
+    """One rank of phase 4k on the model ``arch``: (a), (b), (c) and (d)
+    on the first of ``dist["archs"]``, (c) on the others, each rank's
+    shards of the weights made at seed 0 as one card's.  Returns the
+    rank's launches, walls and device memory by step, its engine tiers,
+    its denylist records and the tensors it moved through host
+    memory."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.dist import collectives
+    from repro_torch.models.lm import LM
+    from repro_torch.launch.serve import report_attention_regimes
+    r = _DistRank(rank, dist, dev)
+    cfg = get_config(arch, smoke=dev != "cuda")
+    fwd = dist["forward"]       # the regime (b)'s forward shape gets
+    r.out["regimes"][f"forward {arch}"] = report_attention_regimes(
+        cfg, r.mesh, r.rules, batch=fwd["batch"], prompt_len=fwd["seq"],
+        total_len=fwd["seq"], verbose=r.say)["prefill"]
+    refs = torch.load(os.path.join(refdir, f"{cfg.name}.pt"))
+    params = r.step(f"init {arch}", lambda: LM(
+        cfg, r.rt, device=dev).init_params(0))
+    if arch == dist["archs"][0]:
+        r.kernels(refs)
+        r.forward(cfg, refs, params)
+        r.generate(arch, cfg, refs, params)
+        r.engines(cfg, refs, params)
+    else:
+        r.generate(arch, cfg, refs, params)
+    out = r.out
+    out["deny"] = len(_deny_records())
+    out["host_hops"] = dict(collectives.HOST_HOPS)
+    out["backend"] = torch.distributed.get_backend()
+    out["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                      if dev == "cuda" else 0.0)
+    return out
+
+
+def dist_refs_all(refdir, dist=DIST) -> None:
+    """``dist_refs`` of every model of phase 4k, each initialised on the
+    card as the ranks make it (seed 0) and freed."""
+    from repro_torch.configs import get_config
+    for i, arch in enumerate(dist["archs"]):
+        cfg = get_config(arch)
+        params = init_phase(cfg)
+        dist_refs(cfg, params, refdir, first=i == 0, dist=dist)
+        del params
+        _free("cuda")
+
+
+def dist_phase(refdir, dist=DIST, dev="cuda") -> dict:
+    """Phase 4k's world: ``dist["world"]`` spawned ranks run ``_dist_rank``
+    against the single-card results under ``refdir``
+    (``dist_refs``); the parent prints what each rank reports — the
+    backend, the tensors it moved through host memory, its launches per
+    step (every rank must launch alike, and each kernel of rows 1, 2 and
+    4 at least once), its walls (through gloo on one card, not kernel
+    times) — and fails if a rank degraded."""
+    from repro_torch.launch.mesh import spawn
+    # the ranks' allocators grow segments in place: four of them share
+    # the card with no block stranded between sizes
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    t0 = time.perf_counter()
+    outs = None
+    for arch in dist["archs"]:
+        # a world per model: each rank's process, and every tensor it
+        # made, ends before the next model's ranks start
+        got = spawn(_dist_rank, dist["world"], refdir, dist, dev, arch,
+                    device=dev, timeout_s=900)
+        if outs is None:
+            outs = got
+            continue
+        for o, g in zip(outs, got):
+            for key, val in g.items():
+                if isinstance(val, dict):
+                    o[key].update(val)
+                elif key == "peak_gb":
+                    o[key] = max(o[key], val)
+                elif key == "deny":
+                    o[key] += val
+    wall = time.perf_counter() - t0
+    first = outs[0]
+    for r, o in enumerate(outs):
+        if o["launches"] != first["launches"]:
+            raise RuntimeError(f"[4k] rank {r} launched {o['launches']}, "
+                               f"rank 0 {first['launches']}")
+        if o["deny"] or any(t[0] != "configured" or t[1]
+                            for t in o["tiers"].values()):
+            raise RuntimeError(f"[4k] rank {r} degraded: {o['tiers']}, "
+                               f"{o['deny']} denylist records")
+    totals = {}
+    for o in outs:
+        for counts in o["launches"].values():
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+    print(f"[4k] worlds of {dist['world']} ranks, backend "
+          f"{first['backend']}, tensors through host memory a rank "
+          f"{first['host_hops']}; peak device memory a rank "
+          f"{max(o['peak_gb'] for o in outs):.2f} GB; {wall:.1f}s")
+    print("[4k] launches a rank by step: " + json.dumps(first["launches"]))
+    print(f"[4k] launches summed over the ranks: {totals}")
+    print("[4k] walls a rank (s, through gloo on one card, ranks "
+          "contending; not kernel times): "
+          + json.dumps({k: round(v, 3) for k, v in first["walls"].items()}))
+    if dev == "cuda":
+        for name in ("fused_attention_partial", "fused_attention",
+                     "fused_gemm_chain"):
+            if not totals.get(name):
+                raise RuntimeError(f"[4k] no rank launched {name}")
+    return dict(world=dist["world"], backend=first["backend"],
+                host_hops=first["host_hops"],
+                peak_gb=max(o["peak_gb"] for o in outs),
+                memory_gb=first["memory_gb"], launches=first["launches"],
+                launches_summed=totals, walls=first["walls"],
+                checks=first["checks"], agree=first["agree"],
+                regimes=first["regimes"], tiers=first["tiers"],
+                seconds=wall)
+
+
+class _MeshShape:
+    """A mesh's dims and sizes, for the tuner's MeshSpec of a rank's
+    block (no process group needed)."""
+
+    def __init__(self, **axes):
+        self.shape = dict(axes)
+
+
+def dist_time_phase(dist=DIST) -> dict:
+    """Phase 4k's kernels at one rank's block (1 x 4 mesh), timed in
+    the parent alone on the card, each beside its bound, its plain
+    version and a library call: ``fused_gemm_chain`` on G12's H / 4
+    columns, ``fused_attention`` (spatial regime) on qwen3-8b's forward
+    at Hq / 4 and Hkv / 4 heads, and ``fused_attention_partial`` (ring
+    regime) on the first of four blocks of its 2048 keys, every query
+    row, at global positions, the kv heads repeated to the q heads as
+    ``ring_attention`` runs it — each at the tiles the tuner picks for
+    that block."""
+    from repro_torch.core import api
+    from repro_torch.core.perf_model import H100
+    from repro_torch.dist.ring_dispatch import ring_group
+    from repro_torch.dist.sharding import (Rules, dispatch_mesh_spec,
+                                           ring_dispatch_spec)
+    from repro_torch.kernels import attention as A
+    from repro_torch.kernels import gemm_chain as G
+    n_dev = dist["world"]
+    mesh = _MeshShape(data=1, model=n_dev)
+    rules = Rules(data=("data",), model="model", tp="model", fsdp=False)
+    out = {}
+    (b, m, n, k, h), dt = dist["gemm"]["G12 bf16"]
+    spec = dispatch_mesh_spec(rules, mesh, kind="gemm", batch=b,
+                              feature_dims=(h,), ici_bw=H100.ici_bw)[0]
+    tk = api.fuse_gemm_chain(m, n, k, h, batch=b, dtype=_dtname(dt),
+                             mesh=spec)
+    a, bb, d = _randn([(b, m, k), (b, k, n), (b, n, h // n_dev)], dt, 303,
+                      scaled=True)
+    kw = tk.params.as_kwargs()
+    tiles, (splits, _), _ = G.check_gemm_chain(
+        a, bb, d, kw["bm"], kw["bn"], kw["bk"], kw["bh"], kw["style"])
+    out["fused_gemm_chain"] = dict(
+        shape=[b, m, n, k, h // n_dev], tiles=kw, splits=splits,
+        kernel_ms=_adaptive_ms(lambda: tk(a, bb, d)),
+        plain_ms=_adaptive_ms(lambda: G.fused_gemm_chain_plain(
+            a, bb, d, tiles[1], splits), reps=1),
+        library_ms=None,
+        unfused_ms=_adaptive_ms(lambda: torch.bmm(torch.bmm(a, bb), d)),
+        **_bound(_nbytes(a, bb, d) + b * m * (h // n_dev) * a.element_size(),
+                 2.0 * b * m * n * (k + h // n_dev), dt))
+    b, hq, hkv, sq, sk = dist["attn"]["forward"]
+    dh, dt = dist["head_dim"], torch.bfloat16
+    scale = dh ** -0.5
+    spec = dispatch_mesh_spec(rules, mesh, kind="attention", batch=b,
+                              feature_dims=(hkv, hq), ici_bw=H100.ici_bw)[0]
+    tk = api.fuse_attention(sq, sk, dh, dh, heads=hq, batch=b,
+                            dtype=_dtname(dt), causal=True, mesh=spec)
+    q, kk, vv = _randn([(b, hq // n_dev, sq, dh), (b, hkv // n_dev, sk, dh),
+                        (b, hkv // n_dev, sk, dh)], dt, 304)
+    out["fused_attention"] = dict(
+        shape=[b, hq // n_dev, hkv // n_dev, sq, sk, dh],
+        tiles=[tk.params.bq, tk.params.bkv],
+        kernel_ms=_adaptive_ms(lambda: tk(q, kk, vv)),
+        plain_ms=_adaptive_ms(lambda: A.fused_attention_plain(
+            q, kk, vv, tk.params.bkv, True, 0, scale), reps=1),
+        library_ms=_adaptive_ms(lambda: F.scaled_dot_product_attention(
+            q, kk, vv, is_causal=True, scale=scale, enable_gqa=True)),
+        **_bound(_nbytes(q, kk, vv) + q.numel() * q.element_size(),
+                 _attention_ops(b, hq // n_dev, sq, sk, dh, dh, True), dt))
+    spec = ring_dispatch_spec(rules, mesh, batch=b, kv_len=sk,
+                              ici_bw=H100.ici_bw)[0]
+    group = ring_group(hq, hkv, sq)     # 1: kv heads repeated to q heads
+    tk = api.fuse_attention(sq, sk, dh, dh, heads=hq, batch=b,
+                            dtype=_dtname(dt), causal=True, mesh=spec,
+                            group=group)
+    nl = sk // n_dev
+    q, kk, vv = _randn([(b, hq, sq, dh), (b, hq // group, nl, dh),
+                        (b, hq // group, nl, dh)], dt, 305)
+    kv_pos = torch.arange(nl, dtype=torch.int32, device="cuda")
+    q_pos = torch.arange(sk - sq, sk, dtype=torch.int32, device="cuda")
+    bq, bkv, smem = A._check(q, kk, vv, kv_pos, q_pos, tk.params.bq,
+                             tk.params.bkv)
+    splits = A.partial_splits(b, hq // group, sq // bq, nl, bkv, smem)[0]
+    mask = kv_pos[None, None, None, :] <= q_pos[None, None, :, None]
+    live = float(mask.sum()) * b * hq           # (row, key) pairs
+    out["fused_attention_partial"] = dict(
+        shape=[b, hq, hq // group, sq, nl, dh], tiles=[bq, bkv],
+        splits=splits,
+        kernel_ms=_adaptive_ms(lambda: A.fused_attention_partial(
+            q, kk, vv, kv_pos, q_pos, bq=bq, bkv=bkv, causal=True,
+            scale=scale)),
+        plain_ms=_adaptive_ms(lambda: A.fused_attention_partial_plain(
+            q, kk, vv, kv_pos, q_pos, bkv, True, 0, scale, splits), reps=1),
+        library_ms=_adaptive_ms(lambda: F.scaled_dot_product_attention(
+            q, kk, vv, attn_mask=mask, scale=scale, enable_gqa=True)),
+        # the function reads the Hkv heads' keys and values once, not
+        # the repeated copies the kernel is given
+        **_bound(_nbytes(q, kv_pos, q_pos)
+                 + _nbytes(kk, vv) * hkv // kk.shape[1]
+                 + (q.numel() + 2 * b * hq * sq) * 4,
+                 4.0 * dh * live, dt))
+    for name, t in out.items():
+        print(f"[4k times, parent alone on the card] {name} at one rank's "
+              f"block: " + json.dumps(t))
+    return out
+
+
+def codeqwen_phase() -> dict:
+    """codeqwen1.5-7b at every FULL width and depth (32 layers, 32 q
+    heads on 32 kv heads: the partial kernel at a GQA group of 1),
+    served captured and eager (equal tokens, partial launches = decode
+    steps x 32, nothing degraded), then ``generate`` against its
+    forward; its weights freed after."""
+    from repro_torch.configs import get_config
+    cfg = get_config(CODEQWEN)
+    params = init_phase(cfg)
+    engine, stats, launches, eager_engine, eager_stats = serve_phase(
+        cfg, params, planned=False)
+    profile = step_profile_phase(engine, CODEQWEN)
+    del engine, eager_engine
+    gen = generate_phase(cfg, params)
+    _no_degradation(f"{CODEQWEN} generate")
+    del params
+    torch.cuda.empty_cache()
+    return dict(launches=launches, decode_steps=stats["decode_steps"],
+                tok_per_s=stats["tok_per_s"],
+                eager_tok_per_s=eager_stats["tok_per_s"], step=profile,
+                generate=gen)
+
+
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--plant-faults"], ["--reliability"], ["--train"],
-                    ["--moe"], ["--archs"]):
+                    ["--moe"], ["--archs"], ["--dist"]):
         raise SystemExit("usage: python3 chip_smoke.py "
                          "[--plant-faults | --reliability | --train | "
-                         "--moe | --archs]")
+                         "--moe | --archs | --dist]")
     smi = device_phase()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     # tuned schedules persist inside the checkout (.cache/ is gitignored)
@@ -3829,6 +4588,15 @@ def main(argv=None) -> None:
         return
     build_phase()
     cfg = get_config("qwen3-8b")
+    if argv == ["--dist"]:
+        refdir = tempfile.mkdtemp(prefix="dist-refs-")
+        dist_refs_all(refdir)
+        dist = dist_phase(refdir)
+        shutil.rmtree(refdir)
+        dist["times"] = dist_time_phase()
+        print(json.dumps({"dist": dist}, default=str))
+        print(smi)
+        return
     if argv == ["--plant-faults"]:
         params = init_phase(cfg)
         fault_phase(cfg, params)
@@ -3925,6 +4693,8 @@ def main(argv=None) -> None:
     _no_degradation("generate")
     del params
     torch.cuda.empty_cache()
+    codeqwen = codeqwen_phase()
+    steps[CODEQWEN] = codeqwen["step"]
     gparams = init_phase(granite)
     mqa, _, mqa_launches, mqa_eager, _ = serve_phase(
         granite, gparams, planned=False)
@@ -3933,7 +4703,13 @@ def main(argv=None) -> None:
                            f"the tuner's")
     steps["granite_20b"] = step_profile_phase(mqa, GRANITE)
     del mqa, mqa_eager, gparams
-    torch.cuda.empty_cache()
+    _free("cuda")
+    # 4k: every weight of the parent freed, the world's ranks share the card
+    refdir = tempfile.mkdtemp(prefix="dist-refs-")
+    dist_refs_all(refdir)
+    dist = dist_phase(refdir)
+    shutil.rmtree(refdir)
+    _no_degradation("4k")
     moe = moe_phase()
     steps[OLMOE] = moe["step_profile"]
     steps[MIXTRAL] = moe["mixtral_step_profile"]
@@ -3968,6 +4744,11 @@ def main(argv=None) -> None:
     t_chain3 = chain3_time_phase()
     t_moe = moe_time_phase(olmoe, mixtral, moe_tiles, n_ctx)
     t_archs = archs_time_phase(rg, pixtral)
+    t_dist = dist_time_phase()
+    dist_launches = {
+        name: sum(counts.get(name, 0) for counts in dist["launches"].values())
+        for name in ("fused_attention_partial", "fused_attention",
+                     "fused_gemm_chain")}
     moe_paths = {f"{OLMOE} hand_wired": "hand_wired",
                  f"{OLMOE} planner_requested": "planner_requested",
                  f"{MIXTRAL} (16 layers)": "mixtral",
@@ -3975,9 +4756,12 @@ def main(argv=None) -> None:
     by_path = {name: {"hand_wired": hand_launches[name],
                       "planned": launches[name],
                       "granite_20b": mqa_launches[name],
+                      "codeqwen1.5_7b": codeqwen["launches"][name],
                       **{path: moe["launches"][key][name]
                          for path, key in moe_paths.items()}}
                for name in launches}
+    by_path["fused_attention_partial"]["4k a rank"] = dist_launches[
+        "fused_attention_partial"]
     moe_times = ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "tiles", "splits", "other_tiles_ms")
     kernels = [{
@@ -4005,6 +4789,7 @@ def main(argv=None) -> None:
             k: t_moe["olmoe_decode"][k] for k in moe_times},
         "mixtral_8x7b_decode_window_4096": {
             k: t_moe["mixtral_decode"][k] for k in moe_times},
+        "ring_rank_block": t_dist["fused_attention_partial"],
         "passed": True,
     }, {
         "name": "fused_mlp_chain",
@@ -4042,7 +4827,8 @@ def main(argv=None) -> None:
             f"{OLMOE} loss": moe["forward"]["launches"]["loss"],
             f"{OLMOE} forward": moe["forward"]["launches"]["forward"],
             **{f"{arch} {call}": archs[arch]["forward"]["launches"][call]
-               for arch in (RG, PIXTRAL) for call in ("loss", "forward")}},
+               for arch in (RG, PIXTRAL) for call in ("loss", "forward")},
+            "4k a rank": dist_launches["fused_attention"]},
         "max_abs_err": max(slice3_err["fused_attention"],
                            moe_err["fused_attention"], archs_err),
         "ms": t_attn["kernel_ms"],
@@ -4058,6 +4844,7 @@ def main(argv=None) -> None:
             "tiles", "other_tiles_ms")},
         "recurrentgemma_2b_forward_d256": t_archs["recurrentgemma_forward"],
         "pixtral_12b_forward": t_archs["pixtral_forward"],
+        "spatial_rank_block": t_dist["fused_attention"],
         "passed": True,
     }, {
         "name": "fused_gemm_chain",
@@ -4065,7 +4852,8 @@ def main(argv=None) -> None:
         "source": "src/repro_torch/kernels/csrc/gemm_chain.cu",
         "replaces": "src/repro/kernels/gemm_chain.py:80",
         "launches": front["fused_gemm_chain"],
-        "launches_by_path": {"quickstart": front["fused_gemm_chain"]},
+        "launches_by_path": {"quickstart": front["fused_gemm_chain"],
+                             "4k a rank": dist_launches["fused_gemm_chain"]},
         "max_abs_err": slice3_err["fused_gemm_chain"],
         "ms": t_chain["G12 bf16"]["kernel_ms"],
         "plain_ms": t_chain["G12 bf16"]["plain_ms"],
@@ -4080,6 +4868,7 @@ def main(argv=None) -> None:
         "quickstart_g1_f32": {k: t_chain["quickstart G1 f32"][k] for k in (
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "unfused_ms",
             "tiles", "splits", "device_ms_by_kernel")},
+        "g12_rank_block": t_dist["fused_gemm_chain"],
         "passed": True,
     }, {
         "name": "fused_gemm_chain3",
@@ -4105,6 +4894,10 @@ def main(argv=None) -> None:
         "generate", "mixtral_long", "seconds")}}, default=str))
     print(json.dumps({"archs": archs}, default=str))
     print(json.dumps({"ssm_encdec": ssm_encdec}, default=str))
+    print(json.dumps({"codeqwen": {k: codeqwen[k] for k in (
+        "launches", "decode_steps", "tok_per_s", "eager_tok_per_s",
+        "generate")}}, default=str))
+    print(json.dumps({"dist": dict(dist, times=t_dist)}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

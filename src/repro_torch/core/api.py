@@ -39,7 +39,7 @@ from .chain import (PARTIAL_ATTENTION, Chain, attention_chain, gemm_chain,
                     mlp_chain)
 from .dag import build_schedule
 from .perf_model import H100, GpuSpec, MeshSpec, TpuSpec, paged_gather_seconds
-from .search import SearchReport, heuristic_search
+from .search import SearchReport, heuristic_search, rank_regimes
 
 _CACHE: dict[tuple, "TunedKernel"] = {}
 
@@ -243,7 +243,7 @@ def fuse_attention(M: int, N: int, K: int, H: int, heads: int = 1,
                    hw: "TpuSpec | GpuSpec" = H100,
                    mesh: Optional[MeshSpec] = None,
                    unit: Optional[int] = None,
-                   seed: int = 0) -> TunedKernel:
+                   seed: int = 0, group: int = 0) -> TunedKernel:
     """Tune the attention chain for (M, N, K, H) and build
     ``kernels.attention.fused_attention`` — the CUDA kernel, queries at
     the tail of the kv sequence — around the winning (bq, bkv).
@@ -252,17 +252,25 @@ def fuse_attention(M: int, N: int, K: int, H: int, heads: int = 1,
     into the chain batch.  Under ``GpuSpec`` Rule 4 prices every
     candidate by the kernel's shared-memory layout
     (``perf_model.attention_smem_bytes``) and admits only the tiles the
-    kernel takes (``perf_model.attention_tiles_ok``)."""
+    kernel takes (``perf_model.attention_tiles_ok``).  ``group > 0``
+    tunes the chain the partial kernel runs instead (the ring regime's
+    per-rank kernel, GQA groups of ``group`` q heads; Rule 4 by
+    ``attention_partial_smem_bytes``) and builds
+    ``fused_attention_partial``, called as ``tk(q, k, v, kv_pos,
+    q_pos)``; only the H100 pricing reads the difference."""
     unit = hw.tile_unit if unit is None else unit
     key = ("attn", M, N, K, H, heads, batch, dtype, causal, window,
-           scale, hw.name, unit, mesh, seed)
+           scale, hw.name, unit, mesh, seed, group)
     if key in _CACHE:
         return _CACHE[key]
-    chain = attention_chain(M, N, K, H, heads=heads, batch=batch,
-                            dtype=dtype, causal=causal, window=window)
+    chain = attention_chain(
+        M, N, K, H, heads=heads, batch=batch, dtype=dtype, causal=causal,
+        window=window, **(dict(name=PARTIAL_ATTENTION, group=group)
+                          if group else {}))
     disk_key = ("attn", M, N, K, H, heads, batch, dtype, causal, window,
                 scale, hw.name, unit,
-                mesh.canonical() if mesh is not None else None, seed)
+                mesh.canonical() if mesh is not None else None, seed,
+                *((("partial", group),) if group else ()))
 
     def _probe(params) -> bool:
         from ..kernels import ref as _ref
@@ -281,9 +289,11 @@ def fuse_attention(M: int, N: int, K: int, H: int, heads: int = 1,
 
     report, params, dt, source = _tune_or_load(
         "attn", chain, hw, mesh, unit, seed, disk_key,
-        probe_fn=_probe if mesh is None else None)
+        probe_fn=_probe if mesh is None and not group else None)
 
     from ..kernels.attention import fused_attention as kernel
+    if group:
+        from ..kernels.attention import fused_attention_partial as kernel
 
     fn = functools.partial(kernel, causal=causal, window=window,
                            scale=scale, **params.as_kwargs())
@@ -402,6 +412,87 @@ def fuse_mlp_chain(M: int, FF: int, D: int, batch: int = 1,
     tk = TunedKernel(fn, report, params, dt, source=source)
     _CACHE[key] = tk
     return tk
+
+
+@dataclass
+class RegimeChoice:
+    """Outcome of the attention regime search: the parallelism regime
+    the model ranks fastest for one global shape, plus every regime's
+    tuned kernel (all cached)."""
+
+    regime: str
+    kernel: TunedKernel
+    times: dict[str, float]            # eq (2') best_time per regime
+    kernels: dict[str, TunedKernel]
+
+
+def _choose(kernels: dict[str, TunedKernel]) -> RegimeChoice:
+    best = rank_regimes({n: tk.report for n, tk in kernels.items()})[0]
+    return RegimeChoice(
+        regime=best, kernel=kernels[best],
+        times={n: tk.report.best_time for n, tk in kernels.items()},
+        kernels=kernels)
+
+
+def fuse_attention_regimes(M: int, N: int, K: int, H: int, *,
+                           heads: int = 1, batch: int = 1,
+                           dtype: str = "float32", causal: bool = False,
+                           window: int = 0, scale: Optional[float] = None,
+                           hw: "TpuSpec | GpuSpec" = H100,
+                           regimes: dict[str, Optional[MeshSpec]],
+                           unit: Optional[int] = None, seed: int = 0,
+                           kv_heads: Optional[int] = None) -> RegimeChoice:
+    """Regime search: tune the attention chain once per candidate
+    ``MeshSpec`` (``None`` = replicated single-device execution) through
+    ``fuse_attention`` and return the regime eq (2') ranks fastest.
+    The reported times include each regime's collective term, so the
+    ring regime wins only when its localized tile time plus the
+    combine beats the spatial regime's.  With a mesh no numeric probe
+    runs (analytic tuning only), as in the JAX package.  List the
+    collective-free regime first: ties break to it.  ``kv_heads``: a
+    regime whose MeshSpec splits the kv loop runs the partial kernel
+    on each rank, so it is tuned as that kernel's chain at the group
+    it runs (``dist.ring_dispatch.ring_group``)."""
+    if not regimes:
+        raise ValueError("regime search needs at least one candidate")
+
+    from ..dist.ring_dispatch import ring_group
+
+    def _group(spec) -> int:
+        ring = spec is not None and any(l == "n" for l, _ in spec.placement)
+        return ring_group(heads, kv_heads, M) if (ring and kv_heads) else 0
+
+    return _choose({
+        name: fuse_attention(M, N, K, H, heads=heads, batch=batch,
+                             dtype=dtype, causal=causal, window=window,
+                             scale=scale, hw=hw, mesh=spec, unit=unit,
+                             seed=seed, group=_group(spec))
+        for name, spec in regimes.items()})
+
+
+def fuse_attention_paged_regimes(M: int, N: int, K: int, H: int, *,
+                                 page_size: int, kv_heads: int,
+                                 heads: int = 1, batch: int = 1,
+                                 dtype: str = "float32",
+                                 window: int = 0,
+                                 scale: Optional[float] = None,
+                                 hw: "TpuSpec | GpuSpec" = H100,
+                                 regimes: dict[str, Optional[MeshSpec]],
+                                 unit: Optional[int] = None,
+                                 seed: int = 0) -> RegimeChoice:
+    """The paged counterpart of ``fuse_attention_regimes``: every
+    candidate tuned through ``fuse_attention_paged`` (its ``best_time``
+    carries its own localized paged-gather term), ranked alike.  List
+    "paged-spatial" first: ties break to it."""
+    if not regimes:
+        raise ValueError("regime search needs at least one candidate")
+    return _choose({
+        name: fuse_attention_paged(M, N, K, H, page_size=page_size,
+                                   kv_heads=kv_heads, heads=heads,
+                                   batch=batch, dtype=dtype, causal=True,
+                                   window=window, scale=scale, hw=hw,
+                                   mesh=spec, unit=unit, seed=seed)
+        for name, spec in regimes.items()})
 
 
 def clear_cache() -> None:

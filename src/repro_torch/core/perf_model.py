@@ -108,6 +108,7 @@ class GpuSpec:
     threads_per_sm: int = 2_048
     n_sm: int = 132
     tile_unit: int = 16               # tensor-core granularity (paper's)
+    ici_bw: float = 450e9             # NVLink 4 per direction (18 links)
 
     @property
     def alpha_extra(self) -> int:
@@ -162,9 +163,12 @@ class MeshSpec:
     def from_mesh(cls, mesh, placement: tuple[tuple[str, str], ...] = (),
                   batch_axes: tuple[str, ...] = (),
                   ici_bw: float = V5E.ici_bw) -> "MeshSpec":
-        """Build from anything with a ``.shape`` mapping (a jax Mesh)."""
-        return cls(axes=tuple((str(a), int(s))
-                              for a, s in dict(mesh.shape).items()),
+        """Build from a ``DeviceMesh`` (its ``mesh_dim_names`` and
+        ``shape``) or anything with a ``.shape`` mapping."""
+        names = getattr(mesh, "mesh_dim_names", None)
+        shape = (dict(zip(names, tuple(mesh.shape))) if names
+                 else dict(mesh.shape))
+        return cls(axes=tuple((str(a), int(s)) for a, s in shape.items()),
                    placement=tuple(placement),
                    batch_axes=tuple(batch_axes), ici_bw=ici_bw)
 

@@ -74,3 +74,35 @@ def mlp_chain_ref(a: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
     u = af @ wu.float()
     hid = f(u) if wg is None else f(af @ wg.float()) * u
     return (hid @ wd.float()).to(a.dtype)
+
+
+def partial_attention_ref(q, k, v, kv_pos, q_pos, causal: bool = True,
+                          window: int = 0, scale: Optional[float] = None
+                          ) -> tuple:
+    """One kv shard's partial softmax in one pass, the oracle of
+    ``fused_attention_partial``: (o_unnorm, m, l) in f32 with P rounded
+    to v's type before P V.  q (B, Hq, M, D), k/v (B, Hkv, N, D);
+    kv_pos (N,) or (B, N) and q_pos (M,) or (B, M) global positions
+    (a negative kv position is an empty slot).  Rows with no key in the
+    shard come back as (0, -1e30, 0), the identity of the merge."""
+    b, hq, m, d = q.shape
+    n = k.shape[2]
+    group = hq // k.shape[1]
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    s = torch.einsum("bhmd,bhnd->bhmn", q.float(),
+                     k.repeat_interleave(group, dim=1).float()) * scale
+    if causal or window > 0:
+        cols = kv_pos.reshape(-1, 1, 1, n)
+        rows = q_pos.reshape(-1, 1, m, 1)
+        keep = (cols >= 0) & (cols <= rows)
+        if window > 0:
+            keep &= cols > rows - window
+        s = s.masked_fill(~keep, -1e30)
+    m_run = s.amax(dim=-1, keepdim=True)
+    dead = m_run <= -5e29
+    p = torch.exp(s - m_run).masked_fill(dead, 0.0)
+    l_run = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhmn,bhnv->bhmv", p.to(v.dtype).float(),
+                     v.repeat_interleave(group, dim=1).float())
+    return o, m_run, l_run

@@ -23,6 +23,16 @@ card (the contiguous cache reaches no kernel, as in the JAX package);
 ``--device cpu`` is the only way to the plain path, and there every
 step runs eagerly.  Weights are random from ``--seed`` (``--full`` for
 the published widths, else SMOKE).
+
+Sharded serving: ``--shard-model N`` spawns N ranks itself (a world of
+one process per rank, ``launch.mesh.spawn``; gloo, every rank on the
+one card or on the CPU) over a 1 x N ("data", "model") mesh, serves
+with the decode regime's rules (``sharded_runtime``: resident
+tensor-parallel weights, each rank making only its blocks), prints the
+tuner's regime choice (spatial or ring for fixed batching,
+paged-spatial or paged-ring for ``--continuous``), and prints rank 0's
+results.  Under a mesh every decode step runs eagerly (a gloo
+collective cannot be captured in a CUDA graph).
 """
 from __future__ import annotations
 
@@ -34,6 +44,7 @@ import numpy as np
 import torch
 
 from ..configs import ALIASES, ARCHS, get_config
+from ..dist.sharding import Rules
 from ..models.lm import Runtime
 from .steps import build_model
 
@@ -57,8 +68,8 @@ def generate(model, params, prompts: torch.Tensor, gen: int, *,
     decode step; every later token is a replay.  The step reads its
     token and position from device tensors and writes the next ones
     back there — and every KV cache and recurrent state in place — so
-    nothing returns to the host until the end.  ``eager=True`` (and any
-    run on the CPU) runs each step op by op.
+    nothing returns to the host until the end.  ``eager=True``, a run on
+    the CPU and a run under a mesh run each step op by op.
 
     Returns (tokens (B, gen) int64, the logits (B, V) that chose the
     last token)."""
@@ -78,7 +89,7 @@ def generate(model, params, prompts: torch.Tensor, gen: int, *,
         pos.add_(1)
         return logits
 
-    if gen > 1 and tok.is_cuda and not eager:
+    if gen > 1 and tok.is_cuda and not eager and model.rt.mesh is None:
         from ..kernels.capture import CapturedStep
         captured = CapturedStep(step, tok.device)
         logits = captured.warmup_out
@@ -111,13 +122,67 @@ def demo_side_inputs(cfg, batch: int, device, seed: int) -> dict:
                               device=device).to(getattr(torch, cfg.dtype))}
 
 
-def run_generate(model, params, prompts: torch.Tensor, gen: int,
+def sharded_runtime(shard_model: int, mesh=None):
+    """(mesh, rules, Runtime) for ``--shard-model N`` serving, inside an
+    initialised world: N == 1 is the one-card runtime; N > 1 the host
+    mesh with model dim N and the decode regime — resident
+    tensor-parallel weights (``fsdp=False``), distributed decode over a
+    sequence-sharded cache."""
+    if shard_model <= 1:
+        return None, None, Runtime(kernel_ops=True)
+    from .mesh import make_host_mesh
+    mesh = mesh if mesh is not None else make_host_mesh(shard_model)
+    rules = Rules(data=("data",), model="model", tp="model", fsdp=False)
+    return mesh, rules, Runtime(kernel_ops=True, rules=rules, mesh=mesh,
+                                dist_decode_attn=True)
+
+
+def run_generate(model, params, prompts: torch.Tensor, gen: int, *,
+                 mesh=None, rules=None, verbose: bool = True,
                  **side) -> tuple[np.ndarray, float]:
     """``generate`` timed on the host clock, to the tokens on the host;
-    ``side``: ``demo_side_inputs``.  Returns (tokens, seconds)."""
+    ``side``: ``demo_side_inputs``.  With a mesh it first reports the
+    tuner's attention regimes for this job (``report_attention_regimes``;
+    ``params`` are this rank's shards).  Returns (tokens, seconds)."""
+    if mesh is not None:
+        cfg = model.cfg
+        extra = sum(t.shape[1] for t in side.values() if t is not None)
+        report_attention_regimes(
+            cfg, mesh, rules, batch=prompts.shape[0],
+            prompt_len=prompts.shape[1],
+            total_len=prompts.shape[1] + extra + gen, verbose=verbose)
     t0 = time.perf_counter()
     tokens, _ = generate(model, params, prompts, gen, **side)
     return tokens, time.perf_counter() - t0
+
+
+def report_attention_regimes(cfg, mesh, rules, *, batch: int,
+                             prompt_len: int, total_len: int,
+                             verbose: bool = True) -> dict:
+    """The regime the tuner picks for this serving job's attention
+    shapes — prefill (q = kv = prompt) and the grown decode context (q
+    = prompt rows over the whole kv) — by the decision
+    ``kernels.ops.attention`` dispatches; printed where ``verbose``,
+    returned as {label: regime}."""
+    from ..kernels import ops
+
+    picks: dict[str, str] = {}
+    for label, (m, n) in (("prefill", (prompt_len, prompt_len)),
+                          ("decode_ctx", (prompt_len, total_len))):
+        choice, _ = ops.attention_regime_choice(
+            rules, mesh, batch=batch, q_heads=cfg.n_heads,
+            kv_heads=cfg.n_kv_heads, q_len=m, kv_len=n, head_dim=cfg.dh,
+            dtype=cfg.dtype, causal=True)
+        if choice is None:
+            picks[label] = "spatial"
+            text = "spatial (mesh offers no kv split)"
+        else:
+            picks[label] = choice.regime
+            text = choice.regime + " (" + " ".join(
+                f"{k}={v * 1e6:.1f}us" for k, v in choice.times.items()) + ")"
+        if verbose:
+            print(f"regime[{label}] q={m} kv={n}: {text}")
+    return picks
 
 
 def ragged_workload(vocab: int, n_requests: int, prompt_len: int,
@@ -159,7 +224,9 @@ def run_continuous(cfg, model, params, *, batch: int, n_requests: int,
     """Continuous-batching serving of a ragged workload; returns
     (results, stats, engine).  An encoder-decoder config or one with
     prefix embeddings is refused, as in the JAX package (a hybrid's or
-    a state-space config's refusal comes from its paged cache)."""
+    a state-space config's refusal comes from its paged cache).  Under
+    a mesh (the model's ``Runtime``) the engine's regime search picks
+    paged-spatial or a ring regime."""
     if cfg.family == "encdec" or cfg.n_prefix_embeds:
         raise NotImplementedError(
             f"--continuous covers decoder-only attention archs without "
@@ -174,7 +241,7 @@ def run_continuous(cfg, model, params, *, batch: int, n_requests: int,
     return results, stats, engine
 
 
-def main(argv=None):
+def _parse(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-8b",
                     choices=sorted(ALIASES) + ARCHS)
@@ -191,37 +258,62 @@ def main(argv=None):
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernel path) or cpu (the plain path)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--shard-model", type=int, default=1,
+                    help="ranks of the model dim; > 1 spawns that many "
+                         "ranks and serves sharded")
+    return ap.parse_args(argv)
 
+
+def _serve(args, rank: int = 0):
+    """One rank's serving run of the parsed ``args``; rank 0 prints."""
+    say = rank == 0
     cfg = get_config(args.arch, smoke=not args.full)
-    model = build_model(cfg, Runtime(kernel_ops=True), device=args.device)
+    mesh, rules, rt = sharded_runtime(args.shard_model)
+    model = build_model(cfg, rt, device=args.device)
     params = model.init_params(args.seed)
+    shard = (f" mesh=data1xmodel{args.shard_model}" if mesh is not None
+             else "")
     if not args.continuous:
         gen = torch.Generator().manual_seed(args.seed + 1)
         prompts = torch.randint(0, cfg.vocab,
                                 (args.batch, args.prompt_len),
                                 generator=gen).to(model.device)
         tokens, dt = run_generate(
-            model, params, prompts, args.gen,
+            model, params, prompts, args.gen, mesh=mesh, rules=rules,
+            verbose=say,
             **demo_side_inputs(cfg, args.batch, model.device, args.seed + 2))
-        print(f"arch={cfg.name} generated {tokens.shape} in {dt:.2f}s "
-              f"({args.batch * args.gen / dt:.1f} tok/s) "
-              f"device={args.device}")
-        print("sample:", tokens[0][:16].tolist())
+        if say:
+            print(f"arch={cfg.name} generated {tokens.shape} in {dt:.2f}s "
+                  f"({args.batch * args.gen / dt:.1f} tok/s) "
+                  f"device={args.device}{shard}")
+            print("sample:", tokens[0][:16].tolist())
         return tokens
     results, stats, _ = run_continuous(
         cfg, model, params, batch=args.batch,
         n_requests=args.requests or 4 * args.batch,
         prompt_len=args.prompt_len, gen=args.gen, page_size=args.page_size,
-        seed=args.seed + 1)
+        seed=args.seed + 1, verbose=say)
     counts = [len(r.tokens) for r in results]
-    print(f"arch={cfg.name} continuous: {len(results)} requests, "
-          f"{stats['generated']} tokens in {stats['wall_s']:.2f}s "
-          f"({stats['tok_per_s']:.1f} tok/s) "
-          f"steps={stats['decode_steps']} "
-          f"preempt={stats['preemptions']} device={args.device}")
-    print(f"per-request generated: {counts}")
+    if say:
+        print(f"arch={cfg.name} continuous: {len(results)} requests, "
+              f"{stats['generated']} tokens in {stats['wall_s']:.2f}s "
+              f"({stats['tok_per_s']:.1f} tok/s) "
+              f"regime={stats['regime']} steps={stats['decode_steps']} "
+              f"preempt={stats['preemptions']} device={args.device}{shard}")
+        print(f"per-request generated: {counts}")
     return results
+
+
+def _serve_rank(rank: int, argv):
+    return _serve(_parse(argv), rank)
+
+
+def main(argv=None):
+    args = _parse(argv)
+    if args.shard_model <= 1:
+        return _serve(args)
+    from .mesh import spawn
+    return spawn(_serve_rank, args.shard_model, argv, device=args.device)[0]
 
 
 if __name__ == "__main__":

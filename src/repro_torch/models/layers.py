@@ -33,9 +33,26 @@ the card under ``kernel_ops``, and the gather twin — page-table gather
 plus per-request positional attention in torch ops — everywhere else
 (prefill, and any run on the CPU), and wherever the circuit breaker
 holds the kernel's fingerprint quarantined or its dispatch fails.
+
+Under a mesh (``Mesh``, the dense family only) a block runs on this
+rank's shards, Megatron-style: ``wq``/``wk``/``wv`` and the MLP's
+``w_gate``/``w_up`` hold this rank's columns over the tensor-parallel
+dim, ``wo``/``w_down`` its rows, and the row-parallel products are
+summed over the dim (an all-reduce: the JAX package's ``constrain`` to
+whole features).  Each rank attends with its q heads; kv heads the dim
+cannot divide are gathered whole (``_project_qkv``) and each rank uses
+the ones its q heads read (``_kv_for_q``).  A contiguous cache is
+heads-sharded where the kv heads divide, else sequence-sharded, and a
+sequence-sharded decode step runs ``distributed_decode_attention`` —
+or gathers the cache — as the JAX package's.  A paged cache is
+heads-sharded, or whole on every rank for the ring regimes
+(``dist.ring_dispatch.paged_ring_decode_attention``).  The
+``specs_*`` functions give each block's weight layouts
+(``dist.sharding``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -48,6 +65,118 @@ from ..serving import kv_pages as KP
 from .config import ModelConfig
 
 NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """What a block needs of the mesh it runs under: the tensor-parallel
+    dim (``dist.collectives.Axis``, None when its size is 1), the mesh
+    and rules (for the kernel dispatch's regime search), the call's
+    global batch, and the distributed-decode switches of the
+    ``Runtime``."""
+
+    mesh: object
+    rules: object
+    tp: Optional[object]
+    batch: int
+    dist_decode: bool = False
+    dist_pipelined: bool = False
+
+
+def _tp(ctx: Optional[Mesh]):
+    return ctx.tp if ctx is not None else None
+
+
+def _kv_for_q(kv: torch.Tensor, cfg: ModelConfig, tp) -> torch.Tensor:
+    """``kv`` (B, H, N, D), holding this rank's kv heads or all of them,
+    repeated to this rank's q heads: each q head beside the kv head it
+    reads.  Without a tensor-parallel dim: every head, GQA-repeated."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    if tp is None or kv.shape[1] != cfg.n_kv_heads:
+        return kv.repeat_interleave(group, dim=1)
+    lo, hi, g = _kv_range(cfg, tp)
+    return kv[:, lo:hi].repeat_interleave(g, dim=1)
+
+
+def _gather_heads(tp, *ts) -> list:
+    """Each of ``ts`` (B, S, heads of this rank, dh), in one type,
+    gathered whole along its heads over the tensor-parallel dim in one
+    all-gather."""
+    sizes = [t.shape[2] for t in ts]
+    g = tp.all_gather(torch.cat(ts, dim=2), 2)
+    g = g.reshape(*g.shape[:2], tp.size, sum(sizes), g.shape[-1])
+    return [t.reshape(*g.shape[:2], -1, g.shape[-1])
+            for t in torch.split(g, sizes, dim=3)]
+
+
+def _kv_range(cfg: ModelConfig, tp) -> tuple[int, int, int]:
+    """(first kv head, end, q heads per kv head) that this rank's q
+    heads read, of all ``cfg.n_kv_heads``: one run of kv heads, each
+    serving a whole group of the rank's q heads."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    hq = cfg.n_heads // tp.size
+    if hq % group and group % hq:
+        raise NotImplementedError(
+            f"{hq} q heads a rank split GQA groups of {group}")
+    lo = tp.index * hq // group
+    hi = ((tp.index + 1) * hq - 1) // group + 1
+    return lo, hi, hq // (hi - lo)
+
+
+def specs_norm(cfg: ModelConfig, rules) -> dict:
+    """Norm weights are whole on every rank."""
+    if cfg.norm == "layernorm":
+        return {"w": (), "b": ()}
+    return {"w": ()}
+
+
+def specs_attention(cfg: ModelConfig, rules) -> dict:
+    s = {"wq": rules.spec("data", "model"),
+         "wk": rules.spec("data", "model"),
+         "wv": rules.spec("data", "model"),
+         "wo": rules.spec("model", "data")}
+    if cfg.qk_norm:
+        s["q_norm"] = ()
+        s["k_norm"] = ()
+    return s
+
+
+def specs_mlp(cfg: ModelConfig, rules) -> dict:
+    if gated(cfg):
+        return {"w_gate": rules.spec("data", "model"),
+                "w_up": rules.spec("data", "model"),
+                "w_down": rules.spec("model", "data")}
+    return {"w_up": rules.spec("data", "model"),
+            "w_down": rules.spec("model", "data")}
+
+
+def specs_moe(cfg: ModelConfig, rules, n_model: int = 16) -> dict:
+    """Experts sharded over the model dim when it divides them (expert
+    parallelism), else their ffn dim (the JAX package's layouts; the
+    port's MoE runs on one card, ROADMAP Queue 1 item 4)."""
+    if rules.enabled and cfg.moe.n_experts % n_model == 0:
+        w = w2 = rules.spec("model", None, None)
+    else:
+        w = rules.spec(None, "data", "model")
+        w2 = rules.spec(None, "model", "data")
+    s = {"router": (), "w_up": w, "w_down": w2}
+    if cfg.act in ("swiglu", "geglu"):
+        s["w_gate"] = w
+    return s
+
+
+def specs_mamba(cfg: ModelConfig, rules) -> dict:
+    return {"w_in": rules.spec("data", "model"), "conv_w": (),
+            "A_log": (), "D": (), "dt_bias": (), "norm_w": (),
+            "w_out": rules.spec("model", "data")}
+
+
+def specs_rglru(cfg: ModelConfig, rules) -> dict:
+    return {"w_gate_br": rules.spec("data", "model"),
+            "w_main": rules.spec("data", "model"), "conv_w": (),
+            "w_a": rules.spec("data", "model"),
+            "w_i": rules.spec("data", "model"), "lam": (),
+            "w_out": rules.spec("model", "data")}
 
 
 def dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
@@ -148,14 +277,20 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
             "w_down": dense_init(gen, (ff, d), dt, device)}
 
 
-def mlp_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              ctx: Optional[Mesh] = None) -> torch.Tensor:
     """SwiGLU (silu(x Wg) * (x Wu)) Wd, GeGLU with gelu, or the ungated
     gelu(x Wu) Wd, as ``cfg.act`` says (gelu in the tanh form, as the
-    JAX package's)."""
+    JAX package's).  Under a tensor-parallel dim the weights are this
+    rank's ffn columns and rows, and the partial products are summed
+    over the dim."""
     f = act_fn(act_name(cfg))
     if gated(cfg):
-        return (f(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
-    return f(x @ p["w_up"]) @ p["w_down"]
+        out = (f(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    else:
+        out = f(x @ p["w_up"]) @ p["w_down"]
+    tp = _tp(ctx)
+    return tp.all_reduce(out) if tp is not None else out
 
 
 # ---------------------------------------------------------------------------
@@ -281,10 +416,11 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return moe_local(p, x.reshape(b * s, d), cfg).to(x.dtype).reshape(b, s, d)
 
 
-def feed_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def feed_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                 ctx: Optional[Mesh] = None) -> torch.Tensor:
     """The block's feed-forward: the experts of an MoE config, the MLP
     otherwise."""
-    return moe_block(p, x, cfg) if cfg.moe else mlp_block(p, x, cfg)
+    return moe_block(p, x, cfg) if cfg.moe else mlp_block(p, x, cfg, ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -518,17 +654,35 @@ def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor) -> tuple:
+                 positions: torch.Tensor, tp=None) -> tuple:
     """The start of every attention block: the q/k/v projections of x
     (B, S, D), qk-norm, and rope at ``positions`` ((S,) or (B, S)) where
     ``cfg.use_rope`` (a config with learned positions adds them to its
     embeddings instead).  Returns q (B, S, Hq, dh) and k, v (B, S, Hkv,
-    dh)."""
+    dh).  Under a tensor-parallel dim ``tp`` the projections are this
+    rank's columns: q holds its Hq / n heads, k and v its Hkv / n — or,
+    where the dim does not divide the kv heads, all of them, gathered
+    whole before their norm."""
     b, s, _ = x.shape
     dh = cfg.dh
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, dh)
-    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, dh)
-    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, dh)
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    k, v = x @ p["wk"], x @ p["wv"]
+    if tp is not None:
+        if hq % tp.size:
+            raise NotImplementedError(
+                f"{hq} q heads do not divide over {tp.size} ranks")
+        hq //= tp.size
+        if hkv % tp.size == 0:
+            hkv //= tp.size
+        else:           # one gather of both, de-interleaved by rank
+            c = k.shape[-1]
+            kv = tp.all_gather(torch.cat([k, v], dim=-1), -1)
+            kv = kv.reshape(b, s, tp.size, 2, c)
+            k, v = kv[:, :, :, 0].reshape(b, s, -1), kv[:, :, :, 1].reshape(
+                b, s, -1)
+    q = (x @ p["wq"]).reshape(b, s, hq, dh)
+    k = k.reshape(b, s, hkv, dh)
+    v = v.reshape(b, s, hkv, dh)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -609,17 +763,21 @@ def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
-                    device) -> dict:
+                    device, shards: tuple = (1, 1)) -> dict:
     """One layer's contiguous KV cache: ``{"k", "v", "pos"}``, k and v
     (B, Hkv, n, dh) in the config's type, ``pos`` (n,) int32 holding
     each slot's absolute position (-1 = empty), shared by the batch, so
     full and ring (windowed) caches share one code path.  ``n`` is
     ``max_len``, or ``min(max_len, cfg.attn_window)`` with a window: a
-    ring."""
+    ring.  ``shards`` (kv-head ways, slot ways): a rank's block of a
+    heads- or sequence-sharded cache; ``pos`` stays whole."""
     win = cfg.attn_window
     n = min(max_len, win) if win else max_len
     dt = getattr(torch, cfg.dtype)
-    shape = (batch, cfg.n_kv_heads, n, cfg.dh)
+    if cfg.n_kv_heads % shards[0] or n % shards[1]:
+        raise ValueError(f"a cache of {cfg.n_kv_heads} kv heads and {n} "
+                         f"slots does not split {shards} ways")
+    shape = (batch, cfg.n_kv_heads // shards[0], n // shards[1], cfg.dh)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device),
             "pos": torch.full((n,), -1, dtype=torch.int32, device=device)}
@@ -645,16 +803,24 @@ def _positional_attention(q, k, v, rows_pos, kv_pos, causal: bool,
 
 
 def _cached_attention(q, k, v, cfg: ModelConfig, *, positions, cache: dict,
-                      bkv: int, causal: bool) -> torch.Tensor:
+                      bkv: int, causal: bool,
+                      ctx: Optional[Mesh] = None) -> torch.Tensor:
     """The contiguous cache's branch of ``attention_block``: this
     call's k/v and positions go into the cache IN PLACE at slots
     ``positions % n`` (a ring when windowed), then q attends over the
     cache by position.  q: (B, Hq, S, dh), k/v: (B, Hkv, S, dh);
     positions: (S,), an int32 tensor (a decode step's may live on the
-    card, so that a captured step reads it)."""
+    card, so that a captured step reads it).
+
+    A sequence-sharded cache (``ctx``, ``init_attn_cache``) holds this
+    rank's block of the slots, and ``pos`` whole: the rank writes the
+    slots it owns, then a decode step under ``ctx.dist_decode`` runs
+    ``distributed_decode_attention``, anything else attends over the
+    cache gathered whole."""
     s, win = q.shape[2], cfg.attn_window
-    nc = cache["k"].shape[2]
-    group = cfg.n_heads // cfg.n_kv_heads
+    tp = _tp(ctx)
+    nl = cache["k"].shape[2]
+    nc = cache["pos"].shape[0]
     scale = 1.0 / math.sqrt(cfg.dh)
     if win and s >= win:
         # prefill longer than the ring: only the last ``win`` tokens
@@ -663,18 +829,29 @@ def _cached_attention(q, k, v, cfg: ModelConfig, *, positions, cache: dict,
     else:
         ks, vs, ps_ = k, v, positions
     idx = (ps_ % nc).long()
-    cache["k"][:, :, idx] = ks.to(cache["k"].dtype)
-    cache["v"][:, :, idx] = vs.to(cache["v"].dtype)
     cache["pos"][idx] = ps_.to(torch.int32)
+    if nl == nc:
+        cache["k"][:, :, idx] = ks.to(cache["k"].dtype)
+        cache["v"][:, :, idx] = vs.to(cache["v"].dtype)
+    else:                   # sequence-sharded: the slots this rank owns
+        lo = tp.index * nl
+        own = ((idx >= lo) & (idx < lo + nl)).nonzero()[:, 0]
+        cache["k"][:, :, idx[own] - lo] = ks[:, :, own].to(cache["k"].dtype)
+        cache["v"][:, :, idx[own] - lo] = vs[:, :, own].to(cache["v"].dtype)
+        if ctx.dist_decode and s == 1:
+            return distributed_decode_attention(
+                q, cache, positions, cfg, tp, window=win, scale=scale)
     if win and s >= win:
         # fresh long prefill: every row's window lies inside this call's
         # k/v — the ring holds only the tail and would starve early
         # rows, so attend over the un-cached projections
         kk, vv, kv_pos = k, v, positions
-    else:
+    elif nl == nc:
         kk, vv, kv_pos = cache["k"], cache["v"], cache["pos"]
-    kk = kk.repeat_interleave(group, dim=1)
-    vv = vv.repeat_interleave(group, dim=1)
+    else:   # the JAX package's gather of a sequence-sharded cache
+        kk, vv = tp.all_gather(cache["k"], 2), tp.all_gather(cache["v"], 2)
+        kv_pos = cache["pos"]
+    kk, vv = _kv_for_q(kk, cfg, tp), _kv_for_q(vv, cfg, tp)
     if cfg.use_fused_attention and kk.shape[2] > 2 * bkv and s > 1:
         return streaming_attention(q, kk, vv, causal=causal, window=win,
                                    scale=scale, bkv=bkv,
@@ -685,11 +862,38 @@ def _cached_attention(q, k, v, cfg: ModelConfig, *, positions, cache: dict,
                                  scale)
 
 
+def distributed_decode_attention(q: torch.Tensor, cache: dict,
+                                 positions: torch.Tensor, cfg: ModelConfig,
+                                 tp, *, window: int,
+                                 scale: float) -> torch.Tensor:
+    """Decode attention over a SEQUENCE-sharded cache without gathering
+    it — the JAX package's flash-decode over the model dim.  Each rank
+    takes the partial softmax of every q head (gathered, as the JAX
+    package's shard_map takes q whole) over its block of the slots
+    (``kernels.ref.partial_attention_ref``: f32 scores, P rounded to
+    v's type before P V), the ring's combine sums the partials in f32
+    (``dist.ring_dispatch.ring_combine``), and the rank keeps its own
+    heads of the result.  The new token was written on the owning rank
+    only (``_cached_attention``).  q: (B, Hq_local, 1, dh); cache:
+    {"k", "v"} (B, Hkv, N / n, dh), "pos" (N,) whole; positions:
+    (1,)."""
+    from ..dist.ring_dispatch import ring_combine
+    from ..kernels.ref import partial_attention_ref
+    nl = cache["k"].shape[2]
+    kv_pos = cache["pos"][tp.index * nl:(tp.index + 1) * nl]
+    o, m, l = partial_attention_ref(tp.all_gather(q, 1), cache["k"],
+                                    cache["v"], kv_pos, positions,
+                                    causal=True, window=window, scale=scale)
+    return tp.shard(ring_combine(o, m, l, tp, torch.float32, q.dtype,
+                                 pipelined=False), 1)
+
+
 def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor, bkv: int = 512,
                     kernel_ops: bool = False,
                     cache: Optional[dict] = None,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True,
+                    ctx: Optional[Mesh] = None) -> torch.Tensor:
     """GQA attention over ``cfg.attn_window``, causal unless ``causal``
     is False (an encoder's).  x: (B, S, D); positions: (S,) absolute
     positions of x's tokens.
@@ -703,30 +907,49 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     kernel, GQA inside the kernel, no head repeat; otherwise the kv
     heads are repeated and the model's twin runs:
     ``streaming_attention`` past two kv blocks
-    (``cfg.use_fused_attention``), ``naive_attention`` below."""
+    (``cfg.use_fused_attention``), ``naive_attention`` below.
+
+    Under a mesh (``ctx``) the block runs on this rank's heads, the
+    kernel through ``kernels.ops.attention_shard`` (the regime the
+    tuner picks for the global shape), and ``wo``'s partial products
+    are summed over the tensor-parallel dim."""
     b, s, _ = x.shape
     dh = cfg.dh
     win = cfg.attn_window
-    q, k, v = (t.transpose(1, 2) for t in _project_qkv(p, x, cfg, positions))
+    tp = _tp(ctx)
+    q, k, v = (t.transpose(1, 2)
+               for t in _project_qkv(p, x, cfg, positions, tp))
     scale = 1.0 / math.sqrt(dh)
     if cache is not None:
         o = _cached_attention(q, k, v, cfg, positions=positions,
-                              cache=cache, bkv=bkv, causal=causal)
+                              cache=cache, bkv=bkv, causal=causal, ctx=ctx)
     elif kernel_ops and s > 1:
         from ..kernels import ops
-        o = ops.attention(q, k, v, causal=causal, window=win, scale=scale)
+        if ctx is None:
+            o = ops.attention(q, k, v, causal=causal, window=win,
+                              scale=scale)
+        else:
+            # attention_shard takes this rank's heads where the kv heads
+            # divide over the dim, and every head where they do not
+            whole = tp is not None and k.shape[1] == cfg.n_kv_heads
+            if whole:
+                q = tp.all_gather(q, 1)
+            o = ops.attention_shard(
+                q, k, v, batch=ctx.batch, q_heads=cfg.n_heads,
+                kv_heads=cfg.n_kv_heads, mesh=ctx.mesh, rules=ctx.rules,
+                causal=causal, window=win, scale=scale)
+            if whole:
+                o = tp.shard(o, 1)
     else:
-        group = cfg.n_heads // cfg.n_kv_heads
-        kk = k.repeat_interleave(group, dim=1)
-        vv = v.repeat_interleave(group, dim=1)
+        kk, vv = _kv_for_q(k, cfg, tp), _kv_for_q(v, cfg, tp)
         if cfg.use_fused_attention and s > 2 * bkv:
             o = streaming_attention(q, kk, vv, causal=causal, window=win,
                                     scale=scale, bkv=bkv)
         else:
             o = naive_attention(q, kk, vv, causal=causal, window=win,
                                 scale=scale)
-    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * dh)
-    return o @ p["wo"]
+    out = o.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
+    return tp.all_reduce(out) if tp is not None else out
 
 
 def cross_attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -779,7 +1002,8 @@ def paged_attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                           positions: torch.Tensor, cache: dict,
                           page_table: torch.Tensor,
                           kernel_ops: bool = False,
-                          block: Optional[tuple] = None
+                          block: Optional[tuple] = None,
+                          ctx: Optional[Mesh] = None
                           ) -> tuple[torch.Tensor, dict]:
     """Attention over a paged KV cache.
 
@@ -789,44 +1013,79 @@ def paged_attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     — the shared pool, written IN PLACE; page_table: (B, max_pages)
     physical page per logical page (-1 = unallocated).  Serving is
     causal by construction.
+
+    Under a mesh the pools hold this rank's kv heads, or every kv head
+    (``LM.init_paged_cache``: the ring regimes, or kv heads the dim does
+    not divide) — then this call's k/v are gathered whole before the
+    write.  A decode step under ``ctx.dist_decode`` runs the ring
+    regime over the page-table columns
+    (``dist.ring_dispatch.paged_ring_decode_attention``) on every q
+    head and keeps this rank's; anything else runs the paged body on
+    this rank's q heads.
     """
     b, s, _ = x.shape
     dh = cfg.dh
     ps = cache["k_pages"].shape[2]
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    tp = _tp(ctx)
+    q, k, v = _project_qkv(p, x, cfg, positions, tp)
+    ring = (tp is not None and ctx.dist_decode and s == 1
+            and page_table.shape[1] % tp.size == 0)
+    whole_kv = cache["k_pages"].shape[1] != k.shape[2]    # pools whole
+    if ring:        # every q head, and the kv heads the pools take
+        q, *kv = _gather_heads(tp, q, *((k, v) if whole_kv else ()))
+        k, v = kv or (k, v)
+    elif whole_kv:
+        k, v = _gather_heads(tp, k, v)
 
     phys, off = KP.slot_coords(page_table, positions, ps)
     KP.scatter_pages(cache["k_pages"], phys, off, k)
     KP.scatter_pages(cache["v_pages"], phys, off, v)
 
-    o = _paged_attention_body(q.transpose(1, 2), cache, page_table,
-                              positions,
-                              group=cfg.n_heads // cfg.n_kv_heads,
-                              win=cfg.window, scale=1.0 / math.sqrt(dh),
-                              kernel_ops=kernel_ops, block=block)
-    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * dh)
-    return o @ p["wo"], cache
+    qt = q.transpose(1, 2)
+    scale = 1.0 / math.sqrt(dh)
+    if ring:
+        from ..dist.ring_dispatch import paged_ring_decode_attention
+        o = paged_ring_decode_attention(
+            qt, cache["k_pages"], cache["v_pages"], page_table,
+            positions[:, 0], window=cfg.window, scale=scale, mesh=ctx.mesh,
+            axis_name=tp.names[0], pipelined=ctx.dist_pipelined,
+            kernel=kernel_ops, block=block)
+        o = tp.shard(o, 1)
+    else:
+        o = _paged_attention_body(qt, cache, page_table, positions,
+                                  cfg=cfg, tp=tp, win=cfg.window,
+                                  scale=scale, kernel_ops=kernel_ops,
+                                  block=block)
+    o = o.transpose(1, 2).reshape(b, s, -1)
+    out = o @ p["wo"]
+    return (tp.all_reduce(out) if tp is not None else out), cache
 
 
 def _paged_attention_body(qt: torch.Tensor, cache: dict,
                           page_table: torch.Tensor,
-                          positions: torch.Tensor, *, group: int,
-                          win: int, scale: float,
+                          positions: torch.Tensor, *, cfg: ModelConfig,
+                          win: int, scale: float, tp=None,
                           kernel_ops: bool = False,
                           block: Optional[tuple] = None) -> torch.Tensor:
     """The paged attention core: the fused kernel or the gather twin.
-    qt: (B, Hq, S, dh); cache holds the POST-write page pools."""
+    qt: (B, Hq, S, dh) — this rank's q heads under a tensor-parallel
+    dim ``tp``, which read the pools' kv heads ``_kv_range`` gives
+    where the pools hold every kv head; cache holds the POST-write page
+    pools."""
     b, hq, s, _ = qt.shape
-    ps = cache["k_pages"].shape[2]
+    kp, vp = cache["k_pages"], cache["v_pages"]
+    ps = kp.shape[2]
+    group = hq // kp.shape[1]
+    if tp is not None and kp.shape[1] == cfg.n_kv_heads:
+        lo, hi, group = _kv_range(cfg, tp)
+        kp, vp = kp[:, lo:hi], vp[:, lo:hi]
 
     def _twin() -> torch.Tensor:
         # page-table gather + per-request positional attention: the
         # body every other path is held to, and the shadow oracle of
         # the fused branch below
-        kk = KP.gather_pages(cache["k_pages"], page_table
-                             ).repeat_interleave(group, dim=1)
-        vv = KP.gather_pages(cache["v_pages"], page_table
-                             ).repeat_interleave(group, dim=1)
+        kk = KP.gather_pages(kp, page_table).repeat_interleave(group, dim=1)
+        vv = KP.gather_pages(vp, page_table).repeat_interleave(group, dim=1)
         kv_pos = KP.paged_kv_positions(page_table, ps)
         return _paged_positional_attention(qt, kk, vv, positions, kv_pos,
                                            win, scale)
@@ -846,9 +1105,9 @@ def _paged_attention_body(qt: torch.Tensor, cache: dict,
         fp = ("attn-paged", b, hq, ps, page_table.shape[1], win, bq, bkv,
               str(qt.dtype).replace("torch.", ""))
         return _guarded(fp, lambda: fused_attention_paged(
-            qt, cache["k_pages"], cache["v_pages"], page_table,
-            positions[:, -1] + 1, bq=bq, bkv=bkv, window=win,
-            scale=scale), _twin, rows=lambda: positions[:, -1] >= 0)
+            qt, kp, vp, page_table, positions[:, -1] + 1, bq=bq, bkv=bkv,
+            window=win, scale=scale), _twin,
+            rows=lambda: positions[:, -1] >= 0)
     return _twin()
 
 
@@ -983,9 +1242,8 @@ def run_planned_layer(lp, p: dict, x: torch.Tensor, cfg: ModelConfig, *,
             # math): the shared paged body, as the hand-wired block
             o = _paged_attention_body(
                 env[ins[0]].transpose(1, 2), cache, page_table, positions,
-                group=cfg.n_heads // cfg.n_kv_heads, win=cfg.window,
-                scale=1.0 / math.sqrt(dh), kernel_ops=rt.kernel_ops,
-                block=rt.paged_block)
+                cfg=cfg, win=cfg.window, scale=1.0 / math.sqrt(dh),
+                kernel_ops=rt.kernel_ops, block=rt.paged_block)
             env["qk"] = env["softmax"] = None   # folded into this unit
             out = o.transpose(1, 2).reshape(b, s, cfg.n_heads * dh)
             nm = "pv"

@@ -32,10 +32,25 @@ copies.  The API:
     init_paged_cache(n_pages, page_size)   -> per-layer page pools
     prefill_paged(params, tokens, cache, page_table, length)
     decode_step_paged(params, cache, tokens, positions, page_table)
+    param_specs() / cache_specs(batch)     -> weight and cache layouts
+
+Under a mesh (``Runtime(rules=..., mesh=...)``, the dense family only)
+every rank holds its shards of the weights (``param_specs``, placed by
+``launch.steps.shard_params``) and of the caches (``cache_specs``), and
+runs the same program on them: the entry points take and return whole
+tensors, as the JAX package's global arrays, each rank computing its
+block of the batch (``batch_placement``) and gathering the outputs.
+The weights of dims sharded over other mesh dims than the
+tensor-parallel one (FSDP) are gathered just before their layer runs.
+The embedding and ``lm_head`` are vocab-parallel where the model dim
+divides the vocab: the lookup sums the ranks' rows, the logits are
+gathered, and the loss reduces its logsumexp over the ranks
+(``chunked_ce``).  Under a mesh every step runs eagerly.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -43,6 +58,8 @@ import torch
 
 from .. import tree as T
 from ..core import planner
+from ..dist.collectives import axis, gather_dims, shard_dims
+from ..dist.sharding import Rules, batch_placement, mesh_shape
 from . import layers as L
 from .config import ModelConfig
 
@@ -73,6 +90,16 @@ class Runtime:
     # monitor (reliability/sentinels.py::healthy): the serving engine
     # checks prefill and decode logits for NaN/Inf/explosion and evicts
     # the offending slot with the honest "health" outcome.
+    rules: Rules = dataclasses.field(default_factory=Rules.disabled)
+    mesh: Optional[object] = None   # a DeviceMesh ("data", "model"):
+    # every rank runs on its shards (launch.mesh); None = one device.
+    dist_decode_attn: bool = False  # decode attention over a
+    # sequence-sharded contiguous cache by per-rank partial softmax (no
+    # gather), and the paged-ring regime over page-table columns;
+    # serving.engine sets it when the tuner picks a ring regime.
+    dist_decode_pipelined: bool = False  # the ring combine as the
+    # per-hop pipelined ring (paged-ring-pipelined) instead of the
+    # serial all-reduces.
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
@@ -94,13 +121,13 @@ def _chunk_len(s: int, target: int = 512) -> int:
     return best
 
 
-def chunked_ce(hidden: torch.Tensor, unembed_w: torch.Tensor,
-               labels: torch.Tensor) -> torch.Tensor:
-    """Mean cross-entropy over sequence chunks of at most 512, so the
-    (B, S, V) logits never exist at once.  hidden: (B, S, D) after the
-    final norm; unembed_w: (D, V); labels: (B, S), -100 masked.  Each
-    chunk's logits are taken in the model's type and reduced in f32
-    (logsumexp minus the target logit)."""
+def _ce_sums(hidden: torch.Tensor, unembed_w: torch.Tensor,
+             labels: torch.Tensor, tp=None) -> tuple:
+    """(sum of the token losses, count of unmasked tokens) over sequence
+    chunks of at most 512.  Under a tensor-parallel dim ``tp``,
+    ``unembed_w`` holds this rank's block of the vocab columns, and the
+    row max, the sum of exponentials and the target logit are reduced
+    over the dim (a vocab-parallel cross-entropy)."""
     b, s, _ = hidden.shape
     c = _chunk_len(s)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -108,11 +135,32 @@ def chunked_ce(hidden: torch.Tensor, unembed_w: torch.Tensor,
     for c0 in range(0, s, c):
         lf = (hidden[:, c0:c0 + c] @ unembed_w).float()
         lch = labels[:, c0:c0 + c]
-        lse = torch.logsumexp(lf, dim=-1)
-        tgt = torch.gather(lf, -1, lch.clamp(min=0)[..., None])[..., 0]
+        if tp is None:
+            lse = torch.logsumexp(lf, dim=-1)
+            tgt = torch.gather(lf, -1, lch.clamp(min=0)[..., None])[..., 0]
+        else:
+            vl = lf.shape[-1]
+            m = tp.all_reduce(lf.amax(dim=-1), op="max")
+            lse = m + torch.log(tp.all_reduce(
+                torch.exp(lf - m[..., None]).sum(dim=-1)))
+            t = lch - tp.index * vl
+            own = (t >= 0) & (t < vl)
+            tgt = tp.all_reduce(torch.where(own, torch.gather(
+                lf, -1, t.clamp(0, vl - 1)[..., None])[..., 0], 0.0))
         mask = (lch >= 0).float()
         tot = tot + ((lse - tgt) * mask).sum()
         cnt = cnt + mask.sum()
+    return tot, cnt
+
+
+def chunked_ce(hidden: torch.Tensor, unembed_w: torch.Tensor,
+               labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy over sequence chunks of at most 512, so the
+    (B, S, V) logits never exist at once.  hidden: (B, S, D) after the
+    final norm; unembed_w: (D, V); labels: (B, S), -100 masked.  Each
+    chunk's logits are taken in the model's type and reduced in f32
+    (logsumexp minus the target logit)."""
+    tot, cnt = _ce_sums(hidden, unembed_w, labels)
     return tot / torch.clamp(cnt, min=1.0)
 
 
@@ -148,6 +196,9 @@ class LM:
         self.rt = rt or Runtime()
         self.device = torch.device(device)
         self.kinds = kinds
+        self._specs = None
+        if self.rt.mesh is not None:
+            self._check_mesh()
         # tied embeddings are scaled by sqrt(d_model) rounded to the
         # config's type, as the JAX package's weakly typed scalar is (a
         # constant of the model, which a step with the weights upcast to
@@ -156,6 +207,129 @@ class LM:
             float(torch.tensor(math.sqrt(cfg.d_model),
                                dtype=getattr(torch, cfg.dtype)))
             if cfg.tie_embeddings else None)
+
+    def _check_mesh(self) -> None:
+        cfg, rt = self.cfg, self.rt
+        if cfg.moe or set(self.kinds) != {"attn"} or rt.planner:
+            raise NotImplementedError(
+                f"mesh execution covers the dense family on the "
+                f"hand-wired path; {cfg.name} (family {cfg.family}, "
+                f"layers {sorted(set(self.kinds))}, planner "
+                f"{rt.planner}) comes with ROADMAP Queue 1 item 4")
+        rules = rt.rules
+        if rules.tp not in (None, rules.model):
+            raise NotImplementedError(
+                f"activation dim {rules.tp!r} differs from the weights' "
+                f"model dim {rules.model!r}")
+        self._n_model = (mesh_shape(rt.mesh)[rules.model] if rules.model
+                         else 1)
+
+    @functools.cached_property
+    def _tp(self):
+        """This rank's tensor-parallel ``Axis`` (None: no mesh, or a
+        dim of size 1), taken from the mesh's process groups on first
+        use, so that layouts can be asked of a mesh stand-in."""
+        rt = self.rt
+        return axis(rt.mesh, rt.rules.tp) if rt.mesh is not None else None
+
+    def param_specs(self) -> dict:
+        """The weights' layouts (``dist.sharding``), a tree mirroring
+        ``init_params``: each projection's columns or rows over the
+        model dim (FSDP over the data dims while ``rules.fsdp``), norms
+        whole, and the vocab dims over the model dim where it divides
+        the vocab (else ``d_model`` is)."""
+        cfg, rules, mesh = self.cfg, self.rt.rules, self.rt.mesh
+        n_model = (mesh_shape(mesh)[rules.model]
+                   if mesh is not None and rules.model else 1)
+        vocab_ok = cfg.vocab % max(n_model, 1) == 0
+        specs = {"embed": (rules.spec("model", "data") if vocab_ok
+                           else rules.spec(None, "model")),
+                 "final_norm": L.specs_norm(cfg, rules)}
+        if not cfg.use_rope:
+            specs["pos_embed"] = rules.spec(None, "data")
+        if not cfg.tie_embeddings:
+            specs["lm_head"] = (rules.spec("data", "model") if vocab_ok
+                                else rules.spec("model", None))
+        specs["layers"] = [self._layer_specs(kind, n_model if mesh
+                                             is not None else 16)
+                           for kind in self.kinds]
+        return specs
+
+    def _layer_specs(self, kind: str, n_model: int) -> dict:
+        cfg, rules = self.cfg, self.rt.rules
+        mix = {"attn": L.specs_attention, "mamba": L.specs_mamba,
+               "rglru": L.specs_rglru}[kind]
+        s = {"ln1": L.specs_norm(cfg, rules), "mix": mix(cfg, rules)}
+        if cfg.d_ff > 0:
+            s["ln2"] = L.specs_norm(cfg, rules)
+            s["ff"] = (L.specs_moe(cfg, rules, n_model) if cfg.moe
+                       else L.specs_mlp(cfg, rules))
+        return s
+
+    def cache_specs(self, batch_size: int) -> list:
+        """The layouts of ``init_cache``'s caches, one per layer: the
+        batch over its placement; an attention cache's kv heads over the
+        model dim where they divide it, else its slots (``pos`` whole);
+        a recurrent state's channels over the model dim."""
+        cfg, rules, mesh = self.cfg, self.rt.rules, self.rt.mesh
+        b = rules.batch_spec(batch_size, mesh)
+        n_model = mesh_shape(mesh)[rules.model] if mesh is not None \
+            and rules.model else 1
+        out = []
+        for kind in self.kinds:
+            if kind == "attn":
+                if rules.enabled and cfg.n_kv_heads % max(n_model, 1) == 0 \
+                        and cfg.n_kv_heads >= n_model:
+                    kv = (b, rules.model, None, None)
+                else:
+                    kv = (b, None, rules.model, None)
+                out.append({"k": kv, "v": kv, "pos": (None,)})
+            elif kind == "mamba":
+                out.append({"conv": (b, None, None),
+                            "ssm": (b, rules.model, None, None)})
+            else:
+                out.append({"conv": (b, None, None), "lru": (b, rules.model)})
+        return out
+
+    # ------------------------------------------------------------------
+    # mesh helpers: global tensors in and out, shards inside
+    # ------------------------------------------------------------------
+    def _ctx(self, batch: int) -> Optional[L.Mesh]:
+        rt = self.rt
+        if rt.mesh is None:
+            return None
+        return L.Mesh(rt.mesh, rt.rules, self._tp, batch,
+                      rt.dist_decode_attn, rt.dist_decode_pipelined)
+
+    def _bax(self, batch: int):
+        """The batch dim's mesh axis for a global batch of ``batch``
+        (None: whole on every rank)."""
+        rt = self.rt
+        if rt.mesh is None:
+            return None
+        return axis(rt.mesh, batch_placement(rt.rules, rt.mesh, batch))
+
+    def _local(self, t, batch: int):
+        bx = self._bax(batch)
+        return bx.shard(t, 0) if (bx is not None and t is not None) else t
+
+    def _global(self, t: torch.Tensor, batch: int) -> torch.Tensor:
+        bx = self._bax(batch)
+        return bx.all_gather(t, 0) if bx is not None else t
+
+    def _whole(self, t: torch.Tensor, layout) -> torch.Tensor:
+        """A weight gathered along every dim sharded over a mesh dim
+        other than the tensor-parallel one (the FSDP gather)."""
+        rt = self.rt
+        if rt.mesh is None:
+            return t
+        return gather_dims(t, layout, rt.mesh, keep=(rt.rules.tp,))
+
+    def _layer(self, p: dict, kind: str) -> dict:
+        if self.rt.mesh is None:
+            return p
+        return T.map_tree(self._whole, p,
+                          self._layer_specs(kind, self._n_model))
 
     # ------------------------------------------------------------------
     def init_params(self, seed: int) -> dict:
@@ -167,15 +341,25 @@ class LM:
         cfg, dev = self.cfg, self.device
         gen = torch.Generator(device=dev).manual_seed(seed)
         dt = getattr(torch, cfg.dtype)
+        specs = self.param_specs() if self.rt.mesh is not None else None
+
+        def place(tree, spec):
+            # under a mesh: this rank's block of each whole tensor, so
+            # that at most one layer is ever whole on the device
+            if specs is None:
+                return tree
+            return T.map_tree(
+                lambda t, sp: shard_dims(t, sp, self.rt.mesh), tree, spec)
+
         layers = []
-        for kind in self.kinds:
+        for i, kind in enumerate(self.kinds):
             layer = {"ln1": L.init_norm(cfg, dev),
                      "mix": _MIXERS[kind][0](gen, cfg, dev)}
             if cfg.d_ff > 0:
                 layer["ln2"] = L.init_norm(cfg, dev)
                 layer["ff"] = (L.init_moe(gen, cfg, dev) if cfg.moe
                                else L.init_mlp(gen, cfg, dev))
-            layers.append(layer)
+            layers.append(place(layer, specs and specs["layers"][i]))
         params = {
             "embed": L.dense_init(gen, (cfg.vocab, cfg.d_model), dt, dev,
                                   scale=0.02),
@@ -187,13 +371,16 @@ class LM:
         if not cfg.tie_embeddings:
             params["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab),
                                              dt, dev)
+        if specs is not None:
+            params = place(params, {k: specs[k] for k in params})
         params["layers"] = layers
         return params
 
     # ------------------------------------------------------------------
     def _apply_block(self, kind: str, p: dict, x: torch.Tensor,
                      positions: torch.Tensor,
-                     cache: Optional[dict] = None) -> torch.Tensor:
+                     cache: Optional[dict] = None,
+                     ctx: Optional[L.Mesh] = None) -> torch.Tensor:
         """One hand-wired block of ``kind`` over its contiguous ``cache``
         (a KV cache or a recurrent state, written in place), or
         cache-free (the forward).  The planner plans only cache-free and
@@ -206,11 +393,12 @@ class LM:
             raise NotImplementedError(
                 "the planned cache-free forward is not ported; use "
                 "Runtime(planner=False)")
+        p = self._layer(p, kind)
         h = L.apply_norm(p["ln1"], x, cfg)
         if kind == "attn":
             x = x + L.attention_block(p["mix"], h, cfg, positions=positions,
                                       bkv=rt.bkv, kernel_ops=rt.kernel_ops,
-                                      cache=cache)
+                                      cache=cache, ctx=ctx)
         elif kind == "mamba":
             x = x + L.mamba_block(p["mix"], h, cfg, state=cache)
         else:
@@ -218,7 +406,7 @@ class LM:
         if cfg.d_ff <= 0:
             return x
         h2 = L.apply_norm(p["ln2"], x, cfg)
-        return x + L.feed_forward(p["ff"], h2, cfg)
+        return x + L.feed_forward(p["ff"], h2, cfg, ctx)
 
     def _positions(self, tokens: torch.Tensor,
                    prefix_embeds: Optional[torch.Tensor]) -> torch.Tensor:
@@ -228,14 +416,15 @@ class LM:
                             device=tokens.device)
 
     def _hidden(self, params: dict, tokens: torch.Tensor,
-                prefix_embeds: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                prefix_embeds: Optional[torch.Tensor] = None,
+                ctx: Optional[L.Mesh] = None) -> torch.Tensor:
         """The cache-free stack's output before the final norm, over the
-        prefix embeddings and the tokens."""
+        prefix embeddings and the tokens (this rank's batch rows under a
+        mesh)."""
         positions = self._positions(tokens, prefix_embeds)
         x = self._embed(params, tokens, positions, prefix_embeds)
         for kind, p in zip(self.kinds, params["layers"]):
-            x = self._apply_block(kind, p, x, positions)
+            x = self._apply_block(kind, p, x, positions, ctx=ctx)
         return x
 
     def _embed(self, params: dict, tokens: torch.Tensor,
@@ -245,47 +434,92 @@ class LM:
         """The token embeddings — tied ones times ``_embed_scale`` —
         after the prefix embeddings, if any, plus the learned positions
         at ``positions`` of a config without rope."""
-        x = params["embed"][tokens]
+        x = self._lookup(params, tokens)
         if self._embed_scale is not None:
             x = x * self._embed_scale
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         if not self.cfg.use_rope:
-            x = x + params["pos_embed"][positions.long()]
+            pe = self._whole(params["pos_embed"], self._spec("pos_embed"))
+            x = x + pe[positions.long()]
         return x
+
+    def _spec(self, name: str):
+        if self._specs is None:
+            self._specs = self.param_specs()
+        return self._specs[name]
+
+    def _lookup(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        """The embedding rows of ``tokens``.  Under a tensor-parallel dim
+        each rank holds a block of the vocab rows (or of ``d_model``
+        where the dim does not divide the vocab): it looks up the tokens
+        it holds, zeros elsewhere, and the ranks' rows are summed (or
+        the ``d_model`` blocks gathered)."""
+        emb = params["embed"]
+        tp = self._tp
+        if tp is None:
+            return self._whole(emb, self._spec("embed"))[tokens]
+        emb = self._whole(emb, self._spec("embed"))
+        if emb.shape[0] == self.cfg.vocab:
+            return tp.all_gather(emb[tokens], -1)
+        t = tokens - tp.index * emb.shape[0]
+        own = (t >= 0) & (t < emb.shape[0])
+        rows = emb[t.clamp(0, emb.shape[0] - 1)] * own[..., None]
+        return tp.all_reduce(rows.to(emb.dtype))
 
     def _unembed_w(self, params: dict) -> torch.Tensor:
         """The (D, V) unembedding: the tied embedding transposed, or
-        ``lm_head``."""
+        ``lm_head`` — under a mesh this rank's vocab columns (or
+        ``d_model`` rows, where the model dim does not divide the
+        vocab)."""
         if self.cfg.tie_embeddings:
-            return params["embed"].t()
-        return params["lm_head"]
+            return self._whole(params["embed"], self._spec("embed")).t()
+        return self._whole(params["lm_head"], self._spec("lm_head"))
+
+    def _vocab_sharded(self, w: torch.Tensor) -> bool:
+        return self._tp is not None and w.shape[1] != self.cfg.vocab
 
     def forward(self, params: dict, tokens: torch.Tensor,
                 prefix_embeds: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         """The cache-free forward: tokens (B, S) after prefix embeddings
         (B, P, D) -> logits (B, P + S, V)."""
-        return self._unembed(params,
-                             self._hidden(params, tokens, prefix_embeds))
+        b = tokens.shape[0]
+        ctx = self._ctx(b)
+        x = self._hidden(params, self._local(tokens, b),
+                         self._local(prefix_embeds, b), ctx)
+        return self._global(self._unembed(params, x), b)
 
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
         """batch: {"tokens", "labels"[, "prefix_embeds"]}, labels aligned
         with tokens (-100 = masked); the prefix rows are dropped after
         the final norm.  Mean cross-entropy by ``chunked_ce``: no (B, S,
-        V) logits."""
-        prefix = batch.get("prefix_embeds")
+        V) logits.  Under a mesh the sums are reduced over the batch's
+        mesh dims (and the vocab's, ``_ce_sums``)."""
+        b = batch["tokens"].shape[0]
+        prefix = self._local(batch.get("prefix_embeds"), b)
         x = L.apply_norm(params["final_norm"],
-                         self._hidden(params, batch["tokens"], prefix),
+                         self._hidden(params, self._local(batch["tokens"], b),
+                                      prefix, self._ctx(b)),
                          self.cfg)
         if prefix is not None:
             x = x[:, prefix.shape[1]:]
-        return chunked_ce(x, self._unembed_w(params), batch["labels"])
+        w = self._unembed_w(params)
+        labels = self._local(batch["labels"], b)
+        if self._tp is not None and not self._vocab_sharded(w):
+            w = self._tp.all_gather(w, 0)       # d_model rows gathered
+        tot, cnt = _ce_sums(x, w, labels,
+                            self._tp if self._vocab_sharded(w) else None)
+        bx = self._bax(b)
+        if bx is not None:
+            tot, cnt = bx.all_reduce(tot), bx.all_reduce(cnt)
+        return tot / torch.clamp(cnt, min=1.0)
 
     # ------------------------------------------------------------------
     def _apply_layer(self, p: dict, x: torch.Tensor,
                      positions: torch.Tensor, cache: dict,
-                     page_table: torch.Tensor) -> torch.Tensor:
+                     page_table: torch.Tensor,
+                     ctx: Optional[L.Mesh] = None) -> torch.Tensor:
         cfg, rt = self.cfg, self.rt
         if rt.planner and planner.plannable(cfg):
             from ..reliability import breaker as _breaker
@@ -312,25 +546,35 @@ class LM:
                         raise
                     _breaker.record_failure(
                         pkey, reason=f"{type(e).__name__}: {e}")
+        p = self._layer(p, "attn")
         h = L.apply_norm(p["ln1"], x, cfg)
         mix, _ = L.paged_attention_block(
             p["mix"], h, cfg, positions=positions, cache=cache,
             page_table=page_table, kernel_ops=rt.kernel_ops,
-            block=rt.paged_block)
+            block=rt.paged_block, ctx=ctx)
         x = x + mix
         h2 = L.apply_norm(p["ln2"], x, cfg)
-        return x + L.feed_forward(p["ff"], h2, cfg)
+        return x + L.feed_forward(p["ff"], h2, cfg, ctx)
 
     def _run_layers(self, params: dict, x: torch.Tensor,
                     positions: torch.Tensor, cache: list,
-                    page_table: torch.Tensor) -> torch.Tensor:
+                    page_table: torch.Tensor,
+                    ctx: Optional[L.Mesh] = None) -> torch.Tensor:
         for p, c in zip(params["layers"], cache):
-            x = self._apply_layer(p, x, positions, c, page_table)
+            x = self._apply_layer(p, x, positions, c, page_table, ctx)
         return x
 
     def _unembed(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        """Logits of the final norm of x, gathered whole over the vocab
+        (or summed over ``d_model`` blocks) under a tensor-parallel
+        dim."""
         x = L.apply_norm(params["final_norm"], x, self.cfg)
-        return x @ self._unembed_w(params)
+        w = self._unembed_w(params)
+        if self._tp is None:
+            return x @ w
+        if self._vocab_sharded(w):
+            return self._tp.all_gather(x @ w, -1)
+        return self._tp.all_reduce(self._tp.shard(x, -1) @ w)
 
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> list:
@@ -343,9 +587,17 @@ class LM:
         cfg, dev = self.cfg, self.device
         dt = getattr(torch, cfg.dtype)
         caches = []
+        shards = (1, 1)
+        if self.rt.mesh is not None:
+            kv = self.cache_specs(batch)[0]["k"]
+            n = self._tp.size if self._tp is not None else 1
+            shards = (n, 1) if kv[1] is not None else (1, n)
+            bx = self._bax(batch)
+            batch //= bx.size if bx is not None else 1
         for kind in self.kinds:
             if kind == "attn":
-                caches.append(L.init_attn_cache(cfg, batch, max_len, dev))
+                caches.append(L.init_attn_cache(cfg, batch, max_len, dev,
+                                                shards))
                 continue
             if kind == "mamba":
                 s = cfg.ssm
@@ -367,9 +619,10 @@ class LM:
         return caches
 
     def _run_cached(self, params: dict, x: torch.Tensor,
-                    positions: torch.Tensor, cache: list) -> torch.Tensor:
+                    positions: torch.Tensor, cache: list,
+                    ctx: Optional[L.Mesh] = None) -> torch.Tensor:
         for kind, p, c in zip(self.kinds, params["layers"], cache):
-            x = self._apply_block(kind, p, x, positions, c)
+            x = self._apply_block(kind, p, x, positions, c, ctx)
         return x
 
     @torch.no_grad()
@@ -380,10 +633,14 @@ class LM:
         into a fresh ``init_cache`` cache, IN PLACE.  tokens: (B, S),
         every prompt of the same length.  Returns (the last prompt
         token's logits (B, V), cache)."""
+        b = tokens.shape[0]
+        tokens = self._local(tokens, b)
+        prefix_embeds = self._local(prefix_embeds, b)
         positions = self._positions(tokens, prefix_embeds)
         x = self._embed(params, tokens, positions, prefix_embeds)
-        x = self._run_cached(params, x, positions, cache)
-        return self._unembed(params, x[:, -1:])[:, 0], cache
+        x = self._run_cached(params, x, positions, cache, self._ctx(b))
+        return self._global(self._unembed(params, x[:, -1:])[:, 0],
+                            b), cache
 
     @torch.no_grad()
     def decode_step(self, params: dict, cache: list, tokens: torch.Tensor,
@@ -393,10 +650,11 @@ class LM:
         tensor, the absolute position every row writes — a tensor on
         the model's device, so that a captured step reads it from
         there.  Returns (logits (B, V), cache)."""
+        b = tokens.shape[0]
         positions = pos.reshape(1).to(torch.int32)
-        x = self._embed(params, tokens[:, None], positions)
-        x = self._run_cached(params, x, positions, cache)
-        return self._unembed(params, x)[:, 0], cache
+        x = self._embed(params, self._local(tokens, b)[:, None], positions)
+        x = self._run_cached(params, x, positions, cache, self._ctx(b))
+        return self._global(self._unembed(params, x)[:, 0], b), cache
 
     # ------------------------------------------------------------------
     def init_paged_cache(self, n_pages: int, page_size: int) -> list:
@@ -415,7 +673,11 @@ class LM:
             raise NotImplementedError(
                 f"paged serving does not thread prefix embeddings yet; "
                 f"{cfg.name} needs n_prefix_embeds={cfg.n_prefix_embeds}")
-        shape = (n_pages, cfg.n_kv_heads, page_size, cfg.dh)
+        hkv = cfg.n_kv_heads
+        if (self._tp is not None and hkv % self._tp.size == 0
+                and not self.rt.dist_decode_attn):
+            hkv //= self._tp.size       # this rank's kv heads
+        shape = (n_pages, hkv, page_size, cfg.dh)
         dt = getattr(torch, cfg.dtype)
         return [{"k_pages": torch.zeros(shape, dtype=dt, device=self.device),
                  "v_pages": torch.zeros(shape, dtype=dt, device=self.device)}
@@ -431,13 +693,17 @@ class LM:
         the real prompt length — padding rows get position -1, so their
         kv lands on the scratch page and their logits are never read.
         Returns (logits of the last REAL token (1, V), cache)."""
+        b0 = tokens.shape[0]
+        tokens, page_table = (self._local(tokens, b0),
+                              self._local(page_table, b0))
         b, s = tokens.shape
         ar = torch.arange(s, dtype=torch.int32, device=tokens.device)
         positions = torch.where(ar < length, ar, -1)[None, :].expand(b, s)
         x = self._embed(params, tokens, positions)
-        x = self._run_layers(params, x, positions, cache, page_table)
+        x = self._run_layers(params, x, positions, cache, page_table,
+                             self._ctx(b0))
         logits = self._unembed(params, x[:, max(length - 1, 0)][:, None])
-        return logits[:, 0], cache
+        return self._global(logits[:, 0], b0), cache
 
     @torch.no_grad()
     def decode_step_paged(self, params: dict, cache: list,
@@ -450,7 +716,11 @@ class LM:
         absolute position each slot writes this step (-1 = inactive
         slot: kv goes to the scratch page, logits are ignored);
         page_table: (B, max_pages).  Returns (logits (B, V), cache)."""
+        b = tokens.shape[0]
+        tokens, positions, page_table = (
+            self._local(t, b) for t in (tokens, positions, page_table))
         pos2 = positions.to(torch.int32)[:, None]
         x = self._embed(params, tokens[:, None], pos2)
-        x = self._run_layers(params, x, pos2, cache, page_table)
-        return self._unembed(params, x)[:, 0], cache
+        x = self._run_layers(params, x, pos2, cache, page_table,
+                             self._ctx(b))
+        return self._global(self._unembed(params, x)[:, 0], b), cache

@@ -52,6 +52,10 @@ class EncDec:
                              f"configs are models.lm.LM's")
         self.cfg = cfg
         self.rt = rt or Runtime()
+        if self.rt.mesh is not None:
+            raise NotImplementedError(
+                f"mesh execution covers the dense family; {cfg.name} "
+                f"(encoder-decoder) comes with ROADMAP Queue 1 item 4")
         self.device = torch.device(device)
 
     # ------------------------------------------------------------------

@@ -35,7 +35,16 @@ eager: its shape changes with each prompt.
 The decode attention's (bq, bkv) tiles are a tuner decision: at
 construction the engine tunes the paged attention chain for its decode
 shape (``core.api.fuse_attention_paged``, persistent-cached) and threads
-the winning tiles into the model's ``Runtime``.  Under
+the winning tiles into the model's ``Runtime``.  Under a mesh
+(``Runtime(mesh=...)``) the choice is also the regime's
+(``kernels.ops.paged_attention_regime_choice``: paged-spatial,
+paged-ring or paged-ring-pipelined), threaded into the ``Runtime`` as
+its ``dist_decode_attn``/``dist_decode_pipelined``; the pools are then
+whole on every rank for the ring regimes, heads-sharded otherwise.
+Every rank runs the same scheduler on the same requests.  A gloo
+collective cannot be captured in a CUDA graph, so under a mesh the
+decode step runs eagerly, and ``stats["decode_graph"]`` says why
+(``"eager-mesh"``; ``"captured"`` or ``"eager"`` otherwise).  Under
 ``Runtime(planner=True)`` it also plans the steady-state decode block
 at construction (``core.planner``), so the first step never pays the
 carve.
@@ -159,7 +168,11 @@ class ServingEngine:
     fatal).  eager_decode: on a CUDA device, run each decode step op by
     op instead of replaying the captured one; otherwise only a demotion
     to tier 2 (counted in ``stats["tier_demotions"]``) runs the eager
-    step on the card.
+    step on the card.  choose_regime: tune the decode attention's
+    regime and tiles (under a mesh, the regime search); False runs the
+    regime the model's ``Runtime`` states (a ring regime under
+    ``dist_decode_attn``, pipelined under ``dist_decode_pipelined``) at
+    its ``paged_block`` tiles.
     """
 
     def __init__(self, model, params, *, max_batch: int = 4,
@@ -210,12 +223,27 @@ class ServingEngine:
         self.shadow_wall_s = {"prefill": [], "decode": []}
         self.shadow_gap = 0.0
         self.golden_probe_s: Optional[float] = None
-        self.regime_source, tiles = (self._choose_regime(model)
-                                     if choose_regime else (None, None))
-        if tiles != model.rt.paged_block:
-            model = type(model)(
-                model.cfg, dataclasses.replace(model.rt, paged_block=tiles),
-                device=model.device)
+        rt = model.rt
+        if choose_regime:
+            self.regime, self.regime_source, self.regime_times, tiles = (
+                self._choose_regime(model))
+            ring = rt.mesh is not None and self.regime != "paged-spatial"
+            pipe = ring and self.regime == "paged-ring-pipelined"
+            if (tiles != rt.paged_block or rt.dist_decode_attn != ring
+                    or rt.dist_decode_pipelined != pipe):
+                # the tuner's decision is authoritative in both directions
+                model = type(model)(
+                    model.cfg, dataclasses.replace(
+                        rt, paged_block=tiles, dist_decode_attn=ring,
+                        dist_decode_pipelined=pipe), device=model.device)
+        else:
+            if rt.dist_decode_attn and rt.mesh is None:
+                raise ValueError("a ring regime (dist_decode_attn) needs a "
+                                 "mesh")
+            self.regime = ("paged-spatial" if not rt.dist_decode_attn
+                           else "paged-ring-pipelined"
+                           if rt.dist_decode_pipelined else "paged-ring")
+            self.regime_source, self.regime_times = None, {}
         self.model = model
         self.device = dev = model.device
         self._window = int(model.cfg.window or 0)
@@ -245,7 +273,11 @@ class ServingEngine:
                                      device=dev)
         self._table = torch.full((max_batch, max_pages_per_seq), -1,
                                  dtype=torch.int32, device=dev)
-        self._graphed = dev.type == "cuda" and not eager_decode
+        self._graphed = (dev.type == "cuda" and not eager_decode
+                         and rt.mesh is None)
+        self._decode_graph = ("captured" if self._graphed else
+                              "eager-mesh" if rt.mesh is not None
+                              and dev.type == "cuda" else "eager")
         self.captured = None         # the current tier's graph
         self._captured_gen = -1      # the breaker generation it saw
         self._shadow_graphs = None   # (save, restore, twin) graphs
@@ -557,22 +589,39 @@ class ServingEngine:
 
     # ------------------------------------------------------------------
     def _choose_regime(self, model):
-        """(schedule source, (bq, bkv)) of the paged attention tuned for
-        this engine's decode shape (q=1 row over the full ``n_ctx``
-        paged context) — served from the persistent schedule cache on
-        warm starts."""
+        """(regime, schedule source, modelled times by regime, (bq,
+        bkv)) of the paged attention tuned for this engine's decode
+        shape (q=1 row over the full ``n_ctx`` paged context) — served
+        from the persistent schedule cache on warm starts.  Without a
+        mesh the one regime is paged-spatial; under one the regime
+        search of ``kernels.ops.paged_attention_regime_choice``, whose
+        winner every rank must share (``ops._agree``)."""
         from ..core import api
-        cfg = model.cfg
-        tk = api.fuse_attention_paged(
-            1, self.n_ctx, cfg.dh, cfg.dh, page_size=self.page_size,
-            heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
-            batch=self.max_batch, dtype=cfg.dtype, causal=True)
+        from ..kernels import ops
+        cfg, rt = model.cfg, model.rt
+        if rt.mesh is None or not rt.rules.enabled:
+            tk = api.fuse_attention_paged(
+                1, self.n_ctx, cfg.dh, cfg.dh, page_size=self.page_size,
+                heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+                batch=self.max_batch, dtype=cfg.dtype, causal=True)
+            regime, times = "paged-spatial", {
+                "paged-spatial": tk.report.best_time}
+        else:
+            choice, _ = ops.paged_attention_regime_choice(
+                rt.rules, rt.mesh, batch=self.max_batch,
+                q_heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, q_len=1,
+                kv_len=self.n_ctx, head_dim=cfg.dh,
+                page_size=self.page_size, dtype=cfg.dtype)
+            regime, tk, times = choice.regime, choice.kernel, choice.times
+            ops._agree(("engine", regime, self.n_ctx, tk.params.bq,
+                        tk.params.bkv))
         if self.verbose:
-            print(f"paged regime[decode q=1 kv={self.n_ctx}]: "
-                  f"paged-spatial bq={tk.params.bq} bkv={tk.params.bkv} "
-                  f"({tk.report.best_time * 1e6:.1f}us modelled, "
-                  f"schedule from {tk.source})")
-        return tk.source, (tk.params.bq, tk.params.bkv)
+            print(f"paged regime[decode q=1 kv={self.n_ctx}]: {regime} "
+                  f"bq={tk.params.bq} bkv={tk.params.bkv} ("
+                  + " ".join(f"{k}={v * 1e6:.1f}us"
+                             for k, v in times.items())
+                  + f" modelled, schedule from {tk.source})")
+        return regime, tk.source, dict(times), (tk.params.bq, tk.params.bkv)
 
     def _page_table(self, allocs) -> torch.Tensor:
         return torch.from_numpy(KP.table_array(allocs, self.max_pages)).to(
@@ -923,6 +972,8 @@ class ServingEngine:
         stats["wall_s"] = dt
         stats["tok_per_s"] = stats["generated"] / dt if dt > 0 else 0.0
         stats["exec_tier"] = TIERS[self.exec_tier]
+        stats["regime"] = self.regime
+        stats["decode_graph"] = self._decode_graph
         stats["watchdog_breaches"] = self.watchdog.breaches
         stats["max_step_s"] = self.watchdog.max_step_s
         stats["decode_step_wall_s"] = list(self.decode_step_wall_s)
