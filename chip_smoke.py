@@ -157,9 +157,10 @@ which raises on failure:
       of the single-card kernel path, 36 attention launches a rank a
       call; (c) ``generate`` on the sharded runtime of ``launch.serve
       --shard-model 4`` (batch 4, prompt 128, 32 tokens) for qwen3-8b
-      (heads-sharded cache) and granite-20b (sequence-sharded cache,
-      ``distributed_decode_attention``): the greedy tokens' agreement
-      printed, and the last step's logits, its inputs forced to the
+      (heads-sharded cache) and granite-20b at 26 of its 52 layers
+      (sequence-sharded cache, ``distributed_decode_attention``): the
+      greedy tokens' agreement printed, and the last step's logits, its
+      inputs forced to the
       single-card run's tokens, within E2E_REL_TOL; (d) the continuous
       engine under the mesh on qwen3-8b, 8 ragged requests of up to 96
       + 32 positions (8 pages of 16), the tuner's paged regime printed,
@@ -171,6 +172,46 @@ which raises on failure:
       moved through host memory, the launches summed over the ranks and
       the walls (through gloo on one card, not kernel times); a
       ``{"dist": ...}`` line;
+   l. training under the mesh (``dist_train_phase``, after 4k), worlds
+      of spawned ranks as in 4k: (a) qwen3-8b at FULL widths cut to 4
+      of 36 layers on a 2 x 2 ("data", "model") world, one sequence of
+      2048 a data rank, first one single-card step of
+      ``launch.steps.make_train_step`` on the same weights and batch in
+      a process of its own (its results on the host), then one sharded
+      step on the ranks: the loss within DIST_TRAIN_LOSS_REL_TOL, the
+      global grad norm within DIST_TRAIN_GNORM_REL_TOL, each rank's
+      block of each leaf's reduced gradient within
+      DIST_TRAIN_GRAD_REL_TOL, after the update no element past 2 lr
+      and one spacing and each rank's block of each leaf (the
+      zero-initialised norm scales printed) at most
+      DIST_TRAIN_FLIP_SHARE apart by more than lr;
+      the state saved whole (rank 0 writes), two more steps whose loss
+      must fall; the step walls through gloo, the tensors through host
+      memory and each rank's peak printed; (b) rank 3 dropped:
+      ``elastic_remesh`` over ranks 0-2 at model axis 2 must give 1 x 2,
+      ``replace_state`` re-shards the saved state onto a 2-rank world,
+      and (a)'s loss after its first step within ELASTIC_LOSS_REL_TOL;
+      (c) whisper-small at FULL width and depth replicated on a 4 x 1
+      world, B=4 x 448 over 1500 frames, one example a rank: three
+      ``--compress-grads`` steps (int8 error feedback) against three
+      steps of one card's plain ``make_train_step`` on the whole batches
+      from the same weights (made first, in a process of its own): step
+      0's losses within COMPRESSED_STEP0_REL_TOL, every step's loss and
+      step 0's grad norm within COMPRESSED_REL_TOL, the residuals
+      non-zero; (d) olmoe-1b-7b FULL
+      on a 1 x 4 world (``ep``: 16 experts a rank): every layer on the
+      single-card kernel path's input with its routing pinned, the
+      attention output and layer output within FORWARD_REL_TOL per
+      token, the sharded loss with the kernels within
+      MOE_FLIP_LOSS_REL_TOL of one card's, 16 ``fused_attention``
+      launches a rank a call (loss and forward), the engine under the
+      mesh in the tuner's paged regime on 8 ragged requests with
+      partial launches a rank = decode steps x 16, nothing degraded,
+      its greedy tokens' agreement with one card's printed; then the
+      engine's model in f32 (its Runtime, the weights drawn in f32) on
+      two prompts with one card's f32 routing pinned: both prefills'
+      logits and the first decode step's within MOE_MESH_F32_REL_TOL of
+      one card's; a ``{"dist_train": ...}`` line;
    g. training (``training_phase``), after every serving phase with
       their weights freed: qwen3-8b at every FULL width with the depth
       cut to 8 of 36 layers (AdamW's 16 B a parameter: 131 GB for 36
@@ -229,8 +270,11 @@ T1 of 4i (recurrentgemma-2b at full depth, RG_T1_LIMITS) unfaulted,
 with one RG-LRU block's output detached, and with the RG-LRU scan off
 by one position, then mamba2-1.3b's SSD check with the inter-chunk
 term dropped and whisper-small's decode check with every layer's
-cross-attention fed the layer below's k/v; it fails unless every fault
-goes past its limit.
+cross-attention fed the layer below's k/v, then 4l's (a) unfaulted and
+with each of two planted faults — the data-dim gradient reduction
+skipped on rank 1, the identity-forward / all-reduce-backward op an
+identity both ways — each of which must go past (a)'s gradient limit;
+it fails unless every fault goes past its limit.
 
     python3 chip_smoke.py --reliability
 
@@ -253,6 +297,11 @@ shapes, 4i, 4j, and the kernel times at 4i's shapes; prints an
 runs only the device and build phases, qwen3-8b's and granite-20b's
 single-card results and phase 4k, then its kernel times; prints a
 ``{"dist": ...}`` line.
+
+    python3 chip_smoke.py --dist-train
+
+runs only the device and build phases and phase 4l; prints a
+``{"dist_train": ...}`` line.
 
     python3 chip_smoke.py --train
 
@@ -850,11 +899,13 @@ def end_to_end_check(cfg, params, engine, planned_engine):
                                f"plain path")
 
 
-def _two_request_step(cfg, params, engine, spec=SERVE) -> tuple:
+def _two_request_step(cfg, params, engine, spec=SERVE,
+                      prefill_logits=None) -> tuple:
     """A fresh paged cache holding the first two requests' prompts (of
     the workload ``spec``), prefilled through ``engine``'s model, and
     the arguments of their first decode step: (cache, (tokens,
-    positions, page table))."""
+    positions, page table)).  Each prefill's last logits are appended
+    to ``prefill_logits`` when it is given."""
     from repro_torch.serving import kv_pages as KP
     model = engine.model
     ps, mp = engine.page_size, engine.max_pages
@@ -874,6 +925,8 @@ def _two_request_step(cfg, params, engine, spec=SERVE) -> tuple:
             torch.from_numpy(KP.table_array([a], mp)).to(engine.device),
             len(prompt))
         allocs.append(a)
+        if prefill_logits is not None:
+            prefill_logits.append(logits)
         last.append(int(torch.argmax(logits[0])))
         lengths.append(len(prompt))
     dev = engine.device
@@ -2866,7 +2919,8 @@ class _Routes:
 
     def __init__(self, pinned=None, noise: float = 0.0):
         self.log, self.attn, self.pinned, self.noise = [], [], pinned, noise
-        self._gen = torch.Generator(device="cuda").manual_seed(7)
+        self._gen = torch.Generator(device="cuda" if torch.cuda.is_available()
+                                    else "cpu").manual_seed(7)
 
     def __enter__(self):
         from repro_torch.models import layers as L
@@ -3895,7 +3949,22 @@ DIST = dict(
     # are offered
     forward=FORWARD, generate=GENERATE,
     serve=dict(SERVE, prompt_len=96),
-    archs=("qwen3-8b", GRANITE))
+    archs=("qwen3-8b", GRANITE),
+    # granite-20b's depth cut to half (26 of 52 layers, full widths),
+    # to keep the full run well inside its time limit: its two
+    # `generate` calls through gloo's host-staged send/recv took ~60 s
+    # each at 52 layers
+    layers={GRANITE: 26})
+
+
+def _dist_cfg(arch, dist, dev="cuda"):
+    """Phase 4k's config of ``arch``: FULL on the card (SMOKE on the
+    CPU), at ``dist["layers"]``' depth where it names the model."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch, smoke=dev != "cuda")
+    n = dist.get("layers", {}).get(arch)
+    return cfg if n is None else dataclasses.replace(
+        cfg, n_layers=min(cfg.n_layers, n))
 
 
 def _seeded(shapes, dt, seed, dev, scaled=True):
@@ -4329,12 +4398,11 @@ def _dist_rank(rank, refdir, dist, dev, arch):
     memory."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.configs import get_config
     from repro_torch.dist import collectives
     from repro_torch.models.lm import LM
     from repro_torch.launch.serve import report_attention_regimes
     r = _DistRank(rank, dist, dev)
-    cfg = get_config(arch, smoke=dev != "cuda")
+    cfg = _dist_cfg(arch, dist, dev)
     fwd = dist["forward"]       # the regime (b)'s forward shape gets
     r.out["regimes"][f"forward {arch}"] = report_attention_regimes(
         cfg, r.mesh, r.rules, batch=fwd["batch"], prompt_len=fwd["seq"],
@@ -4361,10 +4429,9 @@ def _dist_rank(rank, refdir, dist, dev, arch):
 def dist_refs_all(refdir, dist=DIST) -> None:
     """``dist_refs`` of every model of phase 4k, each initialised on the
     card as the ranks make it (seed 0) and freed."""
-    from repro_torch.configs import get_config
     for i, arch in enumerate(dist["archs"]):
-        cfg = get_config(arch)
-        params = init_phase(cfg)
+        cfg = _dist_cfg(arch, dist)
+        params = init_phase(cfg, "4k's depth")
         dist_refs(cfg, params, refdir, first=i == 0, dist=dist)
         del params
         _free("cuda")
@@ -4545,6 +4612,695 @@ def dist_time_phase(dist=DIST) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 4l: training under the mesh
+# ---------------------------------------------------------------------------
+# Worlds of spawned ranks as in 4k (gloo, every rank on the one card), each
+# model in a world of its own.  (a) qwen3-8b at FULL widths cut to
+# DIST_TRAIN["train"]["n_layers"] layers on a 2 x 2 world, one sequence a
+# data rank, held against one single-card step on the same weights and
+# batch (made first, in a process of its own, its results on the host);
+# (b) its state after that step, written whole, re-meshed onto 1 x 2;
+# (c) whisper-small's compressed step on 4 x 1; (d) olmoe-1b-7b on 1 x 4.
+# The limits: the loss and norm of 4g's T1; each leaf's gradient, of
+# this rank's block, as PERF.md's prediction for 4l states it (bf16 on
+# both sides, sums in other orders).  After the update: Adam's first
+# step moves each weight by about lr whatever its gradient's size, so
+# two correct steps differ only where a gradient element's sign did
+# (by 2 lr), and where the new weight rounded to the other side of a
+# boundary of its type (one spacing): every element within 2 lr and one
+# spacing, and in each rank's block of each leaf at most
+# DIST_TRAIN_FLIP_SHARE of the elements moved apart by more than lr (a
+# gradient within DIST_TRAIN_GRAD_REL_TOL flips about that limit / pi
+# of its signs).  The zero-initialised norm scales (a few hundred
+# elements, weights of about lr after the step, where one flip is a
+# large share) are held by the elementwise rule alone, their flips
+# printed.
+DIST_TRAIN_LOSS_REL_TOL = 1e-4
+DIST_TRAIN_GNORM_REL_TOL = 2e-3
+DIST_TRAIN_GRAD_REL_TOL = 5e-2
+DIST_TRAIN_FLIP_SHARE = 2e-2
+ELASTIC_LOSS_REL_TOL = 1e-4
+# (c): against one card's plain step on the whole batch: step 0's loss
+# is the same function at other GEMM shapes (4g's T1 loss limit); every
+# step's loss and step 0's gradient norm (int8 rounding) within the JAX
+# package's own bound (tests/test_substrate.py)
+COMPRESSED_STEP0_REL_TOL = 1e-4
+COMPRESSED_REL_TOL = 5e-2
+# (d): the engine's model under the mesh in f32 against one card's in
+# f32, one card's routing pinned: the two prompts' prefill logits and
+# the first decode step's (f32 on both sides, as MAMBA_F32_REL_TOL)
+MOE_MESH_F32_REL_TOL = 1e-3
+DIST_TRAIN = dict(
+    world=4,
+    train=dict(arch="qwen3-8b", n_layers=4, model_axis=2, batch=2,
+               seq=2048, seed=11, lr=3e-4, more=2),
+    remesh=dict(survivors=(0, 1, 2)),
+    compressed=dict(arch=WHISPER, batch=4, seq=448, steps=3, seed=12,
+                    lr=3e-4),
+    moe=dict(arch=OLMOE, model_axis=4, forward=FORWARD,
+             serve=dict(SERVE, prompt_len=96)))
+
+
+def _dt_cfg(spec, dev):
+    """(a)'s config: FULL widths at ``spec["n_layers"]`` layers on the
+    card, SMOKE on the CPU."""
+    from repro_torch.configs import get_config
+    cfg = get_config(spec["arch"], smoke=dev != "cuda")
+    return dataclasses.replace(cfg, n_layers=min(cfg.n_layers,
+                                                 spec["n_layers"]))
+
+
+def _dt_rules():
+    from repro_torch.dist.sharding import Rules
+    return Rules(data=("data",), model="model", tp="model")
+
+
+class _GradTap:
+    """The optimizer of ``steps.make_train_step`` with ``seen(grads,
+    layouts)`` called on the reduced gradients just before the update
+    (which leaves them as they are)."""
+
+    def __init__(self, opt, seen):
+        self.opt, self.seen = opt, seen
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, params, grads, state, layouts=None, mesh=None):
+        self.seen(grads, layouts)
+        return self.opt.update(params, grads, state, layouts, mesh)
+
+
+def _peak_gb(dev) -> float:
+    return torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" else 0.0
+
+
+def _dt_ref_rank(rank, refdir, spec, dev):
+    """(a)'s reference: one single-card step of ``launch.steps``'
+    ``make_train_step`` on (a)'s weights and batch, in a process of its
+    own; its loss, norm, gradients and updated params to ``refdir``."""
+    from repro_torch import tree as T
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import make_optimizer
+    from repro_torch.models.lm import LM, Runtime
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _dt_cfg(spec, dev)
+    model = LM(cfg, Runtime(), device=dev)
+    params = model.init_params(0)
+    opt = make_optimizer(spec["lr"], 1 + spec["more"])
+    keys = [k for k, _ in T.leaves_with_paths(params)]
+    grads = {}
+    tap = _GradTap(opt, lambda gs, _: grads.update(
+        {k: g.detach().cpu() for k, g in zip(keys, gs)}))
+    step = S.make_train_step(model, tap)
+    state = tap.init(params)
+    batch = _dist_batch(cfg, spec, dev)
+    t0 = time.perf_counter()
+    params, state, info = step(params, state, batch)
+    loss, gnorm = float(info["loss"]), float(info["grad_norm"])
+    wall = time.perf_counter() - t0
+    torch.save({"grads": grads, "loss": loss, "grad_norm": gnorm,
+                "params": {k: p.detach().cpu()
+                           for k, p in T.leaves_with_paths(params)}},
+               os.path.join(refdir, "train_ref.pt"))
+    return dict(loss=loss, grad_norm=gnorm, wall=wall, peak_gb=_peak_gb(dev))
+
+
+@contextlib.contextmanager
+def _dt_fault(fault: str, rank: int):
+    """``--plant-faults``' training faults, for the duration: the
+    data-dim gradient reduction skipped on rank 1 (it joins the
+    all-reduce and keeps its own sums, so no rank waits), or
+    ``Axis.enter`` an identity both ways (a replicated input's gradient
+    left one rank's part)."""
+    from repro_torch.dist import collectives
+    from repro_torch.launch import steps as S
+    real_reduce, real_enter = S.reduce_gradients, collectives.Axis.enter
+    if fault == "data reduction skipped on rank 1" and rank == 1:
+        S.reduce_gradients = lambda model, grads, *a: real_reduce(
+            model, [g.clone() for g in grads], *a)
+    elif fault == "enter an identity both ways":
+        collectives.Axis.enter = lambda self, x: x
+    try:
+        yield
+    finally:
+        S.reduce_gradients, collectives.Axis.enter = real_reduce, real_enter
+
+
+def _dt_train_rank(rank, refdir, ckdir, spec, dev, faults):
+    """(a) on one rank of the 2 x 2 world: this rank's shards of (a)'s
+    weights, one sharded ``make_train_step``, each leaf's reduced
+    gradient and updated block held against the reference's block, the
+    state saved whole (rank 0 writes), two more steps on the same batch;
+    then each planted fault on a fresh copy of the weights."""
+    from repro_torch import tree as T
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.dist import collectives
+    from repro_torch.dist.collectives import shard_dims
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import make_optimizer
+    from repro_torch.models.lm import LM, Runtime
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _dt_cfg(spec, dev)
+    mesh = make_host_mesh(spec["model_axis"])
+    model = LM(cfg, Runtime(rules=_dt_rules(), mesh=mesh), device=dev)
+    ref = torch.load(os.path.join(refdir, "train_ref.pt"), mmap=True)
+    batch = _dist_batch(cfg, spec, dev)
+    out = {"walls": {}, "grad_rel": {}, "param_rel": {}, "faults": {}}
+
+    def held(got, want, layouts) -> dict:
+        return {k: _grad_distance(g, shard_dims(want[k], lay, mesh).to(
+            g.device))[0] for (k, _), g, lay in zip(
+                T.leaves_with_paths(params), got, layouts)}
+
+    def one_step(tag):
+        nonlocal params, state
+        seen = {}
+        tap = _GradTap(make_optimizer(spec["lr"], 1 + spec["more"]),
+                       lambda gs, lay: seen.update(
+                           held(gs, ref["grads"], lay)))
+        step = S.make_train_step(model, tap)
+        t0 = time.perf_counter()
+        params, state, info = step(params, state, batch)
+        loss = float(info["loss"])
+        out["walls"][tag] = time.perf_counter() - t0
+        return loss, float(info["grad_norm"]), seen
+
+    opt = make_optimizer(spec["lr"], 1 + spec["more"])
+    params = model.init_params(0)
+    state = opt.init(params)
+    zero_init = {k for k, p in T.leaves_with_paths(params) if not p.any()}
+    out["loss"], out["grad_norm"], out["grad_rel"] = one_step("step 1")
+    layouts = T.leaves(model.param_specs(), like=params)
+    out["param_rel"], out["update"] = {}, {}
+    for (k, p), lay in zip(T.leaves_with_paths(params), layouts):
+        want = shard_dims(ref["params"][k], lay, mesh).to(p.device).float()
+        d = (p.detach().float() - want).abs()
+        spacing = torch.exp2(torch.floor(torch.log2(want.abs().clamp(
+            min=1e-30)))) * torch.finfo(p.dtype).eps
+        out["update"][k] = dict(
+            flipped=int((d > spec["lr"]).sum()), elements=d.numel(),
+            over_bound=int((d > 2 * spec["lr"] + spacing).sum()),
+            zero_init=k in zero_init)
+        out["param_rel"][k] = _grad_distance(p.detach(), want)[0]
+    t0 = time.perf_counter()
+    ckpt.save(ckdir, 1, {"params": params, "step": state["step"]},
+              layouts={"params": model.param_specs(), "step": ()},
+              mesh=mesh)
+    out["walls"]["save whole"] = time.perf_counter() - t0
+    out["more_losses"] = []
+    for i in range(spec["more"]):
+        loss, _, _ = one_step(f"step {i + 2}")
+        out["more_losses"].append(loss)
+    out["peak_gb"] = _peak_gb(dev)
+    out["host_hops"] = {k: list(v) for k, v in
+                        collectives.HOST_HOPS.items()}
+    out["traffic"] = {k: list(v) for k, v in collectives.TRAFFIC.items()}
+    for fault in faults:
+        del params, state
+        _free(dev)
+        params = model.init_params(0)
+        state = opt.init(params)
+        with _dt_fault(fault, rank):
+            _, _, rel = one_step(f"planted {fault}")
+        out["faults"][fault] = max(rel.values())
+    return out
+
+
+def _dt_remesh_rank(rank, ckdir, spec, dev):
+    """(b) on one rank of the re-meshed world: the whole state read on
+    the host, ``replace_state`` onto the 1 x 2 mesh, (a)'s loss."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import LM, Runtime
+    from repro_torch.runtime.fault_tolerance import replace_state
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _dt_cfg(spec, dev)
+    mesh = make_host_mesh(spec["model_axis"])
+    model = LM(cfg, Runtime(rules=_dt_rules(), mesh=mesh), device=dev)
+    t0 = time.perf_counter()
+    whole = ckpt.restore(ckdir, 1)
+    params = replace_state(whole["params"], mesh, model.param_specs(),
+                           device=dev)
+    restore_s = time.perf_counter() - t0
+    del whole
+    with torch.inference_mode():
+        loss = float(model.loss(params, _dist_batch(cfg, spec, dev)))
+    return dict(loss=loss, step=int(ckpt.restore(ckdir, 1)["step"]),
+                restore_s=restore_s, peak_gb=_peak_gb(dev))
+
+
+def _dt_compressed_setup(spec, dev) -> tuple:
+    """(c)'s model without a mesh and its ``spec["steps"]`` whole
+    batches (tokens, labels, frames)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import side_embeds
+    from repro_torch.models.lm import Runtime
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(spec["arch"], smoke=dev != "cuda")
+    batches = []
+    for t in range(spec["steps"]):
+        b = _dist_batch(cfg, dict(spec, seed=spec["seed"] + t), dev)
+        b["frames"] = side_embeds(cfg, cfg.encoder.n_frames, spec["batch"],
+                                  spec["seed"], t, dev)
+        batches.append(b)
+    return S.build_model(cfg, Runtime(), device=dev), batches
+
+
+def _dt_steps(step, state, batches) -> dict:
+    """Run ``step(*state, batch)`` over ``batches``: each step's loss,
+    gradient norm and wall, and the last state."""
+    out = dict(losses=[], grad_norms=[], walls=[])
+    for b in batches:
+        t0 = time.perf_counter()
+        *state, info = step(*state, b)
+        out["losses"].append(float(info["loss"]))
+        out["grad_norms"].append(float(info["grad_norm"]))
+        out["walls"].append(time.perf_counter() - t0)
+    return out, state
+
+
+def _dt_compressed_ref(rank, spec, dev):
+    """(c)'s reference, in a process of its own: one card's plain
+    ``steps.make_train_step`` on the whole batches from the seed-0
+    weights."""
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import make_optimizer
+    model, batches = _dt_compressed_setup(spec, dev)
+    opt = make_optimizer(spec["lr"], spec["steps"])
+    params = model.init_params(0)
+    out, _ = _dt_steps(S.make_train_step(model, opt),
+                       (params, opt.init(params)), batches)
+    return dict(out, peak_gb=_peak_gb(dev))
+
+
+def _dt_compressed_rank(rank, spec, dev):
+    """(c) on one rank of the 4 x 1 world: whisper-small's
+    ``make_compressed_train_step`` for ``spec["steps"]`` steps from the
+    seed-0 weights, each rank on its block of the whole batches."""
+    from repro_torch import tree as T
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import make_optimizer
+    model, batches = _dt_compressed_setup(spec, dev)
+    opt = make_optimizer(spec["lr"], spec["steps"])
+    params = model.init_params(0)
+    out, (_, _, res) = _dt_steps(
+        S.make_compressed_train_step(model, opt, make_host_mesh(1)),
+        (params, opt.init(params), S.init_grad_residuals(params)), batches)
+    return dict(out, peak_gb=_peak_gb(dev), residual_max=max(
+        float(r.abs().max()) for r in T.leaves(res)))
+
+
+def _dt_f32_two_request(cfg, engine, spec, dev, pinned=None) -> tuple:
+    """The f32 twin of ``engine`` (an engine of its sizes on its model's
+    Runtime, the seed-0 weights drawn in f32, its regime and tiles tuned
+    anew for f32) on ``_two_request_step``'s two prompts: (the prefills'
+    last logits, the first decode step's logits, the routing log of
+    every route call), routed as ``pinned`` when it is given.  Frees
+    ``engine`` first."""
+    from repro_torch.models.lm import LM
+    from repro_torch.serving import ServingEngine
+    rt = engine.model.rt
+    sizes = dict(max_batch=engine.max_batch, page_size=engine.page_size,
+                 n_pages=engine.pool.n_pages,
+                 max_pages_per_seq=engine.max_pages)
+    del engine
+    _free(dev)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    model = LM(cfg, rt, device=dev)
+    params = model.init_params(0)
+    engine = ServingEngine(model, params, **sizes)
+    prefill = []
+    with torch.inference_mode(), _Routes(pinned=pinned) as routes:
+        cache, args = _two_request_step(cfg, params, engine, spec, prefill)
+        step = engine.model.decode_step_paged(params, cache, *args)[0]
+    out = (torch.cat(prefill).float(), step.float(), routes.log)
+    del params, model, engine, cache
+    _free(dev)
+    return out
+
+
+def _dt_moe_refs(refdir, spec, dev) -> dict:
+    """(d)'s single-card results, on the card in the parent: olmoe-1b-7b
+    at seed 0 with the kernels — every layer's input, attention output,
+    output and routing on (d)'s batch (``_Routes``), the loss, the
+    engine's greedy tokens on (d)'s workload, and its model's f32 twin
+    on two prompts (``_dt_f32_two_request``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run_continuous
+    from repro_torch.models.lm import LM, Runtime
+    cfg = get_config(spec["arch"], smoke=dev != "cuda")
+    model = LM(cfg, Runtime(kernel_ops=True), device=dev)
+    params = model.init_params(0)
+    batch = _dist_batch(cfg, spec["forward"], dev)
+    tokens = batch["tokens"]
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=dev)
+    refs = {"x": [], "attn": [], "out": [], "topi": []}
+    with torch.inference_mode():
+        refs["loss"] = float(model.loss(params, batch))
+        x = model._embed(params, tokens, positions)
+        for p in params["layers"]:
+            with _Routes() as r:
+                y = model._apply_block("attn", p, x, positions)
+            for key, t in (("x", x), ("attn", r.attn[0]), ("out", y),
+                           ("topi", r.log[0])):
+                refs[key].append(t.cpu())
+            x = y
+        results, _, engine = run_continuous(cfg, model, params,
+                                            **spec["serve"], verbose=False)
+    refs["engine tokens"] = [r.tokens for r in results]
+    del params, model, results
+    prefill, step, log = _dt_f32_two_request(cfg, engine, spec["serve"],
+                                             dev)
+    refs["f32"] = dict(prefill=prefill.cpu(), decode=step.cpu(),
+                       routes=[t.cpu() for t in log])
+    torch.save(refs, os.path.join(refdir, "moe_ref.pt"))
+    return {"loss": refs["loss"]}
+
+
+def _dt_moe_rank(rank, refdir, spec, dev):
+    """(d) on one rank of the 1 x 4 world (``ep``: 16 of 64 experts a
+    rank): every layer on the single-card layer's input with its routing
+    pinned, held per token; the loss and forward with the kernels (one
+    ``fused_attention`` launch a layer a call); the engine in the
+    tuner's paged regime (one partial launch a layer a decode step),
+    nothing degraded; then the engine's model in f32 on two prompts, one
+    card's routing pinned (``_dt_f32_two_request``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import run_continuous, sharded_runtime
+    from repro_torch.models.lm import LM, Runtime
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(spec["arch"], smoke=dev != "cuda")
+    mesh = make_host_mesh(spec["model_axis"])
+    model = LM(cfg, Runtime(kernel_ops=True, rules=_dt_rules(), mesh=mesh),
+               device=dev)
+    params = model.init_params(0)
+    refs = torch.load(os.path.join(refdir, "moe_ref.pt"))
+    batch = _dist_batch(cfg, spec["forward"], dev)
+    b, s = batch["tokens"].shape
+    positions = torch.arange(s, dtype=torch.int32, device=dev)
+    names = _path_counters()
+    out = {"launches": {}, "walls": {}}
+    attn_rel, out_rel = [], []
+    with torch.inference_mode():
+        for i, p in enumerate(params["layers"]):
+            x = model._local(refs["x"][i].to(dev), b)
+            with _Routes(pinned=[refs["topi"][i].to(dev)]) as r:
+                y = model._apply_block("attn", p, x, positions,
+                                       ctx=model._ctx(b))
+            attn_rel.append(float(_row_rel(r.attn[0], refs["attn"][i].to(
+                dev)).max()))
+            out_rel.append(float(_row_rel(y, refs["out"][i].to(dev)).max()))
+        out["layer_attn_rel"], out["layer_out_rel"] = max(attn_rel), max(
+            out_rel)
+        for call in ("loss", "forward"):
+            _zero(*names)
+            t0 = time.perf_counter()
+            res = (model.loss(params, batch) if call == "loss"
+                   else model.forward(params, batch["tokens"]))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            out["walls"][call] = time.perf_counter() - t0
+            out["launches"][call] = {k: v for k, v in _read(*names).items()
+                                     if v}
+            if call == "loss":
+                out["loss"] = float(res)
+            elif not torch.isfinite(res).all():
+                raise RuntimeError("[4l (d)] non-finite sharded logits")
+        del res
+    _, _, rt = sharded_runtime(spec["model_axis"], mesh)
+    model = LM(cfg, rt, device=dev)
+    _zero(*names)
+    t0 = time.perf_counter()
+    results, stats, engine = run_continuous(cfg, model, params,
+                                            **spec["serve"],
+                                            verbose=rank == 0)
+    out["walls"]["engine"] = time.perf_counter() - t0
+    out["launches"]["engine"] = {k: v for k, v in _read(*names).items()
+                                 if v}
+    flat = [a == w for t, wt in zip([r.tokens for r in results],
+                                    refs["engine tokens"])
+            for a, w in zip(t, wt)]
+    out["engine"] = dict(regime=stats["regime"],
+                         decode_steps=stats["decode_steps"],
+                         exec_tier=stats["exec_tier"],
+                         demotions=stats["tier_demotions"],
+                         agree=(sum(flat), len(flat)),
+                         pools=tuple(engine.cache[0]["k_pages"].shape))
+    del params, model, results
+    want = refs["f32"]
+    t0 = time.perf_counter()
+    prefill, step, _ = _dt_f32_two_request(
+        cfg, engine, spec["serve"], dev,
+        pinned=[t.to(dev) for t in want["routes"]])
+    out["f32"] = dict(prefill=_rel(prefill, want["prefill"].to(dev)),
+                      decode=_rel(step, want["decode"].to(dev)),
+                      wall=time.perf_counter() - t0)
+    out["deny"] = len(_deny_records())
+    out["peak_gb"] = _peak_gb(dev)
+    return out
+
+
+def dist_train_phase(dist=DIST_TRAIN, dev="cuda",
+                     faults=("none",)) -> dict:
+    """Phase 4l (module doc): (a)–(d), each world spawned after the
+    last one's ranks ended; ``faults`` other than "none" are planted in
+    (a) and must each go past its gradient limit.  Prints every check
+    beside its limit and returns the readings."""
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.runtime.fault_tolerance import elastic_remesh
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    t_all = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="dist-train-")
+    ckdir = os.path.join(tmp, "ckpt")
+    out = {}
+    planted = tuple(f for f in faults if f != "none")
+    try:
+        spec = dist["train"]
+        t0 = time.perf_counter()
+        ref = spawn(_dt_ref_rank, 1, tmp, spec, dev, device=dev,
+                    timeout_s=900)[0]
+        print(f"[4l (a) reference] one card, one step: loss "
+              f"{ref['loss']:.6f}, grad_norm {ref['grad_norm']:.6f}, step "
+              f"{ref['wall']:.2f}s, peak {ref['peak_gb']:.2f} GB "
+              f"({time.perf_counter() - t0:.1f}s with the process)",
+              flush=True)
+        t0 = time.perf_counter()
+        ranks = spawn(_dt_train_rank, dist["world"], tmp, ckdir, spec, dev,
+                      planted, device=dev, timeout_s=900)
+        a_s = time.perf_counter() - t0
+        r0 = ranks[0]
+        loss_rel = abs(r0["loss"] - ref["loss"]) / abs(ref["loss"])
+        gnorm_rel = abs(r0["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+        grad_rel = max(max(r["grad_rel"].values()) for r in ranks)
+        param_rel = max(max(r["param_rel"].values()) for r in ranks)
+        blocks = [(k, u) for r in ranks for k, u in r["update"].items()]
+        upd = {k: sum(u[k] for _, u in blocks)
+               for k in ("flipped", "over_bound", "elements")}
+        shares = sorted(((k, u["flipped"] / u["elements"])
+                         for k, u in blocks if not u["zero_init"]),
+                        key=lambda kv: -kv[1])
+        flip_share = shares[0][1]
+        norms = [u for _, u in blocks if u["zero_init"]]
+        norm_flips = (sum(u["flipped"] for u in norms),
+                      sum(u["elements"] for u in norms),
+                      max(u["flipped"] / u["elements"] for u in norms))
+        worst_p = sorted(((k, v) for r in ranks
+                          for k, v in r["param_rel"].items()),
+                         key=lambda kv: -kv[1])
+        worst = sorted(((k, v) for r in ranks
+                        for k, v in r["grad_rel"].items()),
+                       key=lambda kv: -kv[1])
+        print(f"[4l (a)] {spec['arch']} at "
+              f"{_dt_cfg(spec, dev).n_layers} layers on a "
+              f"{dist['world'] // spec['model_axis']} x {spec['model_axis']}"
+              f" world: loss {r0['loss']:.6f} rel {loss_rel:.3g} (tol "
+              f"{DIST_TRAIN_LOSS_REL_TOL}), grad_norm rel {gnorm_rel:.3g} "
+              f"(tol {DIST_TRAIN_GNORM_REL_TOL}); each rank's block of each "
+              f"leaf: gradient rel max {grad_rel:.3g} (tol "
+              f"{DIST_TRAIN_GRAD_REL_TOL}; the worst "
+              f"{[(k, float(f'{v:.3g}')) for k, v in worst[:3]]}); after the "
+              f"update, elements moved apart by more than lr "
+              f"{upd['flipped']} of {upd['elements']} in all, in a rank's "
+              f"block of a leaf at most {flip_share:.3g} (tol "
+              f"{DIST_TRAIN_FLIP_SHARE}; the worst "
+              f"{[(k, float(f'{v:.3g}')) for k, v in shares[:3]]}), in the "
+              f"zero-initialised norm scales {norm_flips[0]} of "
+              f"{norm_flips[1]} (a block at most {norm_flips[2]:.3g}; "
+              f"printed), past 2 lr and one spacing "
+              f"{upd['over_bound']} (tol 0), a leaf's rel max "
+              f"{param_rel:.3g} (printed; the worst "
+              f"{[(k, float(f'{v:.3g}')) for k, v in worst_p[:3]]}); two more "
+              f"steps' losses {r0['more_losses']}", flush=True)
+        print(f"[4l (a)] walls a rank (s, through gloo on one card, "
+              f"ranks contending): "
+              + json.dumps({k: round(v, 3) for k, v in r0["walls"].items()})
+              + f"; collectives' payload a rank by op (count, bytes; "
+              f"through host memory under gloo) {r0['traffic']}, of it "
+              f"moved by via_host {r0['host_hops']}; "
+              f"peak device memory a rank "
+              f"{[round(r['peak_gb'], 2) for r in ranks]} GB; {a_s:.1f}s")
+        checks = [(loss_rel, DIST_TRAIN_LOSS_REL_TOL, "loss"),
+                  (gnorm_rel, DIST_TRAIN_GNORM_REL_TOL, "grad_norm"),
+                  (grad_rel, DIST_TRAIN_GRAD_REL_TOL, "gradients"),
+                  (flip_share, DIST_TRAIN_FLIP_SHARE, "updates apart"),
+                  (upd["over_bound"], 0, "updates past 2 lr")]
+        if not r0["more_losses"][-1] < r0["loss"]:
+            checks.append((1.0, 0.0, "the loss did not fall"))
+        for fault in planted:
+            got = max(r["faults"][fault] for r in ranks)
+            print(f"[4l (a) planted: {fault}] gradient rel max {got:.4g} "
+                  f"(must exceed {DIST_TRAIN_GRAD_REL_TOL})")
+            if not got > DIST_TRAIN_GRAD_REL_TOL:
+                raise RuntimeError(f"[4l (a)] the planted fault {fault!r} "
+                                   f"passed: {got}")
+        for val, tol, what in checks:
+            if val > tol:
+                raise RuntimeError(f"[4l (a)] {what}: {val} > {tol}")
+        out["train"] = dict(
+            ref=ref, loss=r0["loss"], loss_rel=loss_rel, gnorm_rel=gnorm_rel,
+            grad_rel=grad_rel, param_rel=param_rel, update=upd,
+            flip_share=flip_share, worst_shares=shares[:3],
+            norm_flips=norm_flips,
+            more_losses=r0["more_losses"], walls=r0["walls"],
+            host_hops=r0["host_hops"], traffic=r0["traffic"],
+            peak_gb=[r["peak_gb"] for r in ranks],
+            faults={f: max(r["faults"][f] for r in ranks) for f in planted},
+            seconds=a_s)
+        if planted:
+            return out
+
+        shape, kept = elastic_remesh(list(dist["remesh"]["survivors"]),
+                                     spec["model_axis"])
+        if shape != (1, spec["model_axis"]):
+            raise RuntimeError(f"[4l (b)] elastic_remesh gave {shape}")
+        t0 = time.perf_counter()
+        rem = spawn(_dt_remesh_rank, math.prod(shape), ckdir, spec, dev,
+                    device=dev, timeout_s=900)
+        want = r0["more_losses"][0]     # the loss on (a)'s batch after step 1
+        rel = abs(rem[0]["loss"] - want) / abs(want)
+        print(f"[4l (b)] rank 3 dropped: elastic_remesh over ranks "
+              f"{list(dist['remesh']['survivors'])} -> {shape}, ranks kept "
+              f"{kept}; the state of step {rem[0]['step']} re-sharded by "
+              f"replace_state: loss {rem[0]['loss']:.6f} against the 2 x 2 "
+              f"world's {want:.6f}, rel {rel:.3g} (tol "
+              f"{ELASTIC_LOSS_REL_TOL}); restore {rem[0]['restore_s']:.2f}s"
+              f"; {time.perf_counter() - t0:.1f}s", flush=True)
+        if rel > ELASTIC_LOSS_REL_TOL:
+            raise RuntimeError(f"[4l (b)] re-meshed loss rel {rel}")
+        out["remesh"] = dict(shape=shape, kept=kept, loss=rem[0]["loss"],
+                             want=want, rel=rel,
+                             restore_s=rem[0]["restore_s"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    spec = dist["compressed"]
+    t0 = time.perf_counter()
+    plain = spawn(_dt_compressed_ref, 1, spec, dev, device=dev,
+                  timeout_s=900)[0]
+    comp = spawn(_dt_compressed_rank, dist["world"], spec, dev, device=dev,
+                 timeout_s=900)[0]
+    c, u = comp["losses"], plain["losses"]
+    step0 = abs(c[0] - u[0]) / abs(u[0])
+    each = max(abs(a - b) / abs(b) for a, b in zip(c, u))
+    gnorm0 = abs(comp["grad_norms"][0] - plain["grad_norms"][0]) \
+        / plain["grad_norms"][0]
+    print(f"[4l (c)] {spec['arch']} on a {dist['world']} x 1 world, "
+          f"B={spec['batch']} x {spec['seq']}: compressed losses {c}, "
+          f"one card's plain step on the whole batch {u}; step 0 rel "
+          f"{step0:.3g} (tol {COMPRESSED_STEP0_REL_TOL}), every step "
+          f"{each:.3g} (tol {COMPRESSED_REL_TOL}), step 0's grad_norm "
+          f"{comp['grad_norms'][0]:.6g} against {plain['grad_norms'][0]:.6g}"
+          f", rel {gnorm0:.3g} (tol {COMPRESSED_REL_TOL}); residual max "
+          f"{comp['residual_max']:.4g}; step walls (s) compressed "
+          f"{[round(w, 3) for w in comp['walls']]}, one card's "
+          f"{[round(w, 3) for w in plain['walls']]}; peak "
+          f"{comp['peak_gb']:.2f} GB a rank, {plain['peak_gb']:.2f} GB one "
+          f"card; {time.perf_counter() - t0:.1f}s", flush=True)
+    if step0 > COMPRESSED_STEP0_REL_TOL or each > COMPRESSED_REL_TOL \
+            or gnorm0 > COMPRESSED_REL_TOL or not comp["residual_max"] > 0:
+        raise RuntimeError("[4l (c)] the compressed step left its limits")
+    out["compressed"] = dict(comp, plain=plain, step0_rel=step0,
+                             step_rel=each, grad_norm0_rel=gnorm0)
+
+    spec = dist["moe"]
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="dist-train-moe-")
+    try:
+        mref = _dt_moe_refs(tmp, spec, dev)
+        ranks = spawn(_dt_moe_rank, dist["world"], tmp, spec, dev,
+                      device=dev, timeout_s=900)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0 = ranks[0]
+    from repro_torch.configs import get_config
+    cfg = get_config(spec["arch"], smoke=dev != "cuda")
+    loss_rel = abs(r0["loss"] - mref["loss"]) / abs(mref["loss"])
+    eng = r0["engine"]
+    want_attn = cfg.n_layers if dev == "cuda" else 0
+    want_partial = eng["decode_steps"] * cfg.n_layers if dev == "cuda" \
+        else 0
+    print(f"[4l (d)] {spec['arch']} on a 1 x {spec['model_axis']} world: "
+          f"layer by layer on the single-card inputs, routing pinned: "
+          f"attention output rel max {max(r['layer_attn_rel'] for r in ranks):.3g}"
+          f", layer output {max(r['layer_out_rel'] for r in ranks):.3g} "
+          f"(tol {FORWARD_REL_TOL} each, per token); loss "
+          f"{r0['loss']:.5f} against one card's {mref['loss']:.5f}, rel "
+          f"{loss_rel:.3g} (tol {MOE_FLIP_LOSS_REL_TOL}); launches a rank "
+          f"{r0['launches']} (want {want_attn} fused_attention a call, "
+          f"{want_partial} partial in the engine); engine regime "
+          f"{eng['regime']}, {eng['decode_steps']} decode steps, pools a "
+          f"rank {eng['pools']}, tier {eng['exec_tier']}, greedy tokens "
+          f"equal to one card's {eng['agree']} (printed, not held); the "
+          f"engine's model in f32, one card's routing pinned: two prefills'"
+          f" logits rel {max(r['f32']['prefill'] for r in ranks):.3g}, the "
+          f"first decode step's {max(r['f32']['decode'] for r in ranks):.3g}"
+          f" (tol {MOE_MESH_F32_REL_TOL} each); walls "
+          f"(s) {json.dumps({k: round(v, 2) for k, v in r0['walls'].items()})}"
+          f"; peak {[round(r['peak_gb'], 2) for r in ranks]} GB; "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    for r, o in enumerate(ranks):
+        for call in ("loss", "forward"):
+            got = o["launches"][call]
+            if got.get("fused_attention", 0) != want_attn or set(got) - {
+                    "fused_attention"}:
+                raise RuntimeError(f"[4l (d)] rank {r} {call} launched "
+                                   f"{got}")
+        got = o["launches"]["engine"]
+        if got.get("fused_attention_partial", 0) != want_partial or set(
+                got) - {"fused_attention_partial"}:
+            raise RuntimeError(f"[4l (d)] rank {r} engine launched {got}")
+        if o["deny"] or o["engine"]["exec_tier"] != "configured" \
+                or o["engine"]["demotions"]:
+            raise RuntimeError(f"[4l (d)] rank {r} degraded")
+        if max(o["layer_attn_rel"], o["layer_out_rel"]) > FORWARD_REL_TOL:
+            raise RuntimeError(f"[4l (d)] rank {r}: a layer diverges")
+        if max(o["f32"]["prefill"], o["f32"]["decode"]) \
+                > MOE_MESH_F32_REL_TOL:
+            raise RuntimeError(f"[4l (d)] rank {r}: the f32 engine model "
+                               f"diverges {o['f32']}")
+    if loss_rel > MOE_FLIP_LOSS_REL_TOL:
+        raise RuntimeError(f"[4l (d)] loss rel {loss_rel}")
+    out["moe"] = dict(ref_loss=mref["loss"], loss=r0["loss"],
+                      loss_rel=loss_rel,
+                      layer_attn_rel=max(r["layer_attn_rel"] for r in ranks),
+                      layer_out_rel=max(r["layer_out_rel"] for r in ranks),
+                      f32=r0["f32"], launches=r0["launches"], engine=eng,
+                      walls=r0["walls"],
+                      peak_gb=[r["peak_gb"] for r in ranks],
+                      seconds=time.perf_counter() - t0)
+    out["seconds"] = time.perf_counter() - t_all
+    print(f"[4l] {out['seconds']:.1f}s")
+    return out
+
+
 def codeqwen_phase() -> dict:
     """codeqwen1.5-7b at every FULL width and depth (32 layers, 32 q
     heads on 32 kv heads: the partial kernel at a GQA group of 1),
@@ -4571,10 +5327,10 @@ def codeqwen_phase() -> dict:
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--plant-faults"], ["--reliability"], ["--train"],
-                    ["--moe"], ["--archs"], ["--dist"]):
+                    ["--moe"], ["--archs"], ["--dist"], ["--dist-train"]):
         raise SystemExit("usage: python3 chip_smoke.py "
                          "[--plant-faults | --reliability | --train | "
-                         "--moe | --archs | --dist]")
+                         "--moe | --archs | --dist | --dist-train]")
     smi = device_phase()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     # tuned schedules persist inside the checkout (.cache/ is gitignored)
@@ -4597,6 +5353,12 @@ def main(argv=None) -> None:
         print(json.dumps({"dist": dist}, default=str))
         print(smi)
         return
+    if argv == ["--dist-train"]:
+        dist_train = dist_train_phase()
+        _no_degradation("4l")
+        print(json.dumps({"dist_train": dist_train}, default=str))
+        print(smi)
+        return
     if argv == ["--plant-faults"]:
         params = init_phase(cfg)
         fault_phase(cfg, params)
@@ -4608,6 +5370,8 @@ def main(argv=None) -> None:
                              faults=("none", "detach_rglru",
                                      "exclusive_scan"))
         plant_ssm_encdec_faults()
+        dist_train_phase(faults=("none", "data reduction skipped on rank 1",
+                                 "enter an identity both ways"))
         print(smi)
         return
     if argv == ["--reliability"]:
@@ -4710,6 +5474,8 @@ def main(argv=None) -> None:
     dist = dist_phase(refdir)
     shutil.rmtree(refdir)
     _no_degradation("4k")
+    dist_train = dist_train_phase()
+    _no_degradation("4l")
     moe = moe_phase()
     steps[OLMOE] = moe["step_profile"]
     steps[MIXTRAL] = moe["mixtral_step_profile"]
@@ -4762,6 +5528,8 @@ def main(argv=None) -> None:
                for name in launches}
     by_path["fused_attention_partial"]["4k a rank"] = dist_launches[
         "fused_attention_partial"]
+    by_path["fused_attention_partial"]["4l (d) a rank"] = dist_train[
+        "moe"]["launches"]["engine"]["fused_attention_partial"]
     moe_times = ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "tiles", "splits", "other_tiles_ms")
     kernels = [{
@@ -4828,7 +5596,11 @@ def main(argv=None) -> None:
             f"{OLMOE} forward": moe["forward"]["launches"]["forward"],
             **{f"{arch} {call}": archs[arch]["forward"]["launches"][call]
                for arch in (RG, PIXTRAL) for call in ("loss", "forward")},
-            "4k a rank": dist_launches["fused_attention"]},
+            "4k a rank": dist_launches["fused_attention"],
+            "4l (d) loss a rank": dist_train["moe"]["launches"]["loss"][
+                "fused_attention"],
+            "4l (d) forward a rank": dist_train["moe"]["launches"][
+                "forward"]["fused_attention"]},
         "max_abs_err": max(slice3_err["fused_attention"],
                            moe_err["fused_attention"], archs_err),
         "ms": t_attn["kernel_ms"],
@@ -4898,6 +5670,7 @@ def main(argv=None) -> None:
         "launches", "decode_steps", "tok_per_s", "eager_tok_per_s",
         "generate")}}, default=str))
     print(json.dumps({"dist": dict(dist, times=t_dist)}, default=str))
+    print(json.dumps({"dist_train": dist_train}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,11 +9,35 @@ model and the ring regimes call these functions at those places.
 it, its process group.  Every collective runs in that group through
 ``torch.distributed``.  Backends differ in which tensors they take:
 NCCL takes CUDA tensors for every op; gloo takes CUDA tensors for
-``all_reduce``, ``broadcast`` and ``all_gather`` (it stages them
-through host memory itself) but not for ``send``/``recv``, which read
-the tensor's pointer as host memory.  Those ops go through
-``via_host``, the one function that moves a tensor through host
-memory, and it counts each such hop in ``HOST_HOPS``.
+``all_reduce``, ``broadcast``, ``all_gather`` and ``reduce_scatter``
+(it stages them through host memory itself) but not for
+``send``/``recv``, which read the tensor's pointer as host memory.
+Those ops go through ``via_host``, the one function that moves a
+tensor through host memory, and it counts each such hop in
+``HOST_HOPS``.  ``TRAFFIC`` counts every collective's payload, by op:
+under gloo on one card all of it crosses host memory.
+
+Under autograd (the training path) each collective of the model is one
+of three conjugate pairs, ``torch.autograd.Function``s that the ``Axis``
+methods ``gather``, ``reduce`` and ``enter`` apply:
+
+* all-gather forward, reduce-scatter backward (``gather``): a sharded
+  tensor gathered whole for consumers that differ by rank — the FSDP
+  gather of a weight each data rank applies to its own batch, the kv
+  heads each rank's q heads read — whose rank-partial gradients sum;
+  with ``grad="own"`` the backward takes the rank's block of a gradient
+  that every rank holds whole (a consumer replicated over the dim);
+* all-reduce forward, identity backward (``reduce``): rank-partial
+  sums made whole (a row-parallel output, the vocab-parallel loss's
+  sums), whose gradient every rank already holds whole;
+* identity forward, all-reduce backward (``enter``): a tensor
+  replicated over the dim entering rank-specific columns (a block's
+  normed input, the router and the qk-norm scales that act on this
+  rank's heads or experts), whose gradient each rank holds only its
+  part of.
+
+``all_reduce`` and ``all_gather`` stay the inference forms (no
+gradient).
 """
 from __future__ import annotations
 
@@ -31,6 +55,16 @@ GLOO_HOST_OPS = frozenset({"send", "recv"})
 #: tensors moved through host memory by ``via_host``, by op: the count
 #: and the bytes
 HOST_HOPS: dict[str, list] = {}
+
+#: every collective's payload on this rank, by op: the count and the
+#: bytes this rank puts in
+TRAFFIC: dict[str, list] = {}
+
+
+def _traffic(op: str, t: torch.Tensor) -> None:
+    rec = TRAFFIC.setdefault(op, [0, 0])
+    rec[0] += 1
+    rec[1] += t.numel() * t.element_size()
 
 
 def via_host(op: str, t: torch.Tensor) -> torch.Tensor:
@@ -60,6 +94,7 @@ class Axis:
         """The sum (or ``op="max"``) over the dim, out of place."""
         if self.size == 1:
             return x
+        _traffic("all_reduce", x)
         y = x.clone()
         dist.all_reduce(y, op=dist.ReduceOp.MAX if op == "max"
                         else dist.ReduceOp.SUM, group=self.group)
@@ -69,9 +104,46 @@ class Axis:
         """Every rank's ``x`` concatenated along ``dim``, by index."""
         if self.size == 1:
             return x
+        _traffic("all_gather", x)
         parts = [torch.empty_like(x) for _ in range(self.size)]
         dist.all_gather(parts, x.contiguous(), group=self.group)
         return torch.cat(parts, dim=dim)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The sum over the dim of every rank's ``x``, this rank's block
+        of it along ``dim``."""
+        if self.size == 1:
+            return x
+        _traffic("reduce_scatter", x)
+        parts = [p.contiguous() for p in torch.chunk(x, self.size, dim)]
+        if len({tuple(p.shape) for p in parts}) != 1:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
+                             f"divide over {self.names} ({self.size})")
+        out = torch.empty_like(parts[self.index])
+        dist.reduce_scatter(out, parts, group=self.group)
+        return out
+
+    def gather(self, x: torch.Tensor, dim: int,
+               grad: str = "sum") -> torch.Tensor:
+        """``all_gather`` under autograd: the backward reduce-scatters
+        the gradient (``grad="sum"``: each rank's consumer differs), or
+        takes this rank's block of it (``grad="own"``: every rank
+        holds the same whole gradient)."""
+        if self.size == 1:
+            return x
+        return _Gather.apply(x, self, dim, grad)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the dim under autograd: identity backward."""
+        if self.size == 1:
+            return x
+        return _Reduce.apply(x, self)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """Identity forward, the gradient summed over the dim backward."""
+        if self.size == 1:
+            return x
+        return _Enter.apply(x, self)
 
     def shard(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's block of ``x`` along ``dim`` (a view)."""
@@ -88,6 +160,7 @@ class Axis:
         ``ppermute`` with ``perm = [(i, i + 1 mod n)]``)."""
         if self.size == 1:
             return x
+        _traffic("send", x)
         nxt = self.ranks[(self.index + 1) % self.size]
         prv = self.ranks[(self.index - 1) % self.size]
         out = via_host("send", x.contiguous())
@@ -98,6 +171,45 @@ class Axis:
         for r in reqs:
             r.wait()
         return buf.to(x.device)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim, grad):
+        if grad not in ("sum", "own"):
+            raise ValueError(f"grad {grad!r}: 'sum' or 'own'")
+        ctx.ax, ctx.dim, ctx.grad = ax, dim, grad
+        return ax.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        ax, dim = ctx.ax, ctx.dim
+        if ctx.grad == "sum":
+            g = ax.reduce_scatter(g, dim)
+        else:
+            g = ax.shard(g, dim)
+        return g, None, None, None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        return ax.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.ax.all_reduce(g), None
 
 
 def axis(mesh, names) -> Optional[Axis]:
@@ -119,18 +231,31 @@ def axis(mesh, names) -> Optional[Axis]:
 
 
 def gather_dims(t: torch.Tensor, layout: Sequence, mesh,
-                keep: tuple[str, ...] = ()) -> torch.Tensor:
+                keep: tuple[str, ...] = (),
+                summed: tuple[str, ...] = ()) -> torch.Tensor:
     """``t`` (a local shard laid out as ``layout``) gathered whole
     along every dim sharded over a mesh dim not in ``keep`` — the FSDP
-    gather of a weight before its use."""
+    gather of a weight before its use.  Under autograd the gradient is
+    reduce-scattered over the mesh dims in ``summed`` (those the batch
+    is split on: each rank's consumer differs) and sliced over the
+    others (``Axis.gather``)."""
     for d, entry in enumerate(layout):
-        names = (entry,) if isinstance(entry, str) else tuple(entry or ())
-        names = tuple(n for n in names if n not in keep)
+        names = tuple(n for n in _names(entry) if n not in keep)
         for n in reversed(names):
             ax = axis(mesh, n)
             if ax is not None:
-                t = ax.all_gather(t, d)
+                t = ax.gather(t, d, "sum" if n in summed else "own")
     return t
+
+
+def _names(entry) -> tuple[str, ...]:
+    """The mesh dims of one layout entry (a name, a tuple, or None)."""
+    return (entry,) if isinstance(entry, str) else tuple(entry or ())
+
+
+def layout_dims(layout: Sequence) -> tuple[str, ...]:
+    """The mesh dims a layout shards over, in order."""
+    return tuple(n for entry in layout for n in _names(entry))
 
 
 def shard_dims(t: torch.Tensor, layout: Sequence, mesh) -> torch.Tensor:
@@ -140,8 +265,7 @@ def shard_dims(t: torch.Tensor, layout: Sequence, mesh) -> torch.Tensor:
     rows is a view that would keep all of ``t`` alive)."""
     block = t
     for d, entry in enumerate(layout):
-        names = (entry,) if isinstance(entry, str) else tuple(entry or ())
-        for n in names:
+        for n in _names(entry):
             ax = axis(mesh, n)
             if ax is not None:
                 block = ax.shard(block, d)

@@ -34,12 +34,20 @@ plus per-request positional attention in torch ops — everywhere else
 (prefill, and any run on the CPU), and wherever the circuit breaker
 holds the kernel's fingerprint quarantined or its dispatch fails.
 
-Under a mesh (``Mesh``, the dense family only) a block runs on this
-rank's shards, Megatron-style: ``wq``/``wk``/``wv`` and the MLP's
+Under a mesh (``Mesh``, the dense and MoE families) a block runs on
+this rank's shards, Megatron-style: ``wq``/``wk``/``wv`` and the MLP's
 ``w_gate``/``w_up`` hold this rank's columns over the tensor-parallel
 dim, ``wo``/``w_down`` its rows, and the row-parallel products are
 summed over the dim (an all-reduce: the JAX package's ``constrain`` to
-whole features).  Each rank attends with its q heads; kv heads the dim
+whole features).  Under autograd the block's input enters the
+rank-specific columns through ``Axis.enter`` (its gradient summed over
+the dim), the sums go through ``Axis.reduce`` and the gathered kv heads
+through ``Axis.gather`` (``dist.collectives``).  ``moe_block`` runs the
+JAX package's three mesh layouts: ``local`` (no tensor-parallel dim:
+every expert gathered whole, each rank routing its own tokens), ``ep``
+(the model dim divides the experts: this rank's experts, the partial
+outputs summed) and ``tp`` (every expert on this rank's ffn slice,
+summed).  Each rank attends with its q heads; kv heads the dim
 cannot divide are gathered whole (``_project_qkv``) and each rank uses
 the ones its q heads read (``_kv_for_q``).  A contiguous cache is
 heads-sharded where the kv heads divide, else sequence-sharded, and a
@@ -150,10 +158,10 @@ def specs_mlp(cfg: ModelConfig, rules) -> dict:
             "w_down": rules.spec("model", "data")}
 
 
-def specs_moe(cfg: ModelConfig, rules, n_model: int = 16) -> dict:
-    """Experts sharded over the model dim when it divides them (expert
-    parallelism), else their ffn dim (the JAX package's layouts; the
-    port's MoE runs on one card, ROADMAP Queue 1 item 4)."""
+def specs_moe(cfg: ModelConfig, rules, n_model: int) -> dict:
+    """Experts sharded over the model dim of ``n_model`` ranks when it
+    divides them (expert parallelism), else their ffn dim (the JAX
+    package's layouts, ``moe_block``'s ``ep`` and ``tp`` modes)."""
     if rules.enabled and cfg.moe.n_experts % n_model == 0:
         w = w2 = rules.spec("model", None, None)
     else:
@@ -285,17 +293,18 @@ def mlp_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     rank's ffn columns and rows, and the partial products are summed
     over the dim."""
     f = act_fn(act_name(cfg))
+    tp = _tp(ctx)
+    if tp is not None:
+        x = tp.enter(x)
     if gated(cfg):
         out = (f(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
     else:
         out = f(x @ p["w_up"]) @ p["w_down"]
-    tp = _tp(ctx)
-    return tp.all_reduce(out) if tp is not None else out
+    return tp.reduce(out) if tp is not None else out
 
 
 # ---------------------------------------------------------------------------
-# Mixture of experts (one device; the JAX package's expert-parallel and
-# tensor-parallel layouts come with the distributed slice)
+# Mixture of experts: one device, or the JAX package's three mesh layouts
 # ---------------------------------------------------------------------------
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
@@ -409,18 +418,41 @@ def moe_local(p: dict, x2d: torch.Tensor, cfg: ModelConfig,
     return _combine(yflat.float(), dest, order, t, k)
 
 
-def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              ctx: Optional[Mesh] = None) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D): every token of the block routed
-    together (the JAX package's single-device branch)."""
+    together.  One device, or a mesh without a tensor-parallel dim (the
+    JAX package's ``local`` mode: ``p`` holds every expert, gathered
+    whole, and each rank routes its own tokens): ``moe_local`` alone.
+    Under a tensor-parallel dim every rank routes the same tokens and
+    the partial outputs, cast to x's type, are summed over the dim:
+    ``ep`` where the dim divides the experts (``p`` holds this rank's
+    run of them, ``specs_moe``), else ``tp`` (every expert on this
+    rank's ffn slice).  The router and the tokens enter through
+    ``Axis.enter``: each rank's gradient of them is its experts' or
+    its slice's part."""
     b, s, d = x.shape
-    return moe_local(p, x.reshape(b * s, d), cfg).to(x.dtype).reshape(b, s, d)
+    x2d = x.reshape(b * s, d)
+    tp = _tp(ctx)
+    if tp is None:
+        return moe_local(p, x2d, cfg).to(x.dtype).reshape(b, s, d)
+    p = dict(p, router=tp.enter(p["router"]))
+    x2d = tp.enter(x2d)
+    e = cfg.moe.n_experts
+    if e % tp.size == 0:
+        e_loc = e // tp.size
+        out = moe_local(p, x2d, cfg, expert_slice=(tp.index * e_loc, e_loc))
+    else:
+        out = moe_local(p, x2d, cfg)
+    return tp.reduce(out.to(x.dtype)).reshape(b, s, d)
 
 
 def feed_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
                  ctx: Optional[Mesh] = None) -> torch.Tensor:
     """The block's feed-forward: the experts of an MoE config, the MLP
     otherwise."""
-    return moe_block(p, x, cfg) if cfg.moe else mlp_block(p, x, cfg, ctx)
+    return (moe_block(p, x, cfg, ctx) if cfg.moe
+            else mlp_block(p, x, cfg, ctx))
 
 
 # ---------------------------------------------------------------------------
@@ -666,6 +698,11 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
     b, s, _ = x.shape
     dh = cfg.dh
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    qn, kn = p.get("q_norm"), p.get("k_norm")
+    if tp is not None:
+        x = tp.enter(x)
+        if cfg.qk_norm:
+            qn, kn = tp.enter(qn), tp.enter(kn)
     k, v = x @ p["wk"], x @ p["wv"]
     if tp is not None:
         if hq % tp.size:
@@ -676,7 +713,7 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
             hkv //= tp.size
         else:           # one gather of both, de-interleaved by rank
             c = k.shape[-1]
-            kv = tp.all_gather(torch.cat([k, v], dim=-1), -1)
+            kv = tp.gather(torch.cat([k, v], dim=-1), -1)
             kv = kv.reshape(b, s, tp.size, 2, c)
             k, v = kv[:, :, :, 0].reshape(b, s, -1), kv[:, :, :, 1].reshape(
                 b, s, -1)
@@ -684,8 +721,8 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
     k = k.reshape(b, s, hkv, dh)
     v = v.reshape(b, s, hkv, dh)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+        q = rmsnorm(q, qn, cfg.norm_eps)
+        k = rmsnorm(k, kn, cfg.norm_eps)
     if cfg.use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -949,7 +986,7 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
             o = naive_attention(q, kk, vv, causal=causal, window=win,
                                 scale=scale)
     out = o.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
-    return tp.all_reduce(out) if tp is not None else out
+    return tp.reduce(out) if tp is not None else out
 
 
 def cross_attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,

@@ -34,18 +34,27 @@ copies.  The API:
     decode_step_paged(params, cache, tokens, positions, page_table)
     param_specs() / cache_specs(batch)     -> weight and cache layouts
 
-Under a mesh (``Runtime(rules=..., mesh=...)``, the dense family only)
-every rank holds its shards of the weights (``param_specs``, placed by
-``launch.steps.shard_params``) and of the caches (``cache_specs``), and
-runs the same program on them: the entry points take and return whole
-tensors, as the JAX package's global arrays, each rank computing its
-block of the batch (``batch_placement``) and gathering the outputs.
-The weights of dims sharded over other mesh dims than the
-tensor-parallel one (FSDP) are gathered just before their layer runs.
-The embedding and ``lm_head`` are vocab-parallel where the model dim
-divides the vocab: the lookup sums the ranks' rows, the logits are
-gathered, and the loss reduces its logsumexp over the ranks
-(``chunked_ce``).  Under a mesh every step runs eagerly.
+Under a mesh (``Runtime(rules=..., mesh=...)``, the dense and MoE
+families on the hand-wired path) every rank holds its shards of the
+weights (``param_specs``, placed by ``launch.steps.shard_params``) and
+of the caches (``cache_specs``), and runs the same program on them: the
+entry points take and return whole tensors, as the JAX package's global
+arrays, each rank computing its block of the batch (``batch_placement``)
+and gathering the outputs.  The weights of dims sharded over other mesh
+dims than the tensor-parallel one (FSDP) are gathered just before their
+layer runs.  The embedding and ``lm_head`` are vocab-parallel where the
+model dim divides the vocab: the lookup sums the ranks' rows, the
+logits are gathered, and the loss reduces its logsumexp over the ranks
+(``_ce_sums``).  Under a mesh every step runs eagerly.
+
+``loss`` runs under autograd on a mesh too: every collective on its
+path is a differentiable one (``dist.collectives``: the FSDP gather
+reduce-scatters its gradient over the dims the batch is split on, the
+sums take an identity backward, a replicated input entering
+rank-specific columns an all-reduce).  Its value is the global-batch
+mean on every rank, and each rank's gradients are its part of that
+mean's: ``launch.steps.make_train_step`` sums them over the batch's mesh
+dims for the leaves replicated there.
 """
 from __future__ import annotations
 
@@ -126,8 +135,10 @@ def _ce_sums(hidden: torch.Tensor, unembed_w: torch.Tensor,
     """(sum of the token losses, count of unmasked tokens) over sequence
     chunks of at most 512.  Under a tensor-parallel dim ``tp``,
     ``unembed_w`` holds this rank's block of the vocab columns, and the
-    row max, the sum of exponentials and the target logit are reduced
-    over the dim (a vocab-parallel cross-entropy)."""
+    row max (without a gradient), the sum of exponentials and the
+    target logit are reduced over the dim (a vocab-parallel
+    cross-entropy); ``hidden`` has entered the rank's columns
+    (``Axis.enter``)."""
     b, s, _ = hidden.shape
     c = _chunk_len(s)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -140,12 +151,12 @@ def _ce_sums(hidden: torch.Tensor, unembed_w: torch.Tensor,
             tgt = torch.gather(lf, -1, lch.clamp(min=0)[..., None])[..., 0]
         else:
             vl = lf.shape[-1]
-            m = tp.all_reduce(lf.amax(dim=-1), op="max")
-            lse = m + torch.log(tp.all_reduce(
+            m = tp.all_reduce(lf.detach().amax(dim=-1), op="max")
+            lse = m + torch.log(tp.reduce(
                 torch.exp(lf - m[..., None]).sum(dim=-1)))
             t = lch - tp.index * vl
             own = (t >= 0) & (t < vl)
-            tgt = tp.all_reduce(torch.where(own, torch.gather(
+            tgt = tp.reduce(torch.where(own, torch.gather(
                 lf, -1, t.clamp(0, vl - 1)[..., None])[..., 0], 0.0))
         mask = (lch >= 0).float()
         tot = tot + ((lse - tgt) * mask).sum()
@@ -210,9 +221,9 @@ class LM:
 
     def _check_mesh(self) -> None:
         cfg, rt = self.cfg, self.rt
-        if cfg.moe or set(self.kinds) != {"attn"} or rt.planner:
+        if set(self.kinds) != {"attn"} or rt.planner:
             raise NotImplementedError(
-                f"mesh execution covers the dense family on the "
+                f"mesh execution covers the dense and MoE families on the "
                 f"hand-wired path; {cfg.name} (family {cfg.family}, "
                 f"layers {sorted(set(self.kinds))}, planner "
                 f"{rt.planner}) comes with ROADMAP Queue 1 item 4")
@@ -250,8 +261,7 @@ class LM:
         if not cfg.tie_embeddings:
             specs["lm_head"] = (rules.spec("data", "model") if vocab_ok
                                 else rules.spec("model", None))
-        specs["layers"] = [self._layer_specs(kind, n_model if mesh
-                                             is not None else 16)
+        specs["layers"] = [self._layer_specs(kind, n_model)
                            for kind in self.kinds]
         return specs
 
@@ -317,18 +327,26 @@ class LM:
         bx = self._bax(batch)
         return bx.all_gather(t, 0) if bx is not None else t
 
-    def _whole(self, t: torch.Tensor, layout) -> torch.Tensor:
+    def _whole(self, t: torch.Tensor, layout,
+               ctx: Optional[L.Mesh] = None) -> torch.Tensor:
         """A weight gathered along every dim sharded over a mesh dim
-        other than the tensor-parallel one (the FSDP gather)."""
+        other than the tensor-parallel one (the FSDP gather); under
+        autograd its gradient is summed over the mesh dims that split
+        ``ctx``'s batch (each rank applies the weight to its own rows)
+        and sliced over the others."""
         rt = self.rt
         if rt.mesh is None:
             return t
-        return gather_dims(t, layout, rt.mesh, keep=(rt.rules.tp,))
+        summed = (batch_placement(rt.rules, rt.mesh, ctx.batch)
+                  if ctx is not None else ())
+        return gather_dims(t, layout, rt.mesh, keep=(rt.rules.tp,),
+                           summed=summed)
 
-    def _layer(self, p: dict, kind: str) -> dict:
+    def _layer(self, p: dict, kind: str,
+               ctx: Optional[L.Mesh] = None) -> dict:
         if self.rt.mesh is None:
             return p
-        return T.map_tree(self._whole, p,
+        return T.map_tree(lambda t, sp: self._whole(t, sp, ctx), p,
                           self._layer_specs(kind, self._n_model))
 
     # ------------------------------------------------------------------
@@ -393,7 +411,7 @@ class LM:
             raise NotImplementedError(
                 "the planned cache-free forward is not ported; use "
                 "Runtime(planner=False)")
-        p = self._layer(p, kind)
+        p = self._layer(p, kind, ctx)
         h = L.apply_norm(p["ln1"], x, cfg)
         if kind == "attn":
             x = x + L.attention_block(p["mix"], h, cfg, positions=positions,
@@ -422,25 +440,26 @@ class LM:
         prefix embeddings and the tokens (this rank's batch rows under a
         mesh)."""
         positions = self._positions(tokens, prefix_embeds)
-        x = self._embed(params, tokens, positions, prefix_embeds)
+        x = self._embed(params, tokens, positions, prefix_embeds, ctx)
         for kind, p in zip(self.kinds, params["layers"]):
             x = self._apply_block(kind, p, x, positions, ctx=ctx)
         return x
 
     def _embed(self, params: dict, tokens: torch.Tensor,
                positions: torch.Tensor,
-               prefix_embeds: Optional[torch.Tensor] = None
-               ) -> torch.Tensor:
+               prefix_embeds: Optional[torch.Tensor] = None,
+               ctx: Optional[L.Mesh] = None) -> torch.Tensor:
         """The token embeddings — tied ones times ``_embed_scale`` —
         after the prefix embeddings, if any, plus the learned positions
         at ``positions`` of a config without rope."""
-        x = self._lookup(params, tokens)
+        x = self._lookup(params, tokens, ctx)
         if self._embed_scale is not None:
             x = x * self._embed_scale
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         if not self.cfg.use_rope:
-            pe = self._whole(params["pos_embed"], self._spec("pos_embed"))
+            pe = self._whole(params["pos_embed"], self._spec("pos_embed"),
+                             ctx)
             x = x + pe[positions.long()]
         return x
 
@@ -449,32 +468,35 @@ class LM:
             self._specs = self.param_specs()
         return self._specs[name]
 
-    def _lookup(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    def _lookup(self, params: dict, tokens: torch.Tensor,
+                ctx: Optional[L.Mesh] = None) -> torch.Tensor:
         """The embedding rows of ``tokens``.  Under a tensor-parallel dim
         each rank holds a block of the vocab rows (or of ``d_model``
         where the dim does not divide the vocab): it looks up the tokens
         it holds, zeros elsewhere, and the ranks' rows are summed (or
-        the ``d_model`` blocks gathered)."""
-        emb = params["embed"]
+        the ``d_model`` blocks gathered, each rank's gradient its
+        block's)."""
+        emb = self._whole(params["embed"], self._spec("embed"), ctx)
         tp = self._tp
         if tp is None:
-            return self._whole(emb, self._spec("embed"))[tokens]
-        emb = self._whole(emb, self._spec("embed"))
+            return emb[tokens]
         if emb.shape[0] == self.cfg.vocab:
-            return tp.all_gather(emb[tokens], -1)
+            return tp.gather(emb[tokens], -1, "own")
         t = tokens - tp.index * emb.shape[0]
         own = (t >= 0) & (t < emb.shape[0])
         rows = emb[t.clamp(0, emb.shape[0] - 1)] * own[..., None]
-        return tp.all_reduce(rows.to(emb.dtype))
+        return tp.reduce(rows.to(emb.dtype))
 
-    def _unembed_w(self, params: dict) -> torch.Tensor:
+    def _unembed_w(self, params: dict,
+                   ctx: Optional[L.Mesh] = None) -> torch.Tensor:
         """The (D, V) unembedding: the tied embedding transposed, or
         ``lm_head`` — under a mesh this rank's vocab columns (or
         ``d_model`` rows, where the model dim does not divide the
         vocab)."""
         if self.cfg.tie_embeddings:
-            return self._whole(params["embed"], self._spec("embed")).t()
-        return self._whole(params["lm_head"], self._spec("lm_head"))
+            return self._whole(params["embed"], self._spec("embed"),
+                               ctx).t()
+        return self._whole(params["lm_head"], self._spec("lm_head"), ctx)
 
     def _vocab_sharded(self, w: torch.Tensor) -> bool:
         return self._tp is not None and w.shape[1] != self.cfg.vocab
@@ -495,24 +517,31 @@ class LM:
         with tokens (-100 = masked); the prefix rows are dropped after
         the final norm.  Mean cross-entropy by ``chunked_ce``: no (B, S,
         V) logits.  Under a mesh the sums are reduced over the batch's
-        mesh dims (and the vocab's, ``_ce_sums``)."""
+        mesh dims (and the vocab's, ``_ce_sums``): every rank returns
+        the global-batch mean, and under autograd its gradients are its
+        rows' part of it (the sum of the tokens' losses goes through
+        ``Axis.reduce``)."""
         b = batch["tokens"].shape[0]
+        ctx = self._ctx(b)
         prefix = self._local(batch.get("prefix_embeds"), b)
         x = L.apply_norm(params["final_norm"],
                          self._hidden(params, self._local(batch["tokens"], b),
-                                      prefix, self._ctx(b)),
+                                      prefix, ctx),
                          self.cfg)
         if prefix is not None:
             x = x[:, prefix.shape[1]:]
-        w = self._unembed_w(params)
+        w = self._unembed_w(params, ctx)
         labels = self._local(batch["labels"], b)
-        if self._tp is not None and not self._vocab_sharded(w):
-            w = self._tp.all_gather(w, 0)       # d_model rows gathered
+        tp = self._tp
+        if tp is not None and not self._vocab_sharded(w):
+            w = tp.gather(w, 0, "own")          # d_model rows gathered
+        elif tp is not None:
+            x = tp.enter(x)
         tot, cnt = _ce_sums(x, w, labels,
-                            self._tp if self._vocab_sharded(w) else None)
+                            tp if self._vocab_sharded(w) else None)
         bx = self._bax(b)
         if bx is not None:
-            tot, cnt = bx.all_reduce(tot), bx.all_reduce(cnt)
+            tot, cnt = bx.reduce(tot), bx.all_reduce(cnt)
         return tot / torch.clamp(cnt, min=1.0)
 
     # ------------------------------------------------------------------
@@ -546,7 +575,7 @@ class LM:
                         raise
                     _breaker.record_failure(
                         pkey, reason=f"{type(e).__name__}: {e}")
-        p = self._layer(p, "attn")
+        p = self._layer(p, "attn", ctx)
         h = L.apply_norm(p["ln1"], x, cfg)
         mix, _ = L.paged_attention_block(
             p["mix"], h, cfg, positions=positions, cache=cache,

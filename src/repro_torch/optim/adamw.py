@@ -10,12 +10,17 @@ it without a host sync).  Where the JAX optimizer returns new trees,
 model's tensors keep their identity) and returns only the step's
 ``{"grad_norm", "lr"}``.  It walks the leaves one at a time, so its
 temporaries are a few copies of the largest leaf, not of the tree.
+
+On a mesh each rank holds its shards of the parameters, gradients and
+state: ``update`` takes the leaves' layouts and the mesh, and the
+global norm sums the squares over the ranks, each leaf over the mesh
+dims it is sharded on only, so that a replicated leaf counts once.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -34,9 +39,31 @@ def cosine_schedule(base_lr: float, warmup: int, total: int,
     return lr
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in T.leaves(tree)))
+def global_norm(tree, layouts: Optional[Sequence] = None,
+                mesh=None) -> torch.Tensor:
+    """The 2-norm of every leaf of ``tree`` together.  With ``layouts``
+    (one per leaf, in leaf order) on ``mesh``, the leaves are this
+    rank's shards: each leaf's squares are summed over the ranks of the
+    mesh dims its layout shards it on, and over no other (a leaf
+    replicated on a dim holds the same values on each of its ranks)."""
+    leaves = T.leaves(tree)
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in leaves))
+    from ..dist.collectives import axis, layout_dims
+    groups: dict[tuple, torch.Tensor] = {}
+    for g, lay in zip(leaves, layouts):
+        key = tuple(sorted(set(layout_dims(lay))))
+        sq = torch.sum(torch.square(g.float()))
+        groups[key] = groups[key] + sq if key in groups else sq
+    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for dims, sq in sorted(groups.items()):
+        for n in dims:
+            ax = axis(mesh, n)
+            if ax is not None:
+                sq = ax.all_reduce(sq)
+        total = total + sq
+    return torch.sqrt(total)
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -78,13 +105,17 @@ class AdamW:
         }
 
     @torch.no_grad()
-    def update(self, params, grads, state) -> dict[str, torch.Tensor]:
+    def update(self, params, grads, state, layouts: Optional[Sequence] = None,
+               mesh=None) -> dict[str, torch.Tensor]:
         """One step: clip ``grads`` (a tree, or a list of the leaves, in
         ``params``' leaf order) by their global norm, then the AdamW
-        update of ``state`` and ``params`` in place.  Returns the
-        pre-clip ``grad_norm`` and the step's ``lr`` (0-d tensors)."""
+        update of ``state`` and ``params`` in place.  On a ``mesh`` the
+        leaves are this rank's shards, laid out as ``layouts`` (one per
+        leaf), and the norm is the whole tree's (``global_norm``).
+        Returns the pre-clip ``grad_norm`` and the step's ``lr`` (0-d
+        tensors)."""
         flat_g = T.leaves(grads)
-        gnorm = global_norm(flat_g)
+        gnorm = global_norm(flat_g, layouts, mesh)
         scale = _clip_scale(gnorm, self.clip_norm)
         state["step"].add_(1)
         lr = self.lr(state["step"])

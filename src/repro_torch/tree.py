@@ -21,8 +21,16 @@ def leaves_with_paths(tree, prefix: str = "") -> Iterator[tuple[str, Any]]:
         yield from leaves_with_paths(v, f"{prefix}/{k}" if prefix else str(k))
 
 
-def leaves(tree) -> list:
-    return [leaf for _, leaf in leaves_with_paths(tree)]
+def leaves(tree, like=None) -> list:
+    """The leaves of ``tree`` in order.  Given ``like``, a tree that
+    ``tree`` mirrors down to ``like``'s leaves: the entries of ``tree``
+    at those places, whatever they hold (a tree of layouts, each leaf's
+    a tuple, as a list in ``like``'s leaf order)."""
+    if like is None:
+        return [leaf for _, leaf in leaves_with_paths(tree)]
+    out: list = []
+    map_tree(lambda _, entry: out.append(entry), like, tree)
+    return out
 
 
 def map_tree(fn: Callable, tree, *rest):

@@ -10,7 +10,8 @@
   losses within 1e-4 relative; parameters within 2·lr·k, the most one
   Adam sign flip can move a weight in k steps.
 * ``python -m repro_torch.launch.train --device cpu``: the loss falls
-  and checkpoints land; the distributed flags exit with their error.
+  and checkpoints land; the distributed flags' refused combinations
+  exit with their error.
 """
 import numpy as np
 import pytest
@@ -189,14 +190,19 @@ def test_train_cli_on_cpu_reduces_loss_and_checkpoints(tmp_path):
     assert int(opt_state["step"]) == 20
 
 
-@pytest.mark.parametrize("flag", [["--model-axis", "2"],
-                                  ["--compress-grads"]])
-def test_train_cli_refuses_distributed_flags(flag, capsys):
+@pytest.mark.parametrize("flag,says", [
+    (["--model-axis", "2", "--compress-grads"], "tensor parallelism"),
+    (["--model-axis", "2", "--world", "3"], "does not divide")])
+def test_train_cli_refuses_distributed_flags(flag, says, capsys):
+    """``--model-axis`` and ``--compress-grads`` train on a world now
+    (``tests/test_torch_dist_train.py``); what refuses is their
+    combination, with the JAX package's message, and a model axis that
+    does not divide the world."""
     from repro_torch.launch import train
     with pytest.raises(SystemExit) as exc:
         train.main(["--device", "cpu", "--steps", "1"] + flag)
     assert exc.value.code == 2
-    assert "ROADMAP Queue 1 item 4" in capsys.readouterr().err
+    assert says in capsys.readouterr().err
 
 
 def test_build_model_refuses_other_families():
