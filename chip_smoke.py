@@ -211,7 +211,8 @@ which raises on failure:
       engine's model in f32 (its Runtime, the weights drawn in f32) on
       two prompts with one card's f32 routing pinned: both prefills'
       logits and the first decode step's within MOE_MESH_F32_REL_TOL of
-      one card's; a ``{"dist_train": ...}`` line;
+      one card's; then 4m (c) in the same world (below); a
+      ``{"dist_train": ...}`` line;
    g. training (``training_phase``), after every serving phase with
       their weights freed: qwen3-8b at every FULL width with the depth
       cut to 8 of 36 layers (AdamW's 16 B a parameter: 131 GB for 36
@@ -232,6 +233,28 @@ which raises on failure:
       an uninterrupted run's), a second runner resuming from step 8 for
       two steps, a bf16 state restored bit for bit; a ``{"train": ...}``
       line before the kernels line;
+   m. the dry run (``dryrun_phase``, after 4g): (a) the dry-run records
+      (``launch.dryrun.run_cell``: one rank's step traced on the meta
+      device on the 16 x 16 mesh, priced under ``H100``) of qwen3-8b's
+      four shapes and olmoe-1b-7b's ``train_4k`` — the three roofline
+      terms, the dominant one, the peak a rank and ``useful_ratio`` —
+      traced in worker processes while (b) runs; (b) 4g's step (qwen3-8b
+      at 8 of 36 layers, B=1 x 2048) with recomputation off, full and
+      ``dots``, each traced on meta first and then run on the card under
+      the same counter (``launch.op_cost.OpCost``): the loss within
+      REMAT_LOSS_REL_TOL and each leaf's gradient within
+      TRAIN_GRAD_REL_TOL of remat off's, the card's matmul-class flops
+      equal to the trace's and its flops and bytes within
+      DRYRUN_COUNT_REL_TOL, ``max_memory_allocated`` over the step within
+      DRYRUN_PEAK_REL_TOL of the trace's peak, the roofline floor at or
+      below the measured wall (the ratio printed); (c) 4l (a)'s step
+      under ``Rules(seq="model")`` (sequence parallelism) on its 2 x 2
+      world, run in 4l after (a) on (a)'s reference: loss, norm and each
+      rank's gradient blocks within 4l (a)'s limits, each rank's
+      recorded collectives equal to the dry trace of its step on a
+      ``DryMesh`` by kind, count and bytes in order, its peak within
+      DRYRUN_PEAK_REL_TOL of the trace's, printed beside 4l (a)'s peak
+      without SP; a ``{"dryrun": ...}`` line before the kernels line;
 5. one full-width decode step through each serving path against the
    same step through the plain hand-wired path, and the cache-free
    loss and logits against the plain twin path
@@ -307,6 +330,11 @@ runs only the device and build phases and phase 4l; prints a
 
 runs only the device phase and the training phase (4g), and prints its
 ``{"train": ...}`` line.
+
+    python3 chip_smoke.py --dryrun
+
+runs only the device phase and phase 4m, (c) with a one-card reference
+step of its own, and prints a ``{"dryrun": ...}`` line.
 """
 from __future__ import annotations
 
@@ -5176,6 +5204,8 @@ def dist_train_phase(dist=DIST_TRAIN, dev="cuda",
             seconds=a_s)
         if planted:
             return out
+        out["sp"] = sp_world_phase(tmp, spec, dev, dist["world"], ref,
+                                   max(r["peak_gb"] for r in ranks))
 
         shape, kept = elastic_remesh(list(dist["remesh"]["survivors"]),
                                      spec["model_axis"])
@@ -5301,6 +5331,348 @@ def dist_train_phase(dist=DIST_TRAIN, dev="cuda",
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 4m: the dry run and its roofline, held against the card
+# ---------------------------------------------------------------------------
+
+# (a): the records printed, each cell traced in a worker process of its
+# own on the meta device (no card), while (b) runs on the card
+DRYRUN_CELLS = (("qwen3-8b", "train_4k"), ("qwen3-8b", "prefill_32k"),
+                ("qwen3-8b", "decode_32k"), ("qwen3-8b", "long_500k"),
+                ("olmoe-1b-7b", "train_4k"))
+# (b): 4g's step (TRAIN) with recomputation off, full and "dots"
+REMAT_MODES = {"none": (False, None), "full": (True, None),
+               "dots": (True, "dots")}
+# recomputation runs the forward's ops again on the same values: the
+# loss is the plain step's; each leaf's gradient within 4g's T1 limit
+# (atomics in the embedding's backward may add in another order)
+REMAT_LOSS_REL_TOL = 1e-6
+# the card's op stream against the meta trace: the matmul class's flops
+# equal, every op's flops and bytes within 1 %, the step's peak
+# (max_memory_allocated over the step, less what was allocated before
+# it beside its arguments) within 10 % of the trace's
+DRYRUN_COUNT_REL_TOL = 1e-2
+DRYRUN_PEAK_REL_TOL = 0.10
+# (c): 4l (a)'s step under sequence parallelism; 4l (a)'s peak a rank
+# without it, as read on an NVIDIA H100 80GB HBM3 at 700 W (printed
+# beside (c)'s when 4l (a) does not run first)
+DIST_TRAIN_TP_PEAK_GB = 14.71
+
+
+def _sp_rules():
+    from repro_torch.dist.sharding import Rules
+    return Rules(data=("data",), model="model", tp="model", seq="model")
+
+
+def _counted(fn, *args) -> tuple:
+    """(OpCost, output) of ``fn(*args)`` under the op counter, its
+    arguments held."""
+    from repro_torch.launch.op_cost import OpCost
+    c = OpCost()
+    with c:
+        c.hold(*args)
+        out = fn(*args)
+    return c, out
+
+
+def _meta_like(tree):
+    from repro_torch import tree as T
+    return T.map_tree(lambda t: torch.empty_like(t, device="meta"), tree)
+
+
+def _start_peak(dev) -> int:
+    """The card's peak stats reset; returns what is allocated now."""
+    gc.collect()
+    if dev != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    return base
+
+
+def _step_peak(c, base: int, dev) -> float:
+    """A counted step's peak in bytes: on the card what it allocated at
+    most since ``_start_peak``, less what was allocated then beside its
+    arguments (``c.held``); on the CPU the counter's own (a rehearsal)."""
+    if dev != "cuda":
+        return float(c.peak)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base + c.held
+
+
+def _dt_sp_rank(rank, refdir, spec, dev, world):
+    """4m (c) on one rank: this rank's step of 4l (a) under
+    ``Rules(seq="model")`` traced first on a dry mesh as this rank
+    (meta), then run under the same counter on the card; the reduced
+    gradients' blocks against 4l (a)'s one-card step's."""
+    from repro_torch import tree as T
+    from repro_torch.dist.collectives import DryMesh, shard_dims
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import make_optimizer
+    from repro_torch.models.lm import LM, Runtime
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _dt_cfg(spec, dev)
+    ma = spec["model_axis"]
+    kept = []
+    opt = make_optimizer(spec["lr"], 1 + spec["more"])
+    tap = _GradTap(opt, lambda gs, lay: kept.append((list(gs), lay)))
+    batch = _dist_batch(cfg, spec, dev)
+    t0 = time.perf_counter()
+    dmesh = DryMesh({"data": world // ma, "model": ma}, rank=rank)
+    dmodel = LM(cfg, Runtime(rules=_sp_rules(), mesh=dmesh), device="meta")
+    dparams = S.local_specs(dmodel.abstract_params(), dmodel.param_specs(),
+                            dmesh)
+    pred, _ = _counted(S.make_train_step(dmodel, tap), dparams,
+                       opt.abstract_state(dparams), _meta_like(batch))
+    trace_s = time.perf_counter() - t0
+    kept.clear()
+    mesh = make_host_mesh(ma)
+    model = LM(cfg, Runtime(rules=_sp_rules(), mesh=mesh), device=dev)
+    params = model.init_params(0)
+    state = opt.init(params)
+    step = S.make_train_step(model, tap)
+    base = _start_peak(dev)
+    t0 = time.perf_counter()
+    got, (_, _, info) = _counted(step, params, state, batch)
+    wall = time.perf_counter() - t0
+    peak = _step_peak(got, base, dev)
+    ref = torch.load(os.path.join(refdir, "train_ref.pt"), mmap=True)
+    grads, layouts = kept.pop()
+    grad_rel = {k: _grad_distance(g, shard_dims(ref["grads"][k], lay, mesh)
+                                  .to(g.device))[0]
+                for (k, _), g, lay in zip(T.leaves_with_paths(params), grads,
+                                          layouts)}
+    return dict(loss=float(info["loss"]), grad_norm=float(info["grad_norm"]),
+                grad_rel=grad_rel, records=got.collectives.records,
+                pred_records=pred.collectives.records,
+                counts=(got.total.flops, got.total.bytes),
+                pred_counts=(pred.total.flops, pred.total.bytes),
+                peak_gb=peak / 1e9, pred_peak_gb=pred.peak / 1e9,
+                held_gb=got.held / 1e9, trace_s=trace_s, wall=wall)
+
+
+def sp_world_phase(refdir, spec, dev, world, ref, tp_peak_gb=None) -> dict:
+    """4m (c): 4l (a)'s step at ``spec``'s depth on its 2 x 2 world
+    under sequence parallelism, against 4l (a)'s one-card reference
+    ``ref`` (its results in ``refdir``) within 4l (a)'s limits; each
+    rank's recorded collectives equal to the dry trace's, by kind, count
+    and bytes in order, and its peak within DRYRUN_PEAK_REL_TOL of the
+    trace's.  Printed beside 4l (a)'s peak a rank without SP."""
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    ranks = spawn(_dt_sp_rank, world, refdir, spec, dev, world, device=dev,
+                  timeout_s=900)
+    r0 = ranks[0]
+    loss_rel = abs(r0["loss"] - ref["loss"]) / abs(ref["loss"])
+    gnorm_rel = abs(r0["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+    worst = sorted(((k, v) for r in ranks for k, v in r["grad_rel"].items()),
+                   key=lambda kv: -kv[1])
+    peak_rel = max(abs(r["peak_gb"] - r["pred_peak_gb"]) / r["pred_peak_gb"]
+                   for r in ranks)
+    same = [r["records"] == r["pred_records"] for r in ranks]
+    kinds = {}
+    for kind, nb, _ in r0["records"]:
+        c = kinds.setdefault(kind, [0, 0])
+        c[0] += 1
+        c[1] += nb
+    tp = tp_peak_gb if tp_peak_gb is not None else DIST_TRAIN_TP_PEAK_GB
+    print(f"[4m (c)] {spec['arch']} at {_dt_cfg(spec, dev).n_layers} layers "
+          f"on a {world // spec['model_axis']} x {spec['model_axis']} world "
+          f"under Rules(seq='model'): loss {r0['loss']:.6f} rel "
+          f"{loss_rel:.3g} (tol {DIST_TRAIN_LOSS_REL_TOL}), grad_norm rel "
+          f"{gnorm_rel:.3g} (tol {DIST_TRAIN_GNORM_REL_TOL}), each rank's "
+          f"block of each leaf rel max {worst[0][1]:.3g} (tol "
+          f"{DIST_TRAIN_GRAD_REL_TOL}; the worst "
+          f"{[(k, float(f'{v:.3g}')) for k, v in worst[:3]]}); rank 0's "
+          f"collectives (kind: count, result bytes) {kinds}, equal to the "
+          f"dry trace's by kind, count and bytes in order on every rank: "
+          f"{same}; the step's peak a rank "
+          f"{[round(r['peak_gb'], 3) for r in ranks]} GB against the trace's "
+          f"{[round(r['pred_peak_gb'], 3) for r in ranks]} GB (rel max "
+          f"{peak_rel:.3g}, tol {DRYRUN_PEAK_REL_TOL}; the arguments "
+          f"{r0['held_gb']:.3f} GB), beside 4l (a)'s {tp:.2f} GB a rank "
+          f"without SP{'' if tp_peak_gb is not None else ' (an earlier run)'}"
+          f"; flops, bytes {r0['counts']} against the trace's "
+          f"{r0['pred_counts']}; rank 0 trace {r0['trace_s']:.1f}s, step "
+          f"{r0['wall']:.2f}s under the counter through gloo; "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    checks = [(loss_rel, DIST_TRAIN_LOSS_REL_TOL, "loss"),
+              (gnorm_rel, DIST_TRAIN_GNORM_REL_TOL, "grad_norm"),
+              (worst[0][1], DIST_TRAIN_GRAD_REL_TOL, "gradients"),
+              (peak_rel, DRYRUN_PEAK_REL_TOL, "peak against the trace")]
+    for val, tol, what in checks:
+        if val > tol:
+            raise RuntimeError(f"[4m (c)] {what}: {val} > {tol}")
+    if not all(same):
+        raise RuntimeError(f"[4m (c)] a rank's collectives differ from the "
+                           f"dry trace's: {same}")
+    return dict(loss=r0["loss"], loss_rel=loss_rel, gnorm_rel=gnorm_rel,
+                grad_rel=worst[0][1], collectives=kinds,
+                peak_gb=[r["peak_gb"] for r in ranks],
+                pred_peak_gb=[r["pred_peak_gb"] for r in ranks],
+                peak_rel=peak_rel, tp_peak_gb=tp,
+                seconds=time.perf_counter() - t0)
+
+
+def _dry_cell(arch: str, shape: str) -> dict:
+    """One record of the dry run (a worker process's call)."""
+    from repro_torch.launch.dryrun import run_cell
+    return run_cell(arch, shape, False)
+
+
+def _sync(dev) -> None:
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def _remat_mode(cfg, batch, mode, want, dev="cuda") -> tuple:
+    """4m (b) in one mode: the step traced on meta, then run on ``dev``
+    under the same counter; returns (readings, the loss and gradients
+    on the host when ``want`` is None)."""
+    from repro_torch.core.perf_model import H100
+    from repro_torch.launch import analysis, steps as S
+    from repro_torch.launch.train import make_optimizer
+    from repro_torch.models.lm import LM, Runtime
+    remat, policy = REMAT_MODES[mode]
+    rt = Runtime(remat=remat, remat_policy=policy)
+    kept = []
+    opt = make_optimizer(TRAIN["lr"], 2)
+    tap = _GradTap(opt, lambda gs, _: kept.extend(gs))
+    t0 = time.perf_counter()
+    mmodel = LM(cfg, rt, device="meta")
+    mparams = mmodel.abstract_params()
+    pred, _ = _counted(S.make_train_step(mmodel, tap), mparams,
+                       opt.abstract_state(mparams), _meta_like(batch))
+    trace_s = time.perf_counter() - t0
+    kept.clear()
+    model = LM(cfg, rt, device=dev)
+    params = model.init_params(TRAIN["seed"])
+    state = opt.init(params)
+    base = _start_peak(dev)
+    got, (_, _, info) = _counted(S.make_train_step(model, tap), params,
+                                 state, batch)
+    peak = _step_peak(got, base, dev)
+    loss = float(info["loss"])
+    grads = [g.detach() for g in kept]
+    kept.clear()
+    if want is None:
+        want = (loss, [g.cpu() for g in grads])
+    rels = [_grad_distance(g, w.to(dev))[0] for g, w in zip(grads, want[1])]
+    del grads
+    step = S.make_train_step(model, opt)
+    _sync(dev)
+    t0 = time.perf_counter()
+    step(params, state, batch)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    del model, params, state, step
+    _free(dev)
+    terms = analysis.roofline_terms(pred.total, pred.collectives, hw=H100)
+    floor = max(terms.compute_s, terms.memory_s)
+    p, g = pred.total, got.total
+    r = dict(loss=loss, loss_rel=abs(loss - want[0]) / abs(want[0]),
+             grad_rel=max(rels), mm_flops=(g.mm_flops, p.mm_flops),
+             flops_rel=abs(g.flops - p.flops) / p.flops,
+             bytes_rel=abs(g.bytes - p.bytes) / p.bytes,
+             flops=g.flops, bytes=g.bytes, n_ops=(got.n_ops, pred.n_ops),
+             peak_gb=peak / 1e9, pred_peak_gb=pred.peak / 1e9,
+             peak_rel=abs(peak - pred.peak) / pred.peak,
+             compute_s=terms.compute_s, memory_s=terms.memory_s,
+             floor_s=floor, wall_s=wall, wall_over_floor=wall / floor,
+             trace_s=trace_s)
+    print(f"[4m (b) {mode}] {cfg.name} {cfg.n_layers} layers B="
+          f"{TRAIN['batch']} S={TRAIN['seq']}: loss {loss:.6f} rel "
+          f"{r['loss_rel']:.3g} (tol {REMAT_LOSS_REL_TOL}), each leaf's "
+          f"gradient against remat none rel max {r['grad_rel']:.3g} (tol "
+          f"{TRAIN_GRAD_REL_TOL}); the card's op stream against the meta "
+          f"trace: ops {r['n_ops']}, matmul flops {g.mm_flops:.6g} / "
+          f"{p.mm_flops:.6g} (equal), flops rel {r['flops_rel']:.3g}, bytes "
+          f"rel {r['bytes_rel']:.3g} (tol {DRYRUN_COUNT_REL_TOL}); the "
+          f"step's peak {r['peak_gb']:.3f} GB against {r['pred_peak_gb']:.3f}"
+          f" GB (rel {r['peak_rel']:.3g}, tol {DRYRUN_PEAK_REL_TOL}); "
+          f"roofline under H100: compute {terms.compute_s * 1e3:.2f} ms, "
+          f"memory {terms.memory_s * 1e3:.2f} ms, floor {floor * 1e3:.2f} ms"
+          f" against the step's wall {wall * 1e3:.2f} ms (uncounted), wall "
+          f"/ floor {r['wall_over_floor']:.2f}; trace {trace_s:.1f}s",
+          flush=True)
+    checks = [(r["flops_rel"], DRYRUN_COUNT_REL_TOL, "flops"),
+              (r["bytes_rel"], DRYRUN_COUNT_REL_TOL, "bytes"),
+              (r["peak_rel"], DRYRUN_PEAK_REL_TOL, "peak against the trace"),
+              (r["loss_rel"], REMAT_LOSS_REL_TOL, "loss against none"),
+              (r["grad_rel"], TRAIN_GRAD_REL_TOL, "gradients against none")]
+    for val, tol, what in checks:
+        if val > tol:
+            raise RuntimeError(f"[4m (b) {mode}] {what}: {val} > {tol}")
+    if g.mm_flops != p.mm_flops:
+        raise RuntimeError(f"[4m (b) {mode}] matmul flops {g.mm_flops} on "
+                           f"the card, {p.mm_flops} traced")
+    if not floor <= wall:
+        raise RuntimeError(f"[4m (b) {mode}] the roofline floor {floor} s "
+                           f"is above the measured wall {wall} s")
+    return r, want
+
+
+def _print_dry_record(arch: str, shape: str, rec: dict) -> None:
+    if "skipped" in rec:
+        print(f"[4m (a)] {arch} {shape}: skipped ({rec['skipped']})")
+        return
+    r = rec["roofline"]
+    print(f"[4m (a)] {arch} {shape} on {rec['mesh']} ({rec['regime']}, "
+          f"remat {rec['remat']}; priced under H100, not measured): compute "
+          f"{r['compute_s']:.4g} s, memory {r['memory_s']:.4g} s, collective "
+          f"{r['collective_s']:.4g} s, dominant {r['dominant']}; peak a rank "
+          f"{rec['memory']['peak_per_device_gb']} GiB; useful_ratio "
+          f"{r['useful_ratio']:.3f}; trace {rec['trace_s']}s", flush=True)
+
+
+def dryrun_phase(card: str, sp=None) -> dict:
+    """4m: (a) the dry-run records of DRYRUN_CELLS, traced in worker
+    processes while (b) runs on the card: 4g's step in each of
+    REMAT_MODES traced on meta, then run on the card under the same
+    counter; (c) ``sp``, 4l's world under sequence parallelism (run
+    here, with 4l (a)'s reference, when not given)."""
+    import multiprocessing
+    t_all = time.perf_counter()
+    if sp is None:
+        spec = DIST_TRAIN["train"]
+        from repro_torch.launch.mesh import spawn
+        tmp = tempfile.mkdtemp(prefix="dryrun-sp-")
+        try:
+            ref = spawn(_dt_ref_rank, 1, tmp, spec, "cuda", device="cuda",
+                        timeout_s=900)[0]
+            sp = sp_world_phase(tmp, spec, "cuda", DIST_TRAIN["world"], ref)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    pool = concurrent.futures.ProcessPoolExecutor(
+        len(DRYRUN_CELLS), mp_context=multiprocessing.get_context("spawn"))
+    try:
+        futs = {cell: pool.submit(_dry_cell, *cell) for cell in DRYRUN_CELLS}
+        cfg = _train_cfg()
+        batch = _train_batch(cfg)
+        remat, want = {}, None
+        for mode in REMAT_MODES:
+            remat[mode], want = _remat_mode(cfg, batch, mode, want)
+        del want
+        records = {}
+        for (arch, shape), f in futs.items():
+            rec = f.result(timeout=900)
+            _print_dry_record(arch, shape, rec)
+            records[f"{arch} {shape}"] = rec if "skipped" in rec else {
+                "roofline": {k: rec["roofline"][k] for k in (
+                    "compute_s", "memory_s", "collective_s", "dominant",
+                    "useful_ratio")},
+                "peak_per_device_gb": rec["memory"]["peak_per_device_gb"],
+                "regime": rec["regime"], "trace_s": rec["trace_s"]}
+    finally:
+        pool.shutdown(cancel_futures=True)
+    out = dict(card=card, records=records, remat=remat, sp=sp,
+               seconds=time.perf_counter() - t_all)
+    print(f"[4m] {out['seconds']:.1f}s", flush=True)
+    return out
+
+
 def codeqwen_phase() -> dict:
     """codeqwen1.5-7b at every FULL width and depth (32 layers, 32 q
     heads on 32 kv heads: the partial kernel at a GQA group of 1),
@@ -5327,10 +5699,12 @@ def codeqwen_phase() -> dict:
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--plant-faults"], ["--reliability"], ["--train"],
-                    ["--moe"], ["--archs"], ["--dist"], ["--dist-train"]):
+                    ["--moe"], ["--archs"], ["--dist"], ["--dist-train"],
+                    ["--dryrun"]):
         raise SystemExit("usage: python3 chip_smoke.py "
                          "[--plant-faults | --reliability | --train | "
-                         "--moe | --archs | --dist | --dist-train]")
+                         "--moe | --archs | --dist | --dist-train | "
+                         "--dryrun]")
     smi = device_phase()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     # tuned schedules persist inside the checkout (.cache/ is gitignored)
@@ -5340,6 +5714,10 @@ def main(argv=None) -> None:
     from repro_torch.core import api
     if argv == ["--train"]:
         print(json.dumps({"train": training_phase(smi)}))
+        print(smi)
+        return
+    if argv == ["--dryrun"]:
+        print(json.dumps({"dryrun": dryrun_phase(smi)}, default=str))
         print(smi)
         return
     build_phase()
@@ -5488,6 +5866,7 @@ def main(argv=None) -> None:
         raise RuntimeError("a main path launched fused_gemm_chain3")
     # 4g, after every serving phase and the counters' last read
     train = training_phase(smi)
+    dry = dryrun_phase(smi, sp=dist_train["sp"])
     print("[steps] decode step wall / device busy / busy share / span (ms):"
           + "".join(f" {path} {mode} {p['wall_ms']:.3f} / "
                     f"{p['busy_ms']:.3f} / "
@@ -5671,6 +6050,7 @@ def main(argv=None) -> None:
         "generate")}}, default=str))
     print(json.dumps({"dist": dict(dist, times=t_dist)}, default=str))
     print(json.dumps({"dist_train": dist_train}, default=str))
+    print(json.dumps({"dryrun": dry}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -36,12 +36,30 @@ methods ``gather``, ``reduce`` and ``enter`` apply:
   rank's heads or experts), whose gradient each rank holds only its
   part of.
 
+and, for sequence parallelism, a fourth:
+
+* reduce-scatter forward, all-gather backward (``scatter``): a
+  row-parallel product's partial sums, summed and split over the
+  sequence (the residual stream's layout between blocks).
+
 ``all_reduce`` and ``all_gather`` stay the inference forms (no
 gradient).
+
+``axis`` over several mesh dims at once (a batch over ``("pod",
+"data")``) makes one process group over the ranks those dims span,
+once per mesh and tuple of names.  A ``DryMesh`` starts no world: its
+``DryAxis``es return tensors of the right shapes and types without a
+process group, so that a step can be traced on the ``meta`` device as
+one rank of a mesh of any size (``launch.dryrun``).  Every collective,
+real or dry, is told to the taps of ``tapped`` (``launch.op_cost``
+counts them): its kind, input, result and participants.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -59,6 +77,37 @@ HOST_HOPS: dict[str, list] = {}
 #: every collective's payload on this rank, by op: the count and the
 #: bytes this rank puts in
 TRAFFIC: dict[str, list] = {}
+
+
+#: the taps of ``tapped``, innermost last
+_TAPS: list = []
+
+
+@contextlib.contextmanager
+def tapped(tap):
+    """Within: ``tap.begin()`` before and ``tap.end(kind, x, result, n)``
+    after every collective this process runs (``kind`` one of
+    ``core.ring.RING_KINDS``, ``x`` its input, ``result`` its output or
+    None when it raised, ``n`` its participants)."""
+    _TAPS.append(tap)
+    try:
+        yield tap
+    finally:
+        _TAPS.remove(tap)
+
+
+def _run(kind: str, n: int, x: torch.Tensor, body):
+    """``body()``, one collective of ``kind`` over ``n`` ranks on ``x``,
+    with the taps told of it."""
+    for tap in _TAPS:
+        tap.begin()
+    out = None
+    try:
+        out = body()
+        return out
+    finally:
+        for tap in _TAPS:
+            tap.end(kind, x, out, n)
 
 
 def _traffic(op: str, t: torch.Tensor) -> None:
@@ -94,31 +143,43 @@ class Axis:
         """The sum (or ``op="max"``) over the dim, out of place."""
         if self.size == 1:
             return x
-        _traffic("all_reduce", x)
-        y = x.clone()
-        dist.all_reduce(y, op=dist.ReduceOp.MAX if op == "max"
-                        else dist.ReduceOp.SUM, group=self.group)
-        return y
+        return _run("all-reduce", self.size, x,
+                    lambda: self._all_reduce(x, op))
 
     def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """Every rank's ``x`` concatenated along ``dim``, by index."""
         if self.size == 1:
             return x
-        _traffic("all_gather", x)
-        parts = [torch.empty_like(x) for _ in range(self.size)]
-        dist.all_gather(parts, x.contiguous(), group=self.group)
-        return torch.cat(parts, dim=dim)
+        return _run("all-gather", self.size, x,
+                    lambda: self._all_gather(x, dim))
 
     def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """The sum over the dim of every rank's ``x``, this rank's block
         of it along ``dim``."""
         if self.size == 1:
             return x
-        _traffic("reduce_scatter", x)
-        parts = [p.contiguous() for p in torch.chunk(x, self.size, dim)]
-        if len({tuple(p.shape) for p in parts}) != 1:
+        if x.shape[dim] % self.size:
             raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
                              f"divide over {self.names} ({self.size})")
+        return _run("reduce-scatter", self.size, x,
+                    lambda: self._reduce_scatter(x, dim))
+
+    def _all_reduce(self, x, op):
+        _traffic("all_reduce", x)
+        y = x.clone()
+        dist.all_reduce(y, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM, group=self.group)
+        return y
+
+    def _all_gather(self, x, dim):
+        _traffic("all_gather", x)
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(parts, x.contiguous(), group=self.group)
+        return torch.cat(parts, dim=dim)
+
+    def _reduce_scatter(self, x, dim):
+        _traffic("reduce_scatter", x)
+        parts = [p.contiguous() for p in torch.chunk(x, self.size, dim)]
         out = torch.empty_like(parts[self.index])
         dist.reduce_scatter(out, parts, group=self.group)
         return out
@@ -145,6 +206,14 @@ class Axis:
             return x
         return _Enter.apply(x, self)
 
+    def scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``reduce_scatter`` under autograd: the backward all-gathers
+        the gradient (each rank's block of the sum came from every
+        rank's partial)."""
+        if self.size == 1:
+            return x
+        return _Scatter.apply(x, self, dim)
+
     def shard(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's block of ``x`` along ``dim`` (a view)."""
         n = x.shape[dim]
@@ -160,6 +229,10 @@ class Axis:
         ``ppermute`` with ``perm = [(i, i + 1 mod n)]``)."""
         if self.size == 1:
             return x
+        return _run("collective-permute", self.size, x,
+                    lambda: self._shift(x))
+
+    def _shift(self, x):
         _traffic("send", x)
         nxt = self.ranks[(self.index + 1) % self.size]
         prv = self.ranks[(self.index - 1) % self.size]
@@ -191,6 +264,17 @@ class _Gather(torch.autograd.Function):
         return g, None, None, None
 
 
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim = ax, dim
+        return ax.reduce_scatter(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.ax.all_gather(g, ctx.dim), None, None
+
+
 class _Reduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ax):
@@ -212,22 +296,108 @@ class _Enter(torch.autograd.Function):
         return ctx.ax.all_reduce(g), None
 
 
+class DryAxis(Axis):
+    """An ``Axis`` without a process group: each collective returns a
+    tensor of its result's shape and type on its input's device (the
+    input repeated, or its block) and moves nothing; the taps see it as
+    they see a real one.  ``TRAFFIC`` and ``HOST_HOPS`` count real
+    collectives only."""
+
+    def _all_reduce(self, x, op):
+        return x.clone()
+
+    def _all_gather(self, x, dim):
+        return torch.cat([x] * self.size, dim=dim)
+
+    def _reduce_scatter(self, x, dim):
+        return torch.chunk(x, self.size, dim)[self.index].clone(
+            memory_format=torch.contiguous_format)
+
+    def _shift(self, x):
+        return x.clone()
+
+
+class DryMesh:
+    """A mesh stand-in that starts no world: ``shape`` {dim name: size},
+    seen from ``rank`` (row-major over the dims), whose ``axis`` gives
+    ``DryAxis``es — one rank's view of a mesh of any size, for tracing
+    a step on the ``meta`` device."""
+
+    def __init__(self, shape: dict, rank: int = 0):
+        self.shape = dict(shape)
+        self.rank = rank
+        self.coordinate = dict(zip(self.shape, _unravel(
+            rank, tuple(self.shape.values()))))
+
+    def _rank_of(self, coord: dict) -> int:
+        r = 0
+        for name, size in self.shape.items():
+            r = r * size + coord[name]
+        return r
+
+    def axis(self, names) -> Optional[DryAxis]:
+        names = tuple(n for n in ((names,) if isinstance(names, str)
+                                  else names) if self.shape[n] > 1)
+        if not names:
+            return None
+        sizes = [self.shape[n] for n in names]
+        ranks, index = [], 0
+        for i, c in enumerate(itertools.product(*map(range, sizes))):
+            coord = dict(self.coordinate, **dict(zip(names, c)))
+            ranks.append(self._rank_of(coord))
+            if ranks[-1] == self.rank:
+                index = i
+        return DryAxis(names, math.prod(sizes), index, None, tuple(ranks))
+
+
+def _unravel(i: int, sizes: tuple) -> list[int]:
+    out = []
+    for size in reversed(sizes):
+        out.append(i % size)
+        i //= size
+    return out[::-1]
+
+
 def axis(mesh, names) -> Optional[Axis]:
     """This rank's ``Axis`` over the mesh dim(s) ``names`` (a name or a
-    tuple of names), or None for no dim or dims of size 1.  Several dims
-    of size > 1 at once (a batch over data and model) are not run."""
+    tuple of names), or None for no dim or dims of size 1.  Over several
+    dims of size > 1 the axis is one process group over the ranks they
+    span, indexed row-major in the order of ``names``; every rank makes
+    it on first use (a collective call), once per mesh and names.  A
+    ``DryMesh`` gives a ``DryAxis``."""
     if mesh is None or not names:
         return None
+    if isinstance(mesh, DryMesh):
+        return mesh.axis(names)
     shape = mesh_shape(mesh)
     names = tuple(n for n in ((names,) if isinstance(names, str) else names)
                   if shape[n] > 1)
     if not names:
         return None
-    if len(names) > 1:
-        raise NotImplementedError(f"a collective over the mesh dims {names}")
-    group = mesh.get_group(names[0])
-    return Axis(names, shape[names[0]], mesh.get_local_rank(names[0]), group,
-                tuple(dist.get_process_group_ranks(group)))
+    if len(names) == 1:
+        group = mesh.get_group(names[0])
+        return Axis(names, shape[names[0]], mesh.get_local_rank(names[0]),
+                    group, tuple(dist.get_process_group_ranks(group)))
+    made = mesh.__dict__.setdefault("_axes_over_dims", {})
+    if names not in made:
+        made[names] = _axis_over(mesh, names)
+    return made[names]
+
+
+def _axis_over(mesh, names: tuple[str, ...]) -> Axis:
+    """The ``Axis`` over several dims of a DeviceMesh: the subgroups of
+    ranks that differ only along ``names`` (all of them made by every
+    rank, as ``torch.distributed`` requires), this rank's among them."""
+    dims = list(mesh.mesh_dim_names)
+    idx = [dims.index(n) for n in names]
+    rest = [i for i in range(len(dims)) if i not in idx]
+    size = math.prod(mesh.mesh.shape[i] for i in idx)
+    groups = [row.tolist() for row in
+              mesh.mesh.permute(*rest, *idx).reshape(-1, size)]
+    group, _ = dist.new_subgroups_by_enumeration(groups)
+    me = dist.get_rank()
+    ranks = next(g for g in groups if me in g)
+    return Axis(names, size, ranks.index(me), group, tuple(ranks))
 
 
 def gather_dims(t: torch.Tensor, layout: Sequence, mesh,

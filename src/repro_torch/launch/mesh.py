@@ -32,9 +32,20 @@ import torch
 import torch.distributed as dist
 
 from ..core.perf_model import V5E, MeshSpec
+from ..dist.collectives import DryMesh
 from ..dist.sharding import (Rules, batch_placement, default_rules,
                              dispatch_mesh_spec, feature_placement,
                              mesh_shape, ring_dispatch_spec)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> DryMesh:
+    """The JAX package's production mesh, 16 x 16 ``("data", "model")``
+    (one pod) or 2 x 16 x 16 ``("pod", "data", "model")``, as seen from
+    rank 0 without a world: a ``DryMesh``, whose collectives move
+    nothing (``launch.dryrun`` traces one rank's step on it)."""
+    shape = ({"pod": 2, "data": 16, "model": 16} if multi_pod
+             else {"data": 16, "model": 16})
+    return DryMesh(shape)
 
 
 def make_host_mesh(model_axis: int = 1):

@@ -18,12 +18,17 @@ each rank's loss a mean over its own rows, the reduced gradient divided
 by the axis size.  The JAX package stacks the residuals on a leading
 axis of data shards; here each rank holds its own row.
 
-``shard_params`` is the counterpart of ``shardings_for``: it places a
-whole parameter tree as this rank's blocks under the model's
-``param_specs``; ``state_layouts`` gives the layouts of a training
-state (params, optimizer state), for its checkpoints.  The JAX package's
-dry-run specs (``input_specs``, ``batch_specs``, ``abstract_cache``)
-come with ROADMAP Queue 1 item 7.
+``shard_params`` places a whole parameter tree as this rank's blocks
+under the model's ``param_specs``; ``state_layouts`` gives the layouts
+of a training state (params, optimizer state), for its checkpoints.
+
+The dry run's step specs: ``make_prefill_step`` and
+``make_decode_step``, ``input_specs`` (``meta`` tensors of every model
+input of a cell, the JAX package's shapes and types), ``batch_specs``
+(their layouts), ``abstract_cache`` (``init_cache`` on the ``meta``
+device, whole) and ``local_specs`` — the counterpart of
+``shardings_for`` — which maps each whole ``meta`` tensor to one rank's
+block of it under its layout (``dist.sharding.local_shape``).
 """
 from __future__ import annotations
 
@@ -34,7 +39,8 @@ import torch
 from .. import tree as T
 from ..dist import compression
 from ..dist.collectives import axis, layout_dims, shard_dims
-from ..dist.sharding import batch_placement
+from ..configs import ShapeCell
+from ..dist.sharding import Rules, batch_placement, local_shape
 from ..models.config import ModelConfig
 from ..models.lm import LM, Runtime, requires_grad
 from ..models.whisper import EncDec
@@ -226,3 +232,79 @@ def shard_params(model, params: dict, device=None) -> dict:
     dev = model.device if device is None else device
     return T.map_tree(lambda t, sp: shard_dims(t, sp, mesh).to(dev),
                       params, model.param_specs())
+
+
+def make_prefill_step(model):
+    """``prefill_step(params, cache, batch) -> (logits, cache)``: the
+    model's prefill of ``batch["tokens"]`` (after ``prefix_embeds``, or
+    over ``frames``) into ``cache``."""
+    def prefill_step(params, cache, batch):
+        if "frames" in batch:
+            return model.prefill(params, batch["tokens"], cache,
+                                 batch["frames"])
+        return model.prefill(params, batch["tokens"], cache,
+                             prefix_embeds=batch.get("prefix_embeds"))
+    return prefill_step
+
+
+def make_decode_step(model):
+    """``decode_step(params, cache, batch) -> (logits, cache)``: one
+    token ``batch["tokens"]`` (B,) at position ``batch["pos"]``."""
+    def decode_step(params, cache, batch):
+        return model.decode_step(params, cache, batch["tokens"],
+                                 batch["pos"])
+    return decode_step
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeCell) -> dict:
+    """``meta`` stand-ins for every model input of this cell, whole:
+    tokens and labels int32, ``frames`` (an encoder-decoder's) and
+    ``prefix_embeds`` (a vision prefix's, which the tokens make room
+    for) in the config's type; a decode cell's one token a row and its
+    0-d position."""
+    b, s = shape.batch, shape.seq
+    dt = getattr(torch, cfg.dtype)
+    tok = torch.int32
+    if shape.kind == "decode":
+        return {"tokens": _meta((b,), tok), "pos": _meta((), tok)}
+    batch = {}
+    if cfg.family == "encdec":
+        batch["frames"] = _meta((b, cfg.encoder.n_frames, cfg.d_model), dt)
+    elif cfg.n_prefix_embeds:
+        batch["prefix_embeds"] = _meta((b, cfg.n_prefix_embeds,
+                                        cfg.d_model), dt)
+        s -= cfg.n_prefix_embeds
+    batch["tokens"] = _meta((b, s), tok)
+    if shape.kind == "train":
+        batch["labels"] = _meta((b, s), tok)
+    return batch
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeCell, rules: Rules,
+                mesh) -> dict:
+    """The layouts of ``input_specs``' tensors: the batch dim over its
+    placement (``Rules.batch_spec``), every other dim whole, the
+    position whole."""
+    lead = rules.batch_spec(shape.batch, mesh)
+    return {k: (() if k == "pos" else (lead,) + (None,) * (v.dim() - 1))
+            for k, v in input_specs(cfg, shape).items()}
+
+
+def abstract_cache(model, cfg: ModelConfig, shape: ShapeCell):
+    """``init_cache(batch, seq)`` of the cell on the ``meta`` device,
+    whole (the global shapes; ``local_specs`` under
+    ``model.cache_specs`` gives a rank's)."""
+    return build_model(cfg, Runtime(), device="meta").init_cache(
+        shape.batch, shape.seq)
+
+
+def local_specs(tree, layouts, mesh):
+    """Each whole ``meta`` tensor of ``tree`` as one rank's block of it
+    under its layout in ``layouts`` (a tree mirroring ``tree``), on
+    ``mesh`` — the counterpart of the JAX package's ``shardings_for``."""
+    return T.map_tree(lambda t, lay: _meta(local_shape(t.shape, lay, mesh),
+                                           t.dtype), tree, layouts)

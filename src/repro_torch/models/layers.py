@@ -57,9 +57,22 @@ heads-sharded, or whole on every rank for the ring regimes
 (``dist.ring_dispatch.paged_ring_decode_attention``).  The
 ``specs_*`` functions give each block's weight layouts
 (``dist.sharding``).
+
+Under sequence parallelism (``Mesh.seq``, Megatron-SP over the
+tensor-parallel dim) the residual stream between blocks is this rank's
+block of the sequence: a block gathers its normed input over the
+sequence (``Axis.gather``, where tensor parallelism alone enters it)
+and reduce-scatters its row-parallel output over it (``Axis.scatter``,
+where tensor parallelism alone all-reduces it) — ``_enter`` and
+``_leave``.
+
+``streaming_attention`` runs inside ``attention_interior``, the region
+``launch.op_cost`` attributes to the attention interior.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 from typing import Optional
@@ -89,10 +102,55 @@ class Mesh:
     batch: int
     dist_decode: bool = False
     dist_pipelined: bool = False
+    seq: Optional[object] = None   # the sequence-parallel Axis (the tp
+    # one), where the call's sequence divides over it
 
 
 def _tp(ctx: Optional[Mesh]):
     return ctx.tp if ctx is not None else None
+
+
+def _seq(ctx: Optional[Mesh]):
+    return ctx.seq if ctx is not None else None
+
+
+def _enter(ctx: Optional[Mesh], x: torch.Tensor) -> torch.Tensor:
+    """A block's normed input (B, S, D) made whole for its
+    rank-specific columns: gathered over the sequence under sequence
+    parallelism (the gradient reduce-scattered), entered under tensor
+    parallelism (the gradient all-reduced)."""
+    if _seq(ctx) is not None:
+        return ctx.seq.gather(x, 1)
+    return ctx.tp.enter(x) if _tp(ctx) is not None else x
+
+
+def _leave(ctx: Optional[Mesh], out: torch.Tensor) -> torch.Tensor:
+    """A row-parallel output's partial sums (B, S, D) summed over the
+    tensor-parallel dim: reduce-scattered over the sequence under
+    sequence parallelism, all-reduced otherwise."""
+    if _seq(ctx) is not None:
+        return ctx.seq.scatter(out, 1)
+    return ctx.tp.reduce(out) if _tp(ctx) is not None else out
+
+
+_INTERIOR = contextvars.ContextVar("attention_interior", default=False)
+
+
+@contextlib.contextmanager
+def attention_interior():
+    """The region of the attention interior (score tiles, softmax, P V:
+    the work a fused attention kernel keeps on chip), entered by the
+    streaming twin; ``launch.op_cost`` attributes the ops run inside
+    it."""
+    token = _INTERIOR.set(True)
+    try:
+        yield
+    finally:
+        _INTERIOR.reset(token)
+
+
+def in_attention_interior() -> bool:
+    return _INTERIOR.get()
 
 
 def _kv_for_q(kv: torch.Tensor, cfg: ModelConfig, tp) -> torch.Tensor:
@@ -293,14 +351,12 @@ def mlp_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     rank's ffn columns and rows, and the partial products are summed
     over the dim."""
     f = act_fn(act_name(cfg))
-    tp = _tp(ctx)
-    if tp is not None:
-        x = tp.enter(x)
+    x = _enter(ctx, x)
     if gated(cfg):
         out = (f(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
     else:
         out = f(x @ p["w_up"]) @ p["w_down"]
-    return tp.reduce(out) if tp is not None else out
+    return _leave(ctx, out)
 
 
 # ---------------------------------------------------------------------------
@@ -430,21 +486,25 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     run of them, ``specs_moe``), else ``tp`` (every expert on this
     rank's ffn slice).  The router and the tokens enter through
     ``Axis.enter``: each rank's gradient of them is its experts' or
-    its slice's part."""
-    b, s, d = x.shape
-    x2d = x.reshape(b * s, d)
+    its slice's part.  Under sequence parallelism the tokens are
+    gathered over the sequence first and the summed output is
+    reduce-scattered over it (``_enter``, ``_leave``)."""
     tp = _tp(ctx)
     if tp is None:
-        return moe_local(p, x2d, cfg).to(x.dtype).reshape(b, s, d)
+        b, s, d = x.shape
+        return moe_local(p, x.reshape(b * s, d), cfg).to(
+            x.dtype).reshape(b, s, d)
+    x = _enter(ctx, x)
+    b, s, d = x.shape
     p = dict(p, router=tp.enter(p["router"]))
-    x2d = tp.enter(x2d)
+    x2d = x.reshape(b * s, d)
     e = cfg.moe.n_experts
     if e % tp.size == 0:
         e_loc = e // tp.size
         out = moe_local(p, x2d, cfg, expert_slice=(tp.index * e_loc, e_loc))
     else:
         out = moe_local(p, x2d, cfg)
-    return tp.reduce(out.to(x.dtype)).reshape(b, s, d)
+    return _leave(ctx, out.to(x.dtype).reshape(b, s, d))
 
 
 def feed_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -686,7 +746,8 @@ def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor, tp=None) -> tuple:
+                 positions: torch.Tensor, tp=None,
+                 entered: bool = False) -> tuple:
     """The start of every attention block: the q/k/v projections of x
     (B, S, D), qk-norm, and rope at ``positions`` ((S,) or (B, S)) where
     ``cfg.use_rope`` (a config with learned positions adds them to its
@@ -694,13 +755,15 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
     dh).  Under a tensor-parallel dim ``tp`` the projections are this
     rank's columns: q holds its Hq / n heads, k and v its Hkv / n — or,
     where the dim does not divide the kv heads, all of them, gathered
-    whole before their norm."""
+    whole before their norm.  ``entered``: x has already been made whole
+    for the rank's columns (``_enter``)."""
     b, s, _ = x.shape
     dh = cfg.dh
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     qn, kn = p.get("q_norm"), p.get("k_norm")
     if tp is not None:
-        x = tp.enter(x)
+        if not entered:
+            x = tp.enter(x)
         if cfg.qk_norm:
             qn, kn = tp.enter(qn), tp.enter(kn)
     k, v = x @ p["wk"], x @ p["wv"]
@@ -741,6 +804,14 @@ def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (N,) holds each kv slot's absolute position (a ring cache's, -1 =
     empty), default ``arange(N)``.  P stays f32 through P V, as in the
     JAX twin."""
+    with attention_interior():
+        return _streaming(q, k, v, causal=causal, window=window,
+                          scale=scale, bkv=bkv, q_offset=q_offset,
+                          kv_positions=kv_positions)
+
+
+def _streaming(q, k, v, *, causal, window, scale, bkv, q_offset,
+               kv_positions):
     b, h, m, _ = q.shape
     n = k.shape[2]
     bkv = min(bkv, n)
@@ -871,10 +942,7 @@ def _cached_attention(q, k, v, cfg: ModelConfig, *, positions, cache: dict,
         cache["k"][:, :, idx] = ks.to(cache["k"].dtype)
         cache["v"][:, :, idx] = vs.to(cache["v"].dtype)
     else:                   # sequence-sharded: the slots this rank owns
-        lo = tp.index * nl
-        own = ((idx >= lo) & (idx < lo + nl)).nonzero()[:, 0]
-        cache["k"][:, :, idx[own] - lo] = ks[:, :, own].to(cache["k"].dtype)
-        cache["v"][:, :, idx[own] - lo] = vs[:, :, own].to(cache["v"].dtype)
+        _write_owned(cache, ks, vs, idx - tp.index * nl)
         if ctx.dist_decode and s == 1:
             return distributed_decode_attention(
                 q, cache, positions, cfg, tp, window=win, scale=scale)
@@ -897,6 +965,31 @@ def _cached_attention(q, k, v, cfg: ModelConfig, *, positions, cache: dict,
     # decode / short: single-block scores are already tiny
     return _positional_attention(q, kk, vv, positions, kv_pos, causal, win,
                                  scale)
+
+
+def _write_owned(cache: dict, ks: torch.Tensor, vs: torch.Tensor,
+                 local: torch.Tensor) -> None:
+    """Rows of ``ks``/``vs`` (B, H, S, dh) into the slots of this rank's
+    block of a sequence-sharded cache, IN PLACE: row i goes to slot
+    ``local[i]`` where it lies in ``[0, nl)``.  Shapes depend on no
+    value (no ``nonzero``), so a step traces on the ``meta`` device:
+    each row writes its slot clamped into the block, with the value its
+    slot's owning row gives it (the highest such row), or the slot's
+    own value where no row owns it — the rows that share a slot write
+    one value."""
+    nl = cache["k"].shape[2]
+    own = (local >= 0) & (local < nl)
+    slot = local.clamp(0, nl - 1).long()
+    rows = torch.arange(local.shape[0], device=local.device)
+    writer = torch.full((nl,), -1, dtype=rows.dtype, device=local.device
+                        ).scatter_reduce(0, slot, torch.where(own, rows, -1),
+                                         "amax")[slot]
+    keep = (writer < 0)[:, None]
+    src = writer.clamp(min=0)
+    for name, t in (("k", ks), ("v", vs)):
+        buf = cache[name]
+        buf[:, :, slot] = torch.where(keep, buf[:, :, slot],
+                                      t[:, :, src].to(buf.dtype))
 
 
 def distributed_decode_attention(q: torch.Tensor, cache: dict,
@@ -949,13 +1042,18 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     Under a mesh (``ctx``) the block runs on this rank's heads, the
     kernel through ``kernels.ops.attention_shard`` (the regime the
     tuner picks for the global shape), and ``wo``'s partial products
-    are summed over the tensor-parallel dim."""
+    are summed over the tensor-parallel dim; under sequence parallelism
+    x is this rank's block of the sequence, gathered whole first, and
+    the output is its block of the sum (``_enter``, ``_leave``)."""
+    if _seq(ctx) is not None:
+        x = _enter(ctx, x)
     b, s, _ = x.shape
     dh = cfg.dh
     win = cfg.attn_window
     tp = _tp(ctx)
     q, k, v = (t.transpose(1, 2)
-               for t in _project_qkv(p, x, cfg, positions, tp))
+               for t in _project_qkv(p, x, cfg, positions, tp,
+                                     entered=_seq(ctx) is not None))
     scale = 1.0 / math.sqrt(dh)
     if cache is not None:
         o = _cached_attention(q, k, v, cfg, positions=positions,
@@ -986,7 +1084,7 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
             o = naive_attention(q, kk, vv, causal=causal, window=win,
                                 scale=scale)
     out = o.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
-    return tp.reduce(out) if tp is not None else out
+    return _leave(ctx, out)
 
 
 def cross_attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,

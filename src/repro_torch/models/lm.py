@@ -55,6 +55,29 @@ rank-specific columns an all-reduce).  Its value is the global-batch
 mean on every rank, and each rank's gradients are its part of that
 mean's: ``launch.steps.make_train_step`` sums them over the batch's mesh
 dims for the leaves replicated there.
+
+Under ``Rules(seq=...)`` (the tensor-parallel dim, Megatron-SP) the
+residual stream between blocks is this rank's block of the sequence,
+(B_local, S / n, D): the vocab-parallel embedding reduce-scatters its
+rows over the sequence, each block gathers its normed input and
+reduce-scatters its output (``layers._enter``/``_leave``), the norms run
+on the shard with their weights entered (each rank's gradient is its
+block's part), and the loss and the logits gather the shard first.  A
+call whose sequence the dim does not divide (a decode step) runs plain
+tensor parallelism, as the JAX package's ``constrain`` drops a mesh dim
+that does not divide.  Every other family, and the paged path, raises
+under ``rules.seq``.
+
+``Runtime(remat=True)`` runs each pattern super-block of the cache-free
+stack (one layer of a dense stack; ``(rglru, rglru, attn)`` of
+recurrentgemma's) under ``torch.utils.checkpoint`` — the JAX package's
+``jax.checkpoint`` on its scanned body; the unscanned tail runs plain,
+as there — and ``remat_policy="dots"`` keeps the 2-D weight products'
+outputs (``aten.mm``/``aten.addmm``: ``dots_with_no_batch_dims_saveable``)
+and recomputes the rest.  The default is off, where the JAX package's
+is on: each of the port's drivers is the counterpart of a JAX driver
+that turns it off.  ``abstract_params`` gives ``init_params``' tree on
+the ``meta`` device.
 """
 from __future__ import annotations
 
@@ -64,6 +87,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from .. import tree as T
 from ..core import planner
@@ -109,6 +133,36 @@ class Runtime:
     dist_decode_pipelined: bool = False  # the ring combine as the
     # per-hop pipelined ring (paged-ring-pipelined) instead of the
     # serial all-reduces.
+    remat: bool = False     # activation recomputation of the cache-free
+    # stack's pattern super-blocks under autograd (the JAX package's
+    # default is True; see the module doc)
+    remat_policy: Optional[str] = None  # None: recompute everything;
+    # "dots": keep the 2-D weight products' outputs
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: the outputs of the 2-D
+    weight GEMMs ``x @ W`` lowers to are kept, every other op (the
+    batched attention products included) is recomputed."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(rt: Runtime, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` with ``rt``'s
+    policy when ``rt.remat`` and autograd records (the non-reentrant
+    form: the block's collectives run again in its backward)."""
+    if not (rt.remat and torch.is_grad_enabled()):
+        return fn(*args)
+    if rt.remat_policy not in (None, "dots"):
+        raise ValueError(f"remat_policy {rt.remat_policy!r}: None or "
+                         f"'dots'")
+    kw = {}
+    if rt.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return _ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
@@ -234,6 +288,15 @@ class LM:
                 f"model dim {rules.model!r}")
         self._n_model = (mesh_shape(rt.mesh)[rules.model] if rules.model
                          else 1)
+        if rules.seq is not None and rules.seq != rules.tp:
+            raise NotImplementedError(
+                f"sequence parallelism runs over the tensor-parallel dim; "
+                f"seq {rules.seq!r} with tp {rules.tp!r} is not ported")
+        if rules.seq is not None and cfg.vocab % self._n_model:
+            raise NotImplementedError(
+                f"sequence parallelism needs the vocab-parallel embedding; "
+                f"{cfg.name}'s vocab {cfg.vocab} does not divide over "
+                f"{self._n_model}")
 
     @functools.cached_property
     def _tp(self):
@@ -304,12 +367,27 @@ class LM:
     # ------------------------------------------------------------------
     # mesh helpers: global tensors in and out, shards inside
     # ------------------------------------------------------------------
-    def _ctx(self, batch: int) -> Optional[L.Mesh]:
+    def _ctx(self, batch: int, seq: int = 1) -> Optional[L.Mesh]:
+        """The blocks' view of the mesh for a call of ``batch`` rows of
+        ``seq`` positions: sequence-parallel where ``rules.seq`` is set
+        and its dim divides ``seq``."""
         rt = self.rt
         if rt.mesh is None:
             return None
+        sp = self._tp if rt.rules.seq is not None else None
+        if sp is not None and seq % sp.size:
+            sp = None
         return L.Mesh(rt.mesh, rt.rules, self._tp, batch,
-                      rt.dist_decode_attn, rt.dist_decode_pipelined)
+                      rt.dist_decode_attn, rt.dist_decode_pipelined, sp)
+
+    def _norm(self, p: dict, x: torch.Tensor,
+              ctx: Optional[L.Mesh]) -> torch.Tensor:
+        """``apply_norm``; under sequence parallelism on this rank's
+        block of the sequence, its weights entered (each rank's gradient
+        is its block's part)."""
+        if ctx is not None and ctx.seq is not None:
+            p = {k: ctx.seq.enter(w) for k, w in p.items()}
+        return L.apply_norm(p, x, self.cfg)
 
     def _bax(self, batch: int):
         """The batch dim's mesh axis for a global batch of ``batch``
@@ -357,7 +435,8 @@ class LM:
         tied embeddings has no ``lm_head``, one without rope has learned
         positions ``pos_embed`` (65536 rows)."""
         cfg, dev = self.cfg, self.device
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = (None if dev.type == "meta"
+               else torch.Generator(device=dev).manual_seed(seed))
         dt = getattr(torch, cfg.dtype)
         specs = self.param_specs() if self.rt.mesh is not None else None
 
@@ -394,6 +473,14 @@ class LM:
         params["layers"] = layers
         return params
 
+    def abstract_params(self) -> dict:
+        """``init_params``' tree as ``meta`` tensors of its shapes and
+        types, whole (the global shapes, as the JAX package's
+        ``eval_shape`` gives): ``init_params`` itself run on the ``meta``
+        device without a mesh, so that no second table of shapes
+        exists."""
+        return LM(self.cfg, Runtime(), device="meta").init_params(0)
+
     # ------------------------------------------------------------------
     def _apply_block(self, kind: str, p: dict, x: torch.Tensor,
                      positions: torch.Tensor,
@@ -412,7 +499,7 @@ class LM:
                 "the planned cache-free forward is not ported; use "
                 "Runtime(planner=False)")
         p = self._layer(p, kind, ctx)
-        h = L.apply_norm(p["ln1"], x, cfg)
+        h = self._norm(p["ln1"], x, ctx)
         if kind == "attn":
             x = x + L.attention_block(p["mix"], h, cfg, positions=positions,
                                       bkv=rt.bkv, kernel_ops=rt.kernel_ops,
@@ -423,7 +510,7 @@ class LM:
             x = x + L.rglru_block(p["mix"], h, cfg, state=cache)
         if cfg.d_ff <= 0:
             return x
-        h2 = L.apply_norm(p["ln2"], x, cfg)
+        h2 = self._norm(p["ln2"], x, ctx)
         return x + L.feed_forward(p["ff"], h2, cfg, ctx)
 
     def _positions(self, tokens: torch.Tensor,
@@ -438,10 +525,22 @@ class LM:
                 ctx: Optional[L.Mesh] = None) -> torch.Tensor:
         """The cache-free stack's output before the final norm, over the
         prefix embeddings and the tokens (this rank's batch rows under a
-        mesh)."""
+        mesh, its block of the sequence under sequence parallelism):
+        each pattern super-block under ``remat_call``, then the tail."""
         positions = self._positions(tokens, prefix_embeds)
         x = self._embed(params, tokens, positions, prefix_embeds, ctx)
-        for kind, p in zip(self.kinds, params["layers"]):
+        layers = list(zip(self.kinds, params["layers"]))
+        pat = len(self.cfg.pattern)
+        n_stack = len(layers) // pat * pat
+        for i in range(0, n_stack, pat):
+            x = remat_call(self.rt, self._blocks, layers[i:i + pat], x,
+                           positions, ctx)
+        return self._blocks(layers[n_stack:], x, positions, ctx)
+
+    def _blocks(self, layers: list, x: torch.Tensor,
+                positions: torch.Tensor,
+                ctx: Optional[L.Mesh]) -> torch.Tensor:
+        for kind, p in layers:
             x = self._apply_block(kind, p, x, positions, ctx=ctx)
         return x
 
@@ -451,15 +550,27 @@ class LM:
                ctx: Optional[L.Mesh] = None) -> torch.Tensor:
         """The token embeddings — tied ones times ``_embed_scale`` —
         after the prefix embeddings, if any, plus the learned positions
-        at ``positions`` of a config without rope."""
-        x = self._lookup(params, tokens, ctx)
+        at ``positions`` of a config without rope.  Under sequence
+        parallelism the ranks' partial rows (the prefix on one rank) are
+        reduce-scattered over the sequence, and the positions added to
+        this rank's block."""
+        sp = ctx.seq if ctx is not None else None
+        x = self._lookup(params, tokens, ctx, summed=sp is None)
         if self._embed_scale is not None:
             x = x * self._embed_scale
         if prefix_embeds is not None:
-            x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+            pre = prefix_embeds.to(x.dtype)
+            if sp is not None and sp.index:
+                pre = torch.zeros_like(pre)
+            x = torch.cat([pre, x], dim=1)
+        if sp is not None:
+            x = sp.scatter(x, 1)
+            positions = sp.shard(positions, 0)
         if not self.cfg.use_rope:
             pe = self._whole(params["pos_embed"], self._spec("pos_embed"),
                              ctx)
+            if sp is not None:
+                pe = sp.enter(pe)
             x = x + pe[positions.long()]
         return x
 
@@ -469,13 +580,14 @@ class LM:
         return self._specs[name]
 
     def _lookup(self, params: dict, tokens: torch.Tensor,
-                ctx: Optional[L.Mesh] = None) -> torch.Tensor:
+                ctx: Optional[L.Mesh] = None,
+                summed: bool = True) -> torch.Tensor:
         """The embedding rows of ``tokens``.  Under a tensor-parallel dim
         each rank holds a block of the vocab rows (or of ``d_model``
         where the dim does not divide the vocab): it looks up the tokens
-        it holds, zeros elsewhere, and the ranks' rows are summed (or
-        the ``d_model`` blocks gathered, each rank's gradient its
-        block's)."""
+        it holds, zeros elsewhere, and the ranks' rows are summed
+        (returned unsummed when not ``summed``) or the ``d_model``
+        blocks gathered, each rank's gradient its block's."""
         emb = self._whole(params["embed"], self._spec("embed"), ctx)
         tp = self._tp
         if tp is None:
@@ -484,8 +596,9 @@ class LM:
             return tp.gather(emb[tokens], -1, "own")
         t = tokens - tp.index * emb.shape[0]
         own = (t >= 0) & (t < emb.shape[0])
-        rows = emb[t.clamp(0, emb.shape[0] - 1)] * own[..., None]
-        return tp.reduce(rows.to(emb.dtype))
+        rows = (emb[t.clamp(0, emb.shape[0] - 1)] * own[..., None]).to(
+            emb.dtype)
+        return tp.reduce(rows) if summed else rows
 
     def _unembed_w(self, params: dict,
                    ctx: Optional[L.Mesh] = None) -> torch.Tensor:
@@ -507,10 +620,16 @@ class LM:
         """The cache-free forward: tokens (B, S) after prefix embeddings
         (B, P, D) -> logits (B, P + S, V)."""
         b = tokens.shape[0]
-        ctx = self._ctx(b)
+        ctx = self._ctx(b, self._seq_len(tokens, prefix_embeds))
         x = self._hidden(params, self._local(tokens, b),
                          self._local(prefix_embeds, b), ctx)
-        return self._global(self._unembed(params, x), b)
+        return self._global(self._unembed(params, x, ctx), b)
+
+    @staticmethod
+    def _seq_len(tokens: torch.Tensor,
+                 prefix_embeds: Optional[torch.Tensor]) -> int:
+        return tokens.shape[1] + (prefix_embeds.shape[1]
+                                  if prefix_embeds is not None else 0)
 
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
         """batch: {"tokens", "labels"[, "prefix_embeds"]}, labels aligned
@@ -522,12 +641,13 @@ class LM:
         rows' part of it (the sum of the tokens' losses goes through
         ``Axis.reduce``)."""
         b = batch["tokens"].shape[0]
-        ctx = self._ctx(b)
         prefix = self._local(batch.get("prefix_embeds"), b)
-        x = L.apply_norm(params["final_norm"],
-                         self._hidden(params, self._local(batch["tokens"], b),
-                                      prefix, ctx),
-                         self.cfg)
+        tokens = self._local(batch["tokens"], b)
+        ctx = self._ctx(b, self._seq_len(tokens, prefix))
+        x = self._norm(params["final_norm"],
+                       self._hidden(params, tokens, prefix, ctx), ctx)
+        if ctx is not None and ctx.seq is not None:
+            x = ctx.seq.gather(x, 1)
         if prefix is not None:
             x = x[:, prefix.shape[1]:]
         w = self._unembed_w(params, ctx)
@@ -535,7 +655,7 @@ class LM:
         tp = self._tp
         if tp is not None and not self._vocab_sharded(w):
             w = tp.gather(w, 0, "own")          # d_model rows gathered
-        elif tp is not None:
+        elif tp is not None and ctx.seq is None:
             x = tp.enter(x)
         tot, cnt = _ce_sums(x, w, labels,
                             tp if self._vocab_sharded(w) else None)
@@ -593,11 +713,15 @@ class LM:
             x = self._apply_layer(p, x, positions, c, page_table, ctx)
         return x
 
-    def _unembed(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+    def _unembed(self, params: dict, x: torch.Tensor,
+                 ctx: Optional[L.Mesh] = None) -> torch.Tensor:
         """Logits of the final norm of x, gathered whole over the vocab
         (or summed over ``d_model`` blocks) under a tensor-parallel
-        dim."""
-        x = L.apply_norm(params["final_norm"], x, self.cfg)
+        dim; under ``ctx``'s sequence parallelism x is this rank's block
+        of the sequence, normed there and gathered."""
+        x = self._norm(params["final_norm"], x, ctx)
+        if ctx is not None and ctx.seq is not None:
+            x = ctx.seq.gather(x, 1)
         w = self._unembed_w(params)
         if self._tp is None:
             return x @ w
@@ -666,10 +790,13 @@ class LM:
         tokens = self._local(tokens, b)
         prefix_embeds = self._local(prefix_embeds, b)
         positions = self._positions(tokens, prefix_embeds)
-        x = self._embed(params, tokens, positions, prefix_embeds)
-        x = self._run_cached(params, x, positions, cache, self._ctx(b))
-        return self._global(self._unembed(params, x[:, -1:])[:, 0],
-                            b), cache
+        ctx = self._ctx(b, positions.shape[0])
+        x = self._embed(params, tokens, positions, prefix_embeds, ctx)
+        x = self._run_cached(params, x, positions, cache, ctx)
+        last = x[:, -1:]
+        if ctx is not None and ctx.seq is not None:
+            last = ctx.seq.all_gather(last, 1)[:, -1:]
+        return self._global(self._unembed(params, last)[:, 0], b), cache
 
     @torch.no_grad()
     def decode_step(self, params: dict, cache: list, tokens: torch.Tensor,
@@ -681,8 +808,10 @@ class LM:
         there.  Returns (logits (B, V), cache)."""
         b = tokens.shape[0]
         positions = pos.reshape(1).to(torch.int32)
-        x = self._embed(params, self._local(tokens, b)[:, None], positions)
-        x = self._run_cached(params, x, positions, cache, self._ctx(b))
+        ctx = self._ctx(b)
+        x = self._embed(params, self._local(tokens, b)[:, None], positions,
+                        ctx=ctx)
+        x = self._run_cached(params, x, positions, cache, ctx)
         return self._global(self._unembed(params, x)[:, 0], b), cache
 
     # ------------------------------------------------------------------
@@ -698,6 +827,9 @@ class LM:
             raise NotImplementedError(
                 f"paged serving covers attention-only stacks; "
                 f"{cfg.name} has pattern {cfg.pattern}")
+        if self.rt.rules.seq is not None:
+            raise NotImplementedError(
+                "paged serving under sequence parallelism is not ported")
         if cfg.n_prefix_embeds:
             raise NotImplementedError(
                 f"paged serving does not thread prefix embeddings yet; "

@@ -16,8 +16,11 @@ streaming twin's kv block.
 
 The JAX package scans stacked layer parameters; here each side's layers
 are one Python list (``enc_layers``, ``dec_layers``), walked by a loop,
-and every cache is written IN PLACE.  The API is ``LM``'s, with the
-frames as the side input:
+and every cache is written IN PLACE.  Under ``Runtime(remat=True)``
+each encoder layer, and each decoder layer of a cache-free call, runs
+under ``lm.remat_call`` (the JAX package's ``jax.checkpoint`` on its
+scanned layers).  The API is ``LM``'s, with the frames as the side
+input:
 
     init_params(seed)                      -> params on ``device``
     forward(params, tokens, frames)        -> logits (B, S, V)
@@ -38,7 +41,7 @@ import torch
 
 from . import layers as L
 from .config import ModelConfig
-from .lm import Runtime, chunked_ce
+from .lm import Runtime, chunked_ce, remat_call
 
 #: rows of the decoder's learned positions, as in the JAX package
 DEC_POSITIONS = 65536
@@ -62,7 +65,8 @@ class EncDec:
     def init_params(self, seed: int) -> dict:
         """Seeded random weights made on ``self.device``."""
         cfg, dev = self.cfg, self.device
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = (None if dev.type == "meta"
+               else torch.Generator(device=dev).manual_seed(seed))
         dt = getattr(torch, cfg.dtype)
         d = cfg.d_model
 
@@ -92,6 +96,10 @@ class EncDec:
             "dec_layers": [dec_layer() for _ in range(cfg.n_layers)],
         }
 
+    def abstract_params(self) -> dict:
+        """``init_params``' tree as ``meta`` tensors (``LM``'s)."""
+        return EncDec(self.cfg, Runtime(), device="meta").init_params(0)
+
     # ------------------------------------------------------------------
     def encode(self, params: dict, frames: torch.Tensor) -> torch.Tensor:
         """frames: (B, T, D) frame embeddings, taken in the model's
@@ -100,11 +108,16 @@ class EncDec:
         t = frames.shape[1]
         x = frames.to(params["enc_pos"].dtype) + params["enc_pos"][:t]
         positions = torch.arange(t, dtype=torch.int32, device=x.device)
-        for p in params["enc_layers"]:
+
+        def layer(p, x):
             h = L.apply_norm(p["ln1"], x, cfg)
             x = x + L.attention_block(p["attn"], h, cfg, positions=positions,
                                       bkv=rt.bkv, causal=False)
-            x = x + L.mlp_block(p["ff"], L.apply_norm(p["ln2"], x, cfg), cfg)
+            return x + L.mlp_block(p["ff"], L.apply_norm(p["ln2"], x, cfg),
+                                   cfg)
+
+        for p in params["enc_layers"]:
+            x = remat_call(rt, layer, p, x)
         return L.apply_norm(params["enc_norm"], x, cfg)
 
     def _decode(self, params: dict, tokens: torch.Tensor,
@@ -117,8 +130,8 @@ class EncDec:
         (``enc_out`` None: they are read from it)."""
         cfg, rt = self.cfg, self.rt
         x = params["embed"][tokens] + params["dec_pos"][positions.long()]
-        for i, p in enumerate(params["dec_layers"]):
-            c = cache[i] if cache is not None else {}
+
+        def layer(p, c, x, enc_out):
             h = L.apply_norm(p["ln1"], x, cfg)
             x = x + L.attention_block(p["self_attn"], h, cfg,
                                       positions=positions, bkv=rt.bkv,
@@ -127,7 +140,14 @@ class EncDec:
             x = x + L.cross_attention_block(p["cross_attn"], hx, cfg,
                                             enc_out=enc_out,
                                             kv_cache=c.get("cross"))
-            x = x + L.mlp_block(p["ff"], L.apply_norm(p["ln2"], x, cfg), cfg)
+            return x + L.mlp_block(p["ff"], L.apply_norm(p["ln2"], x, cfg),
+                                   cfg)
+
+        for i, p in enumerate(params["dec_layers"]):
+            if cache is None:
+                x = remat_call(rt, layer, p, {}, x, enc_out)
+            else:
+                x = layer(p, cache[i], x, enc_out)
         return L.apply_norm(params["final_norm"], x, cfg)
 
     def _positions(self, tokens: torch.Tensor) -> torch.Tensor:

@@ -104,6 +104,21 @@ class AdamW:
                 lambda p: p.detach().to(torch.float32, copy=True), params),
         }
 
+    def abstract_state(self, abstract_params) -> dict:
+        """``init``'s state of the ``meta`` tree ``abstract_params``
+        (``LM.abstract_params``, or one rank's blocks of it): ``meta``
+        tensors of its shapes and types."""
+        if any(p.device.type != "meta" for p in T.leaves(abstract_params)):
+            raise ValueError("abstract_state takes meta tensors")
+        return self.init(abstract_params)
+
+    @staticmethod
+    def state_specs(param_specs) -> dict:
+        """The state's layouts: the moments and master weights as their
+        params, the step whole."""
+        return {"step": (), "m": param_specs, "v": param_specs,
+                "master": param_specs}
+
     @torch.no_grad()
     def update(self, params, grads, state, layouts: Optional[Sequence] = None,
                mesh=None) -> dict[str, torch.Tensor]:
