@@ -157,7 +157,7 @@ which raises on failure:
       of the single-card kernel path, 36 attention launches a rank a
       call; (c) ``generate`` on the sharded runtime of ``launch.serve
       --shard-model 4`` (batch 4, prompt 128, 32 tokens) for qwen3-8b
-      (heads-sharded cache) and granite-20b at 26 of its 52 layers
+      (heads-sharded cache) and granite-20b at 13 of its 52 layers
       (sequence-sharded cache, ``distributed_decode_attention``): the
       greedy tokens' agreement printed, and the last step's logits, its
       inputs forced to the
@@ -213,6 +213,25 @@ which raises on failure:
       logits and the first decode step's within MOE_MESH_F32_REL_TOL of
       one card's; then 4m (c) in the same world (below); a
       ``{"dist_train": ...}`` line;
+   n. the hybrid, state-space and encoder-decoder families under the
+      mesh (``dist_families_phase``, after 4l): a world of four ranks
+      on the card, 2 x 2 ("data", "model"), FULL widths —
+      recurrentgemma-2b at 6 of 26 layers, mamba2-1.3b at 8 of 48,
+      whisper-small whole — each held to one card's run of the same
+      code on the same weights (made first, in a process of its own):
+      (a) one ``make_train_step`` under Megatron-SP (``tp+sp``), one
+      sequence a data rank (B=2 x 4096, 2 x 4096, 4 x 448 over 1500
+      frames), the loss, norm and each rank's gradient blocks within
+      4l (a)'s limits; (b) under the serving rules (``tp``) a prefill
+      (2040, 4080 and 432 tokens) then 16 teacher-forced decode steps,
+      each step's logits within E2E_REL_TOL — recurrentgemma's across
+      its 2048-slot ring, sequence-sharded; (c) recurrentgemma-2b's
+      loss and forward with ``Runtime(kernel_ops=True)``: one
+      ``fused_attention`` launch an attention layer a call on every
+      rank at 5 of its 10 q heads, the loss within LOSS_REL_TOL and
+      the logits within FORWARD_REL_TOL of one card's kernel path,
+      nothing degraded; each rank's peak and the walls (through gloo)
+      printed, a ``{"dist_families": ...}`` line;
    g. training (``training_phase``), after every serving phase with
       their weights freed: qwen3-8b at every FULL width with the depth
       cut to 8 of 36 layers (AdamW's 16 B a parameter: 131 GB for 36
@@ -277,7 +296,10 @@ which raises on failure:
    kernels at one rank's block, timed in the parent alone on the card:
    the GEMM chain on G12's H / 4 columns, the normalised attention on
    qwen3-8b's forward at a quarter of its heads, the partial kernel on
-   a quarter of its keys, each at the tuner's tiles for that block).
+   a quarter of its keys, each at the tuner's tiles for that block; and
+   phase 4n's: the normalised attention on recurrentgemma-2b's forward
+   at one rank's block, B=1, 5 of 10 q heads over the gathered kv head,
+   beside SDPA with the same boolean window mask).
 
 Prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -296,8 +318,12 @@ term dropped and whisper-small's decode check with every layer's
 cross-attention fed the layer below's k/v, then 4l's (a) unfaulted and
 with each of two planted faults — the data-dim gradient reduction
 skipped on rank 1, the identity-forward / all-reduce-backward op an
-identity both ways — each of which must go past (a)'s gradient limit;
-it fails unless every fault goes past its limit.
+identity both ways — each of which must go past (a)'s gradient limit,
+then 4n's (a) for recurrentgemma-2b and mamba2-1.3b with a fault each
+— the RG-LRU's gathered main branch taking its gradient as this rank's
+block instead of the sum, the Mamba-2 gated norm's sum of squares left
+unsummed over the model dim on rank 1 — each past (a)'s gradient
+limit; it fails unless every fault goes past its limit.
 
     python3 chip_smoke.py --reliability
 
@@ -325,6 +351,11 @@ single-card results and phase 4k, then its kernel times; prints a
 
 runs only the device and build phases and phase 4l; prints a
 ``{"dist_train": ...}`` line.
+
+    python3 chip_smoke.py --dist-families
+
+runs only the device and build phases, phase 4n and its kernel time;
+prints a ``{"dist_families": ...}`` line.
 
     python3 chip_smoke.py --train
 
@@ -3978,11 +4009,11 @@ DIST = dict(
     forward=FORWARD, generate=GENERATE,
     serve=dict(SERVE, prompt_len=96),
     archs=("qwen3-8b", GRANITE),
-    # granite-20b's depth cut to half (26 of 52 layers, full widths),
-    # to keep the full run well inside its time limit: its two
+    # granite-20b's depth cut to a quarter (13 of 52 layers, full
+    # widths), to keep the full run well inside its time limit: its two
     # `generate` calls through gloo's host-staged send/recv took ~60 s
-    # each at 52 layers
-    layers={GRANITE: 26})
+    # each at 52 layers, and phase 4n needs ~140 s of the budget
+    layers={GRANITE: 13})
 
 
 def _dist_cfg(arch, dist, dev="cuda"):
@@ -5332,6 +5363,458 @@ def dist_train_phase(dist=DIST_TRAIN, dev="cuda",
 
 
 # ---------------------------------------------------------------------------
+# Phase 4n: the hybrid, state-space and encoder-decoder families under the
+# mesh
+# ---------------------------------------------------------------------------
+# A world of four spawned ranks on the one card (gloo, as 4k and 4l), 2 x 2
+# ("data", "model"): the only world shape whose model dim divides all three
+# models' heads (recurrentgemma-2b's 10, mamba2-1.3b's 64, whisper-small's
+# 12).  FULL widths; recurrentgemma-2b at 6 of 26 layers (two (R, R, A)
+# super-blocks), mamba2-1.3b at 8 of 48, whisper-small whole (12 + 12).
+# Each check is held against one card's run of the same port code on the
+# same weights, made first in a process of its own (its results on the
+# host): (a) one ``make_train_step`` under Megatron-SP (``tp+sp``), one
+# sequence a data rank, to 4l (a)'s limits; (b) under the serving rules
+# (``tp``: resident weights, distributed decode over a sequence-sharded
+# cache) a prefill, then 16 teacher-forced decode steps, each step's
+# logits within E2E_REL_TOL — recurrentgemma's steps cross its 2048-slot
+# ring; (c) recurrentgemma-2b's loss and forward with the kernels
+# (``Runtime(kernel_ops=True)``, ``tp``), each rank's q heads (5 of 10)
+# over its gathered kv head: one ``fused_attention`` launch an attention
+# layer a call on every rank, the loss within LOSS_REL_TOL and the
+# logits within FORWARD_REL_TOL of one card's kernel path, nothing
+# degraded.
+DIST_FAMILIES = dict(
+    world=4, model_axis=2, seed=21, lr=3e-4,
+    archs={
+        RG: dict(n_layers=6, train=dict(batch=2, seq=4096),
+                 decode=dict(batch=2, prompt_len=2040, steps=16)),
+        MAMBA: dict(n_layers=8, train=dict(batch=2, seq=4096),
+                    decode=dict(batch=2, prompt_len=4080, steps=16)),
+        WHISPER: dict(n_layers=None, train=dict(batch=4, seq=448),
+                      decode=dict(batch=2, prompt_len=432, steps=16))},
+    forward=RG)
+# ``--plant-faults``: each must go past (a)'s gradient limit
+DF_FAULTS = {"rglru main gathered own": RG,
+             "mamba norm unsummed on rank 1": MAMBA}
+
+
+def _df_cfg(arch, spec, dev):
+    """4n's config of ``arch``: FULL widths at its depth on the card,
+    SMOKE on the CPU."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch, smoke=dev != "cuda")
+    n = spec["archs"][arch]["n_layers"]
+    return dataclasses.replace(cfg, n_layers=min(cfg.n_layers, n)) if n \
+        else cfg
+
+
+def _df_batch(cfg, shape, seed, dev) -> dict:
+    """Seeded tokens and labels of ``shape`` (batch x seq), and an
+    encoder-decoder's frames."""
+    from repro_torch.launch.train import side_embeds
+    out = _dist_batch(cfg, dict(shape, seed=seed), dev)
+    if cfg.encoder is not None:
+        out["frames"] = side_embeds(cfg, cfg.encoder.n_frames,
+                                    shape["batch"], seed, 0, dev)
+    return out
+
+
+def _df_decode(model, params, cfg, shape, seed, dev) -> tuple:
+    """(b): a prefill of ``prompt_len`` seeded tokens (over seeded
+    frames), then ``steps`` decode steps fed the next seeded tokens:
+    every logits (prefill's first) on the host, and the walls."""
+    p, k = shape["prompt_len"], shape["steps"]
+    batch = _df_batch(cfg, dict(batch=shape["batch"], seq=p + k), seed, dev)
+    toks = batch["tokens"]
+    side = (batch["frames"],) if cfg.encoder is not None else ()
+    cache = model.init_cache(shape["batch"], p + k)
+    t0 = time.perf_counter()
+    lg, cache = model.prefill(params, toks[:, :p], cache, *side)
+    logits, walls = [lg.float().cpu()], [time.perf_counter() - t0]
+    for j in range(k):
+        t0 = time.perf_counter()
+        lg, cache = model.decode_step(
+            params, cache, toks[:, p + j],
+            torch.tensor(p + j, dtype=torch.int32, device=dev))
+        logits.append(lg.float().cpu())
+        walls.append(time.perf_counter() - t0)
+    return logits, walls
+
+
+def _df_ref_rank(rank, refdir, spec, dev):
+    """One card's results of 4n's checks, in a process of its own: for
+    each model (a) one ``make_train_step`` (loss, norm, every leaf's
+    gradient), (b) the prefill and decode steps' logits, and for
+    ``spec["forward"]`` (c) the kernel path's loss and forward logits;
+    saved under ``refdir``."""
+    from repro_torch import tree as T
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import make_optimizer
+    from repro_torch.models.lm import Runtime
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for arch, a in spec["archs"].items():
+        cfg = _df_cfg(arch, spec, dev)
+        model = S.build_model(cfg, Runtime(), device=dev)
+        params = model.init_params(0)
+        keys = [k for k, _ in T.leaves_with_paths(params)]
+        grads = {}
+        tap = _GradTap(make_optimizer(spec["lr"], 1), lambda gs, _: grads.update(
+            {k: g.detach().cpu() for k, g in zip(keys, gs)}))
+        state = tap.init(params)
+        batch = _df_batch(cfg, a["train"], spec["seed"], dev)
+        t0 = time.perf_counter()
+        params, state, info = S.make_train_step(model, tap)(params, state,
+                                                            batch)
+        rec = dict(loss=float(info["loss"]), grad_norm=float(
+            info["grad_norm"]), wall=time.perf_counter() - t0)
+        del params, state, info
+        _free(dev)
+        save = {"grads": grads}
+        params = model.init_params(0)
+        with torch.inference_mode():
+            if not spec.get("train_only"):
+                save["decode"], rec["decode_walls"] = _df_decode(
+                    model, params, cfg, a["decode"], spec["seed"] + 1, dev)
+            if arch == spec["forward"] and not spec.get("train_only"):
+                kmodel = S.build_model(cfg, Runtime(kernel_ops=True),
+                                       device=dev)
+                rec["kernel_loss"] = float(kmodel.loss(params, batch))
+                save["forward"] = kmodel.forward(params, batch["tokens"]
+                                                 ).cpu()
+        torch.save(save, os.path.join(refdir, f"{cfg.name}.pt"))
+        rec["peak_gb"] = _peak_gb(dev)
+        out[arch] = rec
+        del params, grads, save, model
+        _free(dev)
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+    return out
+
+
+@contextlib.contextmanager
+def _df_fault(fault: str, rank: int):
+    """A planted 4n fault, for the duration: the RG-LRU's gathered main
+    branch taking its gradient ``"own"`` instead of ``"sum"``, or the
+    Mamba-2 gated norm's sum of squares left unsummed over the model dim
+    on rank 1 (it joins the all-reduce and keeps its own sums, so no
+    rank waits)."""
+    from repro_torch.models import layers as L
+    real_g, real_s = L._gather_channels, L._sum_squares
+    if fault == "rglru main gathered own":
+        L._gather_channels = lambda tp, t: tp.gather(t, -1, "own")
+    elif fault == "mamba norm unsummed on rank 1" and rank == 1:
+        L._sum_squares = lambda tp, ss: ss + 0.0 * real_s(tp, ss)
+    try:
+        yield
+    finally:
+        L._gather_channels, L._sum_squares = real_g, real_s
+
+
+def _df_rank(rank, refdir, spec, dev, faults):
+    """4n on one rank of the 2 x 2 world: for each model (a) one
+    sharded step under ``tp+sp``, each leaf's reduced gradient block
+    against the reference's block (then each planted fault of the
+    model's on fresh weights), (b) the serving rules' prefill and decode
+    steps, (c) the kernel path's loss and forward, launches counted."""
+    from repro_torch import tree as T
+    from repro_torch.dist import collectives
+    from repro_torch.dist.collectives import shard_dims
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import sharded_runtime
+    from repro_torch.launch.train import make_optimizer
+    from repro_torch.models.lm import Runtime
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_host_mesh(spec["model_axis"])
+    names = _path_counters()
+    out = {}
+    for arch, a in spec["archs"].items():
+        mine = [f for f in faults if DF_FAULTS[f] == arch]
+        if faults and not mine:
+            continue
+        cfg = _df_cfg(arch, spec, dev)
+        collectives.TRAFFIC.clear()
+        ref = torch.load(os.path.join(refdir, f"{cfg.name}.pt"), mmap=True)
+        model = S.build_model(cfg, Runtime(rules=_sp_rules(), mesh=mesh),
+                              device=dev)
+        batch = _df_batch(cfg, a["train"], spec["seed"], dev)
+        rec = {"walls": {}, "faults": {}}
+
+        def step(tag):
+            params = model.init_params(0)
+            seen = {}
+            tap = _GradTap(make_optimizer(spec["lr"], 1), lambda gs, lay:
+                           seen.update({k: _grad_distance(g, shard_dims(
+                               ref["grads"][k], ly, mesh).to(g.device))[0]
+                               for (k, _), g, ly in zip(
+                                   T.leaves_with_paths(params), gs, lay)}))
+            state = tap.init(params)
+            t0 = time.perf_counter()
+            _, _, info = S.make_train_step(model, tap)(params, state, batch)
+            rec["walls"][tag] = time.perf_counter() - t0
+            return float(info["loss"]), float(info["grad_norm"]), seen
+
+        if not faults:
+            rec["loss"], rec["grad_norm"], rec["grad_rel"] = step("(a) step")
+        for fault in mine:
+            _free(dev)
+            with _df_fault(fault, rank):
+                rec["faults"][fault] = max(step(f"planted {fault}")[2]
+                                           .values())
+        rec["peak_gb"] = {"(a)": _peak_gb(dev)}
+        _free(dev)
+        if faults:
+            out[arch] = rec
+            continue
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        _, _, rt = sharded_runtime(spec["model_axis"], mesh)
+        smodel = S.build_model(cfg, rt, device=dev)
+        params = smodel.init_params(0)
+        with torch.inference_mode():
+            logits, walls = _df_decode(smodel, params, cfg, a["decode"],
+                                       spec["seed"] + 1, dev)
+        rec["decode_rel"] = [_rel(g, w) for g, w in zip(logits,
+                                                        ref["decode"])]
+        rec["walls"]["(b) prefill"] = walls[0]
+        rec["walls"]["(b) decode step, mean"] = sum(walls[1:]) / len(
+            walls[1:])
+        rec["peak_gb"]["(b)"] = _peak_gb(dev)
+        del params, smodel
+        _free(dev)
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        if arch == spec["forward"]:
+            kmodel = S.build_model(cfg, Runtime(kernel_ops=True,
+                                                rules=_dt_rules(),
+                                                mesh=mesh), device=dev)
+            params = kmodel.init_params(0)
+            rec["launches"] = {}
+            with torch.inference_mode():
+                for call in ("loss", "forward"):
+                    _zero(*names)
+                    t0 = time.perf_counter()
+                    res = (kmodel.loss(params, batch) if call == "loss"
+                           else kmodel.forward(params, batch["tokens"]))
+                    if dev == "cuda":
+                        torch.cuda.synchronize()
+                    rec["walls"][f"(c) {call}"] = time.perf_counter() - t0
+                    rec["launches"][call] = {
+                        k: v for k, v in _read(*names).items() if v}
+                    if call == "loss":
+                        rec["kernel_loss"] = float(res)
+                    elif rank == 0:
+                        want = ref["forward"]
+                        num = den = 0.0
+                        for r0 in range(0, res.shape[1], 256):
+                            w = want[:, r0:r0 + 256].to(dev).float()
+                            num += float((res[:, r0:r0 + 256].float() - w)
+                                         .pow(2).sum())
+                            den += float(w.pow(2).sum())
+                        rec["forward_rel"] = (num / den) ** 0.5
+                    del res
+            rec["peak_gb"]["(c)"] = _peak_gb(dev)
+            del params, kmodel
+            _free(dev)
+        rec["deny"] = len(_deny_records())
+        rec["traffic"] = {k: list(v) for k, v in
+                          collectives.TRAFFIC.items()}
+        out[arch] = rec
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+    return out
+
+
+def dist_families_phase(dist=DIST_FAMILIES, dev="cuda", faults=()) -> dict:
+    """Phase 4n (above): one card's reference in a process of its own,
+    then the 2 x 2 world; every check printed beside its limit.  With
+    ``faults`` only (a) of their models runs, each fault on fresh
+    weights, and each must go past (a)'s gradient limit."""
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.lm import layer_kinds
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    t_all = time.perf_counter()
+    # the ranks' peaks add up to ~72 GB of the card: the parent keeps
+    # nothing of the phases before (4l (d)'s one-card references)
+    _free(dev)
+    if dev == "cuda":
+        print(f"[4n] the parent holds {torch.cuda.memory_reserved() / 1e9:.2f}"
+              f" GB reserved before the world", flush=True)
+    tmp = tempfile.mkdtemp(prefix="dist-families-")
+    try:
+        t0 = time.perf_counter()
+        spec = dict(dist, train_only=bool(faults),
+                    archs={a: s for a, s in dist["archs"].items()
+                           if not faults or a in
+                           {DF_FAULTS[f] for f in faults}})
+        ref = spawn(_df_ref_rank, 1, tmp, spec, dev, device=dev,
+                    timeout_s=900)[0]
+        ref_s = time.perf_counter() - t0
+        print(f"[4n reference] one card, in a process of its own: "
+              + json.dumps({a: {k: (round(v, 6) if isinstance(v, float)
+                                    else v) for k, v in r.items()
+                                if k != "decode_walls"}
+                            for a, r in ref.items()})
+              + f" ({ref_s:.1f}s)", flush=True)
+        t0 = time.perf_counter()
+        ranks = spawn(_df_rank, dist["world"], tmp, spec, dev,
+                      tuple(faults), device=dev, timeout_s=900)
+        world_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"reference_s": ref_s, "world_s": world_s, "archs": {}}
+    checks = []
+    for arch in spec["archs"]:
+        recs = [r[arch] for r in ranks]
+        r0, want = recs[0], ref[arch]
+        res = out["archs"][arch] = {"peak_gb": [r["peak_gb"] for r in recs],
+                                    "walls": r0["walls"]}
+        for fault in (f for f in faults if DF_FAULTS[f] == arch):
+            got = max(r["faults"][fault] for r in recs)
+            res.setdefault("faults", {})[fault] = got
+            print(f"[4n (a) planted: {fault}] gradient rel max {got:.4g} "
+                  f"(must exceed {DIST_TRAIN_GRAD_REL_TOL})")
+            if not got > DIST_TRAIN_GRAD_REL_TOL:
+                raise RuntimeError(f"[4n (a)] the planted fault {fault!r} "
+                                   f"passed: {got}")
+        if faults:
+            continue
+        cfg = _df_cfg(arch, spec, dev)
+        loss_rel = abs(r0["loss"] - want["loss"]) / abs(want["loss"])
+        gnorm_rel = abs(r0["grad_norm"] - want["grad_norm"]) \
+            / want["grad_norm"]
+        worst = sorted(((k, v) for r in recs for k, v in r["grad_rel"].items()),
+                       key=lambda kv: -kv[1])
+        dec = max(max(r["decode_rel"]) for r in recs)
+        res.update(loss=r0["loss"], loss_rel=loss_rel, gnorm_rel=gnorm_rel,
+                   grad_rel=worst[0][1], decode_rel=dec,
+                   decode_rel_by_step=r0["decode_rel"],
+                   ref_walls=dict(step=want["wall"],
+                                  decode_step=sum(want["decode_walls"][1:])
+                                  / len(want["decode_walls"][1:])))
+        a = spec["archs"][arch]
+        print(f"[4n] {arch} at {cfg.n_layers} layers on 2 x 2: (a) tp+sp "
+              f"B={a['train']['batch']} x {a['train']['seq']}: loss "
+              f"{r0['loss']:.6f} rel {loss_rel:.3g} (tol "
+              f"{DIST_TRAIN_LOSS_REL_TOL}), grad_norm rel {gnorm_rel:.3g} "
+              f"(tol {DIST_TRAIN_GNORM_REL_TOL}), each rank's block of each "
+              f"leaf rel max {worst[0][1]:.3g} (tol "
+              f"{DIST_TRAIN_GRAD_REL_TOL}; the worst "
+              f"{[(k, float(f'{v:.3g}')) for k, v in worst[:3]]}); (b) tp, "
+              f"prefill {a['decode']['prompt_len']} + "
+              f"{a['decode']['steps']} decode steps: logits rel max {dec:.3g}"
+              f" (tol {E2E_REL_TOL}; rank 0 by step "
+              f"{[float(f'{v:.3g}') for v in r0['decode_rel']]})",
+              flush=True)
+        checks += [(loss_rel, DIST_TRAIN_LOSS_REL_TOL, f"{arch} loss"),
+                   (gnorm_rel, DIST_TRAIN_GNORM_REL_TOL, f"{arch} norm"),
+                   (worst[0][1], DIST_TRAIN_GRAD_REL_TOL,
+                    f"{arch} gradients"),
+                   (dec, E2E_REL_TOL, f"{arch} decode logits")]
+        if arch == spec["forward"]:
+            n_attn = sum(k == "attn" for k in layer_kinds(cfg))
+            want_attn = n_attn if dev == "cuda" else 0
+            krel = abs(r0["kernel_loss"] - want["kernel_loss"]) \
+                / abs(want["kernel_loss"])
+            res.update(kernel_loss_rel=krel, forward_rel=r0["forward_rel"],
+                       launches=[r["launches"] for r in recs])
+            print(f"[4n (c)] {arch} with the kernels (tp), B="
+                  f"{a['train']['batch']} x {a['train']['seq']}: loss rel "
+                  f"{krel:.3g} (tol {LOSS_REL_TOL}), forward logits rel "
+                  f"{r0['forward_rel']:.3g} (tol {FORWARD_REL_TOL}); "
+                  f"launches a rank {[r['launches'] for r in recs]} (want "
+                  f"{want_attn} fused_attention a call, at "
+                  f"{cfg.n_heads // spec['model_axis']} of {cfg.n_heads} q "
+                  f"heads)", flush=True)
+            checks += [(krel, LOSS_REL_TOL, f"{arch} kernel loss"),
+                       (r0["forward_rel"], FORWARD_REL_TOL,
+                        f"{arch} kernel forward")]
+            for r, rec in enumerate(recs):
+                for call, got in rec["launches"].items():
+                    if got.get("fused_attention", 0) != want_attn or set(
+                            got) - {"fused_attention"}:
+                        raise RuntimeError(f"[4n (c)] rank {r} {call} "
+                                           f"launched {got}")
+        for r, rec in enumerate(recs):
+            if rec["deny"]:
+                raise RuntimeError(f"[4n] rank {r} degraded")
+        print(f"[4n] {arch} walls a rank (s, through gloo on one card, "
+              f"ranks contending): "
+              + json.dumps({k: round(v, 3) for k, v in r0["walls"].items()})
+              + f"; one card's step {want['wall']:.3f}s and decode step "
+              f"{res['ref_walls']['decode_step']:.4f}s; peak a rank (GB) "
+              f"{[{k: round(v, 2) for k, v in p.items()} for p in res['peak_gb']]}"
+              f", one card's {want['peak_gb']:.2f}; collectives' payload "
+              f"a rank by op (count, bytes; through host memory under gloo) "
+              f"{r0['traffic']}", flush=True)
+    for val, tol, what in checks:
+        if val > tol:
+            raise RuntimeError(f"[4n] {what}: {val} > {tol}")
+    out["seconds"] = time.perf_counter() - t_all
+    print(f"[4n] {out['seconds']:.1f}s (reference {ref_s:.1f}s, world "
+          f"{world_s:.1f}s)")
+    return out
+
+
+def dist_families_time_phase(dist=DIST_FAMILIES) -> dict:
+    """4n (c)'s kernel at one rank's block, timed in the parent alone on
+    the card: ``fused_attention`` on recurrentgemma-2b's forward at
+    B=1, its 5 of 10 q heads over the gathered kv head, S=4096, D=256,
+    window 2048, at the tiles the tuner picks for that block (the
+    regime search ``kernels.ops.attention_shard`` runs), beside its
+    bound, its plain version and SDPA with the same boolean window
+    mask."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import api
+    from repro_torch.core.perf_model import H100
+    from repro_torch.dist.sharding import dispatch_mesh_spec
+    from repro_torch.kernels import attention as A
+    from repro_torch.kernels import ops
+    cfg = get_config(dist["forward"])
+    a = dist["archs"][dist["forward"]]["train"]
+    n = dist["model_axis"]
+    mesh = _MeshShape(data=dist["world"] // n, model=n)
+    rules = _dt_rules()
+    b, s, d, win = a["batch"], a["seq"], cfg.dh, cfg.attn_window
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads * n   # the ranks' kv blocks
+    scale = d ** -0.5
+    dt = torch.bfloat16
+    spatial = dispatch_mesh_spec(rules, mesh, kind="attention", batch=b,
+                                 feature_dims=(hkv, hq), ici_bw=H100.ici_bw)
+    choice, _ = ops.attention_regime_choice(
+        rules, mesh, batch=b, q_heads=hq, kv_heads=hkv, q_len=s, kv_len=s,
+        head_dim=d, dtype=_dtname(dt), causal=True, window=win, scale=scale,
+        spatial=spatial)
+    tk = choice.kernel if choice is not None else api.fuse_attention(
+        s, s, d, d, heads=hq, batch=b, dtype=_dtname(dt), causal=True,
+        window=win, scale=scale, mesh=spatial[0])
+    bl = b // (dist["world"] // n)
+    q, k, v = _randn([(bl, hq // n, s, d), (bl, 1, s, d), (bl, 1, s, d)],
+                     dt, 306)
+    rows = torch.arange(s, device="cuda")[:, None]
+    cols = torch.arange(s, device="cuda")[None, :]
+    mask = (cols <= rows) & (cols > rows - win)
+    with torch.inference_mode():
+        out = dict(
+            shape=[bl, hq // n, 1, s, s, d], window=win,
+            regime=choice.regime if choice is not None else "spatial",
+            tiles=[tk.params.bq, tk.params.bkv],
+            kernel_ms=_adaptive_ms(lambda: tk(q, k, v)),
+            plain_ms=_adaptive_ms(lambda: A.fused_attention_plain(
+                q, k, v, tk.params.bkv, True, win, scale), reps=1),
+            library_ms=_adaptive_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=scale, enable_gqa=True)),
+            **_bound(_nbytes(q, k, v, q),
+                     _attention_ops(bl, hq // n, s, s, d, d, True, win), dt))
+    print(f"[4n times, parent alone on the card] fused_attention at one "
+          f"rank's block: " + json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 4m: the dry run and its roofline, held against the card
 # ---------------------------------------------------------------------------
 
@@ -5700,11 +6183,11 @@ def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--plant-faults"], ["--reliability"], ["--train"],
                     ["--moe"], ["--archs"], ["--dist"], ["--dist-train"],
-                    ["--dryrun"]):
+                    ["--dryrun"], ["--dist-families"]):
         raise SystemExit("usage: python3 chip_smoke.py "
                          "[--plant-faults | --reliability | --train | "
                          "--moe | --archs | --dist | --dist-train | "
-                         "--dryrun]")
+                         "--dryrun | --dist-families]")
     smi = device_phase()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     # tuned schedules persist inside the checkout (.cache/ is gitignored)
@@ -5737,6 +6220,13 @@ def main(argv=None) -> None:
         print(json.dumps({"dist_train": dist_train}, default=str))
         print(smi)
         return
+    if argv == ["--dist-families"]:
+        families = dist_families_phase()
+        _no_degradation("4n")
+        families["times"] = dist_families_time_phase()
+        print(json.dumps({"dist_families": families}, default=str))
+        print(smi)
+        return
     if argv == ["--plant-faults"]:
         params = init_phase(cfg)
         fault_phase(cfg, params)
@@ -5750,6 +6240,7 @@ def main(argv=None) -> None:
         plant_ssm_encdec_faults()
         dist_train_phase(faults=("none", "data reduction skipped on rank 1",
                                  "enter an identity both ways"))
+        dist_families_phase(faults=tuple(DF_FAULTS))
         print(smi)
         return
     if argv == ["--reliability"]:
@@ -5854,6 +6345,8 @@ def main(argv=None) -> None:
     _no_degradation("4k")
     dist_train = dist_train_phase()
     _no_degradation("4l")
+    families = dist_families_phase()
+    _no_degradation("4n")
     moe = moe_phase()
     steps[OLMOE] = moe["step_profile"]
     steps[MIXTRAL] = moe["mixtral_step_profile"]
@@ -5890,6 +6383,7 @@ def main(argv=None) -> None:
     t_moe = moe_time_phase(olmoe, mixtral, moe_tiles, n_ctx)
     t_archs = archs_time_phase(rg, pixtral)
     t_dist = dist_time_phase()
+    t_families = dist_families_time_phase()
     dist_launches = {
         name: sum(counts.get(name, 0) for counts in dist["launches"].values())
         for name in ("fused_attention_partial", "fused_attention",
@@ -5979,7 +6473,10 @@ def main(argv=None) -> None:
             "4l (d) loss a rank": dist_train["moe"]["launches"]["loss"][
                 "fused_attention"],
             "4l (d) forward a rank": dist_train["moe"]["launches"][
-                "forward"]["fused_attention"]},
+                "forward"]["fused_attention"],
+            **{f"4n (c) {RG} {call} a rank": families["archs"][RG][
+                "launches"][0][call]["fused_attention"]
+               for call in ("loss", "forward")}},
         "max_abs_err": max(slice3_err["fused_attention"],
                            moe_err["fused_attention"], archs_err),
         "ms": t_attn["kernel_ms"],
@@ -5996,6 +6493,7 @@ def main(argv=None) -> None:
         "recurrentgemma_2b_forward_d256": t_archs["recurrentgemma_forward"],
         "pixtral_12b_forward": t_archs["pixtral_forward"],
         "spatial_rank_block": t_dist["fused_attention"],
+        "recurrentgemma_2b_rank_block_4n": t_families,
         "passed": True,
     }, {
         "name": "fused_gemm_chain",
@@ -6050,6 +6548,7 @@ def main(argv=None) -> None:
         "generate")}}, default=str))
     print(json.dumps({"dist": dict(dist, times=t_dist)}, default=str))
     print(json.dumps({"dist_train": dist_train}, default=str))
+    print(json.dumps({"dist_families": families}, default=str))
     print(json.dumps({"dryrun": dry}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -169,7 +169,7 @@ class Axis:
         y = x.clone()
         dist.all_reduce(y, op=dist.ReduceOp.MAX if op == "max"
                         else dist.ReduceOp.SUM, group=self.group)
-        return y
+        return _released(y)
 
     def _all_gather(self, x, dim):
         _traffic("all_gather", x)
@@ -182,7 +182,7 @@ class Axis:
         parts = [p.contiguous() for p in torch.chunk(x, self.size, dim)]
         out = torch.empty_like(parts[self.index])
         dist.reduce_scatter(out, parts, group=self.group)
-        return out
+        return _released(out)
 
     def gather(self, x: torch.Tensor, dim: int,
                grad: str = "sum") -> torch.Tensor:
@@ -244,6 +244,16 @@ class Axis:
         for r in reqs:
             r.wait()
         return buf.to(x.device)
+
+
+def _released(t: torch.Tensor) -> torch.Tensor:
+    """A collective's result as a tensor of its own over the same
+    storage.  The backend's worker may hold ``t`` itself for a moment
+    after the wait returns; the autograd engine adopts a gradient as a
+    leaf's ``.grad`` only when nothing else holds it, and copies it
+    otherwise — an op the step's dry trace does not have, run or not
+    by timing.  Nothing holds the alias."""
+    return t.detach()
 
 
 class _Gather(torch.autograd.Function):

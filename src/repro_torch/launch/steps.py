@@ -42,7 +42,7 @@ from ..dist.collectives import axis, layout_dims, shard_dims
 from ..configs import ShapeCell
 from ..dist.sharding import Rules, batch_placement, local_shape
 from ..models.config import ModelConfig
-from ..models.lm import LM, Runtime, requires_grad
+from ..models.lm import LM, Runtime, _meta, requires_grad
 from ..models.whisper import EncDec
 from ..optim.adamw import AdamW, cosine_schedule
 
@@ -254,10 +254,6 @@ def make_decode_step(model):
         return model.decode_step(params, cache, batch["tokens"],
                                  batch["pos"])
     return decode_step
-
-
-def _meta(shape, dtype) -> torch.Tensor:
-    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeCell) -> dict:

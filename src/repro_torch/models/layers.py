@@ -34,8 +34,8 @@ plus per-request positional attention in torch ops — everywhere else
 (prefill, and any run on the CPU), and wherever the circuit breaker
 holds the kernel's fingerprint quarantined or its dispatch fails.
 
-Under a mesh (``Mesh``, the dense and MoE families) a block runs on
-this rank's shards, Megatron-style: ``wq``/``wk``/``wv`` and the MLP's
+Under a mesh (``Mesh``, every family) a block runs on this rank's
+shards, Megatron-style: ``wq``/``wk``/``wv`` and the MLP's
 ``w_gate``/``w_up`` hold this rank's columns over the tensor-parallel
 dim, ``wo``/``w_down`` its rows, and the row-parallel products are
 summed over the dim (an all-reduce: the JAX package's ``constrain`` to
@@ -57,6 +57,20 @@ heads-sharded, or whole on every rank for the ring regimes
 (``dist.ring_dispatch.paged_ring_decode_attention``).  The
 ``specs_*`` functions give each block's weight layouts
 (``dist.sharding``).
+
+The recurrent and cross-attention blocks follow the JAX package's
+layouts.  ``rglru_block`` holds this rank's block of the RG-LRU's
+channels: the main branch is gathered whole over the dim for the
+conv (whose state is whole) and the dense gate products, and the
+scan, its state and ``w_out``'s rows are the rank's.  ``mamba_block``
+holds this rank's heads: the in-projection's output is gathered whole
+(its contiguous column block is not head-aligned), the conv runs on
+every channel, B and C stay whole, and the gated norm's sum of squares
+is summed over the dim.  ``cross_attention_block`` projects this
+rank's q and kv heads; its cache is whole over the dim.  A mixer whose
+heads the dim does not divide (recurrentgemma's 10 or whisper's 12 over
+16; ``_split_heads``) runs every head on every rank on its weights
+gathered whole (``_whole_weights``), its output whole, not summed.
 
 Under sequence parallelism (``Mesh.seq``, Megatron-SP over the
 tensor-parallel dim) the residual stream between blocks is this rank's
@@ -131,6 +145,59 @@ def _leave(ctx: Optional[Mesh], out: torch.Tensor) -> torch.Tensor:
     if _seq(ctx) is not None:
         return ctx.seq.scatter(out, 1)
     return ctx.tp.reduce(out) if _tp(ctx) is not None else out
+
+
+def _split_heads(cfg: ModelConfig, tp, heads: Optional[int] = None) -> bool:
+    """Whether the tensor-parallel dim ``tp`` splits a mixer's heads
+    (``cfg.n_heads`` attention heads, or ``heads``): it divides them,
+    and, for attention, each rank's q heads read one run of whole GQA
+    groups (``_kv_range``).  Otherwise the mixer runs whole on every
+    rank (the JAX package's GSPMD pads such a dim instead)."""
+    if tp is None:
+        return False
+    n = cfg.n_heads if heads is None else heads
+    if n % tp.size:
+        return False
+    if heads is not None:
+        return True
+    group = cfg.n_heads // cfg.n_kv_heads
+    hq = n // tp.size
+    return hq % group == 0 or group % hq == 0
+
+
+def _whole_weights(ctx: Mesh, p: dict, specs: dict) -> dict:
+    """A mixer's weights made whole on every rank, for a mixer that runs
+    every head (``_split_heads`` False): each weight sharded over the
+    tensor-parallel dim gathered along that dim — its gradient this
+    rank's block of a gradient every rank holds whole under tensor
+    parallelism alone (``"own"``), summed under sequence parallelism,
+    where each rank's covers its block of the sequence (``"sum"``) —
+    and a replicated one entered under sequence parallelism."""
+    tp, sp, name = ctx.tp, _seq(ctx), ctx.rules.tp
+    out = {}
+    for k, w in p.items():
+        dims = [d for d, e in enumerate(specs[k])
+                if e == name or (isinstance(e, tuple) and name in e)]
+        if dims:
+            out[k] = tp.gather(w, dims[0], "sum" if sp is not None
+                               else "own")
+        else:
+            out[k] = sp.enter(w) if sp is not None else w
+    return out
+
+
+def _enter_whole(ctx: Optional[Mesh], x: torch.Tensor) -> torch.Tensor:
+    """``_enter`` for a mixer that runs whole on every rank: the
+    sequence gathered under sequence parallelism; under tensor
+    parallelism alone x as it is (every rank's gradient of it is
+    whole)."""
+    return ctx.seq.gather(x, 1) if _seq(ctx) is not None else x
+
+
+def _leave_whole(ctx: Optional[Mesh], out: torch.Tensor) -> torch.Tensor:
+    """``_leave`` for a whole mixer's output, whole on every rank: this
+    rank's block of the sequence under sequence parallelism."""
+    return ctx.seq.shard(out, 1) if _seq(ctx) is not None else out
 
 
 _INTERIOR = contextvars.ContextVar("attention_interior", default=False)
@@ -235,6 +302,10 @@ def specs_mamba(cfg: ModelConfig, rules) -> dict:
     return {"w_in": rules.spec("data", "model"), "conv_w": (),
             "A_log": (), "D": (), "dt_bias": (), "norm_w": (),
             "w_out": rules.spec("model", "data")}
+
+
+def specs_cross_attention(cfg: ModelConfig, rules) -> dict:
+    return specs_attention(cfg, rules)
 
 
 def specs_rglru(cfg: ModelConfig, rules) -> dict:
@@ -570,26 +641,51 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> tuple:
     return a, b
 
 
+def _gather_channels(tp, t: torch.Tensor) -> torch.Tensor:
+    """This rank's channel block of ``t`` (..., C / n) gathered whole
+    along its last dim for consumers that differ by rank: the backward
+    reduce-scatters the gradient (``Axis.gather``'s ``"sum"``)."""
+    return tp.gather(t, -1)
+
+
 def rglru_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                state: Optional[dict] = None) -> torch.Tensor:
+                state: Optional[dict] = None,
+                ctx: Optional[Mesh] = None) -> torch.Tensor:
     """The Griffin recurrent block: a gelu gate branch times (causal
     conv -> RG-LRU).  x: (B, S, D) -> (B, S, D).  The gates, a and beta
     are f32.  Cache-free (``state`` None) or over a state dict ``{"conv"
     (B, K-1, w), "lru" (B, w) f32}``, which is written IN PLACE, so that
     a captured decode step reads and writes the same tensors.  More than
     one token is a parallel scan (``linear_scan``) with the state folded
-    in; one token with a state is a·h + b."""
+    in; one token with a state is a·h + b.
+
+    Under a tensor-parallel dim (``specs_rglru``) ``w_gate_br``,
+    ``w_main``, ``w_a`` and ``w_i`` hold this rank's columns and
+    ``w_out`` its rows: the main branch is gathered whole over the dim
+    (``_gather_channels``) for the conv, whose state is whole, and for
+    the dense gate products; the recurrence runs on the rank's channel
+    block, as ``lru`` holds it, and ``w_out``'s products are summed
+    (``_leave``).  ``conv_w`` and ``lam`` (sliced to the rank's block)
+    are replicated and enter the rank's use of them."""
     g = cfg.rglru
+    tp = _tp(ctx)
+    x = _enter(ctx, x)
     s = x.shape[1]
+    conv_w, lam = p["conv_w"], p["lam"]
     gate = act_fn("gelu")(x @ p["w_gate_br"])
+    main = x @ p["w_main"]
+    if tp is not None:
+        main = _gather_channels(tp, main)
+        conv_w, lam = tp.enter(conv_w), tp.shard(tp.enter(lam), 0)
     main, new_conv = causal_conv1d(
-        x @ p["w_main"], p["conv_w"],
-        state["conv"] if state is not None else None)
+        main, conv_w, state["conv"] if state is not None else None)
     r = torch.sigmoid((main @ p["w_a"]).float())
     i = torch.sigmoid((main @ p["w_i"]).float())
-    log_a = g.c_exponent * r * F.logsigmoid(p["lam"])   # (B, S, w) < 0
+    log_a = g.c_exponent * r * F.logsigmoid(lam)        # (B, S, w) < 0
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9))
+    if tp is not None:
+        main = tp.shard(main, -1)
     bt = beta * i * main.float()
     if state is None or s > 1:
         a_sc, h = linear_scan(a, bt)
@@ -603,7 +699,7 @@ def rglru_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
         state["conv"].copy_(new_conv)
         state["lru"].copy_(h_last)
     y = (gate.float() * h).to(x.dtype)
-    return y @ p["w_out"]
+    return _leave(ctx, y @ p["w_out"])
 
 
 # ---------------------------------------------------------------------------
@@ -699,8 +795,27 @@ def _ssd_chunked(xh: torch.Tensor, da: torch.Tensor, b: torch.Tensor,
     return y.reshape(bs, s, nh, pd), h
 
 
+def _sum_squares(tp, ss: torch.Tensor) -> torch.Tensor:
+    """This rank's sums of squares summed over the tensor-parallel dim,
+    forward and backward (each rank's gradient of the sum is its own
+    heads' part): ``Axis.reduce`` then ``Axis.enter``."""
+    return tp.enter(tp.reduce(ss))
+
+
+def _gated_rmsnorm(y: torch.Tensor, w: torch.Tensor, eps: float,
+                   tp, width: int) -> torch.Tensor:
+    """``rmsnorm`` of y over all ``width`` channels, y holding this
+    rank's block of them: the mean square is the sum of squares over
+    the dim (``_sum_squares``) over ``width``."""
+    yf = y.float()
+    ss = _sum_squares(tp, (yf * yf).sum(dim=-1, keepdim=True))
+    return (yf * torch.rsqrt(ss / width + eps) * (1.0 + w.float())).to(
+        y.dtype)
+
+
 def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                state: Optional[dict] = None) -> torch.Tensor:
+                state: Optional[dict] = None,
+                ctx: Optional[Mesh] = None) -> torch.Tensor:
     """The Mamba-2 block: in-projection, causal conv over (x, B, C),
     softplus dt, A = -exp(A_log), the SSD, the D skip, the gated
     rmsnorm and the out-projection.  x: (B, S, D) -> (B, S, D).
@@ -711,20 +826,50 @@ def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     one token runs the chunked SSD from a zero state (a prefill into a
     fresh cache, as in the JAX package), zero-padded to a chunk multiple
     (the padded steps carry dA = 0 and x = 0, so the final state is
-    unchanged); one token with a state is ``ssd_step``."""
+    unchanged); one token with a state is ``ssd_step``.
+
+    Under a tensor-parallel dim that divides the heads (``specs_mamba``)
+    ``w_in`` holds this rank's columns of [z | x | B | C | dt], a block
+    that is not head-aligned, so its output is gathered whole over the
+    dim (``_gather_channels``); the conv runs on every channel (its
+    state is whole), B and C stay whole, and the SSD, the ``ssm`` state,
+    the D skip and the gated norm run on this rank's heads, the norm's
+    sum of squares summed over the dim (``_gated_rmsnorm``); ``w_out``'s
+    rows are the rank's and its products summed (``_leave``).
+    ``conv_w``, ``A_log``, ``D``, ``dt_bias`` and ``norm_w`` are
+    replicated and enter the rank's use of them.  Heads the dim does
+    not divide run whole on every rank (``_whole_weights``)."""
     sc = cfg.ssm
-    b, s, d = x.shape
-    din = sc.expand * d
+    din = sc.expand * cfg.d_model
     nh = din // sc.head_dim
+    tp = _tp(ctx)
+    if tp is not None and not _split_heads(cfg, tp, nh):
+        pw = _whole_weights(ctx, p, specs_mamba(cfg, ctx.rules))
+        return _leave_whole(ctx, mamba_block(pw, _enter_whole(ctx, x), cfg,
+                                             state))
+    x = _enter(ctx, x)
+    b, s, _ = x.shape
     n = sc.n_groups * sc.d_state
-    z, xbc, dt = torch.split(x @ p["w_in"], [din, din + 2 * n, nh], dim=-1)
+    zxbcdt = x @ p["w_in"]
+    conv_w, a_log, d_skip, dt_bias, norm_w = (
+        p[k] for k in ("conv_w", "A_log", "D", "dt_bias", "norm_w"))
+    if tp is not None:
+        zxbcdt = _gather_channels(tp, zxbcdt)
+        conv_w = tp.enter(conv_w)
+        a_log, d_skip, dt_bias, norm_w = (
+            tp.shard(tp.enter(t), 0) for t in (a_log, d_skip, dt_bias,
+                                               norm_w))
+    z, xbc, dt = torch.split(zxbcdt, [din, din + 2 * n, nh], dim=-1)
     xbc, new_conv = causal_conv1d(
-        xbc, p["conv_w"], state["conv"] if state is not None else None)
+        xbc, conv_w, state["conv"] if state is not None else None)
     xb, bm, cm = torch.split(xbc, [din, n, n], dim=-1)
-    dtv = F.softplus(dt.float() + p["dt_bias"])              # (B,S,H)
+    if tp is not None:
+        z, xb, dt = (tp.shard(t, -1) for t in (z, xb, dt))
+        nh //= tp.size
+    dtv = F.softplus(dt.float() + dt_bias)                  # (B,S,H)
     xr = xb.reshape(b, s, nh, sc.head_dim).float()
     xh = xr * dtv[..., None]
-    da = dtv * -torch.exp(p["A_log"])
+    da = dtv * -torch.exp(a_log)
     bm, cm = bm.float(), cm.float()
     if state is None or s > 1:
         pad = (-s) % sc.chunk
@@ -740,9 +885,12 @@ def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if state is not None:
         state["conv"].copy_(new_conv)
         state["ssm"].copy_(h_last)
-    y = (y + xr * p["D"][:, None]).reshape(b, s, din)
-    y = rmsnorm(y.to(x.dtype), p["norm_w"], cfg.norm_eps) * F.silu(z)
-    return y @ p["w_out"]
+    y = (y + xr * d_skip[:, None]).reshape(b, s, -1).to(x.dtype)
+    if tp is None:
+        y = rmsnorm(y, norm_w, cfg.norm_eps)
+    else:
+        y = _gated_rmsnorm(y, norm_w, cfg.norm_eps, tp, din)
+    return _leave(ctx, (y * F.silu(z)) @ p["w_out"])
 
 
 def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -912,7 +1060,8 @@ def _positional_attention(q, k, v, rows_pos, kv_pos, causal: bool,
 
 def _cached_attention(q, k, v, cfg: ModelConfig, *, positions, cache: dict,
                       bkv: int, causal: bool,
-                      ctx: Optional[Mesh] = None) -> torch.Tensor:
+                      ctx: Optional[Mesh] = None,
+                      whole: bool = False) -> torch.Tensor:
     """The contiguous cache's branch of ``attention_block``: this
     call's k/v and positions go into the cache IN PLACE at slots
     ``positions % n`` (a ring when windowed), then q attends over the
@@ -924,7 +1073,8 @@ def _cached_attention(q, k, v, cfg: ModelConfig, *, positions, cache: dict,
     rank's block of the slots, and ``pos`` whole: the rank writes the
     slots it owns, then a decode step under ``ctx.dist_decode`` runs
     ``distributed_decode_attention``, anything else attends over the
-    cache gathered whole."""
+    cache gathered whole.  ``whole``: q holds every head (a mixer the
+    dim does not split, ``_split_heads``)."""
     s, win = q.shape[2], cfg.attn_window
     tp = _tp(ctx)
     nl = cache["k"].shape[2]
@@ -945,7 +1095,8 @@ def _cached_attention(q, k, v, cfg: ModelConfig, *, positions, cache: dict,
         _write_owned(cache, ks, vs, idx - tp.index * nl)
         if ctx.dist_decode and s == 1:
             return distributed_decode_attention(
-                q, cache, positions, cfg, tp, window=win, scale=scale)
+                q, cache, positions, cfg, tp, window=win, scale=scale,
+                whole=whole)
     if win and s >= win:
         # fresh long prefill: every row's window lies inside this call's
         # k/v — the ring holds only the tail and would starve early
@@ -956,7 +1107,8 @@ def _cached_attention(q, k, v, cfg: ModelConfig, *, positions, cache: dict,
     else:   # the JAX package's gather of a sequence-sharded cache
         kk, vv = tp.all_gather(cache["k"], 2), tp.all_gather(cache["v"], 2)
         kv_pos = cache["pos"]
-    kk, vv = _kv_for_q(kk, cfg, tp), _kv_for_q(vv, cfg, tp)
+    heads = None if whole else tp
+    kk, vv = _kv_for_q(kk, cfg, heads), _kv_for_q(vv, cfg, heads)
     if cfg.use_fused_attention and kk.shape[2] > 2 * bkv and s > 1:
         return streaming_attention(q, kk, vv, causal=causal, window=win,
                                    scale=scale, bkv=bkv,
@@ -994,8 +1146,8 @@ def _write_owned(cache: dict, ks: torch.Tensor, vs: torch.Tensor,
 
 def distributed_decode_attention(q: torch.Tensor, cache: dict,
                                  positions: torch.Tensor, cfg: ModelConfig,
-                                 tp, *, window: int,
-                                 scale: float) -> torch.Tensor:
+                                 tp, *, window: int, scale: float,
+                                 whole: bool = False) -> torch.Tensor:
     """Decode attention over a SEQUENCE-sharded cache without gathering
     it — the JAX package's flash-decode over the model dim.  Each rank
     takes the partial softmax of every q head (gathered, as the JAX
@@ -1004,18 +1156,19 @@ def distributed_decode_attention(q: torch.Tensor, cache: dict,
     v's type before P V), the ring's combine sums the partials in f32
     (``dist.ring_dispatch.ring_combine``), and the rank keeps its own
     heads of the result.  The new token was written on the owning rank
-    only (``_cached_attention``).  q: (B, Hq_local, 1, dh); cache:
-    {"k", "v"} (B, Hkv, N / n, dh), "pos" (N,) whole; positions:
-    (1,)."""
+    only (``_cached_attention``).  q: (B, Hq_local, 1, dh), or every
+    head where ``whole`` (then so is the result); cache: {"k", "v"} (B,
+    Hkv, N / n, dh), "pos" (N,) whole; positions: (1,)."""
     from ..dist.ring_dispatch import ring_combine
     from ..kernels.ref import partial_attention_ref
     nl = cache["k"].shape[2]
     kv_pos = cache["pos"][tp.index * nl:(tp.index + 1) * nl]
-    o, m, l = partial_attention_ref(tp.all_gather(q, 1), cache["k"],
-                                    cache["v"], kv_pos, positions,
-                                    causal=True, window=window, scale=scale)
-    return tp.shard(ring_combine(o, m, l, tp, torch.float32, q.dtype,
-                                 pipelined=False), 1)
+    o, m, l = partial_attention_ref(q if whole else tp.all_gather(q, 1),
+                                    cache["k"], cache["v"], kv_pos,
+                                    positions, causal=True, window=window,
+                                    scale=scale)
+    o = ring_combine(o, m, l, tp, torch.float32, q.dtype, pipelined=False)
+    return o if whole else tp.shard(o, 1)
 
 
 def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -1041,42 +1194,57 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     Under a mesh (``ctx``) the block runs on this rank's heads, the
     kernel through ``kernels.ops.attention_shard`` (the regime the
-    tuner picks for the global shape), and ``wo``'s partial products
-    are summed over the tensor-parallel dim; under sequence parallelism
-    x is this rank's block of the sequence, gathered whole first, and
-    the output is its block of the sum (``_enter``, ``_leave``)."""
-    if _seq(ctx) is not None:
+    tuner picks for the global shape) on the rank's q heads and the kv
+    heads they read, and ``wo``'s partial products are summed over the
+    tensor-parallel dim; under sequence parallelism x is this rank's
+    block of the sequence, gathered whole first, and the output is its
+    block of the sum (``_enter``, ``_leave``).  A sequence-sharded cache
+    holds every kv head: this call's are gathered whole before the
+    write.  Heads the dim does not split (``_split_heads``) run whole on
+    every rank, on the weights gathered whole (``_whole_weights``)."""
+    tp = _tp(ctx)
+    whole = tp is not None and not _split_heads(cfg, tp)
+    if whole:
+        p = _whole_weights(ctx, p, specs_attention(cfg, ctx.rules))
+        x = _enter_whole(ctx, x)
+    elif _seq(ctx) is not None:
         x = _enter(ctx, x)
     b, s, _ = x.shape
     dh = cfg.dh
     win = cfg.attn_window
-    tp = _tp(ctx)
-    q, k, v = (t.transpose(1, 2)
-               for t in _project_qkv(p, x, cfg, positions, tp,
-                                     entered=_seq(ctx) is not None))
+    q, k, v = _project_qkv(p, x, cfg, positions, None if whole else tp,
+                           entered=_seq(ctx) is not None)
+    if (cache is not None and tp is not None and not whole
+            and cache["k"].shape[1] == cfg.n_kv_heads
+            and k.shape[2] != cfg.n_kv_heads):
+        k, v = _gather_heads(tp, k, v)  # a sequence-sharded cache
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     scale = 1.0 / math.sqrt(dh)
     if cache is not None:
         o = _cached_attention(q, k, v, cfg, positions=positions,
-                              cache=cache, bkv=bkv, causal=causal, ctx=ctx)
+                              cache=cache, bkv=bkv, causal=causal, ctx=ctx,
+                              whole=whole)
     elif kernel_ops and s > 1:
         from ..kernels import ops
-        if ctx is None:
+        if ctx is None or whole:
             o = ops.attention(q, k, v, causal=causal, window=win,
                               scale=scale)
         else:
-            # attention_shard takes this rank's heads where the kv heads
-            # divide over the dim, and every head where they do not
-            whole = tp is not None and k.shape[1] == cfg.n_kv_heads
-            if whole:
-                q = tp.all_gather(q, 1)
+            # this rank's q heads over the kv heads they read: kv heads
+            # gathered whole (the dim does not divide them) are cut to
+            # the rank's run, and the tuner sees the ranks' blocks of
+            # them side by side
+            hkv = cfg.n_kv_heads
+            if tp is not None and k.shape[1] == hkv:
+                lo, hi, _ = _kv_range(cfg, tp)
+                k, v, hkv = k[:, lo:hi], v[:, lo:hi], (hi - lo) * tp.size
             o = ops.attention_shard(
                 q, k, v, batch=ctx.batch, q_heads=cfg.n_heads,
-                kv_heads=cfg.n_kv_heads, mesh=ctx.mesh, rules=ctx.rules,
+                kv_heads=hkv, mesh=ctx.mesh, rules=ctx.rules,
                 causal=causal, window=win, scale=scale)
-            if whole:
-                o = tp.shard(o, 1)
     else:
-        kk, vv = _kv_for_q(k, cfg, tp), _kv_for_q(v, cfg, tp)
+        heads = None if whole else tp
+        kk, vv = _kv_for_q(k, cfg, heads), _kv_for_q(v, cfg, heads)
         if cfg.use_fused_attention and s > 2 * bkv:
             o = streaming_attention(q, kk, vv, causal=causal, window=win,
                                     scale=scale, bkv=bkv)
@@ -1084,35 +1252,52 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
             o = naive_attention(q, kk, vv, causal=causal, window=win,
                                 scale=scale)
     out = o.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
-    return _leave(ctx, out)
+    return _leave_whole(ctx, out) if whole else _leave(ctx, out)
 
 
 def cross_attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                           enc_out: Optional[torch.Tensor] = None,
-                          kv_cache: Optional[dict] = None) -> torch.Tensor:
+                          kv_cache: Optional[dict] = None,
+                          ctx: Optional[Mesh] = None) -> torch.Tensor:
     """The decoder's attention over the encoder output, non-causal and
     unfused (``naive_attention``), as in the JAX package.  x: (B, S, D);
     the keys and values are ``enc_out``'s (B, T, D) projections —
     written into ``kv_cache`` ``{"k", "v"}`` (B, Hkv, T, dh) IN PLACE
     when one is given (a prefill) — or, without ``enc_out``, read from
-    ``kv_cache`` (a decode step)."""
+    ``kv_cache`` (a decode step).
+
+    Under a tensor-parallel dim (``specs_cross_attention``) q comes from
+    the decoder's entered input on this rank's heads, k and v from
+    ``enc_out`` (which the caller enters) on its kv heads, and ``wo``'s
+    products are summed (``_leave``).  The cache is whole over the dim,
+    as the JAX package lays it out: a prefill gathers the kv heads whole
+    before the write, and each rank reads the ones its q heads use
+    (``_kv_for_q``).  Heads the dim does not split run whole on every
+    rank (``_whole_weights``)."""
+    tp = _tp(ctx)
+    if tp is not None and not _split_heads(cfg, tp):
+        pw = _whole_weights(ctx, p, specs_cross_attention(cfg, ctx.rules))
+        return _leave_whole(ctx, cross_attention_block(
+            pw, _enter_whole(ctx, x), cfg, enc_out=enc_out,
+            kv_cache=kv_cache))
+    x = _enter(ctx, x)
     b, s, _ = x.shape
     dh = cfg.dh
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, dh).transpose(1, 2)
+    q = (x @ p["wq"]).reshape(b, s, -1, dh).transpose(1, 2)
     if enc_out is not None:
         t = enc_out.shape[1]
-        k, v = ((enc_out @ p[w]).reshape(b, t, cfg.n_kv_heads, dh)
-                .transpose(1, 2) for w in ("wk", "wv"))
+        k, v = ((enc_out @ p[w]).reshape(b, t, -1, dh) for w in ("wk", "wv"))
         if kv_cache is not None:
-            kv_cache["k"].copy_(k)
-            kv_cache["v"].copy_(v)
+            if k.shape[2] != kv_cache["k"].shape[1]:
+                k, v = _gather_heads(tp, k, v)
+            kv_cache["k"].copy_(k.transpose(1, 2))
+            kv_cache["v"].copy_(v.transpose(1, 2))
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
     else:
         k, v = kv_cache["k"], kv_cache["v"]
-    group = cfg.n_heads // cfg.n_kv_heads
-    o = naive_attention(q, k.repeat_interleave(group, dim=1),
-                        v.repeat_interleave(group, dim=1), causal=False,
-                        window=0, scale=1.0 / math.sqrt(dh))
-    return o.transpose(1, 2).reshape(b, s, cfg.n_heads * dh) @ p["wo"]
+    o = naive_attention(q, _kv_for_q(k, cfg, tp), _kv_for_q(v, cfg, tp),
+                        causal=False, window=0, scale=1.0 / math.sqrt(dh))
+    return _leave(ctx, o.transpose(1, 2).reshape(b, s, -1) @ p["wo"])
 
 
 def _paged_positional_attention(q, k, v, rows_pos, kv_pos, window: int,

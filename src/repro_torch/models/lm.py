@@ -34,8 +34,8 @@ copies.  The API:
     decode_step_paged(params, cache, tokens, positions, page_table)
     param_specs() / cache_specs(batch)     -> weight and cache layouts
 
-Under a mesh (``Runtime(rules=..., mesh=...)``, the dense and MoE
-families on the hand-wired path) every rank holds its shards of the
+Under a mesh (``Runtime(rules=..., mesh=...)``, every family on the
+hand-wired path) every rank holds its shards of the
 weights (``param_specs``, placed by ``launch.steps.shard_params``) and
 of the caches (``cache_specs``), and runs the same program on them: the
 entry points take and return whole tensors, as the JAX package's global
@@ -45,7 +45,11 @@ dims than the tensor-parallel one (FSDP) are gathered just before their
 layer runs.  The embedding and ``lm_head`` are vocab-parallel where the
 model dim divides the vocab: the lookup sums the ranks' rows, the
 logits are gathered, and the loss reduces its logsumexp over the ranks
-(``_ce_sums``).  Under a mesh every step runs eagerly.
+(``_ce_sums``); else their ``d_model`` is sharded and gathered whole.
+The recurrent blocks' states follow ``cache_specs``: the conv state
+whole, the RG-LRU's and Mamba-2's this rank's channels or heads.
+``Sharded`` holds what ``models.whisper.EncDec`` shares of this.  Under
+a mesh every step runs eagerly.
 
 ``loss`` runs under autograd on a mesh too: every collective on its
 path is a differentiable one (``dist.collectives``: the FSDP gather
@@ -59,14 +63,14 @@ dims for the leaves replicated there.
 Under ``Rules(seq=...)`` (the tensor-parallel dim, Megatron-SP) the
 residual stream between blocks is this rank's block of the sequence,
 (B_local, S / n, D): the vocab-parallel embedding reduce-scatters its
-rows over the sequence, each block gathers its normed input and
+rows over the sequence (a ``d_model``-sharded one cuts its whole rows
+to the block), each block gathers its normed input and
 reduce-scatters its output (``layers._enter``/``_leave``), the norms run
 on the shard with their weights entered (each rank's gradient is its
 block's part), and the loss and the logits gather the shard first.  A
 call whose sequence the dim does not divide (a decode step) runs plain
 tensor parallelism, as the JAX package's ``constrain`` drops a mesh dim
-that does not divide.  Every other family, and the paged path, raises
-under ``rules.seq``.
+that does not divide.  The paged path raises under ``rules.seq``.
 
 ``Runtime(remat=True)`` runs each pattern super-block of the cache-free
 stack (one layer of a dense stack; ``(rglru, rglru, attn)`` of
@@ -92,7 +96,7 @@ from torch.utils import checkpoint as _ckpt
 from .. import tree as T
 from ..core import planner
 from ..dist.collectives import axis, gather_dims, shard_dims
-from ..dist.sharding import Rules, batch_placement, mesh_shape
+from ..dist.sharding import Rules, batch_placement, local_shape, mesh_shape
 from . import layers as L
 from .config import ModelConfig
 
@@ -229,6 +233,10 @@ def chunked_ce(hidden: torch.Tensor, unembed_w: torch.Tensor,
     return tot / torch.clamp(cnt, min=1.0)
 
 
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
 def requires_grad(params: dict) -> dict:
     """Mark every parameter leaf as requiring grad, IN PLACE, so that
     ``LM.loss`` back-propagates into ``.grad`` (the training step's
@@ -245,58 +253,58 @@ _MIXERS = {"attn": (L.init_attention, None),
            "mamba": (L.init_mamba, "ssm")}
 
 
-class LM:
-    def __init__(self, cfg: ModelConfig, rt: Optional[Runtime] = None,
-                 device="cuda"):
-        kinds = layer_kinds(cfg)
-        bad = [k for k in set(kinds) if k not in _MIXERS
-               or (_MIXERS[k][1] and getattr(cfg, _MIXERS[k][1]) is None)]
-        if cfg.family == "encdec" or bad:
-            raise NotImplementedError(
-                f"LM runs decoder-only stacks of {sorted(_MIXERS)} layers, "
-                f"each with its config field; {cfg.name} is {cfg.family} "
-                f"with layers {sorted(set(kinds))} (an encoder-decoder "
-                f"config is models.whisper.EncDec's)")
-        self.cfg = cfg
-        self.rt = rt or Runtime()
-        self.device = torch.device(device)
-        self.kinds = kinds
-        self._specs = None
-        if self.rt.mesh is not None:
-            self._check_mesh()
-        # tied embeddings are scaled by sqrt(d_model) rounded to the
-        # config's type, as the JAX package's weakly typed scalar is (a
-        # constant of the model, which a step with the weights upcast to
-        # f32 keeps)
-        self._embed_scale = (
-            float(torch.tensor(math.sqrt(cfg.d_model),
-                               dtype=getattr(torch, cfg.dtype)))
-            if cfg.tie_embeddings else None)
+class Sharded:
+    """What ``LM`` and ``models.whisper.EncDec`` share under a mesh: the
+    checks of the ``Runtime``'s rules, this rank's axes and the blocks'
+    ``layers.Mesh``, whole tensors in and this rank's rows out (and
+    back), the FSDP gather of a weight, the norms under sequence
+    parallelism, the embedding lookup and the learned positions, the
+    logits and the loss's cross-entropy, vocab-parallel or over
+    ``d_model`` blocks.  A subclass sets ``cfg``, ``rt``, ``device``,
+    ``_specs`` (None), ``_embed_scale`` and ``POSITIONS`` (its learned
+    positions' parameter name) and gives ``param_specs``."""
+
+    POSITIONS = "pos_embed"
 
     def _check_mesh(self) -> None:
+        """Every family runs under a mesh on the hand-wired path;
+        the planned path, and sequence parallelism over another dim
+        than the tensor-parallel one (the ``zero3`` regime's multi-pod
+        form), refuse."""
         cfg, rt = self.cfg, self.rt
-        if set(self.kinds) != {"attn"} or rt.planner:
+        if rt.planner:
             raise NotImplementedError(
-                f"mesh execution covers the dense and MoE families on the "
-                f"hand-wired path; {cfg.name} (family {cfg.family}, "
-                f"layers {sorted(set(self.kinds))}, planner "
-                f"{rt.planner}) comes with ROADMAP Queue 1 item 4")
+                f"mesh execution runs the hand-wired path; the planned "
+                f"path under a mesh ({cfg.name}, Runtime(planner=True)) "
+                f"comes with ROADMAP Queue 1 item 4")
         rules = rt.rules
         if rules.tp not in (None, rules.model):
             raise NotImplementedError(
                 f"activation dim {rules.tp!r} differs from the weights' "
                 f"model dim {rules.model!r}")
-        self._n_model = (mesh_shape(rt.mesh)[rules.model] if rules.model
-                         else 1)
         if rules.seq is not None and rules.seq != rules.tp:
             raise NotImplementedError(
                 f"sequence parallelism runs over the tensor-parallel dim; "
-                f"seq {rules.seq!r} with tp {rules.tp!r} is not ported")
-        if rules.seq is not None and cfg.vocab % self._n_model:
-            raise NotImplementedError(
-                f"sequence parallelism needs the vocab-parallel embedding; "
-                f"{cfg.name}'s vocab {cfg.vocab} does not divide over "
-                f"{self._n_model}")
+                f"seq {rules.seq!r} with tp {rules.tp!r} (the zero3 "
+                f"regime's multi-pod form) comes with ROADMAP Queue 1 "
+                f"item 4")
+
+    def _n_model(self) -> int:
+        """The model dim's size (1 without a mesh or a model dim)."""
+        rules, mesh = self.rt.rules, self.rt.mesh
+        return (mesh_shape(mesh)[rules.model]
+                if mesh is not None and rules.model else 1)
+
+    def _vocab_ok(self) -> bool:
+        """Whether the embedding and ``lm_head`` are laid out
+        vocab-parallel: the model dim divides the vocab (else
+        ``d_model`` is sharded)."""
+        return self.cfg.vocab % max(self._n_model(), 1) == 0
+
+    def _vocab_sharded(self) -> bool:
+        """Whether this rank holds a block of the vocab (a
+        tensor-parallel dim over a vocab-parallel layout)."""
+        return self._tp is not None and self._vocab_ok()
 
     @functools.cached_property
     def _tp(self):
@@ -306,67 +314,6 @@ class LM:
         rt = self.rt
         return axis(rt.mesh, rt.rules.tp) if rt.mesh is not None else None
 
-    def param_specs(self) -> dict:
-        """The weights' layouts (``dist.sharding``), a tree mirroring
-        ``init_params``: each projection's columns or rows over the
-        model dim (FSDP over the data dims while ``rules.fsdp``), norms
-        whole, and the vocab dims over the model dim where it divides
-        the vocab (else ``d_model`` is)."""
-        cfg, rules, mesh = self.cfg, self.rt.rules, self.rt.mesh
-        n_model = (mesh_shape(mesh)[rules.model]
-                   if mesh is not None and rules.model else 1)
-        vocab_ok = cfg.vocab % max(n_model, 1) == 0
-        specs = {"embed": (rules.spec("model", "data") if vocab_ok
-                           else rules.spec(None, "model")),
-                 "final_norm": L.specs_norm(cfg, rules)}
-        if not cfg.use_rope:
-            specs["pos_embed"] = rules.spec(None, "data")
-        if not cfg.tie_embeddings:
-            specs["lm_head"] = (rules.spec("data", "model") if vocab_ok
-                                else rules.spec("model", None))
-        specs["layers"] = [self._layer_specs(kind, n_model)
-                           for kind in self.kinds]
-        return specs
-
-    def _layer_specs(self, kind: str, n_model: int) -> dict:
-        cfg, rules = self.cfg, self.rt.rules
-        mix = {"attn": L.specs_attention, "mamba": L.specs_mamba,
-               "rglru": L.specs_rglru}[kind]
-        s = {"ln1": L.specs_norm(cfg, rules), "mix": mix(cfg, rules)}
-        if cfg.d_ff > 0:
-            s["ln2"] = L.specs_norm(cfg, rules)
-            s["ff"] = (L.specs_moe(cfg, rules, n_model) if cfg.moe
-                       else L.specs_mlp(cfg, rules))
-        return s
-
-    def cache_specs(self, batch_size: int) -> list:
-        """The layouts of ``init_cache``'s caches, one per layer: the
-        batch over its placement; an attention cache's kv heads over the
-        model dim where they divide it, else its slots (``pos`` whole);
-        a recurrent state's channels over the model dim."""
-        cfg, rules, mesh = self.cfg, self.rt.rules, self.rt.mesh
-        b = rules.batch_spec(batch_size, mesh)
-        n_model = mesh_shape(mesh)[rules.model] if mesh is not None \
-            and rules.model else 1
-        out = []
-        for kind in self.kinds:
-            if kind == "attn":
-                if rules.enabled and cfg.n_kv_heads % max(n_model, 1) == 0 \
-                        and cfg.n_kv_heads >= n_model:
-                    kv = (b, rules.model, None, None)
-                else:
-                    kv = (b, None, rules.model, None)
-                out.append({"k": kv, "v": kv, "pos": (None,)})
-            elif kind == "mamba":
-                out.append({"conv": (b, None, None),
-                            "ssm": (b, rules.model, None, None)})
-            else:
-                out.append({"conv": (b, None, None), "lru": (b, rules.model)})
-        return out
-
-    # ------------------------------------------------------------------
-    # mesh helpers: global tensors in and out, shards inside
-    # ------------------------------------------------------------------
     def _ctx(self, batch: int, seq: int = 1) -> Optional[L.Mesh]:
         """The blocks' view of the mesh for a call of ``batch`` rows of
         ``seq`` positions: sequence-parallel where ``rules.seq`` is set
@@ -420,12 +367,262 @@ class LM:
         return gather_dims(t, layout, rt.mesh, keep=(rt.rules.tp,),
                            summed=summed)
 
+    def _spec(self, name: str):
+        if self._specs is None:
+            self._specs = self.param_specs()
+        return self._specs[name]
+
+    def _materialise(self, caches, batch: int):
+        """``caches`` (whole, on the ``meta`` device) made on the model's
+        device, each tensor this rank's block of it under
+        ``cache_specs(batch)`` on a mesh: zeros, and -1 in the int32
+        slot positions (``pos``: every slot empty)."""
+        mesh = self.rt.mesh
+        specs = self.cache_specs(batch) if mesh is not None else caches
+
+        def make(t, lay):
+            shape = (local_shape(t.shape, lay, mesh) if mesh is not None
+                     else t.shape)
+            return torch.full(shape, -1 if t.dtype == torch.int32 else 0,
+                              dtype=t.dtype, device=self.device)
+        return T.map_tree(make, caches, specs)
+
+    def _gathered(self, p: dict, specs: dict,
+                  ctx: Optional[L.Mesh] = None) -> dict:
+        """A layer's weights under ``specs`` FSDP-gathered (``_whole``)
+        just before it runs; ``p`` itself without a mesh."""
+        if self.rt.mesh is None:
+            return p
+        return T.map_tree(lambda t, sp: self._whole(t, sp, ctx), p, specs)
+
+    def _embed(self, params: dict, tokens: torch.Tensor,
+               positions: torch.Tensor,
+               prefix_embeds: Optional[torch.Tensor] = None,
+               ctx: Optional[L.Mesh] = None) -> torch.Tensor:
+        """The token embeddings — tied ones times ``_embed_scale`` —
+        after the prefix embeddings, if any, plus the learned positions
+        (``POSITIONS``) at ``positions`` of a config without rope.  Under
+        sequence parallelism the ranks' partial rows of a vocab-parallel
+        lookup (the prefix on one rank) are reduce-scattered over the
+        sequence, whole rows of a ``d_model``-sharded one cut to this
+        rank's block, and the positions added to that block."""
+        sp = ctx.seq if ctx is not None else None
+        partial = sp is not None and self._vocab_sharded()
+        x = self._lookup(params, tokens, ctx, summed=not partial)
+        if self._embed_scale is not None:
+            x = x * self._embed_scale
+        if prefix_embeds is not None:
+            pre = prefix_embeds.to(x.dtype)
+            if partial and sp.index:
+                pre = torch.zeros_like(pre)
+            x = torch.cat([pre, x], dim=1)
+        if sp is not None:
+            x = sp.scatter(x, 1) if partial else sp.shard(x, 1)
+            positions = sp.shard(positions, 0)
+        if not self.cfg.use_rope:
+            pe = self._whole(params[self.POSITIONS],
+                             self._spec(self.POSITIONS), ctx)
+            if sp is not None:
+                pe = sp.enter(pe)
+            x = x + pe[positions.long()]
+        return x
+
+    def _mean_ce(self, params: dict, x: torch.Tensor, labels: torch.Tensor,
+                 batch: int, ctx: Optional[L.Mesh] = None,
+                 n_pre: int = 0) -> torch.Tensor:
+        """The loss's tail: x (this rank's rows after the final norm,
+        ``n_pre`` prefix rows first; its block of the sequence under
+        sequence parallelism) against ``labels`` (this rank's rows,
+        aligned with the tokens; -100 masked), the mean cross-entropy by
+        ``_ce_sums`` over the global batch of ``batch`` rows.
+
+        Under a tensor-parallel dim a vocab-parallel unembedding takes
+        x whole (gathered over the sequence, or entered) and reduces the
+        logsumexp over the vocab's ranks; a ``d_model``-sharded one is
+        gathered whole — under sequence parallelism each rank then sums
+        its block of the sequence (the weight's gradient summed over the
+        ranks, the sums reduced), under tensor parallelism alone every
+        rank the whole (each keeping its block of the weight's
+        gradient).  The sums are reduced over the batch's mesh dims:
+        every rank returns the global-batch mean."""
+        tp = self._tp
+        sp = ctx.seq if ctx is not None else None
+        w = self._unembed_w(params, ctx)
+        if tp is not None and not self._vocab_sharded() and sp is not None:
+            labels = torch.nn.functional.pad(labels, (n_pre, 0),
+                                             value=-100)
+            tot, cnt = _ce_sums(x, tp.gather(w, 0), sp.shard(labels, 1))
+            tot, cnt = tp.reduce(tot), tp.all_reduce(cnt)
+        else:
+            if sp is not None:
+                x = sp.gather(x, 1)
+            x = x[:, n_pre:]
+            if tp is not None and not self._vocab_sharded():
+                w = tp.gather(w, 0, "own")      # d_model rows gathered
+            elif tp is not None and sp is None:
+                x = tp.enter(x)
+            tot, cnt = _ce_sums(x, w, labels,
+                                tp if self._vocab_sharded() else None)
+        bx = self._bax(batch)
+        if bx is not None:
+            tot, cnt = bx.reduce(tot), bx.all_reduce(cnt)
+        return tot / torch.clamp(cnt, min=1.0)
+
+    def _lookup(self, params: dict, tokens: torch.Tensor,
+                ctx: Optional[L.Mesh] = None,
+                summed: bool = True) -> torch.Tensor:
+        """The embedding rows of ``tokens``.  Under a tensor-parallel dim
+        each rank holds a block of the vocab rows (or of ``d_model``
+        where the dim does not divide the vocab): it looks up the tokens
+        it holds, zeros elsewhere, and the ranks' rows are summed
+        (returned unsummed when not ``summed``) or the ``d_model``
+        blocks gathered — each rank's gradient its block's, summed over
+        the ranks under ``ctx``'s sequence parallelism, where each uses
+        its block of the sequence."""
+        emb = self._whole(params["embed"], self._spec("embed"), ctx)
+        tp = self._tp
+        if tp is None:
+            return emb[tokens]
+        if emb.shape[0] == self.cfg.vocab:
+            sp = ctx is not None and ctx.seq is not None
+            return tp.gather(emb[tokens], -1, "sum" if sp else "own")
+        t = tokens - tp.index * emb.shape[0]
+        own = (t >= 0) & (t < emb.shape[0])
+        rows = (emb[t.clamp(0, emb.shape[0] - 1)] * own[..., None]).to(
+            emb.dtype)
+        return tp.reduce(rows) if summed else rows
+
+    def _unembed_w(self, params: dict,
+                   ctx: Optional[L.Mesh] = None) -> torch.Tensor:
+        """The (D, V) unembedding: the tied embedding transposed, or
+        ``lm_head`` — under a mesh this rank's vocab columns (or
+        ``d_model`` rows, where the model dim does not divide the
+        vocab)."""
+        if self.cfg.tie_embeddings:
+            return self._whole(params["embed"], self._spec("embed"),
+                               ctx).t()
+        return self._whole(params["lm_head"], self._spec("lm_head"), ctx)
+
+    @staticmethod
+    def _seq_len(tokens: torch.Tensor,
+                 prefix_embeds: Optional[torch.Tensor]) -> int:
+        return tokens.shape[1] + (prefix_embeds.shape[1]
+                                  if prefix_embeds is not None else 0)
+
+    def _unembed(self, params: dict, x: torch.Tensor,
+                 ctx: Optional[L.Mesh] = None) -> torch.Tensor:
+        """Logits of the final norm of x, gathered whole over the vocab
+        (or summed over ``d_model`` blocks) under a tensor-parallel
+        dim; under ``ctx``'s sequence parallelism x is this rank's block
+        of the sequence, normed there and gathered."""
+        x = self._norm(params["final_norm"], x, ctx)
+        if ctx is not None and ctx.seq is not None:
+            x = ctx.seq.gather(x, 1)
+        w = self._unembed_w(params)
+        if self._tp is None:
+            return x @ w
+        if self._vocab_sharded():
+            return self._tp.all_gather(x @ w, -1)
+        return self._tp.all_reduce(self._tp.shard(x, -1) @ w)
+
+
+class LM(Sharded):
+    def __init__(self, cfg: ModelConfig, rt: Optional[Runtime] = None,
+                 device="cuda"):
+        kinds = layer_kinds(cfg)
+        bad = [k for k in set(kinds) if k not in _MIXERS
+               or (_MIXERS[k][1] and getattr(cfg, _MIXERS[k][1]) is None)]
+        if cfg.family == "encdec" or bad:
+            raise NotImplementedError(
+                f"LM runs decoder-only stacks of {sorted(_MIXERS)} layers, "
+                f"each with its config field; {cfg.name} is {cfg.family} "
+                f"with layers {sorted(set(kinds))} (an encoder-decoder "
+                f"config is models.whisper.EncDec's)")
+        self.cfg = cfg
+        self.rt = rt or Runtime()
+        self.device = torch.device(device)
+        self.kinds = kinds
+        self._specs = None
+        if self.rt.mesh is not None:
+            self._check_mesh()
+        # tied embeddings are scaled by sqrt(d_model) rounded to the
+        # config's type, as the JAX package's weakly typed scalar is (a
+        # constant of the model, which a step with the weights upcast to
+        # f32 keeps)
+        self._embed_scale = (
+            float(torch.tensor(math.sqrt(cfg.d_model),
+                               dtype=getattr(torch, cfg.dtype)))
+            if cfg.tie_embeddings else None)
+
+    def param_specs(self) -> dict:
+        """The weights' layouts (``dist.sharding``), a tree mirroring
+        ``init_params``: each projection's columns or rows over the
+        model dim (FSDP over the data dims while ``rules.fsdp``), norms
+        whole, and the vocab dims over the model dim where it divides
+        the vocab (else ``d_model`` is)."""
+        cfg, rules = self.cfg, self.rt.rules
+        n_model, vocab_ok = self._n_model(), self._vocab_ok()
+        specs = {"embed": (rules.spec("model", "data") if vocab_ok
+                           else rules.spec(None, "model")),
+                 "final_norm": L.specs_norm(cfg, rules)}
+        if not cfg.use_rope:
+            specs["pos_embed"] = rules.spec(None, "data")
+        if not cfg.tie_embeddings:
+            specs["lm_head"] = (rules.spec("data", "model") if vocab_ok
+                                else rules.spec("model", None))
+        specs["layers"] = [self._layer_specs(kind, n_model)
+                           for kind in self.kinds]
+        return specs
+
+    def _layer_specs(self, kind: str, n_model: int) -> dict:
+        cfg, rules = self.cfg, self.rt.rules
+        mix = {"attn": L.specs_attention, "mamba": L.specs_mamba,
+               "rglru": L.specs_rglru}[kind]
+        s = {"ln1": L.specs_norm(cfg, rules), "mix": mix(cfg, rules)}
+        if cfg.d_ff > 0:
+            s["ln2"] = L.specs_norm(cfg, rules)
+            s["ff"] = (L.specs_moe(cfg, rules, n_model) if cfg.moe
+                       else L.specs_mlp(cfg, rules))
+        return s
+
+    def cache_specs(self, batch_size: int) -> list:
+        """The layouts of ``init_cache``'s caches, one per layer: the
+        batch over its placement; an attention cache's kv heads over the
+        model dim where they divide it, else its slots (``pos`` whole);
+        a recurrent state's channels over the model dim (the conv's
+        whole: ``layers.rglru_block`` and ``mamba_block`` run it on every
+        channel), a Mamba-2 state's heads where the dim divides them."""
+        cfg, rules, mesh = self.cfg, self.rt.rules, self.rt.mesh
+        b = rules.batch_spec(batch_size, mesh)
+        n_model = self._n_model()
+        out = []
+        for kind in self.kinds:
+            if kind == "attn":
+                if rules.enabled and cfg.n_kv_heads % max(n_model, 1) == 0 \
+                        and cfg.n_kv_heads >= n_model:
+                    kv = (b, rules.model, None, None)
+                else:
+                    kv = (b, None, rules.model, None)
+                out.append({"k": kv, "v": kv, "pos": (None,)})
+            elif kind == "mamba":
+                s = cfg.ssm
+                heads = s.expand * cfg.d_model // s.head_dim
+                out.append({"conv": (b, None, None),
+                            "ssm": (b, rules.model if heads % n_model == 0
+                                    else None, None, None)})
+            else:
+                out.append({"conv": (b, None, None), "lru": (b, rules.model)})
+        return out
+
+    # ------------------------------------------------------------------
+    # mesh helpers: global tensors in and out, shards inside
+    # ------------------------------------------------------------------
     def _layer(self, p: dict, kind: str,
                ctx: Optional[L.Mesh] = None) -> dict:
         if self.rt.mesh is None:
             return p
-        return T.map_tree(lambda t, sp: self._whole(t, sp, ctx), p,
-                          self._layer_specs(kind, self._n_model))
+        return self._gathered(p, self._layer_specs(kind, self._n_model()),
+                              ctx)
 
     # ------------------------------------------------------------------
     def init_params(self, seed: int) -> dict:
@@ -505,9 +702,9 @@ class LM:
                                       bkv=rt.bkv, kernel_ops=rt.kernel_ops,
                                       cache=cache, ctx=ctx)
         elif kind == "mamba":
-            x = x + L.mamba_block(p["mix"], h, cfg, state=cache)
+            x = x + L.mamba_block(p["mix"], h, cfg, state=cache, ctx=ctx)
         else:
-            x = x + L.rglru_block(p["mix"], h, cfg, state=cache)
+            x = x + L.rglru_block(p["mix"], h, cfg, state=cache, ctx=ctx)
         if cfg.d_ff <= 0:
             return x
         h2 = self._norm(p["ln2"], x, ctx)
@@ -544,76 +741,6 @@ class LM:
             x = self._apply_block(kind, p, x, positions, ctx=ctx)
         return x
 
-    def _embed(self, params: dict, tokens: torch.Tensor,
-               positions: torch.Tensor,
-               prefix_embeds: Optional[torch.Tensor] = None,
-               ctx: Optional[L.Mesh] = None) -> torch.Tensor:
-        """The token embeddings — tied ones times ``_embed_scale`` —
-        after the prefix embeddings, if any, plus the learned positions
-        at ``positions`` of a config without rope.  Under sequence
-        parallelism the ranks' partial rows (the prefix on one rank) are
-        reduce-scattered over the sequence, and the positions added to
-        this rank's block."""
-        sp = ctx.seq if ctx is not None else None
-        x = self._lookup(params, tokens, ctx, summed=sp is None)
-        if self._embed_scale is not None:
-            x = x * self._embed_scale
-        if prefix_embeds is not None:
-            pre = prefix_embeds.to(x.dtype)
-            if sp is not None and sp.index:
-                pre = torch.zeros_like(pre)
-            x = torch.cat([pre, x], dim=1)
-        if sp is not None:
-            x = sp.scatter(x, 1)
-            positions = sp.shard(positions, 0)
-        if not self.cfg.use_rope:
-            pe = self._whole(params["pos_embed"], self._spec("pos_embed"),
-                             ctx)
-            if sp is not None:
-                pe = sp.enter(pe)
-            x = x + pe[positions.long()]
-        return x
-
-    def _spec(self, name: str):
-        if self._specs is None:
-            self._specs = self.param_specs()
-        return self._specs[name]
-
-    def _lookup(self, params: dict, tokens: torch.Tensor,
-                ctx: Optional[L.Mesh] = None,
-                summed: bool = True) -> torch.Tensor:
-        """The embedding rows of ``tokens``.  Under a tensor-parallel dim
-        each rank holds a block of the vocab rows (or of ``d_model``
-        where the dim does not divide the vocab): it looks up the tokens
-        it holds, zeros elsewhere, and the ranks' rows are summed
-        (returned unsummed when not ``summed``) or the ``d_model``
-        blocks gathered, each rank's gradient its block's."""
-        emb = self._whole(params["embed"], self._spec("embed"), ctx)
-        tp = self._tp
-        if tp is None:
-            return emb[tokens]
-        if emb.shape[0] == self.cfg.vocab:
-            return tp.gather(emb[tokens], -1, "own")
-        t = tokens - tp.index * emb.shape[0]
-        own = (t >= 0) & (t < emb.shape[0])
-        rows = (emb[t.clamp(0, emb.shape[0] - 1)] * own[..., None]).to(
-            emb.dtype)
-        return tp.reduce(rows) if summed else rows
-
-    def _unembed_w(self, params: dict,
-                   ctx: Optional[L.Mesh] = None) -> torch.Tensor:
-        """The (D, V) unembedding: the tied embedding transposed, or
-        ``lm_head`` — under a mesh this rank's vocab columns (or
-        ``d_model`` rows, where the model dim does not divide the
-        vocab)."""
-        if self.cfg.tie_embeddings:
-            return self._whole(params["embed"], self._spec("embed"),
-                               ctx).t()
-        return self._whole(params["lm_head"], self._spec("lm_head"), ctx)
-
-    def _vocab_sharded(self, w: torch.Tensor) -> bool:
-        return self._tp is not None and w.shape[1] != self.cfg.vocab
-
     def forward(self, params: dict, tokens: torch.Tensor,
                 prefix_embeds: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
@@ -625,19 +752,12 @@ class LM:
                          self._local(prefix_embeds, b), ctx)
         return self._global(self._unembed(params, x, ctx), b)
 
-    @staticmethod
-    def _seq_len(tokens: torch.Tensor,
-                 prefix_embeds: Optional[torch.Tensor]) -> int:
-        return tokens.shape[1] + (prefix_embeds.shape[1]
-                                  if prefix_embeds is not None else 0)
-
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
         """batch: {"tokens", "labels"[, "prefix_embeds"]}, labels aligned
         with tokens (-100 = masked); the prefix rows are dropped after
         the final norm.  Mean cross-entropy by ``chunked_ce``: no (B, S,
-        V) logits.  Under a mesh the sums are reduced over the batch's
-        mesh dims (and the vocab's, ``_ce_sums``): every rank returns
-        the global-batch mean, and under autograd its gradients are its
+        V) logits (``_mean_ce``).  Under a mesh every rank returns the
+        global-batch mean, and under autograd its gradients are its
         rows' part of it (the sum of the tokens' losses goes through
         ``Axis.reduce``)."""
         b = batch["tokens"].shape[0]
@@ -646,23 +766,9 @@ class LM:
         ctx = self._ctx(b, self._seq_len(tokens, prefix))
         x = self._norm(params["final_norm"],
                        self._hidden(params, tokens, prefix, ctx), ctx)
-        if ctx is not None and ctx.seq is not None:
-            x = ctx.seq.gather(x, 1)
-        if prefix is not None:
-            x = x[:, prefix.shape[1]:]
-        w = self._unembed_w(params, ctx)
-        labels = self._local(batch["labels"], b)
-        tp = self._tp
-        if tp is not None and not self._vocab_sharded(w):
-            w = tp.gather(w, 0, "own")          # d_model rows gathered
-        elif tp is not None and ctx.seq is None:
-            x = tp.enter(x)
-        tot, cnt = _ce_sums(x, w, labels,
-                            tp if self._vocab_sharded(w) else None)
-        bx = self._bax(b)
-        if bx is not None:
-            tot, cnt = bx.reduce(tot), bx.all_reduce(cnt)
-        return tot / torch.clamp(cnt, min=1.0)
+        return self._mean_ce(params, x, self._local(batch["labels"], b), b,
+                             ctx, prefix.shape[1] if prefix is not None
+                             else 0)
 
     # ------------------------------------------------------------------
     def _apply_layer(self, p: dict, x: torch.Tensor,
@@ -713,63 +819,35 @@ class LM:
             x = self._apply_layer(p, x, positions, c, page_table, ctx)
         return x
 
-    def _unembed(self, params: dict, x: torch.Tensor,
-                 ctx: Optional[L.Mesh] = None) -> torch.Tensor:
-        """Logits of the final norm of x, gathered whole over the vocab
-        (or summed over ``d_model`` blocks) under a tensor-parallel
-        dim; under ``ctx``'s sequence parallelism x is this rank's block
-        of the sequence, normed there and gathered."""
-        x = self._norm(params["final_norm"], x, ctx)
-        if ctx is not None and ctx.seq is not None:
-            x = ctx.seq.gather(x, 1)
-        w = self._unembed_w(params)
-        if self._tp is None:
-            return x @ w
-        if self._vocab_sharded(w):
-            return self._tp.all_gather(x @ w, -1)
-        return self._tp.all_reduce(self._tp.shard(x, -1) @ w)
-
-    # ------------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> list:
         """One contiguous cache per layer: an attention layer's ``{"k",
         "v", "pos"}`` (``layers.init_attn_cache``) of ``max_len`` slots,
         or a ring of ``min(max_len, cfg.attn_window)`` with a window; an
         RG-LRU layer's state ``{"conv": (B, K-1, w) in the model's type,
         "lru": (B, w) f32}``; a Mamba-2 layer's ``{"conv": (B, K-1, din +
-        2N) in the model's type, "ssm": (B, H, N, P) f32}``."""
-        cfg, dev = self.cfg, self.device
+        2N) in the model's type, "ssm": (B, H, N, P) f32}``.  Under a mesh
+        this rank's blocks of them (``cache_specs``)."""
+        cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
         caches = []
-        shards = (1, 1)
-        if self.rt.mesh is not None:
-            kv = self.cache_specs(batch)[0]["k"]
-            n = self._tp.size if self._tp is not None else 1
-            shards = (n, 1) if kv[1] is not None else (1, n)
-            bx = self._bax(batch)
-            batch //= bx.size if bx is not None else 1
         for kind in self.kinds:
             if kind == "attn":
-                caches.append(L.init_attn_cache(cfg, batch, max_len, dev,
-                                                shards))
-                continue
-            if kind == "mamba":
+                caches.append(L.init_attn_cache(cfg, batch, max_len, "meta"))
+            elif kind == "mamba":
                 s = cfg.ssm
                 din = s.expand * cfg.d_model
                 n = s.n_groups * s.d_state
                 caches.append({
-                    "conv": torch.zeros(batch, s.conv_kernel - 1,
-                                        din + 2 * n, dtype=dt, device=dev),
-                    "ssm": torch.zeros(batch, din // s.head_dim, n,
-                                       s.head_dim, dtype=torch.float32,
-                                       device=dev)})
-                continue
-            w = int(cfg.rglru.width_mult * cfg.d_model)
-            caches.append({
-                "conv": torch.zeros(batch, cfg.rglru.conv_kernel - 1, w,
-                                    dtype=dt, device=dev),
-                "lru": torch.zeros(batch, w, dtype=torch.float32,
-                                   device=dev)})
-        return caches
+                    "conv": _meta((batch, s.conv_kernel - 1, din + 2 * n),
+                                  dt),
+                    "ssm": _meta((batch, din // s.head_dim, n, s.head_dim),
+                                 torch.float32)})
+            else:
+                w = int(cfg.rglru.width_mult * cfg.d_model)
+                caches.append({
+                    "conv": _meta((batch, cfg.rglru.conv_kernel - 1, w), dt),
+                    "lru": _meta((batch, w), torch.float32)})
+        return self._materialise(caches, batch)
 
     def _run_cached(self, params: dict, x: torch.Tensor,
                     positions: torch.Tensor, cache: list,
@@ -829,7 +907,8 @@ class LM:
                 f"{cfg.name} has pattern {cfg.pattern}")
         if self.rt.rules.seq is not None:
             raise NotImplementedError(
-                "paged serving under sequence parallelism is not ported")
+                "paged serving under sequence parallelism comes with "
+                "ROADMAP Queue 1 item 4")
         if cfg.n_prefix_embeds:
             raise NotImplementedError(
                 f"paged serving does not thread prefix embeddings yet; "

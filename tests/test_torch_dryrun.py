@@ -329,10 +329,23 @@ def test_run_cell_on_a_dry_2x2_mesh(shape):
 
 
 def test_cli_records_a_hybrid_cell_error_and_a_skip(tmp_path, capsys):
+    """A hybrid cell records its roofline (recurrentgemma-2b's RG-LRU
+    and local attention under the mesh); a regime the port refuses —
+    ``zero3``'s multi-pod form, sequence parallelism without tensor
+    parallelism — records its error and traceback; a cell the skip rule
+    leaves out records its skip."""
     dryrun.main(["--arch", "recurrentgemma-2b", "--shape", "train_4k",
                  "--mesh", "single", "--out", str(tmp_path)])
     rec = json.loads((tmp_path / "recurrentgemma_2b__train_4k__single.json"
                       ).read_text())
+    assert "error" not in rec and rec["regime"] == "tp+sp"
+    assert rec["roofline"]["dominant"] in ("compute", "memory",
+                                           "collective")
+    assert rec["roofline"]["flops_per_device"] > 0
+    out = tmp_path / "zero3"
+    dryrun.main(["--arch", "qwen3-8b", "--shape", "train_4k", "--mesh",
+                 "multi", "--regime", "zero3", "--out", str(out)])
+    rec = json.loads((out / "qwen3_8b__train_4k__multi.json").read_text())
     assert rec["error"].startswith("NotImplementedError")
     assert "Queue 1 item 4" in rec["error"] and "Traceback" in \
         rec["traceback"]

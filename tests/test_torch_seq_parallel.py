@@ -10,11 +10,11 @@ a step records, on gloo worlds of spawned ranks at SMOKE in f32.
 * a 2 x 2 x 1 ``("pod", "data", "model")`` world with the batch over
   ``("pod", "data")``: one process group over both dims;
 * each rank of the 2 x 2 SP world's train step under ``OpCost``: its
-  collectives (kind, result bytes, participants, in order) and flops
-  equal to the dry trace of the same rank's step on a ``DryMesh`` on
-  the ``meta`` device, its bytes and peak within 1 %;
-* the refusals: ``rules.seq`` on another dim than tp, and the paged
-  path under SP.
+  collectives (kind, result bytes, participants, in order), flops, ops
+  and bytes equal to the dry trace of the same rank's step on a
+  ``DryMesh`` on the ``meta`` device, its peak within 1 %;
+* the refusals: ``rules.seq`` on another dim than tp, the paged path
+  under SP, the planned path under a mesh.
 """
 import dataclasses
 
@@ -215,7 +215,7 @@ def test_batch_over_pod_and_data(worlds, whole):
 def test_recorded_collectives_equal_the_dry_trace(worlds, whole, rank):
     """The real rank's step and the dry trace of the same rank on a
     ``DryMesh``: the same collectives in the same order and the same
-    flops; the bytes and the peak within 1 %."""
+    flops, ops and bytes; the peak within 1 %."""
     from repro_torch.dist.collectives import DryMesh
     from repro_torch.launch import steps as St
     from repro_torch.launch.op_cost import OpCost
@@ -237,14 +237,15 @@ def test_recorded_collectives_equal_the_dry_trace(worlds, whole, rank):
     kinds = {k for k, _, _ in want["records"]}
     assert {"all-gather", "reduce-scatter", "all-reduce"} <= kinds
     assert (got["flops"], got["held"]) == (want["flops"], want["held"])
-    # the autograd engine reuses a gradient buffer or copies it by its
-    # reference count, which gloo's worker thread may still hold for a
-    # moment after a collective: a rank read 2 ops and 24576 bytes over
-    # its trace once under six test workers, never alone (4m holds the
-    # card's bytes to 1 % too)
-    assert got["n_ops"] - want["n_ops"] in range(0, 9)
-    for k in ("bytes", "peak"):
-        assert got[k] == pytest.approx(want[k], rel=1e-2), k
+    # the same ops and bytes: a collective's result reaches autograd as
+    # an alias of its own (``dist.collectives._released``), so the
+    # engine adopts it as a gradient whatever gloo's worker thread still
+    # holds (it copied it, an op the trace lacks, on 8-25 % of the
+    # backward's reduce-scatters before); a storage that worker frees
+    # late can still lift the peak for a moment
+    assert got["n_ops"] == want["n_ops"]
+    assert got["bytes"] == want["bytes"]
+    assert got["peak"] == pytest.approx(want["peak"], rel=1e-2)
 
 
 def test_sequence_parallel_refusals():
@@ -260,8 +261,11 @@ def test_sequence_parallel_refusals():
     with pytest.raises(NotImplementedError, match="paged serving"):
         model.init_paged_cache(4, 8)
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        LM(_cfg("recurrentgemma-2b"), Runtime(rules=_sp_rules(), mesh=mesh),
-           device="meta")
+        LM(_cfg("recurrentgemma-2b"), Runtime(rules=_sp_rules(), mesh=mesh,
+                                              planner=True), device="meta")
+    assert LM(_cfg("recurrentgemma-2b"), Runtime(rules=_sp_rules(),
+                                                 mesh=mesh),
+              device="meta").kinds[:3] == ["rglru", "rglru", "attn"]
 
 
 def test_owned_slot_write_matches_the_row_selection():

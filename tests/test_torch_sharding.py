@@ -333,13 +333,17 @@ def test_param_specs_cover_every_leaf_and_other_kinds_have_layouts():
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "recurrentgemma-2b",
                                   "mamba2-1.3b", "whisper-small"])
 def test_mesh_refuses_the_other_families(arch):
-    """The hybrid, state-space and encoder-decoder families still refuse
-    a mesh; the MoE family runs under one on the hand-wired path, and
-    its planner-requested runtime still refuses."""
+    """Every family runs under a mesh on the hand-wired path — the MoE,
+    hybrid, state-space and encoder-decoder families build their
+    sharded layouts — and each one's planner-requested runtime still
+    refuses one, naming the queue item that brings it."""
     from repro_torch.launch.steps import build_model
     from repro_torch.models.lm import Runtime
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg, Runtime(rules=RULES,
+                                     mesh=FakeMesh(data=1, model=2)),
+                        device="cpu")
+    assert model.param_specs()["embed"] == ("model", ("data",))
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        build_model(get_config(arch, smoke=True),
-                    Runtime(rules=RULES, mesh=FakeMesh(data=1, model=2),
-                            planner=arch == "olmoe-1b-7b"),
-                    device="cpu")
+        build_model(cfg, Runtime(rules=RULES, mesh=FakeMesh(data=1, model=2),
+                                 planner=True), device="cpu")
