@@ -151,13 +151,14 @@ which raises on failure:
       shape in f32 and bf16 and at G12 bf16, ``ops.attention`` at
       qwen3-8b's forward and at one row over 4096 keys, each regime
       forced (spatial, ring, ring-pipelined), each within TOL of the
-      single-card kernel, the tuner's pick printed; (b) qwen3-8b FULL,
-      ``loss`` and ``forward`` at B=2 x S=2048 with
-      ``Runtime(kernel_ops=True)`` within LOSS_REL_TOL / FORWARD_REL_TOL
-      of the single-card kernel path, 36 attention launches a rank a
-      call; (c) ``generate`` on the sharded runtime of ``launch.serve
-      --shard-model 4`` (batch 4, prompt 128, 32 tokens) for qwen3-8b
-      (heads-sharded cache) and granite-20b at 13 of its 52 layers
+      single-card kernel, the tuner's pick printed; (b) qwen3-8b at FULL
+      widths cut to 12 of 36 layers, ``loss`` and ``forward`` at B=2 x
+      S=2048 with ``Runtime(kernel_ops=True)`` within LOSS_REL_TOL /
+      FORWARD_REL_TOL of the single-card kernel path, 12 attention
+      launches a rank a call; (c) ``generate`` on the sharded runtime of
+      ``launch.serve --shard-model 4`` (batch 4, prompt 128, 32 tokens)
+      for qwen3-8b (heads-sharded cache) and granite-20b at 13 of its 52
+      layers
       (sequence-sharded cache, ``distributed_decode_attention``): the
       greedy tokens' agreement printed, and the last step's logits, its
       inputs forced to the
@@ -165,7 +166,7 @@ which raises on failure:
       engine under the mesh on qwen3-8b, 8 ragged requests of up to 96
       + 32 positions (8 pages of 16), the tuner's paged regime printed,
       then paged-ring and paged-ring-pipelined each served, forced:
-      partial launches = decode steps x 36 a rank, one decode step's
+      partial launches = decode steps x 12 a rank, one decode step's
       logits on the same pages within E2E_REL_TOL of the single-card
       engine's, token agreement printed; no rank may degrade, and every
       rank must launch alike; the parent prints the backend, the tensors
@@ -232,6 +233,34 @@ which raises on failure:
       the logits within FORWARD_REL_TOL of one card's kernel path,
       nothing degraded; each rank's peak and the walls (through gloo)
       printed, a ``{"dist_families": ...}`` line;
+   o. the remaining distributed regimes (``dist_regimes_phase``, after
+      4n): qwen3-8b at FULL widths cut to 4 of 36 layers on a 1 x 4
+      world, held to one card's planned run of the same weights (made
+      first, in a process of its own): (a) the planned engine
+      (``Runtime(kernel_ops=True, planner=True)``, the serving rules) on
+      8 ragged requests of up to 96 + 32 positions, in the tuner's
+      paged regime and forced to each of paged-spatial and paged-ring
+      the tuner did not pick, every dispatch teacher-forced to one
+      card's engine (its logits or greedy tokens handed to the engine)
+      and its logits within E2E_REL_TOL; on every rank the MLP kernel
+      launched (decode steps + prefills) x 4 and the partial kernel
+      decode steps x 4, nothing degraded; (b)
+      a 128-token prompt's planned paged prefill under
+      ``Rules(seq="model")`` (32 rows a rank), then 3 decode steps under
+      plain tensor parallelism, each logits within E2E_REL_TOL; (c), run
+      in 4l after 4m (c) on 4l (a)'s reference: 4l (a)'s step under the
+      zero3 multi-pod rules (no tensor parallelism, the sequence over
+      the model dim) on a (pod, data, model) = 2 x 1 x 2 world within
+      4l (a)'s limits, each rank's flops and bytes within
+      DRYRUN_COUNT_REL_TOL of its dry trace's, its collectives equal to
+      the trace's, its peak within DRYRUN_PEAK_REL_TOL; and (b') the
+      same prompt's paged prefill under those rules within E2E_REL_TOL;
+      then phase 3 at 4o's shapes with the kernel times: the MLP kernel
+      at a rank's block (d_ff over 4: qwen3-8b N = 3072, granite-20b N =
+      6144, K = H = d_model, M = 4 and 144) at the tuner's tiles (tuned
+      in a worker process during the earlier phases) and around them
+      against its plain version, and timed beside the unfused
+      ``mlp_block``; a ``{"dist_regimes": ...}`` line;
    g. training (``training_phase``), after every serving phase with
       their weights freed: qwen3-8b at every FULL width with the depth
       cut to 8 of 36 layers (AdamW's 16 B a parameter: 131 GB for 36
@@ -323,7 +352,12 @@ then 4n's (a) for recurrentgemma-2b and mamba2-1.3b with a fault each
 — the RG-LRU's gathered main branch taking its gradient as this rank's
 block instead of the sum, the Mamba-2 gated norm's sum of squares left
 unsummed over the model dim on rank 1 — each past (a)'s gradient
-limit; it fails unless every fault goes past its limit.
+limit, then 4o with its two faults — (a)'s paged-spatial engine with
+the residual added before the planned MLP's reduction (each rank's
+residual summed with the partial outputs), and (c)'s paged prefill
+under the zero3 rules with a reduce-scatter where a block keeps its
+rank's rows (sequence parallelism without tensor parallelism) — each
+past E2E_REL_TOL; it fails unless every fault goes past its limit.
 
     python3 chip_smoke.py --reliability
 
@@ -356,6 +390,12 @@ runs only the device and build phases and phase 4l; prints a
 
 runs only the device and build phases, phase 4n and its kernel time;
 prints a ``{"dist_families": ...}`` line.
+
+    python3 chip_smoke.py --dist-regimes
+
+runs only the device and build phases, phase 4o ((c) with a 4l (a)
+reference of its own) and 4o's kernel checks and times; prints a
+``{"dist_regimes": ...}`` line.
 
     python3 chip_smoke.py --train
 
@@ -1787,11 +1827,12 @@ def _mlp_sweep_tiles(m: int, kw: dict, n: int, k: int, h: int) -> list:
     return out
 
 
-def mlp_time_phase(cfg, label: str, m: int) -> dict:
+def mlp_time_phase(cfg, label: str, m: int, profile: bool = True) -> dict:
     """kernel_ms, plain_ms, unfused_ms and bound_ms of the gated bf16
     MLP at M rows with the tuner's tiles and split, the device time of
     its two kernels (the split's and the merge) from a profile, and the
-    kernel's time at tiles around the pick.  unfused_ms is the hand-wired
+    kernel's time at tiles around the pick (the profile left out where
+    not ``profile``).  unfused_ms is the hand-wired
     ``mlp_block`` (three torch.matmul and silu * mul): the time the
     fused path replaces, as no single PyTorch call computes a gated
     MLP."""
@@ -1811,7 +1852,7 @@ def mlp_time_phase(cfg, label: str, m: int) -> dict:
     unfused_ms = _adaptive_ms(lambda: L.mlp_block(p, a[0], cfg))
     prof = profile_phase(lambda: G.fused_mlp_chain(a, wu, wd, wg=wg, **kw),
                          f"MLP {label}", f"fused_mlp_chain M={m}", timed=3,
-                         traced=3)
+                         traced=3) if profile else {"top": []}
     sweep = {}
     for t in _mlp_sweep_tiles(m, kw, n, k, h):
         sp = G._check(a, wu, wd, wg, "silu", **t)[1][0]
@@ -4010,10 +4051,12 @@ DIST = dict(
     serve=dict(SERVE, prompt_len=96),
     archs=("qwen3-8b", GRANITE),
     # granite-20b's depth cut to a quarter (13 of 52 layers, full
-    # widths), to keep the full run well inside its time limit: its two
-    # `generate` calls through gloo's host-staged send/recv took ~60 s
-    # each at 52 layers, and phase 4n needs ~140 s of the budget
-    layers={GRANITE: 13})
+    # widths) and qwen3-8b's to a third (12 of 36), to keep the full run
+    # well inside its time limit: granite's two `generate` calls through
+    # gloo's host-staged send/recv took ~60 s each at 52 layers, and
+    # qwen3's two engine runs 138 s at 36 layers, while phases 4n and 4o
+    # need ~110 s and ~100 s of the budget
+    layers={"qwen3-8b": 12, GRANITE: 13})
 
 
 def _dist_cfg(arch, dist, dev="cuda"):
@@ -4775,11 +4818,15 @@ def _dt_ref_rank(rank, refdir, spec, dev):
     step = S.make_train_step(model, tap)
     state = tap.init(params)
     batch = _dist_batch(cfg, spec, dev)
+    with torch.inference_mode():    # 4o (b')'s reference, before the step
+        prefill = _dr_prefill(model, params, cfg,
+                              dict(DIST_REGIMES["prefill"], steps=0), dev)
     t0 = time.perf_counter()
     params, state, info = step(params, state, batch)
     loss, gnorm = float(info["loss"]), float(info["grad_norm"])
     wall = time.perf_counter() - t0
     torch.save({"grads": grads, "loss": loss, "grad_norm": gnorm,
+                "prefill": prefill,
                 "params": {k: p.detach().cpu()
                            for k, p in T.leaves_with_paths(params)}},
                os.path.join(refdir, "train_ref.pt"))
@@ -5237,6 +5284,7 @@ def dist_train_phase(dist=DIST_TRAIN, dev="cuda",
             return out
         out["sp"] = sp_world_phase(tmp, spec, dev, dist["world"], ref,
                                    max(r["peak_gb"] for r in ranks))
+        out["zero3"] = zero3_world_phase(tmp, spec, dev, dist["world"], ref)
 
         shape, kept = elastic_remesh(list(dist["remesh"]["survivors"]),
                                      spec["model_axis"])
@@ -5815,6 +5863,474 @@ def dist_families_time_phase(dist=DIST_FAMILIES) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4o: the remaining distributed regimes — the planned path under the
+# mesh, paged serving under sequence parallelism, zero3's multi-pod form
+# ---------------------------------------------------------------------------
+
+# qwen3-8b at FULL widths, its depth cut to 4 of 36 layers (the full
+# run's time limit), on a 1 x 4 world: (a) the planned engine in the
+# tuner's paged regime and forced to each of paged-spatial and paged-ring
+# the tuner did not pick, on 8 ragged requests of up to 96 + 32
+# positions (8 pages of 16, which the model dim divides: the paged ring
+# is offered), (b) a 128-token prompt's paged prefill under
+# ``Rules(seq="model")`` (32 rows a rank), then 3 decode steps; (c) runs
+# in 4l after 4m (c), on 4l (a)'s reference.  The MLP kernel's rank
+# blocks: d_ff over 4 ranks (qwen3-8b N = 3072, granite-20b N = 6144), at
+# the decode and a prefill row count.
+DIST_REGIMES = dict(
+    world=4, arch="qwen3-8b", n_layers=4,
+    serve=dict(SERVE, prompt_len=96),
+    prefill=dict(prompt_len=128, steps=3, page_size=16, seed=31),
+    blocks={"qwen3-8b": 4, GRANITE: 4}, block_ms=(4, 144), pods=2)
+# ``--plant-faults``: each must go past E2E_REL_TOL
+DR_FAULTS = ("residual before the MLP's reduction",
+             "reduce-scatter for the shard under SP alone")
+
+
+def _dr_cfg(spec, dev):
+    """4o's config: FULL widths at ``spec["n_layers"]`` layers on the
+    card, SMOKE on the CPU."""
+    from repro_torch.configs import get_config
+    cfg = get_config(spec["arch"], smoke=dev != "cuda")
+    return dataclasses.replace(cfg, n_layers=min(cfg.n_layers,
+                                                 spec["n_layers"]))
+
+
+def _planted_res2(L):
+    """``run_planned_layer`` with the MLP's rank-partial output left
+    unsummed and the sum taken after the stitched ``res2`` has added the
+    residual on every rank: the residual counted once a rank."""
+    import inspect
+    import textwrap
+    src = textwrap.dedent(inspect.getsource(L.run_planned_layer))
+    for old, new in (
+            ("            out = _leave(ctx, out)\n"
+             "            nm = mlp_unit.ops[-1]\n",
+             "            nm = mlp_unit.ops[-1]\n"),
+            ("                   else res + mix)\n",
+             "                   else res + mix)\n"
+             "            if nm == \"res2\" and mlp_unit is not None:\n"
+             "                out = _leave(ctx, out)\n")):
+        if old not in src:
+            raise RuntimeError("4o: the planted fault's seam moved")
+        src = src.replace(old, new)
+    ns: dict = {}
+    exec(compile(src, L.__file__, "exec"), vars(L), ns)
+    return ns["run_planned_layer"]
+
+
+@contextlib.contextmanager
+def _dr_fault(fault):
+    """A planted 4o fault, for the duration (DR_FAULTS): the residual
+    added before the planned MLP's reduction, or a reduce-scatter where
+    a block keeps its rank's rows under sequence parallelism without
+    tensor parallelism (``layers._leave`` and ``_leave_whole``)."""
+    from repro_torch.models import layers as L
+    real = L.run_planned_layer, L._leave, L._leave_whole
+    if fault == DR_FAULTS[0]:
+        L.run_planned_layer = _planted_res2(L)
+    elif fault == DR_FAULTS[1]:
+        def leave(ctx, out, real_fn):
+            if ctx is not None and ctx.seq is not None and ctx.tp is None:
+                return ctx.seq.scatter(out, 1)
+            return real_fn(ctx, out)
+        L._leave = lambda ctx, out: leave(ctx, out, real[1])
+        L._leave_whole = lambda ctx, out: leave(ctx, out, real[2])
+    elif fault is not None:
+        raise ValueError(fault)
+    try:
+        yield
+    finally:
+        L.run_planned_layer, L._leave, L._leave_whole = real
+
+
+class _ForcedExec:
+    """An engine's ``_exec`` wrapped: each dispatch's live logits (the
+    prefill's row, a decode step's active slots) recorded; given
+    ``want`` (another engine's record) the engine is handed that
+    engine's logits or greedy tokens, so it schedules as that engine
+    did, and each dispatch's logits are held to that engine's (relative
+    norm over the live rows)."""
+
+    def __init__(self, engine, want=None):
+        self.real, self.want, self.dev = engine._exec, want, engine.device
+        self.got, self.rel = [], []
+        engine._exec = self
+
+    def __call__(self, phase, *args):
+        out = self.real(phase, *args)
+        rows = [0] if phase == "prefill" else list(args[0])
+        logits = out if phase == "prefill" else out[1]
+        live = logits[rows].float().cpu()
+        host = None if phase == "prefill" else out[0].cpu()
+        i = len(self.got)
+        self.got.append((phase, rows, live, host))
+        if self.want is None:
+            return out
+        wphase, wrows, wlive, whost = self.want[i]
+        if (wphase, wrows) != (phase, rows):
+            raise RuntimeError(f"4o: dispatch {i} is {phase} {rows}, the "
+                               f"reference's {wphase} {wrows}")
+        self.rel.append(_rel(live, wlive))
+        if phase == "prefill":
+            return wlive.to(self.dev)
+        return whost.to(self.dev), out[1]
+
+
+def _dr_serve(model, params, cfg, spec, dev, want=None,
+              choose_regime=False) -> dict:
+    """(a): the planned engine of ``model`` on 4o's workload, sized as
+    ``_forced_engine`` sizes it, each dispatch through ``_ForcedExec``;
+    the kernel counters set to 0 just before the run and read just
+    after."""
+    from repro_torch.serving import ServingEngine
+    serve = spec["serve"]
+    ps, b = serve["page_size"], serve["batch"]
+    max_pages = math.ceil((serve["prompt_len"] + serve["gen"]) / ps)
+    names = _path_counters()
+    _zero(*names)
+    t0 = time.perf_counter()
+    engine = ServingEngine(
+        model, params, max_batch=b, page_size=ps,
+        n_pages=1 + b * (max_pages + 1) + max(1, b * max_pages // 4),
+        max_pages_per_seq=max_pages, choose_regime=choose_regime)
+    rec = _ForcedExec(engine, want)
+    results, stats = engine.run(_workload(cfg, serve))
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return dict(tokens=[r.tokens for r in results], stats=stats,
+                regime=engine.regime, record=rec.got, rel=rec.rel,
+                phases=[g[0] for g in rec.got],
+                launches={k: v for k, v in _read(*names).items() if v},
+                planned=engine.decode_plan is not None,
+                wall=time.perf_counter() - t0)
+
+
+def _dr_ref_rank(rank, refdir, spec, dev):
+    """4o's one-card reference, in a process of its own: (a) the planned
+    engine on the workload, every dispatch's live logits and greedy
+    tokens recorded; (b) the planned paged prefill and its decode steps;
+    saved under ``refdir``."""
+    from repro_torch.models.lm import LM, Runtime
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _dr_cfg(spec, dev)
+    model = LM(cfg, Runtime(kernel_ops=True, planner=True), device=dev)
+    params = model.init_params(0)
+    with torch.inference_mode():
+        a = _dr_serve(model, params, cfg, spec, dev, choose_regime=True)
+        b = _dr_prefill(model, params, cfg, spec["prefill"], dev)
+    torch.save({"record": a["record"], "tokens": a["tokens"], "prefill": b},
+               os.path.join(refdir, "regimes_ref.pt"))
+    return dict(stats={k: a["stats"][k] for k in (
+        "decode_steps", "prefills", "generated", "decode_graph",
+        "exec_tier")}, launches=a["launches"], wall=a["wall"],
+        peak_gb=_peak_gb(dev))
+
+
+def _dr_rank(rank, refdir, spec, dev, faults):
+    """4o (a) and (b) on one rank of the 1 x 4 world: the planned engine
+    (``Runtime(kernel_ops=True, planner=True)`` on the serving rules)
+    in the tuner's pick and forced to each of paged-spatial and
+    paged-ring the tuner did not pick, each dispatch teacher-forced to
+    the reference's and held to it;
+    then the planned paged prefill under ``Rules(seq="model")`` and its
+    decode steps.  With ``faults`` only (a)'s paged-spatial run, each
+    fault planted."""
+    from repro_torch.dist.sharding import Rules
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import sharded_runtime
+    from repro_torch.models.lm import LM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _dr_cfg(spec, dev)
+    mesh = make_host_mesh(spec["world"])
+    _, _, rt = sharded_runtime(spec["world"], mesh)
+    rt = dataclasses.replace(rt, planner=True)
+    ref = torch.load(os.path.join(refdir, "regimes_ref.pt"))
+    params = LM(cfg, rt, device=dev).init_params(0)
+    serve = spec["serve"]
+    ps = serve["page_size"]
+    choice, _ = ops.paged_attention_regime_choice(
+        rt.rules, mesh, batch=serve["batch"], q_heads=cfg.n_heads,
+        kv_heads=cfg.n_kv_heads, q_len=1,
+        kv_len=ps * math.ceil((serve["prompt_len"] + serve["gen"]) / ps),
+        head_dim=cfg.dh, page_size=ps, dtype=cfg.dtype)
+
+    def forced(regime):
+        # the Runtime's flags and the tiles the search gave the regime
+        p = choice.kernels[regime].params
+        return LM(cfg, dataclasses.replace(
+            rt, dist_decode_attn=regime != "paged-spatial",
+            dist_decode_pipelined=regime == "paged-ring-pipelined",
+            paged_block=(p.bq, p.bkv)), device=dev)
+
+    out = {"engines": {}, "faults": {}, "tuner": choice.regime,
+           "modelled": dict(choice.times)}
+    for fault in faults:
+        with _dr_fault(fault), torch.inference_mode():
+            got = _dr_serve(forced("paged-spatial"), params, cfg, spec, dev,
+                            ref["record"])
+        out["faults"][fault] = max(got["rel"])
+        _free(dev)
+    if faults:
+        return out
+    for label in ["tuner"] + [r for r in ("paged-spatial", "paged-ring")
+                              if r != choice.regime]:
+        model = forced(label) if label != "tuner" else LM(cfg, rt,
+                                                          device=dev)
+        with torch.inference_mode():
+            got = _dr_serve(model, params, cfg, spec, dev, ref["record"],
+                            choose_regime=label == "tuner")
+        out["engines"][label] = dict(
+            regime=got["regime"], rel=got["rel"], phases=got["phases"],
+            launches=got["launches"],
+            planned=got["planned"], wall=got["wall"],
+            agree=sum(a == w for t, wt in zip(got["tokens"], ref["tokens"])
+                      for a, w in zip(t, wt)),
+            stats={k: got["stats"][k] for k in (
+                "decode_steps", "prefills", "generated", "decode_graph",
+                "exec_tier", "tier_demotions")})
+        _free(dev)
+    rules = Rules(data=("data",), model="model", tp="model", seq="model",
+                  fsdp=False)
+    model = LM(cfg, dataclasses.replace(rt, rules=rules,
+                                        dist_decode_attn=False), device=dev)
+    _zero(*_path_counters())
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        pre = _dr_prefill(model, params, cfg, spec["prefill"], dev)
+    out["prefill"] = dict(
+        rel=[_rel(g, w) for g, w in zip(pre, ref["prefill"])],
+        launches={k: v for k, v in _read(*_path_counters()).items() if v},
+        wall=time.perf_counter() - t0)
+    out["deny"] = len(_deny_records())
+    out["peak_gb"] = _peak_gb(dev)
+    return out
+
+
+def _dr_block_shapes(spec) -> dict:
+    """{(arch, M): (M, N, H)}: the MLP kernel's rank blocks of 4o, d_ff
+    over the model dim's ranks, at the decode and a prefill row
+    count."""
+    from repro_torch.configs import get_config
+    out = {}
+    for arch, ways in spec["blocks"].items():
+        cfg = get_config(arch)
+        for m in spec["block_ms"]:
+            out[arch, m] = (m, cfg.d_ff // ways, cfg.d_model)
+    return out
+
+
+def _dr_pretune(shapes) -> dict:
+    """A worker process's call: the MLP kernel tuned (bf16, gated silu)
+    at each of ``shapes`` ((M, N, H)), so that the schedules reach the
+    disk cache before the phases that launch them; {shape: (tiles,
+    source, seconds)}."""
+    from repro_torch.core import api
+    out = {}
+    for m, n, h in shapes:
+        t0 = time.perf_counter()
+        tk = api.fuse_mlp_chain(m, n, h, dtype="bfloat16", gated=True,
+                                act="silu")
+        out[m, n, h] = (tk.params.as_kwargs(), tk.source,
+                        time.perf_counter() - t0)
+    return out
+
+
+def start_pretune(spec=DIST_REGIMES):
+    """4o's MLP shapes tuned in a worker process while the card runs the
+    earlier phases: the rank blocks, and the 1 x 4 world's decode and
+    prefill rows at qwen3-8b's block (the padded prompt lengths of the
+    workload and of (b)).  Returns (the pool, the future)."""
+    import multiprocessing
+    from repro_torch.configs import get_config
+    cfg = get_config(spec["arch"])
+    n, h = cfg.d_ff // spec["world"], cfg.d_model
+    ps = spec["serve"]["page_size"]
+    rows = {spec["serve"]["batch"], spec["prefill"]["prompt_len"]}
+    rows |= {math.ceil(len(p) / ps) * ps
+             for p, _ in _workload(cfg, spec["serve"])}
+    shapes = list(_dr_block_shapes(spec).values())
+    shapes += [(m, n, h) for m in sorted(rows) if (m, n, h) not in shapes]
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    return pool, pool.submit(_dr_pretune, shapes)
+
+
+def dist_regimes_phase(spec=DIST_REGIMES, dev="cuda", faults=(),
+                       zero3=None) -> dict:
+    """Phase 4o (above): one card's reference in a process of its own,
+    then the 1 x 4 world for (a) and (b); (c) is ``zero3`` (4l's
+    reading) or runs here on a 4l (a) reference of its own.  Every check
+    printed beside its limit.  With ``faults`` each fault is planted in
+    (a)'s paged-spatial run or (c)'s prefill, and must go past
+    E2E_REL_TOL."""
+    from repro_torch.launch.mesh import spawn
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    t_all = time.perf_counter()
+    _free(dev)
+    tmp = tempfile.mkdtemp(prefix="dist-regimes-")
+    cfg = _dr_cfg(spec, dev)
+    try:
+        t0 = time.perf_counter()
+        ref = spawn(_dr_ref_rank, 1, tmp, spec, dev, device=dev,
+                    timeout_s=900)[0]
+        ref_s = time.perf_counter() - t0
+        print(f"[4o reference] {cfg.name} at {cfg.n_layers} layers, one "
+              f"card, planned, in a process of its own: {ref['stats']}, "
+              f"launches {ref['launches']}, engine {ref['wall']:.1f}s, peak "
+              f"{ref['peak_gb']:.2f} GB ({ref_s:.1f}s)", flush=True)
+        t0 = time.perf_counter()
+        ranks = spawn(_dr_rank, spec["world"], tmp, spec, dev,
+                      tuple(f for f in faults if f == DR_FAULTS[0]),
+                      device=dev, timeout_s=900)
+        world_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"reference_s": ref_s, "world_s": world_s, "faults": {}}
+    if faults:
+        got = max(r["faults"][DR_FAULTS[0]] for r in ranks)
+        out["faults"][DR_FAULTS[0]] = got
+        print(f"[4o (a) planted: {DR_FAULTS[0]}] the planned engine's "
+              f"teacher-forced logits rel max {got:.4g} (must exceed "
+              f"{E2E_REL_TOL})", flush=True)
+        if not got > E2E_REL_TOL:
+            raise RuntimeError(f"[4o (a)] the planted fault passed: {got}")
+        zero3_phase_alone(dev, faults=(DR_FAULTS[1],))
+        return out
+    r0, layers = ranks[0], cfg.n_layers
+    print(f"[4o (a)] the tuner picks {r0['tuner']}: "
+          + " ".join(f"{r}={t * 1e6:.2f}us" for r, t in r0["modelled"].items())
+          + " (modelled, q=1 over the engine's paged slots)", flush=True)
+    checks = []
+    for label, e in r0["engines"].items():
+        st = e["stats"]
+        want = {"fused_mlp_chain": (st["decode_steps"] + st["prefills"])
+                * layers, "fused_attention_partial": st["decode_steps"]
+                * layers}
+        if dev != "cuda":
+            want = {}
+        for r, rec in enumerate(ranks):
+            got = rec["engines"][label]
+            if got["launches"] != want:
+                raise RuntimeError(f"[4o (a) {label}] rank {r} launched "
+                                   f"{got['launches']}, want {want}")
+            if got["stats"] != st or not got["planned"]:
+                raise RuntimeError(f"[4o (a) {label}] rank {r} served "
+                                   f"{got['stats']} (rank 0 {st})")
+        if st["exec_tier"] != "configured" or st["tier_demotions"]:
+            raise RuntimeError(f"[4o (a) {label}] the engine degraded")
+        worst = max(max(r["engines"][label]["rel"]) for r in ranks)
+        by = {ph: [v for v, p in zip(e["rel"], e["phases"]) if p == ph]
+              for ph in ("prefill", "decode")}
+        out.setdefault("engines", {})[label] = dict(
+            regime=e["regime"], rel_max=worst, launches=e["launches"],
+            rel_decode=by["decode"], rel_prefill=by["prefill"],
+            stats=st, wall=e["wall"], agree=e["agree"])
+        print(f"[4o (a) {label}] regime {e['regime']}, planned: "
+              f"{st['decode_steps']} decode steps, {st['prefills']} "
+              f"prefills, decode {st['decode_graph']}, tier "
+              f"{st['exec_tier']}; every dispatch teacher-forced to one "
+              f"card's planned engine: logits rel max over the ranks "
+              f"{worst:.3g} (tol {E2E_REL_TOL}; rank 0's prefills "
+              f"{[float(f'{v:.3g}') for v in by['prefill']]}, decode steps "
+              f"{[float(f'{v:.3g}') for v in by['decode']]}); launches a rank "
+              f"{e['launches']} (want {want}, alike on every rank); "
+              f"greedy tokens equal to one card's before forcing "
+              f"{e['agree']}; {e['wall']:.1f}s through gloo", flush=True)
+        checks.append((worst, E2E_REL_TOL, f"(a) {label} logits"))
+    pre = r0["prefill"]
+    want_pre = ({"fused_mlp_chain": (1 + spec["prefill"]["steps"]) * layers,
+                 "fused_attention_partial": spec["prefill"]["steps"]
+                 * layers} if dev == "cuda" else {})
+    for r, rec in enumerate(ranks):
+        if rec["prefill"]["launches"] != want_pre:
+            raise RuntimeError(f"[4o (b)] rank {r} launched "
+                               f"{rec['prefill']['launches']}, want "
+                               f"{want_pre}")
+    rel_pre = max(max(r["prefill"]["rel"]) for r in ranks)
+    print(f"[4o (b)] the planned paged prefill of "
+          f"{spec['prefill']['prompt_len']} tokens under Rules(seq='model')"
+          f" ({spec['prefill']['prompt_len'] // spec['world']} rows a "
+          f"rank), then {spec['prefill']['steps']} decode steps under plain "
+          f"tensor parallelism: logits rel by step (the prefill's last "
+          f"real token first) {[float(f'{v:.3g}') for v in pre['rel']]} "
+          f"(tol {E2E_REL_TOL}); launches a rank {pre['launches']} (want "
+          f"{want_pre}); {pre['wall']:.2f}s", flush=True)
+    checks.append((rel_pre, E2E_REL_TOL, "(b) logits"))
+    for r, rec in enumerate(ranks):
+        if rec["deny"]:
+            raise RuntimeError(f"[4o] rank {r} degraded")
+    for val, tol, what in checks:
+        if val > tol:
+            raise RuntimeError(f"[4o] {what}: {val} > {tol}")
+    if zero3 is None:
+        zero3 = zero3_phase_alone(dev)
+    out.update(tuner=r0["tuner"], modelled=r0["modelled"],
+               prefill=dict(rel=pre["rel"], launches=pre["launches"]),
+               zero3=zero3, peak_gb=[r["peak_gb"] for r in ranks],
+               seconds=time.perf_counter() - t_all)
+    print(f"[4o] {out['seconds']:.1f}s (reference {ref_s:.1f}s, world "
+          f"{world_s:.1f}s; (c) {zero3.get('seconds', 0.0):.1f}s)",
+          flush=True)
+    return out
+
+
+def zero3_phase_alone(dev="cuda", faults=()) -> dict:
+    """4o (c) outside 4l: 4l (a)'s one-card reference in a process of its
+    own, then ``zero3_world_phase``."""
+    from repro_torch.launch.mesh import spawn
+    spec = DIST_TRAIN["train"]
+    tmp = tempfile.mkdtemp(prefix="dist-regimes-zero3-")
+    try:
+        ref = spawn(_dt_ref_rank, 1, tmp, spec, dev, device=dev,
+                    timeout_s=900)[0]
+        return zero3_world_phase(tmp, spec, dev, DIST_TRAIN["world"], ref,
+                                 DIST_REGIMES["pods"], faults)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def dist_regimes_kernel_phase(spec=DIST_REGIMES, pretuned=None) -> tuple:
+    """Phase 3 at 4o's shapes, then their times, the parent alone on the
+    card: the MLP kernel at each rank block of ``_dr_block_shapes`` (N =
+    d_ff / 4, K = H = d_model) at the tuner's tiles and the tiles around
+    them (``_mlp_sweep_tiles``) against its plain version with the same
+    split within bf16 TOL; then ``mlp_time_phase`` at each block.
+    ``pretuned``: the worker's future (its tiles printed beside the
+    parent's).  Returns (the largest error, {label: times})."""
+    from repro_torch.configs import get_config
+    bf = torch.bfloat16
+    pre = pretuned.result(timeout=900) if pretuned is not None else {}
+    worst, times = 0.0, {}
+    for (arch, m), (_, n, h) in _dr_block_shapes(spec).items():
+        cfg = get_config(arch)
+        bcfg = dataclasses.replace(cfg, d_ff=n)
+        x, kw = _mlp_case(bcfg, m, bf, True, "silu", 40 + m)
+        if (m, n, h) in pre and pre[m, n, h][0] != kw:
+            raise RuntimeError(f"4o: the worker tuned {pre[m, n, h][0]}, "
+                               f"the parent {kw}")
+        for t in _mlp_sweep_tiles(m, kw, n, h, h):
+            got, want, tl, sp = _mlp_run(x, "silu", t, None)
+            torch.testing.assert_close(got, want, **TOL[bf])
+            err = float((got.float() - want.float()).abs().max())
+            worst = max(worst, err)
+            print(f"MLP kernel vs plain [4o rank block, {arch} N = d_ff / "
+                  f"{spec['blocks'][arch]}] M={m} N={n} K=H={h} bf16 "
+                  f"{t['style']} tiles={tl} splits={sp}"
+                  f"{' (the tuner' + chr(39) + 's)' if t == kw else ''}: "
+                  f"max|err|={err:.3g} tol={TOL[bf]} ok")
+        del x
+        label = f"{arch} rank block M={m}"
+        times[label] = mlp_time_phase(bcfg, label, m, profile=False)
+        times[label]["tuning_s"] = pre[m, n, h][2] if (m, n, h) in pre \
+            else None
+        _free("cuda")
+    return worst, times
+
+
+# ---------------------------------------------------------------------------
 # Phase 4m: the dry run and its roofline, held against the card
 # ---------------------------------------------------------------------------
 
@@ -5996,6 +6512,195 @@ def sp_world_phase(refdir, spec, dev, world, ref, tp_peak_gb=None) -> dict:
                 peak_gb=[r["peak_gb"] for r in ranks],
                 pred_peak_gb=[r["pred_peak_gb"] for r in ranks],
                 peak_rel=peak_rel, tp_peak_gb=tp,
+                seconds=time.perf_counter() - t0)
+
+
+def _zero3_rules():
+    """The ``zero3`` regime's multi-pod rules (``launch.dryrun``
+    ``cell_rules``): every weight gathered whole, no tensor parallelism,
+    the batch over the pod and data dims, the sequence over the model
+    dim."""
+    from repro_torch.launch.dryrun import cell_rules
+    return cell_rules("train", True, "zero3")[1]
+
+
+def _dr_prefill(model, params, cfg, spec, dev) -> list:
+    """4o (b): one prompt of ``spec["prompt_len"]`` seeded tokens (a page
+    multiple) prefilled into fresh pages under ``model``'s rules, then
+    ``spec["steps"]`` decode steps fed the next seeded tokens; every
+    logits (the prefill's last real token's first) on the host."""
+    from repro_torch.serving import kv_pages as KP
+    p, k, ps = spec["prompt_len"], spec["steps"], spec["page_size"]
+    g = torch.Generator(device=dev).manual_seed(spec["seed"])
+    toks = torch.randint(0, cfg.vocab, (1, p + k), generator=g, device=dev)
+    n = math.ceil((p + k) / ps)
+    alloc = KP.RequestPages()
+    if not alloc.ensure(p + k, KP.PagePool(n + 1, ps)):
+        raise RuntimeError("4o (b): the page pool is too small")
+    table = torch.from_numpy(KP.table_array([alloc], n)).to(dev)
+    cache = model.init_paged_cache(n + 1, ps)
+    logits, cache = model.prefill_paged(params, toks[:, :p], cache, table, p)
+    out = [logits.float().cpu()]
+    for j in range(k):
+        logits, cache = model.decode_step_paged(
+            params, cache, toks[:, p + j],
+            torch.tensor([p + j], dtype=torch.int32, device=dev), table)
+        out.append(logits.float().cpu())
+    return out
+
+
+def _dt_zero3_rank(rank, refdir, spec, dev, pods, fault=None):
+    """4o (c) on one rank of the (pod, data, model) world: (b') the
+    paged prefill of ``DIST_REGIMES["prefill"]`` under the zero3
+    multi-pod rules on the initial weights (hand-wired: the blocks keep
+    the rank's rows of the prompt), then 4l (a)'s step under the same
+    rules, traced first on a dry mesh as this rank (meta), then run
+    under the same counter on the card; the reduced gradients' blocks
+    against 4l (a)'s one-card step's.  With ``fault`` only (b') runs,
+    the fault planted."""
+    from repro_torch import tree as T
+    from repro_torch.dist.collectives import DryMesh, shard_dims
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import make_optimizer
+    from repro_torch.models.lm import LM, Runtime
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _dt_cfg(spec, dev)
+    ma = spec["model_axis"]
+    world = torch.distributed.get_world_size()
+    shape = {"pod": pods, "data": world // (pods * ma), "model": ma}
+    mesh = make_host_mesh(ma, pods=pods)
+    model = LM(cfg, Runtime(rules=_zero3_rules(), mesh=mesh), device=dev)
+    params = model.init_params(0)
+    ref = torch.load(os.path.join(refdir, "train_ref.pt"), mmap=True)
+    t0 = time.perf_counter()
+    with _dr_fault(fault), torch.inference_mode():
+        pre = _dr_prefill(model, params, cfg,
+                          dict(DIST_REGIMES["prefill"], steps=0), dev)
+    out = dict(prefill_rel=_rel(pre[0], ref["prefill"][0]),
+               prefill_s=time.perf_counter() - t0)
+    if fault is not None:
+        return out
+    kept = []
+    opt = make_optimizer(spec["lr"], 1 + spec["more"])
+    tap = _GradTap(opt, lambda gs, lay: kept.append((list(gs), lay)))
+    batch = _dist_batch(cfg, spec, dev)
+    t0 = time.perf_counter()
+    dmesh = DryMesh(shape, rank=rank)
+    dmodel = LM(cfg, Runtime(rules=_zero3_rules(), mesh=dmesh),
+                device="meta")
+    dparams = S.local_specs(dmodel.abstract_params(), dmodel.param_specs(),
+                            dmesh)
+    pred, _ = _counted(S.make_train_step(dmodel, tap), dparams,
+                       opt.abstract_state(dparams), _meta_like(batch))
+    trace_s = time.perf_counter() - t0
+    kept.clear()
+    state = opt.init(params)
+    step = S.make_train_step(model, tap)
+    base = _start_peak(dev)
+    t0 = time.perf_counter()
+    got, (_, _, info) = _counted(step, params, state, batch)
+    wall = time.perf_counter() - t0
+    peak = _step_peak(got, base, dev)
+    grads, layouts = kept.pop()
+    grad_rel = {k: _grad_distance(g, shard_dims(ref["grads"][k], lay, mesh)
+                                  .to(g.device))[0]
+                for (k, _), g, lay in zip(T.leaves_with_paths(params), grads,
+                                          layouts)}
+    p, g = pred.total, got.total
+    out.update(loss=float(info["loss"]), grad_norm=float(info["grad_norm"]),
+               grad_rel=grad_rel, records=got.collectives.records,
+               pred_records=pred.collectives.records,
+               counts=(g.flops, g.bytes), pred_counts=(p.flops, p.bytes),
+               flops_rel=abs(g.flops - p.flops) / p.flops,
+               bytes_rel=abs(g.bytes - p.bytes) / p.bytes,
+               peak_gb=peak / 1e9, pred_peak_gb=pred.peak / 1e9,
+               held_gb=got.held / 1e9, trace_s=trace_s, wall=wall,
+               shape=shape)
+    return out
+
+
+def zero3_world_phase(refdir, spec, dev, world, ref, pods=2,
+                      faults=()) -> dict:
+    """4o (c): 4l (a)'s step at ``spec``'s depth under the zero3
+    multi-pod rules on a ``pods`` x 1 x model-axis world (one sequence a
+    pod, its 2048 positions over the model dim), against 4l (a)'s
+    one-card reference ``ref`` (its results in ``refdir``) within 4l
+    (a)'s limits; each rank's flops and bytes within
+    DRYRUN_COUNT_REL_TOL of its dry trace's, its recorded collectives
+    equal to the trace's, its peak within DRYRUN_PEAK_REL_TOL; and (b')
+    the paged prefill under the same rules within E2E_REL_TOL of one
+    card's.  With ``faults`` only (b') runs, each fault planted, and
+    each must go past E2E_REL_TOL."""
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    for fault in faults:
+        ranks = spawn(_dt_zero3_rank, world, refdir, spec, dev, pods, fault,
+                      device=dev, timeout_s=900)
+        got = max(r["prefill_rel"] for r in ranks)
+        print(f"[4o (b') planted: {fault}] the zero3 prefill's last logits "
+              f"rel {got:.4g} (must exceed {E2E_REL_TOL})", flush=True)
+        if not got > E2E_REL_TOL:
+            raise RuntimeError(f"[4o (b')] the planted fault {fault!r} "
+                               f"passed: {got}")
+    if faults:
+        return {}
+    ranks = spawn(_dt_zero3_rank, world, refdir, spec, dev, pods,
+                  device=dev, timeout_s=900)
+    r0 = ranks[0]
+    loss_rel = abs(r0["loss"] - ref["loss"]) / abs(ref["loss"])
+    gnorm_rel = abs(r0["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+    worst = sorted(((k, v) for r in ranks for k, v in r["grad_rel"].items()),
+                   key=lambda kv: -kv[1])
+    counts_rel = max(max(r["flops_rel"], r["bytes_rel"]) for r in ranks)
+    peak_rel = max(abs(r["peak_gb"] - r["pred_peak_gb"]) / r["pred_peak_gb"]
+                   for r in ranks)
+    same = [r["records"] == r["pred_records"] for r in ranks]
+    pre = max(r["prefill_rel"] for r in ranks)
+    kinds = {}
+    for kind, nb, _ in r0["records"]:
+        c = kinds.setdefault(kind, [0, 0])
+        c[0] += 1
+        c[1] += nb
+    print(f"[4o (c)] {spec['arch']} at {_dt_cfg(spec, dev).n_layers} layers "
+          f"on a {r0['shape']} world under the zero3 multi-pod rules (no "
+          f"tensor parallelism, the sequence over the model dim): loss "
+          f"{r0['loss']:.6f} rel {loss_rel:.3g} (tol "
+          f"{DIST_TRAIN_LOSS_REL_TOL}), grad_norm rel {gnorm_rel:.3g} (tol "
+          f"{DIST_TRAIN_GNORM_REL_TOL}), each rank's block of each leaf rel "
+          f"max {worst[0][1]:.3g} (tol {DIST_TRAIN_GRAD_REL_TOL}; the worst "
+          f"{[(k, float(f'{v:.3g}')) for k, v in worst[:3]]}); flops, bytes "
+          f"{r0['counts']} against the dry trace's {r0['pred_counts']} (rel "
+          f"max over the ranks {counts_rel:.3g}, tol {DRYRUN_COUNT_REL_TOL});"
+          f" rank 0's collectives (kind: count, result bytes) {kinds}, equal"
+          f" to the trace's on every rank: {same}; the step's peak a rank "
+          f"{[round(r['peak_gb'], 3) for r in ranks]} GB against the "
+          f"trace's {[round(r['pred_peak_gb'], 3) for r in ranks]} GB (rel "
+          f"max {peak_rel:.3g}, tol {DRYRUN_PEAK_REL_TOL}); (b') the paged "
+          f"prefill of {DIST_REGIMES['prefill']['prompt_len']} tokens under "
+          f"the same rules: last logits rel max {pre:.3g} (tol "
+          f"{E2E_REL_TOL}); rank 0 trace {r0['trace_s']:.1f}s, step "
+          f"{r0['wall']:.2f}s under the counter through gloo, prefill "
+          f"{r0['prefill_s']:.2f}s; {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    checks = [(loss_rel, DIST_TRAIN_LOSS_REL_TOL, "loss"),
+              (gnorm_rel, DIST_TRAIN_GNORM_REL_TOL, "grad_norm"),
+              (worst[0][1], DIST_TRAIN_GRAD_REL_TOL, "gradients"),
+              (counts_rel, DRYRUN_COUNT_REL_TOL, "flops and bytes"),
+              (peak_rel, DRYRUN_PEAK_REL_TOL, "peak against the trace"),
+              (pre, E2E_REL_TOL, "the paged prefill's logits")]
+    for val, tol, what in checks:
+        if val > tol:
+            raise RuntimeError(f"[4o (c)] {what}: {val} > {tol}")
+    if not all(same):
+        raise RuntimeError(f"[4o (c)] a rank's collectives differ from the "
+                           f"dry trace's: {same}")
+    return dict(loss=r0["loss"], loss_rel=loss_rel, gnorm_rel=gnorm_rel,
+                grad_rel=worst[0][1], counts=r0["counts"],
+                pred_counts=r0["pred_counts"], counts_rel=counts_rel,
+                collectives=kinds, peak_gb=[r["peak_gb"] for r in ranks],
+                pred_peak_gb=[r["pred_peak_gb"] for r in ranks],
+                peak_rel=peak_rel, prefill_rel=pre, wall=r0["wall"],
                 seconds=time.perf_counter() - t0)
 
 
@@ -6183,11 +6888,11 @@ def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--plant-faults"], ["--reliability"], ["--train"],
                     ["--moe"], ["--archs"], ["--dist"], ["--dist-train"],
-                    ["--dryrun"], ["--dist-families"]):
+                    ["--dryrun"], ["--dist-families"], ["--dist-regimes"]):
         raise SystemExit("usage: python3 chip_smoke.py "
                          "[--plant-faults | --reliability | --train | "
                          "--moe | --archs | --dist | --dist-train | "
-                         "--dryrun | --dist-families]")
+                         "--dryrun | --dist-families | --dist-regimes]")
     smi = device_phase()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     # tuned schedules persist inside the checkout (.cache/ is gitignored)
@@ -6227,6 +6932,18 @@ def main(argv=None) -> None:
         print(json.dumps({"dist_families": families}, default=str))
         print(smi)
         return
+    if argv == ["--dist-regimes"]:
+        pool, pretuned = start_pretune()
+        try:
+            regimes = dist_regimes_phase()
+            _no_degradation("4o")
+            regimes["max_abs_err"], regimes["times"] = (
+                dist_regimes_kernel_phase(pretuned=pretuned))
+        finally:
+            pool.shutdown(cancel_futures=True)
+        print(json.dumps({"dist_regimes": regimes}, default=str))
+        print(smi)
+        return
     if argv == ["--plant-faults"]:
         params = init_phase(cfg)
         fault_phase(cfg, params)
@@ -6241,6 +6958,7 @@ def main(argv=None) -> None:
         dist_train_phase(faults=("none", "data reduction skipped on rank 1",
                                  "enter an identity both ways"))
         dist_families_phase(faults=tuple(DF_FAULTS))
+        dist_regimes_phase(faults=DR_FAULTS)
         print(smi)
         return
     if argv == ["--reliability"]:
@@ -6270,6 +6988,8 @@ def main(argv=None) -> None:
         print(json.dumps({"moe": moe}, default=str))
         print(smi)
         return
+    # 4o's MLP shapes tuned in a worker while the card runs what follows
+    pool, pretuned = start_pretune()
     tuned = {}
     for n in (n_ctx, 4096):
         for dt in (torch.bfloat16, torch.float32):
@@ -6347,6 +7067,8 @@ def main(argv=None) -> None:
     _no_degradation("4l")
     families = dist_families_phase()
     _no_degradation("4n")
+    regimes = dist_regimes_phase(zero3=dist_train["zero3"])
+    _no_degradation("4o")
     moe = moe_phase()
     steps[OLMOE] = moe["step_profile"]
     steps[MIXTRAL] = moe["mixtral_step_profile"]
@@ -6384,6 +7106,8 @@ def main(argv=None) -> None:
     t_archs = archs_time_phase(rg, pixtral)
     t_dist = dist_time_phase()
     t_families = dist_families_time_phase()
+    dr_err, t_regimes = dist_regimes_kernel_phase(pretuned=pretuned)
+    pool.shutdown()
     dist_launches = {
         name: sum(counts.get(name, 0) for counts in dist["launches"].values())
         for name in ("fused_attention_partial", "fused_attention",
@@ -6403,6 +7127,11 @@ def main(argv=None) -> None:
         "fused_attention_partial"]
     by_path["fused_attention_partial"]["4l (d) a rank"] = dist_train[
         "moe"]["launches"]["engine"]["fused_attention_partial"]
+    for name in SERVED:
+        by_path[name]["4o (a) a rank"] = sum(
+            e["launches"].get(name, 0) for e in regimes["engines"].values())
+        by_path[name]["4o (b) a rank"] = regimes["prefill"]["launches"].get(
+            name, 0)
     moe_times = ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "tiles", "splits", "other_tiles_ms")
     kernels = [{
@@ -6439,7 +7168,7 @@ def main(argv=None) -> None:
         "replaces": "src/repro/kernels/gemm_chain.py:205",
         "launches": launches["fused_mlp_chain"],
         "launches_by_path": by_path["fused_mlp_chain"],
-        "max_abs_err": mlp_err,
+        "max_abs_err": max(mlp_err, dr_err),
         "ms": t_mlp["decode"]["kernel_ms"],
         "plain_ms": t_mlp["decode"]["plain_ms"],
         "bound_ms": t_mlp["decode"]["bound_ms"],
@@ -6454,6 +7183,10 @@ def main(argv=None) -> None:
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "unfused_ms",
             "tiles", "splits", "tile_sweep_ms", "device_ms_by_kernel")}
            for label in ("prefill", "m4096")},
+        "rank_blocks_4o": {label: {k: t[k] for k in (
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "unfused_ms",
+            "tiles", "splits", "tile_sweep_ms", "tuning_s")}
+            for label, t in t_regimes.items()},
         "passed": True,
     }, {
         "name": "fused_attention",
@@ -6549,6 +7282,7 @@ def main(argv=None) -> None:
     print(json.dumps({"dist": dict(dist, times=t_dist)}, default=str))
     print(json.dumps({"dist_train": dist_train}, default=str))
     print(json.dumps({"dist_families": families}, default=str))
+    print(json.dumps({"dist_regimes": regimes}, default=str))
     print(json.dumps({"dryrun": dry}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)

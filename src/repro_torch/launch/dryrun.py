@@ -60,8 +60,11 @@ def cell_rules(kind: str, multi_pod: bool, regime: str = "auto",
                dist_decode: bool = False) -> tuple[str, Rules]:
     """(regime, Rules) of a cell, the JAX package's choice: ``tp`` for a
     decode cell, Megatron-SP (``tp+sp``) otherwise; ``zero3`` puts the
-    batch over every dim (the pod dims and the sequence over model
-    when multi-pod)."""
+    batch over every dim and gathers every weight whole (no tensor
+    parallelism) — multi-pod, the batch over the pod and data dims and
+    the sequence over the model dim (sequence parallelism without
+    tensor parallelism, where the model dim divides a cell's
+    sequence)."""
     dp = ("pod", "data") if multi_pod else ("data",)
     if regime == "auto":
         regime = "tp" if kind == "decode" else "tp+sp"

@@ -48,18 +48,26 @@ def make_production_mesh(*, multi_pod: bool = False) -> DryMesh:
     return DryMesh(shape)
 
 
-def make_host_mesh(model_axis: int = 1):
+def make_host_mesh(model_axis: int = 1, pods: Optional[int] = None):
     """The ("data", "model") DeviceMesh over the initialised world:
-    ``world // model_axis`` x ``model_axis`` ranks, row-major."""
+    ``world // model_axis`` x ``model_axis`` ranks, row-major; with
+    ``pods``, the ("pod", "data", "model") one of the JAX package's
+    multi-pod production mesh: ``pods`` x ``world // (pods *
+    model_axis)`` x ``model_axis``."""
     from torch.distributed.device_mesh import DeviceMesh
     n = dist.get_world_size()
-    if n % model_axis:
-        raise ValueError(f"model axis {model_axis} does not divide the "
-                         f"world of {n}")
+    per = model_axis * (pods or 1)
+    if n % per:
+        raise ValueError(f"model axis {model_axis} x {pods or 1} pods does "
+                         f"not divide the world of {n}")
     dev = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return DeviceMesh(dev, torch.arange(n).reshape(n // model_axis,
+    if pods is None:
+        return DeviceMesh(dev, torch.arange(n).reshape(n // model_axis,
+                                                       model_axis),
+                          mesh_dim_names=("data", "model"))
+    return DeviceMesh(dev, torch.arange(n).reshape(pods, n // per,
                                                    model_axis),
-                      mesh_dim_names=("data", "model"))
+                      mesh_dim_names=("pod", "data", "model"))
 
 
 def tuner_mesh_spec(mesh, rules: Optional[Rules] = None, *,

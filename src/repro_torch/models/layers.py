@@ -72,13 +72,19 @@ heads the dim does not divide (recurrentgemma's 10 or whisper's 12 over
 16; ``_split_heads``) runs every head on every rank on its weights
 gathered whole (``_whole_weights``), its output whole, not summed.
 
-Under sequence parallelism (``Mesh.seq``, Megatron-SP over the
-tensor-parallel dim) the residual stream between blocks is this rank's
-block of the sequence: a block gathers its normed input over the
-sequence (``Axis.gather``, where tensor parallelism alone enters it)
-and reduce-scatters its row-parallel output over it (``Axis.scatter``,
+Under sequence parallelism (``Mesh.seq``) the residual stream between
+blocks is this rank's block of the sequence.  Over the tensor-parallel
+dim (Megatron-SP) a block gathers its normed input over the sequence
+(``Axis.gather``, where tensor parallelism alone enters it) and
+reduce-scatters its row-parallel output over it (``Axis.scatter``,
 where tensor parallelism alone all-reduces it) — ``_enter`` and
-``_leave``.
+``_leave``.  Over a dim without tensor parallelism (the ``zero3``
+regime's multi-pod form: every weight gathered whole, ``rules.tp``
+None) a block's output is whole, not a partial sum: the MLP runs on
+the rank's rows, attention projects the rank's rows and gathers k and
+v over the sequence (``_attention_rows``), and every other mixer runs
+whole on the gathered sequence and keeps the rank's block
+(``_whole_mixer``); ``_leave`` then keeps the block (``Axis.shard``).
 
 ``streaming_attention`` runs inside ``attention_interior``, the region
 ``launch.op_cost`` attributes to the attention interior.
@@ -116,8 +122,9 @@ class Mesh:
     batch: int
     dist_decode: bool = False
     dist_pipelined: bool = False
-    seq: Optional[object] = None   # the sequence-parallel Axis (the tp
-    # one), where the call's sequence divides over it
+    seq: Optional[object] = None   # the sequence-parallel Axis over
+    # ``rules.seq``'s dim (the tp one, or a dim of its own when ``tp`` is
+    # None), where the call's sequence divides over it
 
 
 def _tp(ctx: Optional[Mesh]):
@@ -139,12 +146,27 @@ def _enter(ctx: Optional[Mesh], x: torch.Tensor) -> torch.Tensor:
 
 
 def _leave(ctx: Optional[Mesh], out: torch.Tensor) -> torch.Tensor:
-    """A row-parallel output's partial sums (B, S, D) summed over the
-    tensor-parallel dim: reduce-scattered over the sequence under
-    sequence parallelism, all-reduced otherwise."""
+    """A block's output (B, S, D) back on the residual stream: a
+    row-parallel output's partial sums summed over the tensor-parallel
+    dim — reduce-scattered over the sequence under sequence parallelism,
+    all-reduced otherwise; under sequence parallelism without tensor
+    parallelism the output is whole, not a partial sum, and the rank
+    keeps its block of the sequence."""
     if _seq(ctx) is not None:
+        if _tp(ctx) is None:
+            return ctx.seq.shard(out, 1)
         return ctx.seq.scatter(out, 1)
     return ctx.tp.reduce(out) if _tp(ctx) is not None else out
+
+
+def _whole_mixer(ctx: Optional[Mesh], splits: bool = True) -> bool:
+    """Whether a mixer runs whole on every rank: under sequence
+    parallelism without a tensor-parallel dim (on the gathered
+    sequence, its weights whole), or under a tensor-parallel dim that
+    does not split its heads (``splits`` False, ``_split_heads``)."""
+    if _tp(ctx) is None:
+        return _seq(ctx) is not None
+    return not splits
 
 
 def _split_heads(cfg: ModelConfig, tp, heads: Optional[int] = None) -> bool:
@@ -167,20 +189,24 @@ def _split_heads(cfg: ModelConfig, tp, heads: Optional[int] = None) -> bool:
 
 def _whole_weights(ctx: Mesh, p: dict, specs: dict) -> dict:
     """A mixer's weights made whole on every rank, for a mixer that runs
-    every head (``_split_heads`` False): each weight sharded over the
+    every head (``_whole_mixer``): each weight sharded over the
     tensor-parallel dim gathered along that dim — its gradient this
     rank's block of a gradient every rank holds whole under tensor
     parallelism alone (``"own"``), summed under sequence parallelism,
     where each rank's covers its block of the sequence (``"sum"``) —
-    and a replicated one entered under sequence parallelism."""
-    tp, sp, name = ctx.tp, _seq(ctx), ctx.rules.tp
+    and a replicated one entered under sequence parallelism.  Without
+    a tensor-parallel dim the weights the sequence's dim shards are
+    already whole (the FSDP gather, which sums their gradient over that
+    dim) and the others are entered."""
+    tp, sp = ctx.tp, _seq(ctx)
+    name = ctx.rules.tp if tp is not None else ctx.rules.seq
     out = {}
     for k, w in p.items():
         dims = [d for d, e in enumerate(specs[k])
                 if e == name or (isinstance(e, tuple) and name in e)]
         if dims:
-            out[k] = tp.gather(w, dims[0], "sum" if sp is not None
-                               else "own")
+            out[k] = w if tp is None else tp.gather(
+                w, dims[0], "sum" if sp is not None else "own")
         else:
             out[k] = sp.enter(w) if sp is not None else w
     return out
@@ -420,14 +446,17 @@ def mlp_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     gelu(x Wu) Wd, as ``cfg.act`` says (gelu in the tanh form, as the
     JAX package's).  Under a tensor-parallel dim the weights are this
     rank's ffn columns and rows, and the partial products are summed
-    over the dim."""
+    over the dim; without one (whole weights) it runs on the rank's
+    rows as they are, under sequence parallelism too."""
     f = act_fn(act_name(cfg))
-    x = _enter(ctx, x)
+    tp = _tp(ctx)
+    if tp is not None:
+        x = _enter(ctx, x)
     if gated(cfg):
         out = (f(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
     else:
         out = f(x @ p["w_up"]) @ p["w_down"]
-    return _leave(ctx, out)
+    return _leave(ctx, out) if tp is not None else out
 
 
 # ---------------------------------------------------------------------------
@@ -559,9 +588,13 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     ``Axis.enter``: each rank's gradient of them is its experts' or
     its slice's part.  Under sequence parallelism the tokens are
     gathered over the sequence first and the summed output is
-    reduce-scattered over it (``_enter``, ``_leave``)."""
+    reduce-scattered over it (``_enter``, ``_leave``); without a
+    tensor-parallel dim each rank routes its block of the sequence, the
+    router entered."""
     tp = _tp(ctx)
     if tp is None:
+        if _seq(ctx) is not None:
+            p = dict(p, router=ctx.seq.enter(p["router"]))
         b, s, d = x.shape
         return moe_local(p, x.reshape(b * s, d), cfg).to(
             x.dtype).reshape(b, s, d)
@@ -666,7 +699,13 @@ def rglru_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     the dense gate products; the recurrence runs on the rank's channel
     block, as ``lru`` holds it, and ``w_out``'s products are summed
     (``_leave``).  ``conv_w`` and ``lam`` (sliced to the rank's block)
-    are replicated and enter the rank's use of them."""
+    are replicated and enter the rank's use of them.  Under sequence
+    parallelism without a tensor-parallel dim the block runs whole on
+    the gathered sequence (``_whole_mixer``)."""
+    if _whole_mixer(ctx):
+        pw = _whole_weights(ctx, p, specs_rglru(cfg, ctx.rules))
+        return _leave_whole(ctx, rglru_block(pw, _enter_whole(ctx, x), cfg,
+                                             state))
     g = cfg.rglru
     tp = _tp(ctx)
     x = _enter(ctx, x)
@@ -838,12 +877,13 @@ def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     rows are the rank's and its products summed (``_leave``).
     ``conv_w``, ``A_log``, ``D``, ``dt_bias`` and ``norm_w`` are
     replicated and enter the rank's use of them.  Heads the dim does
-    not divide run whole on every rank (``_whole_weights``)."""
+    not divide run whole on every rank (``_whole_weights``), as does the
+    block under sequence parallelism without a tensor-parallel dim."""
     sc = cfg.ssm
     din = sc.expand * cfg.d_model
     nh = din // sc.head_dim
     tp = _tp(ctx)
-    if tp is not None and not _split_heads(cfg, tp, nh):
+    if _whole_mixer(ctx, _split_heads(cfg, tp, nh)):
         pw = _whole_weights(ctx, p, specs_mamba(cfg, ctx.rules))
         return _leave_whole(ctx, mamba_block(pw, _enter_whole(ctx, x), cfg,
                                              state))
@@ -1000,15 +1040,15 @@ def _streaming(q, k, v, *, causal, window, scale, bkv, q_offset,
 
 
 def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool, window: int,
-                    scale: float) -> torch.Tensor:
+                    causal: bool, window: int, scale: float,
+                    q_offset=0) -> torch.Tensor:
     """Unfused: the whole (M, N) score matrix, an f32 softmax, P rounded
     to v's type before P V — the paper's baseline.  Shapes and positions
     as ``streaming_attention``."""
     m, n = q.shape[2], k.shape[2]
     s = torch.einsum("bhmd,bhnd->bhmn", q.float(), k.float()) * scale
     if causal or window > 0:
-        rows = torch.arange(m, device=q.device)[:, None]
+        rows = (q_offset + torch.arange(m, device=q.device))[:, None]
         cols = torch.arange(n, device=q.device)[None, :]
         mask = cols <= rows
         if window > 0:
@@ -1061,13 +1101,17 @@ def _positional_attention(q, k, v, rows_pos, kv_pos, causal: bool,
 def _cached_attention(q, k, v, cfg: ModelConfig, *, positions, cache: dict,
                       bkv: int, causal: bool,
                       ctx: Optional[Mesh] = None,
-                      whole: bool = False) -> torch.Tensor:
+                      whole: bool = False,
+                      q_positions: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """The contiguous cache's branch of ``attention_block``: this
     call's k/v and positions go into the cache IN PLACE at slots
     ``positions % n`` (a ring when windowed), then q attends over the
-    cache by position.  q: (B, Hq, S, dh), k/v: (B, Hkv, S, dh);
+    cache by position.  q: (B, Hq, M, dh), k/v: (B, Hkv, S, dh);
     positions: (S,), an int32 tensor (a decode step's may live on the
-    card, so that a captured step reads it).
+    card, so that a captured step reads it); q_positions: q's (M,)
+    positions where they are not all of ``positions`` (the rank's rows
+    under ``_attention_rows``).
 
     A sequence-sharded cache (``ctx``, ``init_attn_cache``) holds this
     rank's block of the slots, and ``pos`` whole: the rank writes the
@@ -1075,7 +1119,8 @@ def _cached_attention(q, k, v, cfg: ModelConfig, *, positions, cache: dict,
     ``distributed_decode_attention``, anything else attends over the
     cache gathered whole.  ``whole``: q holds every head (a mixer the
     dim does not split, ``_split_heads``)."""
-    s, win = q.shape[2], cfg.attn_window
+    s, win = k.shape[2], cfg.attn_window
+    qpos = positions if q_positions is None else q_positions
     tp = _tp(ctx)
     nl = cache["k"].shape[2]
     nc = cache["pos"].shape[0]
@@ -1112,10 +1157,10 @@ def _cached_attention(q, k, v, cfg: ModelConfig, *, positions, cache: dict,
     if cfg.use_fused_attention and kk.shape[2] > 2 * bkv and s > 1:
         return streaming_attention(q, kk, vv, causal=causal, window=win,
                                    scale=scale, bkv=bkv,
-                                   q_offset=positions[0],
+                                   q_offset=qpos[0],
                                    kv_positions=kv_pos)
     # decode / short: single-block scores are already tiny
-    return _positional_attention(q, kk, vv, positions, kv_pos, causal, win,
+    return _positional_attention(q, kk, vv, qpos, kv_pos, causal, win,
                                  scale)
 
 
@@ -1201,8 +1246,14 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     block of the sum (``_enter``, ``_leave``).  A sequence-sharded cache
     holds every kv head: this call's are gathered whole before the
     write.  Heads the dim does not split (``_split_heads``) run whole on
-    every rank, on the weights gathered whole (``_whole_weights``)."""
+    every rank, on the weights gathered whole (``_whole_weights``).
+    Under sequence parallelism without a tensor-parallel dim the rank's
+    rows attend to every key (``_attention_rows``)."""
     tp = _tp(ctx)
+    if tp is None and _seq(ctx) is not None:
+        return _attention_rows(p, x, cfg, positions=positions, bkv=bkv,
+                               kernel_ops=kernel_ops, cache=cache,
+                               causal=causal, ctx=ctx)
     whole = tp is not None and not _split_heads(cfg, tp)
     if whole:
         p = _whole_weights(ctx, p, specs_attention(cfg, ctx.rules))
@@ -1255,6 +1306,49 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     return _leave_whole(ctx, out) if whole else _leave(ctx, out)
 
 
+def _attention_rows(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                    positions: torch.Tensor, bkv: int, kernel_ops: bool,
+                    cache: Optional[dict], causal: bool,
+                    ctx: Mesh) -> torch.Tensor:
+    """``attention_block`` under sequence parallelism without a
+    tensor-parallel dim (the ``zero3`` regime's multi-pod form): x is
+    this rank's block of the sequence and the weights are whole.  q, k
+    and v are projected on the rank's rows at their positions; k and v
+    are gathered over the sequence (the gradient reduce-scattered), and
+    the rank's q rows attend to every key from their offset — written
+    whole into a contiguous ``cache``, which every rank holds whole.
+    The output is the rank's block, whole over the features.  The
+    qk-norm scales enter the rank's use of them.  The fused kernel has
+    no rows-against-every-key form here: ``kernel_ops`` raises."""
+    sp = ctx.seq
+    p = _whole_weights(ctx, p, specs_attention(cfg, ctx.rules))
+    b, s, _ = x.shape
+    qpos = sp.shard(positions, 0)
+    q, k, v = _project_qkv(p, x, cfg, qpos)
+    k, v = sp.gather(k, 1), sp.gather(v, 1)
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    win, scale = cfg.attn_window, 1.0 / math.sqrt(cfg.dh)
+    if cache is not None:
+        o = _cached_attention(q, k, v, cfg, positions=positions,
+                              cache=cache, bkv=bkv, causal=causal,
+                              q_positions=qpos)
+    elif kernel_ops:
+        raise NotImplementedError(
+            "the cache-free forward under kernel_ops with sequence "
+            "parallelism and no tensor-parallel dim (a rank's q rows "
+            "against every key) has no fused-kernel form; run it with "
+            "kernel_ops off (ROADMAP Queue 3, a refusal under kernel_ops)")
+    else:
+        kk, vv = _kv_for_q(k, cfg, None), _kv_for_q(v, cfg, None)
+        if cfg.use_fused_attention and k.shape[2] > 2 * bkv:
+            o = streaming_attention(q, kk, vv, causal=causal, window=win,
+                                    scale=scale, bkv=bkv, q_offset=qpos[0])
+        else:
+            o = naive_attention(q, kk, vv, causal=causal, window=win,
+                                scale=scale, q_offset=qpos[0])
+    return o.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
+
+
 def cross_attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                           enc_out: Optional[torch.Tensor] = None,
                           kv_cache: Optional[dict] = None,
@@ -1273,9 +1367,10 @@ def cross_attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     as the JAX package lays it out: a prefill gathers the kv heads whole
     before the write, and each rank reads the ones its q heads use
     (``_kv_for_q``).  Heads the dim does not split run whole on every
-    rank (``_whole_weights``)."""
+    rank (``_whole_weights``), as does the block under sequence
+    parallelism without a tensor-parallel dim."""
     tp = _tp(ctx)
-    if tp is not None and not _split_heads(cfg, tp):
+    if _whole_mixer(ctx, _split_heads(cfg, tp)):
         pw = _whole_weights(ctx, p, specs_cross_attention(cfg, ctx.rules))
         return _leave_whole(ctx, cross_attention_block(
             pw, _enter_whole(ctx, x), cfg, enc_out=enc_out,
@@ -1337,48 +1432,69 @@ def paged_attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     Under a mesh the pools hold this rank's kv heads, or every kv head
     (``LM.init_paged_cache``: the ring regimes, or kv heads the dim does
     not divide) — then this call's k/v are gathered whole before the
-    write.  A decode step under ``ctx.dist_decode`` runs the ring
-    regime over the page-table columns
-    (``dist.ring_dispatch.paged_ring_decode_attention``) on every q
-    head and keeps this rank's; anything else runs the paged body on
-    this rank's q heads.
+    write (``_paged_kv``).  The attention core is ``_paged_attention``:
+    the ring regime for a decode step under ``ctx.dist_decode``, the
+    paged body on this rank's q heads otherwise.  Under sequence
+    parallelism (a prompt's prefill, where the dim divides it) x is this
+    rank's block of the sequence: it is gathered before the projections
+    (``_enter``), every rank writes the whole prompt's k/v of the kv
+    heads its pools hold, and the output is the rank's block
+    (``_leave``).
     """
-    b, s, _ = x.shape
-    dh = cfg.dh
-    ps = cache["k_pages"].shape[2]
     tp = _tp(ctx)
-    q, k, v = _project_qkv(p, x, cfg, positions, tp)
-    ring = (tp is not None and ctx.dist_decode and s == 1
-            and page_table.shape[1] % tp.size == 0)
-    whole_kv = cache["k_pages"].shape[1] != k.shape[2]    # pools whole
-    if ring:        # every q head, and the kv heads the pools take
-        q, *kv = _gather_heads(tp, q, *((k, v) if whole_kv else ()))
-        k, v = kv or (k, v)
-    elif whole_kv:
-        k, v = _gather_heads(tp, k, v)
-
-    phys, off = KP.slot_coords(page_table, positions, ps)
+    sp = _seq(ctx)
+    x = _enter(ctx, x) if sp is not None else x
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg, positions, tp,
+                           entered=sp is not None)
+    k, v = _paged_kv(tp, cache, k, v)
+    phys, off = KP.slot_coords(page_table, positions,
+                               cache["k_pages"].shape[2])
     KP.scatter_pages(cache["k_pages"], phys, off, k)
     KP.scatter_pages(cache["v_pages"], phys, off, v)
+    o = _paged_attention(q.transpose(1, 2), cache, page_table, positions,
+                         cfg=cfg, ctx=ctx, kernel_ops=kernel_ops,
+                         block=block)
+    out = o.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
+    return _leave(ctx, out), cache
 
-    qt = q.transpose(1, 2)
-    scale = 1.0 / math.sqrt(dh)
-    if ring:
+
+def _paged_kv(tp, cache: dict, k: torch.Tensor, v: torch.Tensor) -> tuple:
+    """This call's k/v (B, S, heads, dh) as the pools take them: gathered
+    whole over the tensor-parallel dim where the pools hold every kv
+    head and k holds this rank's (the ring regimes, or kv heads the
+    dim does not divide)."""
+    if tp is not None and cache["k_pages"].shape[1] != k.shape[2]:
+        k, v = _gather_heads(tp, k, v)
+    return k, v
+
+
+def _paged_attention(qt: torch.Tensor, cache: dict, page_table: torch.Tensor,
+                     positions: torch.Tensor, *, cfg: ModelConfig,
+                     ctx: Optional[Mesh], kernel_ops: bool = False,
+                     block: Optional[tuple] = None) -> torch.Tensor:
+    """The paged attention core of the hand-wired and the planned block,
+    over the POST-write pools: qt (B, Hq, S, dh), this rank's q heads
+    under a tensor-parallel dim.  A decode step under
+    ``ctx.dist_decode`` whose page-table columns the dim divides runs
+    the ring regime (``dist.ring_dispatch.paged_ring_decode_attention``:
+    the pools whole on every rank) on every q head, gathered, and keeps
+    this rank's; anything else runs ``_paged_attention_body``.  Returns
+    (B, Hq, S, dh)."""
+    tp = _tp(ctx)
+    scale = 1.0 / math.sqrt(cfg.dh)
+    if (tp is not None and ctx.dist_decode and qt.shape[2] == 1
+            and page_table.shape[1] % tp.size == 0):
         from ..dist.ring_dispatch import paged_ring_decode_attention
         o = paged_ring_decode_attention(
-            qt, cache["k_pages"], cache["v_pages"], page_table,
-            positions[:, 0], window=cfg.window, scale=scale, mesh=ctx.mesh,
-            axis_name=tp.names[0], pipelined=ctx.dist_pipelined,
-            kernel=kernel_ops, block=block)
-        o = tp.shard(o, 1)
-    else:
-        o = _paged_attention_body(qt, cache, page_table, positions,
-                                  cfg=cfg, tp=tp, win=cfg.window,
-                                  scale=scale, kernel_ops=kernel_ops,
-                                  block=block)
-    o = o.transpose(1, 2).reshape(b, s, -1)
-    out = o @ p["wo"]
-    return (tp.all_reduce(out) if tp is not None else out), cache
+            tp.all_gather(qt, 1), cache["k_pages"], cache["v_pages"],
+            page_table, positions[:, 0], window=cfg.window, scale=scale,
+            mesh=ctx.mesh, axis_name=tp.names[0],
+            pipelined=ctx.dist_pipelined, kernel=kernel_ops, block=block)
+        return tp.shard(o, 1)
+    return _paged_attention_body(qt, cache, page_table, positions, cfg=cfg,
+                                 tp=tp, win=cfg.window, scale=scale,
+                                 kernel_ops=kernel_ops, block=block)
 
 
 def _paged_attention_body(qt: torch.Tensor, cache: dict,
@@ -1446,7 +1562,8 @@ def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def run_planned_layer(lp, p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                       positions: torch.Tensor, rt, cache: dict,
-                      page_table: torch.Tensor
+                      page_table: torch.Tensor,
+                      ctx: Optional[Mesh] = None
                       ) -> tuple[torch.Tensor, dict]:
     """Execute one attention block from a planner ``LayerPlan`` — the
     zero-hand-specified-chains path behind ``Runtime(planner=True)``.
@@ -1462,15 +1579,32 @@ def run_planned_layer(lp, p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     Serving plans carry a ``kv_write`` node: this step's k/v are
     scattered IN PLACE into the paged ``cache`` ({"k_pages",
     "v_pages"}) through ``page_table``, then the attention core runs the
-    shared ``_paged_attention_body`` (the CUDA decode kernel under
-    ``rt.kernel_ops`` on the card, the gather twin otherwise).  Only
-    paged caches are executed.
+    hand-wired block's ``_paged_attention`` (the CUDA decode kernel
+    under ``rt.kernel_ops`` on the card, the gather twin otherwise; the
+    ring regime under ``ctx.dist_decode``).  Only paged caches are
+    executed.
 
     Kernel dispatch: under ``rt.kernel_ops`` a *fused* planner-carved
     MLP chain runs as ONE ``kernels.ops.mlp_chain`` call (the tuned
     ``fused_mlp_chain`` CUDA kernel on the card, its plain version on
     the CPU); its stitched prologue/epilogue (ln2/res2) still run
     f32-wide around the call, exactly as in the node walk.
+
+    Under a mesh (``ctx``, the hand-wired blocks' view of it) the plan
+    is the global one and ``p`` holds this rank's shards: the q/k/v
+    products give the rank's heads (kv heads the dim does not divide
+    gathered whole, and the pools' heads written as
+    ``paged_attention_block`` writes them), ``wo`` and ``w_down`` are
+    row-parallel and summed over the tensor-parallel dim (``_leave``),
+    and a fused MLP chain runs ONE ``kernels.ops.mlp_chain`` call on the
+    rank's column block of ``w_gate``/``w_up`` and row block of
+    ``w_down``, summed BEFORE a stitched ``res2`` epilogue (a residual
+    added on each rank before the sum would count it once a rank); a
+    stitched ``ln2`` prologue runs on the whole, replicated input.
+    Under sequence parallelism x is the rank's block of the sequence,
+    gathered before the q/k/v and MLP products (``_enter``).  With
+    stitching off the layer stays bit-identical to the hand-wired one
+    under the same mesh.
 
     lp: ``core.planner.LayerPlan``; p: the layer's parameters
     ({"ln1", "mix", "ln2", "ff"}).  Returns ``(out, cache)``.
@@ -1479,10 +1613,18 @@ def run_planned_layer(lp, p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         raise NotImplementedError(
             "run_planned_layer executes paged serving caches only "
             "(a {'k_pages', 'v_pages'} cache and its page_table)")
-    b, s, d = x.shape
+    d = x.shape[-1]
     dh = cfg.dh
     dt = x.dtype
     pm, pf = p["mix"], p["ff"]
+    tp = _tp(ctx)
+    entered: dict = {}
+
+    def whole(name: str) -> torch.Tensor:
+        # a product's input made whole for the rank's columns, once
+        if name not in entered:
+            entered[name] = _enter(ctx, env[name])
+        return entered[name]
 
     stitched: set = set()
     downcast_at: set = set()
@@ -1512,11 +1654,12 @@ def run_planned_layer(lp, p: dict, x: torch.Tensor, cfg: ModelConfig, *,
             continue
         if mlp_unit is not None and nm == mlp_unit.ops[0]:
             from ..kernels import ops
-            x2d = env[ins[0]].reshape(b * s, d)
+            xin = whole(ins[0])
             out = ops.mlp_chain(
-                x2d, pf["w_up"], pf["w_down"],
+                xin.reshape(-1, d), pf["w_up"], pf["w_down"],
                 w_gate=pf["w_gate"] if gated(cfg) else None,
-                act=act_name(cfg)).reshape(b, s, d)
+                act=act_name(cfg)).reshape(xin.shape)
+            out = _leave(ctx, out)
             nm = mlp_unit.ops[-1]
             if nm in downcast_at:
                 out = out.to(dt)
@@ -1528,14 +1671,19 @@ def run_planned_layer(lp, p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                    if nm in stitched
                    else rmsnorm(env[ins[0]], p[nm]["w"], cfg.norm_eps))
         elif role == "gemm":
-            xin = env[ins[0]]
             if nm in ("wq", "wk", "wv"):
-                heads = cfg.n_heads if nm == "wq" else cfg.n_kv_heads
-                out = _mm(xin, pm[nm]).reshape(b, s, heads, dh)
+                xin = whole(ins[0])
+                out = _mm(xin, pm[nm])
+                if (nm != "wq" and tp is not None
+                        and cfg.n_kv_heads % tp.size):
+                    out = tp.all_gather(out, -1)    # every kv head
+                out = out.reshape(*xin.shape[:2], -1, dh)
             elif nm == "wo":
-                out = _mm(xin, pm["wo"])
-            elif nm in ("w_gate", "w_up", "w_down"):
-                out = _mm(xin, pf[nm])
+                out = _leave(ctx, _mm(env[ins[0]], pm["wo"]))
+            elif nm in ("w_gate", "w_up"):
+                out = _mm(whole(ins[0]), pf[nm])
+            elif nm == "w_down":
+                out = _leave(ctx, _mm(env[ins[0]], pf[nm]))
             else:
                 raise ValueError(f"unknown gemm node {nm!r}")
         elif role == "qk_norm":
@@ -1552,20 +1700,21 @@ def run_planned_layer(lp, p: dict, x: torch.Tensor, cfg: ModelConfig, *,
             # hand-wired block does (masked rows land on the scratch
             # page); the attention core then reads the cache
             kp, vp = cache["k_pages"], cache["v_pages"]
+            k, v = _paged_kv(tp, cache, env[ins[0]], env[ins[1]])
             phys, off = KP.slot_coords(page_table, positions, kp.shape[2])
-            KP.scatter_pages(kp, phys, off, env[ins[0]].to(kp.dtype))
-            KP.scatter_pages(vp, phys, off, env[ins[1]].to(vp.dtype))
+            KP.scatter_pages(kp, phys, off, k.to(kp.dtype))
+            KP.scatter_pages(vp, phys, off, v.to(vp.dtype))
             out = None
         elif role == "attn_qk":
             # the attention core executes as one unit (fused chain or
             # not — fusion changes pricing and kernel dispatch, not the
-            # math): the shared paged body, as the hand-wired block
-            o = _paged_attention_body(
+            # math): the hand-wired block's core, the ring included
+            o = _paged_attention(
                 env[ins[0]].transpose(1, 2), cache, page_table, positions,
-                cfg=cfg, win=cfg.window, scale=1.0 / math.sqrt(dh),
-                kernel_ops=rt.kernel_ops, block=rt.paged_block)
+                cfg=cfg, ctx=ctx, kernel_ops=rt.kernel_ops,
+                block=rt.paged_block)
             env["qk"] = env["softmax"] = None   # folded into this unit
-            out = o.transpose(1, 2).reshape(b, s, cfg.n_heads * dh)
+            out = o.transpose(1, 2).flatten(2)
             nm = "pv"
         elif role in ("softmax", "attn_pv"):
             continue                            # handled at attn_qk

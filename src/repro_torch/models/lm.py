@@ -6,7 +6,8 @@ without an MLP): the cache-free forward and loss,
 fixed-batch decoding over a contiguous cache, and paged serving of the
 attention-only stacks, hand-wired or run from the fusion planner's
 plans (``Runtime(planner=True)``, paged serving of the configs the
-planner can plan; the others run hand-wired, as in the JAX package).
+planner can plan, on one card or under a mesh; the others run
+hand-wired, as in the JAX package).
 
 The JAX package's ``LM`` scans a stack of stacked layer parameters
 (``n_super`` repeats of the pattern) and runs the remainder as an
@@ -34,8 +35,9 @@ copies.  The API:
     decode_step_paged(params, cache, tokens, positions, page_table)
     param_specs() / cache_specs(batch)     -> weight and cache layouts
 
-Under a mesh (``Runtime(rules=..., mesh=...)``, every family on the
-hand-wired path) every rank holds its shards of the
+Under a mesh (``Runtime(rules=..., mesh=...)``, every family, and the
+planned path of the configs the planner can plan) every rank holds its
+shards of the
 weights (``param_specs``, placed by ``launch.steps.shard_params``) and
 of the caches (``cache_specs``), and runs the same program on them: the
 entry points take and return whole tensors, as the JAX package's global
@@ -60,17 +62,25 @@ mean on every rank, and each rank's gradients are its part of that
 mean's: ``launch.steps.make_train_step`` sums them over the batch's mesh
 dims for the leaves replicated there.
 
-Under ``Rules(seq=...)`` (the tensor-parallel dim, Megatron-SP) the
-residual stream between blocks is this rank's block of the sequence,
-(B_local, S / n, D): the vocab-parallel embedding reduce-scatters its
-rows over the sequence (a ``d_model``-sharded one cuts its whole rows
-to the block), each block gathers its normed input and
-reduce-scatters its output (``layers._enter``/``_leave``), the norms run
-on the shard with their weights entered (each rank's gradient is its
-block's part), and the loss and the logits gather the shard first.  A
-call whose sequence the dim does not divide (a decode step) runs plain
-tensor parallelism, as the JAX package's ``constrain`` drops a mesh dim
-that does not divide.  The paged path raises under ``rules.seq``.
+Under ``Rules(seq=...)`` the residual stream between blocks is this
+rank's block of the sequence, (B_local, S / n, D), and the norms run on
+the shard with their weights entered (each rank's gradient is its
+block's part).  Over the tensor-parallel dim (Megatron-SP) the
+vocab-parallel embedding reduce-scatters its rows over the sequence (a
+``d_model``-sharded one cuts its whole rows to the block), each block
+gathers its normed input and reduce-scatters its output
+(``layers._enter``/``_leave``), and the loss and the logits gather the
+shard first.  Over a dim of its own without tensor parallelism (the
+``zero3`` regime's multi-pod form, ``tp=None``) every weight is gathered
+whole, its gradient summed over the sequence's dim as over the batch's;
+the embedding's whole rows are cut to the block, the blocks keep the
+rank's rows (``layers._attention_rows``, ``layers._whole_mixer``), and
+each rank's cross-entropy sums over its block of the sequence, the sums
+reduced.  A call whose sequence the dim does not divide (a decode step)
+runs without sequence parallelism, as the JAX package's ``constrain``
+drops a mesh dim that does not divide.  A paged prompt's prefill runs
+sequence-parallel where the dim divides it, and the sequence is
+gathered before its last real token's logits are read.
 
 ``Runtime(remat=True)`` runs each pattern super-block of the cache-free
 stack (one layer of a dense stack; ``(rglru, rglru, attn)`` of
@@ -267,27 +277,23 @@ class Sharded:
     POSITIONS = "pos_embed"
 
     def _check_mesh(self) -> None:
-        """Every family runs under a mesh on the hand-wired path;
-        the planned path, and sequence parallelism over another dim
-        than the tensor-parallel one (the ``zero3`` regime's multi-pod
-        form), refuse."""
-        cfg, rt = self.cfg, self.rt
-        if rt.planner:
-            raise NotImplementedError(
-                f"mesh execution runs the hand-wired path; the planned "
-                f"path under a mesh ({cfg.name}, Runtime(planner=True)) "
-                f"comes with ROADMAP Queue 1 item 4")
-        rules = rt.rules
+        """Every family runs under a mesh, hand-wired or planned, with
+        sequence parallelism over the tensor-parallel dim or, without
+        tensor parallelism, over a dim of its own (the ``zero3``
+        regime's multi-pod form).  An activation dim other than the
+        weights' model dim, and sequence parallelism over another dim
+        than a tensor-parallel one (a regime the JAX package has not),
+        refuse."""
+        rules = self.rt.rules
         if rules.tp not in (None, rules.model):
             raise NotImplementedError(
                 f"activation dim {rules.tp!r} differs from the weights' "
                 f"model dim {rules.model!r}")
-        if rules.seq is not None and rules.seq != rules.tp:
+        if rules.tp is not None and rules.seq not in (None, rules.tp):
             raise NotImplementedError(
-                f"sequence parallelism runs over the tensor-parallel dim; "
-                f"seq {rules.seq!r} with tp {rules.tp!r} (the zero3 "
-                f"regime's multi-pod form) comes with ROADMAP Queue 1 "
-                f"item 4")
+                f"sequence parallelism over {rules.seq!r} beside tensor "
+                f"parallelism over {rules.tp!r}: sequence parallelism "
+                f"runs over the tensor-parallel dim, or without one")
 
     def _n_model(self) -> int:
         """The model dim's size (1 without a mesh or a model dim)."""
@@ -314,6 +320,15 @@ class Sharded:
         rt = self.rt
         return axis(rt.mesh, rt.rules.tp) if rt.mesh is not None else None
 
+    @functools.cached_property
+    def _sp(self):
+        """This rank's sequence-parallel ``Axis`` over ``rules.seq``'s
+        dim — the tensor-parallel one, or a dim of its own without
+        tensor parallelism (None: no mesh, no ``rules.seq``, or a dim
+        of size 1)."""
+        rt = self.rt
+        return axis(rt.mesh, rt.rules.seq) if rt.mesh is not None else None
+
     def _ctx(self, batch: int, seq: int = 1) -> Optional[L.Mesh]:
         """The blocks' view of the mesh for a call of ``batch`` rows of
         ``seq`` positions: sequence-parallel where ``rules.seq`` is set
@@ -321,7 +336,7 @@ class Sharded:
         rt = self.rt
         if rt.mesh is None:
             return None
-        sp = self._tp if rt.rules.seq is not None else None
+        sp = self._sp
         if sp is not None and seq % sp.size:
             sp = None
         return L.Mesh(rt.mesh, rt.rules, self._tp, batch,
@@ -357,13 +372,16 @@ class Sharded:
         """A weight gathered along every dim sharded over a mesh dim
         other than the tensor-parallel one (the FSDP gather); under
         autograd its gradient is summed over the mesh dims that split
-        ``ctx``'s batch (each rank applies the weight to its own rows)
-        and sliced over the others."""
+        ``ctx``'s batch or its sequence (each rank applies the weight to
+        its own rows) and sliced over the others."""
         rt = self.rt
         if rt.mesh is None:
             return t
-        summed = (batch_placement(rt.rules, rt.mesh, ctx.batch)
-                  if ctx is not None else ())
+        summed = ()
+        if ctx is not None:
+            summed = batch_placement(rt.rules, rt.mesh, ctx.batch)
+            if ctx.seq is not None:
+                summed = summed + ctx.seq.names
         return gather_dims(t, layout, rt.mesh, keep=(rt.rules.tp,),
                            summed=summed)
 
@@ -418,7 +436,7 @@ class Sharded:
             x = torch.cat([pre, x], dim=1)
         if sp is not None:
             x = sp.scatter(x, 1) if partial else sp.shard(x, 1)
-            positions = sp.shard(positions, 0)
+            positions = sp.shard(positions, -1)
         if not self.cfg.use_rope:
             pe = self._whole(params[self.POSITIONS],
                              self._spec(self.POSITIONS), ctx)
@@ -443,16 +461,19 @@ class Sharded:
         its block of the sequence (the weight's gradient summed over the
         ranks, the sums reduced), under tensor parallelism alone every
         rank the whole (each keeping its block of the weight's
-        gradient).  The sums are reduced over the batch's mesh dims:
-        every rank returns the global-batch mean."""
+        gradient).  Under sequence parallelism without a tensor-parallel
+        dim each rank sums its block of the sequence against the whole
+        unembedding, the sums reduced.  The sums are reduced over the
+        batch's mesh dims: every rank returns the global-batch mean."""
         tp = self._tp
         sp = ctx.seq if ctx is not None else None
         w = self._unembed_w(params, ctx)
-        if tp is not None and not self._vocab_sharded() and sp is not None:
+        if sp is not None and not self._vocab_sharded():
             labels = torch.nn.functional.pad(labels, (n_pre, 0),
                                              value=-100)
-            tot, cnt = _ce_sums(x, tp.gather(w, 0), sp.shard(labels, 1))
-            tot, cnt = tp.reduce(tot), tp.all_reduce(cnt)
+            tot, cnt = _ce_sums(x, tp.gather(w, 0) if tp is not None
+                                else w, sp.shard(labels, 1))
+            tot, cnt = sp.reduce(tot), sp.all_reduce(cnt)
         else:
             if sp is not None:
                 x = sp.gather(x, 1)
@@ -591,27 +612,33 @@ class LM(Sharded):
         model dim where they divide it, else its slots (``pos`` whole);
         a recurrent state's channels over the model dim (the conv's
         whole: ``layers.rglru_block`` and ``mamba_block`` run it on every
-        channel), a Mamba-2 state's heads where the dim divides them."""
+        channel), a Mamba-2 state's heads where the dim divides them.
+        Without tensor parallelism (``rules.tp`` None: every block runs
+        every head on its weights gathered whole) the caches are whole
+        but for the batch."""
         cfg, rules, mesh = self.cfg, self.rt.rules, self.rt.mesh
         b = rules.batch_spec(batch_size, mesh)
         n_model = self._n_model()
+        model = rules.model if rules.tp is not None else None
         out = []
         for kind in self.kinds:
             if kind == "attn":
-                if rules.enabled and cfg.n_kv_heads % max(n_model, 1) == 0 \
+                if model is None:
+                    kv = (b, None, None, None)
+                elif cfg.n_kv_heads % max(n_model, 1) == 0 \
                         and cfg.n_kv_heads >= n_model:
-                    kv = (b, rules.model, None, None)
+                    kv = (b, model, None, None)
                 else:
-                    kv = (b, None, rules.model, None)
+                    kv = (b, None, model, None)
                 out.append({"k": kv, "v": kv, "pos": (None,)})
             elif kind == "mamba":
                 s = cfg.ssm
                 heads = s.expand * cfg.d_model // s.head_dim
                 out.append({"conv": (b, None, None),
-                            "ssm": (b, rules.model if heads % n_model == 0
+                            "ssm": (b, model if heads % n_model == 0
                                     else None, None, None)})
             else:
-                out.append({"conv": (b, None, None), "lru": (b, rules.model)})
+                out.append({"conv": (b, None, None), "lru": (b, model)})
         return out
 
     # ------------------------------------------------------------------
@@ -775,10 +802,19 @@ class LM(Sharded):
                      positions: torch.Tensor, cache: dict,
                      page_table: torch.Tensor,
                      ctx: Optional[L.Mesh] = None) -> torch.Tensor:
+        """One paged block: planned where the ``Runtime`` asks for it and
+        the planner can plan the config, else hand-wired.  Under a mesh
+        the plan is the global one — planned at the call's global batch
+        and sequence, without the mesh, as the JAX package executes it —
+        and runs on this rank's shards (``layers.run_planned_layer``)."""
         cfg, rt = self.cfg, self.rt
+        p = self._layer(p, "attn", ctx)
         if rt.planner and planner.plannable(cfg):
             from ..reliability import breaker as _breaker
             b, s = x.shape[:2]
+            if ctx is not None:
+                b = ctx.batch
+                s = s * (ctx.seq.size if ctx.seq is not None else 1)
             ps = cache["k_pages"].shape[2]
             plan_kw = dict(phase="prefill" if s > 1 else "decode",
                            paged=ps, kv_len=page_table.shape[1] * ps)
@@ -794,21 +830,20 @@ class LM(Sharded):
                                               **plan_kw)
                     out, _ = L.run_planned_layer(
                         plan.layer, p, x, cfg, positions=positions, rt=rt,
-                        cache=cache, page_table=page_table)
+                        cache=cache, page_table=page_table, ctx=ctx)
                     return out
                 except Exception as e:  # noqa: BLE001 - degrade below
                     if not _breaker.degradable(e):
                         raise
                     _breaker.record_failure(
                         pkey, reason=f"{type(e).__name__}: {e}")
-        p = self._layer(p, "attn", ctx)
-        h = L.apply_norm(p["ln1"], x, cfg)
+        h = self._norm(p["ln1"], x, ctx)
         mix, _ = L.paged_attention_block(
             p["mix"], h, cfg, positions=positions, cache=cache,
             page_table=page_table, kernel_ops=rt.kernel_ops,
             block=rt.paged_block, ctx=ctx)
         x = x + mix
-        h2 = L.apply_norm(p["ln2"], x, cfg)
+        h2 = self._norm(p["ln2"], x, ctx)
         return x + L.feed_forward(p["ff"], h2, cfg, ctx)
 
     def _run_layers(self, params: dict, x: torch.Tensor,
@@ -899,16 +934,16 @@ class LM(Sharded):
         engine's page tables map requests onto pages, and page 0 is the
         scratch page (``serving.kv_pages``).  Attention-only stacks
         without prefix embeddings, as in the JAX package: a recurrent
-        state is per request, not per position."""
+        state is per request, not per position.  Under a mesh a pool
+        holds this rank's kv heads, or every kv head (the ring regimes,
+        kv heads the tensor-parallel dim does not divide, or no such
+        dim); under sequence parallelism too, as every rank writes the
+        whole prompt's k/v of the heads it holds."""
         cfg = self.cfg
         if any(kind != "attn" for kind in self.kinds):
             raise NotImplementedError(
                 f"paged serving covers attention-only stacks; "
                 f"{cfg.name} has pattern {cfg.pattern}")
-        if self.rt.rules.seq is not None:
-            raise NotImplementedError(
-                "paged serving under sequence parallelism comes with "
-                "ROADMAP Queue 1 item 4")
         if cfg.n_prefix_embeds:
             raise NotImplementedError(
                 f"paged serving does not thread prefix embeddings yet; "
@@ -932,6 +967,9 @@ class LM(Sharded):
         tokens: (1, S) prompt padded to a page multiple; ``length`` is
         the real prompt length — padding rows get position -1, so their
         kv lands on the scratch page and their logits are never read.
+        Under sequence parallelism, where its dim divides S, each rank's
+        residual stream is its block of the prompt, gathered before the
+        last real token's logits are read.
         Returns (logits of the last REAL token (1, V), cache)."""
         b0 = tokens.shape[0]
         tokens, page_table = (self._local(tokens, b0),
@@ -939,9 +977,11 @@ class LM(Sharded):
         b, s = tokens.shape
         ar = torch.arange(s, dtype=torch.int32, device=tokens.device)
         positions = torch.where(ar < length, ar, -1)[None, :].expand(b, s)
-        x = self._embed(params, tokens, positions)
-        x = self._run_layers(params, x, positions, cache, page_table,
-                             self._ctx(b0))
+        ctx = self._ctx(b0, s)
+        x = self._embed(params, tokens, positions, ctx=ctx)
+        x = self._run_layers(params, x, positions, cache, page_table, ctx)
+        if ctx is not None and ctx.seq is not None:
+            x = ctx.seq.all_gather(x, 1)
         logits = self._unembed(params, x[:, max(length - 1, 0)][:, None])
         return self._global(logits[:, 0], b0), cache
 

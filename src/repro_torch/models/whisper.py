@@ -167,10 +167,12 @@ class EncDec(Sharded):
         """``init_cache``'s layouts, the JAX package's: the batch over
         its placement, the self-attention k/v on their slots over the
         model dim (``pos`` whole), the cross-attention k/v whole over it
-        (the 1500 frames do not divide over 16)."""
+        (the 1500 frames do not divide over 16); without tensor
+        parallelism (``rules.tp`` None) the self-attention k/v whole too,
+        as ``LM.cache_specs``'."""
         rules = self.rt.rules
         b = rules.batch_spec(batch_size, self.rt.mesh)
-        kv = (b, None, rules.model, None)
+        kv = (b, None, rules.model if rules.tp is not None else None, None)
         ckv = (b, None, None, None)
         return [{"self": {"k": kv, "v": kv, "pos": (None,)},
                  "cross": {"k": ckv, "v": ckv}}
@@ -226,17 +228,19 @@ class EncDec(Sharded):
         of ``batch`` rows and a decoder sequence of ``seq``.  Where each
         rank's cross-attention uses the output in part (its heads, or
         its block of the decoder's sequence) the gradient is summed over
-        the tensor-parallel dim; where every rank runs every head on the
-        whole sequence (``layers._split_heads``), each keeps its own."""
+        the tensor-parallel dim, or over the sequence's dim without
+        one; where every rank runs every head on the whole sequence
+        (``layers._split_heads``), each keeps its own."""
         ctx = self._ctx(batch, seq)
         enc_ctx = self._ctx(batch, frames.shape[1])
         tp = self._tp
-        partial = tp is not None and (ctx.seq is not None
-                                      or L._split_heads(self.cfg, tp))
+        partial = ctx is not None and (
+            ctx.seq is not None
+            or (tp is not None and L._split_heads(self.cfg, tp)))
         enc = self._encode(params, frames, enc_ctx,
                            "sum" if partial else "own")
         if partial and enc_ctx.seq is None:
-            enc = tp.enter(enc)
+            enc = (ctx.seq if ctx.seq is not None else tp).enter(enc)
         return enc, ctx
 
     def _decode(self, params: dict, tokens: torch.Tensor,

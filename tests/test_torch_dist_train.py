@@ -819,17 +819,25 @@ def test_train_cli_compress_grads_on_a_world(tmp_path, capfd):
 
 
 def test_mesh_still_refuses_the_planned_path():
-    """A dense config's planned path under a mesh refuses, naming the
-    queue item that brings it."""
+    """A dense config's planned path under a mesh builds now (it runs on
+    each rank's shards, ``tests/test_torch_dist_regimes.py``); what the
+    mesh still refuses is an activation dim other than the weights'
+    model dim."""
     from repro_torch.configs import get_config
     from repro_torch.dist.sharding import Rules
     from repro_torch.models.lm import LM, Runtime
 
     class FakeMesh:
         shape = {"data": 1, "model": 2}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    model = LM(get_config("qwen3-8b", smoke=True),
+               Runtime(rules=Rules(data=("data",), model="model",
+                                   tp="model"),
+                       mesh=FakeMesh(), planner=True), device="cpu")
+    assert model.rt.planner and model.param_specs()["layers"][0]["ff"][
+        "w_up"] == (("data",), "model")
+    with pytest.raises(NotImplementedError, match="model dim"):
         LM(get_config("qwen3-8b", smoke=True),
-           Runtime(rules=Rules(data=("data",), model="model", tp="model"),
+           Runtime(rules=Rules(data=("data",), model="model", tp="data"),
                    mesh=FakeMesh(), planner=True), device="cpu")
 
 

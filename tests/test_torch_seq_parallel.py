@@ -254,15 +254,25 @@ def test_sequence_parallel_refusals():
     from repro_torch.models.lm import LM, Runtime
     mesh = DryMesh({"data": 2, "model": 2})
     cfg = _cfg("qwen3-8b")
+    # sequence parallelism without tensor parallelism (the zero3
+    # regime's multi-pod form), paged serving under it and the planned
+    # path under a mesh build now; SP over another dim than a
+    # tensor-parallel one refuses
+    solo = LM(cfg, Runtime(rules=Rules(data=("data",), model="model",
+                                       seq="model"), mesh=mesh),
+              device="meta")
+    assert solo._sp is not None and solo._tp is None
+    assert solo._ctx(2, 64).seq.size == 2 and solo._ctx(2, 1).seq is None
     with pytest.raises(NotImplementedError, match="tensor-parallel dim"):
         LM(cfg, Runtime(rules=Rules(data=("data",), model="model",
-                                    seq="model"), mesh=mesh), device="meta")
+                                    tp="model", seq="data"), mesh=mesh),
+           device="meta")
     model = LM(cfg, Runtime(rules=_sp_rules(), mesh=mesh), device="meta")
-    with pytest.raises(NotImplementedError, match="paged serving"):
-        model.init_paged_cache(4, 8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        LM(_cfg("recurrentgemma-2b"), Runtime(rules=_sp_rules(), mesh=mesh,
-                                              planner=True), device="meta")
+    pools = model.init_paged_cache(4, 8)
+    assert pools[0]["k_pages"].shape == (4, cfg.n_kv_heads // 2, 8, cfg.dh)
+    assert LM(_cfg("recurrentgemma-2b"), Runtime(rules=_sp_rules(),
+                                                 mesh=mesh, planner=True),
+              device="meta").rt.planner
     assert LM(_cfg("recurrentgemma-2b"), Runtime(rules=_sp_rules(),
                                                  mesh=mesh),
               device="meta").kinds[:3] == ["rglru", "rglru", "attn"]

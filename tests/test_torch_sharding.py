@@ -333,10 +333,12 @@ def test_param_specs_cover_every_leaf_and_other_kinds_have_layouts():
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "recurrentgemma-2b",
                                   "mamba2-1.3b", "whisper-small"])
 def test_mesh_refuses_the_other_families(arch):
-    """Every family runs under a mesh on the hand-wired path — the MoE,
-    hybrid, state-space and encoder-decoder families build their
-    sharded layouts — and each one's planner-requested runtime still
-    refuses one, naming the queue item that brings it."""
+    """Every family runs under a mesh — the MoE, hybrid, state-space and
+    encoder-decoder families build their sharded layouts — and each
+    one's planner-requested runtime builds too (the planner plans none
+    of them: their blocks run hand-wired, as on one card); what the
+    mesh refuses is an activation dim other than the weights' model
+    dim."""
     from repro_torch.launch.steps import build_model
     from repro_torch.models.lm import Runtime
     cfg = get_config(arch, smoke=True)
@@ -344,6 +346,12 @@ def test_mesh_refuses_the_other_families(arch):
                                      mesh=FakeMesh(data=1, model=2)),
                         device="cpu")
     assert model.param_specs()["embed"] == ("model", ("data",))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        build_model(cfg, Runtime(rules=RULES, mesh=FakeMesh(data=1, model=2),
+    planned = build_model(cfg, Runtime(rules=RULES,
+                                       mesh=FakeMesh(data=1, model=2),
+                                       planner=True), device="cpu")
+    assert planned.param_specs() == model.param_specs()
+    with pytest.raises(NotImplementedError, match="model dim"):
+        build_model(cfg, Runtime(rules=Rules(data=("data",), model="model",
+                                             tp="data"),
+                                 mesh=FakeMesh(data=1, model=2),
                                  planner=True), device="cpu")
