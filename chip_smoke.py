@@ -72,8 +72,10 @@ which raises on failure:
    each path's counters are set to 0 just before it and read after;
    the three-GEMM kernel is on no path, as in the JAX package, and its
    counter must read 0 after them all;
-   f. the reliability layer on qwen3-8b (``reliability_phase``, before
-      granite-20b): the workload of a. in fresh engines, R3 a
+   f. the reliability layer on qwen3-8b at FULL width cut to
+      RELIABILITY_LAYERS of its 36 layers (the first layers of the
+      weights above; ``reliability_phase``, before granite-20b): the
+      workload of a. in fresh engines, R3 a
       ``kernel_dispatch`` fault at the paged kernel's seam
       (``eager_decode=True``), R4 one at the engine's prefill seam
       (captured), R1 shadows at rate 1.0 on both paths (the engine
@@ -142,7 +144,10 @@ which raises on failure:
       64 + 1500 as the JAX package's) captured and eager, one training
       step at B=4 x 448 —; an ``{"ssm_encdec": ...}`` line;
    k. the distributed serving regimes (``dist_phase``), after
-      granite-20b's weights are freed: a world of 4 spawned ranks
+      granite-20b's weights are freed (in the full run every world of
+      4p's mesh and of 4k, 4l, 4n and 4o runs on one pool of four rank
+      processes, ``_world_pool``, each world from a reset process; run
+      alone, each world's ranks are spawned for it): a world of 4 ranks
       (gloo, every rank on the one card; ``repro_torch.launch.mesh``)
       over a 1 x 4 ("data", "model") mesh, held to single-card results
       the parent computed and freed before (``dist_refs``), every step
@@ -152,12 +157,12 @@ which raises on failure:
       qwen3-8b's forward and at one row over 4096 keys, each regime
       forced (spatial, ring, ring-pipelined), each within TOL of the
       single-card kernel, the tuner's pick printed; (b) qwen3-8b at FULL
-      widths cut to 12 of 36 layers, ``loss`` and ``forward`` at B=2 x
+      widths cut to 4 of 36 layers, ``loss`` and ``forward`` at B=2 x
       S=2048 with ``Runtime(kernel_ops=True)`` within LOSS_REL_TOL /
-      FORWARD_REL_TOL of the single-card kernel path, 12 attention
+      FORWARD_REL_TOL of the single-card kernel path, 4 attention
       launches a rank a call; (c) ``generate`` on the sharded runtime of
       ``launch.serve --shard-model 4`` (batch 4, prompt 128, 32 tokens)
-      for qwen3-8b (heads-sharded cache) and granite-20b at 13 of its 52
+      for qwen3-8b (heads-sharded cache) and granite-20b at 4 of its 52
       layers
       (sequence-sharded cache, ``distributed_decode_attention``): the
       greedy tokens' agreement printed, and the last step's logits, its
@@ -199,15 +204,15 @@ which raises on failure:
       from the same weights (made first, in a process of its own): step
       0's losses within COMPRESSED_STEP0_REL_TOL, every step's loss and
       step 0's grad norm within COMPRESSED_REL_TOL, the residuals
-      non-zero; (d) olmoe-1b-7b FULL
+      non-zero; (d) olmoe-1b-7b at FULL widths cut to 8 of 16 layers
       on a 1 x 4 world (``ep``: 16 experts a rank): every layer on the
       single-card kernel path's input with its routing pinned, the
       attention output and layer output within FORWARD_REL_TOL per
       token, the sharded loss with the kernels within
-      MOE_FLIP_LOSS_REL_TOL of one card's, 16 ``fused_attention``
+      MOE_FLIP_LOSS_REL_TOL of one card's, 8 ``fused_attention``
       launches a rank a call (loss and forward), the engine under the
       mesh in the tuner's paged regime on 8 ragged requests with
-      partial launches a rank = decode steps x 16, nothing degraded,
+      partial launches a rank = decode steps x 8, nothing degraded,
       its greedy tokens' agreement with one card's printed; then the
       engine's model in f32 (its Runtime, the weights drawn in f32) on
       two prompts with one card's f32 routing pinned: both prefills'
@@ -217,7 +222,7 @@ which raises on failure:
    n. the hybrid, state-space and encoder-decoder families under the
       mesh (``dist_families_phase``, after 4l): a world of four ranks
       on the card, 2 x 2 ("data", "model"), FULL widths —
-      recurrentgemma-2b at 6 of 26 layers, mamba2-1.3b at 8 of 48,
+      recurrentgemma-2b at 3 of 26 layers, mamba2-1.3b at 4 of 48,
       whisper-small whole — each held to one card's run of the same
       code on the same weights (made first, in a process of its own):
       (a) one ``make_train_step`` under Megatron-SP (``tp+sp``), one
@@ -261,6 +266,36 @@ which raises on failure:
       in a worker process during the earlier phases) and around them
       against its plain version, and timed beside the unfused
       ``mlp_block``; a ``{"dist_regimes": ...}`` line;
+   p. the planned cache-free forward (``planned_phase``, after d. on
+      qwen3-8b's weights): ``LM.loss`` and ``LM.forward`` with
+      ``Runtime(kernel_ops=True, planner=True)`` at B=2 x S=2048 (the
+      H100 plan fuses the attention only: 36 ``fused_attention``
+      launches a call, ``fused_mlp_chain`` 0) and at B=2 x S=256 (the
+      plan fuses the MLP too: 36 launches of each a call), each plan
+      printed, each call held within FORWARD_REL_TOL (logits) of the
+      hand-wired kernel path and of the planned plain path, its loss
+      within LOSS_REL_TOL scaled by the square root of 4094 over its
+      labelled tokens (``_loss_tol``) of the first and LOSS_REL_TOL of
+      the second, each of the two beside the hand-wired plain path (a
+      witness, printed), the two forwards' device spans and a profile
+      of the planned one; then (``planned_mesh_phase``, qwen3-8b's
+      weights freed) one card's planned kernel path at 4 of 36 layers,
+      B=2 x 256, and a world of 4 ranks over a 1 x 4 mesh under the
+      serving rules: on every rank the MLP kernel on the rank's d_ff
+      block once a layer and call, the attention kernel once a layer
+      (the tuner's spatial regime printed), the loss within LOSS_REL_TOL
+      and the logits within FORWARD_REL_TOL of one card's; then
+      (``examples_phase``) the three
+      example drivers once each on the card with their defaults —
+      ``python -m repro_torch.launch.fuse_custom_chain`` (no launch),
+      ``serve_batched`` fixed (``--gen 8``) and ``--arch qwen3-8b
+      --continuous``, ``train_lm`` (200 steps, the loss must fall) —
+      nothing degraded; and phase 3 and 7 at 4p's new shapes: the MLP
+      kernel at M = 512 (N = d_ff, and a rank's N = d_ff / 4) and the
+      normalised attention at 2 x 256 (every head, and a rank's 8 q
+      and 2 kv heads at the tiles of its regime search) against their
+      plain versions within bf16 TOL, timed beside the unfused MLP and
+      SDPA; a ``{"planned": ...}`` line before the kernels line;
    g. training (``training_phase``), after every serving phase with
       their weights freed: qwen3-8b at every FULL width with the depth
       cut to 8 of 36 layers (AdamW's 16 B a parameter: 131 GB for 36
@@ -361,7 +396,8 @@ past E2E_REL_TOL; it fails unless every fault goes past its limit.
 
     python3 chip_smoke.py --reliability
 
-runs only the build, qwen3-8b's weights and the reliability phase (4f).
+runs only the build, qwen3-8b's weights and the reliability phase (4f,
+at RELIABILITY_LAYERS of the 36 layers).
 
     python3 chip_smoke.py --moe
 
@@ -406,6 +442,11 @@ runs only the device phase and the training phase (4g), and prints its
 
 runs only the device phase and phase 4m, (c) with a one-card reference
 step of its own, and prints a ``{"dryrun": ...}`` line.
+
+    python3 chip_smoke.py --planned
+
+runs only the device and build phases, 4p's kernel checks, phase 4p
+and its kernel times; prints a ``{"planned": ...}`` line.
 """
 from __future__ import annotations
 
@@ -426,6 +467,13 @@ import torch
 import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()
+
+
+def _clock(label: str) -> None:
+    """The seconds since the script started, printed after ``label``:
+    where the full run's time goes, against its 1200 s limit."""
+    print(f"[clock] {label}: {time.perf_counter() - T0:.1f}s", flush=True)
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM datasheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: dict(rtol=3e-4, atol=1e-3),   # f32 sum order
@@ -443,9 +491,9 @@ E2E_REL_TOL = 5e-2
 # on an H100).  A wrong MLP or plan gives order 1.
 PLANNED_REL_TOL = 5e-2
 # The MLP kernel's decode shape (M = max batch), one prefill shape, and
-# the cache-free forward's B x S = 2 x 2048 tokens, which the planned
-# forward of the ROADMAP would run (timed and held here; no path of
-# today launches it)
+# the cache-free forward's B x S = 2 x 2048 tokens (timed and held here;
+# no path launches it: the planned forward's H100 plan keeps the MLP
+# three GEMMs at that shape, phase 4p)
 MLP_SHAPES = {"decode": 4, "prefill": 144, "m4096": 4096}
 # The cache-free forward: batch x tokens of qwen3-8b FULL
 FORWARD = dict(batch=2, seq=2048, seed=2)
@@ -481,6 +529,9 @@ SERVE = dict(batch=4, n_requests=8, prompt_len=128, gen=32, page_size=16,
 # last step's logits are held to the cache-free forward within
 # E2E_REL_TOL, the decode-step checks' limit
 GENERATE = dict(batch=4, prompt_len=128, gen=32, seed=3)
+# Phase 4f's depth: its fourteen fresh engines, many of them eager, took
+# about 115 s of the full run at all 36 layers on an H100
+RELIABILITY_LAYERS = 4
 # The MQA config served at full width after qwen3-8b: its paged decode
 # runs the partial kernel at a GQA group of 48
 GRANITE = "granite-20b"
@@ -1488,13 +1539,23 @@ def _r2_wrong_answer(cfg, params) -> dict:
                 launches_relaunch=relaunch["launches"])
 
 
+def _depth_cut(cfg, params, n: int) -> tuple:
+    """``cfg`` at its first ``n`` layers and ``params`` holding those
+    layers' weights (the same tensors: nothing is copied)."""
+    return (dataclasses.replace(cfg, n_layers=n),
+            dict(params, layers=params["layers"][:n]))
+
+
 def reliability_phase(cfg, params) -> dict:
-    """The reliability layer on qwen3-8b FULL with the serve phases'
+    """The reliability layer on qwen3-8b at FULL width, cut to
+    RELIABILITY_LAYERS, with the serve phases'
     workload (SERVE), each run in a fresh engine: R3 and R4 (faults at
     a layer seam and at the engine seam), R1 on both paths (shadows at
     rate 1.0 without a fault) and R2 (a planted wrong answer).  Every
     phase that arms a fault asserts that it fired, then disarms it and
     lifts the records (R5).  Prints a ``{"reliability": ...}`` line."""
+    cfg, params = _depth_cut(cfg, params, RELIABILITY_LAYERS)
+    print(f"[reliability] {cfg.name} at {cfg.n_layers} layers (depth cut)")
     out = {}
     _clear_records()
     out["R3"] = _r3_paged_seam(cfg, params)
@@ -2104,16 +2165,18 @@ def _forward_batch(cfg, b: int = FORWARD["batch"],
             **demo_side_inputs(cfg, b, "cuda", FORWARD["seed"])}
 
 
-def _divergence(loss, logits, want_loss, want) -> dict:
+def _divergence(loss, logits, want_loss, want,
+                loss_tol: float = LOSS_REL_TOL) -> dict:
     """Loss and logits of a kernel-path run against the plain twin
     path's: the relative loss difference, the logits' relative error
-    (Frobenius norm) and the share of positions whose argmax agrees."""
+    (Frobenius norm) and the share of positions whose argmax agrees;
+    ``within`` the loss's limit ``loss_tol`` and FORWARD_REL_TOL."""
     loss_rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
     rel = float((logits.float() - want.float()).norm() / want.float().norm())
     agree = float((logits.argmax(-1) == want.argmax(-1)).float().mean())
     return dict(loss=float(loss), plain_loss=float(want_loss),
                 loss_rel=loss_rel, logits_rel=rel, argmax_agree=agree,
-                within=loss_rel <= LOSS_REL_TOL and rel <= FORWARD_REL_TOL)
+                within=loss_rel <= loss_tol and rel <= FORWARD_REL_TOL)
 
 
 def forward_phase(cfg, params, batch=None) -> dict:
@@ -4050,13 +4113,13 @@ DIST = dict(
     forward=FORWARD, generate=GENERATE,
     serve=dict(SERVE, prompt_len=96),
     archs=("qwen3-8b", GRANITE),
-    # granite-20b's depth cut to a quarter (13 of 52 layers, full
-    # widths) and qwen3-8b's to a third (12 of 36), to keep the full run
-    # well inside its time limit: granite's two `generate` calls through
-    # gloo's host-staged send/recv took ~60 s each at 52 layers, and
-    # qwen3's two engine runs 138 s at 36 layers, while phases 4n and 4o
-    # need ~110 s and ~100 s of the budget
-    layers={"qwen3-8b": 12, GRANITE: 13})
+    # granite-20b's depth cut to 4 of 52 layers (full widths) and
+    # qwen3-8b's to 4 of 36, to keep the full run inside its time limit:
+    # granite's two `generate` calls through gloo's host-staged
+    # send/recv took ~60 s each at 52 layers and 14.9-25.8 s at 9,
+    # qwen3's two engine runs 138 s at 36 layers and 59.2 s at 8 on a
+    # loaded host, where the full run took 1504.6 s at these depths
+    layers={"qwen3-8b": 4, GRANITE: 4})
 
 
 def _dist_cfg(arch, dist, dev="cuda"):
@@ -4161,6 +4224,170 @@ def _free(dev) -> None:
     gc.collect()
     if dev == "cuda":
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# The worlds' rank processes, kept across phases
+# ---------------------------------------------------------------------------
+# Each world of phases 4k-4p used to start its ranks anew: ~8 s a world on
+# an H100 host (6 s of it importing torch), for fifteen worlds.  In the
+# full run a pool of rank processes, started once, runs every world in
+# turn instead (``_spawn``); between two worlds each process leaves its
+# process group, frees its memory, resets its peak and seeds torch's
+# generators as a fresh process has them, and drops every memo of the
+# port (``_fresh_process``), so that a world starts as a spawned one does.
+_POOL = None
+_TORCH_DEFAULT_SEED = 67280421310721      # a fresh process's initial_seed()
+
+
+def _pool_worker(tasks, out, parent: int) -> None:
+    import pickle
+    import queue
+    import traceback
+    import torch.distributed as dist
+    from repro_torch.dist import collectives
+    from repro_torch.kernels import capture, ops
+    from repro_torch.launch.mesh import init_rank
+    from repro_torch.reliability import faults
+    while True:
+        try:
+            task = tasks.get(timeout=5.0)
+        except queue.Empty:
+            if os.getppid() != parent:      # the parent is gone
+                return
+            continue
+        if task is None:
+            return
+        tag, rank, world, tmp, device, env = task
+        os.environ.clear()
+        os.environ.update(env)
+        try:
+            _fresh_process()
+            _zero(*capture.counters())
+            # a process's own records: the collectives' payloads and the
+            # tiles the world agreed on (``ops._agree`` agrees once a
+            # process, so a rank that kept them would skip a collective
+            # the others run)
+            collectives.TRAFFIC.clear()
+            collectives.HOST_HOPS.clear()
+            ops._AGREED.clear()
+            faults.clear()
+            torch.manual_seed(_TORCH_DEFAULT_SEED)
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            with open(os.path.join(tmp, "call.pkl"), "rb") as f:
+                fn, args = pickle.load(f)
+            init_rank(rank, world, os.path.join(tmp, "store"),
+                      device=device)
+            result = fn(rank, *args)
+            out.put((tag, rank, True, result))
+        except BaseException:  # noqa: BLE001 - reported to the parent
+            out.put((tag, rank, False, traceback.format_exc()))
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            fn = args = result = None
+            _free(device)
+
+
+class _WorldPool:
+    """``size`` spawned rank processes that run one world after another:
+    ``run`` is ``repro_torch.launch.mesh.spawn`` on the first ``world``
+    of them."""
+
+    def __init__(self, size: int):
+        import torch.multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self.tasks = [ctx.Queue() for _ in range(size)]
+        self.out = ctx.Queue()
+        self.procs = [ctx.Process(target=_pool_worker,
+                                  args=(self.tasks[i], self.out,
+                                        os.getpid()))
+                      for i in range(size)]
+        for p in self.procs:
+            p.start()
+        self.n_worlds = 0
+
+    def run(self, fn, world: int, *args, device: str = "cpu",
+            timeout_s: float = 900.0) -> list:
+        import pickle
+        import queue
+        if world > len(self.procs):
+            raise RuntimeError(f"a world of {world} in a pool of "
+                               f"{len(self.procs)}")
+        self.n_worlds += 1
+        tag = self.n_worlds
+        tmp = tempfile.mkdtemp(prefix="world-")
+        try:
+            with open(os.path.join(tmp, "call.pkl"), "wb") as f:
+                pickle.dump((fn, args), f)
+            env = dict(os.environ)
+            for r in range(world):
+                self.tasks[r].put((tag, r, world, tmp, device, env))
+            results, error = {}, None
+            deadline = time.monotonic() + timeout_s
+            while len(results) < world and error is None:
+                try:
+                    got, rank, ok, res = self.out.get(timeout=1.0)
+                except queue.Empty:
+                    dead = [i for i, p in enumerate(self.procs[:world])
+                            if not p.is_alive()]
+                    if dead:
+                        error = (f"rank {dead[0]} died with exit code "
+                                 f"{self.procs[dead[0]].exitcode}")
+                    elif time.monotonic() > deadline:
+                        error = f"the world outlived {timeout_s} s"
+                    continue
+                if got != tag:
+                    continue
+                if ok:
+                    results[rank] = res
+                else:
+                    error = f"rank {rank} failed:\n{res}"
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        if error is not None:
+            self.close()
+            raise RuntimeError(error)
+        return [results[r] for r in range(world)]
+
+    def close(self) -> None:
+        global _POOL
+        for q, p in zip(self.tasks, self.procs):
+            if p.is_alive():
+                q.put(None)
+        for p in self.procs:
+            p.join(timeout=10.0)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+        if _POOL is self:
+            _POOL = None
+
+
+@contextlib.contextmanager
+def _world_pool(size: int = 4):
+    """The pool that ``_spawn`` runs every world on while it is open."""
+    global _POOL
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    _POOL = _WorldPool(size)
+    pool = _POOL
+    try:
+        yield pool
+    finally:
+        pool.close()
+
+
+def _spawn(fn, world: int, *args, device: str = "cpu",
+           timeout_s: float = 900.0) -> list:
+    """``repro_torch.launch.mesh.spawn``, on the open pool's processes
+    when there is one."""
+    if _POOL is not None:
+        return _POOL.run(fn, world, *args, device=device,
+                         timeout_s=timeout_s)
+    from repro_torch.launch.mesh import spawn
+    return spawn(fn, world, *args, device=device, timeout_s=timeout_s)
 
 
 def dist_refs(cfg, params, refdir, first: bool, dist=DIST,
@@ -4547,7 +4774,6 @@ def dist_phase(refdir, dist=DIST, dev="cuda") -> dict:
     step (every rank must launch alike, and each kernel of rows 1, 2 and
     4 at least once), its walls (through gloo on one card, not kernel
     times) — and fails if a rank degraded."""
-    from repro_torch.launch.mesh import spawn
     # the ranks' allocators grow segments in place: four of them share
     # the card with no block stranded between sizes
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
@@ -4557,7 +4783,7 @@ def dist_phase(refdir, dist=DIST, dev="cuda") -> dict:
     for arch in dist["archs"]:
         # a world per model: each rank's process, and every tensor it
         # made, ends before the next model's ranks start
-        got = spawn(_dist_rank, dist["world"], refdir, dist, dev, arch,
+        got = _spawn(_dist_rank, dist["world"], refdir, dist, dev, arch,
                     device=dev, timeout_s=900)
         if outs is None:
             outs = got
@@ -4760,7 +4986,7 @@ DIST_TRAIN = dict(
     remesh=dict(survivors=(0, 1, 2)),
     compressed=dict(arch=WHISPER, batch=4, seq=448, steps=3, seed=12,
                     lr=3e-4),
-    moe=dict(arch=OLMOE, model_axis=4, forward=FORWARD,
+    moe=dict(arch=OLMOE, n_layers=8, model_axis=4, forward=FORWARD,
              serve=dict(SERVE, prompt_len=96)))
 
 
@@ -5056,10 +5282,9 @@ def _dt_moe_refs(refdir, spec, dev) -> dict:
     output and routing on (d)'s batch (``_Routes``), the loss, the
     engine's greedy tokens on (d)'s workload, and its model's f32 twin
     on two prompts (``_dt_f32_two_request``)."""
-    from repro_torch.configs import get_config
     from repro_torch.launch.serve import run_continuous
     from repro_torch.models.lm import LM, Runtime
-    cfg = get_config(spec["arch"], smoke=dev != "cuda")
+    cfg = _dt_cfg(spec, dev)
     model = LM(cfg, Runtime(kernel_ops=True), device=dev)
     params = model.init_params(0)
     batch = _dist_batch(cfg, spec["forward"], dev)
@@ -5097,12 +5322,11 @@ def _dt_moe_rank(rank, refdir, spec, dev):
     tuner's paged regime (one partial launch a layer a decode step),
     nothing degraded; then the engine's model in f32 on two prompts, one
     card's routing pinned (``_dt_f32_two_request``)."""
-    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.serve import run_continuous, sharded_runtime
     from repro_torch.models.lm import LM, Runtime
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(spec["arch"], smoke=dev != "cuda")
+    cfg = _dt_cfg(spec, dev)
     mesh = make_host_mesh(spec["model_axis"])
     model = LM(cfg, Runtime(kernel_ops=True, rules=_dt_rules(), mesh=mesh),
                device=dev)
@@ -5179,7 +5403,6 @@ def dist_train_phase(dist=DIST_TRAIN, dev="cuda",
     last one's ranks ended; ``faults`` other than "none" are planted in
     (a) and must each go past its gradient limit.  Prints every check
     beside its limit and returns the readings."""
-    from repro_torch.launch.mesh import spawn
     from repro_torch.runtime.fault_tolerance import elastic_remesh
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
@@ -5191,7 +5414,7 @@ def dist_train_phase(dist=DIST_TRAIN, dev="cuda",
     try:
         spec = dist["train"]
         t0 = time.perf_counter()
-        ref = spawn(_dt_ref_rank, 1, tmp, spec, dev, device=dev,
+        ref = _spawn(_dt_ref_rank, 1, tmp, spec, dev, device=dev,
                     timeout_s=900)[0]
         print(f"[4l (a) reference] one card, one step: loss "
               f"{ref['loss']:.6f}, grad_norm {ref['grad_norm']:.6f}, step "
@@ -5199,7 +5422,7 @@ def dist_train_phase(dist=DIST_TRAIN, dev="cuda",
               f"({time.perf_counter() - t0:.1f}s with the process)",
               flush=True)
         t0 = time.perf_counter()
-        ranks = spawn(_dt_train_rank, dist["world"], tmp, ckdir, spec, dev,
+        ranks = _spawn(_dt_train_rank, dist["world"], tmp, ckdir, spec, dev,
                       planted, device=dev, timeout_s=900)
         a_s = time.perf_counter() - t0
         r0 = ranks[0]
@@ -5291,7 +5514,7 @@ def dist_train_phase(dist=DIST_TRAIN, dev="cuda",
         if shape != (1, spec["model_axis"]):
             raise RuntimeError(f"[4l (b)] elastic_remesh gave {shape}")
         t0 = time.perf_counter()
-        rem = spawn(_dt_remesh_rank, math.prod(shape), ckdir, spec, dev,
+        rem = _spawn(_dt_remesh_rank, math.prod(shape), ckdir, spec, dev,
                     device=dev, timeout_s=900)
         want = r0["more_losses"][0]     # the loss on (a)'s batch after step 1
         rel = abs(rem[0]["loss"] - want) / abs(want)
@@ -5312,9 +5535,9 @@ def dist_train_phase(dist=DIST_TRAIN, dev="cuda",
 
     spec = dist["compressed"]
     t0 = time.perf_counter()
-    plain = spawn(_dt_compressed_ref, 1, spec, dev, device=dev,
+    plain = _spawn(_dt_compressed_ref, 1, spec, dev, device=dev,
                   timeout_s=900)[0]
-    comp = spawn(_dt_compressed_rank, dist["world"], spec, dev, device=dev,
+    comp = _spawn(_dt_compressed_rank, dist["world"], spec, dev, device=dev,
                  timeout_s=900)[0]
     c, u = comp["losses"], plain["losses"]
     step0 = abs(c[0] - u[0]) / abs(u[0])
@@ -5344,13 +5567,12 @@ def dist_train_phase(dist=DIST_TRAIN, dev="cuda",
     tmp = tempfile.mkdtemp(prefix="dist-train-moe-")
     try:
         mref = _dt_moe_refs(tmp, spec, dev)
-        ranks = spawn(_dt_moe_rank, dist["world"], tmp, spec, dev,
+        ranks = _spawn(_dt_moe_rank, dist["world"], tmp, spec, dev,
                       device=dev, timeout_s=900)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     r0 = ranks[0]
-    from repro_torch.configs import get_config
-    cfg = get_config(spec["arch"], smoke=dev != "cuda")
+    cfg = _dt_cfg(spec, dev)
     loss_rel = abs(r0["loss"] - mref["loss"]) / abs(mref["loss"])
     eng = r0["engine"]
     want_attn = cfg.n_layers if dev == "cuda" else 0
@@ -5417,8 +5639,8 @@ def dist_train_phase(dist=DIST_TRAIN, dev="cuda",
 # A world of four spawned ranks on the one card (gloo, as 4k and 4l), 2 x 2
 # ("data", "model"): the only world shape whose model dim divides all three
 # models' heads (recurrentgemma-2b's 10, mamba2-1.3b's 64, whisper-small's
-# 12).  FULL widths; recurrentgemma-2b at 6 of 26 layers (two (R, R, A)
-# super-blocks), mamba2-1.3b at 8 of 48, whisper-small whole (12 + 12).
+# 12).  FULL widths; recurrentgemma-2b at 3 of 26 layers (one (R, R, A)
+# super-block), mamba2-1.3b at 4 of 48, whisper-small whole (12 + 12).
 # Each check is held against one card's run of the same port code on the
 # same weights, made first in a process of its own (its results on the
 # host): (a) one ``make_train_step`` under Megatron-SP (``tp+sp``), one
@@ -5435,9 +5657,9 @@ def dist_train_phase(dist=DIST_TRAIN, dev="cuda",
 DIST_FAMILIES = dict(
     world=4, model_axis=2, seed=21, lr=3e-4,
     archs={
-        RG: dict(n_layers=6, train=dict(batch=2, seq=4096),
+        RG: dict(n_layers=3, train=dict(batch=2, seq=4096),
                  decode=dict(batch=2, prompt_len=2040, steps=16)),
-        MAMBA: dict(n_layers=8, train=dict(batch=2, seq=4096),
+        MAMBA: dict(n_layers=4, train=dict(batch=2, seq=4096),
                     decode=dict(batch=2, prompt_len=4080, steps=16)),
         WHISPER: dict(n_layers=None, train=dict(batch=4, seq=448),
                       decode=dict(batch=2, prompt_len=432, steps=16))},
@@ -5680,7 +5902,6 @@ def dist_families_phase(dist=DIST_FAMILIES, dev="cuda", faults=()) -> dict:
     then the 2 x 2 world; every check printed beside its limit.  With
     ``faults`` only (a) of their models runs, each fault on fresh
     weights, and each must go past (a)'s gradient limit."""
-    from repro_torch.launch.mesh import spawn
     from repro_torch.models.lm import layer_kinds
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
@@ -5698,7 +5919,7 @@ def dist_families_phase(dist=DIST_FAMILIES, dev="cuda", faults=()) -> dict:
                     archs={a: s for a, s in dist["archs"].items()
                            if not faults or a in
                            {DF_FAULTS[f] for f in faults}})
-        ref = spawn(_df_ref_rank, 1, tmp, spec, dev, device=dev,
+        ref = _spawn(_df_ref_rank, 1, tmp, spec, dev, device=dev,
                     timeout_s=900)[0]
         ref_s = time.perf_counter() - t0
         print(f"[4n reference] one card, in a process of its own: "
@@ -5708,7 +5929,7 @@ def dist_families_phase(dist=DIST_FAMILIES, dev="cuda", faults=()) -> dict:
                             for a, r in ref.items()})
               + f" ({ref_s:.1f}s)", flush=True)
         t0 = time.perf_counter()
-        ranks = spawn(_df_rank, dist["world"], tmp, spec, dev,
+        ranks = _spawn(_df_rank, dist["world"], tmp, spec, dev,
                       tuple(faults), device=dev, timeout_s=900)
         world_s = time.perf_counter() - t0
     finally:
@@ -6165,7 +6386,6 @@ def dist_regimes_phase(spec=DIST_REGIMES, dev="cuda", faults=(),
     printed beside its limit.  With ``faults`` each fault is planted in
     (a)'s paged-spatial run or (c)'s prefill, and must go past
     E2E_REL_TOL."""
-    from repro_torch.launch.mesh import spawn
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
     t_all = time.perf_counter()
@@ -6174,7 +6394,7 @@ def dist_regimes_phase(spec=DIST_REGIMES, dev="cuda", faults=(),
     cfg = _dr_cfg(spec, dev)
     try:
         t0 = time.perf_counter()
-        ref = spawn(_dr_ref_rank, 1, tmp, spec, dev, device=dev,
+        ref = _spawn(_dr_ref_rank, 1, tmp, spec, dev, device=dev,
                     timeout_s=900)[0]
         ref_s = time.perf_counter() - t0
         print(f"[4o reference] {cfg.name} at {cfg.n_layers} layers, one "
@@ -6182,7 +6402,7 @@ def dist_regimes_phase(spec=DIST_REGIMES, dev="cuda", faults=(),
               f"launches {ref['launches']}, engine {ref['wall']:.1f}s, peak "
               f"{ref['peak_gb']:.2f} GB ({ref_s:.1f}s)", flush=True)
         t0 = time.perf_counter()
-        ranks = spawn(_dr_rank, spec["world"], tmp, spec, dev,
+        ranks = _spawn(_dr_rank, spec["world"], tmp, spec, dev,
                       tuple(f for f in faults if f == DR_FAULTS[0]),
                       device=dev, timeout_s=900)
         world_s = time.perf_counter() - t0
@@ -6280,11 +6500,10 @@ def dist_regimes_phase(spec=DIST_REGIMES, dev="cuda", faults=(),
 def zero3_phase_alone(dev="cuda", faults=()) -> dict:
     """4o (c) outside 4l: 4l (a)'s one-card reference in a process of its
     own, then ``zero3_world_phase``."""
-    from repro_torch.launch.mesh import spawn
     spec = DIST_TRAIN["train"]
     tmp = tempfile.mkdtemp(prefix="dist-regimes-zero3-")
     try:
-        ref = spawn(_dt_ref_rank, 1, tmp, spec, dev, device=dev,
+        ref = _spawn(_dt_ref_rank, 1, tmp, spec, dev, device=dev,
                     timeout_s=900)[0]
         return zero3_world_phase(tmp, spec, dev, DIST_TRAIN["world"], ref,
                                  DIST_REGIMES["pods"], faults)
@@ -6459,9 +6678,8 @@ def sp_world_phase(refdir, spec, dev, world, ref, tp_peak_gb=None) -> dict:
     rank's recorded collectives equal to the dry trace's, by kind, count
     and bytes in order, and its peak within DRYRUN_PEAK_REL_TOL of the
     trace's.  Printed beside 4l (a)'s peak a rank without SP."""
-    from repro_torch.launch.mesh import spawn
     t0 = time.perf_counter()
-    ranks = spawn(_dt_sp_rank, world, refdir, spec, dev, world, device=dev,
+    ranks = _spawn(_dt_sp_rank, world, refdir, spec, dev, world, device=dev,
                   timeout_s=900)
     r0 = ranks[0]
     loss_rel = abs(r0["loss"] - ref["loss"]) / abs(ref["loss"])
@@ -6632,10 +6850,9 @@ def zero3_world_phase(refdir, spec, dev, world, ref, pods=2,
     the paged prefill under the same rules within E2E_REL_TOL of one
     card's.  With ``faults`` only (b') runs, each fault planted, and
     each must go past E2E_REL_TOL."""
-    from repro_torch.launch.mesh import spawn
     t0 = time.perf_counter()
     for fault in faults:
-        ranks = spawn(_dt_zero3_rank, world, refdir, spec, dev, pods, fault,
+        ranks = _spawn(_dt_zero3_rank, world, refdir, spec, dev, pods, fault,
                       device=dev, timeout_s=900)
         got = max(r["prefill_rel"] for r in ranks)
         print(f"[4o (b') planted: {fault}] the zero3 prefill's last logits "
@@ -6645,7 +6862,7 @@ def zero3_world_phase(refdir, spec, dev, world, ref, pods=2,
                                f"passed: {got}")
     if faults:
         return {}
-    ranks = spawn(_dt_zero3_rank, world, refdir, spec, dev, pods,
+    ranks = _spawn(_dt_zero3_rank, world, refdir, spec, dev, pods,
                   device=dev, timeout_s=900)
     r0 = ranks[0]
     loss_rel = abs(r0["loss"] - ref["loss"]) / abs(ref["loss"])
@@ -6825,10 +7042,9 @@ def dryrun_phase(card: str, sp=None) -> dict:
     t_all = time.perf_counter()
     if sp is None:
         spec = DIST_TRAIN["train"]
-        from repro_torch.launch.mesh import spawn
         tmp = tempfile.mkdtemp(prefix="dryrun-sp-")
         try:
-            ref = spawn(_dt_ref_rank, 1, tmp, spec, "cuda", device="cuda",
+            ref = _spawn(_dt_ref_rank, 1, tmp, spec, "cuda", device="cuda",
                         timeout_s=900)[0]
             sp = sp_world_phase(tmp, spec, "cuda", DIST_TRAIN["world"], ref)
         finally:
@@ -6861,6 +7077,393 @@ def dryrun_phase(card: str, sp=None) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# 4p: the planned cache-free forward
+# ---------------------------------------------------------------------------
+
+def _loss_tol(labels: torch.Tensor) -> float:
+    """The planned kernel path's loss limit against the hand-wired
+    kernel path, over the labelled tokens of ``labels``: LOSS_REL_TOL,
+    the limit of the forward's 4094 per-token terms, scaled by the
+    square root of 4094 over their count, as the relative rounding
+    noise of a mean of n terms falls with the square root of n (2 x 256
+    tokens: 510 terms, 2.83e-4).  Only this comparison takes it: the
+    plan's stitched f32 glue moves the mean by itself, which the
+    witness beside it reads (the planned plain path against the
+    hand-wired plain path); the planned plain path and the mesh are
+    held to LOSS_REL_TOL."""
+    n = int((labels != -100).sum())
+    return LOSS_REL_TOL * math.sqrt(max(4094 / n, 1.0))
+
+
+# The planned forward (``Runtime(planner=True, kernel_ops=True)``) of
+# qwen3-8b FULL at two shapes: B x S -> (the MLP kernel's launches a
+# call: the H100 plan fuses the MLP at 2 x 256 = 512 rows and keeps it
+# three GEMMs at 2 x 2048); a world of 4 ranks over a 1 x 4 mesh at
+# ``mesh_layers`` of 36 layers (2 x 256, the serving rules); the
+# examples' arguments on the card
+PLANNED = dict(shapes={"2x2048": (2, 2048), "2x256": (2, 256)},
+               fused_mlp={"2x2048": False, "2x256": True},
+               mesh=dict(world=4, layers=4, batch=2, seq=256, seed=2),
+               serve_batched=(["--gen", "8"],
+                              ["--arch", "qwen3-8b", "--continuous"]))
+
+
+def _planned_calls(model, params, batch, names, dev) -> tuple:
+    """(loss, logits, launches by call) of ``model``'s loss and forward
+    on ``batch``, each call's counters set to 0 just before and read
+    just after."""
+    launches = {}
+    with torch.inference_mode():
+        _zero(*names)
+        loss = model.loss(params, batch)
+        launches["loss"] = _read(*names)
+        _zero(*names)
+        logits = model.forward(params, batch["tokens"],
+                               batch.get("prefix_embeds"))
+        launches["forward"] = _read(*names)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return loss, logits, launches
+
+
+def planned_phase(cfg, params, spec=PLANNED, dev="cuda") -> dict:
+    """Phase 4p on one card: the planned loss and forward of ``cfg`` at
+    each of ``spec["shapes"]`` — their plans printed, the attention
+    kernel launched once a layer and call, the MLP kernel once a layer
+    and call where the plan fuses the MLP and never where it does not,
+    nothing degraded — each held within FORWARD_REL_TOL (logits) of the
+    hand-wired kernel path and of the planned plain path (the model's
+    twins), its loss within ``_loss_tol`` of the first and LOSS_REL_TOL
+    of the second; beside each, that path against the hand-wired plain
+    path (the witness: what the plan's glue alone, and the kernels
+    alone, move); then the planned and the hand-wired forward's walls
+    and a profile of the planned one."""
+    from repro_torch.core import planner
+    from repro_torch.models.lm import LM, Runtime
+    planned = LM(cfg, Runtime(kernel_ops=True, planner=True), device=dev)
+    refs = {"hand-wired kernel path": LM(cfg, Runtime(kernel_ops=True),
+                                         device=dev),
+            "planned plain path": LM(cfg, Runtime(planner=True),
+                                     device=dev)}
+    witness = LM(cfg, Runtime(), device=dev)    # the hand-wired plain path
+    names = _path_counters()
+    n_attn = planned.kinds.count("attn")
+    out = {}
+    for label, (b, s) in spec["shapes"].items():
+        plan = planner.plan_model(cfg, b, s)
+        fused = any(c.kind == "mlp" and c.fused for c in plan.layer.chains)
+        print(f"[4p {label}] {cfg.name} plan: " + "; ".join(
+            f"{c.kind}{' fused' if c.fused else ''}"
+            f"{' <' + ','.join(c.prologue) if c.prologue else ''}"
+            f"{' >' + ','.join(c.epilogue) if c.epilogue else ''}"
+            for c in plan.layer.chains))
+        if fused != spec["fused_mlp"][label]:
+            raise RuntimeError(f"[4p {label}] the plan fuses the MLP: "
+                               f"{fused}, want {spec['fused_mlp'][label]}")
+        batch = (_forward_batch(cfg, b, s) if dev == "cuda"
+                 else _dist_batch(cfg, dict(batch=b, seq=s, seed=2), dev))
+        t0 = time.perf_counter()
+        loss, logits, launches = _planned_calls(planned, params, batch,
+                                                names, dev)
+        first_s = time.perf_counter() - t0
+        want = {"fused_attention": n_attn,
+                "fused_mlp_chain": n_attn if fused else 0}
+        got = {call: {k: v for k, v in c.items() if v}
+               for call, c in launches.items()}
+        print(f"[4p {label}] planned loss {float(loss):.5f}, forward "
+              f"{tuple(logits.shape)} in {first_s:.2f}s (first calls, the "
+              f"tuning included); launches {got} (want {want} each)")
+        if dev == "cuda" and any(c != {k: v for k, v in want.items() if v}
+                                 for c in got.values()):
+            raise RuntimeError(f"[4p {label}] launches {got}, want {want}")
+        if logits.shape != (b, s, cfg.vocab) or not (
+                torch.isfinite(logits).all() and torch.isfinite(loss)):
+            raise RuntimeError(f"[4p {label}] non-finite or misshapen "
+                               f"output")
+        res = dict(launches=got, plan_fuses_mlp=fused, first_s=first_s)
+        with torch.inference_mode():
+            base_loss = witness.loss(params, batch)
+            base_logits = witness.forward(params, batch["tokens"])
+        loss_tols = {"hand-wired kernel path": _loss_tol(batch["labels"]),
+                     "planned plain path": LOSS_REL_TOL}
+        for ref_label, model in refs.items():
+            with torch.inference_mode():
+                want_loss = model.loss(params, batch)
+                want_logits = model.forward(params, batch["tokens"])
+            loss_tol = loss_tols[ref_label]
+            div = _divergence(loss, logits, want_loss, want_logits,
+                              loss_tol)
+            wit = _divergence(want_loss, want_logits, base_loss,
+                              base_logits)
+            del want_logits, wit["within"]
+            print(f"[4p {label}] planned kernel path vs the {ref_label}: "
+                  f"loss rel {div['loss_rel']:.3g} (tol {loss_tol:.3g}), "
+                  f"logits rel {div['logits_rel']:.3g} (tol "
+                  f"{FORWARD_REL_TOL}), argmax agree "
+                  f"{div['argmax_agree']:.4f}; witness, the {ref_label} "
+                  f"vs the hand-wired plain path: loss rel "
+                  f"{wit['loss_rel']:.3g}, logits rel "
+                  f"{wit['logits_rel']:.3g}")
+            if not div["within"]:
+                raise RuntimeError(f"[4p {label}] the planned forward "
+                                   f"diverges from the {ref_label}")
+            res[ref_label] = div
+            res[f"{ref_label} vs the hand-wired plain path"] = wit
+        del logits, base_logits
+        _no_degradation(f"4p {label}")
+        if dev == "cuda":
+            tokens = batch["tokens"]
+            with torch.inference_mode():
+                res["planned_forward_ms"] = _span_ms(
+                    lambda: planned.forward(params, tokens), reps=3)
+                res["hand_wired_forward_ms"] = _span_ms(
+                    lambda: refs["hand-wired kernel path"].forward(
+                        params, tokens), reps=3)
+                res["profile"] = profile_phase(
+                    lambda: planned.forward(params, tokens),
+                    f"4p planned forward {label}",
+                    f"planned forward (B={b}, S={s}, {cfg.n_layers} "
+                    f"layers)", timed=2, traced=1)
+            print(f"[4p {label}] forward device span: planned "
+                  f"{res['planned_forward_ms']:.2f} ms, hand-wired "
+                  f"{res['hand_wired_forward_ms']:.2f} ms")
+        out[label] = res
+    return out
+
+
+def _planned_cfg(spec, dev):
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen3-8b", smoke=dev != "cuda")
+    return dataclasses.replace(cfg, n_layers=min(cfg.n_layers,
+                                                 spec["layers"]))
+
+
+def _planned_rank(rank, refdir, spec, dev):
+    """One rank of 4p's world: the planned loss and forward on the
+    rank's shards (the serving rules, seed 0 as one card's weights)
+    against one card's planned kernel path; returns its launches by
+    call, its relative errors, the attention regime the tuner picks and
+    its denylist records."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.dist.sharding import Rules
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import report_attention_regimes
+    from repro_torch.models.lm import LM, Runtime
+    mesh = make_host_mesh(spec["world"])
+    rules = Rules(data=("data",), model="model", tp="model", fsdp=False)
+    cfg = _planned_cfg(spec, dev)
+    regime = report_attention_regimes(
+        cfg, mesh, rules, batch=spec["batch"], prompt_len=spec["seq"],
+        total_len=spec["seq"], verbose=rank == 0)["prefill"]
+    model = LM(cfg, Runtime(kernel_ops=True, planner=True, rules=rules,
+                            mesh=mesh), device=dev)
+    params = model.init_params(0)
+    batch = _dist_batch(cfg, spec, dev)
+    t0 = time.perf_counter()
+    loss, logits, launches = _planned_calls(model, params, batch,
+                                            _path_counters(), dev)
+    wall = time.perf_counter() - t0
+    refs = torch.load(os.path.join(refdir, "planned.pt"))
+    loss_rel = abs(float(loss) - refs["loss"]) / abs(refs["loss"])
+    return dict(launches={c: {k: v for k, v in n.items() if v}
+                          for c, n in launches.items()},
+                loss_rel=loss_rel,
+                logits_rel=_rel(logits.float().cpu(), refs["logits"]),
+                regime=regime, wall_s=wall, deny=len(_deny_records()))
+
+
+def planned_mesh_phase(spec=PLANNED["mesh"], dev="cuda") -> dict:
+    """4p under a mesh: one card's planned kernel path at
+    ``spec["layers"]`` layers first (its loss and logits saved, its
+    weights freed), then ``spec["world"]`` spawned ranks (gloo, every
+    rank on the card) over a 1 x world mesh: on every rank the MLP
+    kernel launched once a layer and call on the rank's block (the plan
+    fuses the MLP at 2 x 256), the attention kernel at least once a
+    layer, the loss within LOSS_REL_TOL and the logits within
+    FORWARD_REL_TOL of one card's, nothing degraded, every rank
+    launching alike."""
+    from repro_torch.models.lm import LM, Runtime
+    cfg = _planned_cfg(spec, dev)
+    refdir = tempfile.mkdtemp(prefix="planned-refs-")
+    try:
+        model = LM(cfg, Runtime(kernel_ops=True, planner=True), device=dev)
+        params = model.init_params(0)
+        batch = _dist_batch(cfg, spec, dev)
+        loss_tol = LOSS_REL_TOL
+        loss, logits, _ = _planned_calls(model, params, batch,
+                                         _path_counters(), dev)
+        torch.save({"loss": float(loss), "logits": logits.float().cpu()},
+                   os.path.join(refdir, "planned.pt"))
+        del model, params, logits, batch
+        _free(dev)
+        t0 = time.perf_counter()
+        outs = _spawn(_planned_rank, spec["world"], refdir, spec, dev,
+                     device=dev, timeout_s=600)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(refdir, ignore_errors=True)
+    first = outs[0]
+    print(f"[4p mesh] {spec['world']} ranks, {cfg.name} at {cfg.n_layers} "
+          f"layers, B={spec['batch']} x S={spec['seq']}, attention regime "
+          f"{first['regime']}: launches a rank {first['launches']}; "
+          f"loss rel {max(o['loss_rel'] for o in outs):.3g} (tol "
+          f"{loss_tol:.3g}), logits rel "
+          f"{max(o['logits_rel'] for o in outs):.3g} (tol "
+          f"{FORWARD_REL_TOL}); {wall:.1f}s")
+    for r, o in enumerate(outs):
+        if o["launches"] != first["launches"] or o["deny"]:
+            raise RuntimeError(f"[4p mesh] rank {r} launched "
+                               f"{o['launches']} ({o['deny']} denylist "
+                               f"records), rank 0 {first['launches']}")
+        if o["loss_rel"] > loss_tol or o["logits_rel"] > FORWARD_REL_TOL:
+            raise RuntimeError(f"[4p mesh] rank {r} diverges: {o}")
+    if dev == "cuda":
+        for call, c in first["launches"].items():
+            if (c.get("fused_mlp_chain") != cfg.n_layers
+                    or c.get("fused_attention", 0)
+                    + c.get("fused_attention_partial", 0) < cfg.n_layers):
+                raise RuntimeError(f"[4p mesh] {call} launched {c}")
+    return dict(world=spec["world"], layers=cfg.n_layers,
+                regime=first["regime"], launches=first["launches"],
+                loss_rel=max(o["loss_rel"] for o in outs),
+                logits_rel=max(o["logits_rel"] for o in outs),
+                wall_s=first["wall_s"], seconds=wall)
+
+
+def _planned_rank_attention(cfg, spec=PLANNED):
+    """The attention kernel of a rank of 4p's 1 x world mesh (the
+    serving rules): (the tuned kernel ``kernels.ops.attention_shard``
+    runs on the rank's block, its regime, the block's shape (B, Hq, Hkv,
+    S, D))."""
+    from repro_torch.core import api
+    from repro_torch.core.perf_model import H100
+    from repro_torch.dist.sharding import Rules, dispatch_mesh_spec
+    from repro_torch.kernels import ops
+    w, b, s = (spec["mesh"][k] for k in ("world", "batch", "seq"))
+    d = cfg.dh
+    mesh = _MeshShape(data=1, model=w)
+    rules = Rules(data=("data",), model="model", tp="model", fsdp=False)
+    hq, hkv, dt = cfg.n_heads, cfg.n_kv_heads, torch.bfloat16
+    spatial = dispatch_mesh_spec(rules, mesh, kind="attention", batch=b,
+                                 feature_dims=(hkv, hq), ici_bw=H100.ici_bw)
+    choice, _ = ops.attention_regime_choice(
+        rules, mesh, batch=b, q_heads=hq, kv_heads=hkv, q_len=s, kv_len=s,
+        head_dim=d, dtype=_dtname(dt), causal=True, window=0,
+        scale=d ** -0.5, spatial=spatial)
+    regime = choice.regime if choice is not None else "spatial"
+    if regime != "spatial":
+        raise RuntimeError(f"[4p] the rank's attention regime is {regime}")
+    tk = choice.kernel if choice is not None else api.fuse_attention(
+        s, s, d, d, heads=hq, batch=b, dtype=_dtname(dt), causal=True,
+        scale=d ** -0.5, mesh=spatial[0] if any(spatial[1:]) else None)
+    return tk, regime, (b, hq // w, hkv // w, s, d)
+
+
+def planned_kernel_phase(cfg, spec=PLANNED) -> dict:
+    """Phase 3 at 4p's new shapes, each against its plain version within
+    bf16 TOL: the MLP kernel at M = 2 x 256 = 512 rows, at full width
+    and at the N = d_ff / world block of a rank of the 1 x world mesh
+    (the tuner's tiles and split for each); the normalised attention at
+    qwen3-8b's 2 x 256 forward and at the rank's block (its q and kv
+    heads, the tiles of the rank's regime search).  Returns the largest
+    absolute error of each kernel."""
+    (b, s), bf = spec["shapes"]["2x256"], torch.bfloat16
+    w = spec["mesh"]["world"]
+    err = dict(fused_mlp_chain=0.0)
+    for label, n in (("", cfg.d_ff), (f", a rank's block (d_ff / {w})",
+                                      cfg.d_ff // w)):
+        x, kw = _mlp_case(dataclasses.replace(cfg, d_ff=n), b * s, bf, True,
+                          "silu", 40)
+        got, want, tiles, splits = _mlp_run(x, "silu", kw, None)
+        torch.testing.assert_close(got, want, **TOL[bf])
+        e = float((got.float() - want.float()).abs().max())
+        err["fused_mlp_chain"] = max(err["fused_mlp_chain"], e)
+        print(f"MLP kernel vs plain [4p M={b * s}{label}] N={n} K=H="
+              f"{cfg.d_model} bf16 {kw['style']} tiles={tiles} "
+              f"splits={splits}: max|err|={e:.3g} tol={TOL[bf]} ok")
+        del x, got, want
+    tk, regime, (rb, rh, rg, rs, d) = _planned_rank_attention(cfg, spec)
+    err["fused_attention"] = _attention_cases(
+        [("4p forward 2x256", b, cfg.n_heads, cfg.n_kv_heads, s, s, cfg.dh,
+          bf, True, 0, None),
+         (f"4p forward 2x256, a rank's block ({regime})", rb, rh, rg, rs,
+          rs, d, bf, True, 0, (tk.params.bq, tk.params.bkv))], 41)
+    return err
+
+
+def planned_time_phase(cfg, spec=PLANNED) -> dict:
+    """Kernel times at 4p's new shapes: the MLP kernel at M = 512 beside
+    its plain version, the unfused ``mlp_block`` and its bound, at full
+    width and at a rank's N = d_ff / world block; the normalised
+    attention at 2 x 256 beside its plain version, SDPA and its bound,
+    and at the rank's block (the tiles of its regime search)."""
+    from repro_torch.kernels import attention as A
+    b, s = spec["shapes"]["2x256"]
+    w = spec["mesh"]["world"]
+    out = {"fused_mlp_chain": mlp_time_phase(cfg, "4p m512", b * s,
+                                             profile=False),
+           "fused_attention": attention_time_phase(
+               cfg, table_iii=False, b=b, m=s, other=())}
+    out["fused_mlp_chain"]["rank_block"] = mlp_time_phase(
+        dataclasses.replace(cfg, d_ff=cfg.d_ff // w),
+        f"4p m512 rank block N={cfg.d_ff // w}", b * s, profile=False)
+    tk, regime, (rb, rh, rg, rs, d) = _planned_rank_attention(cfg, spec)
+    dt, scale = torch.bfloat16, d ** -0.5
+    q, k, v = _randn([(rb, rh, rs, d), (rb, rg, rs, d), (rb, rg, rs, d)],
+                     dt, 307)
+    with torch.inference_mode():
+        out["fused_attention"]["rank_block"] = dict(
+            shape=[rb, rh, rg, rs, rs, d], regime=regime,
+            tiles=[tk.params.bq, tk.params.bkv],
+            kernel_ms=_adaptive_ms(lambda: tk(q, k, v)),
+            plain_ms=_adaptive_ms(lambda: A.fused_attention_plain(
+                q, k, v, tk.params.bkv, True, 0, scale), reps=1),
+            library_ms=_adaptive_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, scale=scale, enable_gqa=True)),
+            **_bound(_nbytes(q, k, v) + q.numel() * q.element_size(),
+                     _attention_ops(rb, rh, rs, rs, d, d, True), dt))
+    for name, t in out.items():
+        print(f"[4p times] {name} at a rank's block: "
+              + json.dumps(t["rank_block"]))
+    return out
+
+
+def examples_phase(spec=PLANNED) -> dict:
+    """The three example drivers, each run once on the card with its
+    defaults (``serve_batched`` also with ``--continuous``), the kernel
+    counters set to 0 just before each and read after; nothing may
+    degrade.  ``train_lm`` asserts its loss falls."""
+    from repro_torch.launch import fuse_custom_chain, serve_batched, train_lm
+    runs = {"fuse_custom_chain": (fuse_custom_chain.main, [])}
+    for argv in spec["serve_batched"]:
+        runs["serve_batched " + " ".join(argv)] = (serve_batched.main, argv)
+    ckdir = tempfile.mkdtemp(prefix="train-lm-")
+    runs["train_lm"] = (train_lm.main, ["--ckpt-dir", ckdir])
+    names = _path_counters()
+    out = {}
+    try:
+        for label, (main, argv) in runs.items():
+            _zero(*names)
+            t0 = time.perf_counter()
+            res = main(argv)
+            torch.cuda.synchronize()
+            out[label] = dict(seconds=time.perf_counter() - t0,
+                              launches={k: v for k, v in _read(*names).items()
+                                        if v})
+            if label == "train_lm":
+                out[label].update(first_loss=res["first_loss"],
+                                  final_loss=res["final_loss"])
+            elif label.startswith("serve_batched"):
+                out[label].update(counts=res["counts"])
+            print(f"[4p examples] {label}: {out[label]}")
+            _no_degradation(f"4p example {label}")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    return out
+
 def codeqwen_phase() -> dict:
     """codeqwen1.5-7b at every FULL width and depth (32 layers, 32 q
     heads on 32 kv heads: the partial kernel at a GQA group of 1),
@@ -6888,11 +7491,13 @@ def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--plant-faults"], ["--reliability"], ["--train"],
                     ["--moe"], ["--archs"], ["--dist"], ["--dist-train"],
-                    ["--dryrun"], ["--dist-families"], ["--dist-regimes"]):
+                    ["--dryrun"], ["--dist-families"], ["--dist-regimes"],
+                    ["--planned"]):
         raise SystemExit("usage: python3 chip_smoke.py "
                          "[--plant-faults | --reliability | --train | "
                          "--moe | --archs | --dist | --dist-train | "
-                         "--dryrun | --dist-families | --dist-regimes]")
+                         "--dryrun | --dist-families | --dist-regimes | "
+                         "--planned]")
     smi = device_phase()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     # tuned schedules persist inside the checkout (.cache/ is gitignored)
@@ -6942,6 +7547,19 @@ def main(argv=None) -> None:
         finally:
             pool.shutdown(cancel_futures=True)
         print(json.dumps({"dist_regimes": regimes}, default=str))
+        print(smi)
+        return
+    if argv == ["--planned"]:
+        err = planned_kernel_phase(cfg)
+        params = init_phase(cfg)
+        planned = planned_phase(cfg, params)
+        del params
+        torch.cuda.empty_cache()
+        planned["mesh"] = planned_mesh_phase()
+        planned["examples"] = examples_phase()
+        planned["max_abs_err"] = err
+        planned["times"] = planned_time_phase(cfg)
+        print(json.dumps({"planned": planned}, default=str))
         print(smi)
         return
     if argv == ["--plant-faults"]:
@@ -7017,11 +7635,14 @@ def main(argv=None) -> None:
     slice3_err = slice3_check_phase(cfg)
     moe_err = moe_kernel_check_phase(olmoe, mixtral, moe_tiles, n_ctx)
     archs_err = archs_kernel_check_phase(rg, pixtral)
+    planned_err = planned_kernel_phase(cfg)
+    _clock("kernel checks")
     # the three-GEMM kernel is on no main path, as in the JAX package:
     # its counter, set to 0 here, must still read 0 after them all
     _zero("fused_gemm_chain3")
     front = quickstart_phase()
     _no_degradation("quickstart")
+    _clock("quickstart")
     params = init_phase(cfg)
     hand, _, hand_launches, hand_eager, _ = serve_phase(
         cfg, params, planned=False)
@@ -7032,6 +7653,7 @@ def main(argv=None) -> None:
             raise RuntimeError("the engine ran other tiles than the "
                                "tuner's")
     end_to_end_check(cfg, params, hand, planned)
+    _clock("serve")
     steps = {"hand_wired": step_profile_phase(hand, "hand-wired"),
              "planned": step_profile_phase(planned, "planned")}
     # ``engine``, the loop variable above, holds the planned engine and
@@ -7039,15 +7661,21 @@ def main(argv=None) -> None:
     del hand, planned, hand_eager, planned_eager, engine
     torch.cuda.empty_cache()
     reliability_phase(cfg, params)
+    _clock("reliability")
     torch.cuda.empty_cache()
     fwd = forward_phase(cfg, params)
     _no_degradation("forward")
     generate_phase(cfg, params)
     _no_degradation("generate")
+    _clock("forward and generate")
+    planned_fwd = planned_phase(cfg, params)
     del params
     torch.cuda.empty_cache()
+    planned_fwd["examples"] = examples_phase()
+    _clock("4p")
     codeqwen = codeqwen_phase()
     steps[CODEQWEN] = codeqwen["step"]
+    _clock("codeqwen")
     gparams = init_phase(granite)
     mqa, _, mqa_launches, mqa_eager, _ = serve_phase(
         granite, gparams, planned=False)
@@ -7055,25 +7683,36 @@ def main(argv=None) -> None:
         raise RuntimeError(f"the {GRANITE} engine ran other tiles than "
                            f"the tuner's")
     steps["granite_20b"] = step_profile_phase(mqa, GRANITE)
+    _clock("granite-20b")
     del mqa, mqa_eager, gparams
     _free("cuda")
-    # 4k: every weight of the parent freed, the world's ranks share the card
-    refdir = tempfile.mkdtemp(prefix="dist-refs-")
-    dist_refs_all(refdir)
-    dist = dist_phase(refdir)
-    shutil.rmtree(refdir)
-    _no_degradation("4k")
-    dist_train = dist_train_phase()
-    _no_degradation("4l")
-    families = dist_families_phase()
-    _no_degradation("4n")
-    regimes = dist_regimes_phase(zero3=dist_train["zero3"])
-    _no_degradation("4o")
+    # every weight of the parent freed, the worlds' ranks share the card;
+    # each world runs on the pool's processes
+    with _world_pool(DIST["world"]):
+        planned_fwd["mesh"] = planned_mesh_phase()
+        _clock("4p mesh")
+        refdir = tempfile.mkdtemp(prefix="dist-refs-")
+        dist_refs_all(refdir)
+        dist = dist_phase(refdir)
+        shutil.rmtree(refdir)
+        _no_degradation("4k")
+        _clock("4k")
+        dist_train = dist_train_phase()
+        _no_degradation("4l")
+        _clock("4l")
+        families = dist_families_phase()
+        _no_degradation("4n")
+        _clock("4n")
+        regimes = dist_regimes_phase(zero3=dist_train["zero3"])
+        _no_degradation("4o")
+        _clock("4o")
     moe = moe_phase()
     steps[OLMOE] = moe["step_profile"]
     steps[MIXTRAL] = moe["mixtral_step_profile"]
+    _clock("moe")
     archs = archs_phase()
     ssm_encdec = ssm_encdec_phase()
+    _clock("archs")
     chain3_launches = _read("fused_gemm_chain3")["fused_gemm_chain3"]
     print(f"[main paths] fused_gemm_chain3 launches: {chain3_launches} "
           f"(want 0)")
@@ -7081,7 +7720,9 @@ def main(argv=None) -> None:
         raise RuntimeError("a main path launched fused_gemm_chain3")
     # 4g, after every serving phase and the counters' last read
     train = training_phase(smi)
+    _clock("training")
     dry = dryrun_phase(smi, sp=dist_train["sp"])
+    _clock("4m")
     print("[steps] decode step wall / device busy / busy share / span (ms):"
           + "".join(f" {path} {mode} {p['wall_ms']:.3f} / "
                     f"{p['busy_ms']:.3f} / "
@@ -7107,6 +7748,8 @@ def main(argv=None) -> None:
     t_dist = dist_time_phase()
     t_families = dist_families_time_phase()
     dr_err, t_regimes = dist_regimes_kernel_phase(pretuned=pretuned)
+    t_planned = planned_time_phase(cfg)
+    _clock("times")
     pool.shutdown()
     dist_launches = {
         name: sum(counts.get(name, 0) for counts in dist["launches"].values())
@@ -7127,6 +7770,14 @@ def main(argv=None) -> None:
         "fused_attention_partial"]
     by_path["fused_attention_partial"]["4l (d) a rank"] = dist_train[
         "moe"]["launches"]["engine"]["fused_attention_partial"]
+    planned_by_path = {name: {
+        **{f"4p planned {call} {label}": planned_fwd[label]["launches"][
+            call].get(name, 0)
+           for label in PLANNED["shapes"] for call in ("loss", "forward")},
+        **{f"4p (1x4) planned {call} a rank": planned_fwd["mesh"][
+            "launches"][call].get(name, 0) for call in ("loss", "forward")}}
+        for name in ("fused_mlp_chain", "fused_attention")}
+    by_path["fused_mlp_chain"].update(planned_by_path["fused_mlp_chain"])
     for name in SERVED:
         by_path[name]["4o (a) a rank"] = sum(
             e["launches"].get(name, 0) for e in regimes["engines"].values())
@@ -7168,7 +7819,8 @@ def main(argv=None) -> None:
         "replaces": "src/repro/kernels/gemm_chain.py:205",
         "launches": launches["fused_mlp_chain"],
         "launches_by_path": by_path["fused_mlp_chain"],
-        "max_abs_err": max(mlp_err, dr_err),
+        "max_abs_err": max(mlp_err, dr_err,
+                           planned_err["fused_mlp_chain"]),
         "ms": t_mlp["decode"]["kernel_ms"],
         "plain_ms": t_mlp["decode"]["plain_ms"],
         "bound_ms": t_mlp["decode"]["bound_ms"],
@@ -7187,6 +7839,12 @@ def main(argv=None) -> None:
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "unfused_ms",
             "tiles", "splits", "tile_sweep_ms", "tuning_s")}
             for label, t in t_regimes.items()},
+        **{key: {k: t[k] for k in (
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "unfused_ms",
+            "tiles", "splits", "tile_sweep_ms")}
+           for key, t in (("m512_4p", t_planned["fused_mlp_chain"]),
+                          ("m512_rank_block_4p",
+                           t_planned["fused_mlp_chain"]["rank_block"]))},
         "passed": True,
     }, {
         "name": "fused_attention",
@@ -7209,9 +7867,11 @@ def main(argv=None) -> None:
                 "forward"]["fused_attention"],
             **{f"4n (c) {RG} {call} a rank": families["archs"][RG][
                 "launches"][0][call]["fused_attention"]
-               for call in ("loss", "forward")}},
+               for call in ("loss", "forward")},
+            **planned_by_path["fused_attention"]},
         "max_abs_err": max(slice3_err["fused_attention"],
-                           moe_err["fused_attention"], archs_err),
+                           moe_err["fused_attention"], archs_err,
+                           planned_err["fused_attention"]),
         "ms": t_attn["kernel_ms"],
         "plain_ms": t_attn["plain_ms"],
         "bound_ms": t_attn["bound_ms"],
@@ -7226,6 +7886,11 @@ def main(argv=None) -> None:
         "recurrentgemma_2b_forward_d256": t_archs["recurrentgemma_forward"],
         "pixtral_12b_forward": t_archs["pixtral_forward"],
         "spatial_rank_block": t_dist["fused_attention"],
+        "forward_2x256_4p": {k: t_planned["fused_attention"][k] for k in (
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "tiles")},
+        "forward_2x256_rank_block_4p": t_planned["fused_attention"][
+            "rank_block"],
         "recurrentgemma_2b_rank_block_4n": t_families,
         "passed": True,
     }, {
@@ -7284,6 +7949,7 @@ def main(argv=None) -> None:
     print(json.dumps({"dist_families": families}, default=str))
     print(json.dumps({"dist_regimes": regimes}, default=str))
     print(json.dumps({"dryrun": dry}, default=str))
+    print(json.dumps({"planned": planned_fwd}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

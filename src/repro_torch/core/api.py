@@ -495,6 +495,10 @@ def fuse_attention_paged_regimes(M: int, N: int, K: int, H: int, *,
         for name, spec in regimes.items()})
 
 
-def clear_cache() -> None:
-    """Drop the per-process cache (the disk entries stay)."""
+def clear_cache(disk: bool = False) -> None:
+    """Drop the per-process cache; ``disk=True`` also deletes the
+    persistent entries under ``REPRO_TORCH_CACHE_DIR``
+    (``schedule_cache.clear``)."""
     _CACHE.clear()
+    if disk:
+        schedule_cache.clear()

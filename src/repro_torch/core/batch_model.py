@@ -38,15 +38,16 @@ scalar implementation stays the reference; this module must follow it.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterable, Sequence
+from typing import Iterable, Optional, Sequence
 
 import numpy as np
 
 from .chain import Chain, DTYPE_BYTES
 from .dag import bind_grid, build_schedule
-from .perf_model import (GpuSpec, H100, TpuSpec, chain_tie_break,
-                         kernel_smem_bytes, kernel_split_terms,
-                         kernel_tiles_ok)
+from .perf_model import (GpuSpec, H100, MeshSpec, TpuSpec, chain_peak_flops,
+                         chain_tie_break, collective_bytes, kernel_smem_bytes,
+                         kernel_split_terms, kernel_tiles_ok,
+                         t_coll_pipelined)
 from .tiling import Scope, expr_repr
 
 
@@ -286,7 +287,7 @@ class ExprClassTable:
                                   axis=1, dtype=np.int64)
                        * self.chain.batch * splits)
         t_mem = (mem_total + extra) / hw.hbm_bw
-        t_comp = comp_total / hw.peak_flops
+        t_comp = comp_total / chain_peak_flops(self.chain, hw)
         alpha = (g + hw.alpha_extra) / g
         vmem = vmem_mem + vmem_comp
         tiles_ok = np.ones(A, dtype=bool)
@@ -299,6 +300,42 @@ class ExprClassTable:
         return PricedBatch(t_mem=t_mem, t_comp=t_comp, alpha=alpha,
                            est=(t_mem + t_comp) * alpha + tie,
                            vmem=vmem, valid=valid, tiles_ok=tiles_ok)
+
+    # ---- views over price() (the JAX package's per-term accessors) ----
+    def t_mem_batch(self, tiles: np.ndarray,
+                    hw: "TpuSpec | GpuSpec" = H100) -> np.ndarray:
+        return self.price(tiles, hw).t_mem
+
+    def t_comp_batch(self, tiles: np.ndarray,
+                     hw: "TpuSpec | GpuSpec" = H100) -> np.ndarray:
+        return self.price(tiles, hw).t_comp
+
+    def alpha_batch(self, tiles: np.ndarray,
+                    hw: "TpuSpec | GpuSpec" = H100) -> np.ndarray:
+        return self.price(tiles, hw).alpha
+
+    def rule2_valid(self, tiles: np.ndarray) -> np.ndarray:
+        """hard_rule2 mask: True where no intermediate tile blows up."""
+        return self.price(tiles).valid
+
+    def vmem_batch(self, tiles: np.ndarray,
+                   hw: "TpuSpec | GpuSpec" = H100) -> np.ndarray:
+        return self.price(tiles, hw).vmem
+
+    def estimate_batch(self, tiles: np.ndarray,
+                       hw: "TpuSpec | GpuSpec" = H100,
+                       mesh: Optional[MeshSpec] = None) -> np.ndarray:
+        """Eq (2') per row, with ``perf_model.estimate``'s collective
+        term under a mesh (the pipelined ring's per row, as it depends
+        on the row's tile time)."""
+        t = self.price(tiles, hw).est
+        if mesh is not None and not mesh.is_single:
+            if mesh.pipelined:
+                t = t + np.array([t_coll_pipelined(self.chain, mesh,
+                                                   float(x)) for x in t])
+            else:
+                t = t + collective_bytes(self.chain, mesh) / mesh.ici_bw
+        return t
 
 
 @dataclass(frozen=True)
@@ -329,3 +366,25 @@ def as_tile_matrix(chain: Chain,
     names = list(chain.loops)
     return np.asarray([[a[n] for n in names] for a in assignments],
                       dtype=np.int64)
+
+
+def estimate_batch(chain: Chain, expr: Scope,
+                   tile_matrix: "np.ndarray | Iterable[dict[str, int]]",
+                   hw: "TpuSpec | GpuSpec" = H100,
+                   mesh: Optional[MeshSpec] = None) -> np.ndarray:
+    """Eq (2') for every row of ``tile_matrix`` at once: equal to
+    ``[estimate(build_schedule(chain, expr, ts), hw, mesh) for ts in
+    rows]``, without building any Schedule."""
+    table = ExprClassTable.build(chain, expr)
+    return table.estimate_batch(as_tile_matrix(chain, tile_matrix), hw,
+                                mesh)
+
+
+def vmem_estimate_batch(chain: Chain, expr: Scope,
+                        tile_matrix: "np.ndarray | Iterable[dict[str, int]]",
+                        hw: "TpuSpec | GpuSpec" = H100) -> np.ndarray:
+    """Rule 4's residency for every row at once (``PricedBatch.vmem``):
+    eq (1)'s VMEM under ``TpuSpec``, a CUDA kernel's shared memory under
+    ``GpuSpec``."""
+    table = ExprClassTable.build(chain, expr)
+    return table.vmem_batch(as_tile_matrix(chain, tile_matrix), hw)

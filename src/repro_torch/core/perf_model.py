@@ -49,7 +49,7 @@ from .ring import (ICI_HOP_LATENCY_S, pipelined_overlap_seconds,
 # (chain, tile assignment, mesh) — new terms, retuned constants, changed
 # hoisting semantics.  core.schedule_cache folds this into every disk
 # key, so persisted schedules from an older model never resurface.
-MODEL_VERSION = 7
+MODEL_VERSION = 8
 
 
 @dataclass(frozen=True)
@@ -441,7 +441,7 @@ def t_comp(sched: Schedule, hw: "TpuSpec | GpuSpec" = H100) -> float:
             if sz < hw.tile_unit:
                 util *= sz / hw.tile_unit
         total += flops_per_visit * sched.trips(s) / max(util, 1e-9)
-    return total / hw.peak_flops
+    return total / chain_peak_flops(sched.chain, hw)
 
 
 def alpha(sched: Schedule, hw: "TpuSpec | GpuSpec" = H100) -> float:
@@ -495,6 +495,34 @@ def vmem_estimate(sched: Schedule, hw: "TpuSpec | GpuSpec" = H100) -> int:
             mult = sched.cached_intermediates.get(s.tensor, 1)
             total += tile_elems * mult * DTYPE_BYTES["float32"]
     return total
+
+
+def fits_vmem(sched: Schedule, hw: "TpuSpec | GpuSpec" = H100) -> bool:
+    """Rule 4's on-chip budget alone: the schedule's residency
+    (``rule4_bytes``: VMEM under ``TpuSpec``, shared memory per thread
+    block under ``GpuSpec``) within ``hw.rule4_budget``.  ``rule4_ok``
+    adds the CUDA kernel's tile rule."""
+    return rule4_bytes(sched, hw) <= hw.rule4_budget
+
+
+def chain_peak_flops(chain: Chain, hw: "TpuSpec | GpuSpec" = H100) -> float:
+    """The peak rate of ``chain``'s operations: under ``GpuSpec`` the
+    tensor cores' where every input is 16-bit, else the CUDA cores' f32
+    rate (the port's kernels allow no TF32); under ``TpuSpec`` the
+    MXU's, as the JAX package prices every type."""
+    if isinstance(hw, GpuSpec) and any(
+            chain.tensors[n].dtype_bytes > 2 for n in chain.input_names):
+        return hw.peak_flops_f32
+    return hw.peak_flops
+
+
+def roofline_bound(sched: Schedule, hw: "TpuSpec | GpuSpec" = H100) -> float:
+    """Lower bound on any schedule of this chain: the ideal fused IO at
+    full bandwidth against the chain's operations at the peak for its
+    type (``chain_peak_flops``) — whichever dominates."""
+    chain = sched.chain
+    return max(chain.fused_io_bytes() / hw.hbm_bw,
+               chain.total_flops() / chain_peak_flops(chain, hw))
 
 
 def is_attention(chain: Chain) -> bool:

@@ -50,7 +50,7 @@ from typing import Optional
 from . import schedule_cache
 from .chain import (Chain, DTYPE_BYTES, attention_chain, mlp_chain,
                     single_gemm)
-from .perf_model import GpuSpec, H100, MeshSpec, TpuSpec
+from .perf_model import GpuSpec, H100, MeshSpec, TpuSpec, chain_peak_flops
 from .pruning import stitched_vmem_ok
 
 # Bump when the carve/stitch semantics change: old plan records become
@@ -615,7 +615,7 @@ def _roofline_seconds(chain: Chain, hw: "TpuSpec | GpuSpec",
     read once, outputs written once)."""
     local = mesh.localize(chain) if mesh is not None else chain
     return max(local.fused_io_bytes() / hw.hbm_bw,
-               local.total_flops() / hw.peak_flops)
+               local.total_flops() / chain_peak_flops(local, hw))
 
 
 def _glue_elems(node: OpNode, cfg, batch: int, seq: int,

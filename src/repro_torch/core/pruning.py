@@ -378,3 +378,20 @@ def generate_candidates_batch(chain: Chain, hw: "TpuSpec | GpuSpec" = H100,
             _MATRIX_CACHE.pop(next(iter(_MATRIX_CACHE)))
         _MATRIX_CACHE[memo_key] = cm
     return cm
+
+
+def expression_classes(chain: Chain, hard_rule2: bool = False,
+                       hw: "TpuSpec | GpuSpec" = H100) -> dict[str, Scope]:
+    """Distinct per-block sub-tiling expressions (Rule-1 classes) of
+    ``chain`` at a reference tile assignment — each dim tiled by the
+    descriptor's unit (the MXU's 128 under ``TpuSpec``, as the JAX
+    package's; a tensor core's 16 under ``GpuSpec``) or whole where
+    smaller — for reporting and tests (paper Fig. 7)."""
+    ref_tiles = {n: max(1, min(hw.tile_unit, d))
+                 for n, d in chain.loops.items()}
+    out: dict[str, Scope] = {}
+    for expr in enumerate_tilings(chain):
+        sched = build_schedule(chain, expr, ref_tiles, hard_rule2=hard_rule2)
+        if sched.valid:
+            out.setdefault(sched.sub_expr(), expr)
+    return out

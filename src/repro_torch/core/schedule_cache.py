@@ -78,6 +78,7 @@ TRIAL_KINDS = ("analytic", "measured")
 
 _ENV_DIR = "REPRO_TORCH_CACHE_DIR"
 _ENV_ENABLE = "REPRO_TORCH_SCHEDULE_CACHE"
+_ENTRY_NAME = re.compile(r"[0-9a-f]{32}\.json")
 _DENY_NAME = re.compile(r"deny-[0-9a-f]{32}\.json")
 CORRUPT_SUFFIX = ".corrupt"
 
@@ -449,3 +450,37 @@ def list_quarantined() -> list[dict]:
             except (OSError, ValueError):
                 pass
     return out
+
+
+def _ours(name: str) -> bool:
+    return bool(_ENTRY_NAME.fullmatch(name) or _DENY_NAME.fullmatch(name))
+
+
+def clear() -> int:
+    """Delete every cache entry; returns the number of entries and
+    denylist records removed.
+
+    Only files of this module's naming — ``<32-hex>.json`` entries and
+    plan records, ``deny-*.json`` records, and their ``*.corrupt`` /
+    ``*.lock`` companions (not counted) — are touched: the cache
+    directory may be a shared scratch directory holding other tools'
+    JSON files."""
+    n = 0
+    d = cache_dir()
+    if not d.is_dir():
+        return n
+    for p in d.glob("*.json"):
+        if _ours(p.name):
+            try:
+                p.unlink()
+                n += 1
+            except OSError:
+                pass
+    for pattern in ("*.json" + CORRUPT_SUFFIX, "*.json.lock"):
+        for p in d.glob(pattern):
+            if _ours(p.name.split(".json", 1)[0] + ".json"):
+                try:
+                    p.unlink()
+                except OSError:
+                    pass
+    return n

@@ -212,6 +212,26 @@ def _whole_weights(ctx: Mesh, p: dict, specs: dict) -> dict:
     return out
 
 
+def _attention_regime(cfg: ModelConfig, ctx: Optional[Mesh]) -> tuple:
+    """The cache-free attention's regime under ``ctx``, for
+    ``attention_block`` and ``run_planned_layer`` alike: ``(rows, whole,
+    enter, leave)``.  Under sequence parallelism without a
+    tensor-parallel dim the rank's rows attend to every key
+    (``_attention_rows``: x kept as it is, the output the rank's block);
+    where the tensor-parallel dim does not split the heads every head
+    runs on every rank (``_whole_weights``, ``_enter_whole``,
+    ``_leave_whole``); otherwise the rank's heads (``_enter``,
+    ``_leave``)."""
+    tp = _tp(ctx)
+    if tp is None and _seq(ctx) is not None:
+        return True, False, (lambda t: t), (lambda t: t)
+    if tp is not None and not _split_heads(cfg, tp):
+        return (False, True, lambda t: _enter_whole(ctx, t),
+                lambda t: _leave_whole(ctx, t))
+    return (False, False, lambda t: _enter(ctx, t),
+            lambda t: _leave(ctx, t))
+
+
 def _enter_whole(ctx: Optional[Mesh], x: torch.Tensor) -> torch.Tensor:
     """``_enter`` for a mixer that runs whole on every rank: the
     sequence gathered under sequence parallelism; under tensor
@@ -1216,6 +1236,57 @@ def distributed_decode_attention(q: torch.Tensor, cache: dict,
     return o if whole else tp.shard(o, 1)
 
 
+def _free_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    cfg: ModelConfig, *, causal: bool, bkv: int,
+                    kernel_ops: bool, ctx: Optional[Mesh] = None,
+                    whole: bool = False, q_offset=None) -> torch.Tensor:
+    """The cache-free attention core of ``attention_block``, which the
+    planned block (``run_planned_layer``) runs too.  q: (B, Hq, M, dh),
+    k/v: (B, Hkv, N, dh) after rope: this rank's heads under a
+    tensor-parallel dim (every head where ``whole``), kv heads gathered
+    whole where the dim does not divide them.  ``kernel_ops`` routes a
+    sequence of more than one token through the fused kernel
+    (``kernels.ops.attention``, or ``attention_shard`` on the rank's
+    heads under a mesh); otherwise the kv heads are repeated and the
+    streaming twin runs past two kv blocks (``cfg.use_fused_attention``),
+    the naive one below.  ``q_offset``: q holds the rank's rows from that
+    position on against every key (``_attention_rows``), which the fused
+    kernel has no form for.  Returns (B, Hq, M, dh)."""
+    tp = _tp(ctx)
+    win, scale = cfg.attn_window, 1.0 / math.sqrt(cfg.dh)
+    if kernel_ops and q_offset is not None:
+        raise NotImplementedError(
+            "the cache-free forward under kernel_ops with sequence "
+            "parallelism and no tensor-parallel dim (a rank's q rows "
+            "against every key) has no fused-kernel form; run it with "
+            "kernel_ops off (ROADMAP Queue 3, a refusal under kernel_ops)")
+    if kernel_ops and q.shape[2] > 1:
+        from ..kernels import ops
+        if ctx is None or whole:
+            return ops.attention(q, k, v, causal=causal, window=win,
+                                 scale=scale)
+        # this rank's q heads over the kv heads they read: kv heads
+        # gathered whole (the dim does not divide them) are cut to the
+        # rank's run, and the tuner sees the ranks' blocks of them side
+        # by side
+        hkv = cfg.n_kv_heads
+        if tp is not None and k.shape[1] == hkv:
+            lo, hi, _ = _kv_range(cfg, tp)
+            k, v, hkv = k[:, lo:hi], v[:, lo:hi], (hi - lo) * tp.size
+        return ops.attention_shard(
+            q, k, v, batch=ctx.batch, q_heads=cfg.n_heads, kv_heads=hkv,
+            mesh=ctx.mesh, rules=ctx.rules, causal=causal, window=win,
+            scale=scale)
+    heads = None if whole else tp
+    kk, vv = _kv_for_q(k, cfg, heads), _kv_for_q(v, cfg, heads)
+    off = 0 if q_offset is None else q_offset
+    if cfg.use_fused_attention and k.shape[2] > 2 * bkv:
+        return streaming_attention(q, kk, vv, causal=causal, window=win,
+                                   scale=scale, bkv=bkv, q_offset=off)
+    return naive_attention(q, kk, vv, causal=causal, window=win,
+                           scale=scale, q_offset=off)
+
+
 def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor, bkv: int = 512,
                     kernel_ops: bool = False,
@@ -1250,60 +1321,30 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     Under sequence parallelism without a tensor-parallel dim the rank's
     rows attend to every key (``_attention_rows``)."""
     tp = _tp(ctx)
-    if tp is None and _seq(ctx) is not None:
+    rows, whole, enter, leave = _attention_regime(cfg, ctx)
+    if rows:
         return _attention_rows(p, x, cfg, positions=positions, bkv=bkv,
                                kernel_ops=kernel_ops, cache=cache,
                                causal=causal, ctx=ctx)
-    whole = tp is not None and not _split_heads(cfg, tp)
     if whole:
         p = _whole_weights(ctx, p, specs_attention(cfg, ctx.rules))
-        x = _enter_whole(ctx, x)
-    elif _seq(ctx) is not None:
-        x = _enter(ctx, x)
+    x = enter(x)
     b, s, _ = x.shape
-    dh = cfg.dh
-    win = cfg.attn_window
     q, k, v = _project_qkv(p, x, cfg, positions, None if whole else tp,
-                           entered=_seq(ctx) is not None)
+                           entered=True)
     if (cache is not None and tp is not None and not whole
             and cache["k"].shape[1] == cfg.n_kv_heads
             and k.shape[2] != cfg.n_kv_heads):
         k, v = _gather_heads(tp, k, v)  # a sequence-sharded cache
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-    scale = 1.0 / math.sqrt(dh)
     if cache is not None:
         o = _cached_attention(q, k, v, cfg, positions=positions,
                               cache=cache, bkv=bkv, causal=causal, ctx=ctx,
                               whole=whole)
-    elif kernel_ops and s > 1:
-        from ..kernels import ops
-        if ctx is None or whole:
-            o = ops.attention(q, k, v, causal=causal, window=win,
-                              scale=scale)
-        else:
-            # this rank's q heads over the kv heads they read: kv heads
-            # gathered whole (the dim does not divide them) are cut to
-            # the rank's run, and the tuner sees the ranks' blocks of
-            # them side by side
-            hkv = cfg.n_kv_heads
-            if tp is not None and k.shape[1] == hkv:
-                lo, hi, _ = _kv_range(cfg, tp)
-                k, v, hkv = k[:, lo:hi], v[:, lo:hi], (hi - lo) * tp.size
-            o = ops.attention_shard(
-                q, k, v, batch=ctx.batch, q_heads=cfg.n_heads,
-                kv_heads=hkv, mesh=ctx.mesh, rules=ctx.rules,
-                causal=causal, window=win, scale=scale)
     else:
-        heads = None if whole else tp
-        kk, vv = _kv_for_q(k, cfg, heads), _kv_for_q(v, cfg, heads)
-        if cfg.use_fused_attention and s > 2 * bkv:
-            o = streaming_attention(q, kk, vv, causal=causal, window=win,
-                                    scale=scale, bkv=bkv)
-        else:
-            o = naive_attention(q, kk, vv, causal=causal, window=win,
-                                scale=scale)
-    out = o.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
-    return _leave_whole(ctx, out) if whole else _leave(ctx, out)
+        o = _free_attention(q, k, v, cfg, causal=causal, bkv=bkv,
+                            kernel_ops=kernel_ops, ctx=ctx, whole=whole)
+    return leave(o.transpose(1, 2).reshape(b, s, -1) @ p["wo"])
 
 
 def _attention_rows(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -1327,25 +1368,13 @@ def _attention_rows(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     q, k, v = _project_qkv(p, x, cfg, qpos)
     k, v = sp.gather(k, 1), sp.gather(v, 1)
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-    win, scale = cfg.attn_window, 1.0 / math.sqrt(cfg.dh)
     if cache is not None:
         o = _cached_attention(q, k, v, cfg, positions=positions,
                               cache=cache, bkv=bkv, causal=causal,
                               q_positions=qpos)
-    elif kernel_ops:
-        raise NotImplementedError(
-            "the cache-free forward under kernel_ops with sequence "
-            "parallelism and no tensor-parallel dim (a rank's q rows "
-            "against every key) has no fused-kernel form; run it with "
-            "kernel_ops off (ROADMAP Queue 3, a refusal under kernel_ops)")
     else:
-        kk, vv = _kv_for_q(k, cfg, None), _kv_for_q(v, cfg, None)
-        if cfg.use_fused_attention and k.shape[2] > 2 * bkv:
-            o = streaming_attention(q, kk, vv, causal=causal, window=win,
-                                    scale=scale, bkv=bkv, q_offset=qpos[0])
-        else:
-            o = naive_attention(q, kk, vv, causal=causal, window=win,
-                                scale=scale, q_offset=qpos[0])
+        o = _free_attention(q, k, v, cfg, causal=causal, bkv=bkv,
+                            kernel_ops=kernel_ops, q_offset=qpos[0])
     return o.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
 
 
@@ -1561,28 +1590,35 @@ def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def run_planned_layer(lp, p: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                      positions: torch.Tensor, rt, cache: dict,
-                      page_table: torch.Tensor,
+                      positions: torch.Tensor, rt,
+                      cache: Optional[dict] = None,
+                      page_table: Optional[torch.Tensor] = None,
                       ctx: Optional[Mesh] = None
-                      ) -> tuple[torch.Tensor, dict]:
+                      ) -> tuple[torch.Tensor, Optional[dict]]:
     """Execute one attention block from a planner ``LayerPlan`` — the
     zero-hand-specified-chains path behind ``Runtime(planner=True)``.
 
     Walks the plan's op DAG; every node runs the same torch code the
-    hand-wired block runs (``paged_attention_block`` + ``mlp_block``),
-    so a stitch-disabled plan is bit-identical to the hand-wired layer.
-    Glue stitched into a carved chain as prologue/epilogue instead
-    computes in f32 (the ``_*_f32`` twins) with ONE downcast at the
-    carved unit's boundary, where a fused kernel's final store would
-    round; on float32 configs that is still bitwise identical.
+    hand-wired block runs (``attention_block`` or
+    ``paged_attention_block``, then ``mlp_block``), so a stitch-disabled
+    plan is bit-identical to the hand-wired layer.  Glue stitched into a
+    carved chain as prologue/epilogue instead computes in f32 (the
+    ``_*_f32`` twins) with ONE downcast at the carved unit's boundary,
+    where a fused kernel's final store would round; on float32 configs
+    that is still bitwise identical.
 
-    Serving plans carry a ``kv_write`` node: this step's k/v are
-    scattered IN PLACE into the paged ``cache`` ({"k_pages",
-    "v_pages"}) through ``page_table``, then the attention core runs the
-    hand-wired block's ``_paged_attention`` (the CUDA decode kernel
-    under ``rt.kernel_ops`` on the card, the gather twin otherwise; the
-    ring regime under ``ctx.dist_decode``).  Only paged caches are
-    executed.
+    The cache-free forward (``cache`` None, a ``phase="forward"`` plan):
+    the attention core is the hand-wired block's (``_free_attention``):
+    under ``rt.kernel_ops`` one ``kernels.ops.attention`` call for a
+    sequence of more than one token (the fused CUDA kernel on the card),
+    else the kv heads repeated and the streaming or naive twin.  Serving
+    plans carry a ``kv_write`` node: this step's k/v are scattered IN
+    PLACE into the paged ``cache`` ({"k_pages", "v_pages"}) through
+    ``page_table``, then the attention core runs the hand-wired block's
+    ``_paged_attention`` (the CUDA decode kernel under ``rt.kernel_ops``
+    on the card, the gather twin otherwise; the ring regime under
+    ``ctx.dist_decode``).  A contiguous cache is not executed here: the
+    hand-wired block serves it.
 
     Kernel dispatch: under ``rt.kernel_ops`` a *fused* planner-carved
     MLP chain runs as ONE ``kernels.ops.mlp_chain`` call (the tuned
@@ -1602,28 +1638,56 @@ def run_planned_layer(lp, p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     added on each rank before the sum would count it once a rank); a
     stitched ``ln2`` prologue runs on the whole, replicated input.
     Under sequence parallelism x is the rank's block of the sequence,
-    gathered before the q/k/v and MLP products (``_enter``).  With
-    stitching off the layer stays bit-identical to the hand-wired one
-    under the same mesh.
+    gathered before the q/k/v and MLP products (``_enter``).  The
+    cache-free block runs the attention as ``attention_block`` does
+    under the same ``ctx``: heads the dim does not split run whole on
+    every rank (``_whole_weights``), and under sequence parallelism
+    without a tensor-parallel dim the rank's rows attend to every key
+    and its MLP runs on its rows (``_attention_rows``, ``mlp_block``).
+    With stitching off the layer stays bit-identical to the hand-wired
+    one under the same mesh.
 
     lp: ``core.planner.LayerPlan``; p: the layer's parameters
-    ({"ln1", "mix", "ln2", "ff"}).  Returns ``(out, cache)``.
+    ({"ln1", "mix", "ln2", "ff"}).  Returns ``(out, cache)``: the pools
+    written in place, or None for the cache-free forward.
     """
-    if cache is None or "k_pages" not in cache or page_table is None:
+    paged = cache is not None
+    if paged and ("k_pages" not in cache or page_table is None):
         raise NotImplementedError(
-            "run_planned_layer executes paged serving caches only "
-            "(a {'k_pages', 'v_pages'} cache and its page_table)")
+            "run_planned_layer executes the cache-free forward and paged "
+            "serving caches (a {'k_pages', 'v_pages'} cache and its "
+            "page_table); a contiguous cache is served by the hand-wired "
+            "block")
     d = x.shape[-1]
     dh = cfg.dh
     dt = x.dtype
     pm, pf = p["mix"], p["ff"]
-    tp = _tp(ctx)
+    tp, sp = _tp(ctx), _seq(ctx)
+    # the cache-free attention's regime under ctx is attention_block's;
+    # a paged block runs on the rank's heads
+    rows, whole_mix, att_in, att_out = (
+        (False, False, lambda t: _enter(ctx, t), lambda t: _leave(ctx, t))
+        if paged else _attention_regime(cfg, ctx))
+    heads = None if whole_mix else tp
+    qpos = sp.shard(positions, 0) if rows else positions
+    if rows or whole_mix:
+        pm = _whole_weights(ctx, pm, specs_attention(cfg, ctx.rules))
+    elif tp is not None and cfg.qk_norm:
+        pm = dict(pm, q_norm=tp.enter(pm["q_norm"]),
+                  k_norm=tp.enter(pm["k_norm"]))
+    # mlp_block runs on the rank's rows as they are without a
+    # tensor-parallel dim
+    ff_in, ff_out = ((lambda t: t, lambda t: t) if not paged and tp is None
+                     else (lambda t: _enter(ctx, t), lambda t: _leave(ctx, t)))
+    if sp is not None:      # the norms' gradients: each rank its block's
+        p = dict(p, **{k: {n: sp.enter(w) for n, w in p[k].items()}
+                       for k in ("ln1", "ln2")})
     entered: dict = {}
 
-    def whole(name: str) -> torch.Tensor:
+    def whole(name: str, enter) -> torch.Tensor:
         # a product's input made whole for the rank's columns, once
         if name not in entered:
-            entered[name] = _enter(ctx, env[name])
+            entered[name] = enter(env[name])
         return entered[name]
 
     stitched: set = set()
@@ -1654,12 +1718,12 @@ def run_planned_layer(lp, p: dict, x: torch.Tensor, cfg: ModelConfig, *,
             continue
         if mlp_unit is not None and nm == mlp_unit.ops[0]:
             from ..kernels import ops
-            xin = whole(ins[0])
+            xin = whole(ins[0], ff_in)
             out = ops.mlp_chain(
                 xin.reshape(-1, d), pf["w_up"], pf["w_down"],
                 w_gate=pf["w_gate"] if gated(cfg) else None,
                 act=act_name(cfg)).reshape(xin.shape)
-            out = _leave(ctx, out)
+            out = ff_out(out)
             nm = mlp_unit.ops[-1]
             if nm in downcast_at:
                 out = out.to(dt)
@@ -1672,18 +1736,18 @@ def run_planned_layer(lp, p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                    else rmsnorm(env[ins[0]], p[nm]["w"], cfg.norm_eps))
         elif role == "gemm":
             if nm in ("wq", "wk", "wv"):
-                xin = whole(ins[0])
+                xin = whole(ins[0], att_in)
                 out = _mm(xin, pm[nm])
-                if (nm != "wq" and tp is not None
+                if (nm != "wq" and heads is not None
                         and cfg.n_kv_heads % tp.size):
-                    out = tp.all_gather(out, -1)    # every kv head
+                    out = tp.gather(out, -1)        # every kv head
                 out = out.reshape(*xin.shape[:2], -1, dh)
             elif nm == "wo":
-                out = _leave(ctx, _mm(env[ins[0]], pm["wo"]))
+                out = att_out(_mm(env[ins[0]], pm["wo"]))
             elif nm in ("w_gate", "w_up"):
-                out = _mm(whole(ins[0]), pf[nm])
+                out = _mm(whole(ins[0], ff_in), pf[nm])
             elif nm == "w_down":
-                out = _leave(ctx, _mm(env[ins[0]], pf[nm]))
+                out = ff_out(_mm(env[ins[0]], pf[nm]))
             else:
                 raise ValueError(f"unknown gemm node {nm!r}")
         elif role == "qk_norm":
@@ -1692,9 +1756,9 @@ def run_planned_layer(lp, p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                    if nm in stitched
                    else rmsnorm(env[ins[0]], w, cfg.norm_eps))
         elif role == "rope":
-            out = (_rope_f32(env[ins[0]], positions, cfg.rope_theta)
+            out = (_rope_f32(env[ins[0]], qpos, cfg.rope_theta)
                    if nm in stitched
-                   else rope(env[ins[0]], positions, cfg.rope_theta))
+                   else rope(env[ins[0]], qpos, cfg.rope_theta))
         elif role == "kv_write":
             # this step's k/v written through to the pool, as the
             # hand-wired block does (masked rows land on the scratch
@@ -1709,10 +1773,20 @@ def run_planned_layer(lp, p: dict, x: torch.Tensor, cfg: ModelConfig, *,
             # the attention core executes as one unit (fused chain or
             # not — fusion changes pricing and kernel dispatch, not the
             # math): the hand-wired block's core, the ring included
-            o = _paged_attention(
-                env[ins[0]].transpose(1, 2), cache, page_table, positions,
-                cfg=cfg, ctx=ctx, kernel_ops=rt.kernel_ops,
-                block=rt.paged_block)
+            q = env[ins[0]].transpose(1, 2)
+            if paged:
+                o = _paged_attention(
+                    q, cache, page_table, positions, cfg=cfg, ctx=ctx,
+                    kernel_ops=rt.kernel_ops, block=rt.paged_block)
+            else:
+                k, v = env[ins[1]], env["wv"]
+                if rows:
+                    k, v = sp.gather(k, 1), sp.gather(v, 1)
+                o = _free_attention(
+                    q, k.transpose(1, 2), v.transpose(1, 2), cfg,
+                    causal=True, bkv=rt.bkv, kernel_ops=rt.kernel_ops,
+                    ctx=ctx, whole=whole_mix,
+                    q_offset=qpos[0] if rows else None)
             env["qk"] = env["softmax"] = None   # folded into this unit
             out = o.transpose(1, 2).flatten(2)
             nm = "pv"

@@ -5,9 +5,9 @@ in a repeating ``pattern``) or state-space (mamba2: Mamba-2 blocks
 without an MLP): the cache-free forward and loss,
 fixed-batch decoding over a contiguous cache, and paged serving of the
 attention-only stacks, hand-wired or run from the fusion planner's
-plans (``Runtime(planner=True)``, paged serving of the configs the
-planner can plan, on one card or under a mesh; the others run
-hand-wired, as in the JAX package).
+plans (``Runtime(planner=True)``: the cache-free forward and paged
+serving of the configs the planner can plan, on one card or under a
+mesh; the others run hand-wired, as in the JAX package).
 
 The JAX package's ``LM`` scans a stack of stacked layer parameters
 (``n_super`` repeats of the pattern) and runs the remainder as an
@@ -123,13 +123,13 @@ class Runtime:
     paged_block: Optional[tuple] = None  # (bq, bkv) tiles the paged
     # regime search picked — serving.engine threads them so the kernel
     # executes the schedule the tuner priced.
-    planner: bool = False   # run every paged-serving block from
-    # core.planner's plan for its phase (prefill/decode) — chains carved
-    # and glue stitched from the config alone under the H100 descriptor;
-    # with kernel_ops, each fused MLP chain runs as the fused_mlp_chain
-    # CUDA kernel.  A config the planner cannot plan
-    # (core.planner.plannable: MoE) runs hand-wired.  The cache-free
-    # forward has no planned path yet.
+    planner: bool = False   # run every cache-free and paged-serving
+    # attention block from core.planner's plan for its phase
+    # (forward/prefill/decode) — chains carved and glue stitched from
+    # the config alone under the H100 descriptor; with kernel_ops, each
+    # fused MLP chain runs as the fused_mlp_chain CUDA kernel.  A config
+    # the planner cannot plan (core.planner.plannable: MoE, hybrid,
+    # state-space) and a contiguous cache run hand-wired.
     stitch: bool = True     # planner mode only: stitch memory-bound
     # glue into carved chains as prologue/epilogue; False is
     # bit-identical to the hand-wired layer.
@@ -710,19 +710,21 @@ class LM(Sharded):
                      positions: torch.Tensor,
                      cache: Optional[dict] = None,
                      ctx: Optional[L.Mesh] = None) -> torch.Tensor:
-        """One hand-wired block of ``kind`` over its contiguous ``cache``
-        (a KV cache or a recurrent state, written in place), or
-        cache-free (the forward).  The planner plans only cache-free and
-        paged blocks of the configs it can plan, so a cached block, and
-        any block of an MoE or hybrid config, runs hand-wired under
-        ``Runtime(planner=True)`` too, as in the JAX package.  The
-        attention layers use ``cfg.attn_window``."""
+        """One block of ``kind`` over its contiguous ``cache`` (a KV
+        cache or a recurrent state, written in place), or cache-free
+        (the forward).  A cache-free attention block of a config the
+        planner can plan runs from its plan under
+        ``Runtime(planner=True)`` (``_planned_block``); a cached block,
+        and any block of an MoE, hybrid or state-space config, runs
+        hand-wired, as in the JAX package.  The attention layers use
+        ``cfg.attn_window``."""
         cfg, rt = self.cfg, self.rt
-        if rt.planner and cache is None and planner.plannable(cfg):
-            raise NotImplementedError(
-                "the planned cache-free forward is not ported; use "
-                "Runtime(planner=False)")
         p = self._layer(p, kind, ctx)
+        if (rt.planner and cache is None and kind == "attn"
+                and planner.plannable(cfg)):
+            out = self._planned_block(p, x, positions, ctx)
+            if out is not None:
+                return out
         h = self._norm(p["ln1"], x, ctx)
         if kind == "attn":
             x = x + L.attention_block(p["mix"], h, cfg, positions=positions,
@@ -736,6 +738,49 @@ class LM(Sharded):
             return x
         h2 = self._norm(p["ln2"], x, ctx)
         return x + L.feed_forward(p["ff"], h2, cfg, ctx)
+
+    def _planned_block(self, p: dict, x: torch.Tensor,
+                       positions: torch.Tensor, ctx: Optional[L.Mesh],
+                       cache: Optional[dict] = None,
+                       page_table: Optional[torch.Tensor] = None
+                       ) -> Optional[torch.Tensor]:
+        """One attention block from the planner's plan — the forward's
+        without a cache, the paged prefill's or decode step's with one —
+        at the call's global batch and sequence (the prefix included;
+        under a mesh ``ctx.batch`` and the sequence over its dim, as
+        the JAX package executes it), on this rank's shards
+        (``layers.run_planned_layer``).  None where the hand-wired block
+        must serve it: its plan key is quarantined (circuit breaker),
+        or planning or running it failed in a way the breaker may
+        degrade from (the failure is recorded first); any other failure
+        raises."""
+        from ..reliability import breaker as _breaker
+        cfg, rt = self.cfg, self.rt
+        b, s = x.shape[:2]
+        if ctx is not None:
+            b = ctx.batch
+            s = s * (ctx.seq.size if ctx.seq is not None else 1)
+        plan_kw = {}
+        if cache is not None:
+            ps = cache["k_pages"].shape[2]
+            plan_kw = dict(phase="prefill" if s > 1 else "decode",
+                           paged=ps, kv_len=page_table.shape[1] * ps)
+        pkey = planner.plan_key(cfg, b, s, rt.stitch, **plan_kw)
+        if _breaker.is_open(pkey):
+            return None
+        try:
+            plan = planner.plan_model(cfg, b, s, stitch=rt.stitch,
+                                      **plan_kw)
+            out, _ = L.run_planned_layer(plan.layer, p, x, cfg,
+                                         positions=positions, rt=rt,
+                                         cache=cache, page_table=page_table,
+                                         ctx=ctx)
+            return out
+        except Exception as e:  # noqa: BLE001 - degrade below
+            if not _breaker.degradable(e):
+                raise
+            _breaker.record_failure(pkey, reason=f"{type(e).__name__}: {e}")
+            return None
 
     def _positions(self, tokens: torch.Tensor,
                    prefix_embeds: Optional[torch.Tensor]) -> torch.Tensor:
@@ -803,40 +848,15 @@ class LM(Sharded):
                      page_table: torch.Tensor,
                      ctx: Optional[L.Mesh] = None) -> torch.Tensor:
         """One paged block: planned where the ``Runtime`` asks for it and
-        the planner can plan the config, else hand-wired.  Under a mesh
-        the plan is the global one — planned at the call's global batch
-        and sequence, without the mesh, as the JAX package executes it —
-        and runs on this rank's shards (``layers.run_planned_layer``)."""
+        the planner can plan the config (``_planned_block``), else
+        hand-wired."""
         cfg, rt = self.cfg, self.rt
         p = self._layer(p, "attn", ctx)
         if rt.planner and planner.plannable(cfg):
-            from ..reliability import breaker as _breaker
-            b, s = x.shape[:2]
-            if ctx is not None:
-                b = ctx.batch
-                s = s * (ctx.seq.size if ctx.seq is not None else 1)
-            ps = cache["k_pages"].shape[2]
-            plan_kw = dict(phase="prefill" if s > 1 else "decode",
-                           paged=ps, kv_len=page_table.shape[1] * ps)
-            pkey = planner.plan_key(cfg, b, s, rt.stitch, **plan_kw)
-            # A quarantined plan fingerprint (circuit breaker) serves
-            # the hand-wired block below — bit-identical with stitching
-            # off — instead of retrying the broken planned dispatch; a
-            # failing one is quarantined first if the breaker may
-            # degrade from its failure, else the failure raises.
-            if not _breaker.is_open(pkey):
-                try:
-                    plan = planner.plan_model(cfg, b, s, stitch=rt.stitch,
-                                              **plan_kw)
-                    out, _ = L.run_planned_layer(
-                        plan.layer, p, x, cfg, positions=positions, rt=rt,
-                        cache=cache, page_table=page_table, ctx=ctx)
-                    return out
-                except Exception as e:  # noqa: BLE001 - degrade below
-                    if not _breaker.degradable(e):
-                        raise
-                    _breaker.record_failure(
-                        pkey, reason=f"{type(e).__name__}: {e}")
+            out = self._planned_block(p, x, positions, ctx, cache,
+                                      page_table)
+            if out is not None:
+                return out
         h = self._norm(p["ln1"], x, ctx)
         mix, _ = L.paged_attention_block(
             p["mix"], h, cfg, positions=positions, cache=cache,

@@ -118,11 +118,22 @@ def test_kernel_path_is_forward_only(weights):
     assert torch.isfinite(p["layers"][0]["mix"]["wq"].grad).all()
 
 
-def test_planned_forward_is_not_ported(weights):
+def test_planned_forward_runs(weights):
+    """``Runtime(planner=True)`` runs the cache-free forward and loss
+    from the planner's plans: without stitching the hand-wired numbers
+    bit for bit (tests/test_torch_planned_forward.py holds the planned
+    path to the reference)."""
     _, _, params = weights
-    model = LM(CFG, Runtime(planner=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="planned cache-free"):
-        model.forward(params, torch.from_numpy(_batch()[0]).long())
+    tokens, labels = (torch.from_numpy(a).long() for a in _batch())
+    batch = {"tokens": tokens, "labels": labels}
+    with torch.no_grad():
+        want = LM(CFG, Runtime(), device="cpu").forward(params, tokens)
+        model = LM(CFG, Runtime(planner=True, stitch=False), device="cpu")
+        got = model.forward(params, tokens)
+        assert torch.equal(model.loss(params, batch),
+                           LM(CFG, Runtime(), device="cpu").loss(params,
+                                                                 batch))
+    assert torch.equal(got, want)
 
 
 def test_chunked_ce_matches_reference_over_several_chunks():

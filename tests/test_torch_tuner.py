@@ -6,6 +6,7 @@ tuner code is a copy; only the descriptor differs).  Under the H100
 descriptor every winner must pass the shared-memory Rule 4 with the
 CUDA kernel's own footprint formula.
 """
+import dataclasses
 import json
 
 import pytest
@@ -250,3 +251,182 @@ def test_schedule_cache_is_the_ports_own(port_cache, monkeypatch, tmp_path):
     again = api.fuse_attention_paged(1, 4096, 128, 128, **kw)
     assert again.source == "search" and again.params == tk.params
     assert list(port_cache.glob("*.json.corrupt"))
+
+
+# ---------------------------------------------------------------------------
+# the tuner's reporting functions: roofline_bound, fits_vmem,
+# expression_classes, the batch model's per-term views, clear
+# ---------------------------------------------------------------------------
+
+ROOFLINE_CHAINS = [(512, 32), (1024, 256)]   # tests/test_search_and_model
+
+
+@pytest.mark.parametrize("m,k", ROOFLINE_CHAINS)
+def test_roofline_bound_and_fits_vmem_match_reference_under_v5e(m, k):
+    """Under ``V5E`` the bound and Rule 4's budget equal the
+    reference's on its candidates, and on every tile assignment of a
+    small chain (the ones past the budget included)."""
+    pytest.importorskip("jax")
+    from repro.core import chain as RC
+    from repro.core import dag as RD
+    from repro.core import perf_model as RP
+    from repro.core import pruning as RPr
+    from repro.core.tiling import enumerate_tilings as ref_tilings
+    from repro_torch.core.perf_model import fits_vmem, roofline_bound
+    from repro_torch.core.pruning import generate_candidates
+    ours = generate_candidates(gemm_chain(m, m, k, k), V5E)[:50]
+    theirs = RPr.generate_candidates(RC.gemm_chain(m, m, k, k))[:50]
+    assert [s.key() for s in ours] == [s.key() for s in theirs]
+    for a, b in zip(ours, theirs):
+        assert roofline_bound(a, V5E) == RP.roofline_bound(b, RP.V5E)
+        assert fits_vmem(a, V5E) and RP.fits_vmem(b, RP.V5E)
+    chain, rchain = (gemm_chain(8192, 8192, 8192, 8192),
+                     RC.gemm_chain(8192, 8192, 8192, 8192))
+    expr, rexpr = enumerate_tilings(chain)[0], ref_tilings(rchain)[0]
+    fits = []
+    for t in (128, 1024, 8192):      # in budget, and past it
+        ts = dict.fromkeys("mnkh", t)
+        fits.append(fits_vmem(build_schedule(chain, expr, ts), V5E))
+        assert fits[-1] == RP.fits_vmem(RD.build_schedule(rchain, rexpr, ts),
+                                        RP.V5E)
+    assert fits[0] and not fits[-1]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_roofline_bound_takes_the_peak_of_the_chains_type(dtype):
+    """Under ``H100`` a 16-bit chain is bounded at the tensor cores'
+    peak, an f32 one at the CUDA cores' (the kernels allow no TF32)."""
+    from repro_torch.core.perf_model import chain_peak_flops, roofline_bound
+    chain = gemm_chain(1024, 1024, 256, 256, dtype=dtype)
+    peak = H100.peak_flops if dtype == "bfloat16" else H100.peak_flops_f32
+    assert chain_peak_flops(chain, H100) == peak
+    assert chain_peak_flops(chain, V5E) == V5E.peak_flops
+    sched = heuristic_search(chain, hw=H100, seed=0).best
+    assert roofline_bound(sched, H100) == max(
+        chain.fused_io_bytes() / H100.hbm_bw, chain.total_flops() / peak)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("m,k", [(512, 32), (512, 256), (1024, 64)])
+def test_estimate_above_roofline_bound_under_h100(m, k, dtype):
+    """The port's form of tests/test_search_and_model.py's bound: every
+    candidate the H100 tuner keeps is estimated at or above the
+    roofline, an f32 chain's products priced at the CUDA cores' peak as
+    its bound is."""
+    from repro_torch.core.perf_model import roofline_bound
+    from repro_torch.core.pruning import generate_candidates
+    cands = generate_candidates(gemm_chain(m, m, k, k, dtype=dtype), H100)
+    assert cands
+    for c in cands:
+        assert estimate(c, H100) >= roofline_bound(c, H100) * 0.99
+
+
+@pytest.mark.parametrize("hard_rule2", [False, True])
+def test_expression_classes_match_reference_under_v5e(hard_rule2):
+    """tests/test_core_tiling.py's chains: the same Rule-1 classes, each
+    first met at the same expression."""
+    pytest.importorskip("jax")
+    from repro.core import chain as RC
+    from repro.core.pruning import expression_classes as ref_classes
+    from repro.core.tiling import expr_repr as ref_repr
+    from repro_torch.core.pruning import expression_classes
+    from repro_torch.core.tiling import expr_repr
+    for ours, theirs in ((gemm_chain(1024, 1024, 512, 512),
+                          RC.gemm_chain(1024, 1024, 512, 512)),
+                         (attention_chain(512, 512, 64, 64),
+                          RC.attention_chain(512, 512, 64, 64))):
+        got = expression_classes(ours, hard_rule2=hard_rule2, hw=V5E)
+        want = ref_classes(theirs, hard_rule2=hard_rule2)
+        assert {k: expr_repr(v) for k, v in got.items()} == {
+            k: ref_repr(v) for k, v in want.items()}
+    assert set(expression_classes(gemm_chain(1024, 1024, 512, 512),
+                                  hw=V5E)) == {"nk", "kn", "n(k,h)"}
+    # under H100 the reference tiles are the tensor core's 16: the
+    # same three classes of the GEMM chain
+    assert set(expression_classes(gemm_chain(1024, 1024, 512, 512))) == {
+        "nk", "kn", "n(k,h)"}
+
+
+def _ref_mesh(mesh):
+    from repro.core.perf_model import MeshSpec as RefMeshSpec
+    return RefMeshSpec(axes=mesh.axes, placement=mesh.placement,
+                       batch_axes=mesh.batch_axes, pipelined=mesh.pipelined)
+
+
+def test_batch_functions_match_reference_under_v5e():
+    """tests/test_batch_model.py's chains, every expression class and
+    tile assignment: each per-term view and the module functions equal
+    the reference's bit for bit, under a mesh too."""
+    pytest.importorskip("jax")
+    import numpy as np
+    from repro.core import batch_model as RB
+    from repro.core import chain as RC
+    from repro.core.tiling import enumerate_tilings as ref_tilings
+    from repro_torch.core import batch_model as B
+    from repro_torch.core.perf_model import MeshSpec
+    serial = MeshSpec(axes=(("data", 2), ("model", 4)),
+                      placement=(("n", "model"),), batch_axes=("data",))
+    # the reference's batch function prices every mesh serially: the
+    # pipelined ring is held to the port's scalar estimate alone
+    piped = dataclasses.replace(serial, pipelined=True)
+    for ours, theirs in ((gemm_chain(256, 256, 128, 128, dtype="bfloat16"),
+                          RC.gemm_chain(256, 256, 128, 128,
+                                        dtype="bfloat16")),
+                         (attention_chain(384, 384, 64, 64, heads=2),
+                          RC.attention_chain(384, 384, 64, 64, heads=2))):
+        rows = list(iter_tile_assignments(ours, rule3=False))
+        tiles = as_tile_matrix(ours, rows)
+        for expr, rexpr in zip(enumerate_tilings(ours),
+                               ref_tilings(theirs)):
+            t, r = (ExprClassTable.build(ours, expr),
+                    RB.ExprClassTable.build(theirs, rexpr))
+            for name in ("t_mem_batch", "t_comp_batch", "alpha_batch",
+                         "vmem_batch"):
+                assert np.array_equal(getattr(t, name)(tiles, V5E),
+                                      getattr(r, name)(tiles)), name
+            assert np.array_equal(t.rule2_valid(tiles),
+                                  r.rule2_valid(tiles))
+            for mesh in (None, serial):
+                rmesh = None if mesh is None else _ref_mesh(mesh)
+                assert np.array_equal(
+                    B.estimate_batch(ours, expr, rows, V5E, mesh),
+                    RB.estimate_batch(theirs, rexpr, rows, mesh=rmesh))
+            for mesh in (None, serial, piped):
+                for i in (0, len(rows) // 2, len(rows) - 1):
+                    assert B.estimate_batch(ours, expr, rows[i:i + 1],
+                                            V5E, mesh)[0] == estimate(
+                        build_schedule(ours, expr, rows[i]), V5E, mesh)
+            assert np.array_equal(
+                B.vmem_estimate_batch(ours, expr, tiles, V5E),
+                RB.vmem_estimate_batch(theirs, rexpr, tiles))
+
+
+def test_schedule_cache_clear_returns_its_count(port_cache):
+    """``clear`` removes the entries, plan records and denylist records
+    (their lock and quarantine companions too) and returns their count;
+    another tool's files stay.  ``api.clear_cache(disk=True)`` clears
+    the directory as well as the memo."""
+    from repro_torch.core import planner
+    from repro_torch.configs import get_config
+    api.fuse_gemm_chain(M=256, N=128, K=64, H=64, dtype="bfloat16")
+    planner.clear_memo()
+    planner.plan_model(get_config("qwen3-8b", smoke=True), 1, 8)
+    planner.clear_memo()
+    assert schedule_cache.quarantine(("probe",), H100, reason="test")
+    ours = sorted(p.name for p in port_cache.glob("*.json"))
+    assert len(ours) >= 3 and any(n.startswith("deny-") for n in ours)
+    (port_cache / ours[0]).with_suffix(".json.lock").write_text("")
+    foreign = port_cache / "other-tool.json"
+    foreign.write_text("{}")
+    assert schedule_cache.clear() == len(ours)
+    assert sorted(p.name for p in port_cache.iterdir()) == [foreign.name]
+    assert schedule_cache.clear() == 0
+    api.clear_cache()
+    api.fuse_gemm_chain(M=256, N=128, K=64, H=64, dtype="bfloat16")
+    api.clear_cache()
+    assert api.fuse_gemm_chain(M=256, N=128, K=64, H=64,
+                               dtype="bfloat16").source == "disk"
+    api.clear_cache(disk=True)
+    assert sorted(p.name for p in port_cache.iterdir()) == [foreign.name]
+    assert api.fuse_gemm_chain(M=256, N=128, K=64, H=64,
+                               dtype="bfloat16").source == "search"
