@@ -338,6 +338,29 @@ which raises on failure:
       ``DryMesh`` by kind, count and bytes in order, its peak within
       DRYRUN_PEAK_REL_TOL of the trace's, printed beside 4l (a)'s peak
       without SP; a ``{"dryrun": ...}`` line before the kernels line;
+   q. the kernels' stitching hooks and the tuner's measured trials
+      (``hooks_phase``, after the kernel times; no main path passes a
+      hook or a ``measure_fn``): (a) each hooked kernel against its
+      plain version with the same hooks within TOL, at the shapes the
+      kernel table times — the MLP kernel at qwen3-8b's decode (M=4,
+      the tuner's 128 splits), prefill (M=144) and the planned
+      forward's M=512 with a tanh prologue and the epilogue tanh(0.5
+      x), which must follow the sum of the splits; the GEMM chain at
+      G12 bf16 and G1 f32 and the three-GEMM chain in bf16 with a tanh
+      prologue and the epilogue 0.5 x; the attention at qwen3-8b's
+      forward and at Table III S2 f32 with q * 2, tanh(k) and o + 1 —
+      each hooked launch counted once under its hooks' keys
+      (``wrapper.hooked``) and timed beside the unhooked one; then the
+      planted fault, the epilogue of each of M=4's splits summed, must
+      go past TOL; (b) ``api.fuse_mlp_chain`` / ``api.fuse_attention``
+      under ``H100`` with a wall clock of the candidate's kernel as
+      ``measure_fn`` (Algorithm 1's measured trials) at MEASURED: the
+      analytic and the measured pick each timed in turns,
+      ``n_measured``, ``n_iterations`` and the tuning seconds printed; a
+      second call must load the measured record from disk, and every
+      record written before the phase stays byte for byte; a
+      ``{"hooks": ...}`` line before the kernels line, whose entries
+      carry the hooked readings (``hooked``) and the measured picks;
 5. one full-width decode step through each serving path against the
    same step through the plain hand-wired path, and the cache-free
    loss and logits against the plain twin path
@@ -447,6 +470,11 @@ step of its own, and prints a ``{"dryrun": ...}`` line.
 
 runs only the device and build phases, 4p's kernel checks, phase 4p
 and its kernel times; prints a ``{"planned": ...}`` line.
+
+    python3 chip_smoke.py --hooks
+
+runs only the device and build phases and phase 4q; prints a
+``{"hooks": ...}`` line.
 """
 from __future__ import annotations
 
@@ -7487,17 +7515,362 @@ def codeqwen_phase() -> dict:
                 generate=gen)
 
 
+# ---------------------------------------------------------------------------
+# 4q: the kernels' stitching hooks and the tuner's measured trials
+# ---------------------------------------------------------------------------
+
+# The hooks 4q (a) holds each kernel to its plain version with: the MLP
+# a tanh prologue and a non-linear epilogue across its n splits; the
+# GEMM chains those of tests/test_planner.py::test_gemm_chain_hooks_
+# interpret (jnp.tanh, x * 0.5); the attention q * 2, tanh(k), o + 1
+HOOKS = dict(mlp=(("tanh",), (("mul", 0.5), "tanh")),
+             chain=(("tanh",), (("mul", 0.5),)),
+             attention=((("mul", 2.0),), ("tanh",), (("add", 1.0),)))
+# The MLP inputs of 4q (a): A at twice a unit normal's scale and the
+# weights at twice the model's, so that E is of order 1 to 10 and
+# tanh(0.5 E) is far from linear; the epilogue of each of M=4's 128
+# split's partial E, summed (the planted fault), then lands past bf16
+# TOL
+HOOK_MLP_SCALE = 2.0
+# 4q (b): the measured trials' cases, (kind, label, the front door's
+# arguments): the MLP at qwen3-8b's rank block of 4o (N = d_ff / 4) at
+# M = 4 and 512 and at the planned forward's M = 512, the attention at
+# qwen3-8b's forward (B=2, S=2048, GQA 32 / 8) — where the analytic
+# picks missed tiles a sweep found (PERF.md §6)
+MEASURED = (("mlp", "qwen3-8b rank block N=3072 M=4", (4, 3072, 4096)),
+            ("mlp", "qwen3-8b rank block N=3072 M=512", (512, 3072, 4096)),
+            ("mlp", "qwen3-8b planned forward M=512", (512, 12288, 4096)),
+            ("attn", "qwen3-8b forward B=2 S=2048", (2048, 2048, 128, 128)))
+# the wall clock's device time budget a candidate (ms)
+MEASURE_BUDGET_MS = 30.0
+
+
+def _elementwise(steps):
+    from repro_torch.kernels.hooks import Elementwise
+    return Elementwise.of(*steps)
+
+
+def _host_ms(fn, **_) -> float:
+    """Host milliseconds of one ``fn()`` (CPU rehearsals only: never a
+    device time)."""
+    t0 = time.perf_counter()
+    fn()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def _hooked_case(label, run, plain, dt, unhooked, wrapper, keys) -> dict:
+    """One hooked kernel case of 4q (a): ``run()`` (one hooked launch,
+    the wrapper's counters set to 0 just before and read after: one
+    launch, counted under the hooks' ``keys``) against ``plain()``
+    within TOL[dt]; then the hooked and the unhooked (``unhooked()``)
+    launch timed in turns (on a CPU rehearsal, where the wrapper runs
+    the plain version and counts nothing, by the host's clock)."""
+    wrapper.launches, wrapper.hooked = 0, {}
+    with torch.inference_mode():
+        got = run()
+        _sync(got.device.type)
+        counted = (wrapper.launches, dict(wrapper.hooked))
+        want = plain()
+    if got.is_cuda and counted != (1, {keys: 1}):
+        raise RuntimeError(f"[4q {label}] counted {counted}, want one "
+                           f"launch under {keys}")
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise RuntimeError(f"[4q {label}] bad output {tuple(got.shape)}")
+    torch.testing.assert_close(got, want, **TOL[dt])
+    err = float((got.float() - want.float()).abs().max())
+    timer = _adaptive_ms if got.is_cuda else _host_ms
+    with torch.inference_mode():
+        t = [timer(f) for f in (unhooked, run, run, unhooked)]
+        plain_ms = timer(plain, reps=1)
+    out = dict(max_abs_err=err, hooked_ms=min(t[1], t[2]),
+               ms=min(t[0], t[3]), plain_ms=plain_ms,
+               hooks=[list(k) if k else None for k in keys])
+    print(f"[4q hooks] {label} {_dtname(dt)}: max|err|={err:.3g} "
+          f"tol={TOL[dt]} ok; hooked {t[1]:.4f} / {t[2]:.4f} ms, unhooked "
+          f"{t[0]:.4f} / {t[3]:.4f} ms, the hooked plain version "
+          f"{plain_ms:.4f} ms")
+    return out
+
+
+def _hook_mlp_inputs(cfg, m, seed, dev):
+    """(a, wu, wd, wg) in bf16 at HOOK_MLP_SCALE."""
+    x = _seeded([(1, m, cfg.d_model), (1, cfg.d_model, cfg.d_ff),
+                 (1, cfg.d_ff, cfg.d_model), (1, cfg.d_model, cfg.d_ff)],
+                torch.float32, seed, dev)
+    return [(t * HOOK_MLP_SCALE).to(torch.bfloat16) for t in x]
+
+
+def _per_split_epilogue(x, kw, pro, epi) -> torch.Tensor:
+    """The planted fault: the MLP kernel launched on each split's n range
+    alone (one split each, with the prologue and the epilogue), the
+    results summed in f32 — the epilogue of each partial instead of the
+    epilogue of their sum (on a CPU rehearsal, the plain version)."""
+    from repro_torch.kernels import gemm_chain as G
+    a, wu, wd, wg = x
+    (bm, bn, bk, be), (splits, per) = G._check(a, wu, wd, wg, "silu", **kw)
+    n, step, total = wu.shape[2], per * bn, None
+    for n0 in range(0, n, step):
+        xs = (a, wu[:, :, n0:n0 + step].contiguous(),
+              wd[:, n0:n0 + step].contiguous(),
+              wg[:, :, n0:n0 + step].contiguous(), "silu")
+        part = (G._launch(*xs, bm, bn, bk, be, 1, pro, epi) if a.is_cuda
+                else G.fused_mlp_chain_plain(*xs, bn, 1, pro, epi)).float()
+        total = part if total is None else total + part
+    return total.to(a.dtype)
+
+
+def hook_check_phase(cfg, dev="cuda") -> dict:
+    """4q (a): every hooked kernel against its plain version with the
+    same hooks (TOL), at the shapes the kernel table times: the MLP
+    kernel at qwen3-8b's decode (M=4, the tuner's split), prefill
+    (M=144) and the planned forward's M=512 with ``HOOKS["mlp"]``, a
+    non-linear epilogue across the splits; the GEMM chain at G12 bf16
+    and G1 f32 and the three-GEMM chain in bf16 with ``HOOKS["chain"]``;
+    the attention at qwen3-8b's forward and at Table III S2 f32 with
+    ``HOOKS["attention"]``.  Each hooked launch is counted once under
+    its hooks' keys and timed beside the unhooked one.  Then the planted
+    fault, the epilogue of each of M=4's splits summed, must go past
+    TOL.  Returns {kernel: {case: readings}}."""
+    from repro_torch.core import api
+    from repro_torch.kernels import attention as A
+    from repro_torch.kernels import gemm_chain as G
+    from repro_torch.kernels import gemm_chain3 as G3
+    bf, f32 = torch.bfloat16, torch.float32
+    pro, epi = (_elementwise(s) for s in HOOKS["mlp"])
+    out = {"fused_mlp_chain": {}, "fused_gemm_chain": {},
+           "fused_gemm_chain3": {}, "fused_attention": {}}
+    planted = None
+    for label, m in (("decode M=4", MLP_SHAPES["decode"]),
+                     ("prefill M=144", MLP_SHAPES["prefill"]),
+                     ("planned forward M=512", 512)):
+        a, wu, wd, wg = _hook_mlp_inputs(cfg, m, 60 + m, dev)
+        kw = api.fuse_mlp_chain(m, cfg.d_ff, cfg.d_model,
+                                dtype="bfloat16").params.as_kwargs()
+        tiles, (splits, _) = G._check(a, wu, wd, wg, "silu", **kw)
+        case = _hooked_case(
+            f"MLP {label} {kw['style']} tiles={tiles} splits={splits}",
+            lambda: G.fused_mlp_chain(a, wu, wd, wg=wg, prologue=pro,
+                                      epilogue=epi, **kw),
+            lambda: G.fused_mlp_chain_plain(a, wu, wd, wg, "silu", tiles[1],
+                                            splits, pro, epi),
+            bf, lambda: G.fused_mlp_chain(a, wu, wd, wg=wg, **kw),
+            G.fused_mlp_chain, (pro.key(), epi.key()))
+        out["fused_mlp_chain"][label] = dict(case, tiles=kw, splits=splits)
+        if m == MLP_SHAPES["decode"]:
+            with torch.inference_mode():
+                bad = _per_split_epilogue((a, wu, wd, wg), kw, pro, epi)
+                want = G.fused_mlp_chain_plain(a, wu, wd, wg, "silu",
+                                               tiles[1], splits, pro, epi)
+            planted = _tol_ratio(bad, want)
+            print(f"[4q hooks] planted fault: the epilogue of each of "
+                  f"{splits} splits, summed: {planted:.3g} x bf16 TOL "
+                  f"(must exceed 1)")
+            if splits < 4 or planted <= 1.0:
+                raise RuntimeError("[4q] the per-split epilogue went "
+                                   "unnoticed")
+        del a, wu, wd, wg
+    cpro, cepi = (_elementwise(s) for s in HOOKS["chain"])
+    for name, dt in (("G12", bf), ("G1", f32)):
+        b, m, n, k, h = CHAINS[name]
+        kw = api.fuse_gemm_chain(m, n, k, h, batch=b,
+                                 dtype=_dtname(dt)).params.as_kwargs()
+        a, bb, d = _seeded([(b, m, k), (b, k, n), (b, n, h)], dt, 61, dev)
+        tiles, (splits, _), _ = G.check_gemm_chain(
+            a, bb, d, kw["bm"], kw["bn"], kw["bk"], kw["bh"], kw["style"])
+        out["fused_gemm_chain"][f"{name} {_dtname(dt)}"] = dict(
+            _hooked_case(
+                f"GEMM chain {name} {kw['style']} tiles={tiles} "
+                f"splits={splits}",
+                lambda: G.fused_gemm_chain(a, bb, d, prologue=cpro,
+                                           epilogue=cepi, **kw),
+                lambda: G.fused_gemm_chain_plain(a, bb, d, tiles[1], splits,
+                                                 cpro, cepi),
+                dt, lambda: G.fused_gemm_chain(a, bb, d, **kw),
+                G.fused_gemm_chain, (cpro.key(), cepi.key())),
+            tiles=kw, splits=splits)
+    tiles = _chain3_tiles(bf)
+    b, m, n, k, h, g = CHAIN3
+    xs = _seeded([(b, m, k), (b, k, n), (b, n, h), (b, h, g)], bf, 62, dev)
+    out["fused_gemm_chain3"]["CHAIN3 bf16"] = dict(_hooked_case(
+        f"three-GEMM chain {CHAIN3} tiles={tiles}",
+        lambda: G3.fused_gemm_chain3(*xs, prologue=cpro, epilogue=cepi,
+                                     **tiles),
+        lambda: G3.fused_gemm_chain3_plain(*xs, tiles["bn"], cpro, cepi),
+        bf, lambda: G3.fused_gemm_chain3(*xs, **tiles),
+        G3.fused_gemm_chain3, (cpro.key(), cepi.key())), tiles=tiles)
+    qp, kp, oe = (_elementwise(s) for s in HOOKS["attention"])
+    keys = (qp.key(), kp.key(), oe.key())
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    h2, m2, n2, k2, _ = ATTN_TABLE_III["S2"]
+    for label, (bb, h, g, m, n, dd, dt, causal) in (
+            (f"{cfg.name} forward", (FORWARD["batch"], hq, hkv,
+                                     FORWARD["seq"], FORWARD["seq"], d, bf,
+                                     True)),
+            ("Table III S2", (1, h2, h2, m2, n2, k2, f32, False))):
+        tk = api.fuse_attention(m, n, dd, dd, heads=h, batch=bb,
+                                dtype=_dtname(dt), causal=causal)
+        q, k, v = _seeded([(bb, h, m, dd), (bb, g, n, dd), (bb, g, n, dd)],
+                          dt, 63, dev, scaled=False)
+        scale = dd ** -0.5
+        out["fused_attention"][label] = dict(_hooked_case(
+            f"attention {label} B={bb} Hq={h} Hkv={g} M={m} N={n} D={dd} "
+            f"causal={causal} tiles=({tk.params.bq},{tk.params.bkv})",
+            lambda: tk(q, k, v, q_prologue=qp, k_prologue=kp, o_epilogue=oe),
+            lambda: A.fused_attention_plain(q, k, v, tk.params.bkv, causal,
+                                            0, scale, qp, kp, oe),
+            dt, lambda: tk(q, k, v), A.fused_attention, keys),
+            tiles=tk.params.as_kwargs())
+        del q, k, v
+    out["planted_per_split_epilogue_tol_ratio"] = planted
+    return out
+
+
+def _wall_clock(kind: str, inputs: tuple, call_kw: dict):
+    """The card's ``measure_fn`` for ``kind`` ("mlp" or "attn"): the
+    candidate schedule's kernel (``codegen.params_for``) launched on
+    ``inputs``, device seconds from CUDA events over a CUDA graph of
+    launches (``_adaptive_ms``; on a CPU rehearsal the host's clock
+    over the plain version); a tile the wrapper refuses takes
+    infinity."""
+    from repro_torch.core import codegen
+    from repro_torch.kernels import attention as A
+    from repro_torch.kernels import gemm_chain as G
+    kernel = G.fused_mlp_chain if kind == "mlp" else A.fused_attention
+
+    def measure(sched) -> float:
+        kw = codegen.params_for(kind, sched).as_kwargs()
+        try:
+            with torch.inference_mode():
+                kernel(*inputs, **call_kw, **kw)
+        except ValueError:
+            return math.inf
+        timer = _adaptive_ms if inputs[0].is_cuda else _host_ms
+        with torch.inference_mode():
+            return 1e-3 * timer(lambda: kernel(*inputs, **call_kw, **kw),
+                                budget_ms=MEASURE_BUDGET_MS, reps=2)
+    return measure
+
+
+def _record_bytes() -> dict:
+    """{file name: bytes} of every record of the schedule cache."""
+    from repro_torch.core import schedule_cache
+    return {p.name: p.read_bytes()
+            for p in schedule_cache.cache_dir().glob("*.json")}
+
+
+def _is_measured(blob: bytes) -> bool:
+    try:
+        return json.loads(blob).get("trial") == "measured"
+    except ValueError:
+        return False
+
+
+def measured_trials_phase(cfg, dev="cuda", cases=MEASURED) -> dict:
+    """4q (b): Algorithm 1 with wall-clocked trials on the card.  For each
+    case of MEASURED, ``api.fuse_mlp_chain`` / ``api.fuse_attention``
+    under ``H100`` with ``_wall_clock`` as ``measure_fn`` (the analytical
+    model ranks every population, the card times its top candidates);
+    printed: the analytic pick and the measured pick, each timed again
+    by the same clock in turns (analytic, measured, measured, analytic),
+    ``n_measured``, ``n_iterations`` and the tuning seconds.  A second
+    call, the process's memo of it dropped, must load the record from
+    disk; every record there before the phase (the main paths' analytic
+    ones) must be left byte for byte, and the phase adds only measured
+    ones.  No speed is claimed and no limit is set on the times."""
+    from repro_torch.core import api, schedule_cache
+    from repro_torch.core.perf_model import H100
+    stale = [n for n, blob in _record_bytes().items() if _is_measured(blob)]
+    for name in stale:  # this phase's own records, from an earlier run
+        (schedule_cache.cache_dir() / name).unlink()
+    before = _record_bytes()
+    out = {}
+    for kind, label, dims in cases:
+        if kind == "mlp":
+            m, n, h = dims
+            x = _seeded([(1, m, h), (1, h, n), (1, n, h), (1, h, n)],
+                        torch.bfloat16, 64, dev)
+            inputs, call_kw = x[:3], dict(wg=x[3])
+
+            def fuse(**kw):
+                return api.fuse_mlp_chain(m, n, h, dtype="bfloat16",
+                                          hw=H100, **kw)
+        else:
+            m, n, k, h = dims
+            b, hq, hkv = FORWARD["batch"], cfg.n_heads, cfg.n_kv_heads
+            inputs = tuple(_seeded([(b, hq, m, k), (b, hkv, n, k),
+                                    (b, hkv, n, h)], torch.bfloat16, 65,
+                                   dev, scaled=False))
+            call_kw = dict(causal=True)
+
+            def fuse(**kw):
+                return api.fuse_attention(m, n, k, h, heads=hq, batch=b,
+                                          dtype="bfloat16", causal=True,
+                                          hw=H100, **kw)
+        clock = _wall_clock(kind, inputs, call_kw)
+        analytic = fuse()
+        measured = fuse(measure_fn=clock)
+        if measured.source != "search":
+            raise RuntimeError(f"[4q {label}] the measured trials did not "
+                               f"search ({measured.source})")
+        t = [clock(s.report.best) * 1e3
+             for s in (analytic, measured, measured, analytic)]
+        for key in [key for key in api._CACHE if key[-1] == "measured"]:
+            del api._CACHE[key]
+        again = fuse(measure_fn=clock)
+        if again.source != "disk" or again.params != measured.params:
+            raise RuntimeError(f"[4q {label}] the second call did not load "
+                               f"the measured record ({again.source})")
+        r = measured.report
+        out[label] = dict(
+            analytic_pick=analytic.params.as_kwargs(),
+            analytic_ms=[t[0], t[3]],
+            measured_pick=measured.params.as_kwargs(),
+            measured_ms=[t[1], t[2]], search_best_ms=r.best_time * 1e3,
+            n_measured=r.n_measured, n_iterations=r.n_iterations,
+            tuning_s=measured.tuning_seconds, reload_source=again.source,
+            reload_s=again.tuning_seconds)
+        print(f"[4q measured] {label}: analytic pick "
+              f"{out[label]['analytic_pick']} {t[0]:.4f} / {t[3]:.4f} ms; "
+              f"measured pick {out[label]['measured_pick']} {t[1]:.4f} / "
+              f"{t[2]:.4f} ms; "
+              f"n_measured={r.n_measured} n_iterations={r.n_iterations} "
+              f"tuning {measured.tuning_seconds:.2f} s; reloaded from "
+              f"{again.source} in {again.tuning_seconds:.4f} s")
+        del inputs, call_kw
+    after = _record_bytes()
+    changed = [n for n, blob in before.items() if after.get(n) != blob]
+    added = [n for n in after if n not in before]
+    measured = [n for n in added if _is_measured(after[n])]
+    if changed or len(measured) != len(cases):
+        raise RuntimeError(f"[4q] records changed: {changed}; measured "
+                           f"records added: {len(measured)}, want "
+                           f"{len(cases)}")
+    print(f"[4q measured] {len(before)} earlier records untouched; added "
+          f"{len(measured)} measured records and {len(added) - len(measured)}"
+          f" analytic ones (shapes no earlier phase tuned)")
+    return out
+
+
+def hooks_phase(cfg, dev="cuda", cases=MEASURED) -> dict:
+    """Phase 4q: (a) ``hook_check_phase``, (b) ``measured_trials_phase``;
+    nothing degraded."""
+    out = {"hooks": hook_check_phase(cfg, dev),
+           "measured": measured_trials_phase(cfg, dev, cases)}
+    _no_degradation("4q")
+    return out
+
+
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--plant-faults"], ["--reliability"], ["--train"],
                     ["--moe"], ["--archs"], ["--dist"], ["--dist-train"],
                     ["--dryrun"], ["--dist-families"], ["--dist-regimes"],
-                    ["--planned"]):
+                    ["--planned"], ["--hooks"]):
         raise SystemExit("usage: python3 chip_smoke.py "
                          "[--plant-faults | --reliability | --train | "
                          "--moe | --archs | --dist | --dist-train | "
                          "--dryrun | --dist-families | --dist-regimes | "
-                         "--planned]")
+                         "--planned | --hooks]")
     smi = device_phase()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     # tuned schedules persist inside the checkout (.cache/ is gitignored)
@@ -7515,6 +7888,11 @@ def main(argv=None) -> None:
         return
     build_phase()
     cfg = get_config("qwen3-8b")
+    if argv == ["--hooks"]:
+        print(json.dumps({"hooks": hooks_phase(cfg)}, default=str))
+        _clock("4q")
+        print(smi)
+        return
     if argv == ["--dist"]:
         refdir = tempfile.mkdtemp(prefix="dist-refs-")
         dist_refs_all(refdir)
@@ -7750,6 +8128,8 @@ def main(argv=None) -> None:
     dr_err, t_regimes = dist_regimes_kernel_phase(pretuned=pretuned)
     t_planned = planned_time_phase(cfg)
     _clock("times")
+    q4 = hooks_phase(cfg)
+    _clock("4q")
     pool.shutdown()
     dist_launches = {
         name: sum(counts.get(name, 0) for counts in dist["launches"].values())
@@ -7811,6 +8191,7 @@ def main(argv=None) -> None:
         "mixtral_8x7b_decode_window_4096": {
             k: t_moe["mixtral_decode"][k] for k in moe_times},
         "ring_rank_block": t_dist["fused_attention_partial"],
+        "hooked": None,    # no hooks, as in the JAX package
         "passed": True,
     }, {
         "name": "fused_mlp_chain",
@@ -7845,6 +8226,12 @@ def main(argv=None) -> None:
            for key, t in (("m512_4p", t_planned["fused_mlp_chain"]),
                           ("m512_rank_block_4p",
                            t_planned["fused_mlp_chain"]["rank_block"]))},
+        "hooked": q4["hooks"]["fused_mlp_chain"],
+        "planted_per_split_epilogue_tol_ratio": q4["hooks"][
+            "planted_per_split_epilogue_tol_ratio"],
+        "measured_trials": {label: t for label, t in q4["measured"].items()
+                            if label.startswith("qwen3-8b rank block")
+                            or "M=512" in label},
         "passed": True,
     }, {
         "name": "fused_attention",
@@ -7892,6 +8279,9 @@ def main(argv=None) -> None:
         "forward_2x256_rank_block_4p": t_planned["fused_attention"][
             "rank_block"],
         "recurrentgemma_2b_rank_block_4n": t_families,
+        "hooked": q4["hooks"]["fused_attention"],
+        "measured_trials": {label: t for label, t in q4["measured"].items()
+                            if "forward B=2" in label},
         "passed": True,
     }, {
         "name": "fused_gemm_chain",
@@ -7916,6 +8306,7 @@ def main(argv=None) -> None:
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "unfused_ms",
             "tiles", "splits", "device_ms_by_kernel")},
         "g12_rank_block": t_dist["fused_gemm_chain"],
+        "hooked": q4["hooks"]["fused_gemm_chain"],
         "passed": True,
     }, {
         "name": "fused_gemm_chain3",
@@ -7933,6 +8324,7 @@ def main(argv=None) -> None:
         "tiles": t_chain3["tiles"],
         "splits": t_chain3["splits"],
         "device_ms_by_kernel": t_chain3["device_ms_by_kernel"],
+        "hooked": q4["hooks"]["fused_gemm_chain3"],
         "passed": True,
     }]
     print(json.dumps({"train": train}))
@@ -7950,6 +8342,7 @@ def main(argv=None) -> None:
     print(json.dumps({"dist_regimes": regimes}, default=str))
     print(json.dumps({"dryrun": dry}, default=str))
     print(json.dumps({"planned": planned_fwd}, default=str))
+    print(json.dumps({"hooks": q4}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -91,6 +91,12 @@ def _run_probe(kind: str, kernel_thunk, ref_thunk) -> bool:
     return ok
 
 
+def _measured(measure_fn) -> tuple:
+    """The in-process key's mark of a measured-trial kernel (none for
+    the analytic one, whose key stays as it was)."""
+    return () if measure_fn is None else ("measured",)
+
+
 def _pad_to(dim: int, tile: int) -> int:
     return int(math.ceil(dim / max(int(tile), 1)) * max(int(tile), 1))
 
@@ -109,7 +115,7 @@ def _probe_arrays(shapes: list[tuple], dtype: str) -> list:
 
 def _tune_or_load(kind: str, chain: Chain, hw: "TpuSpec | GpuSpec",
                   mesh: Optional[MeshSpec], unit: int, seed: int,
-                  disk_key: tuple, probe_fn=None):
+                  disk_key: tuple, measure_fn=None, probe_fn=None):
     """(report, params, seconds, source): disk-cache hit or full search.
 
     A hit rebuilds the winning Schedule through ``build_schedule`` and
@@ -119,9 +125,17 @@ def _tune_or_load(kind: str, chain: Chain, hw: "TpuSpec | GpuSpec",
     is then re-validated against the pruning invariants
     (``pruning.validate_schedule``: Rules 2–4 and the on-chip bound) so
     a corrupted-but-parseable record never reaches a kernel; a failing
-    record is quarantined to ``.corrupt`` and retuned.  Outcomes
-    persist under the ``"analytic"`` trial kind (wall-clock trials on
-    the card would be a separate ``"measured"`` population).
+    record is quarantined to ``.corrupt`` and retuned.
+
+    ``measure_fn(schedule) -> seconds`` runs Algorithm 1's measured
+    trials: the analytical model ranks each population and
+    ``heuristic_search`` hands the top candidates to ``measure_fn``
+    (on the card, a wall clock of the candidate's kernel; the package
+    ships none).  Its outcome persists under the ``"measured"`` trial
+    kind, the default search's under ``"analytic"``: two disk
+    populations, so neither ever satisfies the other's lookup (a
+    measured record holds the card's times, an analytic one the
+    model's).
 
     ``probe_fn(params) -> bool`` is the sentinels' warm-load golden
     probe: when the sentinels are armed and the record's stored host
@@ -132,7 +146,7 @@ def _tune_or_load(kind: str, chain: Chain, hw: "TpuSpec | GpuSpec",
     (probes don't repeat every load); fail → the entry is quarantined
     and retuned.
     """
-    trial = "analytic"
+    trial = "measured" if measure_fn is not None else "analytic"
     t0 = time.perf_counter()
     rec = schedule_cache.load(disk_key, hw, trial)
     if rec is not None:
@@ -175,8 +189,8 @@ def _tune_or_load(kind: str, chain: Chain, hw: "TpuSpec | GpuSpec",
                 history=rec["history"], mesh=mesh)
             return report, params, time.perf_counter() - t0, "disk"
 
-    report = heuristic_search(chain, hw=hw, mesh=mesh, unit=unit,
-                              seed=seed)
+    report = heuristic_search(chain, measure_fn=measure_fn, hw=hw,
+                              mesh=mesh, unit=unit, seed=seed)
     params = codegen.params_for(kind, report.best)
     dt = time.perf_counter() - t0
     schedule_cache.store(
@@ -192,7 +206,7 @@ def fuse_gemm_chain(M: int, N: int, K: int, H: int, batch: int = 1,
                     dtype: str = "float32", hw: "TpuSpec | GpuSpec" = H100,
                     mesh: Optional[MeshSpec] = None,
                     unit: Optional[int] = None,
-                    seed: int = 0) -> TunedKernel:
+                    seed: int = 0, measure_fn=None) -> TunedKernel:
     """Tune the 2-GEMM chain E = (A B) D and build
     ``kernels.gemm_chain.fused_gemm_chain`` — the CUDA kernel — around
     the winning schedule (class and tiles).
@@ -202,9 +216,12 @@ def fuse_gemm_chain(M: int, N: int, K: int, H: int, batch: int = 1,
     shard's block.  Under ``GpuSpec`` Rule 4 prices every candidate by
     the kernel's own shared-memory layout at the n split it launches
     (the MLP machine's ``perf_model.mlp_smem_bytes``, ungated) and
-    admits only the tiles it takes (``perf_model.mlp_tiles_ok``)."""
+    admits only the tiles it takes (``perf_model.mlp_tiles_ok``).
+    ``measure_fn`` runs measured trials (``_tune_or_load``), cached
+    under the ``"measured"`` trial kind."""
     unit = hw.tile_unit if unit is None else unit
-    key = ("gemm", M, N, K, H, batch, dtype, hw.name, unit, mesh, seed)
+    key = ("gemm", M, N, K, H, batch, dtype, hw.name, unit, mesh, seed,
+           *_measured(measure_fn))
     if key in _CACHE:
         return _CACHE[key]
     chain = gemm_chain(M, N, K, H, batch=batch, dtype=dtype)
@@ -225,7 +242,7 @@ def fuse_gemm_chain(M: int, N: int, K: int, H: int, batch: int = 1,
                           lambda: _ref.gemm_chain_ref(a, b, d))
 
     report, params, dt, source = _tune_or_load(
-        "gemm", chain, hw, mesh, unit, seed, disk_key,
+        "gemm", chain, hw, mesh, unit, seed, disk_key, measure_fn=measure_fn,
         probe_fn=_probe if mesh is None else None)
 
     from ..kernels.gemm_chain import fused_gemm_chain as kernel
@@ -243,7 +260,8 @@ def fuse_attention(M: int, N: int, K: int, H: int, heads: int = 1,
                    hw: "TpuSpec | GpuSpec" = H100,
                    mesh: Optional[MeshSpec] = None,
                    unit: Optional[int] = None,
-                   seed: int = 0, group: int = 0) -> TunedKernel:
+                   seed: int = 0, group: int = 0,
+                   measure_fn=None) -> TunedKernel:
     """Tune the attention chain for (M, N, K, H) and build
     ``kernels.attention.fused_attention`` — the CUDA kernel, queries at
     the tail of the kv sequence — around the winning (bq, bkv).
@@ -257,10 +275,11 @@ def fuse_attention(M: int, N: int, K: int, H: int, heads: int = 1,
     per-rank kernel, GQA groups of ``group`` q heads; Rule 4 by
     ``attention_partial_smem_bytes``) and builds
     ``fused_attention_partial``, called as ``tk(q, k, v, kv_pos,
-    q_pos)``; only the H100 pricing reads the difference."""
+    q_pos)``; only the H100 pricing reads the difference.
+    ``measure_fn`` runs measured trials, as in ``fuse_gemm_chain``."""
     unit = hw.tile_unit if unit is None else unit
     key = ("attn", M, N, K, H, heads, batch, dtype, causal, window,
-           scale, hw.name, unit, mesh, seed, group)
+           scale, hw.name, unit, mesh, seed, group, *_measured(measure_fn))
     if key in _CACHE:
         return _CACHE[key]
     chain = attention_chain(
@@ -288,7 +307,7 @@ def fuse_attention(M: int, N: int, K: int, H: int, heads: int = 1,
                                            window=window, scale=scale))
 
     report, params, dt, source = _tune_or_load(
-        "attn", chain, hw, mesh, unit, seed, disk_key,
+        "attn", chain, hw, mesh, unit, seed, disk_key, measure_fn=measure_fn,
         probe_fn=_probe if mesh is None and not group else None)
 
     from ..kernels.attention import fused_attention as kernel
@@ -365,7 +384,7 @@ def fuse_mlp_chain(M: int, FF: int, D: int, batch: int = 1,
                    act: str = "silu", hw: "TpuSpec | GpuSpec" = H100,
                    mesh: Optional[MeshSpec] = None,
                    unit: Optional[int] = None,
-                   seed: int = 0) -> TunedKernel:
+                   seed: int = 0, measure_fn=None) -> TunedKernel:
     """Tune the (gated) MLP chain E = (act(A Wg) * (A Wu)) Wd and build
     ``kernels.gemm_chain.fused_mlp_chain`` — the CUDA kernel — around
     the winning schedule: the chain ``core.planner`` carves for the
@@ -375,10 +394,11 @@ def fuse_mlp_chain(M: int, FF: int, D: int, batch: int = 1,
     prices every candidate by the kernel's own shared-memory layout
     (``perf_model.mlp_smem_bytes``), so the tiles always fit a block.
     Entries persist under the distinct "mlp" key prefix, so they never
-    collide with other chains of the same dims."""
+    collide with other chains of the same dims.  ``measure_fn`` runs
+    measured trials, as in ``fuse_gemm_chain``."""
     unit = hw.tile_unit if unit is None else unit
     key = ("mlp", M, FF, D, batch, gated, act, dtype, hw.name, unit,
-           mesh, seed)
+           mesh, seed, *_measured(measure_fn))
     if key in _CACHE:
         return _CACHE[key]
     chain = mlp_chain(M, FF, D, batch=batch, dtype=dtype, gated=gated,
@@ -403,7 +423,7 @@ def fuse_mlp_chain(M: int, FF: int, D: int, batch: int = 1,
             lambda: _ref.mlp_chain_ref(a, wu, wd, wg=wg, act=act))
 
     report, params, dt, source = _tune_or_load(
-        "mlp", chain, hw, mesh, unit, seed, disk_key,
+        "mlp", chain, hw, mesh, unit, seed, disk_key, measure_fn=measure_fn,
         probe_fn=_probe if mesh is None else None)
 
     from ..kernels.gemm_chain import fused_mlp_chain as kernel

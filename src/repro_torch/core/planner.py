@@ -223,9 +223,16 @@ class Plan:
 # Carving
 # ---------------------------------------------------------------------------
 
-def ridge_intensity(hw: "TpuSpec | GpuSpec" = H100) -> float:
-    """The roofline ridge point: chains below it are memory-bound."""
-    return hw.peak_flops / hw.hbm_bw
+def ridge_intensity(hw: "TpuSpec | GpuSpec" = H100,
+                    chain: Optional[Chain] = None) -> float:
+    """The roofline ridge point: chains below it are memory-bound.
+    With a ``chain``, the ridge at the peak rate of its operations
+    (``perf_model.chain_peak_flops``): under ``GpuSpec`` an f32 chain
+    meets its ridge at the CUDA cores' rate, ~20 flops a byte on an
+    H100 against the tensor cores' ~295; under ``TpuSpec`` every chain
+    has the one ridge."""
+    peak = hw.peak_flops if chain is None else chain_peak_flops(chain, hw)
+    return peak / hw.hbm_bw
 
 
 def _local_ai(chain: Chain, mesh: Optional[MeshSpec]) -> float:
@@ -333,7 +340,6 @@ def _carve_and_stitch(cfg, batch: int, seq: int, *, stitch: bool,
                       kv_len: Optional[int] = None) -> LayerPlan:
     nodes = layer_op_dag(cfg, phase)
     present = {n.name for n in nodes}
-    ridge = ridge_intensity(hw)
 
     carved: list[dict] = []      # mutable while stitching
     chain_objs: list[Chain] = []
@@ -352,7 +358,7 @@ def _carve_and_stitch(cfg, batch: int, seq: int, *, stitch: bool,
     for kind, ops, ch in _template_chains(cfg, batch, seq, kv_len):
         if len(ops) == 1:
             add(kind, ops, False, ch)
-        elif _local_ai(ch, mesh) < ridge:
+        elif _local_ai(ch, mesh) < ridge_intensity(hw, ch):
             add(kind, ops, True, ch)     # MBCI: keep fused
         else:                            # compute-bound: split
             for sub_ops, sub_ch in _split_chains(kind, cfg, batch, seq,

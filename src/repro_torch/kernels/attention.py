@@ -10,6 +10,12 @@ memory.  The block sizes (bq, bkv) come from MCFuser's analytical
 search for each concrete shape (``core.api.fuse_attention`` /
 ``fuse_attention_paged``).
 
+``fused_attention`` takes the JAX kernel's stitching hooks,
+``q_prologue`` / ``k_prologue`` on the q and k tiles before the scores'
+``* scale`` and ``o_epilogue`` on the normalised o, as
+``hooks.Elementwise`` expressions; the partial and paged entries take
+none, as in the JAX package.
+
 A CUDA tensor launches the kernel or raises; only a CPU tensor runs the
 plain version, which is the same recurrence over kv blocks of ``bkv``
 in torch ops (for the partial kernel, over the same kv splits, merged
@@ -24,6 +30,7 @@ import torch
 
 from ..core.perf_model import (H100, attention_partial_smem_bytes,
                                attention_smem_bytes, attention_tiles_ok)
+from . import hooks
 
 NEG_INF = -1e30
 # Sentinel "position" for unallocated / out-of-range paged-KV slots:
@@ -159,8 +166,11 @@ def _check_aligned(*ts):
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bq: int = 128, bkv: int = 128, causal: bool = False,
-                    window: int = 0,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    window: int = 0, scale: Optional[float] = None,
+                    q_prologue: Optional[hooks.Elementwise] = None,
+                    k_prologue: Optional[hooks.Elementwise] = None,
+                    o_epilogue: Optional[hooks.Elementwise] = None
+                    ) -> torch.Tensor:
     """O = softmax(Q K^T * scale + mask) V, fused, GQA-aware.
 
     q: (B, Hq, M, D), k/v: (B, Hkv, N, D/Dv), float32 or bfloat16;
@@ -172,7 +182,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mean of v, as the JAX kernel gives it.  bf16 runs on tensor cores,
     which take head dims that are multiples of 16 up to 256 and the
     tiles of ``perf_model.attention_tiles_ok``; anything else raises,
-    on the CPU too.
+    on the CPU too.  ``q_prologue`` / ``k_prologue`` run on q and k
+    (each rounded to its type) before the scores, ``o_epilogue`` on the
+    f32 o / l before the cast, rows with no key included.
 
     Forward only, like the JAX kernel: with grad mode on and an input
     that requires grad it raises rather than return a tensor without a
@@ -181,6 +193,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("fused_attention has no backward: call it under "
                            "torch.no_grad() or torch.inference_mode()")
+    hks = tuple(hooks.check(h, name) for h, name in (
+        (q_prologue, "q_prologue"), (k_prologue, "k_prologue"),
+        (o_epilogue, "o_epilogue")))
     _check_qkv(q, k, v)
     m, d, n = q.shape[2], q.shape[3], k.shape[2]
     bq, bkv = min(bq, m), min(bkv, n)
@@ -193,13 +208,15 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     masked = causal or window > 0
     dev = q.device
     if dev.type == "cpu":
-        return fused_attention_plain(q, k, v, bkv, masked, window, scale)
+        return fused_attention_plain(q, k, v, bkv, masked, window, scale,
+                                     *hks)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    return _launch_final(q, k, v, bq, bkv, masked, window, scale, smem)
+    return _launch_final(q, k, v, bq, bkv, masked, window, scale, smem, hks)
 
 
-def _launch_final(q, k, v, bq, bkv, masked, window, scale, smem):
+def _launch_final(q, k, v, bq, bkv, masked, window, scale, smem,
+                  hks=(None, None, None)):
     from . import _build
 
     lib = _build.load("attention_partial")
@@ -209,34 +226,46 @@ def _launch_final(q, k, v, bq, bkv, masked, window, scale, smem):
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                    + [ctypes.c_int] * 11 + [ctypes.c_float,
                                             ctypes.c_longlong,
-                                            ctypes.c_void_p])
+                                            ctypes.c_void_p]
+                   + [hooks.HookStruct] * 3)
     b, hq, m, d = q.shape
     hkv, n, dv = v.shape[1], v.shape[2], v.shape[3]
     o = torch.empty((b, hq, m, dv), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
              v.data_ptr(), o.data_ptr(), b, hq, hkv, m, n, d, dv, bq, bkv,
-             int(masked), int(window), float(scale), int(smem), stream)
+             int(masked), int(window), float(scale), int(smem), stream,
+             *(hooks.as_c(h) for h in hks))
     _build.check_launch(lib, "attn_launch", err, "attn_error_string")
     fused_attention.launches += 1
+    hooks.note(fused_attention, *hks)
     return o
 
 
 fused_attention.launches = 0
+fused_attention.hooked = {}   # hooked launches by (q, k, o) hook key
 
 
 def fused_attention_plain(q, k, v, bkv: int, masked: bool, window: int,
-                          scale: float) -> torch.Tensor:
+                          scale: float,
+                          q_prologue: Optional[hooks.Elementwise] = None,
+                          k_prologue: Optional[hooks.Elementwise] = None,
+                          o_epilogue: Optional[hooks.Elementwise] = None
+                          ) -> torch.Tensor:
     """``fused_attention``'s plain PyTorch version: the online-softmax
     recurrence over kv blocks of ``bkv`` with the query rows at the tail
     (``_online_softmax``), then o / l with l == 0 -> 1, in q's type.
-    Rows with no key keep the mean of v, as kernel and JAX kernel do."""
+    Rows with no key keep the mean of v, as kernel and JAX kernel do.
+    The hooks as the kernel runs them: the prologues on q and k before
+    the scores, the epilogue on the f32 o / l."""
+    q, k = hooks.apply(q_prologue, q), hooks.apply(k_prologue, k)
     m, n = q.shape[2], k.shape[2]
     kv_pos = torch.arange(n, dtype=torch.int32, device=q.device)
     q_pos = n - m + torch.arange(m, dtype=torch.int32, device=q.device)
     o, _, l_run = _online_softmax(q, k, v, kv_pos, q_pos, bkv, masked,
                                   window, scale)
-    return (o / torch.where(l_run == 0.0, 1.0, l_run)).to(q.dtype)
+    o = o / torch.where(l_run == 0.0, 1.0, l_run)
+    return hooks.apply(o_epilogue, o).to(q.dtype)
 
 
 def fused_attention_partial(q: torch.Tensor, k: torch.Tensor,

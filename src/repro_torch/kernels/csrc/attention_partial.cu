@@ -36,6 +36,14 @@
 //   mask launch first.  The f32 entry keeps a CUDA-core
 //   loop (`attn_f32_kernel`): TF32 tensor cores would break the f32
 //   tolerance, and f32 is only the front door's Table III path.
+//   The JAX kernel's stitching hooks (hook.cuh) run in both: the q
+//   prologue once on the q tile in shared memory after its load (its
+//   fragments are re-read for every kv stage, so hooking them would
+//   repeat the work), the k prologue on each stage's keys after they
+//   land and never on v, both before the `* scale` and rounded to the
+//   tile's type; the o epilogue on o / l, rows with no key included,
+//   before the store.  Both kernels run them only in their HOOKED
+//   instantiations, which the launch picks when a hook has steps.
 // * `attn_partial_launch` replaces the Pallas TPU kernel
 //   `_attn_partial_kernel` behind `fused_attention_partial`
 //   (src/repro/kernels/attention.py:160).  It returns the raw combine
@@ -82,6 +90,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hook.cuh"
 
 namespace {
 
@@ -185,12 +195,12 @@ constexpr int kMmaStageKeys = 64;
 // too, and __expf for expf, each measured slower on the card.)  RAGGED:
 // bkv is no multiple of 16; the other instantiations carry none of its
 // padding arithmetic.
-template <int DVB, int BKVB, bool RAGGED>
+template <int DVB, int BKVB, bool RAGGED, bool HOOKED>
 __global__ void __launch_bounds__(kMmaMaxWarps * 32) attn_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ o, int hq, int hkv,
     int m, int n, int d, int dv, int bq, int bkv, int masked, int window,
-    float scale) {
+    float scale, Hook qpro, Hook kpro, Hook oepi) {
   const int h = blockIdx.x;                    // q-heads of a group adjacent
   const int qt = gridDim.y - 1 - blockIdx.y;   // late q tiles first
   const int b = blockIdx.z;
@@ -270,6 +280,14 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32) attn_mma_kernel(
   const int n_stages = (n_tiles + st - 1) / st;
   if (n_tiles > 0) load_kv(j_begin, min(st, n_tiles), 0);
   cp_async_commit();
+  if constexpr (HOOKED) {
+    if (qpro.n) {  // the q prologue, once on the q tile; the first
+                   // stage's barrier orders it before any fragment read
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();
+      hook_tile(&qpro, s_q, ldq, bq, d);
+    }
+  }
 
   float acc_o[DVB / 8][4];
 #pragma unroll
@@ -295,6 +313,13 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32) attn_mma_kernel(
     const bf16* ks = s_k + (it & 1) * sk * ldq;
     const bf16* vs = s_v + (it & 1) * sk * ldv;
     const int rows_s = ns * bkvp;  // shared-memory rows in this stage
+    if constexpr (HOOKED) {
+      if (kpro.n) {  // the k prologue on this stage's keys (padding keys
+                     // score -inf whatever they hold)
+        hook_tile(&kpro, s_k + (it & 1) * sk * ldq, ldq, rows_s, d);
+        __syncthreads();
+      }
+    }
 
     // a kv tile masked for all 16 rows of this warp is skipped (exact,
     // as above); a tile live for all of them needs no mask
@@ -426,7 +451,8 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32) attn_mma_kernel(
     __syncthreads();  // this stage is no longer read
   }
 
-  // o / l in bf16; a row with no key keeps the mean of v
+  // the o epilogue on o / l in f32, then bf16; a row with no key keeps
+  // the mean of v
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = warp * kMmaRows + g + i * 8;
@@ -435,9 +461,16 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32) attn_mma_kernel(
     uint32_t* out =
         reinterpret_cast<uint32_t*>(o + (row_base + r) * dv + tig * 2);
 #pragma unroll
-    for (int t = 0; t < DVB / 8; ++t)
-      if (t < dv / 8)
-        out[t * 4] = pack_bf16(acc_o[t][2 * i] / l, acc_o[t][2 * i + 1] / l);
+    for (int t = 0; t < DVB / 8; ++t) {
+      if (t < dv / 8) {
+        float x0 = acc_o[t][2 * i] / l, x1 = acc_o[t][2 * i + 1] / l;
+        if constexpr (HOOKED) {
+          x0 = apply_hook(oepi, x0);
+          x1 = apply_hook(oepi, x1);
+        }
+        out[t * 4] = pack_bf16(x0, x1);
+      }
+    }
   }
 }
 
@@ -445,9 +478,14 @@ template <int DVB, int BKVB>
 int launch_mma(const void* q, const void* k, const void* v, void* o,
                int batch, int hq, int hkv, int m, int n, int d, int dv,
                int bq, int bkv, int masked, int window, float scale,
-               size_t smem, cudaStream_t stream) {
-  auto kernel = bkv % 16 ? attn_mma_kernel<DVB, BKVB, true>
-                         : attn_mma_kernel<DVB, BKVB, false>;
+               size_t smem, cudaStream_t stream, const Hook& qpro,
+               const Hook& kpro, const Hook& oepi) {
+  const bool hooked = qpro.n || kpro.n || oepi.n;
+  auto kernel =
+      bkv % 16 ? (hooked ? attn_mma_kernel<DVB, BKVB, true, true>
+                         : attn_mma_kernel<DVB, BKVB, true, false>)
+               : (hooked ? attn_mma_kernel<DVB, BKVB, false, true>
+                         : attn_mma_kernel<DVB, BKVB, false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -457,7 +495,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, threads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), hq, hkv, m, n, d,
-      dv, bq, bkv, masked, window, scale);
+      dv, bq, bkv, masked, window, scale, qpro, kpro, oepi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -482,11 +520,12 @@ __device__ void stage(float* dst, const float* src, int n) {
   }
 }
 
+template <bool HOOKED>
 __global__ void __launch_bounds__(kF32Threads) attn_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o, int hq, int hkv,
     int m, int n, int d, int dv, int bq, int bkv, int masked, int window,
-    float scale) {
+    float scale, Hook qpro, Hook kpro, Hook oepi) {
   const int row0 = blockIdx.x * bq;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -518,6 +557,12 @@ __global__ void __launch_bounds__(kF32Threads) attn_f32_kernel(
   }
 
   stage(s_q, q + row_base * d, bq * d);
+  if constexpr (HOOKED) {
+    if (qpro.n) {  // the q prologue, once; the kv loop's barrier follows
+      __syncthreads();
+      hook_tile(&qpro, s_q, d, bq, d);
+    }
+  }
   for (int e = threadIdx.x; e < bq * dv; e += nt) s_o[e] = 0.f;
   for (int i = threadIdx.x; i < bq; i += nt) {
     s_m[i] = kNegInf;
@@ -529,6 +574,12 @@ __global__ void __launch_bounds__(kF32Threads) attn_f32_kernel(
     stage(s_k, k + (kv_base + j0) * d, bkv * d);
     stage(s_v, v + (kv_base + j0) * dv, bkv * dv);
     __syncthreads();
+    if constexpr (HOOKED) {
+      if (kpro.n) {  // the k prologue on the tile's keys
+        hook_tile(&kpro, s_k, d, bkv, d);
+        __syncthreads();
+      }
+    }
 
     // scores: one warp per (row, key), lanes split the head dim
     for (int p = warp; p < bq * bkv; p += n_warps) {
@@ -589,10 +640,12 @@ __global__ void __launch_bounds__(kF32Threads) attn_f32_kernel(
   }
   __syncthreads();
 
-  // o / l; a row with no key keeps the mean of v
+  // the o epilogue on o / l; a row with no key keeps the mean of v
   for (int e = threadIdx.x; e < bq * dv; e += nt) {
     const float l = s_l[e / dv];
-    o[row_base * dv + e] = s_o[e] / (l == 0.f ? 1.f : l);
+    float x = s_o[e] / (l == 0.f ? 1.f : l);
+    if constexpr (HOOKED) x = apply_hook(oepi, x);
+    o[row_base * dv + e] = x;
   }
 }
 
@@ -957,24 +1010,28 @@ int attn_partial_launch(int dtype, const void* q, const void* k,
 
 // The normalised attention O = softmax(q k^T * scale + mask) V with the
 // query rows at the tail of the kv sequence; o in q's type.  dtype: 0 =
-// float32 (CUDA cores), 1 = bfloat16 (tensor cores).  Returns
-// cudaGetLastError() after the launch (0 on success); the caller
+// float32 (CUDA cores), 1 = bfloat16 (tensor cores); qpro, kpro, oepi:
+// the q and k prologues and the o epilogue (hook.cuh; n = 0: none).
+// Returns cudaGetLastError() after the launch (0 on success); the caller
 // validated every shape and tile.
 int attn_launch(int dtype, const void* q, const void* k, const void* v,
                 void* o, int batch, int hq, int hkv, int m, int n, int d,
                 int dv, int bq, int bkv, int masked, int window, float scale,
-                long long smem_bytes, void* stream) {
+                long long smem_bytes, void* stream, Hook qpro, Hook kpro,
+                Hook oepi) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(smem_bytes);
   if (dtype == 0) {
+    auto kernel = qpro.n || kpro.n || oepi.n ? attn_f32_kernel<true>
+                                             : attn_f32_kernel<false>;
     cudaError_t err = cudaFuncSetAttribute(
-        attn_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    attn_f32_kernel<<<dim3(m / bq, hq, batch), kF32Threads, smem, s>>>(
+    kernel<<<dim3(m / bq, hq, batch), kF32Threads, smem, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), hq, hkv, m, n,
-        d, dv, bq, bkv, masked, window, scale);
+        d, dv, bq, bkv, masked, window, scale, qpro, kpro, oepi);
     return static_cast<int>(cudaGetLastError());
   }
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -982,19 +1039,22 @@ int attn_launch(int dtype, const void* q, const void* k, const void* v,
   if (dv <= 64)
     return bkv <= 64
                ? launch_mma<64, 64>(q, k, v, o, batch, hq, hkv, m, n, d, dv,
-                                    bq, bkv, masked, window, scale, smem, s)
+                                    bq, bkv, masked, window, scale, smem, s,
+                                    qpro, kpro, oepi)
                : launch_mma<64, 128>(q, k, v, o, batch, hq, hkv, m, n, d,
                                      dv, bq, bkv, masked, window, scale,
-                                     smem, s);
+                                     smem, s, qpro, kpro, oepi);
   if (dv <= 128)
     return bkv <= 64
                ? launch_mma<128, 64>(q, k, v, o, batch, hq, hkv, m, n, d, dv,
-                                     bq, bkv, masked, window, scale, smem, s)
+                                     bq, bkv, masked, window, scale, smem, s,
+                                     qpro, kpro, oepi)
                : launch_mma<128, 128>(q, k, v, o, batch, hq, hkv, m, n, d,
                                       dv, bq, bkv, masked, window, scale,
-                                      smem, s);
+                                      smem, s, qpro, kpro, oepi);
   return launch_mma<256, 64>(q, k, v, o, batch, hq, hkv, m, n, d, dv, bq,
-                             bkv, masked, window, scale, smem, s);
+                             bkv, masked, window, scale, smem, s, qpro, kpro,
+                             oepi);
 }
 
 const char* attn_error_string(int code) {

@@ -20,6 +20,19 @@
 //
 // Shared memory is exactly `mlp_smem_bytes` / `gemm_chain3_smem_bytes`
 // in core/perf_model.py, and the bf16 tile rule `mlp_tiles_ok`.
+//
+// The stitching hooks (hook.cuh) cost no shared memory, and run only in
+// the kernels' HOOKED instantiations, which the launch picks when a hook
+// has steps: without one, the kernels are what they were.  The prologue
+// runs on each A element once per use: in the bf16 machine on the A
+// tile of a ring stage right after the stage lands (every stage holds a
+// fresh copy of its A tile, so no element is hooked twice), rounded back
+// to bf16 as the JAX kernel's hook returns the tile in its own type; in
+// the f32 kernel on the staged A tile.  The epilogue runs on the
+// finished f32 output before its one cast: in the block's store with one
+// split, and in `mlp_merge_kernel` after the in-order sum with more (a
+// block holds only a partial sum, and a non-linear epilogue of a
+// partial is not the epilogue of the sum); never on the f32 partials.
 
 #pragma once
 
@@ -28,6 +41,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hook.cuh"
 
 namespace {
 
@@ -237,14 +252,15 @@ struct MmaGeom {
 // fewer column groups than warps leaves warps idle; sharing a group's
 // row groups among them slowed the MLP kernel by 4-6 % on an H100).
 // Register arrays are sized by the buckets, loops unrolled and guarded
-// by the real counts.  The caller synchronises before the ring is
-// reused.
-template <bool GATED, int MB, int NB>
+// by the real counts.  HOOKED: the prologue `pro` on each stage's A
+// tile.  The caller synchronises before the ring is reused.
+template <bool GATED, int MB, int NB, bool HOOKED>
 __device__ __forceinline__ void mma_up(
     const MmaGeom& G, bf16* __restrict__ ring, int stages,
     bf16* __restrict__ hid, int ldh, const bf16* __restrict__ a_b,
     const bf16* __restrict__ wu_b, const bf16* __restrict__ wg_b, int rows,
-    int n, int k, int bn, int bk, int n_begin, int n_len, int act) {
+    int n, int k, int bn, int bk, int n_begin, int n_len, int act,
+    const Hook& pro) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;
   const int n_blocks = (n_len + bn - 1) / bn;
@@ -275,6 +291,13 @@ __device__ __forceinline__ void mma_up(
     if (t + stages - 1 < steps1) load_up(t + stages - 1);
     cp_async_commit();
     const int j = t / k_tiles, kt = t - j * k_tiles;
+    if constexpr (HOOKED) {
+      if (pro.n) {  // the prologue on this stage's A tile, its valid part
+        hook_tile(&pro, ring + (t % stages) * G.stage, G.lda, rows,
+                  min(bk, k - kt * bk));
+        __syncthreads();
+      }
+    }
     if (kt == 0) {
 #pragma unroll
       for (int i = 0; i < MB; ++i)
@@ -461,14 +484,15 @@ __device__ __forceinline__ void mma_down(
 
 // The MLP kernel (and the two-GEMM chain, act = kIdentity, ungated):
 // the block's hidden over its split's n range, then E chunk by chunk
-// over the block's E columns into E or its split's partial.
-template <bool GATED, int MB, int NB>
+// over the block's E columns into E or its split's partial; the
+// prologue `pro` on A, the epilogue `epi` on E with one split (HOOKED).
+template <bool GATED, int MB, int NB, bool HOOKED>
 __global__ void __launch_bounds__(kThreads, 1) mlp_mma_kernel(
     const bf16* __restrict__ a, const bf16* __restrict__ wu,
     const bf16* __restrict__ wg, const bf16* __restrict__ wd,
     bf16* __restrict__ e_out, float* __restrict__ part, int m, int n, int k,
     int h, int bm, int bn, int bk, int be, int splits, int per, int stages,
-    int dr, int act) {
+    int dr, int act, Hook pro, Hook epi) {
   const int batch = gridDim.z / splits;
   const int split = blockIdx.z % splits;
   const int b = blockIdx.z / splits;
@@ -487,18 +511,24 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_mma_kernel(
   bf16* ring = reinterpret_cast<bf16*>(smem);
   bf16* hid = ring + stages * G.stage;
 
-  mma_up<GATED, MB, NB>(G, ring, stages, hid, ldh,
+  mma_up<GATED, MB, NB, HOOKED>(G, ring, stages, hid, ldh,
                         a + (static_cast<size_t>(b) * m + row0) * k,
                         wu + static_cast<size_t>(b) * k * n,
                         wg + static_cast<size_t>(b) * k * n, rows, n, k, bn,
-                        bk, n_begin, n_len, act);
+                        bk, n_begin, n_len, act, pro);
   __syncthreads();  // every hidden column written; the ring is free
   mma_down<MB>(G, ring, stages, dr, hid, ldh,
                wd + (static_cast<size_t>(b) * n + n_begin) * h, h, n_len,
                col0, col_end, [&](int row, int col, float v0, float v1) {
-                 if (row < rows)
-                   store_e2(e_out, part, split, splits, b, batch, m, h,
-                            row0 + row, col, col_end, v0, v1);
+                 if (row >= rows) return;
+                 if constexpr (HOOKED) {
+                   if (splits == 1) {  // E is whole: the epilogue, then E
+                     v0 = apply_hook(epi, v0);
+                     v1 = apply_hook(epi, v1);
+                   }
+                 }
+                 store_e2(e_out, part, split, splits, b, batch, m, h,
+                          row0 + row, col, col_end, v0, v1);
                });
 }
 
@@ -560,12 +590,13 @@ __device__ void stage_tile(T* __restrict__ dst, const T* __restrict__ src,
   }
 }
 
-template <typename TA, typename TW, bool GATED>
+template <typename TA, typename TW, bool GATED, bool HOOKED>
 __global__ void __launch_bounds__(kThreads, 2) mlp_f32_kernel(
     const TA* __restrict__ a, const TW* __restrict__ wu,
     const TW* __restrict__ wg, const TW* __restrict__ wd,
     TA* __restrict__ e_out, float* __restrict__ part, int m, int n, int k,
-    int h, int bm, int bn, int bk, int be, int splits, int per, int act) {
+    int h, int bm, int bn, int bk, int be, int splits, int per, int act,
+    Hook pro, Hook epi) {
   const int batch = gridDim.z / splits;
   const int split = blockIdx.z % splits;
   const int b = blockIdx.z / splits;
@@ -620,6 +651,12 @@ __global__ void __launch_bounds__(kThreads, 2) mlp_f32_kernel(
         stage_tile(s_wg, wg_b + static_cast<size_t>(k0) * n + n0, bk, bn,
                    n, kr, ncols);
       __syncthreads();
+      if constexpr (HOOKED) {
+        if (pro.n) {  // the prologue on the staged A tile, its valid part
+          hook_tile(&pro, s_a, bk, rows, kr);
+          __syncthreads();
+        }
+      }
 
       // U (+)= A Wu, G (+)= A Wg: a thread owns column j, kRows rows
       for (int p = threadIdx.x; p < bn * chunks; p += kThreads) {
@@ -693,21 +730,26 @@ __global__ void __launch_bounds__(kThreads, 2) mlp_f32_kernel(
   for (int i = threadIdx.x; i < rows * cols; i += kThreads) {
     const int r = i / cols;
     const int c = i - r * cols;
+    float v = s_e[r * be + c];
+    if constexpr (HOOKED) {
+      if (splits == 1) v = apply_hook(epi, v);
+    }
     store_e(e_out, part, split, splits, b, batch, m, h, row0 + r, col0 + c,
-            s_e[r * be + c]);
+            v);
   }
 }
 
 // ---------------------------------------------------------------------
-// the merge: E = sum of the splits' partial E in split order, cast once
+// the merge: E = the epilogue of the sum of the splits' partial E in
+// split order, cast once
 // ---------------------------------------------------------------------
 
 constexpr int kMergeBatch = 16;  // partial loads a thread has in flight
 
-template <typename TA>
+template <typename TA, bool HOOKED>
 __global__ void mlp_merge_kernel(const float* __restrict__ part,
                                  TA* __restrict__ e, int splits,
-                                 long long count) {
+                                 long long count, Hook epi) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (i >= count) return;
@@ -721,6 +763,7 @@ __global__ void mlp_merge_kernel(const float* __restrict__ part,
     for (int x = 0; x < kMergeBatch; ++x)
       if (s0 + x < splits) acc += v[x];
   }
+  if constexpr (HOOKED) acc = apply_hook(epi, acc);
   e[i] = from_f32<TA>(acc);
 }
 
@@ -762,14 +805,17 @@ template <typename TA, typename TW, bool GATED>
 int launch(const void* a, const void* wu, const void* wg, const void* wd,
            void* e, float* part, int batch, int m, int n, int k, int h,
            int bm, int bn, int bk, int be, int splits, int per, int stages,
-           int dr, int act, size_t smem, cudaStream_t stream) {
+           int dr, int act, size_t smem, cudaStream_t stream,
+           const Hook& pro, const Hook& epi) {
   constexpr bool mma = sizeof(TA) == 2 && sizeof(TW) == 2;
+  const bool hooked = pro.n || epi.n;
   cudaError_t err;
   const dim3 grid((m + bm - 1) / bm, (h + be - 1) / be, batch * splits);
   if constexpr (mma) {
     err = static_cast<cudaError_t>(with_bucket(bm, bn, [&](auto mb, auto nb) {
-      auto kernel =
-          mlp_mma_kernel<GATED, decltype(mb)::value, decltype(nb)::value>;
+      constexpr int MB = decltype(mb)::value, NB = decltype(nb)::value;
+      auto kernel = hooked ? mlp_mma_kernel<GATED, MB, NB, true>
+                           : mlp_mma_kernel<GATED, MB, NB, false>;
       const cudaError_t set = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem));
@@ -778,12 +824,13 @@ int launch(const void* a, const void* wu, const void* wg, const void* wd,
           static_cast<const bf16*>(a), static_cast<const bf16*>(wu),
           static_cast<const bf16*>(wg), static_cast<const bf16*>(wd),
           static_cast<bf16*>(e), part, m, n, k, h, bm, bn, bk, be, splits,
-          per, stages, dr, act);
+          per, stages, dr, act, pro, epi);
       return 0;
     }));
     if (err != cudaSuccess) return static_cast<int>(err);
   } else {
-    auto kernel = mlp_f32_kernel<TA, TW, GATED>;
+    auto kernel = hooked ? mlp_f32_kernel<TA, TW, GATED, true>
+                         : mlp_f32_kernel<TA, TW, GATED, false>;
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
@@ -792,14 +839,15 @@ int launch(const void* a, const void* wu, const void* wg, const void* wd,
         static_cast<const TA*>(a), static_cast<const TW*>(wu),
         static_cast<const TW*>(wg), static_cast<const TW*>(wd),
         static_cast<TA*>(e), part, m, n, k, h, bm, bn, bk, be, splits, per,
-        act);
+        act, pro, epi);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const long long count = static_cast<long long>(batch) * m * h;
   const long long blocks = (count + kThreads - 1) / kThreads;
-  mlp_merge_kernel<TA><<<static_cast<unsigned>(blocks), kThreads, 0,
-                         stream>>>(part, static_cast<TA*>(e), splits, count);
+  (epi.n ? mlp_merge_kernel<TA, true> : mlp_merge_kernel<TA, false>)<<<
+      static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      part, static_cast<TA*>(e), splits, count, epi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -808,14 +856,15 @@ int launch_gated(int gated, const void* a, const void* wu, const void* wg,
                  const void* wd, void* e, float* part, int batch, int m,
                  int n, int k, int h, int bm, int bn, int bk, int be,
                  int splits, int per, int stages, int dr, int act,
-                 size_t smem, cudaStream_t stream) {
+                 size_t smem, cudaStream_t stream, const Hook& pro,
+                 const Hook& epi) {
   if (gated)
     return launch<TA, TW, true>(a, wu, wg, wd, e, part, batch, m, n, k, h,
                                 bm, bn, bk, be, splits, per, stages, dr, act,
-                                smem, stream);
+                                smem, stream, pro, epi);
   return launch<TA, TW, false>(a, wu, wg, wd, e, part, batch, m, n, k, h, bm,
                                bn, bk, be, splits, per, stages, dr, act,
-                               smem, stream);
+                               smem, stream, pro, epi);
 }
 
 }  // namespace

@@ -50,6 +50,11 @@
 // bf16 tile rule `mlp_tiles_ok`; Rule 4 of the tuner and the Python
 // wrappers check them.
 //
+// The stitching hooks of the JAX kernels (`prologue` on the A tile at
+// load, `epilogue` on the finished output tile before the store) are the
+// machine's (chain_mma.cuh); in the three-GEMM chain the epilogue runs
+// on G, the chain's output, as `gemm_chain3._kernel` applies it.
+//
 // The ring of both chains gives up stages, down to two, where the full
 // ring would not fit beside what the block holds (perf_model.mlp_ring's
 // `held`), so the parent's tiles, such as 128/128/128 at K = 128, run.
@@ -98,11 +103,12 @@ __device__ void accumulate_from_global(float* __restrict__ acc, int ldacc,
 }
 
 // G = ((A B) D) F in f32 on CUDA cores, one block a (m tile, batch)
+template <bool HOOKED>
 __global__ void __launch_bounds__(kThreads) chain3_f32_kernel(
     const float* __restrict__ a, const float* __restrict__ b,
     const float* __restrict__ d, const float* __restrict__ f,
     float* __restrict__ out, int m, int n, int k, int h, int g, int bm,
-    int bn, int bk) {
+    int bn, int bk, Hook pro, Hook epi) {
   const int row0 = blockIdx.x * bm;
   const int bz = blockIdx.y;
   const int chunks = (bm + kRows - 1) / kRows;
@@ -128,6 +134,12 @@ __global__ void __launch_bounds__(kThreads) chain3_f32_kernel(
       stage_tile(s_b, b_b + static_cast<size_t>(k0) * n + n0, bk, bn, n, bk,
                  bn);
       __syncthreads();
+      if constexpr (HOOKED) {
+        if (pro.n) {  // the prologue on the staged A tile
+          hook_tile(&pro, s_a, bk, bm, bk);
+          __syncthreads();
+        }
+      }
 
       // C (+)= A B: a thread owns column j, kRows rows
       for (int p = threadIdx.x; p < bn * chunks; p += kThreads) {
@@ -166,19 +178,21 @@ __global__ void __launch_bounds__(kThreads) chain3_f32_kernel(
     for (int i = threadIdx.x; i < bm * gc; i += kThreads) {
       const int r = i / gc;
       const int c = i - r * gc;
-      out[(static_cast<size_t>(bz) * m + row0 + r) * g + g0 + c] = s_c[i];
+      float v = s_c[i];
+      if constexpr (HOOKED) v = apply_hook(epi, v);
+      out[(static_cast<size_t>(bz) * m + row0 + r) * g + g0 + c] = v;
     }
   }
 }
 
 // G = ((A B) D) F in bf16 on tensor cores, one block a (m tile, batch):
 // C of all of N, then the whole E row, then G.
-template <int MB, int NB>
+template <int MB, int NB, bool HOOKED>
 __global__ void __launch_bounds__(kThreads, 1) chain3_mma_kernel(
     const bf16* __restrict__ a, const bf16* __restrict__ b,
     const bf16* __restrict__ d, const bf16* __restrict__ f,
     bf16* __restrict__ out, int m, int n, int k, int h, int g, int bm,
-    int bn, int bk, int stages, int dr) {
+    int bn, int bk, int stages, int dr, Hook pro, Hook epi) {
   const int batch = gridDim.y;
   const int bz = blockIdx.y;
   const int row0 = blockIdx.x * bm;
@@ -196,9 +210,9 @@ __global__ void __launch_bounds__(kThreads, 1) chain3_mma_kernel(
   bf16* erow = hid + G.bmp * ldh;
 
   const bf16* b_b = b + static_cast<size_t>(bz) * k * n;
-  mma_up<false, MB, NB>(G, ring, stages, hid, ldh,
+  mma_up<false, MB, NB, HOOKED>(G, ring, stages, hid, ldh,
                         a + (static_cast<size_t>(bz) * m + row0) * k, b_b,
-                        b_b, rows, n, k, bn, bk, 0, n, kIdentity);
+                        b_b, rows, n, k, bn, bk, 0, n, kIdentity, pro);
   __syncthreads();  // all of C written; the ring is free
   // E rounded to F's type; its columns past H (zero) fill the row to hp
   mma_down<MB>(G, ring, stages, dr, hid, ldh,
@@ -212,9 +226,13 @@ __global__ void __launch_bounds__(kThreads, 1) chain3_mma_kernel(
   mma_down<MB>(G, ring, stages, dr, erow, lde,
                f + static_cast<size_t>(bz) * h * g, g, h, 0, g,
                [&](int row, int col, float v0, float v1) {
-                 if (row < rows)
-                   store_e2(out, nullptr, 0, 1, bz, batch, m, g, row0 + row,
-                            col, g, v0, v1);
+                 if (row >= rows) return;
+                 if constexpr (HOOKED) {
+                   v0 = apply_hook(epi, v0);
+                   v1 = apply_hook(epi, v1);
+                 }
+                 store_e2(out, nullptr, 0, 1, bz, batch, m, g, row0 + row,
+                          col, g, v0, v1);
                });
 }
 
@@ -227,14 +245,16 @@ extern "C" {
 // the n axis in `splits` runs of `per` bn blocks, whose f32 partial E
 // go to `part` (splits, B, M, H) and are merged into e (part unused
 // with one split); stages, dr: the bf16 ring, perf_model.mlp_ring with
-// the hidden tile of one n block held (unused in f32).  Returns cudaGetLastError() after the launches (0 on
-// success); the caller validated every shape, tile, the split and the
-// shared-memory size.
+// the hidden tile of one n block held (unused in f32); pro, epi: the
+// prologue on A and the epilogue on E (n = 0: none).  Returns
+// cudaGetLastError() after the launches (0 on success); the caller
+// validated every shape, tile, the split and the shared-memory size.
 int gemm_chain_launch(int dtype, const void* a, const void* b,
                       const void* d, void* e, void* part, int batch, int m,
                       int n, int k, int h, int bm, int bn, int bk, int be,
                       int splits, int per, int stages, int dr,
-                      long long smem_bytes, void* stream) {
+                      long long smem_bytes, void* stream, Hook pro,
+                      Hook epi) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(smem_bytes);
   if (machine_args_bad(batch, h, be, splits, per, stages, dr, part))
@@ -243,48 +263,53 @@ int gemm_chain_launch(int dtype, const void* a, const void* b,
   if (dtype == 0)
     return launch<float, float, false>(a, b, b, d, e, p, batch, m, n, k, h,
                                        bm, bn, bk, be, splits, per, stages,
-                                       dr, kIdentity, smem, s);
+                                       dr, kIdentity, smem, s, pro, epi);
   if (dtype == 1)
     return launch<bf16, bf16, false>(a, b, b, d, e, p, batch, m, n, k, h, bm,
                                      bn, bk, be, splits, per, stages, dr,
-                                     kIdentity, smem, s);
+                                     kIdentity, smem, s, pro, epi);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // G = ((A B) D) F, the flat class (the whole E row on chip).  stages,
-// dr: the bf16 ring, perf_model.gemm_chain3_ring (unused in f32).  Same conventions as gemm_chain_launch.
+// dr: the bf16 ring, perf_model.gemm_chain3_ring (unused in f32); the
+// epilogue runs on G.  Same conventions as gemm_chain_launch.
 int gemm_chain3_launch(int dtype, const void* a, const void* b,
                        const void* d, const void* f, void* out, int batch,
                        int m, int n, int k, int h, int g, int bm, int bn,
                        int bk, int stages, int dr, long long smem_bytes,
-                       void* stream) {
+                       void* stream, Hook pro, Hook epi) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int smem = static_cast<int>(smem_bytes);
   if (batch > 65535 || stages < 2 || stages > kMaxStages || dr < 16 ||
       dr % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((m + bm - 1) / bm, batch);
+  const bool hooked = pro.n || epi.n;
   if (dtype == 0) {
+    auto kernel = hooked ? chain3_f32_kernel<true> : chain3_f32_kernel<false>;
     cudaError_t err = cudaFuncSetAttribute(
-        chain3_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    chain3_f32_kernel<<<grid, kThreads, smem, s>>>(
+    kernel<<<grid, kThreads, smem, s>>>(
         static_cast<const float*>(a), static_cast<const float*>(b),
         static_cast<const float*>(d), static_cast<const float*>(f),
-        static_cast<float*>(out), m, n, k, h, g, bm, bn, bk);
+        static_cast<float*>(out), m, n, k, h, g, bm, bn, bk, pro, epi);
     return static_cast<int>(cudaGetLastError());
   }
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   const int err = with_bucket(bm, bn, [&](auto mb, auto nb) {
-    auto kernel = chain3_mma_kernel<decltype(mb)::value, decltype(nb)::value>;
+    constexpr int MB = decltype(mb)::value, NB = decltype(nb)::value;
+    auto kernel = hooked ? chain3_mma_kernel<MB, NB, true>
+                         : chain3_mma_kernel<MB, NB, false>;
     const cudaError_t set = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (set != cudaSuccess) return static_cast<int>(set);
     kernel<<<grid, kThreads, smem, s>>>(
         static_cast<const bf16*>(a), static_cast<const bf16*>(b),
         static_cast<const bf16*>(d), static_cast<const bf16*>(f),
-        static_cast<bf16*>(out), m, n, k, h, g, bm, bn, bk, stages, dr);
+        static_cast<bf16*>(out), m, n, k, h, g, bm, bn, bk, stages, dr, pro,
+        epi);
     return 0;
   });
   return err ? err : static_cast<int>(cudaGetLastError());

@@ -14,7 +14,9 @@
 // type.  gelu is the tanh form (jax.nn.gelu's default).  Ragged edges
 // are masked: zero-filled loads are exact because act(0) * 0 = 0 and
 // act(0) = 0 for silu, gelu and relu, and no padded copy of any operand
-// is made.
+// is made.  The JAX kernel's stitching hooks run here too: `prologue` on
+// the valid part of each A tile, `epilogue` on the f32 E before its one
+// cast, after the sum of the splits (chain_mma.cuh).
 //
 // Bound.  At decode (qwen3-8b: M = 4, K = H = 4096, N = 12288, bf16)
 // the chain reads 302 MB of weights (Wg, Wu, Wd) and does 1.2 GFLOP:
@@ -85,7 +87,8 @@ extern "C" {
 // runs of `per` bn blocks, whose f32 partial E go to `part` (splits, B,
 // M, H) and are merged into e (part unused with one split); stages, dr:
 // the bf16 kernel's ring, perf_model.mlp_ring (unused by the f32
-// kernel).  Returns
+// kernel); pro, epi: the prologue on A and the epilogue on E
+// (chain_mma.cuh; n = 0: none).  Returns
 // cudaGetLastError() after the launches (0 on success); the caller
 // validated every shape, tile, the split and the shared-memory size.
 int mlp_chain_launch(int a_dtype, int w_dtype, int gated, int act,
@@ -93,7 +96,8 @@ int mlp_chain_launch(int a_dtype, int w_dtype, int gated, int act,
                      const void* wd, void* e, void* part, int batch, int m,
                      int n, int k, int h, int bm, int bn, int bk, int be,
                      int splits, int per, int stages, int dr,
-                     long long smem_bytes, void* stream) {
+                     long long smem_bytes, void* stream, Hook pro,
+                     Hook epi) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(smem_bytes);
   if (act < kSilu || act > kRelu ||
@@ -103,19 +107,19 @@ int mlp_chain_launch(int a_dtype, int w_dtype, int gated, int act,
   if (a_dtype == 0 && w_dtype == 0)
     return launch_gated<float, float>(gated, a, wu, wg, wd, e, p, batch, m,
                                       n, k, h, bm, bn, bk, be, splits, per,
-                                      stages, dr, act, smem, s);
+                                      stages, dr, act, smem, s, pro, epi);
   if (a_dtype == 0 && w_dtype == 1)
     return launch_gated<float, bf16>(gated, a, wu, wg, wd, e, p, batch, m,
                                      n, k, h, bm, bn, bk, be, splits, per,
-                                     stages, dr, act, smem, s);
+                                     stages, dr, act, smem, s, pro, epi);
   if (a_dtype == 1 && w_dtype == 0)
     return launch_gated<bf16, float>(gated, a, wu, wg, wd, e, p, batch, m,
                                      n, k, h, bm, bn, bk, be, splits, per,
-                                     stages, dr, act, smem, s);
+                                     stages, dr, act, smem, s, pro, epi);
   if (a_dtype == 1 && w_dtype == 1)
     return launch_gated<bf16, bf16>(gated, a, wu, wg, wd, e, p, batch, m, n,
                                     k, h, bm, bn, bk, be, splits, per, stages,
-                                    dr, act, smem, s);
+                                    dr, act, smem, s, pro, epi);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -17,6 +17,12 @@ n axis across blocks (``perf_model.mlp_splits``, the rule the tuner
 prices; the GEMM chain is the machine's ungated case with the identity
 activation) and merge the splits' f32 partial E in split order.
 
+Both take the JAX kernels' stitching hooks, ``prologue`` on A at load
+and ``epilogue`` on the finished f32 E before its one cast, as
+``hooks.Elementwise`` expressions (a Python callable raises
+``TypeError``): with an n split the epilogue runs after the sum of the
+splits, never on a split.
+
 A CUDA tensor launches the kernel or raises; only a CPU tensor runs the
 plain version.
 """
@@ -30,6 +36,7 @@ import torch.nn.functional as F
 
 from ..core.perf_model import (H100, mlp_hidden_bytes, mlp_ring,
                                mlp_smem_bytes, mlp_splits, mlp_tiles_ok)
+from . import hooks
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ACT_CODES = {"silu": 0, "gelu": 1, "relu": 2}
@@ -131,7 +138,10 @@ def _machine_split(b, m, n, k, h, tiles, a_bytes, w_bytes, gated, style,
 def fused_mlp_chain(a: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
                     wg: Optional[torch.Tensor] = None, act: str = "silu",
                     bm: int = 16, bn: int = 128, bk: int = 32,
-                    bh: int = 128, style: str = "deep") -> torch.Tensor:
+                    bh: int = 128, style: str = "deep",
+                    prologue: Optional[hooks.Elementwise] = None,
+                    epilogue: Optional[hooks.Elementwise] = None
+                    ) -> torch.Tensor:
     """E = (act(A Wg) * (A Wu)) Wd fused (``wg=None``: act(A Wu) Wd).
 
     a: (B, M, K) float32 or bfloat16; wu/wg: (B, K, N), wd: (B, N, H),
@@ -141,18 +151,24 @@ def fused_mlp_chain(a: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
     The n axis is cut into the splits ``perf_model.mlp_splits`` gives at
     these tiles; each split's f32 partial E is summed in split order and
     cast once (the plain version on a CPU tensor takes the same split).
+    ``prologue`` runs on A (rounded to a's type), ``epilogue`` on the
+    f32 E after the sum of the splits.
     """
+    pro = hooks.check(prologue, "prologue")
+    epi = hooks.check(epilogue, "epilogue")
     (bm, bn, bk, be), (splits, _) = _check(a, wu, wd, wg, act, bm, bn, bk,
                                            bh, style)
     dev = a.device
     if dev.type == "cpu":
-        return fused_mlp_chain_plain(a, wu, wd, wg, act, bn, splits)
+        return fused_mlp_chain_plain(a, wu, wd, wg, act, bn, splits, pro,
+                                     epi)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    return _launch(a, wu, wd, wg, act, bm, bn, bk, be, splits)
+    return _launch(a, wu, wd, wg, act, bm, bn, bk, be, splits, pro, epi)
 
 
 fused_mlp_chain.launches = 0
+fused_mlp_chain.hooked = {}    # hooked launches by (prologue, epilogue) key
 
 
 def _machine_launch(a, wu, wd, gated, bm, bn, bk, be, splits, squeeze):
@@ -182,10 +198,11 @@ def _machine_launch(a, wu, wd, gated, bm, bn, bk, be, splits, squeeze):
     return e, part, dims, int(smem), stream
 
 
-def _launch(a, wu, wd, wg, act, bm, bn, bk, be, splits=1):
+def _launch(a, wu, wd, wg, act, bm, bn, bk, be, splits=1, pro=None,
+            epi=None):
     """Launch the kernel (and, with more than one split, the merge) on
     clamped tiles, with the n blocks cut into ``splits`` runs as the
-    plain version cuts them."""
+    plain version cuts them, and the hooks ``pro`` / ``epi``."""
     from . import _build
 
     lib = _build.load("mlp_chain")
@@ -193,22 +210,28 @@ def _launch(a, wu, wd, wg, act, bm, bn, bk, be, splits=1):
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
                    + [ctypes.c_int] * 13 + [ctypes.c_longlong,
-                                            ctypes.c_void_p])
+                                            ctypes.c_void_p]
+                   + [hooks.HookStruct] * 2)
     e, part, dims, smem, stream = _machine_launch(
         a, wu, wd, wg is not None, bm, bn, bk, be, splits, False)
     err = fn(_DTYPE_CODES[a.dtype], _DTYPE_CODES[wu.dtype],
              int(wg is not None), _ACT_CODES[act], a.data_ptr(),
              wu.data_ptr(), (wu if wg is None else wg).data_ptr(),
              wd.data_ptr(), e.data_ptr(),
-             None if part is None else part.data_ptr(), *dims, smem, stream)
+             None if part is None else part.data_ptr(), *dims, smem, stream,
+             hooks.as_c(pro), hooks.as_c(epi))
     _build.check_launch(lib, "mlp_chain_launch", err, "mlp_error_string")
     fused_mlp_chain.launches += 1
+    hooks.note(fused_mlp_chain, pro, epi)
     return e
 
 
 def fused_mlp_chain_plain(a: torch.Tensor, wu: torch.Tensor,
                           wd: torch.Tensor, wg: Optional[torch.Tensor],
-                          act: str, bn: int, splits: int = 1) -> torch.Tensor:
+                          act: str, bn: int, splits: int = 1,
+                          prologue: Optional[hooks.Elementwise] = None,
+                          epilogue: Optional[hooks.Elementwise] = None
+                          ) -> torch.Tensor:
     """The kernel's plain PyTorch version, with its rounding points:
     f32 up-projections per n block of ``bn``, the hidden block rounded
     to the promoted weight type, E summed in f32 over the n blocks and
@@ -217,13 +240,17 @@ def fused_mlp_chain_plain(a: torch.Tensor, wu: torch.Tensor,
     the kernel cuts them: each run's f32 partial E is summed over its
     blocks from zero, and the partials in split order.  One f32 product
     per n block (not per k tile), so a full-width call on the card takes
-    milliseconds."""
-    return _chain_plain(a, wu, wd, wg, act_fn(act), bn, splits)
+    milliseconds.  ``prologue`` runs on a before both up-projections,
+    ``epilogue`` on the f32 sum of the splits."""
+    return _chain_plain(a, wu, wd, wg, act_fn(act), bn, splits, prologue,
+                        epilogue)
 
 
-def _chain_plain(a, wu, wd, wg, f, bn: int, splits: int) -> torch.Tensor:
-    """The plain MLP machine with the activation ``f``: what
-    ``fused_mlp_chain_plain`` describes."""
+def _chain_plain(a, wu, wd, wg, f, bn: int, splits: int, prologue=None,
+                 epilogue=None) -> torch.Tensor:
+    """The plain MLP machine with the activation ``f`` and the hooks:
+    what ``fused_mlp_chain_plain`` describes."""
+    a = hooks.apply(prologue, a)
     hidden_t = torch.promote_types(a.dtype, wu.dtype)
     n = wu.shape[2]
     step = -(-(-(-n // bn)) // splits) * bn
@@ -239,7 +266,7 @@ def _chain_plain(a, wu, wd, wg, f, bn: int, splits: int) -> torch.Tensor:
             part += torch.bmm(hid.to(hidden_t).float(),
                               wd[:, n0:n0 + bn].float())
         e = part if e is None else e + part
-    return e.to(a.dtype)
+    return hooks.apply(epilogue, e).to(a.dtype)
 
 
 def _check_chain(tensors, bm: int, bn: int, bk: int) -> tuple:
@@ -299,7 +326,10 @@ def check_gemm_chain(a, b, d, bm: int, bn: int, bk: int, bh: int,
 
 def fused_gemm_chain(a: torch.Tensor, b: torch.Tensor, d: torch.Tensor,
                      bm: int = 128, bn: int = 128, bk: int = 128,
-                     bh: int = 128, style: str = "flat") -> torch.Tensor:
+                     bh: int = 128, style: str = "flat",
+                     prologue: Optional[hooks.Elementwise] = None,
+                     epilogue: Optional[hooks.Elementwise] = None
+                     ) -> torch.Tensor:
     """E = (A B) D fused.  a: (B, M, K), b: (B, K, N), d: (B, N, H), one
     type, float32 or bfloat16; returns E (B, M, H) in a's type.
 
@@ -311,25 +341,30 @@ def fused_gemm_chain(a: torch.Tensor, b: torch.Tensor, d: torch.Tensor,
     E accumulates in f32 over the n blocks.  The n axis is cut into the
     splits ``perf_model.mlp_splits`` gives at these tiles; each split's
     f32 partial E is summed in split order and cast once (the plain
-    version on a CPU tensor takes the same split)."""
+    version on a CPU tensor takes the same split).  ``prologue`` runs
+    on A at load, ``epilogue`` on the f32 E after the sum of the splits,
+    as ``fused_mlp_chain`` runs them."""
+    pro = hooks.check(prologue, "prologue")
+    epi = hooks.check(epilogue, "epilogue")
     (bm, bn, bk, be), (splits, _), _ = check_gemm_chain(a, b, d, bm, bn,
                                                         bk, bh, style)
     dev = a.device
     if dev.type == "cpu":
-        return fused_gemm_chain_plain(a, b, d, bn, splits)
+        return fused_gemm_chain_plain(a, b, d, bn, splits, pro, epi)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    return _launch_chain(a, b, d, bm, bn, bk, be, splits)
+    return _launch_chain(a, b, d, bm, bn, bk, be, splits, pro, epi)
 
 
 fused_gemm_chain.launches = 0
+fused_gemm_chain.hooked = {}
 
 
-def _launch_chain(a, b, d, bm, bn, bk, be, splits=1):
+def _launch_chain(a, b, d, bm, bn, bk, be, splits=1, pro=None, epi=None):
     """Launch the MLP machine with the identity activation, ungated (and,
     with more than one split, the merge) on clamped tiles, with the n
-    blocks cut into ``splits`` runs as the plain version cuts them; one
-    count a call."""
+    blocks cut into ``splits`` runs as the plain version cuts them, and
+    the hooks ``pro`` / ``epi``; one count a call."""
     from . import _build
 
     lib = _build.load("gemm_chain")
@@ -337,24 +372,31 @@ def _launch_chain(a, b, d, bm, bn, bk, be, splits=1):
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
                    + [ctypes.c_int] * 13 + [ctypes.c_longlong,
-                                            ctypes.c_void_p])
+                                            ctypes.c_void_p]
+                   + [hooks.HookStruct] * 2)
     e, part, dims, smem, stream = _machine_launch(a, b, d, False, bm, bn,
                                                   bk, be, splits, True)
     err = fn(_DTYPE_CODES[a.dtype], a.data_ptr(), b.data_ptr(),
              d.data_ptr(), e.data_ptr(),
-             None if part is None else part.data_ptr(), *dims, smem, stream)
+             None if part is None else part.data_ptr(), *dims, smem, stream,
+             hooks.as_c(pro), hooks.as_c(epi))
     _build.check_launch(lib, "gemm_chain_launch", err, "chain_error_string")
     fused_gemm_chain.launches += 1
+    hooks.note(fused_gemm_chain, pro, epi)
     return e
 
 
 def fused_gemm_chain_plain(a: torch.Tensor, b: torch.Tensor,
-                           d: torch.Tensor, bn: int,
-                           splits: int = 1) -> torch.Tensor:
+                           d: torch.Tensor, bn: int, splits: int = 1,
+                           prologue: Optional[hooks.Elementwise] = None,
+                           epilogue: Optional[hooks.Elementwise] = None
+                           ) -> torch.Tensor:
     """``fused_gemm_chain``'s plain PyTorch version, with its rounding
     points: C per n block of ``bn`` in f32 (one product over the whole
     k, not per k tile), rounded to d's type, E summed in f32 over the n
     blocks and cast once to a's type.  With ``splits`` > 1 the n blocks
     are cut into that many runs as the kernel cuts them, each run's f32
-    partial E summed from zero and the partials in split order."""
-    return _chain_plain(a, b, d, None, lambda x: x, bn, splits)
+    partial E summed from zero and the partials in split order; the
+    hooks as ``fused_mlp_chain_plain`` runs them."""
+    return _chain_plain(a, b, d, None, lambda x: x, bn, splits, prologue,
+                        epilogue)

@@ -48,7 +48,7 @@ from ..core.perf_model import H100, GpuSpec
 from ..dist import ring_dispatch
 from ..dist.collectives import axis
 from ..dist.sharding import Rules, default_rules, dispatch_mesh_spec
-from . import ref
+from . import hooks, ref
 
 
 def _dtype_name(t: torch.Tensor) -> str:
@@ -359,14 +359,20 @@ def paged_attention_regime_choice(rules: Rules, mesh, *, batch: int,
 
 def mlp_chain(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
               w_gate: Optional[torch.Tensor] = None,
-              act: str = "silu") -> torch.Tensor:
+              act: str = "silu", prologue=None,
+              epilogue=None) -> torch.Tensor:
     """Fused E = (act(X Wg) * (X Wu)) Wd with the tuned schedule
     (``w_gate=None`` computes act(X Wu) Wd).
 
     x: (M, K); w_up/w_gate: (K, N); w_down: (N, H).  The schedule is
     tuned at ``dtype=str(x.dtype)`` — the chain the caller actually
     runs, f32 when a stitched ln2 leaves x f32-wide — while the weights
-    keep their own type (the kernel widens them in registers)."""
+    keep their own type (the kernel widens them in registers).
+    ``prologue``/``epilogue`` are the tile-local stitching hooks
+    (``hooks.Elementwise``; a Python callable raises ``TypeError``),
+    forwarded to the kernel and applied whole-array by the twin."""
+    prologue = hooks.check(prologue, "prologue")
+    epilogue = hooks.check(epilogue, "epilogue")
     m, _ = x.shape
     n, h = w_up.shape[-1], w_down.shape[-1]
     gated = w_gate is not None
@@ -376,9 +382,11 @@ def mlp_chain(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
         tk = api.fuse_mlp_chain(m, n, h, batch=1, dtype=dt, gated=gated,
                                 act=act)
         out = tk(x.contiguous()[None], w_up[None], w_down[None],
-                 wg=w_gate[None] if gated else None)
+                 wg=w_gate[None] if gated else None, prologue=prologue,
+                 epilogue=epilogue)
         return out[0]
 
     return _guarded(("mlp", m, n, h, dt, gated, act), _kernel,
                     lambda: ref.mlp_chain_ref(x, w_up, w_down, wg=w_gate,
-                                              act=act))
+                                              act=act, prologue=prologue,
+                                              epilogue=epilogue))

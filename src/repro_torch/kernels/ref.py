@@ -64,16 +64,20 @@ def gqa_attention_ref(q, k, v, causal: bool = False, window: int = 0,
 
 def mlp_chain_ref(a: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
                   wg: Optional[torch.Tensor] = None,
-                  act: str = "silu") -> torch.Tensor:
+                  act: str = "silu", prologue=None,
+                  epilogue=None) -> torch.Tensor:
     """The unfused (gated) MLP in f32: (act(A Wg) * (A Wu)) Wd, or
     act(A Wu) Wd without ``wg``; gelu is the tanh form.  Any leading
-    batch dims; returns a's type."""
+    batch dims; returns a's type.  The stitching hooks
+    (``hooks.Elementwise``) apply whole-array: ``prologue`` on a,
+    ``epilogue`` on the f32 E."""
+    from . import hooks
     from .gemm_chain import act_fn
     f = act_fn(act)
-    af = a.float()
+    af = hooks.apply(prologue, a).float()
     u = af @ wu.float()
     hid = f(u) if wg is None else f(af @ wg.float()) * u
-    return (hid @ wd.float()).to(a.dtype)
+    return hooks.apply(epilogue, hid @ wd.float()).to(a.dtype)
 
 
 def partial_attention_ref(q, k, v, kv_pos, q_pos, causal: bool = True,

@@ -7,6 +7,7 @@ pinned literally, plan records persist on disk (a mangled one is
 quarantined), and every MLP tile the tuner returns at the main path's
 shapes fits the CUDA kernel's shared memory.
 """
+import dataclasses
 import json
 import math
 from pathlib import Path
@@ -156,6 +157,34 @@ def test_h100_serving_plans_pinned(phase, batch, seq, mlp_ai, stitch):
     # fused because it is memory-bound on an H100: below the ridge 295
     assert mlp.ai == mlp_ai < planner.ridge_intensity(H100)
     assert planner.ridge_intensity(H100) == pytest.approx(295.22, abs=0.01)
+
+
+@pytest.mark.parametrize("seq", [144, 512])
+def test_h100_f32_chain_judged_at_its_own_ridge(seq):
+    """Under ``H100`` an f32 chain meets its ridge at the CUDA cores'
+    67 TFLOP/s (~20 flops a byte), not the tensor cores' ~295: qwen3-8b
+    in f32 at 144 and 512 tokens has an MLP (and an attention) of
+    intensity between the two, so the plan splits them into GEMMs; the
+    bf16 plan judges by the tensor cores' ridge as before, and under
+    ``V5E`` a chain's ridge is the one ridge."""
+    cfg = dataclasses.replace(FULL, dtype="float32")
+    ch = mlp_chain(seq, FULL.d_ff, FULL.d_model, dtype="float32")
+    ridge = planner.ridge_intensity(H100, ch)
+    assert ridge == pytest.approx(H100.peak_flops_f32 / H100.hbm_bw)
+    assert ridge < ch.arithmetic_intensity() < planner.ridge_intensity(H100)
+    plan = planner.plan_model(cfg, 1, seq, use_cache=False)
+    kinds = [(c.kind, c.ops, c.fused) for c in plan.layer.chains]
+    assert not any(fused for _, _, fused in kinds), kinds
+    assert ("gemm", ("w_up",), False) in kinds
+    assert ("gemm", ("qk",), False) in kinds
+    bf = mlp_chain(seq, FULL.d_ff, FULL.d_model, dtype="bfloat16")
+    assert planner.ridge_intensity(H100, bf) == planner.ridge_intensity(H100)
+    mlp = [c for c in planner.plan_model(FULL, 1, seq,
+                                         use_cache=False).layer.chains
+           if c.kind == "mlp"]
+    assert bool(mlp) == (bf.arithmetic_intensity()
+                         < planner.ridge_intensity(H100))
+    assert planner.ridge_intensity(V5E, ch) == planner.ridge_intensity(V5E)
 
 
 def test_h100_ln2_stitch_floor_exceeds_shared_memory():

@@ -430,3 +430,89 @@ def test_schedule_cache_clear_returns_its_count(port_cache):
     assert sorted(p.name for p in port_cache.iterdir()) == [foreign.name]
     assert api.fuse_gemm_chain(M=256, N=128, K=64, H=64,
                                dtype="bfloat16").source == "search"
+
+
+# ---------------------------------------------------------------------------
+# measured trials (Algorithm 1's wall-clocked top-n): ``measure_fn``
+# ---------------------------------------------------------------------------
+
+def _forbid_search(monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("heuristic_search ran on a warm entry")
+    monkeypatch.setattr(api, "heuristic_search", boom)
+
+
+@pytest.mark.parametrize("hw", [H100, V5E], ids=["h100", "v5e"])
+def test_measured_and_analytic_entries_never_collide(port_cache,
+                                                     monkeypatch, hw):
+    """The twin of tests/test_schedule_cache.py's test: a ``measure_fn``
+    outcome persists under the "measured" trial kind, so an analytic
+    record never satisfies a measured lookup or the other way round, in
+    the process's memo or on disk, and each population round-trips
+    within its own kind."""
+    key = ("gemm", 512, 512, 128, 128, 1, "bfloat16", hw.name, hw.tile_unit,
+           None, 0)
+    assert schedule_cache.entry_path(key, hw, "analytic") \
+        != schedule_cache.entry_path(key, hw, "measured")
+    with pytest.raises(ValueError):
+        schedule_cache.entry_path(key, hw, "wallclock")
+    calls = []
+
+    def measure(s):
+        calls.append(s.key())
+        return estimate(s, hw)
+
+    kw = dict(dtype="bfloat16", hw=hw)
+    analytic = api.fuse_gemm_chain(512, 512, 128, 128, **kw)
+    assert len(list(port_cache.glob("*.json"))) == 1 and not calls
+    # neither the memo nor the disk entry answers a measured call
+    measured = api.fuse_gemm_chain(512, 512, 128, 128, measure_fn=measure,
+                                   **kw)
+    assert measured.source == "search" and measured is not analytic
+    assert len(calls) == measured.report.n_measured > 0
+    assert len(list(port_cache.glob("*.json"))) == 2
+    api.clear_cache()
+    _forbid_search(monkeypatch)
+    warm = api.fuse_gemm_chain(512, 512, 128, 128, **kw)
+    assert warm.source == "disk" and warm.params == analytic.params
+    api.clear_cache()
+    warm_measured = api.fuse_gemm_chain(512, 512, 128, 128,
+                                        measure_fn=measure, **kw)
+    assert warm_measured.source == "disk"
+    assert warm_measured.params == measured.params
+    assert warm_measured.report.n_measured == measured.report.n_measured
+    for trial in schedule_cache.TRIAL_KINDS:
+        assert schedule_cache.load(key, hw, trial) is not None
+        assert json.loads(schedule_cache.entry_path(
+            key, hw, trial).read_text())["trial"] == trial
+
+
+@pytest.mark.parametrize("family", ["gemm", "mlp", "attn"])
+def test_measured_trials_match_reference_under_v5e(port_cache, monkeypatch,
+                                                   tmp_path, family):
+    """Under ``V5E`` with the model itself as the wall clock, the port's
+    measured search picks what the JAX package's does, with as many
+    measured candidates and iterations, through each front door that
+    takes ``measure_fn``."""
+    pytest.importorskip("jax")
+    from repro.core import api as ref_api
+    from repro.core import perf_model as RP
+    monkeypatch.setenv("REPRO_CACHE_DIR", str(tmp_path / "reference"))
+    ref_api.clear_cache()
+    call = {"gemm": lambda m, **k: m.fuse_gemm_chain(
+                512, 512, 128, 128, dtype="bfloat16", **k),
+            "mlp": lambda m, **k: m.fuse_mlp_chain(
+                256, 1024, 512, dtype="bfloat16", **k),
+            "attn": lambda m, **k: m.fuse_attention(
+                512, 512, 64, 64, heads=4, dtype="bfloat16", causal=True,
+                **k)}[family]
+    ref = call(ref_api, measure_fn=lambda s: RP.estimate(s, RP.V5E))
+    got = call(api, hw=V5E, measure_fn=lambda s: estimate(s, V5E))
+    assert got.report.best.key() == ref.report.best.key()
+    assert got.params.as_kwargs() == ref.params.as_kwargs()
+    assert got.report.n_measured == ref.report.n_measured
+    assert got.report.n_iterations == ref.report.n_iterations
+    assert got.report.best_time == ref.report.best_time
+    (entry,) = port_cache.glob("*.json")
+    assert json.loads(entry.read_text())["trial"] == "measured"
+    ref_api.clear_cache()

@@ -1,5 +1,5 @@
-"""Time the chain machine's kernels at the tuner's picks on one card, for
-one or more source trees in turn.
+"""Time the chain machine's kernels, and the normalised attention, at the
+tuner's picks on one card, for one or more source trees in turn.
 
     python3 tools/chain_times.py [--sweep] [SRC ...]
 
@@ -8,9 +8,11 @@ For each SRC (a checkout's ``src`` directory; default this checkout's),
 in the order given and in a fresh process each, it times with CUDA-graph
 replay (``chip_smoke._adaptive_ms``) the gated bf16 MLP at qwen3-8b's
 width at M = 4, 144 and 4096 (``api.fuse_mlp_chain``), the GEMM chain at
-Table II G12 (bf16) and G1 (f32) (``api.fuse_gemm_chain``) and the
-three-GEMM chain at CHAIN3 (bf16), each at the tuner's tiles through the
-public entry points only, and prints one JSON line per SRC.  Each tree
+Table II G12 (bf16) and G1 (f32) (``api.fuse_gemm_chain``), the
+three-GEMM chain at CHAIN3 (bf16) and the normalised attention at
+qwen3-8b's forward (B=2, S=2048, bf16, causal) and Table III S2 (f32)
+(``api.fuse_attention``), each at the tuner's tiles through the public
+entry points only, and prints one JSON line per SRC.  Each tree
 builds its own kernels into its own ``kernels/build``.  Give a tree
 twice (parent, change, change, parent) to see the spread between runs
 of one tree.  ``--sweep`` adds, for each tree, ``chip_smoke.py``'s G12
@@ -73,6 +75,23 @@ def worker(src: str, sweep: bool) -> None:
     out["chain3 bf16"] = C._adaptive_ms(
         lambda: G3.fused_gemm_chain3(*xs, **tiles))
     out["chain3 bf16 tiles"] = tiles
+    b, s, hq, hkv, d = (C.FORWARD["batch"], C.FORWARD["seq"], cfg.n_heads,
+                        cfg.n_kv_heads, cfg.dh)
+    h2, m2, n2, k2, _ = C.ATTN_TABLE_III["S2"]
+    for label, (bb, h, g, m, n, dd, dt, causal) in (
+            ("attention forward bf16", (b, hq, hkv, s, s, d, torch.bfloat16,
+                                        True)),
+            ("attention S2 f32", (1, h2, h2, m2, n2, k2, torch.float32,
+                                  False))):
+        tk = api.fuse_attention(m, n, dd, dd, heads=h, batch=bb,
+                                dtype=C._dtname(dt), causal=causal)
+        xs = C._randn([(bb, h, m, dd), (bb, g, n, dd), (bb, g, n, dd)], dt,
+                      98)
+        with torch.inference_mode():
+            if not torch.isfinite(tk(*xs)).all():
+                raise RuntimeError(f"{label}: non-finite output")
+            out[label] = C._adaptive_ms(lambda: tk(*xs))
+        out[f"{label} tiles"] = tk.params.as_kwargs()
     print(json.dumps(out), flush=True)
     if sweep:
         C.chain_time_phase("G12", torch.bfloat16, sweep=g12_grid(C))
