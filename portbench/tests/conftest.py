@@ -1,0 +1,9 @@
+"""The benchmark's own tests: the harness, the reference and the
+metrics' arithmetic on the CPU; the card's tests carry ``sm90``."""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (ROOT / "src", ROOT):
+    if str(p) not in sys.path:
+        sys.path.insert(0, str(p))
