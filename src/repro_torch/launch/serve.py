@@ -301,7 +301,22 @@ def _serve(args, rank: int = 0):
               f"regime={stats['regime']} steps={stats['decode_steps']} "
               f"preempt={stats['preemptions']} device={args.device}{shard}")
         print(f"per-request generated: {counts}")
+        print(phase_line(stats))
     return results
+
+
+def phase_line(stats: dict) -> str:
+    """The engine's phase counters (``serving.engine.PHASES``) as means
+    per decode step, and the mean queue wait per admission, in ms."""
+    from ..serving.engine import PHASES
+    steps, admits = stats["decode_steps"], stats["prefills"]
+    means = " ".join(
+        f"{k[:-2]}={stats[k] / steps * 1e3:.3f}" if steps else f"{k[:-2]}=-"
+        for k in PHASES.values())
+    wait = (f"{stats['queue_wait_s'] / admits * 1e3:.3f}" if admits
+            else "-")
+    return (f"phases, ms per decode step: {means}; queue wait, ms per "
+            f"admission: {wait}")
 
 
 def _serve_rank(rank: int, argv):

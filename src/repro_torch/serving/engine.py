@@ -67,9 +67,17 @@ traffic and sampled steps are shadowed by the twin; since the KV pool
 is written in place, a shadow saves the pool rows the step wrote,
 runs the twin, and restores them.  A soft **watchdog** times every
 step, and ``drain()`` stops gracefully.
+
+Tracing: ``engine.step`` and each phase of a step (``PHASES``) are
+host-only ``torch.profiler`` events, and each phase adds its host
+seconds to a counter in ``stats``, always on, beside ``queue_wait_s``
+(the seconds each admitted request waited in the queue).  Host-only by
+design: a ``record_function`` range gets a device-side image on the
+card, which a trace would count as device work.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -85,6 +93,8 @@ from ..reliability import sentinels as _sentinels
 from ..reliability.watchdog import StepWatchdog
 from . import kv_pages as KP
 
+from torch._C._profiler import _RecordFunctionFast
+
 #: Execution tiers, best first.
 TIERS = ("configured", "torch-twin", "eager-twin")
 
@@ -96,6 +106,19 @@ TIERS = ("configured", "torch-twin", "eager-twin")
 #: logit, and a bf16 step is 0.018 from the plain step on the card
 #: while a wrong answer is order 1.
 SHADOW_REL_TOL = {"bfloat16": 5e-2}
+
+#: The phases of a step: the profiler event's name, and the counter in
+#: ``stats`` that adds its host seconds less those of the phases nested
+#: in it.  ``engine.schedule`` is deadlines, window reclaim, growth and
+#: admission decisions, a prefill nested in it; ``engine.prefill`` one
+#: admitted prompt through its first token on the host; the decode step's inputs staged, its dispatch launched (a
+#: graph replay on the card), the host waiting for its tokens; then
+#: ``engine.book``, the per-slot bookkeeping.  A sampled sentinel
+#: shadow is timed in ``shadow_wall_s``, inside the phase it checks.
+PHASES = {"engine.schedule": "schedule_s", "engine.prefill": "prefill_s",
+          "engine.decode.stage": "decode_stage_s",
+          "engine.decode.launch": "decode_launch_s",
+          "engine.decode.wait": "decode_wait_s", "engine.book": "book_s"}
 
 #: Per-request outcomes reported on ``FinishedRequest.outcome``.
 #: "health" = evicted by the activation health monitor
@@ -129,6 +152,8 @@ class _Pending:
     submit_step: int
     n_preempted: int = 0
     deadline: Optional[int] = None   # absolute step number, inclusive
+    # host seconds it entered the queue (submitted, or requeued)
+    queued_s: float = dataclasses.field(default_factory=time.perf_counter)
 
 
 @dataclasses.dataclass
@@ -205,13 +230,17 @@ class ServingEngine:
         self.exec_tier = 0           # index into TIERS; sticky demotion
         self.stats = {"decode_steps": 0, "prefills": 0, "preemptions": 0,
                       "generated": 0, "slot_steps": 0, "active_steps": 0,
-                      "ctx_tokens": 0, "page_slot_steps": 0,
+                      "page_slot_steps": 0, "gathered_page_steps": 0,
                       "admit_requeues": 0, "tier_demotions": 0,
                       "deadline_evictions": 0, "preempt_failures": 0,
                       "drained": 0, "shadow_checks": 0,
                       "shadow_mismatches": 0, "golden_probes": 0,
                       "golden_mismatches": 0, "health_evictions": 0,
-                      "reclaimed_pages": 0}
+                      "reclaimed_pages": 0, "queue_wait_s": 0.0}
+        self.stats.update((k, 0.0) for k in PHASES.values())
+        # seconds of the phases closed since the innermost open phase
+        # began (``_phase``)
+        self._nested_s = 0.0
         # wall seconds of each decode step run() drove (inter-token
         # latency), of each engine-level shadow by phase (from the
         # configured dispatch's return to the verdict, so on the card
@@ -301,6 +330,21 @@ class ServingEngine:
             # captured with every position at -1: the warm-up writes
             # only the scratch page
             self._capture()
+
+    @contextlib.contextmanager
+    def _phase(self, name: str):
+        """One phase of the step (``PHASES``): its host-only profiler
+        event, and its host seconds less those of the phases nested in
+        it added to its counter."""
+        outer, self._nested_s = self._nested_s, 0.0
+        t0 = time.perf_counter()
+        try:
+            with _RecordFunctionFast(name):
+                yield
+        finally:
+            dt = time.perf_counter() - t0
+            self.stats[PHASES[name]] += dt - self._nested_s
+            self._nested_s = outer + dt
 
     def _build_libraries(self) -> None:
         """Build every CUDA library the configured tier will launch, so
@@ -682,14 +726,18 @@ class ServingEngine:
             self.queue.insert(0, pend)
             self.stats["admit_requeues"] += 1
             return False
-        s_pad = math.ceil(plen / self.page_size) * self.page_size
-        toks = np.zeros((1, s_pad), np.int64)
-        toks[0, :plen] = pend.prompt
-        logits = self._exec("prefill", torch.from_numpy(toks).to(
-            self.device), self._page_table([alloc]), plen)
+        self.stats["queue_wait_s"] += time.perf_counter() - pend.queued_s
+        with self._phase("engine.prefill"):
+            s_pad = math.ceil(plen / self.page_size) * self.page_size
+            toks = np.zeros((1, s_pad), np.int64)
+            toks[0, :plen] = pend.prompt
+            logits = self._exec("prefill", torch.from_numpy(toks).to(
+                self.device), self._page_table([alloc]), plen)
+            sick = self.model.rt.sentinels and not bool(
+                _sentinels.healthy(logits[:1]).all())
+            tok = None if sick else int(torch.argmax(logits[0]))
         self.stats["prefills"] += 1
-        if self.model.rt.sentinels and not bool(
-                _sentinels.healthy(logits[:1]).all()):
+        if sick:
             # activation health monitor: the prefill produced
             # NaN/Inf/exploded logits — evict honestly instead of
             # admitting a request whose every future token is garbage
@@ -699,7 +747,6 @@ class ServingEngine:
                                  pend.done, pend.submit_step,
                                  pend.n_preempted, "health")
             return True
-        tok = int(torch.argmax(logits[0]))
         slot = _Slot(pend.rid, pend.prompt, pend.base_prompt_len,
                      pend.done + [tok], pend.max_new, alloc,
                      pend.submit_step, self._admit_seq,
@@ -827,11 +874,38 @@ class ServingEngine:
         """One scheduler iteration; returns requests finished in it."""
         n_done = len(self.finished)
         self.step_no += 1
-        with self.watchdog.watch(f"step{self.step_no}"):
+        with self.watchdog.watch(f"step{self.step_no}"), \
+                _RecordFunctionFast("engine.step"):
             self._step_inner()
         return self.finished[n_done:]
 
     def _step_inner(self) -> None:
+        with self._phase("engine.schedule"):
+            active = self._schedule()
+        if not active:
+            return
+        with self._phase("engine.decode.stage"):
+            tokens = np.zeros((self.max_batch,), np.int64)
+            positions = np.full((self.max_batch,), -1, np.int32)
+            for i in active:
+                tokens[i] = self.slots[i].generated[-1]
+                positions[i] = self.slots[i].pos
+            self._tokens.copy_(torch.from_numpy(tokens))
+            self._positions.copy_(torch.from_numpy(positions))
+            self._table.copy_(torch.from_numpy(KP.table_array(
+                [s.alloc if s is not None else None for s in self.slots],
+                self.max_pages)))
+        with self._phase("engine.decode.launch"):
+            host, _ = self._exec("decode", active)
+        with self._phase("engine.decode.wait"):
+            host = host.cpu().numpy()
+        with self._phase("engine.book"):
+            self._book(active, host)
+
+    def _schedule(self) -> list[int]:
+        """Deadlines, window reclaim, growth and admission (each
+        admitted prompt prefilled); returns the slots the decode step
+        runs, none when the step has nothing to decode."""
         self._expire_deadlines()
         self._reclaim_window()
         # running slots take their growth pages BEFORE admission sees
@@ -844,37 +918,28 @@ class ServingEngine:
             while self._admit_one():
                 admitted = True
         active = self._grow_or_preempt()
-        if not active:
-            if self.queue and not admitted and not self._draining:
-                self._stall += 1
-                if self._stall > self.stall_limit:
-                    raise RuntimeError(
-                        "scheduler stalled: pool cannot cover the "
-                        "queue head even when idle — shrink prompts "
-                        "or grow n_pages")
-            return
-        self._stall = 0
+        if active:
+            self._stall = 0
+        elif self.queue and not admitted and not self._draining:
+            self._stall += 1
+            if self._stall > self.stall_limit:
+                raise RuntimeError(
+                    "scheduler stalled: pool cannot cover the queue head "
+                    "even when idle — shrink prompts or grow n_pages")
+        return active
 
-        tokens = np.zeros((self.max_batch,), np.int64)
-        positions = np.full((self.max_batch,), -1, np.int32)
-        for i in active:
-            tokens[i] = self.slots[i].generated[-1]
-            positions[i] = self.slots[i].pos
-        self._tokens.copy_(torch.from_numpy(tokens))
-        self._positions.copy_(torch.from_numpy(positions))
-        self._table.copy_(torch.from_numpy(KP.table_array(
-            [s.alloc if s is not None else None for s in self.slots],
-            self.max_pages)))
-        host, _ = self._exec("decode", active)
-        host = host.cpu().numpy()
+    def _book(self, active: list[int], host: np.ndarray) -> None:
+        """The decode step's tokens (and health flags) into its slots."""
         nxt = host[:self.max_batch]
         health = host[self.max_batch:] if self.model.rt.sentinels else None
         self.stats["decode_steps"] += 1
         self.stats["slot_steps"] += self.max_batch
         self.stats["active_steps"] += len(active)
+        # the step's attention gathers every slot of the page table, live
+        # or not (``kernels.attention.fused_attention_paged``)
+        self.stats["gathered_page_steps"] += self._table.numel()
         for i in active:
             slot = self.slots[i]
-            self.stats["ctx_tokens"] += slot.pos + 1
             self.stats["page_slot_steps"] += sum(
                 1 for p in slot.alloc.pages if p != KP.RECLAIMED)
             if health is not None and not health[i]:
