@@ -603,12 +603,15 @@ def attention_smem_bytes(bq, bkv, d: int, dv: int, in_bytes: int):
 
 
 def attention_partial_smem_bytes(bq, bkv, d: int, dv: int, in_bytes: int,
-                                 group: int):
+                                 group: int,
+                                 stage_keys: int = PARTIAL_STAGE_KEYS):
     """Shared memory one thread block of the partial attention kernel
     (``kernels/csrc/attention_partial.cu``, ``fused_attention_partial``)
     allocates: a 2-stage ring of k and v in the input type, each stage
-    ``kv_stage_tiles(PARTIAL_STAGE_KEYS * 2 // in_bytes, bkv)`` kv
-    tiles, every row padded by 16 bytes, and for the block's
+    ``kv_stage_tiles(stage_keys * 2 // in_bytes, bkv)`` kv tiles
+    (``stage_keys``: ``PARTIAL_STAGE_KEYS``, or the paged launch's
+    ``kernels.attention.PAGED_STAGE_KEYS``), every row padded by 16
+    bytes, and for the block's
     ``group * bq`` rows (the q tiles of one GQA group) q, the output
     accumulator and the stage's scores in f32, the running max and sum,
     and one rescale factor per kv tile of the stage.  The wrapper
@@ -616,7 +619,7 @@ def attention_partial_smem_bytes(bq, bkv, d: int, dv: int, in_bytes: int,
     numpy arrays (the batched model)."""
     pad = 16 // in_bytes
     rows = group * bq
-    tiles = kv_stage_tiles(PARTIAL_STAGE_KEYS * 2 // in_bytes, bkv)
+    tiles = kv_stage_tiles(stage_keys * 2 // in_bytes, bkv)
     sk = tiles * bkv
     return (2 * sk * (d + dv + 2 * pad) * in_bytes
             + rows * (d + dv + sk + 2 + tiles) * 4)

@@ -19,7 +19,8 @@ none, as in the JAX package.
 A CUDA tensor launches the kernel or raises; only a CPU tensor runs the
 plain version, which is the same recurrence over kv blocks of ``bkv``
 in torch ops (for the partial kernel, over the same kv splits, merged
-by the same log-sum-exp combine).
+by the same log-sum-exp combine; for the paged entry, over the same
+pages of each request, in the same splits).
 """
 from __future__ import annotations
 
@@ -130,6 +131,14 @@ PARTIAL_THREADS = 256
 SPLIT_OVERHEAD_KEYS = 64
 
 
+def _resident_blocks(smem: int, hw=H100) -> int:
+    """Partial-kernel blocks of ``smem`` bytes the card runs at once:
+    as many on each SM as its shared memory and threads hold."""
+    per_sm = min(hw.smem_per_sm // (smem + hw.smem_reserved),
+                 hw.threads_per_sm // PARTIAL_THREADS)
+    return hw.n_sm * max(1, per_sm)
+
+
 def partial_splits(batch: int, hkv: int, q_tiles: int, n: int, bkv: int,
                    smem: int, hw=H100) -> tuple[int, int]:
     """(splits, kv tiles per split) of the partial kernel over ``n``
@@ -143,9 +152,7 @@ def partial_splits(batch: int, hkv: int, q_tiles: int, n: int, bkv: int,
     among equals."""
     kv_tiles = n // bkv
     blocks = batch * hkv * q_tiles
-    per_sm = min(hw.smem_per_sm // (smem + hw.smem_reserved),
-                 hw.threads_per_sm // PARTIAL_THREADS)
-    slots = hw.n_sm * max(1, per_sm)
+    slots = _resident_blocks(smem, hw)
 
     def cost(s):
         waves = -(-blocks * s // slots)
@@ -337,25 +344,39 @@ def _launch(q, k, v, kv_pos, q_pos, bq, bkv, masked, window, scale, smem,
     _, hkv, n, dv = v.shape
     tiles = n // bkv
     per = -(-tiles // splits)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    o = torch.empty((b, hq, m, dv), **f32)
-    m_run = torch.empty((b, hq, m, 1), **f32)
-    l_run = torch.empty((b, hq, m, 1), **f32)
-    # the splits' raw states (unused with one split)
-    parts = [torch.empty((splits, b * hq * m, dv), **f32),
-             torch.empty((splits, b * hq * m), **f32),
-             torch.empty((splits, b * hq * m), **f32)] if splits > 1 else []
-    part_ptrs = [t.data_ptr() for t in parts] or [None] * 3
+    outs, parts = _partial_outputs(q, dv, splits)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-             v.data_ptr(), kv_pos.data_ptr(), q_pos.data_ptr(), o.data_ptr(),
-             m_run.data_ptr(), l_run.data_ptr(), *part_ptrs, b, hq, hkv, m,
-             n, d, dv, bq, bkv, splits, per, n if kv_pos.ndim == 2 else 0,
+             v.data_ptr(), kv_pos.data_ptr(), q_pos.data_ptr(),
+             *_pointers(outs, parts), b, hq, hkv, m, n, d, dv, bq, bkv,
+             splits, per, n if kv_pos.ndim == 2 else 0,
              m if q_pos.ndim == 2 else 0, int(masked), int(window),
              float(scale), int(smem), stream)
     _build.check_launch(lib, "attn_partial_launch", err, "attn_error_string")
     fused_attention_partial.launches += 1
-    return o, m_run, l_run
+    return outs
+
+
+def _partial_outputs(q, dv: int, splits: int):
+    """The partial kernel's f32 outputs ``(o, m_run, l_run)`` for q's
+    rows, and the splits' raw states the merge reads (none with one
+    split)."""
+    b, hq, m, _ = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    outs = (torch.empty((b, hq, m, dv), **f32),
+            torch.empty((b, hq, m, 1), **f32),
+            torch.empty((b, hq, m, 1), **f32))
+    parts = [torch.empty((splits, b * hq * m, dv), **f32),
+             torch.empty((splits, b * hq * m), **f32),
+             torch.empty((splits, b * hq * m), **f32)] if splits > 1 else []
+    return outs, parts
+
+
+def _pointers(outs, parts):
+    """The six output pointers of a partial launch (null scratch with
+    one split)."""
+    return [t.data_ptr() for t in outs] + (
+        [t.data_ptr() for t in parts] or [None] * 3)
 
 
 def _online_softmax(q, k, v, kv_pos, q_pos, bkv: int, masked: bool,
@@ -410,15 +431,21 @@ def fused_attention_partial_plain(q, k, v, kv_pos, q_pos, bkv: int,
     ``kv_pos``/``q_pos`` are int32 (N,)|(B, N) and (M,)|(B, M)."""
     n = k.shape[2]
     step = -(-(n // bkv) // splits) * bkv
-    if step >= n:
-        o, m_run, l_run = _online_softmax(q, k, v, kv_pos, q_pos, bkv,
-                                          masked, window, scale)
+    return _merge_splits([
+        _online_softmax(q, k[:, :, j:j + step], v[:, :, j:j + step],
+                        kv_pos[..., j:j + step], q_pos, bkv, masked,
+                        window, scale)
+        for j in range(0, n, step)])
+
+
+def _merge_splits(states):
+    """The splits' raw states combined as the merge kernel combines
+    them (the max over the splits, then each weighed by exp(m_s - max)
+    in split order; one split as it is), and rows dead across them all
+    zeroed."""
+    if len(states) == 1:
+        o, m_run, l_run = states[0]
     else:
-        states = [_online_softmax(q, k[:, :, j:j + step],
-                                  v[:, :, j:j + step],
-                                  kv_pos[..., j:j + step], q_pos, bkv,
-                                  masked, window, scale)
-                  for j in range(0, n, step)]
         m_run = states[0][1]
         for _, m_s, _ in states[1:]:
             m_run = torch.maximum(m_run, m_s)
@@ -433,59 +460,220 @@ def fused_attention_partial_plain(q, k, v, kv_pos, q_pos, bkv: int,
             torch.where(dead, 0.0, l_run))
 
 
+#: bf16 keys a stage of the paged kernel's kv ring holds: half the
+#: unpaged kernel's, so that three blocks share an SM at the decode
+#: tiles (a sweep on an H100 at the benchmark cells' shapes: 128 keys
+#: took 1.7x (olmoe) and 1.3x (qwen3) the time of 64; 48 as 64, 32
+#: and 96 slower)
+PAGED_STAGE_KEYS = 64
+
+
+def paged_splits(batch: int, hkv: int, q_tiles: int, tiles: int,
+                 bkv: int, smem: int, hw=H100) -> int:
+    """The split count of the paged kernel over a chunk of ``tiles`` kv
+    tiles of ``bkv`` keys, from static shapes alone (a captured decode
+    step replays it whatever the lengths).  Each block takes an equal
+    share of its request's live tiles, so a count costs the work of
+    every block spread over the ``slots`` resident at once (all tiles
+    live, each block with its fixed ``SPLIT_OVERHEAD_KEYS``) plus the
+    longest block, a whole request's share, which runs on after the
+    rest; the cheapest count wins, the fewest splits among equals."""
+    blocks = batch * hkv * q_tiles
+    slots = _resident_blocks(smem, hw)
+
+    def cost(s):
+        work = blocks * s * (-(-tiles // s) * bkv + SPLIT_OVERHEAD_KEYS)
+        return work / slots + -(-tiles // s) * bkv, s
+
+    return min(range(1, tiles + 1), key=cost)
+
+
+def _check_paged(q, k_pages, v_pages, page_table, lengths, bq, bkv, n):
+    """Raise on anything the paged kernel does not take: the pools
+    (n_pages, Hkv, page_size, D/Dv) in q's type, each page's rows
+    contiguous, their page and head strides whole 16-byte steps (a slice
+    of kv heads is read in place); an int32 table whose rows are
+    contiguous; int32 lengths, one a request.  Returns the tiles,
+    clamped to (M, n), and their shared-memory bytes."""
+    if q.ndim != 4 or k_pages.ndim != 4 or v_pages.ndim != 4:
+        raise ValueError("q must be (B, H, M, D) and the pools (n_pages, "
+                         "Hkv, page_size, D)")
+    b, hq, m, d = q.shape
+    n_pages, hkv, ps, dv = v_pages.shape
+    if k_pages.shape != (n_pages, hkv, ps, d):
+        raise ValueError(f"k_pages {tuple(k_pages.shape)} / v_pages "
+                         f"{tuple(v_pages.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"{hq} q-heads do not group over {hkv} kv-heads")
+    if q.dtype not in _DTYPE_CODES or k_pages.dtype != q.dtype \
+            or v_pages.dtype != q.dtype:
+        raise TypeError(f"q and the pools must share float32 or bfloat16, "
+                        f"got {q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
+    if d % 8 or dv % 8:
+        raise ValueError(f"head dims must be multiples of 8, got {d}/{dv}")
+    size = q.element_size()
+    for t, w in ((k_pages, d), (v_pages, dv)):
+        if t.stride(3) != 1 or t.stride(2) != w \
+                or (t.stride(0) * size) % 16 or (t.stride(1) * size) % 16:
+            raise ValueError(f"a pool's pages must hold contiguous rows at "
+                             f"16-byte strides, got {t.stride()}")
+    if page_table.ndim != 2 or page_table.shape[0] != b \
+            or page_table.dtype != torch.int32 or page_table.stride(1) != 1:
+        raise ValueError(f"page_table must be (B, max_pages) int32 with "
+                         f"contiguous rows, got {tuple(page_table.shape)} "
+                         f"{page_table.dtype}")
+    if lengths.shape != (b,) or lengths.dtype != torch.int32 \
+            or lengths.stride(0) != 1:
+        raise ValueError(f"lengths must be (B,) int32, got "
+                         f"{tuple(lengths.shape)} {lengths.dtype}")
+    devices = {t.device for t in (q, k_pages, v_pages, page_table, lengths)}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {devices}")
+    bq, bkv = clamp_tiles(m, n, bq, bkv)
+    smem = attention_partial_smem_bytes(bq, bkv, d, dv, size, hq // hkv,
+                                        PAGED_STAGE_KEYS)
+    return bq, bkv, _fits(smem, bq, bkv)
+
+
 def fused_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: torch.Tensor, page_table: torch.Tensor,
                           lengths: torch.Tensor, bq: int = 128,
                           bkv: int = 128, window: int = 0,
                           scale: Optional[float] = None,
                           pages_per_chunk: int = 0) -> torch.Tensor:
-    """Fused attention over a paged KV cache.
+    """Fused attention over a paged KV cache, read where it lies.
 
     q: (B, Hq, M, D) — request b's query rows sit at the TAIL of its
     context, global positions ``lengths[b]-M .. lengths[b]-1``
     (attention is causal by construction).  k_pages/v_pages:
     (n_pages, Hkv, page_size, D/Dv), the shared page pool
-    (``serving.kv_pages``); page_table: (B, max_pages) int32 physical
-    page per logical page, -1 = unallocated; lengths: (B,) int32.
+    (``serving.kv_pages``), or a slice of its kv heads (read in place
+    with its strides); page_table: (B, max_pages) int32 physical page
+    per logical page, -1 = unallocated; lengths: (B,) int32.
 
-    Each chunk of the page table is gathered into the contiguous layout
-    the kernel streams and run through ``fused_attention_partial`` (one
-    launch per chunk) with per-request global positions: unallocated
-    slots carry ``INVALID_POS``, which the causal mask always rejects,
-    and slots past ``lengths[b]`` fail ``col <= row`` the same way.
-    Chunk states merge with the log-sum-exp combine
-    (``dist.ring_dispatch.merge_partials``); ``pages_per_chunk`` bounds
-    the gather staging buffer at the cost of one extra rescale per
-    chunk boundary.
+    Each chunk of ``pages_per_chunk`` table columns (the whole table at
+    0) is one launch of the partial kernel's paged instantiation, which
+    walks the chunk's columns on the card: a request reads only the
+    pages ``kv_pages.walked_pages`` names (none at length 0), each
+    from the pool, and its keys take their positions from their logical
+    page; a page of -1 in that range is not read, its keys masked.  The
+    split count comes from static shapes (``paged_splits``), the splits
+    share each request's tiles on the card, so no length is read on the
+    host and a captured step stays valid.  Chunk states merge with the
+    log-sum-exp combine (``dist.ring_dispatch.merge_partials``).  On a
+    CPU tensor the plain version walks the same pages in the same
+    splits; on a CUDA tensor the kernel launches or this raises.
     """
     from ..dist.ring_dispatch import finalize_partials, merge_partials
-    from ..serving.kv_pages import gather_pages, paged_kv_positions
 
     b, _, m, d = q.shape
     q = q.contiguous()
-    ps = k_pages.shape[2]
-    max_pages = page_table.shape[1]
+    # no-ops on the engine's int32 inputs (a copy would be a new tensor
+    # of every captured step)
+    page_table = page_table.to(torch.int32)
+    lengths = lengths.to(torch.int32).contiguous()
+    ps, max_pages = k_pages.shape[2], page_table.shape[1]
     if scale is None:
         scale = 1.0 / (d ** 0.5)
-    q_pos = (lengths.to(torch.int32)[:, None] - m
-             + torch.arange(m, dtype=torch.int32, device=q.device)[None, :])
     cpp = (pages_per_chunk if 0 < pages_per_chunk < max_pages
            else max_pages)
-    pad = (-max_pages) % cpp
-    if pad:
-        page_table = torch.cat(
-            [page_table, torch.full((b, pad), -1, dtype=page_table.dtype,
-                                    device=page_table.device)], dim=1)
+    bq, bkv, smem = _check_paged(q, k_pages, v_pages, page_table, lengths,
+                                 bq, bkv, cpp * ps)
+    splits = paged_splits(b, k_pages.shape[1], m // bq, -(-cpp * ps // bkv),
+                          bkv, smem)
+    dev = q.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {dev}")
     state = None
-    for c0 in range(0, page_table.shape[1], cpp):
+    for c0 in range(0, max_pages, cpp):
         tbl = page_table[:, c0:c0 + cpp]
-        kc = gather_pages(k_pages, tbl)
-        vc = gather_pages(v_pages, tbl)
-        kv_pos = paged_kv_positions(tbl, ps, invalid=INVALID_POS,
-                                    first_page=c0)
-        part = fused_attention_partial(
-            q, kc, vc, kv_pos, q_pos, bq=bq, bkv=bkv, causal=True,
-            window=window, scale=scale)
+        if dev.type == "cpu":
+            part = fused_attention_paged_plain(
+                q, k_pages, v_pages, tbl, lengths, bkv, window, scale,
+                splits, first_page=c0)
+        else:
+            part = _launch_paged(q, k_pages, v_pages, tbl, lengths, c0, bq,
+                                 bkv, window, scale, smem, splits)
         state = part if state is None else merge_partials(state, part)
     o, _, l_run = state
     return finalize_partials(o, l_run, q.dtype)
+
+
+def _launch_paged(q, k_pages, v_pages, table, lengths, first_page, bq,
+                  bkv, window, scale, smem, splits):
+    """One launch of the paged kernel over the table columns ``table``
+    (a view of the whole table from column ``first_page`` on)."""
+    from . import _build
+
+    lib = _build.load("attention_partial")
+    _check_aligned(k_pages, v_pages)
+    fn = lib.attn_partial_paged_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
+                   + [ctypes.c_int] * 13 + [ctypes.c_longlong] * 4
+                   + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_longlong,
+                                           ctypes.c_void_p])
+    b, hq, m, d = q.shape
+    _, hkv, ps, dv = v_pages.shape
+    outs, parts = _partial_outputs(q, dv, splits)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
+             v_pages.data_ptr(), table.data_ptr(), lengths.data_ptr(),
+             *_pointers(outs, parts),
+             b, hq, hkv, m, d, dv, bq, bkv, splits, table.stride(0),
+             table.shape[1], first_page, ps, k_pages.stride(0),
+             k_pages.stride(1), v_pages.stride(0), v_pages.stride(1),
+             PAGED_STAGE_KEYS, int(window), float(scale), int(smem), stream)
+    _build.check_launch(lib, "attn_partial_paged_launch", err,
+                        "attn_error_string")
+    fused_attention_partial.launches += 1
+    return outs
+
+
+def fused_attention_paged_plain(q, k_pages, v_pages, page_table, lengths,
+                                bkv: int, window: int, scale: float,
+                                splits: int = 1, first_page: int = 0):
+    """The paged kernel's plain PyTorch version over one chunk of table
+    columns (``page_table``, logical pages ``first_page`` on): for each
+    request the pages ``kv_pages.walked_pages`` names, cut into tiles of
+    ``bkv`` keys from the first one's first key, shared by ``splits``
+    as the kernel shares them; each split's keys taken from the pool
+    (zeros and ``INVALID_POS`` where the walk reads no page) through
+    ``_online_softmax``, the splits merged as the merge kernel merges
+    them.  Returns the raw ``(o, m_run, l_run)``, dead rows the merge
+    identity."""
+    from ..serving.kv_pages import walked_pages
+
+    b, hq, m, _ = q.shape
+    ps, pages = k_pages.shape[2], page_table.shape[1]
+    f32 = dict(dtype=torch.float32, device=q.device)
+    out = [torch.zeros((b, hq, m, v_pages.shape[3]), **f32),
+           torch.full((b, hq, m, 1), NEG_INF, **f32),
+           torch.zeros((b, hq, m, 1), **f32)]
+    for i, length in enumerate(lengths.tolist()):
+        lo, hi = walked_pages(length, ps, window, m)
+        lo, hi = max(lo, first_page), min(hi, first_page + pages)
+        tiles = -(-max(0, hi - lo) * ps // bkv)
+        q_pos = length - m + torch.arange(m, dtype=torch.int32,
+                                          device=q.device)[None]
+        states = []
+        for s in range(splits):
+            t0, t1 = s * tiles // splits, (s + 1) * tiles // splits
+            if t1 == t0:
+                continue
+            pos = lo * ps + torch.arange(t0 * bkv, t1 * bkv,
+                                         dtype=torch.int32, device=q.device)
+            phys = page_table[i, (pos // ps - first_page).clamp(
+                max=pages - 1).long()]
+            live = (pos < hi * ps) & (phys >= 0)
+            idx, off = phys.clamp(min=0).long(), (pos % ps).long()
+            kk, vv = (torch.where(live[:, None, None], t[idx, :, off], 0)
+                      .transpose(0, 1)[None] for t in (k_pages, v_pages))
+            kv_pos = torch.where(live, pos, INVALID_POS)[None]
+            states.append(_online_softmax(q[i:i + 1], kk, vv, kv_pos, q_pos,
+                                          bkv, True, window, scale))
+        if states:
+            for t, x in zip(out, _merge_splits(states)):
+                t[i] = x[0]
+    return tuple(out)

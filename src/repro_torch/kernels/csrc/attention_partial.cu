@@ -64,6 +64,19 @@
 //   log-sum-exp rule before it zeroes dead rows; a split in which a row
 //   is wholly masked holds (sum v, NEG_INF, count) and weighs
 //   exp(NEG_INF - m) = 0 against any live split.
+// * `attn_partial_paged_launch` runs the same kernel (its PAGED
+//   instantiation) behind `fused_attention_paged` on the page pool in
+//   place, for the Pallas paged kernel
+//   (src/repro/kernels/attention.py `fused_attention_paged`, which
+//   gathers each chunk of the page table first).  Bound: the live keys'
+//   bytes, as above.  Each block reads its request's length and walks
+//   the page table itself, loading only the pages that hold keys its
+//   rows may see (from the window's first page to the length's last),
+//   each key's 16-byte pieces by `cp.async` from the page where it lies;
+//   the splits share each request's live tiles equally, so the host's
+//   split count depends on no length and a captured launch stays valid
+//   from step to step.  An empty slot walks nothing and its rows leave
+//   the merge identity.  Nothing is gathered or copied first.
 //
 // Both entries run the recurrence of the TPU kernels over kv tiles of
 // `bkv`: S = q k^T * scale in f32, masked with NEG_INF, running max and
@@ -98,6 +111,9 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -1e30f;  // NEG_INF of the JAX kernel, bit for bit
+// INVALID_POS of the wrapper: a key at this position fails every
+// causal mask
+constexpr int kInvalidPos = 1 << 30;
 // the score of a padding key of a ragged kv tile: -inf, so that its weight
 // exp(-inf - m) is exactly 0 even where every real key is masked
 __device__ __forceinline__ float pad_score() {
@@ -692,10 +708,38 @@ __device__ __forceinline__ float2 load2<float>(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 
+// The page pool the PAGED instantiation walks in place: k and v point
+// at kv head 0 of page 0 (of this rank's head slice), page p's kv head
+// h at p * page_stride + h * head_stride elements, its page_size rows
+// of d (dv) contiguous; table (B rows of table_stride) holds the
+// physical page of each of the chunk's `pages` logical pages from
+// `first_page` on (-1: none); lengths (B,) the keys of each request.
+struct PagedKV {
+  const int* table;
+  const int* lengths;
+  long long k_page_stride, k_head_stride, v_page_stride, v_head_stride;
+  int table_stride, pages, first_page, page_size;
+  int stage_keys;  // bf16 keys a ring stage holds (twice as many bytes
+                   // as kPartialStageKeys' where smaller)
+};
+
 // splits == 1: o_out/m_out/l_out are the outputs, dead rows zeroed.
 // splits > 1: they are the scratch (splits, rows_total, ...) of raw
 // states, merged by attn_merge_kernel.
-template <typename T>
+//
+// PAGED: k and v are the page pool (`pg`), walked in place.  Request
+// b's query rows sit at positions lengths[b] - m .. lengths[b] - 1; the
+// block reads only the logical pages [lo, ceil(len / page_size)) of
+// the chunk, lo the first page of the window of the first row (0 with
+// no window), in kv tiles of bkv keys from page lo's first key on, and
+// split `blockIdx.x` takes an equal share of those tiles
+// ([s * T / S, (s + 1) * T / S)), so that the host's split count needs
+// no length.  A key's position is its logical page * page_size + its
+// offset; a key on a page of -1 is not read and takes INVALID_POS,
+// keys past the last page are not read and fail the causal mask.
+// Otherwise (kv_pos, q_pos given) the contiguous kv shard is split
+// into runs of `tiles_per_split` tiles.
+template <typename T, bool PAGED>
 __global__ void __launch_bounds__(kPartialThreads) attn_partial_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int* __restrict__ kv_pos,
@@ -703,7 +747,7 @@ __global__ void __launch_bounds__(kPartialThreads) attn_partial_kernel(
     float* __restrict__ m_out, float* __restrict__ l_out, int hq, int hkv,
     int m, int n, int d, int dv, int bq, int bkv, int tiles_per_split,
     int kv_pos_bstride, int q_pos_bstride, int masked, int window,
-    float scale) {
+    float scale, PagedKV pg) {
   const int split = blockIdx.x;
   const int hk = blockIdx.y % hkv;
   const int row0 = blockIdx.y / hkv * bq;
@@ -717,9 +761,9 @@ __global__ void __launch_bounds__(kPartialThreads) attn_partial_kernel(
   const int ldv = dv + vec;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  // kv tiles a stage
-  const int st = max(1, kPartialStageKeys * 2 / static_cast<int>(sizeof(T)) /
-                            bkv);
+  // kv tiles a stage (PAGED: of the wrapper's stage size)
+  const int st = max(1, (PAGED ? pg.stage_keys : kPartialStageKeys) * 2 /
+                            static_cast<int>(sizeof(T)) / bkv);
   const int sk = st * bkv;                         // keys a stage
 
   // layout == attention_partial_smem_bytes(bq, bkv, d, dv, sizeof(T),
@@ -740,25 +784,86 @@ __global__ void __launch_bounds__(kPartialThreads) attn_partial_kernel(
            r % bq;
   };
   const size_t kv_base = (static_cast<size_t>(b) * hkv + hk) * n;
-  const int* rows_pos = q_pos + static_cast<size_t>(b) * q_pos_bstride + row0;
-  const int* cols = kv_pos + static_cast<size_t>(b) * kv_pos_bstride;
-  const int t_begin = split * tiles_per_split;
-  const int n_tiles = min(n / bkv - t_begin, tiles_per_split);
-  const int j_begin = t_begin * bkv;
+  const int* rows_pos =
+      PAGED ? nullptr
+            : q_pos + static_cast<size_t>(b) * q_pos_bstride + row0;
+  const int* cols =
+      PAGED ? nullptr : kv_pos + static_cast<size_t>(b) * kv_pos_bstride;
+  // key j of the walk: slot j of the shard, or (PAGED) the key at
+  // position j; its first tile and how many
+  int j_begin, n_tiles;
+  int len = 0, key_end = 0;  // PAGED: the request's length, the walk's end
+  const int* tbl = nullptr;
+  if constexpr (PAGED) {
+    len = pg.lengths[b];
+    tbl = pg.table + static_cast<size_t>(b) * pg.table_stride;
+    const int ps = pg.page_size;
+    int lo = window > 0 ? max(0, len - m - window + 1) / ps : 0;
+    int hi = len > 0 ? (len + ps - 1) / ps : 0;
+    lo = max(lo, pg.first_page);
+    hi = min(hi, pg.first_page + pg.pages);
+    const int tiles = hi > lo ? ((hi - lo) * ps + bkv - 1) / bkv : 0;
+    const int t0 = static_cast<int>(static_cast<long long>(split) * tiles /
+                                    gridDim.x);
+    const int t1 = static_cast<int>(
+        static_cast<long long>(split + 1) * tiles / gridDim.x);
+    j_begin = lo * ps + t0 * bkv;
+    n_tiles = t1 - t0;
+    key_end = hi * ps;
+  } else {
+    const int t_begin = split * tiles_per_split;
+    n_tiles = min(n / bkv - t_begin, tiles_per_split);
+    j_begin = t_begin * bkv;
+  }
+  // PAGED: the physical page of the key at position j, -1 where the
+  // walk reads none (a page of -1, or past the walk's last page)
+  auto page_of = [&](int j) {
+    return j < key_end ? tbl[j / pg.page_size - pg.first_page] : -1;
+  };
+  // the query row of block row r's position
+  auto row_pos = [&](int r) {
+    if constexpr (PAGED)
+      return len - m + row0 + r % bq;
+    else
+      return rows_pos[r % bq];
+  };
 
-  // the kv rows [j0, j0 + keys) into ring stage `stage`
+  // the kv rows [j0, j0 + keys) into ring stage `stage`; PAGED: a key
+  // the walk reads no page for is zero-filled
   auto load_kv = [&](int j0, int keys, int stage) {
-    const T* kg = k + (kv_base + j0) * d;
-    const T* vg = v + (kv_base + j0) * dv;
     T* ks = s_k + stage * sk * ldk;
     T* vs = s_v + stage * sk * ldv;
-    const int kc = d / vec, vc = dv / vec;
-    for (int i = threadIdx.x; i < keys * kc; i += nt)
-      cp_async16(ks + (i / kc) * ldk + (i % kc) * vec,
-                 kg + (i / kc) * d + (i % kc) * vec);
-    for (int i = threadIdx.x; i < keys * vc; i += nt)
-      cp_async16(vs + (i / vc) * ldv + (i % vc) * vec,
-                 vg + (i / vc) * dv + (i % vc) * vec);
+    if constexpr (PAGED) {
+      const int kc = d / vec, vc = dv / vec, ps = pg.page_size;
+      for (int i = threadIdx.x; i < keys * kc; i += nt) {
+        const int j = j0 + i / kc, p = page_of(j);
+        const T* src = p < 0 ? k
+                             : k + p * pg.k_page_stride +
+                                   hk * pg.k_head_stride +
+                                   static_cast<long long>(j % ps) * d +
+                                   (i % kc) * vec;
+        cp_async16(ks + (i / kc) * ldk + (i % kc) * vec, src, p >= 0);
+      }
+      for (int i = threadIdx.x; i < keys * vc; i += nt) {
+        const int j = j0 + i / vc, p = page_of(j);
+        const T* src = p < 0 ? v
+                             : v + p * pg.v_page_stride +
+                                   hk * pg.v_head_stride +
+                                   static_cast<long long>(j % ps) * dv +
+                                   (i % vc) * vec;
+        cp_async16(vs + (i / vc) * ldv + (i % vc) * vec, src, p >= 0);
+      }
+    } else {
+      const int kc = d / vec, vc = dv / vec;
+      const T* kg = k + (kv_base + j0) * d;
+      const T* vg = v + (kv_base + j0) * dv;
+      for (int i = threadIdx.x; i < keys * kc; i += nt)
+        cp_async16(ks + (i / kc) * ldk + (i % kc) * vec,
+                   kg + (i / kc) * d + (i % kc) * vec);
+      for (int i = threadIdx.x; i < keys * vc; i += nt)
+        cp_async16(vs + (i / vc) * ldv + (i % vc) * vec,
+                   vg + (i / vc) * dv + (i % vc) * vec);
+    }
   };
   const int n_stages = (n_tiles + st - 1) / st;
   if (n_tiles > 0) load_kv(j_begin, min(st, n_tiles) * bkv, 0);
@@ -788,7 +893,11 @@ __global__ void __launch_bounds__(kPartialThreads) attn_partial_kernel(
     // R rows, kRowChunk rows per pass over the key's row
     for (int j = threadIdx.x; j < keys; j += nt) {
       const T* kr = ks + j * ldk;
-      const int col = cols[j0 + j];
+      int col;
+      if constexpr (PAGED)
+        col = page_of(j0 + j) < 0 ? kInvalidPos : j0 + j;
+      else
+        col = cols[j0 + j];
       for (int r0 = 0; r0 < R; r0 += kRowChunk) {
         float acc[kRowChunk] = {};
         for (int c = 0; c < d; c += 8) {
@@ -817,7 +926,7 @@ __global__ void __launch_bounds__(kPartialThreads) attn_partial_kernel(
           if (r < R) {
             float s = acc[i] * scale;
             if (masked) {
-              const int row = rows_pos[r % bq];
+              const int row = row_pos(r);
               bool keep = col <= row;
               if (window > 0) keep = keep && col > row - window;
               if (!keep) s = kNegInf;
@@ -941,7 +1050,7 @@ __global__ void attn_merge_kernel(const float* __restrict__ o_part,
   }
 }
 
-template <typename T>
+template <typename T, bool PAGED>
 int launch_partial(const void* q, const void* k, const void* v,
                    const int* kv_pos, const int* q_pos, float* o,
                    float* m_run, float* l_run, float* o_part, float* m_part,
@@ -949,19 +1058,20 @@ int launch_partial(const void* q, const void* k, const void* v,
                    int d, int dv, int bq, int bkv, int splits,
                    int tiles_per_split, int kv_pos_bstride,
                    int q_pos_bstride, int masked, int window, float scale,
-                   size_t smem, cudaStream_t stream) {
+                   size_t smem, cudaStream_t stream, const PagedKV& pg) {
+  auto kernel = attn_partial_kernel<T, PAGED>;
   cudaError_t err = cudaFuncSetAttribute(
-      attn_partial_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(splits, hkv * (m / bq), batch);
   const bool merged = splits > 1;
-  attn_partial_kernel<T><<<grid, kPartialThreads, smem, stream>>>(
+  kernel<<<grid, kPartialThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), kv_pos, q_pos, merged ? o_part : o,
       merged ? m_part : m_run, merged ? l_part : l_run, hq, hkv, m, n, d, dv,
       bq, bkv, tiles_per_split, kv_pos_bstride, q_pos_bstride, masked,
-      window, scale);
+      window, scale, pg);
   err = cudaGetLastError();
   if (err != cudaSuccess || !merged) return static_cast<int>(err);
   const long long rows = static_cast<long long>(batch) * hq * m;
@@ -993,18 +1103,57 @@ int attn_partial_launch(int dtype, const void* q, const void* k,
                         void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(smem_bytes);
+  const PagedKV none{};
   if (dtype == 0)
-    return launch_partial<float>(q, k, v, kv_pos, q_pos, o, m_run, l_run,
-                                 o_part, m_part, l_part, batch, hq, hkv, m,
-                                 n, d, dv, bq, bkv, splits, tiles_per_split,
-                                 kv_pos_bstride, q_pos_bstride, masked,
-                                 window, scale, smem, s);
+    return launch_partial<float, false>(
+        q, k, v, kv_pos, q_pos, o, m_run, l_run, o_part, m_part, l_part,
+        batch, hq, hkv, m, n, d, dv, bq, bkv, splits, tiles_per_split,
+        kv_pos_bstride, q_pos_bstride, masked, window, scale, smem, s, none);
   if (dtype == 1)
-    return launch_partial<bf16>(q, k, v, kv_pos, q_pos, o, m_run, l_run,
-                                o_part, m_part, l_part, batch, hq, hkv, m, n,
-                                d, dv, bq, bkv, splits, tiles_per_split,
-                                kv_pos_bstride, q_pos_bstride, masked,
-                                window, scale, smem, s);
+    return launch_partial<bf16, false>(
+        q, k, v, kv_pos, q_pos, o, m_run, l_run, o_part, m_part, l_part,
+        batch, hq, hkv, m, n, d, dv, bq, bkv, splits, tiles_per_split,
+        kv_pos_bstride, q_pos_bstride, masked, window, scale, smem, s, none);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The partial state of paged decode attention over one chunk of the
+// page table, read from the pools in place (attn_partial_kernel's
+// PAGED instantiation; causal).  k_pages / v_pages: kv head 0 of page
+// 0, strides in elements; table: the chunk's first column, rows of
+// table_stride; `splits` blocks share each request's live tiles.
+// Outputs and scratch as attn_partial_launch's.
+int attn_partial_paged_launch(int dtype, const void* q, const void* k_pages,
+                              const void* v_pages, const int* table,
+                              const int* lengths, float* o, float* m_run,
+                              float* l_run, float* o_part, float* m_part,
+                              float* l_part, int batch, int hq, int hkv,
+                              int m, int d, int dv, int bq, int bkv,
+                              int splits, int table_stride, int pages,
+                              int first_page, int page_size,
+                              long long k_page_stride,
+                              long long k_head_stride,
+                              long long v_page_stride,
+                              long long v_head_stride, int stage_keys,
+                              int window, float scale, long long smem_bytes,
+                              void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = static_cast<size_t>(smem_bytes);
+  const PagedKV pg{table,         lengths,       k_page_stride,
+                   k_head_stride, v_page_stride, v_head_stride,
+                   table_stride,  pages,         first_page,
+                   page_size,     stage_keys};
+  const int n = pages * page_size;
+  if (dtype == 0)
+    return launch_partial<float, true>(
+        q, k_pages, v_pages, nullptr, nullptr, o, m_run, l_run, o_part,
+        m_part, l_part, batch, hq, hkv, m, n, d, dv, bq, bkv, splits, 0, 0,
+        0, 1, window, scale, smem, s, pg);
+  if (dtype == 1)
+    return launch_partial<bf16, true>(
+        q, k_pages, v_pages, nullptr, nullptr, o, m_run, l_run, o_part,
+        m_part, l_part, batch, hq, hkv, m, n, d, dv, bq, bkv, splits, 0, 0,
+        0, 1, window, scale, smem, s, pg);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

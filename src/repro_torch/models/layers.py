@@ -28,8 +28,9 @@ no kernel runs there, as none does in the JAX package.  Nor does one
 run in the recurrent blocks or the cross-attention.
 
 Paged attention has two bodies with one semantics: the fused CUDA
-kernel (``kernels.attention.fused_attention_paged``) for decode steps on
-the card under ``kernel_ops``, and the gather twin — page-table gather
+kernel (``kernels.attention.fused_attention_paged``, which reads each
+request's live pages from the pool in place) for decode steps on the
+card under ``kernel_ops``, and the gather twin — page-table gather
 plus per-request positional attention in torch ops — everywhere else
 (prefill, and any run on the CPU), and wherever the circuit breaker
 holds the kernel's fingerprint quarantined or its dispatch fails.
@@ -1557,7 +1558,10 @@ def _paged_attention_body(qt: torch.Tensor, cache: dict,
 
     if kernel_ops and s == 1 and qt.is_cuda:
         # decode only: the kernel's tail convention needs q rows at
-        # lengths-M..lengths-1, which padded prefill rows violate.
+        # lengths-M..lengths-1, which padded prefill rows violate.  The
+        # kernel reads kp/vp where they lie (a head slice included) and
+        # only each request's live pages; an inactive slot (position
+        # -1, length 0) reads none.
         # ``block`` carries the tuner's winning tiles, so the executed
         # schedule is the one the model priced.  Dispatch is guarded
         # (``kernels.ops._guarded``): a quarantined or failing kernel

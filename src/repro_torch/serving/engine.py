@@ -935,9 +935,7 @@ class ServingEngine:
         self.stats["decode_steps"] += 1
         self.stats["slot_steps"] += self.max_batch
         self.stats["active_steps"] += len(active)
-        # the step's attention gathers every slot of the page table, live
-        # or not (``kernels.attention.fused_attention_paged``)
-        self.stats["gathered_page_steps"] += self._table.numel()
+        self.stats["gathered_page_steps"] += self._read_page_slots(active)
         for i in active:
             slot = self.slots[i]
             self.stats["page_slot_steps"] += sum(
@@ -951,6 +949,25 @@ class ServingEngine:
                 continue
             slot.generated.append(int(nxt[i]))
             self._maybe_finish(i)
+
+    def _walks_pages(self) -> bool:
+        """Whether the decode step's attention is the paged kernel,
+        which walks each request's live pages: the configured tier,
+        ``kernel_ops`` on the card, no ring regime."""
+        rt = self.model.rt
+        return (self.exec_tier == 0 and rt.kernel_ops
+                and self.device.type == "cuda" and not rt.dist_decode_attn)
+
+    def _read_page_slots(self, active: list[int]) -> int:
+        """The page-table slots the decode step's attention reads: on
+        the kernel path each active slot's ``KP.walked_pages`` and none
+        of an empty slot; the gather twin and the ring regimes read
+        every slot of the table."""
+        if not self._walks_pages():
+            return self._table.numel()
+        return sum(hi - lo for lo, hi in (
+            KP.walked_pages(self.slots[i].pos + 1, self.page_size,
+                            self._window) for i in active))
 
     def drain(self, deadline: Optional[float] = None,
               max_steps: Optional[int] = None) -> list[FinishedRequest]:

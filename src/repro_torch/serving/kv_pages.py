@@ -12,9 +12,11 @@ crosses a page boundary, and completion returns every page.
 Physical page 0 is the **scratch page**: it is never handed out, and
 every masked write (an inactive batch slot, a prompt-padding row) is
 redirected to it, so scatters never need a dynamic "skip" path.  Reads
-never mask by value — gathered slots are rejected by *position*
-(table entry -1, or slot position ≥ the request's length / beyond the
-causal row).
+never mask by value — slots are rejected by *position* (table entry
+-1, or slot position ≥ the request's length / beyond the causal row).
+The decode kernel reads the pool in place, only the pages
+``walked_pages`` names; the gather twin (``gather_pages``) reads every
+slot of the table.
 """
 from __future__ import annotations
 
@@ -167,6 +169,21 @@ def paged_kv_positions(page_table: torch.Tensor, page_size: int,
     # to device copy, which a captured decode step may not hold
     pos = torch.where(page_table[:, :, None] >= 0, pos[None], invalid)
     return pos.reshape(b, mp * page_size)
+
+
+def walked_pages(length: int, page_size: int, window: int = 0,
+                 rows: int = 1) -> tuple[int, int]:
+    """[lo, hi): the logical pages paged decode attention reads for a
+    request of ``length`` keys whose ``rows`` query rows sit at the tail
+    (positions ``length - rows .. length - 1``): up to the page of its
+    last key, from the page of the first key the window lets the first
+    row see (page 0 with no window).  A request of length 0 reads none.
+    The kernel (``csrc/attention_partial.cu``), its plain version and
+    the serving engine's page counter all walk this range."""
+    if length <= 0:
+        return 0, 0
+    lo = max(0, length - rows - window + 1) // page_size if window > 0 else 0
+    return lo, -(-length // page_size)
 
 
 def slot_coords(page_table: torch.Tensor, positions: torch.Tensor,

@@ -272,26 +272,56 @@ def test_attention_bf16_head_dim_guard(d):
     A.fused_attention(q.float(), q.float(), q.float(), bq=16, bkv=16)
 
 
-@pytest.mark.parametrize("seed,m,window,cpp", [
-    (0, 1, 0, 0), (1, 1, 6, 0), (2, 4, 11, 0), (3, 1, 0, 2), (4, 1, 6, 1),
-])
-def test_paged_matches_reference_and_twin(jref, seed, m, window, cpp):
-    """Ragged lengths, windows across page boundaries, chunked merges:
-    the port's paged attention equals the JAX paged kernel and the JAX
-    gather twin within TOL (not bitwise — the reference's own paged
-    kernel is not bitwise equal to its partial kernel on this tree)."""
+# (seed, M, window, pages a chunk, case): the case shapes the batch
+PAGED_CASES = [
+    (0, 1, 0, 0, ""), (1, 1, 6, 0, ""), (2, 4, 11, 0, ""), (3, 1, 0, 2, ""),
+    (4, 1, 6, 1, ""),
+    (5, 1, 0, 0, "empty"),        # a slot of length 0
+    (6, 1, 0, 0, "hole"),         # a page of -1 inside the live range
+    (7, 1, 0, 0, "mid_page"),     # lengths that end mid-page
+    (8, 1, 5, 0, "window_mid"),   # a window from mid-table, pages before
+    #                               it reclaimed
+    (9, 4, 0, 2, ""),             # M = 4, two pages a chunk
+    (10, 1, 6, 0, "head_slice"),  # two of six kv heads, read in place
+]
+
+
+@pytest.mark.parametrize("seed,m,window,cpp,case", [
+    pytest.param(*c, id="-".join(map(str, c[:4])) + (c[4] and f"-{c[4]}"))
+    for c in PAGED_CASES])
+def test_paged_matches_reference_and_twin(jref, seed, m, window, cpp, case):
+    """Ragged lengths, windows across page boundaries, chunked merges,
+    an empty slot, a hole in the table, a head slice of the pool: the
+    port's paged attention (on the CPU its plain walk of the live pages)
+    equals the JAX paged kernel and, on every slot that holds a key,
+    the JAX gather twin within TOL (not bitwise — the reference's own
+    paged kernel is not bitwise equal to its partial kernel on this
+    tree).  An empty slot is zero, as from the JAX kernel."""
     jnp, ref = jref
     from repro.models.layers import _paged_positional_attention
     from repro.serving import kv_pages as KP
     rng = np.random.RandomState(seed)
     b, hq, hkv, d, ps, mp = 3, 4, 2, 8, 4, 5
     lengths = [int(rng.randint(m, mp * ps + 1)) for _ in range(b)]
-    pk, pv, table = _paged_setup(rng, b, hkv, d, ps, mp, b * mp + 2,
+    lengths = {"empty": [0] + lengths[1:], "hole": [lengths[0], 17, 9],
+               "mid_page": [13, 6, 19],
+               "window_mid": [18, 20, 7]}.get(case, lengths)
+    pool_heads = 6 if case == "head_slice" else hkv
+    pk, pv, table = _paged_setup(rng, b, pool_heads, d, ps, mp, b * mp + 2,
                                  lengths)
+    if case == "hole":
+        table[1, 2] = -1
+    if case == "window_mid":      # reclaimed below request 0's window
+        table[0, :(lengths[0] - window) // ps] = -1
     q = rng.randn(b, hq, m, d).astype(np.float32)
     larr = np.asarray(lengths, np.int32)
-    got = A.fused_attention_paged(_t(q), _t(pk), _t(pv), _t(table),
-                                  _t(larr), bq=4, bkv=8, window=window,
+    tk, tv = _t(pk), _t(pv)
+    if case == "head_slice":
+        tk, tv = tk[:, 2:4], tv[:, 2:4]
+        pk, pv = pk[:, 2:4], pv[:, 2:4]
+        assert not tk.is_contiguous()
+    got = A.fused_attention_paged(_t(q), tk, tv, _t(table), _t(larr), bq=4,
+                                  bkv=8, window=window,
                                   pages_per_chunk=cpp).numpy()
     want = ref.fused_attention_paged(
         jnp.asarray(q), jnp.asarray(pk), jnp.asarray(pv), jnp.asarray(table),
@@ -305,7 +335,9 @@ def test_paged_matches_reference_and_twin(jref, seed, m, window, cpp):
     twin = _paged_positional_attention(
         jnp.asarray(q), kk, vv, rows, KP.paged_kv_positions(jt, ps),
         window, 1.0 / np.sqrt(d))
-    np.testing.assert_allclose(got, np.asarray(twin), **TOL)
+    live = larr > 0
+    np.testing.assert_allclose(got[live], np.asarray(twin)[live], **TOL)
+    assert not got[~live].any()
 
 
 @pytest.mark.parametrize("causal,window", [(False, 0), (True, 0), (True, 5)])
@@ -738,6 +770,71 @@ def test_partial_kernel_splits_on_card(sm90, dtype, n, bkv, splits, hq, hkv,
     for w, x in zip(want, got):
         torch.testing.assert_close(x, w, **tol)
     assert not got[0][2].any() and not got[2][2].any()    # the dead row
+
+
+# The benchmark cells' paged decode shapes: slots, q heads, kv heads read
+# (of the pool's), table width; contexts log-uniform over [lo, hi], and
+# `empty` slots of length 0
+PAGED_CELL_SHAPES = {
+    "olmoe-reasoning": dict(b=48, hq=16, hkv=16, pool_hkv=16, mp=256,
+                            lo=128, hi=4096, empty=0),
+    "qwen3-chat-planned": dict(b=32, hq=32, hkv=8, pool_hkv=8, mp=288,
+                               lo=256, hi=4608, empty=11),
+    # a rank of four's head slice of the qwen3 pool, read in place
+    "qwen3-rank-slice": dict(b=32, hq=8, hkv=2, pool_hkv=8, mp=288, lo=256,
+                             hi=4608, empty=11),
+}
+
+
+@pytest.mark.sm90
+@pytest.mark.parametrize("cell", sorted(PAGED_CELL_SHAPES))
+def test_paged_kernel_matches_plain_at_the_cells_shapes(sm90, monkeypatch,
+                                                        cell):
+    """The paged kernel at the benchmark cells' decode shapes and the
+    tuner's tiles, ragged contexts and empty slots, against its plain
+    walk with the same splits; one launch, and no page gathered on the
+    way (``gather_pages`` raises)."""
+    from repro_torch.core import api
+    from repro_torch.serving import kv_pages as KP
+    c = PAGED_CELL_SHAPES[cell]
+    b, hq, hkv, mp, ps, d = c["b"], c["hq"], c["hkv"], c["mp"], 16, 128
+    rng = np.random.RandomState(33)
+    lengths = np.exp(rng.uniform(np.log(c["lo"]), np.log(c["hi"]), b)
+                     ).astype(np.int32)
+    lengths[rng.permutation(b)[:c["empty"]]] = 0
+    need = -(-lengths // ps)
+    table = np.full((b, mp), -1, np.int32)
+    table[np.arange(mp)[None, :] < need[:, None]] = \
+        rng.permutation(int(need.sum())) + 1
+    g = torch.Generator(device="cuda").manual_seed(33)
+    kp, vp = (torch.randn(int(need.sum()) + 1, c["pool_hkv"], ps, d,
+                          generator=g, device=sm90).to(torch.bfloat16)
+              for _ in range(2))
+    if hkv < c["pool_hkv"]:
+        kp, vp = kp[:, 2:2 + hkv], vp[:, 2:2 + hkv]
+    q = torch.randn(b, hq, 1, d, generator=g, device=sm90).to(torch.bfloat16)
+    tbl = torch.from_numpy(table).to(sm90)
+    lens = torch.from_numpy(lengths).to(sm90)
+    p = api.fuse_attention_paged(1, mp * ps, d, d, page_size=ps, heads=hq,
+                                 kv_heads=hkv, batch=b,
+                                 dtype="bfloat16").params
+
+    def no_gather(*_):
+        raise AssertionError("the kernel path gathered pages")
+
+    monkeypatch.setattr(KP, "gather_pages", no_gather)
+    before = A.fused_attention_partial.launches
+    got = A.fused_attention_paged(q, kp, vp, tbl, lens, bq=p.bq, bkv=p.bkv)
+    torch.cuda.synchronize()
+    assert A.fused_attention_partial.launches == before + 1
+    _, bkv, smem = A._check_paged(q, kp, vp, tbl, lens, p.bq, p.bkv,
+                                  mp * ps)
+    splits = A.paged_splits(b, hkv, 1, mp * ps // bkv, bkv, smem)
+    o, _, l_run = A.fused_attention_paged_plain(q, kp, vp, tbl, lens, bkv, 0,
+                                                d ** -0.5, splits)
+    want = (o / torch.where(l_run == 0.0, 1.0, l_run)).to(q.dtype)
+    torch.testing.assert_close(got, want, **TOL_BF16)
+    assert not got[torch.from_numpy(lengths == 0).to(sm90)].any()
 
 
 @pytest.mark.sm90

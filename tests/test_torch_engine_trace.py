@@ -1,10 +1,12 @@
 """The serving engine's phase spans and counters (``serving.engine.PHASES``)
 at qwen3 SMOKE on the CPU: the counters are host seconds that fit in
 the watchdog's step, the queue wait counts a request held back, the
-gathered-pages counter counts the whole page table each decode step, the
-spans are host-only ``torch.profiler`` events nested in the caller's
+read-pages counter counts the whole page table each decode step of the
+gather twin and each request's walked pages on the kernel path
+(``kv_pages.walked_pages``), the spans are host-only ``torch.profiler`` events nested in the caller's
 range, tracing changes no served token, and ``reset()`` zeroes the
 counters."""
+import dataclasses
 import time
 
 import numpy as np
@@ -82,11 +84,58 @@ def test_queue_wait_counts_a_request_held_back(model_params):
 
 
 def test_gathered_pages_count_the_whole_table(model_params):
+    """On the CPU the decode step runs the gather twin, which reads
+    every slot of the page table."""
     eng = _engine(model_params)
+    assert not eng._walks_pages()
     _, stats = eng.run(_reqs())
     table = eng.max_batch * ENG_KW["max_pages_per_seq"]
     assert stats["gathered_page_steps"] == stats["decode_steps"] * table
     assert 0 < stats["page_slot_steps"] < stats["gathered_page_steps"]
+
+
+@pytest.mark.parametrize("length,ps,window,rows,want", [
+    (0, 4, 0, 1, (0, 0)),       # an empty slot walks nothing
+    (0, 4, 6, 1, (0, 0)),
+    (1, 4, 0, 1, (0, 1)),
+    (16, 4, 0, 1, (0, 4)),      # ends on a page boundary
+    (17, 4, 0, 1, (0, 5)),      # one key into a fresh page
+    (4096, 16, 0, 1, (0, 256)),
+    (17, 4, 6, 1, (2, 5)),      # the window's first key, 11, on page 2
+    (12, 4, 6, 1, (1, 3)),
+    (5, 4, 6, 1, (0, 2)),       # a window longer than the context
+    (9, 4, 6, 4, (0, 3)),       # the first of four rows sees key 0
+    (30, 4, 6, 4, (5, 8)),      # ... and key 21
+])
+def test_walked_pages(length, ps, window, rows, want):
+    """The logical pages the paged kernel reads for a request: from
+    the page of the first key the window lets its first row see to the
+    page of its last key."""
+    from repro_torch.serving import kv_pages as KP
+    lo, hi = KP.walked_pages(length, ps, window, rows)
+    assert (lo, hi) == want
+    first = max(0, length - rows - window + 1) if window else 0
+    assert hi * ps >= length > (hi - 1) * ps or length == 0
+    assert lo * ps <= first < (lo + 1) * ps or length == 0
+
+
+@pytest.mark.parametrize("window", [0, 6])
+def test_walked_pages_count_the_live_pages(model_params, monkeypatch,
+                                           window):
+    """On the kernel path the counter adds each running request's
+    walked pages, none of an empty slot: exactly the pages the requests
+    hold, with the window's reclaimed pages gone from both."""
+    model, params = model_params
+    if window:
+        model = LM(dataclasses.replace(CFG, window=window), model.rt,
+                   device="cpu")
+    monkeypatch.setattr(ServingEngine, "_walks_pages", lambda self: True)
+    eng = ServingEngine(model, params, max_batch=4, **ENG_KW)
+    _, stats = eng.run(_reqs())
+    assert stats["active_steps"] < stats["slot_steps"]   # empty slots
+    assert stats["gathered_page_steps"] == stats["page_slot_steps"] > 0
+    if window:
+        assert stats["reclaimed_pages"] > 0
 
 
 def test_spans_are_host_events_nested_in_the_callers_range(model_params):
