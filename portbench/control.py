@@ -47,7 +47,7 @@ def main(argv=None) -> int:
                                      "cuda", t0)
         picked = check.sample(run, seed, budget)
         got, ctl, rounded = check.gaps(
-            run.model, params, picked,
+            cell.arch, run.model, params, picked,
             fp8_control=seed in args.control_seeds)
         print("[reading] " + json.dumps(
             {"seed": seed, "program": check.summary(got),

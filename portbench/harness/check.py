@@ -2,15 +2,16 @@
 
 Once the window has closed and the program's state is freed, a sample
 of the requests the window finished, drawn from the seed with the
-longest among them, is run through the plain reference
-(``portbench/reference``) teacher-forced: its context and the tokens
-served, in float32.  At each served position the gap by which the
-served token's logit lies below the reference's best is read; the
-mean gap over the sample is compared with the cell's limit
-(``portbench/limits/<cell>.json``; the widest gap is a tail of near
-ties and does not separate the program from a lower precision).  Beside it, counts that must be 0:
-requests that finished other than complete, tokens outside the
-vocabulary, and any degradation of the engine.
+longest among them, is run through the plain reference (``logits`` of
+the cell's architecture, ``portbench/reference/<name>.py``)
+teacher-forced: its context and the tokens served, in float32.  At each
+served position the gap by which the served token's logit lies below
+the reference's best is read; the mean gap over the sample is compared
+with the cell's limit (``portbench/limits/<cell>.json``; the widest gap
+is a tail of near ties and does not separate the program from a lower
+precision).  Beside it, counts that must be 0: requests that finished
+other than complete, tokens outside the vocabulary, and any degradation
+of the engine.
 """
 from __future__ import annotations
 
@@ -53,17 +54,18 @@ def _sequences(picked: list, device) -> tuple:
     return seqs, rows, torch.from_numpy(np.concatenate(served)).to(device)
 
 
-def gaps(m: dict, params: dict, picked: list, fp8_control: bool = False):
+def gaps(arch, m: dict, params: dict, picked: list,
+         fp8_control: bool = False):
     """(the served tokens' gaps, the control's gaps or None, the float32
     reference's own logits rounded to the served type: their first
     choices' gaps) at every judged position, float32 tensors on the
     host.  A gap is how far the token's reference logit lies below the
     reference's best; the control's tokens are the first choices of the
-    reference with float8 weight products."""
-    from ..reference import decoder
+    reference with float8 weight products.  ``arch`` is the
+    architecture's module."""
     device = params["embed"].device
     seqs, rows, served = _sequences(picked, device)
-    ref = decoder.logits(m, params, seqs, rows)
+    ref = arch.logits(m, params, seqs, rows)
     best = ref.max(dim=-1).values
 
     def gap(tokens):
@@ -72,8 +74,8 @@ def gaps(m: dict, params: dict, picked: list, fp8_control: bool = False):
     got = gap(served)
     ctl = None
     if fp8_control:
-        ctl = gap(decoder.logits(m, params, seqs, rows,
-                                 fp8=True).argmax(dim=-1))
+        ctl = gap(arch.logits(m, params, seqs, rows,
+                              fp8=True).argmax(dim=-1))
     return got, ctl, rounded
 
 
@@ -102,7 +104,7 @@ def judge(run, params: dict, seed: int, limits: dict) -> tuple:
                 "degraded": (degraded, 0)}
     notes = {"judged_requests": len(picked)}
     if picked and not vocab_bad:
-        got = summary(gaps(m, params, picked)[0])
+        got = summary(gaps(run.cell.arch, m, params, picked)[0])
         compared["mean_logit_gap"] = (got["mean"], limits["mean_logit_gap"])
         notes["judged_tokens"] = got["n"]
         notes["gaps"] = got

@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import time
+import typing
 from typing import Optional
 
 import numpy as np
@@ -78,11 +79,26 @@ class Run:
 
 
 def model_config(m: dict):
-    from repro_torch.models.config import ModelConfig, MoEConfig
-    kw = {k: v for k, v in m.items() if k != "moe"}
-    if m.get("moe"):
-        kw["moe"] = MoEConfig(**m["moe"])
-    return ModelConfig(**kw)
+    """The program's ``ModelConfig`` from a configuration file's
+    ``model`` dict: a field declared as a dataclass, or an ``Optional``
+    of one, is built from its dict, and a JSON list becomes a tuple."""
+    from repro_torch.models.config import ModelConfig
+    return _dataclass(ModelConfig, m)
+
+
+def _dataclass(cls, d: dict):
+    hints = typing.get_type_hints(cls)
+    return cls(**{k: _field(hints.get(k), v) for k, v in d.items()})
+
+
+def _field(hint, v):
+    if isinstance(v, list):
+        return tuple(_field(None, x) for x in v)
+    if isinstance(v, dict):
+        for cls in (hint, *typing.get_args(hint)):
+            if dataclasses.is_dataclass(cls):
+                return _dataclass(cls, v)
+    return v
 
 
 def build_engine(cell, params, device):
@@ -270,7 +286,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
             torch.ones(1, device=device).add_(1)
             _sync(device)
         marks.append(("profiler", time.perf_counter()))
-    params = weights.make(m, seed, device)
+    params = weights.make(cell.arch, m, seed, device)
     _sync(device)
     marks.append(("weights", time.perf_counter()))
     engine = build_engine(cell, params, device)

@@ -13,5 +13,6 @@ def read(run):
     secs = sum(s.t1 - s.t0 for s in steps)
     if not secs:
         return None
-    flops = sum(cost.decode_flops(m, k) for s in steps for k in s.decode_keys)
+    flops = sum(run.cell.arch.decode_flops(m, k)
+                for s in steps for k in s.decode_keys)
     return 100.0 * flops / secs / cost.peak_flops(m["dtype"])

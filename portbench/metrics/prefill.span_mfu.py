@@ -14,5 +14,5 @@ def read(run):
     lengths = [n for s in run.steps_all for n in s.prefills]
     if not secs or not lengths or len(lengths) != run.stats["prefills"]:
         return None
-    flops = sum(cost.prefill_flops(run.model, n) for n in lengths)
+    flops = sum(run.cell.arch.prefill_flops(run.model, n) for n in lengths)
     return 100.0 * flops / secs / cost.peak_flops(run.model["dtype"])

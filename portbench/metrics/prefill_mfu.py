@@ -12,7 +12,7 @@ def read(run):
     if not adm or dec is None:
         return None
     secs = sum((s.t1 - s.t0) - dec * 1e-3 for s in adm)
-    flops = sum(cost.prefill_flops(run.model, n)
+    flops = sum(run.cell.arch.prefill_flops(run.model, n)
                 for s in adm for n in s.prefills)
     if secs <= 0:
         return None

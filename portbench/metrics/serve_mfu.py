@@ -7,10 +7,10 @@ from portbench.harness import cost
 
 
 def read(run):
-    m = run.model
-    flops = sum(cost.prefill_flops(m, n) for s in run.steps
+    m, arch = run.model, run.cell.arch
+    flops = sum(arch.prefill_flops(m, n) for s in run.steps
                 for n in s.prefills)
-    flops += sum(cost.decode_flops(m, k) for s in run.steps
+    flops += sum(arch.decode_flops(m, k) for s in run.steps
                  for k in s.decode_keys)
     if not flops:
         return None

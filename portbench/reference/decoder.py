@@ -1,6 +1,22 @@
-"""The plain reference: a decoder-only transformer in plain PyTorch,
-float32 throughout (TF32 off), computed a layer at a time over every
-sequence it is given.
+"""The architecture ``decoder``: a decoder-only transformer whose every
+layer is rope GQA attention followed by a SwiGLU MLP or a softmax-top-k
+mixture of experts.  A configuration file without an ``"architecture"``
+key names this one.
+
+Like every module of ``portbench/reference``, it gives the harness all
+it knows of the architecture (``harness/spec.architecture`` finds it by
+name):
+
+- ``layout(m)``: the weight leaves, in drawing order
+  (``harness/weights.make`` draws them);
+- ``logits(m, params, seqs, rows, fp8=False)``: the plain reference,
+  float32 throughout (TF32 off), computed a layer at a time over every
+  sequence it is given, and with ``fp8=True`` the control;
+- ``prefill_flops(m, length)`` and ``decode_flops(m, keys)``: the
+  operations of the served work, counted from shapes as
+  ``harness/cost`` counts a kernel's;
+- ``attention_layers(m)``: how many layers' attention reads the paged
+  KV cache.
 
 It follows the configuration file's ``model`` as the two sources
 describe their architectures, with the departures the files state:
@@ -23,6 +39,18 @@ served tokens it is asked to judge; it imports nothing of the program.
 rounded to float8 e4m3 (per output column for the weights, per row for
 the activations) before a float32 product, as a W8A8 serving path
 computes.
+
+Weights (``layout``): the embedding N(0, 1); every input projection
+N(0, 1 / fan_in); the attention output and the MLP's down projection
+also divided by sqrt(2 * n_layers), so the residual stream stays near
+unit size over the depth, as a trained model's does; the unembedding
+N(0, 1 / d_model), so logits are of unit size; the router
+N(0, 1 / d_model) in float32; each rmsnorm weight w (the scale is
+1 + w) N(0, 0.1^2).
+
+Counts: each is what the data of a run needs (live query rows and keys,
+real prompt tokens, the experts a token is routed to); norms, rope,
+softmax and the residual adds are elementwise and left out.
 """
 from __future__ import annotations
 
@@ -31,6 +59,99 @@ import math
 import torch
 
 F8_MAX = 448.0
+
+
+def layout(m: dict) -> list:
+    """(path, shape, kind, scale) of every leaf, in drawing order: kind
+    "mat" for the served type, "f32" for the float32 leaves."""
+    d, v, f = m["d_model"], m["vocab"], m["d_ff"]
+    hq, hkv = m["n_heads"], m["n_kv_heads"]
+    dh = m.get("head_dim") or d // hq
+    out_scale = 1.0 / math.sqrt(2 * m["n_layers"])
+    leaves = [(("embed",), (v, d), "mat", 1.0),
+              (("lm_head",), (d, v), "mat", 1.0 / math.sqrt(d)),
+              (("final_norm", "w"), (d,), "f32", 0.1)]
+    for i in range(m["n_layers"]):
+        L = ("layers", i)
+        leaves += [
+            (L + ("ln1", "w"), (d,), "f32", 0.1),
+            (L + ("ln2", "w"), (d,), "f32", 0.1),
+            (L + ("mix", "wq"), (d, hq * dh), "mat", 1 / math.sqrt(d)),
+            (L + ("mix", "wk"), (d, hkv * dh), "mat", 1 / math.sqrt(d)),
+            (L + ("mix", "wv"), (d, hkv * dh), "mat", 1 / math.sqrt(d)),
+            (L + ("mix", "wo"), (hq * dh, d), "mat",
+             out_scale / math.sqrt(hq * dh)),
+        ]
+        if m.get("qk_norm"):
+            leaves += [(L + ("mix", "q_norm"), (dh,), "f32", 0.1),
+                       (L + ("mix", "k_norm"), (dh,), "f32", 0.1)]
+        moe = m.get("moe")
+        e = (moe["n_experts"],) if moe else ()
+        if moe:
+            leaves.append((L + ("ff", "router"), (d, e[0]), "f32",
+                           1 / math.sqrt(d)))
+        leaves += [
+            (L + ("ff", "w_gate"), e + (d, f), "mat", 1 / math.sqrt(d)),
+            (L + ("ff", "w_up"), e + (d, f), "mat", 1 / math.sqrt(d)),
+            (L + ("ff", "w_down"), e + (f, d), "mat",
+             out_scale / math.sqrt(f)),
+        ]
+    return leaves
+
+
+def attention_layers(m: dict) -> int:
+    """Every layer's attention reads the paged KV cache."""
+    return m["n_layers"]
+
+
+def _dims(m: dict) -> tuple:
+    dh = m.get("head_dim") or m["d_model"] // m["n_heads"]
+    return m["d_model"], m["n_heads"], m["n_kv_heads"], dh
+
+
+def proj_flops(m: dict) -> float:
+    """One token's q/k/v and output projections in one layer."""
+    d, hq, hkv, dh = _dims(m)
+    return 2.0 * d * (hq * dh + 2 * hkv * dh) + 2.0 * hq * dh * d
+
+
+def ffn_flops(m: dict) -> float:
+    """One token's feed-forward in one layer: the gated MLP, or the
+    router and the ``top_k`` experts it is routed to."""
+    d, f = m["d_model"], m["d_ff"]
+    mats = 3 if m.get("act", "swiglu") in ("swiglu", "geglu") else 2
+    moe = m.get("moe")
+    if moe is None:
+        return 2.0 * mats * d * f
+    return 2.0 * d * moe["n_experts"] + moe["top_k"] * 2.0 * mats * d * f
+
+
+def attn_core_flops(m: dict, keys: float) -> float:
+    """Scores and the weighted sum of one query row over ``keys`` keys
+    in one layer."""
+    _, hq, _, dh = _dims(m)
+    return 4.0 * hq * dh * keys
+
+
+def lm_head_flops(m: dict) -> float:
+    return 2.0 * m["d_model"] * m["vocab"]
+
+
+def prefill_flops(m: dict, length: int) -> float:
+    """A prompt of ``length`` real tokens: every token through every
+    layer, causal attention over its live pairs (row i reads i + 1
+    keys), and the logits of the last token."""
+    pairs = length * (length + 1) / 2
+    per_layer = length * (proj_flops(m) + ffn_flops(m)) \
+        + attn_core_flops(m, pairs)
+    return m["n_layers"] * per_layer + lm_head_flops(m)
+
+
+def decode_flops(m: dict, keys: int) -> float:
+    """One decoded token whose query reads ``keys`` keys (its position
+    plus one) in every layer, and its logits."""
+    per_layer = proj_flops(m) + ffn_flops(m) + attn_core_flops(m, keys)
+    return m["n_layers"] * per_layer + lm_head_flops(m)
 
 
 def _q8(t: torch.Tensor, dim: int) -> torch.Tensor:

@@ -73,12 +73,12 @@ def measure(cell, seed: int, seconds: float, trace: bool, device,
                  f"{n['planned_in_window']} made inside the window "
                  f"(want 0 each)")
     st, la = run.stats, run.launches
-    layers = run.model["n_layers"]
+    layers = cell.arch.attention_layers(run.model)
     lines.append(
         f"[window] decode steps {st['decode_steps']}, prefills "
         f"{st['prefills']}; launches fused_attention_partial "
-        f"{la.get('fused_attention_partial', 0)} (decode steps x layers "
-        f"{st['decode_steps'] * layers}), fused_mlp_chain "
+        f"{la.get('fused_attention_partial', 0)} (decode steps x "
+        f"attention layers {st['decode_steps'] * layers}), fused_mlp_chain "
         f"{la.get('fused_mlp_chain', 0)}")
     lines.append(
         "[window] reliability: exec_tier " + str(n["exec_tier"]) + ", "

@@ -64,7 +64,7 @@ def main(argv=None) -> int:
     if cell.traffic["loop"] != "open":
         raise SystemExit("the sweep is for open-loop cells")
     m = cell.config["model"]
-    params = weights.make(m, args.seeds[0], DEVICE)
+    params = weights.make(cell.arch, m, args.seeds[0], DEVICE)
     engine = drive.build_engine(cell, params, DEVICE)
     warmed = set()
     best = None

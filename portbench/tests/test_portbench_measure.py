@@ -6,16 +6,18 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from portbench.harness import cost, measure
+from portbench.harness import cost, measure, spec
 from portbench.harness.drive import Run, Served, StepRec
 from portbench.harness.traffic import Request
 
 CONFIGS = Path(__file__).resolve().parents[1] / "configs"
 
 
-def _model(name: str) -> dict:
+def _model(name: str) -> tuple:
+    """(the configuration's architecture, its model dict)."""
     with open(CONFIGS / f"{name}.json", encoding="utf-8") as f:
-        return json.load(f)["model"]
+        c = json.load(f)
+    return spec.architecture(c), c["model"]
 
 
 def _run(walls, n_req=2, due=None, seconds=None):
@@ -97,14 +99,14 @@ def test_steps_after_the_close_do_not_count():
 
 
 def test_qwen3_counts_by_hand():
-    m = _model("qwen3-8b.planned")
+    arch, m = _model("qwen3-8b.planned")
     proj = 2 * 4096 * (4096 + 2 * 1024) + 2 * 4096 * 4096
     ffn = 2 * 3 * 4096 * 12288
     assert (proj, ffn) == (83_886_080, 301_989_888)
-    assert cost.decode_flops(m, 1000) == \
+    assert arch.decode_flops(m, 1000) == \
         36 * (proj + ffn + 4 * 32 * 128 * 1000) + 2 * 4096 * 151936
-    assert cost.decode_flops(m, 1000) == 15_726_018_560
-    assert cost.prefill_flops(m, 512) == 7_191_170_908_160
+    assert arch.decode_flops(m, 1000) == 15_726_018_560
+    assert arch.prefill_flops(m, 512) == 7_191_170_908_160
     flops, nbytes = cost.mlp_launch(m, 32)
     assert (flops, nbytes) == (9_663_676_416, 302_514_176)
     assert cost.bound_s(flops, nbytes, "bfloat16") == \
@@ -115,11 +117,11 @@ def test_qwen3_counts_by_hand():
 
 
 def test_olmoe_counts_by_hand():
-    m = _model("olmoe-1b-7b")
+    arch, m = _model("olmoe-1b-7b")
     proj = 2 * 2048 * 6144 + 2 * 2048 * 2048
     ffn = 2 * 2048 * 64 + 8 * 2 * 3 * 2048 * 1024
     assert (proj, ffn) == (33_554_432, 100_925_440)
-    assert cost.decode_flops(m, 2000) == \
+    assert arch.decode_flops(m, 2000) == \
         16 * (proj + ffn + 8192 * 2000) + 206_045_184
     flops, nbytes = cost.attn_decode_launch(m, [1000, 2000])
     assert flops == 24_576_000

@@ -36,10 +36,10 @@ def tiny_cell(name: str) -> spec.Cell:
     layer = [m["name"] for m in b["per_layer"]
              if cell in m.get("workloads", [cell])]
     units = {m["name"]: m["unit"] for m in b["end_to_end"] + b["per_layer"]}
-    return spec.Cell(name, _json(DATA / f"{name}.json"),
-                     _json(DATA / f"{mix}.json"),
+    config = _json(DATA / f"{name}.json")
+    return spec.Cell(name, config, _json(DATA / f"{mix}.json"),
                      _json(ROOT / "portbench" / "limits" / f"{cell}.json"),
-                     e2e, layer, units)
+                     e2e, layer, units, spec.architecture(config))
 
 
 def measure(name: str, trace: bool = False, seconds: float = 1.5):
@@ -147,7 +147,8 @@ def test_cell_runs_correct_on_the_card():
 
 
 @pytest.mark.sm90
-@pytest.mark.parametrize("cell", ["olmoe-reasoning", "qwen3-chat-planned"])
+@pytest.mark.parametrize("cell", ["olmoe-reasoning", "qwen3-chat-planned",
+                                  "qwen3-reasoning-planned"])
 def test_control_is_not_correct_at_the_cells_size(cell):
     """The float8 control put in the program's place reads past the
     cell's limit, and the program within it, on one seed at the cell's

@@ -7,7 +7,7 @@ from pathlib import Path
 
 import pytest
 
-from portbench.harness import cost, spec
+from portbench.harness import spec
 from portbench.harness.drive import Run, StepRec
 
 CONFIGS = Path(__file__).resolve().parents[1] / "configs"
@@ -21,7 +21,8 @@ def _config(name: str) -> dict:
 
 def _run(stats: dict, prefills=(), config="qwen3-8b.planned") -> Run:
     c = _config(config)
-    cell = spec.Cell("synthetic", c, {}, {}, [], [], {})
+    cell = spec.Cell("synthetic", c, {}, {}, [], [], {},
+                     spec.architecture(c))
     steps = [StepRec(0.0, 0.1, [n], [5], 1) for n in prefills]
     steps += [StepRec(0.1, 0.2, [], [5, 6], 2)]
     return Run(cell, c["model"], 1.0, 0.0, 1.0, steps, steps, [], stats,
@@ -41,7 +42,8 @@ def test_each_reader_on_a_synthetic_window():
     assert read["queue.wait_ms"] == pytest.approx(150.0)
     assert read["kv.gather_live"] == pytest.approx(100.0 * 2000 / 9216)
     m = run.model
-    flops = cost.prefill_flops(m, 1000) + cost.prefill_flops(m, 3000)
+    arch = run.cell.arch
+    flops = arch.prefill_flops(m, 1000) + arch.prefill_flops(m, 3000)
     assert read["prefill.span_mfu"] == pytest.approx(
         100.0 * flops / 0.5 / 989e12)
 
@@ -92,10 +94,10 @@ def test_a_traced_run_reads_every_new_metric_of_its_cell(
     monkeypatch.setenv("REPRO_TORCH_CACHE_DIR", str(tmp_path))
     data = Path(__file__).resolve().parent / "data"
     real = spec.load_cell(cell)
-    tiny = spec.Cell(cell, json.loads((data / f"{config}.json").read_text()),
-                     json.loads((data / f"{mix}.json").read_text()),
+    c = json.loads((data / f"{config}.json").read_text())
+    tiny = spec.Cell(cell, c, json.loads((data / f"{mix}.json").read_text()),
                      real.limits, real.end_to_end, real.per_layer,
-                     real.units)
+                     real.units, spec.architecture(c))
     res = R.measure(tiny, 3_000_000_019, 1.5, True, "cpu",
                     time.perf_counter())[0]
     want = [m for m in NEW if m in real.per_layer]

@@ -12,7 +12,8 @@ from portbench.harness import traffic as TR
 MIXES = Path(__file__).resolve().parents[1] / "traffic"
 SEEDS = (0, 2**31 + 11, 4_000_000_129)
 #: the context each mix's cell serves (prompt and output together)
-CONTEXT = {"reasoning-c48": 4096, "chat-poisson": 4608}
+CONTEXT = {"reasoning-c48": 4096, "chat-poisson": 4608,
+           "reasoning-c32": 4608}
 
 
 def _mix(name: str) -> dict:
@@ -24,7 +25,8 @@ def _key(reqs):
     return [(r.prompt.tolist(), r.max_new, r.due_s, r.client) for r in reqs]
 
 
-@pytest.mark.parametrize("name", ["reasoning-c48", "chat-poisson"])
+@pytest.mark.parametrize("name", ["reasoning-c48", "chat-poisson",
+                                  "reasoning-c32"])
 def test_same_seed_same_requests(name):
     a = TR.generate(_mix(name), 50304, SEEDS[1], 51, CONTEXT[name])
     b = TR.generate(_mix(name), 50304, SEEDS[1], 51, CONTEXT[name])
@@ -33,7 +35,8 @@ def test_same_seed_same_requests(name):
     assert _key(a) != _key(c)
 
 
-@pytest.mark.parametrize("name", ["reasoning-c48", "chat-poisson"])
+@pytest.mark.parametrize("name", ["reasoning-c48", "chat-poisson",
+                                  "reasoning-c32"])
 def test_every_seed_gets_the_same_work(name):
     """Prompt lengths, output lengths and arrival gaps differ between
     seeds in order only."""
